@@ -85,7 +85,7 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
              b2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act((x @ w1q) * s1 + b1) @ w2q * s2 + b2 with x [M, K], w1q [K, H]
     int8, w2q [H, N] int8, f32 scales/biases. CUDA tensors: x bf16,
-    M <= 32, H % 128 == 0, N % 4 == 0."""
+    M <= 32, K % 64 == 0, H % 128 == 0, N % 16 == 0."""
     m, k = x.shape
     h, n = w2q.shape
     if w1q.shape != (k, h) or s1.shape != (h,) or s2.shape != (n,):
@@ -100,13 +100,13 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
     if x.dtype != torch.bfloat16 or w1q.dtype != torch.int8 \
             or w2q.dtype != torch.int8:
         raise TypeError("int8_mlp kernel takes bf16 x and int8 weights")
-    if m > 32 or h % 128 or n % 4:
-        raise ValueError(f"int8_mlp kernel: M={m} (<= 32), H={h} "
-                         f"(% 128), N={n} (% 4)")
+    if m > 32 or k % 64 or h % 128 or n % 16:
+        raise ValueError(f"int8_mlp kernel: M={m} (<= 32), K={k} (% 64), "
+                         f"H={h} (% 128), N={n} (% 16)")
     x = x.contiguous()
     w1q, w2q = w1q.contiguous(), w2q.contiguous()
-    if w1q.data_ptr() % 16 or w2q.data_ptr() % 4:
-        raise ValueError("int8_mlp kernel: misaligned weight buffers")
+    if x.data_ptr() % 16 or w1q.data_ptr() % 16 or w2q.data_ptr() % 16:
+        raise ValueError("int8_mlp kernel: buffers must be 16-byte aligned")
     s1, s2 = s1.float().contiguous(), s2.float().contiguous()
     b1 = None if b1 is None else b1.float().contiguous()
     b2 = None if b2 is None else b2.float().contiguous()
