@@ -49,11 +49,12 @@ def write_cache(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor,
     stacked cache, in place, quantizing when the cache is int8."""
     s = k.shape[2]
     if cache["k"].dtype == torch.int8:
-        (kq, ks), (vq, vs) = quant_ops.quantize_kv(k), quant_ops.quantize_kv(v)
-        cache["k"][:, layer, :, pos:pos + s] = kq
-        cache["v"][:, layer, :, pos:pos + s] = vq
-        cache["k_scale"][:, layer, :, pos:pos + s] = ks
-        cache["v_scale"][:, layer, :, pos:pos + s] = vs
+        # k and v quantized in one pass (rows are independent)
+        kvq, kvs = quant_ops.quantize_kv(torch.stack([k, v]))
+        cache["k"][:, layer, :, pos:pos + s] = kvq[0]
+        cache["v"][:, layer, :, pos:pos + s] = kvq[1]
+        cache["k_scale"][:, layer, :, pos:pos + s] = kvs[0]
+        cache["v_scale"][:, layer, :, pos:pos + s] = kvs[1]
     else:
         cache["k"][:, layer, :, pos:pos + s] = k.to(cache["k"].dtype)
         cache["v"][:, layer, :, pos:pos + s] = v.to(cache["v"].dtype)
@@ -248,8 +249,9 @@ class Decoder(nn.Module):
                     allowed, 0.0, DEFAULT_MASK_VALUE)[None, None]
             idx = torch.arange(L, device=x.device)[None, :]
             valid = kv_valid.bool()
-            lengths = torch.where(valid, idx + 1, 0).amax(-1)
-            starts = torch.where(valid, idx, L).amin(-1)
+            # once per step, in the kernel's int32, for every layer
+            lengths = torch.where(valid, idx + 1, 0).amax(-1).int()
+            starts = torch.where(valid, idx, L).amin(-1).int()
             decode_span = (lengths, starts)
         else:
             rel = torch.arange(1 - s, 1, device=x.device)
