@@ -24,7 +24,8 @@ unless every phase passes:
               quantized to int8), int8 KV cache, decode_kernel="auto":
               greedy requests through OtterGenerator.generate at batch 1
               and 8, ragged left-padded 32-128-token prompts, each with one
-              224x224 image, 32 new tokens. Prints TTFT and decode tok/s.
+              224x224 image, 32 new tokens. Prints TTFT and decode tok/s
+              (medians of 3 runs), with the card's name and power limit.
               Every kernel's launch count must rise during this phase.
 
 The last two lines of standard output are the kernels JSON object and the
@@ -48,6 +49,7 @@ import time
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 SEED = 0
+REPS = 3          # timed repetitions of each serve request
 OUT_DIR = "chiprun_out"
 DEV = "cuda"
 
@@ -444,7 +446,7 @@ def phase_parity(gen):
 
 # ── phase 5: serve requests at full width ───────────────────────────
 
-def phase_serve(gen):
+def phase_serve(gen, smi: str):
     import numpy as np
     import torch
     from otter_tpu_torch.config import GenerationConfig
@@ -462,37 +464,40 @@ def phase_serve(gen):
     wrappers = (fa.flash_attention, quant.int8_mlp, da.decode_attention)
     for w in wrappers:
         w.launches = 0
-    results = {}
     for b in (1, 8):
         vision_x, lang_x, attn = make_requests(cfg, b, SEED + 10 + b)
         engine.generate(vision_x, lang_x, attn,
                         gen=GenerationConfig(max_new_tokens=2))   # warm-up
-        timed = {}
+        # REPS pairs of (1-token, 32-token) requests; medians of each
+        times = {1: [], 32: []}
         outs = []
-        for n_new in (1, 32, 32):
-            t = time.perf_counter()
-            out = engine.generate(vision_x, lang_x, attn,
-                                  gen=GenerationConfig(max_new_tokens=n_new))
-            timed.setdefault(n_new, time.perf_counter() - t)
-            if n_new == 32:
-                outs.append(out)
+        for _ in range(REPS):
+            for n_new in (1, 32):
+                t = time.perf_counter()
+                out = engine.generate(
+                    vision_x, lang_x, attn,
+                    gen=GenerationConfig(max_new_tokens=n_new))
+                times[n_new].append(time.perf_counter() - t)
+            outs.append(out)
         out = outs[0]
         p = lang_x.shape[1]
         if out.shape != (b, p + 32):
             raise RuntimeError(f"serve b={b}: output shape {out.shape}")
         if not ((out >= 0) & (out < cfg.text.total_vocab)).all():
             raise RuntimeError(f"serve b={b}: token outside the vocabulary")
-        if not np.array_equal(outs[0], outs[1]):
+        if any(not np.array_equal(outs[0], o) for o in outs[1:]):
             raise RuntimeError(f"serve b={b}: greedy output differs between "
-                               f"two runs of the same request")
-        ttft = timed[1]
-        decode_s = timed[32] - timed[1]
+                               f"runs of the same request")
+        ttft = float(np.median(times[1]))
+        decode_s = float(np.median(times[32])) - ttft
         tok_s = b * 31 / decode_s
-        results[b] = (ttft, tok_s)
         log(f"serve b={b}: prompts {attn.sum(1).tolist()} tokens + 1 image "
             f"each, 32 new tokens | TTFT {ttft * 1e3:.2f} ms | decode "
             f"{tok_s:.2f} tok/s ({decode_s / 31 * 1e3:.2f} ms/step) | "
-            f"first tokens {out[0, p:p + 8].tolist()}")
+            f"medians of {REPS}; TTFT runs "
+            f"{[round(x * 1e3, 2) for x in times[1]]} ms, 32-token runs "
+            f"{[round(x * 1e3, 2) for x in times[32]]} ms | {smi} | first "
+            f"tokens {out[0, p:p + 8].tolist()}")
     launches = {"flash_fwd": fa.flash_attention.launches,
                 "int8_mlp": quant.int8_mlp.launches,
                 "decode_attention": da.decode_attention.launches}
@@ -562,7 +567,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     import torch
-    phase_device()
+    smi = phase_device()
     import otter_tpu_torch  # noqa: F401  (the checkout must hold the port)
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -574,7 +579,7 @@ def main(argv=None) -> int:
         phase_parity(gen)
     launches = {}
     if "serve" in phases:
-        launches, engine = phase_serve(gen)
+        launches, engine = phase_serve(gen, smi)
         if "profile" in phases:
             phase_profile(engine)
     kernels = []

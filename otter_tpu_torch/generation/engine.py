@@ -117,29 +117,17 @@ class OtterGenerator:
     """Greedy / sampled generation over an `OtterVLM`, on the model's
     device."""
 
-    def __init__(self, model: OtterVLM, cfg: Optional[OtterConfig] = None,
-                 cache_dtype: CacheDtype = torch.bfloat16,
-                 hbm_bytes: Optional[float] = None,
-                 cache_degrade: bool = True):
+    def __init__(self, model: OtterVLM,
+                 cache_dtype: CacheDtype = torch.bfloat16):
         self.model = model
-        self.cfg = cfg or model.cfg
+        self.cfg: OtterConfig = model.cfg
         self.cache_dtype = cache_dtype
-        self.hbm_bytes = hbm_bytes
-        self.cache_degrade = cache_degrade
         self.param_bytes = sum(t.numel() * t.element_size() for t in
                                list(model.parameters()) + list(model.buffers()))
 
     @property
     def device(self) -> torch.device:
         return self.model.device
-
-    def _cache_dtype_for(self, b: int, cache_len: int) -> CacheDtype:
-        if not self.cache_degrade:
-            return self.cache_dtype
-        return select_cache_dtype(
-            self.cfg.text, b, cache_len, self.cache_dtype,
-            device=self.device, param_bytes=self.param_bytes,
-            hbm_bytes=self.hbm_bytes)
 
     @torch.inference_mode()
     def generate(self, vision_x, lang_x, attention_mask=None,
@@ -162,8 +150,10 @@ class OtterGenerator:
         vision_x = _on(vision_x, dev)
         max_new = gen.max_new_tokens
         cache_len = _round_up(p + max_new, 128)
-        cache = init_cache(self.cfg.text, b, cache_len,
-                           self._cache_dtype_for(b, cache_len), dev)
+        cache_dtype = select_cache_dtype(
+            self.cfg.text, b, cache_len, self.cache_dtype, device=dev,
+            param_bytes=self.param_bytes)
+        cache = init_cache(self.cfg.text, b, cache_len, cache_dtype, dev)
 
         logits, cache, vis_latents = self.model(
             vision_x, lang_x, attention_mask=attention_mask, cache=cache,

@@ -240,13 +240,11 @@ class Decoder(nn.Module):
             L = cache["k"].shape[3]
             # column j gets j * slope: softmax-shift-equivalent to the
             # reference's (j - query_pos) * slope for every query row
+            if s != 1:
+                raise NotImplementedError("cached steps of more than one "
+                                          "token are not ported yet")
             rel = torch.arange(L, device=x.device)
             bias = rel[None, None, None, :] * slopes[None, :, None, None]
-            if s > 1:   # intra-block causality for multi-token steps
-                qpos = cache_pos + torch.arange(s, device=x.device)
-                allowed = rel[None, :] <= qpos[:, None]
-                bias = bias + torch.where(
-                    allowed, 0.0, DEFAULT_MASK_VALUE)[None, None]
             idx = torch.arange(L, device=x.device)[None, :]
             valid = kv_valid.bool()
             # once per step, in the kernel's int32, for every layer

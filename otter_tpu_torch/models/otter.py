@@ -14,7 +14,7 @@ from torch import nn
 from otter_tpu_torch.config import OtterConfig
 from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.models.clip import CLIPVisionModel
-from otter_tpu_torch.models.decoder import Decoder, init_cache
+from otter_tpu_torch.models.decoder import Decoder
 from otter_tpu_torch.models.perceiver import PerceiverResampler
 from otter_tpu_torch.ops.masks import media_attention_ids
 
@@ -81,7 +81,3 @@ class OtterVLM(nn.Module):
             head_last_only=head_last_only)
         return logits, cache, vis_latents
 
-
-def make_otter_cache(cfg: OtterConfig, batch: int, max_len: int,
-                     dtype=torch.bfloat16, device=None):
-    return init_cache(cfg.text, batch, max_len, dtype, device)

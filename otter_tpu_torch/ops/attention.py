@@ -4,15 +4,13 @@ The models call this one entry point. `impl="kernel"` takes the flash
 kernel (`ops/flash_attention.py`), `impl="ref"` the plain reference
 (`ops/attention_ref.py`). The default is the kernel for CUDA tensors and
 the reference elsewhere, as the JAX package takes Pallas on a TPU and the
-reference elsewhere; `OTTER_ATTN_IMPL` overrides it, the same A/B lever.
-Sub-tile shapes (q <= 8 and kv <= 256: decode-time cross-attention) go to
-the reference even on CUDA, unless `OTTER_ATTN_IMPL=kernel` forces the
-kernel. The ring (sequence-parallel) path is not ported yet.
+reference elsewhere. Sub-tile shapes (q <= 8 and kv <= 256: decode-time
+cross-attention) go to the reference even on CUDA: a launch costs more
+than the math there. The ring (sequence-parallel) path is not ported yet.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
@@ -20,13 +18,6 @@ import torch
 from otter_tpu_torch.ops import attention_ref
 from otter_tpu_torch.ops import flash_attention as fa
 from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE
-
-
-def _default_impl(q: torch.Tensor) -> str:
-    forced = os.environ.get("OTTER_ATTN_IMPL")
-    if forced:
-        return forced
-    return "kernel" if q.is_cuda else "ref"
 
 
 def multi_head_attention(
@@ -42,13 +33,12 @@ def multi_head_attention(
     sm_scale: Optional[float] = None,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
-    impl = impl or _default_impl(q)
+    impl = impl or ("kernel" if q.is_cuda else "ref")
     h, h_kv = q.shape[1], k.shape[1]
     if h_kv != h:
         k = k.repeat_interleave(h // h_kv, dim=1)
         v = v.repeat_interleave(h // h_kv, dim=1)
-    if (impl == "kernel" and q.shape[2] <= 8 and k.shape[2] <= 256
-            and os.environ.get("OTTER_ATTN_IMPL") != "kernel"):
+    if impl == "kernel" and q.shape[2] <= 8 and k.shape[2] <= 256:
         impl = "ref"
     if impl == "kernel":
         return fa.flash_attention(

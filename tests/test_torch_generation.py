@@ -3,7 +3,6 @@ package. Greedy tokens from the port's OtterGenerator must equal the JAX
 engine's on a ragged left-padded batch with int8 weights, an int8 KV cache
 and decode_kernel="auto"."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
