@@ -8,6 +8,8 @@ parameters as the flax modules do, so `a/b/kernel` is the state-dict key
 `a.b.kernel`. The mapping must be one to one: a leaf with no home, a
 port tensor left unfilled, or a shape mismatch raises. Arrays may be
 numpy (the port holds no jax) or torch tensors already on the device.
+`export_flax_params(model)` is the inverse: the port's tensors as numpy
+under their flax paths.
 """
 
 from __future__ import annotations
@@ -48,3 +50,18 @@ def load_flax_params(model: nn.Module, flat: Dict[str, ArrayLike]) -> None:
     if missing:
         raise KeyError(f"load_flax_params: {len(missing)} port tensors not "
                        f"in the checkpoint, e.g. {missing[:5]}")
+
+
+def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """{flax path: numpy array} of every parameter and buffer, the paths as
+    `flatten_dict(params, sep="/")` gives them (without the "params/"
+    prefix). bf16 tensors come back as f32."""
+    tensors = dict(model.named_parameters())
+    tensors.update(model.named_buffers())
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name.replace(".", "/")] = t.cpu().numpy()
+    return out

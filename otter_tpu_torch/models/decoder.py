@@ -11,8 +11,14 @@ JAX updates it functionally with `dynamic_update_slice`; here the layers
 write their slots in place with slice assignment, so one buffer serves the
 whole generation and no per-layer copy is ever made.
 
-Routing follows the JAX module: prefill attention goes through the
-dispatcher (flash kernel on the GPU); cached decode goes through the
+Training runs the forward with no cache under autograd: `remat=True`
+recomputes each `DecoderLayer` in the backward pass
+(`torch.utils.checkpoint`, as `nn.remat` per layer in the JAX module), and
+`skip_head=True` returns the final-norm hidden states for the fused
+cross-entropy.
+
+Routing follows the JAX module: prefill and training attention go through
+the dispatcher (flash kernels on the GPU); cached decode goes through the
 decode-attention kernel when `decode_kernel` says so (`"auto"`: an int8
 cache or L >= 1024), else through dense attention over the layer's slice;
 the MLP with int8 weights goes through the fused `int8_mlp` kernel at
@@ -25,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from otter_tpu_torch.config import OtterConfig, TextConfig
 from otter_tpu_torch.models.xattn import GatedCrossAttentionBlock
@@ -193,8 +200,9 @@ class Decoder(nn.Module):
     """MPT causal LM with an optional gated cross-attention interleave."""
 
     def __init__(self, cfg: TextConfig, otter_cfg: Optional[OtterConfig] = None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if cfg.arch != "mpt" or cfg.pos != "alibi" or not cfg.tie_embeddings \
                 or cfg.norm_type != "low_precision_layernorm" \
                 or cfg.quant not in (None, "int8") or cfg.lora_rank \
@@ -223,12 +231,15 @@ class Decoder(nn.Module):
     def forward(self, input_ids, *, attention_mask=None, vis_latents=None,
                 xattn_q_ids=None, xattn_kv_ids=None, xattn_out_keep=None,
                 cache: Optional[Cache] = None, cache_pos: Optional[int] = None,
-                kv_valid=None, head_last_only: bool = False
+                kv_valid=None, head_last_only: bool = False,
+                skip_head: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """Prefill/forward: cache None (no cache) or a preallocated cache
-        with cache_pos None (prefill writes from offset 0). Decode:
-        cache_pos (an int) set and kv_valid [B, L] marking attendable
-        entries. Returns (logits [B, S|1, V], cache)."""
+        """Prefill/forward: cache None (no cache: training) or a
+        preallocated cache with cache_pos None (prefill writes from offset
+        0). Decode: cache_pos (an int) set and kv_valid [B, L] marking
+        attendable entries. Returns (logits [B, S|1, V], cache), or with
+        skip_head the final-norm hidden states [B, S, D] in place of the
+        logits."""
         c = self.cfg
         x = self.wte(input_ids)
         b, s, _ = x.shape
@@ -262,11 +273,18 @@ class Decoder(nn.Module):
                     and vis_latents is not None:
                 x = getattr(self, f"xattn_{i}")(
                     x, vis_latents, xattn_q_ids, xattn_kv_ids, xattn_out_keep)
-            x = getattr(self, f"layers_{i}")(
-                x, layer=i, attn_ids=attn_ids, bias=bias, cache=cache,
-                cache_pos=cache_pos, kv_valid=kv_valid,
-                decode_span=decode_span)
+            layer = getattr(self, f"layers_{i}")
+            if self.remat and cache is None and torch.is_grad_enabled():
+                # keep only the layer's input; recompute the rest backward
+                x = checkpoint(layer, x, layer=i, attn_ids=attn_ids,
+                               bias=bias, use_reentrant=False)
+            else:
+                x = layer(x, layer=i, attn_ids=attn_ids, bias=bias,
+                          cache=cache, cache_pos=cache_pos,
+                          kv_valid=kv_valid, decode_span=decode_span)
         x = self.norm_f(x)
+        if skip_head:
+            return x, cache
         if head_last_only:
             x = x[:, -1:]
         logits = self.wte.attend(x)

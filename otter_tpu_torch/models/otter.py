@@ -24,16 +24,18 @@ class OtterVLM(nn.Module):
 
     Parameters are allocated uninitialized on `device` (the GPU unless the
     caller passes another); fill them with `models.convert.load_flax_params`.
+    `remat=True` recomputes each decoder layer in the backward pass.
     """
 
-    def __init__(self, cfg: OtterConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: OtterConfig, dtype=torch.bfloat16, device=None,
+                 remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg, self.dtype = cfg, dtype
         self.vision_encoder = CLIPVisionModel(cfg.vision, dtype, device)
         self.perceiver = PerceiverResampler(cfg.perceiver, dtype, device)
         self.lang_encoder = Decoder(cfg.text, otter_cfg=cfg, dtype=dtype,
-                                    device=device)
+                                    device=device, remat=remat)
 
     @property
     def device(self) -> torch.device:
@@ -51,12 +53,14 @@ class OtterVLM(nn.Module):
     def forward(self, vision_x, lang_x, attention_mask=None,
                 attend_previous: bool = True, vis_latents=None, cache=None,
                 cache_pos: Optional[int] = None, kv_valid=None,
-                media_counts=None, head_last_only: bool = False):
+                media_counts=None, head_last_only: bool = False,
+                skip_head: bool = False):
         """Full forward; with `vis_latents` given, `vision_x` is ignored.
         During cached decoding (cache_pos set) `media_counts` [B] is the
         number of media in each prompt: generated tokens sit after all of
         them, so their text_time is media_counts. Returns (logits, cache,
-        vis_latents)."""
+        vis_latents); with skip_head the final-norm hidden states take the
+        logits' place (the fused cross-entropy's input)."""
         c = self.cfg
         if vis_latents is None:
             vis_latents = self.encode_vision(vision_x)
@@ -78,6 +82,6 @@ class OtterVLM(nn.Module):
             lang_x, attention_mask=attention_mask, vis_latents=vis_latents,
             xattn_q_ids=q_ids, xattn_kv_ids=kv_ids, xattn_out_keep=out_keep,
             cache=cache, cache_pos=cache_pos, kv_valid=kv_valid,
-            head_last_only=head_last_only)
+            head_last_only=head_last_only, skip_head=skip_head)
         return logits, cache, vis_latents
 

@@ -1,12 +1,15 @@
 """Attention dispatcher (counterpart of `otter_tpu/ops/attention.py`).
 
 The models call this one entry point. `impl="kernel"` takes the flash
-kernel (`ops/flash_attention.py`), `impl="ref"` the plain reference
-(`ops/attention_ref.py`). The default is the kernel for CUDA tensors and
-the reference elsewhere, as the JAX package takes Pallas on a TPU and the
-reference elsewhere. Sub-tile shapes (q <= 8 and kv <= 256: decode-time
-cross-attention) go to the reference even on CUDA: a launch costs more
-than the math there. The ring (sequence-parallel) path is not ported yet.
+kernels (`ops/flash_attention.py`, differentiable through their backward
+kernels), `impl="ref"` the plain reference (`ops/attention_ref.py`,
+differentiable through torch autograd). The default, `default_impl`, is
+the kernel for CUDA tensors and the reference elsewhere, as the JAX
+package takes Pallas on a TPU and the reference elsewhere. Sub-tile shapes
+(q <= 8 and kv <= 256: decode-time cross-attention) go to the reference
+even on CUDA: a launch costs more than the math there. Training never
+meets them (its shortest query axis is the perceiver's 64 latents). The
+ring (sequence-parallel) path is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ import torch
 from otter_tpu_torch.ops import attention_ref
 from otter_tpu_torch.ops import flash_attention as fa
 from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE
+
+
+def default_impl(q: torch.Tensor) -> str:
+    return "kernel" if q.is_cuda else "ref"
 
 
 def multi_head_attention(
@@ -33,7 +40,7 @@ def multi_head_attention(
     sm_scale: Optional[float] = None,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
-    impl = impl or ("kernel" if q.is_cuda else "ref")
+    impl = impl or default_impl(q)
     h, h_kv = q.shape[1], k.shape[1]
     if h_kv != h:
         k = k.repeat_interleave(h // h_kv, dim=1)

@@ -24,9 +24,15 @@ for m in pkgutil.walk_packages(otter_tpu_torch.__path__, "otter_tpu_torch."):
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
-print(len([m for m in sys.modules if m.startswith("otter_tpu_torch")]))
+print(" ".join(sorted(m for m in sys.modules
+                     if m.startswith("otter_tpu_torch"))))
 sys.exit(1 if bad else 0)
 """
+# the modules of the training slice, which the walk above must reach
+_TRAINING_MODULES = {
+    "otter_tpu_torch.train.step", "otter_tpu_torch.train.sft",
+    "otter_tpu_torch.train.args", "otter_tpu_torch.runtime.metrics",
+    "otter_tpu_torch.runtime.checkpoint", "otter_tpu_torch.data.mimicit"}
 
 
 def _env():
@@ -40,7 +46,9 @@ def test_port_imports_no_jax_or_otter_tpu():
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[-1]) >= 15   # every module was imported
+    loaded = set(res.stdout.split())
+    assert len(loaded) >= 25                  # every module was imported
+    assert _TRAINING_MODULES <= loaded, _TRAINING_MODULES - loaded
 
 
 def test_chip_smoke_fails_without_a_gpu():
