@@ -18,10 +18,11 @@ unless every phase passes:
                  it, with the tolerance printed; kernel, plain and
                  library-call times and the bound (least time for the same
                  bytes / operations).
-  4. parity      OTTER-MPT7B at full width with its depth cut: first-step
-                 logits (prefill and first cached decode step) through the
-                 kernels against the same model with every kernel swapped
-                 for its plain version.
+  4. parity      OTTER-MPT7B at full width with its depth cut, once with
+                 int8 weights and an int8 KV cache and once with int4
+                 weights and an int4 cache: first-step logits (prefill and
+                 first cached decode step) through the kernels against the
+                 same model with every kernel swapped for its plain version.
   5. serve       OTTER-MPT7B at full width (32 layers, 8 xattn blocks, CLIP
                  ViT-L/14, perceiver depth 6; random weights from a seed,
                  the decoder's and xattn's quantized to int8), int8 KV cache, decode_kernel="auto":
@@ -30,12 +31,18 @@ unless every phase passes:
                  one 224x224 image, 32 new tokens. Prints TTFT and decode
                  tok/s (medians of 3 runs). Every serving kernel's launch
                  count must rise during this phase.
-  6. trainparity the depth-cut model in bf16 (not quantized): one SFT step
+  6. serve4      the same requests on the same model with its MLP pairs
+                 packed to int4 (`quant="int4"`: decoder ffn and xattn ff at
+                 0.5 byte a weight, attention projections int8) and the
+                 nibble-fused int4 KV cache, through `generate` and, at
+                 batch 1, `stream_generate`. flash_fwd, int4_mlp and the
+                 int4 decode_attention must launch; int8_mlp must not.
+  7. trainparity the depth-cut model in bf16 (not quantized): one SFT step
                  (b=2, 1024 tokens, one image each, remat, fused CE) through
                  the kernels against the same step with every kernel swapped
                  for its plain version: loss, every trainable gradient,
                  grad norm.
-  7. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
+  8. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
                  fused CE, embedding-row mask, lr 1e-4 constant). Checks
@@ -46,9 +53,9 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all seven. `profile` (not run by default) adds torch.profiler tables
-of one batch-8 request (with serve) and of one train step (with train) to
-chiprun_out/.
+runs all eight. `profile` (not run by default) adds torch.profiler tables
+of one batch-8 request (with serve and with serve4) and of one train step
+(with train) to the output directory, `OUT_DIR`.
 """
 
 from __future__ import annotations
@@ -298,7 +305,7 @@ def phase_kernels(gen):
         log(f"  {kernel}[{case}]: max_abs_err {err:.3e} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain "
             f"{plain_ms:.4f} ms | library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} | bound "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | bound "
             f"{b_ms:.4f} ms ({b_by})")
         if not ok:
             failed.append(f"{kernel}[{case}]")
@@ -398,6 +405,59 @@ def phase_kernels(gen):
         if m == 8:
             entries["int8_mlp"] = r
 
+    # int4 MLP at the same widths (decoder MLP and xattn FF are both 4096
+    # -> 16384 -> 4096, gelu): 0.5 byte a weight. Two weight sets in turn,
+    # so that the 67 MB a call come from device memory and not from the
+    # 50 MB L2. No single PyTorch call computes it: library "none".
+    int4_sets = [
+        quant.quantize_kernel_int4(0.02 * torch.randn(
+            k_in, hid, generator=gen, device="cuda"), 0)
+        + quant.quantize_kernel_int4(0.02 * torch.randn(
+            hid, k_in, generator=gen, device="cuda"), 1) for _ in range(2)]
+    for case, m in (("M=1", 1), ("M=8", 8), ("xattn ff M=8", 8)):
+        x = torch.randn(m, k_in, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        out = quant.int4_mlp(x, *int4_sets[0])
+        ref = quant.int4_mlp_plain(x, *int4_sets[0])
+        torch.cuda.synchronize()
+        err, excess = max_err(out, ref)
+        it = iter(range(10 ** 9))
+        nbytes = k_in * hid + 4 * (hid + k_in) + 2 * 2 * m * k_in
+        r = report("int4_mlp", case, err, excess,
+                   time_ms(lambda: quant.int4_mlp(
+                       x, *int4_sets[next(it) % 2])),
+                   time_ms(lambda: quant.int4_mlp_plain(
+                       x, *int4_sets[next(it) % 2]), 5), None,
+                   nbytes, 2.0 * m * 2 * k_in * hid)
+        if case == "M=8":
+            entries["int4_mlp"] = r
+    del int4_sets
+
+    # int4 matmul at the qkv and out-proj widths of MPT-7B; enough weight
+    # copies in turn to exceed the L2. Library "none".
+    for case, n_out, copies in (("qkv", 3 * k_in, 3), ("out_proj", k_in, 8)):
+        sets = [quant.quantize_kernel_int4(0.02 * torch.randn(
+            k_in, n_out, generator=gen, device="cuda"), 0)
+            for _ in range(copies)]
+        for m in (1, 8):
+            x = torch.randn(m, k_in, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            out = quant.int4_matmul(x, *sets[0])
+            ref = quant.int4_matmul_plain(x, *sets[0])
+            torch.cuda.synchronize()
+            err, excess = max_err(out, ref)
+            it = iter(range(10 ** 9))
+            nbytes = k_in * n_out // 2 + 4 * n_out + 2 * m * (k_in + n_out)
+            r = report("int4_matmul", f"{case} M={m}", err, excess,
+                       time_ms(lambda: quant.int4_matmul(
+                           x, *sets[next(it) % copies])),
+                       time_ms(lambda: quant.int4_matmul_plain(
+                           x, *sets[next(it) % copies]), 5), None,
+                       nbytes, 2.0 * m * k_in * n_out)
+            if (case, m) == ("qkv", 8):
+                entries["int4_matmul"] = r
+        del sets
+
     # decode attention on a stacked cache [8, 32 layers, 32, 256, 128]
     b, nl, h, L, d = 8, 32, 32, 256, 128
     starts = torch.tensor([0, 10, 37, 96, 0, 5, 64, 100], device="cuda",
@@ -452,6 +512,41 @@ def phase_kernels(gen):
         if cache == "int8":
             entries["decode_attention"] = r
         del k, v
+
+    # the int4 cache at the serving shape and at L = 2048: one fused array
+    # (any byte is a k nibble and a v nibble), positive scales. Library
+    # "none".
+    for L4, starts4, lengths4 in (
+            (L, starts, lengths),
+            (2048, starts, torch.tensor(
+                [2048, 1900, 1500, 1029, 2000, 1333, 1700, 1990],
+                device="cuda", dtype=torch.int32))):
+        kv = torch.randint(-128, 128, (b, nl, h, L4, d), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        ks = 0.1 + torch.rand(b, nl, h, L4, generator=gen, device="cuda")
+        vs = 0.1 + torch.rand(b, nl, h, L4, generator=gen, device="cuda")
+        bias4 = (torch.arange(L4, device="cuda")[None, None, :]
+                 * alibi_slopes(h, device="cuda")[None, :, None])
+        kw = dict(starts=starts4, sm_scale=d ** -0.5, k_scale=ks, v_scale=vs,
+                  kv_bits=4)
+        out = da.decode_attention(q, kv, kv, lengths4, bias4, layer=5, **kw)
+        ref = da.decode_attention_plain(q, kv, kv, lengths4, bias4, layer=5,
+                                        **kw)
+        torch.cuda.synchronize()
+        err, excess = max_err(out, ref)
+        it = iter(range(10 ** 9))
+        rows4 = int((lengths4 - starts4).sum()) * h
+        nbytes = (rows4 * d + 2 * 4 * rows4 + 4 * h * L4 + 2 * 2 * b * h * d
+                  + 2 * 4 * b)
+        r = report("decode_attention", f"int4 cache L={L4}", err, excess,
+                   time_ms(lambda: da.decode_attention(
+                       q, kv, kv, lengths4, bias4, layer=next(it) % nl, **kw)),
+                   time_ms(lambda: da.decode_attention_plain(
+                       q, kv, kv, lengths4, bias4, layer=next(it) % nl, **kw),
+                       5), None, nbytes, 4.0 * rows4 * d)
+        if L4 == L:
+            entries["decode_attention_int4"] = r
+        del kv, ks, vs
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
@@ -462,15 +557,19 @@ def phase_kernels(gen):
 
 def build_model(cfg):
     """Full-width OtterVLM on the card with RandomParams weights, quantized
-    by the port's quantize_params and loaded through models.convert."""
+    tensor by tensor on the card by the port's quantize_params (or
+    quantize_params_int4 for `quant="int4"`) and loaded through
+    models.convert."""
     import torch
     from otter_tpu_torch.models.convert import load_flax_params
     from otter_tpu_torch.models.otter import OtterVLM
-    from otter_tpu_torch.ops.quant import quantize_params
+    from otter_tpu_torch.ops import quant
 
     model = OtterVLM(cfg, dtype=torch.bfloat16, device=DEV)
     bf16_cfg = cfg.replace(text=cfg.text.replace(quant=None))
-    load_flax_params(model, quantize_params(RandomParams(bf16_cfg)))
+    quantize = (quant.quantize_params_int4 if cfg.text.quant == "int4"
+                else quant.quantize_params)
+    load_flax_params(model, quantize(RandomParams(bf16_cfg)))
     return model.eval()
 
 
@@ -495,6 +594,9 @@ class RandomParams(Mapping):
 
     def __len__(self):
         return len(self.specs)
+
+    def __contains__(self, path):
+        return path in self.specs   # without making the tensor
 
     def __getitem__(self, path):
         import torch
@@ -561,10 +663,10 @@ def make_train_batch(cfg, tok, seed: int, b: int = 2, s: int = 1024):
                           "patch_images": images}}
 
 
-def serving_cfg(depth_cut: bool = False):
+def serving_cfg(depth_cut: bool = False, quant: str = "int8"):
     from otter_tpu_torch.config import otter_mpt7b
     cfg = otter_mpt7b()
-    text = cfg.text.replace(quant="int8", decode_kernel="auto")
+    text = cfg.text.replace(quant=quant, decode_kernel="auto")
     if not depth_cut:
         return cfg.replace(text=text)
     return cfg.replace(
@@ -598,21 +700,24 @@ def plain_kernels():
     from otter_tpu_torch.ops import flash_attention as fa
     from otter_tpu_torch.ops import quant
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
-             quant.int8_mlp, da.decode_attention)
+             quant.int8_mlp, quant.int4_mlp, quant.int4_matmul,
+             da.decode_attention)
     fa.flash_attention_fwd = fa.flash_attention_plain
     fa.flash_attention_bwd = fa.flash_attention_bwd_plain
     quant.int8_mlp = quant.int8_mlp_plain
+    quant.int4_mlp = quant.int4_mlp_plain
+    quant.int4_matmul = quant.int4_matmul_plain
     da.decode_attention = da.decode_attention_plain
     try:
         yield
     finally:
         (fa.flash_attention_fwd, fa.flash_attention_bwd, quant.int8_mlp,
-         da.decode_attention) = saved
+         quant.int4_mlp, quant.int4_matmul, da.decode_attention) = saved
 
 
 # ── phase 4: kernel path against the plain path ─────────────────────
 
-def first_step_logits(model, cfg, vision_x, lang_x, attn):
+def first_step_logits(model, cfg, cache_dtype, vision_x, lang_x, attn):
     import torch
     from otter_tpu_torch.models.decoder import init_cache
     with torch.inference_mode():
@@ -621,7 +726,7 @@ def first_step_logits(model, cfg, vision_x, lang_x, attn):
         ids = torch.from_numpy(lang_x).to(dev)
         mask = torch.from_numpy(attn).to(dev)
         b, p = ids.shape
-        cache = init_cache(cfg.text, b, 256, torch.int8, dev)
+        cache = init_cache(cfg.text, b, 256, cache_dtype, dev)
         logits0, cache, lat = model(vx, ids, attention_mask=mask,
                                     cache=cache, head_last_only=True)
         tok = torch.full((b, 1), cfg.text.vocab_size // 2, device=dev)
@@ -637,28 +742,31 @@ def first_step_logits(model, cfg, vision_x, lang_x, attn):
 
 def phase_parity():
     import torch
-    cfg = serving_cfg(depth_cut=True)
-    model = build_model(cfg)
-    req = make_requests(cfg, 8, SEED + 1)
-    kern = first_step_logits(model, cfg, *req)
-    with plain_kernels():
-        plain = first_step_logits(model, cfg, *req)
-    for name, a, r in zip(("prefill", "decode step 1"), kern, plain):
-        err = float((a - r).abs().max())
-        scale = float(r.abs().max())
-        ok = torch.isfinite(a).all() and err <= 5e-2 * scale
-        log(f"parity[{name}]: logits max_abs_err {err:.4e} vs max|plain| "
-            f"{scale:.4e} (tolerance 5e-2 * max|plain|) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"kernel path disagrees with the plain path "
-                               f"at the {name} logits")
-    del model
+    for quant, cache_dtype in (("int8", torch.int8), ("int4", "int4")):
+        cfg = serving_cfg(depth_cut=True, quant=quant)
+        model = build_model(cfg)
+        req = make_requests(cfg, 8, SEED + 1)
+        kern = first_step_logits(model, cfg, cache_dtype, *req)
+        with plain_kernels():
+            plain = first_step_logits(model, cfg, cache_dtype, *req)
+        for name, a, r in zip(("prefill", "decode step 1"), kern, plain):
+            err = float((a - r).abs().max())
+            scale = float(r.abs().max())
+            ok = torch.isfinite(a).all() and err <= 5e-2 * scale
+            log(f"parity[{quant} weights and cache, {name}]: logits "
+                f"max_abs_err {err:.4e} vs max|plain| {scale:.4e} "
+                f"(tolerance 5e-2 * max|plain|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{quant}: kernel path disagrees with the "
+                                   f"plain path at the {name} logits")
+        del model
 
 
 # ── phase 5: serve requests at full width ───────────────────────────
 
-def phase_serve(smi: str):
+def phase_serve(smi: str, quant_mode: str = "int8"):
+    """Serve the requests with int8 weights and cache (phase `serve`) or
+    int4 weights and cache (phase `serve4`)."""
     import numpy as np
     import torch
     from otter_tpu_torch.config import GenerationConfig
@@ -667,15 +775,21 @@ def phase_serve(smi: str):
     from otter_tpu_torch.ops import flash_attention as fa
     from otter_tpu_torch.ops import quant
 
-    cfg = serving_cfg()
+    int4 = quant_mode == "int4"
+    tag = "serve4" if int4 else "serve"
+    cfg = serving_cfg(quant=quant_mode)
     t0 = time.perf_counter()
     model = build_model(cfg)
-    log(f"serve: {cfg.text.num_hidden_layers}-layer model built and loaded "
-        f"in {time.perf_counter() - t0:.1f} s")
-    engine = OtterGenerator(model, cache_dtype=torch.int8)
-    wrappers = (fa.flash_attention, quant.int8_mlp, da.decode_attention)
-    for w in wrappers:
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  list(model.parameters()) + list(model.buffers()))
+    log(f"{tag}: {cfg.text.num_hidden_layers}-layer model, {quant_mode} "
+        f"weights ({n_bytes / 1e9:.2f} GB on the card) and {quant_mode} KV "
+        f"cache, built and loaded in {time.perf_counter() - t0:.1f} s")
+    engine = OtterGenerator(model, cache_dtype="int4" if int4 else torch.int8)
+    for w in (fa.flash_attention, quant.int8_mlp, quant.int4_mlp,
+              quant.int4_matmul, da.decode_attention):
         w.launches = 0
+    da.decode_attention.launches_int4 = 0
     for b in (1, 8):
         vision_x, lang_x, attn = make_requests(cfg, b, SEED + 10 + b)
         engine.generate(vision_x, lang_x, attn,
@@ -694,35 +808,60 @@ def phase_serve(smi: str):
         out = outs[0]
         p = lang_x.shape[1]
         if out.shape != (b, p + 32):
-            raise RuntimeError(f"serve b={b}: output shape {out.shape}")
+            raise RuntimeError(f"{tag} b={b}: output shape {out.shape}")
         if not ((out >= 0) & (out < cfg.text.total_vocab)).all():
-            raise RuntimeError(f"serve b={b}: token outside the vocabulary")
+            raise RuntimeError(f"{tag} b={b}: token outside the vocabulary")
         if any(not np.array_equal(outs[0], o) for o in outs[1:]):
-            raise RuntimeError(f"serve b={b}: greedy output differs between "
+            raise RuntimeError(f"{tag} b={b}: greedy output differs between "
                                f"runs of the same request")
+        if b == 1:
+            # the streaming entry point yields what generate returned (up
+            # to the end-of-chunk token, which it does not yield)
+            streamed = list(engine.stream_generate(
+                vision_x, lang_x, attn,
+                gen=GenerationConfig(max_new_tokens=32)))
+            want = out[0, p:].tolist()
+            if cfg.eoc_token_id in want:
+                want = want[:want.index(cfg.eoc_token_id)]
+            if streamed != want:
+                raise RuntimeError(f"{tag}: stream_generate gave {streamed}, "
+                                   f"generate {want}")
+            log(f"{tag} b=1: stream_generate yielded the {len(streamed)} "
+                f"tokens generate returned")
         ttft = float(np.median(times[1]))
         decode_s = float(np.median(times[32])) - ttft
         tok_s = b * 31 / decode_s
-        log(f"serve b={b}: prompts {attn.sum(1).tolist()} tokens + 1 image "
+        log(f"{tag} b={b}: prompts {attn.sum(1).tolist()} tokens + 1 image "
             f"each, 32 new tokens | TTFT {ttft * 1e3:.2f} ms | decode "
             f"{tok_s:.2f} tok/s ({decode_s / 31 * 1e3:.2f} ms/step) | "
             f"medians of {REPS}; TTFT runs "
             f"{[round(x * 1e3, 2) for x in times[1]]} ms, 32-token runs "
             f"{[round(x * 1e3, 2) for x in times[32]]} ms | {smi} | first "
             f"tokens {out[0, p:p + 8].tolist()}")
+    n_int4 = da.decode_attention.launches_int4
     launches = {"flash_fwd": fa.flash_attention.launches,
                 "int8_mlp": quant.int8_mlp.launches,
-                "decode_attention": da.decode_attention.launches}
-    log(f"serve: kernel launches during the requests {launches}")
-    dead = [k for k, n in launches.items() if n == 0]
-    if dead:
-        raise RuntimeError(f"serving path never launched {dead}")
+                "int4_mlp": quant.int4_mlp.launches,
+                "int4_matmul": quant.int4_matmul.launches,
+                "decode_attention": da.decode_attention.launches - n_int4,
+                "decode_attention_int4": n_int4}
+    log(f"{tag}: kernel launches during the requests {launches}")
+    # no model routes a projection through int4_matmul (the JAX package
+    # keeps them int8): it is held against its plain version in the kernels
+    # phase only
+    path = ({"flash_fwd", "int4_mlp", "decode_attention_int4"} if int4
+            else {"flash_fwd", "int8_mlp", "decode_attention"})
+    dead = sorted(k for k in path if launches[k] == 0)
+    stray = sorted(k for k, n in launches.items() if n and k not in path)
+    if dead or stray:
+        raise RuntimeError(f"{tag}: never launched {dead}; launched off its "
+                           f"path {stray}")
     return launches, engine
 
 
 # ── optional: where the time goes in one b=8 request ────────────────
 
-def phase_profile(engine):
+def phase_profile(engine, tag: str = "serve"):
     """torch.profiler over a b=8 request: prefill alone (1 new token), then
     prefill + 31 decode steps. Writes the kernel tables to chiprun_out/
     and prints the device-busy share and the top kernels."""
@@ -741,8 +880,8 @@ def phase_profile(engine):
             t = time.perf_counter()
             engine.generate(*req, gen=gen_cfg)
             wall = time.perf_counter() - t
-        _report_profile(prof, wall, f"profile b=8 new={n_new}",
-                        f"profile_b8_new{n_new}.txt")
+        _report_profile(prof, wall, f"profile {tag} b=8 new={n_new}",
+                        f"profile_{tag}_b8_new{n_new}.txt")
 
 
 def _report_profile(prof, wall: float, label: str, fname: str):
@@ -1059,19 +1198,26 @@ KERNELS = {
                  "otter_tpu/ops/quant.py:84"),
     "decode_attention": ("otter_tpu_torch/csrc/decode_attention.cu",
                          "otter_tpu/ops/decode_attention.py:219"),
+    "decode_attention_int4": ("otter_tpu_torch/csrc/decode_attention.cu",
+                              "otter_tpu/ops/decode_attention.py:280"),
+    "int4_mlp": ("otter_tpu_torch/csrc/int4_mlp.cu",
+                 "otter_tpu/ops/quant.py:616"),
+    "int4_matmul": ("otter_tpu_torch/csrc/int4_mlp.cu",
+                    "otter_tpu/ops/quant.py:773"),
     "flash_bwd_dkv": ("otter_tpu_torch/csrc/flash_bwd.cu",
                       "otter_tpu/ops/flash_attention.py:347"),
     "flash_bwd_dq": ("otter_tpu_torch/csrc/flash_bwd.cu",
                      "otter_tpu/ops/flash_attention.py:444"),
 }
-PHASES = "kernels,parity,serve,trainparity,train"
+PHASES = "kernels,parity,serve,serve4,trainparity,train"
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=PHASES,
                     help=f"comma-separated subset of {PHASES}, plus profile "
-                         "(after serve and train; not run by default). "
+                         "(after serve, serve4 and train; not run by "
+                         "default). "
                          "Device and build always run.")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1101,13 +1247,14 @@ def main(argv=None) -> int:
     if "parity" in phases:
         run("parity", phase_parity)
     by_path = {}
-    if "serve" in phases:
-        def serve():
-            launches, engine = phase_serve(smi)
-            if "profile" in phases:
-                phase_profile(engine)
-            return launches
-        by_path["serve"] = run("serve", serve)
+    for tag, quant_mode in (("serve", "int8"), ("serve4", "int4")):
+        if tag in phases:
+            def serve():
+                launches, engine = phase_serve(smi, quant_mode)
+                if "profile" in phases:
+                    phase_profile(engine, tag)
+                return launches
+            by_path[tag] = run(tag, serve)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for Hopper (`sm_90a`) into its own shared library under `_build/` (listed
-in `.gitignore`), keyed by a hash of the source so an edited kernel is
-rebuilt. The libraries are loaded with ctypes: device pointers and the
+in `.gitignore`), keyed by a hash of the source and of the `csrc/*.cuh`
+headers so an edited kernel is rebuilt. The libraries are loaded with ctypes: device pointers and the
 CUDA stream go in as `c_void_p`, and every entry point returns
 `cudaGetLastError()` after its launch, which `check` turns into an
 exception. Nothing here runs at import time; the first wrapper call on a
@@ -43,8 +43,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by several sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

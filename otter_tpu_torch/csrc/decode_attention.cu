@@ -1,22 +1,27 @@
 // Single-query cached attention for Hopper (sm_90a), read straight from the
-// stacked KV cache [B, n_layers, H, L, D] (bf16, or int8 with f32
-// per-position scales [B, n_layers, H, L]). q [B, H, D] bf16 -> out
-// [B, H, D] bf16.
+// stacked KV cache [B, n_layers, H, L, D]: bf16; int8 with f32 per-position
+// scales [B, n_layers, H, L]; or int4, one fused int8 array with k in the
+// low nibble of each byte and v in the high, and the same scales.
+// q [B, H, D] bf16 -> out [B, H, D] bf16.
 //
 // Replaces the Pallas TPU kernel otter_tpu/ops/decode_attention.py
-// (decode_attention, kernel body in _call), bf16 and int8 caches. Same
+// (decode_attention, kernel body in _call), all three cache types. Same
 // function, in the same order of operations:
-//   s = q.k (f32), int8: s *= k_scale, then s *= sm_scale, then s += bias;
-//   positions outside [starts[b], lengths[b]) take no part; natural-exp
-//   online softmax with f32 statistics; int8: p *= v_scale before p.v,
-//   with p rounded to bf16 (the compute dtype) for the product;
+//   s = q.k (f32), quantized: s *= k_scale, then s *= sm_scale, then
+//   s += bias; positions outside [starts[b], lengths[b]) take no part;
+//   natural-exp online softmax with f32 statistics; quantized: p *= v_scale
+//   before p.v, with p rounded to bf16 (the compute dtype) for the product;
 //   out = acc / l (l == 0 -> 1).
 //
 // What bounds it on the H100: it reads each valid cache row once (k and v,
-// 1 or 2 bytes an element) for 2 multiply-adds per element, so it is bound
-// by bytes. The design reads only the valid span [starts, lengths) of each
-// (batch, head), addresses the layer inside the stacked cache by its
-// stride (no per-layer copy), and dequantizes int8 rows in registers.
+// 2, 1 or 0.5 bytes an element) for 2 multiply-adds per element, so it is
+// bound by bytes. The design reads only the valid span [starts, lengths) of
+// each (batch, head), addresses the layer inside the stacked cache by its
+// stride (no per-layer copy), and dequantizes int8 and int4 rows in
+// registers. The int4 cache comes in through one pointer; a byte is loaded
+// once for its k nibble (by the lane that owns the key) and once for its v
+// nibble (by the lane that owns the column), the second time out of L1:
+// device memory gives each byte once.
 //
 // Design: one CTA of 4 warps per (head, batch); the warps take 32-key
 // chunks in turn. For q.k each lane owns one key and walks its row with
@@ -35,16 +40,14 @@ namespace {
 
 constexpr int NW = 4;  // warps per CTA
 
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-
-// one 16-byte load -> N floats
-template <typename KV> struct Vec;
-template <> struct Vec<__nv_bfloat16> {
+// The three cache types: the element type in memory, one 16-byte load of a
+// key row -> N floats (load_k), and one element of a value row -> float
+// (v_to_f).
+struct CacheBf16 {
+  using T = __nv_bfloat16;
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
+  __device__ static float v_to_f(T x) { return __bfloat162float(x); }
+  __device__ static void load_k(const T* p, float* o) {
     const int4 raw = *reinterpret_cast<const int4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -55,26 +58,43 @@ template <> struct Vec<__nv_bfloat16> {
     }
   }
 };
-template <> struct Vec<int8_t> {
+struct CacheInt8 {
+  using T = int8_t;
   static constexpr int N = 16;
-  __device__ static void load(const int8_t* p, float* o) {
+  __device__ static float v_to_f(T x) { return (float)x; }
+  __device__ static void load_k(const T* p, float* o) {
     const int4 raw = *reinterpret_cast<const int4*>(p);
     const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int i = 0; i < 16; ++i) o[i] = (float)c[i];
   }
 };
+// k4 | v4 << 4 in one byte, both nibbles two's complement
+struct CacheInt4 {
+  using T = int8_t;
+  static constexpr int N = 16;
+  __device__ static float v_to_f(T x) { return (float)(x >> 4); }
+  __device__ static void load_k(const T* p, float* o) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = (float)(((c[i] & 0xF) ^ 8) - 8);
+  }
+};
 
-template <int D, typename KV>
+template <int D, typename Cache>
 __global__ void __launch_bounds__(NW * 32) decode_attention_kernel(
-    const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
-    const KV* __restrict__ v, const float* __restrict__ k_scale,
+    const __nv_bfloat16* __restrict__ q,
+    const typename Cache::T* __restrict__ k,
+    const typename Cache::T* __restrict__ v,
+    const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const float* __restrict__ bias,
     long long bias_sb, long long bias_sh, const int* __restrict__ lengths,
     const int* __restrict__ starts, __nv_bfloat16* __restrict__ out, int H,
     int NL, int layer, int L, float sm_scale) {
   constexpr int DPL = D / 32;  // head-dim columns per lane in p.v
-  constexpr int VN = Vec<KV>::N;
+  using KV = typename Cache::T;
+  constexpr int VN = Cache::N;
   __shared__ float qs[D];
   __shared__ float red_m[NW], red_l[NW];
   __shared__ float red_acc[NW][D];
@@ -110,7 +130,7 @@ __global__ void __launch_bounds__(NW * 32) decode_attention_kernel(
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += VN) {
         float kv[VN];
-        Vec<KV>::load(kr + d0, kv);
+        Cache::load_k(kr + d0, kv);
 #pragma unroll
         for (int e = 0; e < VN; ++e) dot = fmaf(qs[d0 + e], kv[e], dot);
       }
@@ -146,7 +166,8 @@ __global__ void __launch_bounds__(NW * 32) decode_attention_kernel(
       if (base + j < start) continue;  // warp-uniform
       const KV* vr = vp + (long long)(base + j) * D + lane * DPL;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, to_f(vr[i]), acc[i]);
+      for (int i = 0; i < DPL; ++i)
+        acc[i] = fmaf(pj, Cache::v_to_f(vr[i]), acc[i]);
     }
   }
 
@@ -180,13 +201,14 @@ __global__ void __launch_bounds__(NW * 32) decode_attention_kernel(
   }
 }
 
-template <int D, typename KV>
+template <int D, typename Cache>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* bias, long long bsb, long long bsh,
            const void* lengths, const void* starts, void* out, int B, int H,
            int NL, int layer, int L, float sm_scale, cudaStream_t stream) {
   const dim3 grid(H, B);
-  decode_attention_kernel<D, KV><<<grid, NW * 32, 0, stream>>>(
+  using KV = typename Cache::T;
+  decode_attention_kernel<D, Cache><<<grid, NW * 32, 0, stream>>>(
       (const __nv_bfloat16*)q, (const KV*)k, (const KV*)v, (const float*)ks,
       (const float*)vs, (const float*)bias, bsb, bsh, (const int*)lengths,
       (const int*)starts, (__nv_bfloat16*)out, H, NL, layer, L, sm_scale);
@@ -197,22 +219,27 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 extern "C" int decode_attention_bf16(
     const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, int kv_int8, const void* bias, long long bias_sb,
+    const void* v_scale, int kv_kind, const void* bias, long long bias_sb,
     long long bias_sh, const void* lengths, const void* starts, void* out,
     int B, int H, int NL, int layer, int L, int D, float sm_scale,
     void* stream) {
+  // kv_kind: 0 bf16, 1 int8 with scales, 2 fused int4 with scales (read
+  // through k alone)
   cudaStream_t st = (cudaStream_t)stream;
-#define OTTER_LAUNCH(DD, KV)                                                 \
-  return launch<DD, KV>(q, k, v, k_scale, v_scale, bias, bias_sb, bias_sh, \
-                        lengths, starts, out, B, H, NL, layer, L, sm_scale, \
-                        st)
+  if (kv_kind == 2) v = k;
+#define OTTER_LAUNCH(DD, CACHE)                                            \
+  return launch<DD, CACHE>(q, k, v, k_scale, v_scale, bias, bias_sb,      \
+                           bias_sh, lengths, starts, out, B, H, NL, layer, \
+                           L, sm_scale, st)
   if (D == 128) {
-    if (kv_int8) OTTER_LAUNCH(128, int8_t);
-    OTTER_LAUNCH(128, __nv_bfloat16);
+    if (kv_kind == 2) OTTER_LAUNCH(128, CacheInt4);
+    if (kv_kind == 1) OTTER_LAUNCH(128, CacheInt8);
+    if (kv_kind == 0) OTTER_LAUNCH(128, CacheBf16);
   }
   if (D == 64) {
-    if (kv_int8) OTTER_LAUNCH(64, int8_t);
-    OTTER_LAUNCH(64, __nv_bfloat16);
+    if (kv_kind == 2) OTTER_LAUNCH(64, CacheInt4);
+    if (kv_kind == 1) OTTER_LAUNCH(64, CacheInt8);
+    if (kv_kind == 0) OTTER_LAUNCH(64, CacheBf16);
   }
 #undef OTTER_LAUNCH
   return (int)cudaErrorInvalidValue;

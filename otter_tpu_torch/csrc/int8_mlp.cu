@@ -9,9 +9,9 @@
 // in order and carries one f32 accumulator across grid steps; here the H
 // blocks run in parallel, one CTA each, and each CTA writes its partial
 // output to its own slice of an f32 workspace [H/128, M, N]; a second small
-// launch sums the slices in a fixed order, applies s2 (+ b2) and casts to
-// bf16. No atomics: the result is the same from run to run, so greedy
-// decoding is reproducible. (f32 atomicAdd would save the workspace, 2 MB
+// launch (mlp_common.cuh) sums the slices in a fixed order, applies s2
+// (+ b2) and casts to bf16. No atomics: the result is the same from run to
+// run, so greedy decoding is reproducible. (f32 atomicAdd would save the workspace, 2 MB
 // a row of M, but its order changes between runs and flips near-tied
 // argmaxes.) The tolerance against the plain version is a bf16 one: the
 // sums run in another order than the plain version's matmul.
@@ -36,12 +36,11 @@
 //   stages of up to 4096 columns, four in flight; each thread owns 16
 //   consecutive output columns, accumulates the CTA's 128 hidden units
 //   for the row group, and stores the partial sums in its workspace slice.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <math.h>
+#include "mlp_common.cuh"
 
 namespace {
+
+using namespace otter;
 
 constexpr int BH = 128;    // hidden units per CTA
 constexpr int NT = 256;    // threads per CTA
@@ -51,33 +50,6 @@ constexpr int NS1 = 3;     // phase 1: stages in flight
 constexpr int JB = 4;      // phase 2: W2 rows per pipeline stage
 constexpr int NCH = 4096;  // phase 2: output columns per pass (NT * 16)
 constexpr int NS2 = 4;     // phase 2: stages in flight
-
-__device__ __forceinline__ float apply_act(float z, int act) {
-  switch (act) {
-    case 0: return 0.5f * z * (1.f + erff(z * 0.7071067811865476f));  // gelu
-    case 1: return fmaxf(z, 0.f);                                      // relu
-    case 2: return z / (1.f + expf(-z));                               // silu
-    default: { const float r = fmaxf(z, 0.f); return r * r; }          // sq_relu
-  }
-}
-
-// 16-byte global -> shared copy that bypasses registers (zero-fills when
-// !pred; src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 constexpr int KG = NT / 32;  // phase 1: K groups, one warp each
 
 template <int MT>
@@ -247,23 +219,6 @@ __global__ void __launch_bounds__(NT) int8_mlp_hidden_kernel(
   }
 }
 
-// out = (sum over the H blocks, in order, of ws[blk]) * s2 + b2
-__global__ void int8_mlp_out_kernel(const float* __restrict__ ws,
-                                    const float* __restrict__ s2,
-                                    const float* __restrict__ b2,
-                                    __nv_bfloat16* __restrict__ out, int M,
-                                    int N, int nblk) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * N) return;
-  const int n = i % N;
-  const long long stride = (long long)M * N;
-  float acc = 0.f;
-  for (int blk = 0; blk < nblk; ++blk) acc += ws[blk * stride + i];
-  float y = acc * s2[n];
-  if (b2 != nullptr) y += b2[n];
-  out[i] = __float2bfloat16(y);
-}
-
 template <int MT>
 int launch_hidden(const void* x, const void* w1, const void* s1,
                   const void* b1, const void* w2, void* ws, int M, int K,
@@ -292,11 +247,7 @@ extern "C" int int8_mlp_bf16(const void* x, const void* w1, const void* s1,
       ? launch_hidden<1>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st)
       : launch_hidden<8>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
   if (err != 0) return err;
-  const int total = M * N;
-  int8_mlp_out_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      (const float*)ws, (const float*)s2, (const float*)b2,
-      (__nv_bfloat16*)out, M, N, H / BH);
-  return (int)cudaGetLastError();
+  return launch_sum_partials(ws, s2, b2, out, M, N, H / BH, st);
 }
 
 extern "C" const char* otter_error_string(int err) {

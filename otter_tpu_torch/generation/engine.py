@@ -5,14 +5,16 @@
 that writes the stacked KV cache and computes only the last position's
 logits (`head_last_only`), then decodes with a Python loop of single-token
 steps that update the cache in place. The JAX engine runs the same loop
-inside one jitted `lax.while_loop`.
+inside one jitted `lax.while_loop`. `stream_generate` runs the same
+prefill and steps for one request and yields each token as it is sampled.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Optional, Union
+from types import SimpleNamespace
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -37,16 +39,18 @@ def _cache_name(dtype: CacheDtype) -> str:
 
 def cache_bytes(text_cfg: TextConfig, batch: int, cache_len: int,
                 dtype: CacheDtype) -> int:
-    """Device bytes of one KV cache (entries + int8 scales)."""
+    """Device bytes of one KV cache (entries + quantization scales)."""
     rows = batch * text_cfg.num_hidden_layers * text_cfg.kv_heads * cache_len
-    if _cache_name(dtype) == "int8":
+    name = _cache_name(dtype)
+    if name == "int4":   # k and v share a byte
+        return rows * text_cfg.head_dim + 2 * 4 * rows
+    if name == "int8":
         return 2 * rows * text_cfg.head_dim + 2 * 4 * rows
     return 2 * rows * text_cfg.head_dim * 2
 
 
-# the int4 rung of the JAX ladder is not ported yet
-_LADDER = ["bf16", "int8"]
-_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
+_LADDER = ["bf16", "int8", "int4"]
+_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "int4": "int4"}
 
 
 def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
@@ -57,11 +61,11 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
                        ) -> CacheDtype:
     """Degrade-not-die KV-cache precision: when the requested cache does
     not fit next to the resident parameters, step down the ladder
-    (bf16 -> int8) with a warning instead of failing. On CUDA the budget
-    is the free device memory from `torch.cuda.mem_get_info` less the
-    headroom; `OTTER_HBM_BYTES` (total bytes, parameters then subtracted)
-    and `OTTER_HBM_HEADROOM` override it. On the CPU the request is
-    returned unchanged."""
+    (bf16 -> int8 -> int4) with a warning instead of failing. On CUDA the
+    budget is the free device memory from `torch.cuda.mem_get_info` less
+    the headroom; `OTTER_HBM_BYTES` (total bytes, parameters then
+    subtracted) and `OTTER_HBM_HEADROOM` override it. On the CPU the
+    request is returned unchanged."""
     if device.type != "cuda":
         return requested
     env_hbm = os.environ.get("OTTER_HBM_BYTES")
@@ -84,8 +88,8 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
                     f"{budget / 1e9:.1f} GB of device memory", stacklevel=2)
             return _DTYPES[step]
     warnings.warn(f"KV cache b={batch} L={cache_len} exceeds device memory "
-                  f"even at int8; proceeding with int8", stacklevel=2)
-    return torch.int8
+                  f"even at int4; proceeding with int4", stacklevel=2)
+    return "int4"
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
@@ -130,6 +134,65 @@ class OtterGenerator:
         return self.model.device
 
     @torch.inference_mode()
+    def _prefill(self, vision_x, lang_x, attention_mask,
+                 gen: GenerationConfig, generator) -> SimpleNamespace:
+        """Encode the vision input, prefill the cache and sample the first
+        token: the state that `_step` advances."""
+        dev = self.device
+        lang_x = _on(lang_x, dev).long()
+        b, p = lang_x.shape
+        if attention_mask is None:
+            attention_mask = torch.ones((b, p), dtype=torch.int32, device=dev)
+        attention_mask = _on(attention_mask, dev).int()
+        cache_len = _round_up(p + gen.max_new_tokens, 128)
+        cache_dtype = select_cache_dtype(
+            self.cfg.text, b, cache_len, self.cache_dtype, device=dev,
+            param_bytes=self.param_bytes)
+        cache = init_cache(self.cfg.text, b, cache_len, cache_dtype, dev)
+        logits, cache, vis_latents = self.model(
+            _on(vision_x, dev), lang_x, attention_mask=attention_mask,
+            cache=cache, head_last_only=True)
+        st = SimpleNamespace(
+            gen=gen, generator=generator, p=p, cache=cache,
+            vis_latents=vis_latents,
+            eos=(gen.eos_token_id if gen.eos_token_id is not None
+                 else self.cfg.eoc_token_id),
+            media_counts=(lang_x == self.cfg.media_token_id).int().sum(-1),
+            valid_from=p - attention_mask.sum(-1),
+            buffer=torch.cat([lang_x, torch.full(
+                (b, cache_len - p), gen.pad_token_id, dtype=torch.long,
+                device=dev)], dim=1),
+            kv_valid=torch.cat([attention_mask.bool(), torch.zeros(
+                (b, cache_len - p), dtype=torch.bool, device=dev)], dim=1),
+            done=torch.zeros(b, dtype=torch.bool, device=dev), t=0)
+        self._sample(st, logits[:, -1])
+        return st
+
+    def _sample(self, st: SimpleNamespace, logits: torch.Tensor) -> None:
+        """Token t of every row from its logits (pad once the row is
+        done), written to the buffer."""
+        gen = st.gen
+        logits = sampling.process_logits(logits, st.buffer, st.p + st.t, gen,
+                                         st.valid_from)
+        tok = sampling.sample_token(
+            logits, do_sample=gen.do_sample, temperature=gen.temperature,
+            top_k=gen.top_k, top_p=gen.top_p, generator=st.generator)
+        st.tok = torch.where(st.done, gen.pad_token_id, tok)
+        st.done = st.done | (st.tok == st.eos)
+        st.buffer[:, st.p + st.t] = st.tok
+        st.t += 1
+
+    @torch.inference_mode()
+    def _step(self, st: SimpleNamespace) -> None:
+        """One cached decode step: feed token t - 1, sample token t."""
+        pos = st.p + st.t - 1
+        st.kv_valid[:, pos] = True
+        logits, st.cache, _ = self.model(
+            None, st.tok[:, None], vis_latents=st.vis_latents,
+            cache=st.cache, cache_pos=pos, kv_valid=st.kv_valid,
+            media_counts=st.media_counts)
+        self._sample(st, logits[:, -1])
+
     def generate(self, vision_x, lang_x, attention_mask=None,
                  gen: Optional[GenerationConfig] = None,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
@@ -139,57 +202,30 @@ class OtterGenerator:
         gen = gen or GenerationConfig()
         if gen.num_beams > 1:
             raise NotImplementedError("beam search is not ported yet")
-        dev = self.device
-        eos = gen.eos_token_id if gen.eos_token_id is not None \
-            else self.cfg.eoc_token_id
-        lang_x = _on(lang_x, dev).long()
-        b, p = lang_x.shape
-        if attention_mask is None:
-            attention_mask = torch.ones((b, p), dtype=torch.int32, device=dev)
-        attention_mask = _on(attention_mask, dev).int()
-        vision_x = _on(vision_x, dev)
-        max_new = gen.max_new_tokens
-        cache_len = _round_up(p + max_new, 128)
-        cache_dtype = select_cache_dtype(
-            self.cfg.text, b, cache_len, self.cache_dtype, device=dev,
-            param_bytes=self.param_bytes)
-        cache = init_cache(self.cfg.text, b, cache_len, cache_dtype, dev)
+        st = self._prefill(vision_x, lang_x, attention_mask, gen, generator)
+        while st.t < gen.max_new_tokens and not bool(st.done.all()):
+            self._step(st)
+        return st.buffer[:, : st.p + gen.max_new_tokens].cpu().numpy()
 
-        logits, cache, vis_latents = self.model(
-            vision_x, lang_x, attention_mask=attention_mask, cache=cache,
-            head_last_only=True)
-        last_logits = logits[:, -1]
-        media_counts = (lang_x == self.cfg.media_token_id).int().sum(-1)
-        valid_from = p - attention_mask.sum(-1)
-        buffer = torch.cat([lang_x, torch.full(
-            (b, cache_len - p), gen.pad_token_id, dtype=torch.long,
-            device=dev)], dim=1)
-        kv_valid = torch.cat([attention_mask.bool(), torch.zeros(
-            (b, cache_len - p), dtype=torch.bool, device=dev)], dim=1)
-
-        def sample_from(logits, t, done):
-            logits = sampling.process_logits(logits, buffer, p + t, gen,
-                                             valid_from)
-            tok = sampling.sample_token(
-                logits, do_sample=gen.do_sample,
-                temperature=gen.temperature, top_k=gen.top_k,
-                top_p=gen.top_p, generator=generator)
-            return torch.where(done, gen.pad_token_id, tok)
-
-        done = torch.zeros(b, dtype=torch.bool, device=dev)
-        tok = sample_from(last_logits, 0, done)
-        done = tok == eos
-        buffer[:, p] = tok
-        t = 1
-        while t < max_new and not bool(done.all()):
-            kv_valid[:, p + t - 1] = True
-            logits, cache, _ = self.model(
-                None, tok[:, None], vis_latents=vis_latents, cache=cache,
-                cache_pos=p + t - 1, kv_valid=kv_valid,
-                media_counts=media_counts)
-            nxt = sample_from(logits[:, -1], t, done)
-            done = done | (nxt == eos)
-            buffer[:, p + t] = nxt
-            tok = nxt
-            t += 1
-        return buffer[:, : p + max_new].cpu().numpy()
+    def stream_generate(self, vision_x, lang_x, attention_mask=None,
+                        gen: Optional[GenerationConfig] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Iterator[int]:
+        """One request (batch 1): yields each token id as it is sampled,
+        with `generate`'s sampling and bans, and stops at eos (not
+        yielded) or after max_new_tokens."""
+        gen = gen or GenerationConfig()
+        if gen.num_beams > 1:
+            raise NotImplementedError("beam search is not ported yet")
+        if np.shape(lang_x)[0] != 1:
+            raise ValueError("stream_generate serves one request; batch "
+                             "with generate")
+        st = self._prefill(vision_x, lang_x, attention_mask, gen, generator)
+        while True:
+            tok = int(st.tok[0])
+            if tok == st.eos:
+                return
+            yield tok
+            if st.t >= gen.max_new_tokens:
+                return
+            self._step(st)

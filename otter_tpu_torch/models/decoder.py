@@ -6,7 +6,9 @@ GELU MLP, and a `GatedCrossAttentionBlock` before every
 `cross_attn_every_n_layers`-th layer (`(i + 1) % n == 0`).
 
 The KV cache is one stacked array per k/v, [B, n_layers, H, L, D] (int8
-caches add f32 scales [B, n_layers, H, L]), as `init_cache` builds it.
+caches add f32 scales [B, n_layers, H, L]; an int4 cache is one fused
+`kv` array of that shape, k in the low nibbles and v in the high, with the
+same scales), as `init_cache` builds it.
 JAX updates it functionally with `dynamic_update_slice`; here the layers
 write their slots in place with slice assignment, so one buffer serves the
 whole generation and no per-layer copy is ever made.
@@ -20,14 +22,15 @@ cross-entropy.
 Routing follows the JAX module: prefill and training attention go through
 the dispatcher (flash kernels on the GPU); cached decode goes through the
 decode-attention kernel when `decode_kernel` says so (`"auto"`: an int8
-cache or L >= 1024), else through dense attention over the layer's slice;
-the MLP with int8 weights goes through the fused `int8_mlp` kernel at
-decode with at most 32 tokens, else through two `Int8Dense`.
+or int4 cache, or L >= 1024), else through dense attention over the
+layer's slice; the MLP with int8 (int4) weights goes through the fused
+`int8_mlp` (`int4_mlp`) kernel at decode with at most 32 tokens, else
+through two `Int8Dense` (`Int4Dense`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -50,21 +53,37 @@ def _lp_norm(c: TextConfig, dtype, device) -> LayerNorm:
                      dtype=dtype, device=device)
 
 
+def cache_len_of(cache: Cache) -> int:
+    """Sequence capacity of a cache."""
+    return cache["kv" if "kv" in cache else "k"].shape[3]
+
+
 def write_cache(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor,
-                pos: int) -> None:
-    """Write k/v [B, H, S, D] at offset `pos` into this layer's slot of the
-    stacked cache, in place, quantizing when the cache is int8."""
-    s = k.shape[2]
-    if cache["k"].dtype == torch.int8:
+                pos: Union[int, torch.Tensor]) -> None:
+    """Write k/v [B, H, S, D] at offset `pos` (an int, or per-row offsets
+    [B]: row r's S positions go to pos[r] .. pos[r] + S - 1) into this
+    layer's slot of the stacked cache, in place, quantizing when the cache
+    is int8 or int4."""
+    b, _, s, _ = k.shape
+    if "kv" in cache:
+        kvq, ks, vs = quant_ops.quantize_kv_int4(k, v)
+        vals = {"kv": kvq, "k_scale": ks, "v_scale": vs}
+    elif cache["k"].dtype == torch.int8:
         # k and v quantized in one pass (rows are independent)
         kvq, kvs = quant_ops.quantize_kv(torch.stack([k, v]))
-        cache["k"][:, layer, :, pos:pos + s] = kvq[0]
-        cache["v"][:, layer, :, pos:pos + s] = kvq[1]
-        cache["k_scale"][:, layer, :, pos:pos + s] = kvs[0]
-        cache["v_scale"][:, layer, :, pos:pos + s] = kvs[1]
+        vals = {"k": kvq[0], "v": kvq[1], "k_scale": kvs[0],
+                "v_scale": kvs[1]}
     else:
-        cache["k"][:, layer, :, pos:pos + s] = k.to(cache["k"].dtype)
-        cache["v"][:, layer, :, pos:pos + s] = v.to(cache["v"].dtype)
+        vals = {"k": k, "v": v}
+    for key, val in vals.items():
+        dst = cache[key]
+        val = val.to(dst.dtype)
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            rows = torch.arange(b, device=pos.device)[:, None]
+            cols = pos[:, None] + torch.arange(s, device=pos.device)[None, :]
+            dst[rows, layer, :, cols] = val.transpose(1, 2)   # [B, S, H(, D)]
+        else:
+            dst[:, layer, :, pos:pos + s] = val
 
 
 def dense_decode_attention(q, k, v, kv_valid, bias, *, sm_scale):
@@ -102,7 +121,7 @@ class SelfAttention(nn.Module):
         return bool(mode)
 
     def forward(self, x, *, layer: int, attn_ids=None, bias=None,
-                cache: Optional[Cache] = None, cache_pos: Optional[int] = None,
+                cache: Optional[Cache] = None, cache_pos=None,
                 kv_valid=None, decode_span=None):
         c = self.cfg
         b, s, _ = x.shape
@@ -112,22 +131,30 @@ class SelfAttention(nn.Module):
                    for t in self.Wqkv(x).chunk(3, dim=-1))
         if cache is not None and cache_pos is not None:
             write_cache(cache, layer, k, v, cache_pos)
-            quant = cache["k"].dtype == torch.int8
-            if self._use_decode_kernel(cache["k"]) and s == 1:
+            int4 = "kv" in cache   # k|v fused by nibble in one array
+            main = cache["kv" if int4 else "k"]
+            quant = main.dtype == torch.int8
+            if self._use_decode_kernel(main) and s == 1:
                 lengths, starts = decode_span
                 scales = ({"k_scale": cache["k_scale"],
-                           "v_scale": cache["v_scale"]} if quant else {})
+                           "v_scale": cache["v_scale"],
+                           "kv_bits": 4 if int4 else 8} if quant else {})
                 out = da.decode_attention(
-                    q[:, :, 0], cache["k"], cache["v"], lengths,
+                    q[:, :, 0], main, main if int4 else cache["v"], lengths,
                     bias[:, :, 0, :], starts=starts, layer=layer,
                     sm_scale=sm_scale, **scales)[:, :, None, :]
             else:
-                ck, cv = cache["k"][:, layer], cache["v"][:, layer]
-                if quant:
-                    ck = quant_ops.dequantize_kv(
-                        ck, cache["k_scale"][:, layer], q.dtype)
-                    cv = quant_ops.dequantize_kv(
-                        cv, cache["v_scale"][:, layer], q.dtype)
+                if int4:
+                    ck, cv = quant_ops.dequantize_kv_int4(
+                        main[:, layer], cache["k_scale"][:, layer],
+                        cache["v_scale"][:, layer], q.dtype)
+                else:
+                    ck, cv = main[:, layer], cache["v"][:, layer]
+                    if quant:
+                        ck = quant_ops.dequantize_kv(
+                            ck, cache["k_scale"][:, layer], q.dtype)
+                        cv = quant_ops.dequantize_kv(
+                            cv, cache["v_scale"][:, layer], q.dtype)
                 out = dense_decode_attention(q, ck, cv, kv_valid, bias,
                                              sm_scale=sm_scale)
         else:
@@ -143,15 +170,34 @@ class MLP(nn.Module):
     def __init__(self, cfg: TextConfig, dtype, device):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        kw = dict(use_bias=not cfg.no_bias, dtype=dtype, device=device)
-        self.up_proj = quant_ops.make_dense(cfg.quant, cfg.hidden_size,
-                                            cfg.mlp_dim, **kw)
-        self.down_proj = quant_ops.make_dense(cfg.quant, cfg.mlp_dim,
-                                              cfg.hidden_size, **kw)
+        # the pair packs to int4 only without biases and without a gate
+        # (`quantize_params_int4` keeps such MLPs at int8)
+        self.int4 = cfg.quant == "int4" and cfg.no_bias \
+            and cfg.act != "silu_glu"
+        if self.int4:
+            kw = dict(dtype=dtype, device=device)
+            self.up_proj = quant_ops.Int4Dense(
+                cfg.hidden_size, cfg.mlp_dim, pack_axis=0, **kw)
+            self.down_proj = quant_ops.Int4Dense(
+                cfg.mlp_dim, cfg.hidden_size, pack_axis=1, **kw)
+        else:
+            kw = dict(use_bias=not cfg.no_bias, dtype=dtype, device=device)
+            self.up_proj = quant_ops.make_dense(cfg.quant, cfg.hidden_size,
+                                                cfg.mlp_dim, **kw)
+            self.down_proj = quant_ops.make_dense(cfg.quant, cfg.mlp_dim,
+                                                  cfg.hidden_size, **kw)
 
     def forward(self, x, decoding: bool):
         c = self.cfg
         tokens = x.numel() // x.shape[-1]
+        if decoding and self.int4 and tokens <= 32 \
+                and c.act in ("gelu", "silu", "relu"):
+            # decode: both int4 weight streams in one fused kernel launch
+            up, down = self.up_proj, self.down_proj
+            y = quant_ops.int4_mlp(
+                x.reshape(tokens, -1).to(self.dtype), up.kernel_q4,
+                up.scale_q, down.kernel_q4, down.scale_q, act=c.act)
+            return y.reshape(x.shape[:-1] + (c.hidden_size,))
         if decoding and c.quant == "int8" and tokens <= 32:
             # decode: both int8 weight streams in one fused kernel launch
             up, down = self.up_proj, self.down_proj
@@ -205,11 +251,11 @@ class Decoder(nn.Module):
         self.remat = remat
         if cfg.arch != "mpt" or cfg.pos != "alibi" or not cfg.tie_embeddings \
                 or cfg.norm_type != "low_precision_layernorm" \
-                or cfg.quant not in (None, "int8") or cfg.lora_rank \
+                or cfg.quant not in (None, "int8", "int4") or cfg.lora_rank \
                 or cfg.megakernel or cfg.fused_tail or cfg.quant_embed:
             raise NotImplementedError(
                 "the port's decoder covers MPT (ALiBi, tied head, LP "
-                "LayerNorm, bf16 or int8 weights) only")
+                "LayerNorm, bf16, int8 or int4 weights) only")
         self.cfg, self.otter_cfg, self.dtype = cfg, otter_cfg, dtype
         self.wte = Embed(cfg.total_vocab, cfg.hidden_size, dtype, device)
         self.xattn_every = (otter_cfg.cross_attn_every_n_layers
@@ -230,14 +276,14 @@ class Decoder(nn.Module):
 
     def forward(self, input_ids, *, attention_mask=None, vis_latents=None,
                 xattn_q_ids=None, xattn_kv_ids=None, xattn_out_keep=None,
-                cache: Optional[Cache] = None, cache_pos: Optional[int] = None,
+                cache: Optional[Cache] = None, cache_pos=None,
                 kv_valid=None, head_last_only: bool = False,
                 skip_head: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """Prefill/forward: cache None (no cache: training) or a
         preallocated cache with cache_pos None (prefill writes from offset
-        0). Decode: cache_pos (an int) set and kv_valid [B, L] marking
-        attendable entries. Returns (logits [B, S|1, V], cache), or with
+        0). Decode: cache_pos set (an int, or per-row offsets [B]) and
+        kv_valid [B, L] marking attendable entries. Returns (logits [B, S|1, V], cache), or with
         skip_head the final-norm hidden states [B, S, D] in place of the
         logits."""
         c = self.cfg
@@ -248,7 +294,7 @@ class Decoder(nn.Module):
                               device=x.device)
         attn_ids = decode_span = None
         if decoding:
-            L = cache["k"].shape[3]
+            L = cache_len_of(cache)
             # column j gets j * slope: softmax-shift-equivalent to the
             # reference's (j - query_pos) * slope for every query row
             if s != 1:
@@ -297,15 +343,19 @@ def init_cache(cfg: TextConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Cache:
     """Preallocated stacked KV cache [batch, n_layers, kv_heads, max_len,
     head_dim]; dtype torch.int8 (or "int8") adds f32 per-(position, head)
-    scales [batch, n_layers, kv_heads, max_len]."""
-    if dtype == "int8":
+    scales [batch, n_layers, kv_heads, max_len]; dtype "int4" holds k and
+    v in one int8 array `kv` of that shape (byte = k4 | v4 << 4) with the
+    same scales."""
+    int4 = dtype == "int4"
+    if dtype in ("int8", "int4"):
         dtype = torch.int8
-    if dtype == "int4":
-        raise NotImplementedError("the int4 cache is not ported yet")
     shape = (batch, cfg.num_hidden_layers, cfg.kv_heads, max_len,
              cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if int4:
+        cache = {"kv": torch.zeros(shape, dtype=dtype, device=device)}
+    else:
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
         cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
                                        device=device)

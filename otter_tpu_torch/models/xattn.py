@@ -3,9 +3,11 @@
 
 The media-location mask arrives as integer ids (text_time vs media_time)
 compared inside the flash kernel ("eq" or "ge"); text with no preceding
-media has its attention output zeroed by `out_keep`. With int8 weights the
-feed-forward pair goes through the fused `int8_mlp` kernel when the block
-sees at most 32 tokens (decode), else through two `Int8Dense`.
+media has its attention output zeroed by `out_keep`. With int8 (int4)
+weights the feed-forward pair goes through the fused `int8_mlp`
+(`int4_mlp`) kernel when the block sees at most 32 tokens (decode), else
+through two `Int8Dense` (`Int4Dense`); the attention projections of an
+int4 model are int8.
 """
 
 from __future__ import annotations
@@ -70,12 +72,18 @@ class GatedCrossAttentionBlock(nn.Module):
             dim, dim_visual, dim_head, heads, only_attend_immediate_media,
             quant, dtype, device)
         self.ff_norm = LayerNorm(dim, dtype=dtype, device=device)
-        self.ff_up = quant_ops.make_dense(quant, dim, dim * ff_mult,
-                                          use_bias=False, dtype=dtype,
-                                          device=device)
-        self.ff_down = quant_ops.make_dense(quant, dim * ff_mult, dim,
-                                            use_bias=False, dtype=dtype,
-                                            device=device)
+        if quant == "int4":
+            self.ff_up = quant_ops.Int4Dense(
+                dim, dim * ff_mult, pack_axis=0, dtype=dtype, device=device)
+            self.ff_down = quant_ops.Int4Dense(
+                dim * ff_mult, dim, pack_axis=1, dtype=dtype, device=device)
+        else:
+            self.ff_up = quant_ops.make_dense(quant, dim, dim * ff_mult,
+                                              use_bias=False, dtype=dtype,
+                                              device=device)
+            self.ff_down = quant_ops.make_dense(quant, dim * ff_mult, dim,
+                                                use_bias=False, dtype=dtype,
+                                                device=device)
 
     def forward(self, x, media, q_ids=None, kv_ids=None, out_keep=None):
         attn = self.attn(x, media, q_ids, kv_ids, out_keep)
@@ -83,12 +91,17 @@ class GatedCrossAttentionBlock(nn.Module):
         residual = x
         y = self.ff_norm(x)
         tokens = y.numel() // self.dim
-        if self.quant == "int8" and tokens <= 32:
-            # decode: both int8 weight streams in one fused kernel launch
-            y = quant_ops.int8_mlp(
-                y.reshape(tokens, self.dim).to(self.dtype),
-                self.ff_up.kernel_q, self.ff_up.scale_q,
-                self.ff_down.kernel_q, self.ff_down.scale_q, act="gelu")
+        if self.quant in ("int8", "int4") and tokens <= 32:
+            # decode: both weight streams in one fused kernel launch
+            flat = y.reshape(tokens, self.dim).to(self.dtype)
+            if self.quant == "int4":
+                y = quant_ops.int4_mlp(
+                    flat, self.ff_up.kernel_q4, self.ff_up.scale_q,
+                    self.ff_down.kernel_q4, self.ff_down.scale_q, act="gelu")
+            else:
+                y = quant_ops.int8_mlp(
+                    flat, self.ff_up.kernel_q, self.ff_up.scale_q,
+                    self.ff_down.kernel_q, self.ff_down.scale_q, act="gelu")
             y = y.reshape(x.shape[:-1] + (self.dim,))
         else:
             y = self.ff_down(gelu(self.ff_up(y)))

@@ -6,9 +6,12 @@
 `decode_attention_plain` for CPU tensors. It reads the stacked cache
 [B, n_layers, H, L, D] with the layer chosen by index (no per-layer copy
 of the cache), attends only positions in [starts[b], lengths[b]), adds an
-optional ALiBi column bias [B|1, H|1, L], and takes bf16 or int8 caches
-(int8 with f32 per-position scales: the k scale multiplies the logits
-after q.k, the v scale the probabilities before p.v).
+optional ALiBi column bias [B|1, H|1, L], and takes bf16, int8 or int4
+caches (quantized caches with f32 per-position scales: the k scale
+multiplies the logits after q.k, the v scale the probabilities before
+p.v). An int4 cache (`kv_bits=4`) is one fused array, k in the low nibble
+of each byte and v in the high (`ops.quant.quantize_kv_int4`), passed as
+both `k` and `v` and read through one pointer.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ _SIGNATURES = {"decode_attention_bf16": (
 
 
 def decode_attention_plain(q, k, v, lengths, bias=None, starts=None, *,
-                           k_scale=None, v_scale=None,
+                           k_scale=None, v_scale=None, kv_bits: int = 8,
                            layer: Optional[int] = None, sm_scale=None,
                            mask_value=DEFAULT_MASK_VALUE):
     """The kernel's function in plain PyTorch, one block covering the
@@ -38,6 +41,8 @@ def decode_attention_plain(q, k, v, lengths, bias=None, starts=None, *,
         k, v = k[:, layer], v[:, layer]
         if k_scale is not None:
             k_scale, v_scale = k_scale[:, layer], v_scale[:, layer]
+    if kv_bits == 4 and k_scale is not None:
+        k, v = ((k & 0xF) ^ 8) - 8, v >> 4   # sign-extended nibbles
     L, d = k.shape[2], q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
@@ -72,18 +77,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      starts: Optional[torch.Tensor] = None, *,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     layer: Optional[int] = None,
+                     kv_bits: int = 8, layer: Optional[int] = None,
                      sm_scale: Optional[float] = None,
                      mask_value: float = DEFAULT_MASK_VALUE) -> torch.Tensor:
     """q [B, H, D]; k/v [B, H, L, D], or the stacked [B, n_layers, H, L, D]
     cache with `layer` given (scales [B(, n_layers), H, L]); lengths and
-    starts [B] int. -> [B, H, D]. CUDA tensors: q bf16, cache bf16 or
-    int8, D in {64, 128}."""
+    starts [B] int. -> [B, H, D]. With scales and `kv_bits=4`, k and v are
+    the same fused int4 array. CUDA tensors: q bf16, cache bf16 or int8,
+    D in {64, 128}."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k, v, lengths, bias, starts, k_scale=k_scale,
-            v_scale=v_scale, layer=layer, sm_scale=sm_scale,
-            mask_value=mask_value)
+            v_scale=v_scale, kv_bits=kv_bits, layer=layer,
+            sm_scale=sm_scale, mask_value=mask_value)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     b, h, d = q.shape
@@ -97,10 +103,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)}, layer {layer}")
     quant = k_scale is not None
+    int4 = quant and kv_bits == 4
     want = torch.int8 if quant else torch.bfloat16
     if q.dtype != torch.bfloat16 or k.dtype != want or v.dtype != want:
         raise TypeError("decode_attention kernel takes bf16 q with a bf16 "
-                        "cache, or an int8 cache with scales")
+                        "cache, or an int8 or fused int4 cache with scales")
+    if int4 and (v.data_ptr() != k.data_ptr() or v.stride() != k.stride()):
+        raise ValueError("decode_attention kernel: an int4 cache is one "
+                         "fused array, passed as both k and v")
     if d not in (64, 128):
         raise ValueError(f"decode_attention kernel: head dim {d}")
     if not (k.is_contiguous() and v.is_contiguous()):
@@ -137,13 +147,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.decode_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, int(quant), bias_ptr,
+        v_scale.data_ptr() if quant else None, 2 if int4 else int(quant),
+        bias_ptr,
         *bstrides, lengths.data_ptr(), starts.data_ptr(), out.data_ptr(),
         b, h, nl, layer, L, d, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.launches_int4 += int4
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = 0        # every launch
+decode_attention.launches_int4 = 0   # those over an int4 cache

@@ -1,15 +1,20 @@
-"""Norms and activations (counterpart of `otter_tpu/ops/layers.py`).
+"""Norms, activations and rotary embeddings (counterpart of
+`otter_tpu/ops/layers.py`).
 
   - layer_norm: statistics in f32, output cast back to the input's dtype.
     Fed an input already cast to the compute dtype it is the reference's
     low-precision LayerNorm (`mpt/norm.py:16-46`).
+  - rms_norm: variance in f32, normalize, cast, then the weight multiply
+    (`xformers_model/llama.py:95-112`).
+  - rotary: the HF rotate_half convention; `rotary_dim < D` rotates only
+    the first `rotary_dim` channels (persimmon's partial rotary).
   - gelu: the exact erf form (torch `nn.GELU()` default).
   - quick_gelu: x * sigmoid(1.702 x) (CLIP).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +31,47 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
         None if weight is None else weight.float(),
         None if bias is None else bias.float(), eps)
     return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * weight.to(x.dtype)
+
+
+def rotary_tables(dim: int, max_len: int, *, theta: float = 10000.0,
+                  dtype=torch.float32, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [max_len, dim] in the HF duplicated-halves layout."""
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        0, dim, 2, dtype=torch.float32, device=device) / dim))
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    emb = torch.outer(t, inv_freq).repeat(1, 2)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rotary(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, positions: torch.Tensor, *,
+                 rotary_dim: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k [B, H, S, D]; positions [B, S] int; cos/sin [max_len, rot]."""
+    rot = rotary_dim or q.shape[-1]
+    c = cos[positions][:, None].to(q.dtype)   # [B, 1, S, rot]
+    s = sin[positions][:, None].to(q.dtype)
+
+    def rope(x):
+        xr = x[..., :rot]
+        xr = xr * c + _rotate_half(xr) * s
+        return torch.cat([xr, x[..., rot:]], dim=-1)
+
+    return rope(q), rope(k)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

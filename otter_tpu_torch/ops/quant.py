@@ -1,11 +1,20 @@
-"""Int8 weight-only quantization (counterpart of `otter_tpu/ops/quant.py`).
+"""Int8 and int4 weight-only quantization (counterpart of
+`otter_tpu/ops/quant.py`).
 
-Weights are stored int8 [in, out] with per-output-channel f32 scales
+int8: weights are stored int8 [in, out] with per-output-channel f32 scales
 (`kernel_q`, `scale_q`, the flax leaf names). `Int8Dense` applies the
 scale on the output side; `int8_mlp` is the fused decode MLP, which
 launches the hand-written kernel `csrc/int8_mlp.cu` for CUDA tensors and
 runs `int8_mlp_plain` for CPU tensors. `quantize_kv` / `dequantize_kv`
 give the int8 KV-cache layout, byte for byte the JAX package's.
+
+int4: two weights a byte (`kernel_q4`), values in [-7, 7], paired half and
+half along `pack_axis` (`quantize_kernel_int4`). `int4_mlp` is the fused
+decode MLP over an up/down pair and `int4_matmul` a single packed product;
+both launch `csrc/int4_mlp.cu` for CUDA tensors and run their plain
+versions for CPU tensors. `Int4Dense` unpacks and multiplies (prefill
+shapes). `quantize_kv_int4` fuses a k and a v cache entry into one byte
+(k in the low nibble, v in the high).
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from otter_tpu_torch.ops.layers import ACTIVATIONS, Dense
 _ACT_IDS = {"gelu": 0, "relu": 1, "silu": 2, "sq_relu": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_mlp_bf16": ([_P] * 9 + [_I] * 5 + [_P], _I)}
+_SIGNATURES_INT4 = {"int4_mlp_bf16": ([_P] * 7 + [_I] * 5 + [_P], _I),
+                    "int4_matmul_bf16": ([_P] * 5 + [_I] * 4 + [_P], _I)}
 
 
 class Int8Dense(nn.Module):
@@ -53,7 +64,9 @@ class Int8Dense(nn.Module):
 
 def make_dense(quant: Optional[str], in_features: int, features: int, *,
                use_bias: bool, dtype, device=None) -> nn.Module:
-    if quant == "int8":
+    # int4 models keep every projection that is not part of a fused MLP
+    # pair at int8 (the JAX package's choice; `Int4AttnDense` is not routed)
+    if quant in ("int8", "int4"):
         return Int8Dense(in_features, features, use_bias=use_bias,
                          dtype=dtype, device=device)
     if quant is not None:
@@ -184,3 +197,263 @@ def quantize_kv(x: torch.Tensor):
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
+
+
+# ── int4: two values a byte ──────────────────────────────────────────
+
+def _nibbles(p: torch.Tensor):
+    """int8 bytes -> (low nibble, high nibble), both sign-extended int8."""
+    return ((p & 0xF) ^ 8) - 8, p >> 4
+
+
+def quantize_kernel_int4(w: ArrayLike, pack_axis: int = 0):
+    """[in, out] float -> (packed int8, f32 scale [out]): symmetric
+    per-output-channel max-abs to [-7, 7], two values a byte, paired half
+    and half so that a block of the packed array holds both nibbles of
+    every element it stands for:
+
+      pack_axis=0: byte[i, o] = w[i, o] | w[i + in/2, o] << 4  ([in/2, out])
+      pack_axis=1: byte[i, o] = w[i, o] | w[i, o + out/2] << 4 ([in, out/2])
+
+    Numpy in, numpy out (byte-identical to the JAX package's); a tensor
+    stays on its device."""
+    is_np = isinstance(w, np.ndarray)
+    wt = torch.from_numpy(np.asarray(w, np.float32)) if is_np else w.float()
+    if wt.shape[pack_axis] % 2:
+        raise ValueError(f"quantize_kernel_int4: odd size along axis "
+                         f"{pack_axis} of {tuple(wt.shape)}")
+    absmax = wt.abs().amax(dim=0)
+    scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(wt / scale[None, :]), -7, 7).to(torch.int32)
+    lo, hi = q.chunk(2, dim=pack_axis)
+    packed = ((lo & 0xF) | ((hi & 0xF) * 16)).to(torch.uint8).view(torch.int8)
+    if is_np:
+        return packed.numpy(), scale.numpy()
+    return packed, scale
+
+
+def unpack_int4(packed: torch.Tensor, pack_axis: int = 0) -> torch.Tensor:
+    """Inverse of the packing above: int8 values in the original order."""
+    return torch.cat(_nibbles(packed), dim=pack_axis)
+
+
+def quantize_kv_int4(k: torch.Tensor, v: torch.Tensor):
+    """Symmetric per-row max-abs int4 for KV-cache entries, k and v fused:
+    byte[..., d] = k4[..., d] | v4[..., d] << 4. k, v [..., D] ->
+    (int8 [..., D], f32 k_scale [...], f32 v_scale [...])."""
+    # k and v in one pass (rows are independent): a decode step is bound
+    # by the host's launches, and this runs once a layer
+    xf = torch.stack([k, v]).float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7).to(torch.int8)
+    # v4 * 16 is v4 << 4 without a shift of a negative value; it fits int8
+    return (q[0] & 0xF) | (q[1] * 16), scale[0], scale[1]
+
+
+def dequantize_kv_int4(packed: torch.Tensor, k_scale: torch.Tensor,
+                       v_scale: torch.Tensor, dtype=torch.bfloat16):
+    """Inverse of `quantize_kv_int4`: fused [..., D] -> (k, v)."""
+    k4, v4 = _nibbles(packed)
+    return ((k4.float() * k_scale[..., None]).to(dtype),
+            (v4.float() * v_scale[..., None]).to(dtype))
+
+
+_INT4_UP = re.compile(
+    r"(.*/)?(layers_\d+/ffn/up_proj|xattn_\d+/ff_up)/kernel$")
+_INT4_DOWN = re.compile(
+    r"(.*/)?(layers_\d+/ffn/down_proj|xattn_\d+/ff_down)/kernel$")
+
+
+def quantize_params_int4(flat: Dict[str, ArrayLike]) -> Dict[str, ArrayLike]:
+    """The parameters of a `quant="int4"` model from a flat {flax path:
+    array} dict: the fused-MLP pairs (decoder ffn up/down, xattn
+    ff_up/ff_down) pack to `kernel_q4` + `scale_q`, every other kernel of
+    `DEFAULT_QUANT_PATTERNS` (all attention projections, `lm_head`) is
+    int8. A pair with biases, or beside a `gate_proj`, is loaded by the
+    int8 modules and stays int8 too."""
+    def packs(key: str) -> bool:
+        base = key[: -len("kernel")]
+        ffn_dir = base.rsplit("/", 2)[0]
+        return base + "bias" not in flat \
+            and ffn_dir + "/gate_proj/kernel" not in flat
+
+    out = {}
+    for key, v in flat.items():
+        base = key[: -len("kernel")]
+        up = _INT4_UP.match(key)
+        if (up or _INT4_DOWN.match(key)) and packs(key):
+            q, scale = quantize_kernel_int4(v, pack_axis=0 if up else 1)
+            out[base + "kernel_q4"] = q
+            out[base + "scale_q"] = scale
+        elif DEFAULT_QUANT_PATTERNS.match(key):
+            q, scale = quantize_kernel(v)
+            out[base + "kernel_q"] = q
+            out[base + "scale_q"] = scale
+        else:
+            out[key] = v
+    return out
+
+
+def _unpacked_matmul(x, kernel_q4, scale_q, pack_axis, dtype):
+    """(x @ unpack(kernel_q4)) * scale in `dtype`, the scale on the output
+    side (a plain product over a converted weight, as `Int8Dense`)."""
+    y = x.to(dtype) @ unpack_int4(kernel_q4, pack_axis).to(dtype)
+    return y * scale_q.to(dtype)
+
+
+class Int4Dense(nn.Module):
+    """Dense over a packed int4 `kernel_q4` ([in/2, out] for pack_axis 0,
+    [in, out/2] for 1) and f32 `scale_q` [out], for prefill shapes: unpack,
+    convert, multiply."""
+
+    def __init__(self, in_features: int, features: int, pack_axis: int = 0,
+                 *, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.pack_axis, self.dtype = pack_axis, dtype
+        shape = ((in_features // 2, features) if pack_axis == 0
+                 else (in_features, features // 2))
+        self.register_buffer("kernel_q4", torch.empty(
+            shape, dtype=torch.int8, device=device))
+        self.register_buffer("scale_q", torch.ones(
+            features, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _unpacked_matmul(x, self.kernel_q4, self.scale_q,
+                                self.pack_axis, self.dtype)
+
+
+class Int4AttnDense(nn.Module):
+    """int4 projection (pack_axis 0): the `int4_matmul` kernel at up to 32
+    tokens, unpack and multiply above. No model routes to it (`make_dense`
+    keeps projections at int8, as the JAX package does)."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel_q4", torch.empty(
+            in_features // 2, features, dtype=torch.int8, device=device))
+        self.register_buffer("scale_q", torch.ones(
+            features, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tokens = x.numel() // x.shape[-1]
+        if tokens <= 32:
+            y = int4_matmul(x.reshape(tokens, -1).to(self.dtype),
+                            self.kernel_q4, self.scale_q)
+            return y.reshape(x.shape[:-1] + (y.shape[-1],))
+        return _unpacked_matmul(x, self.kernel_q4, self.scale_q, 0,
+                                self.dtype)
+
+
+_INT4_ACTS = ("gelu", "relu", "silu")
+
+
+def int4_mlp_plain(x, w1p, s1, w2p, s2, *, act="gelu"):
+    """The kernel's function in plain PyTorch: `int8_mlp_plain` over the
+    unpacked weights."""
+    return int8_mlp_plain(x, unpack_int4(w1p, 0), s1, unpack_int4(w2p, 1),
+                          s2, act=act)
+
+
+def _check_kernel_inputs(what: str, x: torch.Tensor, *weights: torch.Tensor):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16 or any(w.dtype != torch.int8
+                                        for w in weights):
+        raise TypeError(f"{what} kernel takes bf16 x and packed int8 weights")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (x, *weights)):
+        raise ValueError(f"{what} kernel: x and the weights must be "
+                         f"contiguous and 16-byte aligned")
+
+
+def int4_mlp(x: torch.Tensor, w1p: torch.Tensor, s1: torch.Tensor,
+             w2p: torch.Tensor, s2: torch.Tensor, *,
+             act: str = "gelu") -> torch.Tensor:
+    """act((x @ unpack0(w1p)) * s1) @ unpack1(w2p) * s2 with x [M, K], w1p
+    [K/2, H] (pack_axis 0), w2p [H, N/2] (pack_axis 1), f32 scales s1 [H],
+    s2 [N]; the hidden activation is rounded to x's dtype before the second
+    product. CUDA tensors: x bf16, M <= 32, K % 128 == 0, H % 128 == 0,
+    N % 32 == 0, everything contiguous and 16-byte aligned."""
+    m, k = x.shape
+    h, n = w2p.shape[0], 2 * w2p.shape[1]
+    if w1p.shape != (k // 2, h) or k % 2 or s1.shape != (h,) \
+            or s2.shape != (n,):
+        raise ValueError(f"int4_mlp: x {tuple(x.shape)}, w1p "
+                         f"{tuple(w1p.shape)}, w2p {tuple(w2p.shape)}")
+    if act not in _INT4_ACTS:
+        raise ValueError(f"int4_mlp: act {act!r}")
+    if x.device.type == "cpu":
+        return int4_mlp_plain(x, w1p, s1, w2p, s2, act=act)
+    _check_kernel_inputs("int4_mlp", x, w1p, w2p)
+    if m > 32 or k % 128 or h % 128 or n % 32:
+        raise ValueError(f"int4_mlp kernel: M={m} (<= 32), K={k} (% 128), "
+                         f"H={h} (% 128), N={n} (% 32)")
+    s1, s2 = s1.float().contiguous(), s2.float().contiguous()
+    ws = torch.empty((h // 128, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.library("int4_mlp", _SIGNATURES_INT4)
+    err = lib.int4_mlp_bf16(
+        x.data_ptr(), w1p.data_ptr(), s1.data_ptr(), w2p.data_ptr(),
+        s2.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, h, n,
+        _ACT_IDS[act], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "int4_mlp")
+    int4_mlp.launches += 1
+    return out
+
+
+int4_mlp.launches = 0
+
+
+def int4_matmul_plain(x, wp, scale):
+    """The kernel's function in plain PyTorch: an f32 product of x with
+    the unpacked weight converted to x's dtype, scaled on the output."""
+    dt = x.dtype
+    y = x.float() @ unpack_int4(wp, 0).to(dt).float()
+    return (y * scale.float()).to(dt)
+
+
+def _int4_matmul_splits(k: int, n: int) -> int:
+    """How many CTAs share one 128-column block's K (each takes a run of
+    packed rows and its partial sums are added in a fixed order): enough
+    to put about 256 CTAs on the card, in whole 64-row stages."""
+    splits = 1
+    while splits < 16 and (n // 128) * splits < 256 \
+            and (k // 2) % (128 * splits) == 0:
+        splits *= 2
+    return splits
+
+
+def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """(x @ unpack0(wp)) * scale with x [M, K], wp [K/2, N] (pack_axis 0),
+    f32 scale [N]. CUDA tensors: x bf16, M <= 32, K % 128 == 0,
+    N % 128 == 0, contiguous and 16-byte aligned."""
+    m, k = x.shape
+    n = wp.shape[1]
+    if wp.shape[0] * 2 != k or scale.shape != (n,):
+        raise ValueError(f"int4_matmul: x {tuple(x.shape)}, wp "
+                         f"{tuple(wp.shape)}, scale {tuple(scale.shape)}")
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, wp, scale)
+    _check_kernel_inputs("int4_matmul", x, wp)
+    if m > 32 or k % 128 or n % 128:
+        raise ValueError(f"int4_matmul kernel: M={m} (<= 32), K={k} "
+                         f"(% 128), N={n} (% 128)")
+    scale = scale.float().contiguous()
+    splits = _int4_matmul_splits(k, n)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.library("int4_mlp", _SIGNATURES_INT4)
+    err = lib.int4_matmul_bf16(
+        x.data_ptr(), wp.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), m, k, n, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "int4_matmul")
+    int4_matmul.launches += 1
+    return out
+
+
+int4_matmul.launches = 0

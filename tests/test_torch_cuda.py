@@ -231,3 +231,168 @@ def test_decode_attention_matches_plain(gen, int8, d):
     keep = (lengths > starts)[:, None, None].expand_as(out)
     _close(out, ref, keep)
     assert bool((out[3] == 0).all())   # nothing to attend: zeros
+
+
+def _int4_pair(gen, k, h, n):
+    w1p, s1 = quant.quantize_kernel_int4(0.05 * torch.randn(
+        k, h, generator=gen, device="cuda"), 0)
+    w2p, s2 = quant.quantize_kernel_int4(0.05 * torch.randn(
+        h, n, generator=gen, device="cuda"), 1)
+    return w1p, s1, w2p, s2
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 20, 32])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+def test_int4_mlp_matches_plain(gen, m, act):
+    # N/2 = 96: a pass narrower than the threads' 8-byte columns cover
+    w = _int4_pair(gen, 256, 512, 192)
+    x = _rnd(gen, m, 256)
+    before = quant.int4_mlp.launches
+    out = quant.int4_mlp(x, *w, act=act)
+    assert quant.int4_mlp.launches == before + 1
+    _close(out, quant.int4_mlp_plain(x, *w, act=act))
+
+
+def test_int4_mlp_wide_output_and_determinism(gen):
+    # N/2 = 2560: more than one 2048-column pass of packed W2
+    w = _int4_pair(gen, 1024, 2048, 5120)
+    x = _rnd(gen, 8, 1024)
+    first = quant.int4_mlp(x, *w)
+    _close(first, quant.int4_mlp_plain(x, *w))
+    for _ in range(3):
+        assert torch.equal(quant.int4_mlp(x, *w), first)
+
+
+@pytest.mark.parametrize("m", [1, 5, 32])
+@pytest.mark.parametrize("k,n", [(256, 384), (1024, 128), (4096, 4096)])
+def test_int4_matmul_matches_plain(gen, m, k, n):
+    wp, scale = quant.quantize_kernel_int4(0.05 * torch.randn(
+        k, n, generator=gen, device="cuda"), 0)
+    x = _rnd(gen, m, k)
+    before = quant.int4_matmul.launches
+    out = quant.int4_matmul(x, wp, scale)
+    assert quant.int4_matmul.launches == before + 1
+    _close(out, quant.int4_matmul_plain(x, wp, scale))
+    assert torch.equal(quant.int4_matmul(x, wp, scale), out)
+
+
+def test_int4_attn_dense_routes_by_token_count(gen):
+    dense = quant.Int4AttnDense(256, 384, device="cuda")
+    wp, scale = quant.quantize_kernel_int4(0.05 * torch.randn(
+        256, 384, generator=gen, device="cuda"), 0)
+    dense.kernel_q4.copy_(wp)
+    dense.scale_q.copy_(scale)
+    before = quant.int4_matmul.launches
+    few, many = _rnd(gen, 2, 4, 256), _rnd(gen, 2, 40, 256)
+    _close(dense(few), quant.int4_matmul_plain(
+        few.reshape(8, 256), wp, scale).reshape(2, 4, 384))
+    assert quant.int4_matmul.launches == before + 1
+    _close(dense(many), quant.int4_matmul_plain(
+        many.reshape(80, 256), wp, scale).reshape(2, 40, 384))
+    assert quant.int4_matmul.launches == before + 1
+
+
+def test_int4_kernels_raise_instead_of_copying(gen):
+    w1p, s1, w2p, s2 = _int4_pair(gen, 256, 512, 192)
+    x = _rnd(gen, 4, 256)
+    with pytest.raises(ValueError, match="contiguous"):   # a strided view
+        quant.int4_mlp(_rnd(gen, 4, 512)[:, ::2], w1p, s1, w2p, s2)
+    with pytest.raises(ValueError, match="aligned"):      # off by one byte
+        flat = torch.empty(w1p.numel() + 1, dtype=torch.int8, device="cuda")
+        quant.int4_mlp(x, flat[1:].view_as(w1p), s1, w2p, s2)
+    with pytest.raises(ValueError):                       # M > 32
+        quant.int4_mlp(_rnd(gen, 33, 256), w1p, s1, w2p, s2)
+    with pytest.raises(TypeError):                        # f32 x
+        quant.int4_mlp(x.float(), w1p, s1, w2p, s2)
+    with pytest.raises(ValueError):                       # K % 128
+        wp, sc = quant.quantize_kernel_int4(torch.randn(
+            64, 128, generator=gen, device="cuda"), 0)
+        quant.int4_matmul(_rnd(gen, 2, 64), wp, sc)
+
+
+def _int4_cache(gen, b, nl, h, L, d):
+    return quant.quantize_kv_int4(_rnd(gen, b, nl, h, L, d),
+                                  _rnd(gen, b, nl, h, L, d))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_attention_int4_matches_plain(gen, d):
+    """Ragged spans: one inside a single 32-key chunk, one of a single key,
+    one crossing chunks from an unaligned start, one empty (zeros, no
+    NaN)."""
+    b, nl, h, L = 4, 3, 4, 200
+    q = _rnd(gen, b, h, d)
+    kv, ks, vs = _int4_cache(gen, b, nl, h, L, d)
+    lengths = torch.tensor([60, 1, 177, 40], device="cuda")
+    starts = torch.tensor([35, 0, 33, 40], device="cuda")  # last row: empty
+    bias = torch.randn(b, 1, L, generator=gen, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, kv_bits=4, layer=2)
+    before = (da.decode_attention.launches, da.decode_attention.launches_int4)
+    out = da.decode_attention(q, kv, kv, lengths, bias, starts, **kw)
+    assert (da.decode_attention.launches,
+            da.decode_attention.launches_int4) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref = da.decode_attention_plain(q, kv, kv, lengths, bias, starts, **kw)
+    keep = (lengths > starts)[:, None, None].expand_as(out)
+    _close(out, ref, keep)
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[3] == 0).all())   # nothing to attend: zeros
+
+
+def test_decode_attention_int4_single_layer_no_bias(gen):
+    b, h, L, d = 2, 4, 96, 128
+    q = _rnd(gen, b, h, d)
+    kv, ks, vs = quant.quantize_kv_int4(_rnd(gen, b, h, L, d),
+                                        _rnd(gen, b, h, L, d))
+    lengths = torch.tensor([96, 50], device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, kv_bits=4)
+    _close(da.decode_attention(q, kv, kv, lengths, **kw),
+           da.decode_attention_plain(q, kv, kv, lengths, **kw))
+
+
+def test_decode_attention_int4_reads_the_cache_in_place(gen):
+    b, nl, h, L, d = 2, 2, 4, 64, 128
+    q = _rnd(gen, b, h, d)
+    kv, ks, vs = _int4_cache(gen, b, nl, h, L, d)
+    lengths = torch.tensor([64, 30], device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, kv_bits=4, layer=1)
+    with pytest.raises(ValueError, match="one fused array"):   # a copy as v
+        da.decode_attention(q, kv, kv.clone(), lengths, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(b, nl, h, L, 2 * d, dtype=torch.int8,
+                           device="cuda")[..., :d]
+        da.decode_attention(q, wide, wide, lengths, **kw)
+    with pytest.raises(ValueError, match="misaligned"):
+        flat = torch.zeros(kv.numel() + 1, dtype=torch.int8, device="cuda")
+        off = flat[1:].view_as(kv)
+        da.decode_attention(q, off, off, lengths, **kw)
+
+
+def test_int4_write_cache_then_decode_on_the_card(gen):
+    """The model's own path on CUDA tensors: `write_cache` quantizes a new
+    row into the fused cache in place (per-row offsets too), and the kernel
+    reads what was written."""
+    from otter_tpu_torch.config import OtterConfig
+    from otter_tpu_torch.models.decoder import init_cache, write_cache
+    c = OtterConfig.tiny("mpt").text.replace(
+        num_attention_heads=4, hidden_size=512)
+    b, L = 3, 64
+    d, h = c.head_dim, c.kv_heads
+    cache = init_cache(c, b, L, "int4", "cuda")
+    k0, v0 = _rnd(gen, b, h, 20, d), _rnd(gen, b, h, 20, d)
+    write_cache(cache, 1, k0, v0, 0)
+    k1, v1 = _rnd(gen, b, h, 1, d), _rnd(gen, b, h, 1, d)
+    pos = torch.tensor([20, 25, 21], device="cuda")
+    write_cache(cache, 1, k1, v1, pos)
+    q = _rnd(gen, b, h, d)
+    valid = torch.zeros(b, L, dtype=torch.bool, device="cuda")
+    valid[:, :20] = True
+    valid[torch.arange(b), pos] = True
+    # spans cover the gap rows 1 and 2 leave before their new entry: the
+    # zero bytes there dequantize to 0 under a 0 scale in both versions
+    lengths = pos + 1
+    kw = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"], kv_bits=4,
+              layer=1)
+    _close(da.decode_attention(q, cache["kv"], cache["kv"], lengths, **kw),
+           da.decode_attention_plain(q, cache["kv"], cache["kv"], lengths,
+                                     **kw))

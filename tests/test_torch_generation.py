@@ -1,7 +1,8 @@
 """Port parity: the generation engine and sampling helpers against the JAX
 package. Greedy tokens from the port's OtterGenerator must equal the JAX
 engine's on a ragged left-padded batch with int8 weights, an int8 KV cache
-and decode_kernel="auto"."""
+and decode_kernel="auto"; `stream_generate` must yield what `generate`
+returns for one request."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +63,51 @@ def test_sampled_generate_reproducible_with_generator():
     np.testing.assert_array_equal(outs[0], outs[1])
     np.testing.assert_array_equal(outs[0][:, :12], lang_x)
     assert ((outs[0] >= 0) & (outs[0] < cfg.text.total_vocab)).all()
+
+
+def _one_request(cfg):
+    vx, ids = inputs(cfg, 23, 1, 10)
+    return vx, ids.astype(np.int64), np.ones_like(ids)
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_stream_generate_yields_what_generate_returns(sampled):
+    cfg, _, _, _ = jax_tiny()
+    vx, lang_x, attn = _one_request(cfg)
+    engine = tengine.OtterGenerator(torch_tiny(), cache_dtype=torch.int8)
+    gen = TGen(max_new_tokens=6, no_repeat_ngram_size=2,
+               bad_words_ids=((3,),), do_sample=sampled, temperature=0.9,
+               top_k=30)
+    rng = lambda: torch.Generator().manual_seed(5) if sampled else None
+    full = engine.generate(vx, lang_x, attn, gen=gen, generator=rng())
+    stream = engine.stream_generate(vx, lang_x, attn, gen=gen,
+                                    generator=rng())
+    first = next(stream)
+    assert isinstance(first, int)
+    assert not torch.is_inference_mode_enabled()   # nothing leaks out
+    assert [first] + list(stream) == full[0, 10:].tolist()
+
+
+def test_stream_generate_stops_at_eos():
+    cfg, _, _, _ = jax_tiny()
+    vx, lang_x, attn = _one_request(cfg)
+    engine = tengine.OtterGenerator(torch_tiny(), cache_dtype=torch.int8)
+    free = engine.generate(vx, lang_x, attn, gen=TGen(
+        max_new_tokens=6, no_repeat_ngram_size=1))[0, 10:].tolist()
+    # the fourth token as eos: three are yielded, eos itself is not
+    gen = TGen(max_new_tokens=6, no_repeat_ngram_size=1,
+               eos_token_id=free[3])
+    assert list(engine.stream_generate(vx, lang_x, attn, gen=gen)) == free[:3]
+    out = engine.generate(vx, lang_x, attn, gen=gen)[0, 10:].tolist()
+    assert out == free[:4] + [gen.pad_token_id] * 2
+
+
+def test_stream_generate_serves_one_request():
+    cfg, _, _, _ = jax_tiny()
+    vx, ids, mask = _ragged_batch(cfg)
+    engine = tengine.OtterGenerator(torch_tiny(), cache_dtype=torch.int8)
+    with pytest.raises(ValueError, match="one request"):
+        next(engine.stream_generate(vx, ids, mask))
 
 
 def test_entry_points_default_to_cuda():

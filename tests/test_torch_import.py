@@ -22,6 +22,12 @@ import otter_tpu_torch
 for m in pkgutil.walk_packages(otter_tpu_torch.__path__, "otter_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+# the int4 serving path lives in these modules
+from otter_tpu_torch.ops.quant import (Int4AttnDense, Int4Dense, int4_matmul,
+                                       int4_mlp, quantize_params_int4)
+from otter_tpu_torch.models.decoder import cache_len_of
+from otter_tpu_torch.generation.engine import OtterGenerator
+assert OtterGenerator.stream_generate
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules

@@ -1,5 +1,6 @@
 """Shared fixtures for the port's parity tests: one tiny JAX model with
-int8 weights and its PyTorch twin built from the same parameters.
+int8 weights (another with int4 weights, another unquantized as the
+trainer sees it) and its PyTorch twin built from the same parameters.
 
 The JAX package is the reference. Parameters travel as numpy through
 `otter_tpu_torch.models.convert.load_flax_params`, the port's only weight
@@ -17,6 +18,7 @@ from flax import traverse_util
 from otter_tpu import config as jcfg
 from otter_tpu.models.otter import OtterVLM as JaxOtterVLM
 from otter_tpu.ops.quant import quantize_params as jax_quantize_params
+from otter_tpu.ops.quant import quantize_params_int4 as jax_quantize_int4
 from otter_tpu_torch import config as tcfg
 from otter_tpu_torch.models.convert import load_flax_params
 from otter_tpu_torch.models.otter import OtterVLM as TorchOtterVLM
@@ -57,6 +59,37 @@ def jax_tiny(seed: int = 0, decode_kernel="auto"):
 
 def torch_tiny(seed: int = 0, decode_kernel="auto"):
     cfg, _, _, flat = jax_tiny(seed, decode_kernel)
+    model = TorchOtterVLM(port_cfg(cfg), dtype=torch.float32, device="cpu")
+    load_flax_params(model, flat)
+    return model
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tiny_int4(seed: int = 0, decode_kernel="auto"):
+    """(cfg, model, params, flat numpy params) of a tiny OtterVLM with
+    `quant="int4"`: the unquantized model's random weights (tanh gates set
+    away from zero) through the JAX package's `quantize_params_int4`."""
+    base = jcfg.OtterConfig.tiny("mpt")
+    cfg = base.replace(text=base.text.replace(quant="int4",
+                                              decode_kernel=decode_kernel))
+    vx = jnp.zeros((1, 1, 1, 3, 28, 28), jnp.float32)
+    ids = jnp.zeros((1, 8), jnp.int32)
+    params = jax.jit(JaxOtterVLM(base).init)(jax.random.PRNGKey(seed), vx,
+                                             ids)
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    rng = np.random.default_rng(seed + 300)
+    for k in flat:
+        if k.endswith(("attn_gate", "ff_gate")):
+            flat[k] = rng.uniform(0.3, 0.9, flat[k].shape).astype(np.float32)
+    params = jax_quantize_int4(traverse_util.unflatten_dict(flat, sep="/"))
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    return cfg, JaxOtterVLM(cfg), params, flat
+
+
+def torch_tiny_int4(seed: int = 0, decode_kernel="auto"):
+    cfg, _, _, flat = jax_tiny_int4(seed, decode_kernel)
     model = TorchOtterVLM(port_cfg(cfg), dtype=torch.float32, device="cpu")
     load_flax_params(model, flat)
     return model
