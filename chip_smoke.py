@@ -23,6 +23,10 @@ unless every phase passes:
                  weights and an int4 cache: first-step logits (prefill and
                  first cached decode step) through the kernels against the
                  same model with every kernel swapped for its plain version.
+                 Then the int8 model with `megakernel=True` (bf16 cache) and
+                 with `fused_tail=True` (int8 cache) on full-length prompts:
+                 kernels against plain, and against the composed route of
+                 the same weights.
   5. serve       OTTER-MPT7B at full width (32 layers, 8 xattn blocks, CLIP
                  ViT-L/14, perceiver depth 6; random weights from a seed,
                  the decoder's and xattn's quantized to int8), int8 KV cache, decode_kernel="auto":
@@ -42,7 +46,16 @@ unless every phase passes:
                  the kernels against the same step with every kernel swapped
                  for its plain version: loss, every trainable gradient,
                  grad norm.
-  8. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
+  8. fused       the decode bench (otter_tpu_torch/tools/bench_decode.py) at
+                 full width and depth, b=8, prompt 128, cache 256, int8
+                 weights, three times: (a) the composed decode layer with a
+                 bf16 cache, (b) `megakernel=True` with a bf16 cache, (c)
+                 `fused_tail=True` with an int8 cache. Checks the launches a
+                 decode step of every kernel on each route, that greedy
+                 tokens repeat between runs, and that (b) holds one more
+                 int8 copy of Wqkv and Wo; prints step ms, tok/s and the
+                 share of the memory roofline of the three.
+  9. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
                  fused CE, embedding-row mask, lr 1e-4 constant). Checks
@@ -53,9 +66,10 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all eight. `profile` (not run by default) adds torch.profiler tables
-of one batch-8 request (with serve and with serve4) and of one train step
-(with train) to the output directory, `OUT_DIR`.
+runs all nine. `profile` (not run by default) adds torch.profiler tables
+of one batch-8 request (with serve and with serve4), of the three fused
+runs (with fused: device ms and launches a decode step) and of one train
+step (with train) to the output directory, `OUT_DIR`.
 """
 
 from __future__ import annotations
@@ -69,8 +83,6 @@ import shutil
 import subprocess
 import sys
 import time
-import zlib
-from collections.abc import Mapping
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -285,7 +297,10 @@ def _sdpa_backward_ms(kw, do):
     return time_ms(both, 10) - time_ms(fwd, 10)
 
 
-def phase_kernels(gen):
+def phase_kernels(gen, fused_only: bool = False):
+    """Every kernel against its plain version; `fused_only` (phase
+    `fusedkernels`, for bring-up) checks the fused decode layer's two
+    alone."""
     import torch
     import torch.nn.functional as F
     from otter_tpu_torch.ops import decode_attention as da
@@ -311,6 +326,16 @@ def phase_kernels(gen):
             failed.append(f"{kernel}[{case}]")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    def done():
+        if failed:
+            raise RuntimeError(f"kernels disagree with their plain "
+                               f"versions: {failed}")
+        return entries
+
+    if fused_only:
+        _fused_layer_kernels(gen, report, entries)
+        return done()
 
     # flash attention forward: four prefill configurations
     for case, kw, keep in _flash_cases(gen):
@@ -547,70 +572,122 @@ def phase_kernels(gen):
         if L4 == L:
             entries["decode_attention_int4"] = r
         del kv, ks, vs
-    if failed:
-        raise RuntimeError(f"kernels disagree with their plain versions: "
-                           f"{failed}")
-    return entries
+
+    _fused_layer_kernels(gen, report, entries)
+    return done()
+
+
+def _fused_layer_kernels(gen, report, entries):
+    """`int8_attn_tail` and `decode_attn_megakernel` against their plain
+    versions at MPT-7B's widths (D=4096, H=16384, 32 heads of 128). Two
+    weight sets in turn (and, for the megakernel, another cache layer each
+    launch), so that the timed reads come from device memory and not from
+    the 50 MB L2. No single PyTorch call computes either: library "none"."""
+    import torch
+    from otter_tpu_torch.ops import megakernel as mk
+    from otter_tpu_torch.ops import quant
+    from otter_tpu_torch.ops.masks import alibi_slopes
+    d, hid, h, dh = 4096, 16384, 32, 128
+
+    def qk(rows, cols):
+        return quant.quantize_kernel(0.02 * torch.randn(
+            rows, cols, generator=gen, device="cuda"))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def gain():
+        return 1 + 0.02 * torch.randn(d, generator=gen, device="cuda")
+
+    def worst(outs, refs):
+        pairs = [max_err(o, r) for o, r in zip(outs, refs)]
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+        return (max(e for e, _ in pairs),
+                max(x for _, x in pairs) if finite else float("inf"))
+
+    # the layer tail: out-proj + residual, norm_2, MLP + residual
+    tails = []
+    for _ in range(2):
+        (wo, so), (w1, s1), (w2, s2) = qk(d, d), qk(d, hid), qk(hid, d)
+        tails.append((wo, so, gain(), w1, s1, w2, s2))
+    for m in (1, 8, 32):
+        a, r = rnd(m, d), rnd(m, d)
+        out = quant.int8_attn_tail(a, r, *tails[0])
+        ref = quant.int8_attn_tail_plain(a, r, *tails[0])
+        torch.cuda.synchronize()
+        err, excess = worst([out], [ref])
+        it = iter(range(10 ** 9))
+        nbytes = (d * d + 2 * d * hid) + 4 * (3 * d + hid) + 2 * 3 * m * d
+        res = report("int8_attn_tail", f"M={m}", err, excess,
+                     time_ms(lambda: quant.int8_attn_tail(
+                         a, r, *tails[next(it) % 2])),
+                     time_ms(lambda: quant.int8_attn_tail_plain(
+                         a, r, *tails[next(it) % 2]), 5), None, nbytes,
+                     2.0 * m * (d * d + 2 * d * hid))
+        if m == 8:
+            entries["int8_attn_tail"] = res
+    del tails
+
+    # the attention half: norm_1, qkv, cached attention, out-proj + residual
+    wqos = []
+    for _ in range(2):
+        (wqkv, sqkv), (wo, so) = qk(d, 3 * d), qk(d, d)
+        wqos.append((gain(), torch.cat([wqkv, wo], dim=1).contiguous(),
+                     torch.cat([sqkv, so])))
+        del wqkv, wo
+    for L, nl, cases in ((256, 4, ((8, 0), (8, 57), (8, 255), (1, 255))),
+                         (2048, 2, ((8, 2047),))):
+        bias = (torch.arange(L, device="cuda")[None, :]
+                * alibi_slopes(h, device="cuda")[:, None]).float()
+        kc, vc = rnd(8, nl, h, L, dh), rnd(8, nl, h, L, dh)
+        for b, pos in cases:
+            # rows at and past pos hold garbage the kernel must not read
+            k, v = kc[:b].clone(), vc[:b].clone()
+            k[:, :, :, pos:] = 1e4
+            v[:, :, :, pos:] = 1e4
+            x = rnd(b, d)
+            layer = nl - 1
+            outs = mk.decode_attn_megakernel(x, k, v, pos, bias, *wqos[0],
+                                             layer=layer)
+            refs = mk.decode_attn_megakernel_plain(x, k, v, pos, bias,
+                                                   *wqos[0], layer=layer)
+            torch.cuda.synchronize()
+            err, excess = worst(outs, refs)
+            it = iter(range(10 ** 9))
+
+            def call(fn):
+                i = next(it)
+                return fn(x, k, v, pos, bias, *wqos[i % 2], layer=i % nl)
+
+            nbytes = (4 * d * d + 4 * 4 * d + 4 * d + 2 * 2 * b * h * pos * dh
+                      + 4 * h * (pos + 1) + 2 * 4 * b * d)
+            res = report("decode_attn_megakernel", f"b={b} L={L} pos={pos}",
+                         err, excess,
+                         time_ms(lambda: call(mk.decode_attn_megakernel)),
+                         time_ms(lambda: call(
+                             mk.decode_attn_megakernel_plain), 5), None,
+                         nbytes, 2.0 * b * 4 * d * d + 4.0 * b * h * pos * dh)
+            if (b, L, pos) == (8, 256, 255):
+                entries["decode_attn_megakernel"] = res
+            del k, v
+        del kc, vc
 
 
 # ── model construction ──────────────────────────────────────────────
 
 def build_model(cfg):
-    """Full-width OtterVLM on the card with RandomParams weights, quantized
-    tensor by tensor on the card by the port's quantize_params (or
-    quantize_params_int4 for `quant="int4"`) and loaded through
-    models.convert."""
-    import torch
-    from otter_tpu_torch.models.convert import load_flax_params
-    from otter_tpu_torch.models.otter import OtterVLM
-    from otter_tpu_torch.ops import quant
-
-    model = OtterVLM(cfg, dtype=torch.bfloat16, device=DEV)
-    bf16_cfg = cfg.replace(text=cfg.text.replace(quant=None))
-    quantize = (quant.quantize_params_int4 if cfg.text.quant == "int4"
-                else quant.quantize_params)
-    load_flax_params(model, quantize(RandomParams(bf16_cfg)))
-    return model.eval()
+    """Full-width OtterVLM on the card with random weights from SEED,
+    quantized tensor by tensor on the card."""
+    from otter_tpu_torch.tools.random_weights import build_model as build
+    return build(cfg, DEV, SEED)
 
 
-class RandomParams(Mapping):
-    """{flax path: tensor} of a model's random bf16 weights, made on the
-    card when read, each from its own seed: normal(0, std), LayerNorm
-    scales 1 + that, tanh gates 1 (tanh(1) ~ 0.76, so the xattn blocks
-    contribute). Any tensor can be made again to check a trained copy,
-    and the whole set never sits in memory beside the model."""
-
-    def __init__(self, cfg, std: float = 0.02, seed: int = SEED):
-        import torch
-        from otter_tpu_torch.models.otter import OtterVLM
-        meta = OtterVLM(cfg, dtype=torch.bfloat16, device="meta")
-        self.specs = {"params/" + n.replace(".", "/"): (tuple(t.shape),
-                                                        t.dtype)
-                      for n, t in meta.named_parameters()}
-        self.std, self.seed = std, seed
-
-    def __iter__(self):
-        return iter(self.specs)
-
-    def __len__(self):
-        return len(self.specs)
-
-    def __contains__(self, path):
-        return path in self.specs   # without making the tensor
-
-    def __getitem__(self, path):
-        import torch
-        shape, dtype = self.specs[path]
-        leaf = path.rsplit("/", 1)[-1]
-        if leaf in ("attn_gate", "ff_gate"):
-            return torch.ones(shape, device=DEV, dtype=dtype)   # tanh(1)
-        gen = torch.Generator(device=DEV)
-        gen.manual_seed(self.seed + zlib.crc32(path.encode()))
-        val = self.std * torch.randn(shape, generator=gen, device=DEV,
-                                     dtype=torch.bfloat16)
-        if leaf == "scale":
-            val = val + 1
-        return val.to(dtype)
+def random_params(cfg):
+    """{flax path: tensor} of `cfg`'s random bf16 weights, made on the card
+    when read, each from its own seed."""
+    from otter_tpu_torch.tools import random_weights
+    return random_weights.RandomParams(cfg, DEV, seed=SEED)
 
 
 def train_cfg(depth_cut: bool = False):
@@ -675,14 +752,17 @@ def serving_cfg(depth_cut: bool = False, quant: str = "int8"):
         perceiver=cfg.perceiver.replace(depth=1))
 
 
-def make_requests(cfg, batch: int, seed: int):
-    """Ragged 32-128-token prompts, each starting with the media token,
-    left-padded to 128, with one 224x224 image each (numpy)."""
+def make_requests(cfg, batch: int, seed: int, full: bool = False):
+    """Ragged 32-128-token prompts (`full`: all 128 tokens long), each
+    starting with the media token, left-padded to 128, with one 224x224
+    image each (numpy)."""
     import numpy as np
     from otter_tpu_torch.generation.engine import left_pad
     rng = np.random.default_rng(seed)
     p = 128
     lens = rng.integers(32, p + 1, batch)
+    if full:
+        lens[:] = p
     ids = rng.integers(0, cfg.eoc_token_id, (batch, p)).astype(np.int64)
     ids[:, 0] = cfg.media_token_id
     mask = (np.arange(p)[None, :] < lens[:, None]).astype(np.int32)
@@ -698,21 +778,26 @@ def plain_kernels():
     """Swap every kernel wrapper for its plain version at the call sites."""
     from otter_tpu_torch.ops import decode_attention as da
     from otter_tpu_torch.ops import flash_attention as fa
+    from otter_tpu_torch.ops import megakernel as mk
     from otter_tpu_torch.ops import quant
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
              quant.int8_mlp, quant.int4_mlp, quant.int4_matmul,
-             da.decode_attention)
+             da.decode_attention, mk.decode_attn_megakernel,
+             quant.int8_attn_tail)
     fa.flash_attention_fwd = fa.flash_attention_plain
     fa.flash_attention_bwd = fa.flash_attention_bwd_plain
     quant.int8_mlp = quant.int8_mlp_plain
     quant.int4_mlp = quant.int4_mlp_plain
     quant.int4_matmul = quant.int4_matmul_plain
     da.decode_attention = da.decode_attention_plain
+    mk.decode_attn_megakernel = mk.decode_attn_megakernel_plain
+    quant.int8_attn_tail = quant.int8_attn_tail_plain
     try:
         yield
     finally:
         (fa.flash_attention_fwd, fa.flash_attention_bwd, quant.int8_mlp,
-         quant.int4_mlp, quant.int4_matmul, da.decode_attention) = saved
+         quant.int4_mlp, quant.int4_matmul, da.decode_attention,
+         mk.decode_attn_megakernel, quant.int8_attn_tail) = saved
 
 
 # ── phase 4: kernel path against the plain path ─────────────────────
@@ -761,6 +846,39 @@ def phase_parity():
                                    f"plain path at the {name} logits")
         del model
 
+    # the fused decode routes, on full-length prompts (the megakernel
+    # attends every cache row below the position: no left padding):
+    # kernels against plain, and against the composed route of the same
+    # weights (same seed), whose first cached step is the reference
+    cfg = serving_cfg(depth_cut=True)
+    req = make_requests(cfg, 8, SEED + 2, full=True)
+    composed = {}
+    for route, cache_dtype in (("megakernel", torch.bfloat16),
+                               ("fused_tail", torch.int8)):
+        if cache_dtype not in composed:
+            model = build_model(cfg)
+            composed[cache_dtype] = first_step_logits(model, cfg, cache_dtype,
+                                                      *req)
+            del model
+        rcfg = cfg.replace(text=cfg.text.replace(**{route: True}))
+        model = build_model(rcfg)
+        kern = first_step_logits(model, rcfg, cache_dtype, *req)
+        with plain_kernels():
+            plain = first_step_logits(model, rcfg, cache_dtype, *req)
+        for against, ref in (("plain", plain),
+                             ("composed", composed[cache_dtype])):
+            err = float((kern[1] - ref[1]).abs().max())
+            scale = float(ref[1].abs().max())
+            ok = torch.isfinite(kern[1]).all() and err <= 5e-2 * scale
+            log(f"parity[{route}, decode step 1, kernels vs {against}]: "
+                f"logits max_abs_err {err:.4e} vs max|{against}| "
+                f"{scale:.4e} (tolerance 5e-2 * max|{against}|) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{route}: kernel path disagrees with the "
+                                   f"{against} path at the first cached step")
+        del model
+
 
 # ── phase 5: serve requests at full width ───────────────────────────
 
@@ -771,9 +889,7 @@ def phase_serve(smi: str, quant_mode: str = "int8"):
     import torch
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
-    from otter_tpu_torch.ops import decode_attention as da
-    from otter_tpu_torch.ops import flash_attention as fa
-    from otter_tpu_torch.ops import quant
+    from otter_tpu_torch.tools import bench_decode
 
     int4 = quant_mode == "int4"
     tag = "serve4" if int4 else "serve"
@@ -786,10 +902,7 @@ def phase_serve(smi: str, quant_mode: str = "int8"):
         f"weights ({n_bytes / 1e9:.2f} GB on the card) and {quant_mode} KV "
         f"cache, built and loaded in {time.perf_counter() - t0:.1f} s")
     engine = OtterGenerator(model, cache_dtype="int4" if int4 else torch.int8)
-    for w in (fa.flash_attention, quant.int8_mlp, quant.int4_mlp,
-              quant.int4_matmul, da.decode_attention):
-        w.launches = 0
-    da.decode_attention.launches_int4 = 0
+    bench_decode.reset_kernel_launches()
     for b in (1, 8):
         vision_x, lang_x, attn = make_requests(cfg, b, SEED + 10 + b)
         engine.generate(vision_x, lang_x, attn,
@@ -838,13 +951,7 @@ def phase_serve(smi: str, quant_mode: str = "int8"):
             f"{[round(x * 1e3, 2) for x in times[1]]} ms, 32-token runs "
             f"{[round(x * 1e3, 2) for x in times[32]]} ms | {smi} | first "
             f"tokens {out[0, p:p + 8].tolist()}")
-    n_int4 = da.decode_attention.launches_int4
-    launches = {"flash_fwd": fa.flash_attention.launches,
-                "int8_mlp": quant.int8_mlp.launches,
-                "int4_mlp": quant.int4_mlp.launches,
-                "int4_matmul": quant.int4_matmul.launches,
-                "decode_attention": da.decode_attention.launches - n_int4,
-                "decode_attention_int4": n_int4}
+    launches = bench_decode.kernel_launches()
     log(f"{tag}: kernel launches during the requests {launches}")
     # no model routes a projection through int4_matmul (the JAX package
     # keeps them int8): it is held against its plain version in the kernels
@@ -903,6 +1010,190 @@ def _report_profile(prof, wall: float, label: str, fname: str):
         f"{sum(e.count for e in kern)} kernel launches; table in {path}")
     for e in kern[:15]:
         log(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    return busy, sum(e.count for e in kern)
+
+
+# ── phase 8: the fused decode routes through the decode bench ───────
+
+FUSED_RUNS = (
+    ("composed", dict(cache_bit="bf16"),
+     {"int8_mlp": 40, "decode_attention": 0, "decode_attn_megakernel": 0,
+      "int8_attn_tail": 0}),
+    ("megakernel", dict(megakernel=True, cache_bit="bf16"),
+     {"int8_mlp": 40, "decode_attention": 0, "decode_attn_megakernel": 32,
+      "int8_attn_tail": 0}),
+    ("fused_tail", dict(fused_tail=True, cache_bit="int8",
+                        decode_kernel="auto"),
+     {"int8_mlp": 8, "decode_attention": 32, "decode_attn_megakernel": 0,
+      "int8_attn_tail": 32}),
+)
+
+
+def phase_fused(smi: str, profile: bool = False):
+    """`tools/bench_decode.run` at full width and depth, b=8: the composed
+    decode layer, the megakernel route and the fused-tail route."""
+    from otter_tpu_torch.tools import bench_decode
+
+    bench_decode.reset_kernel_launches()
+    results, failed = {}, []
+    for name, kw, want in FUSED_RUNS:
+        res = results[name] = bench_decode.run(batch=8, device=DEV,
+                                               seed=SEED, **kw)
+        got = res["launches_per_step"]
+        log(f"fused[{name}]: {res['layers']}-layer OTTER-MPT7B int8, b=8, "
+            f"prompt 128, cache {res['cache_len']} {res['cache_bit']} | "
+            f"step {res['step_ms']:.3f} ms ({res['tokens_per_s']:.2f} tok/s), "
+            f"estimates {[round(x, 3) for x in res['step_ms_estimates']]} "
+            f"ms | reads {res['decode_step_bytes'] / 1e9:.3f} GB a step: "
+            f"roofline {res['roofline_ms']:.3f} ms, share "
+            f"{100 * res['roofline_share']:.2f}% of 3.35 TB/s | weights "
+            f"{res['weight_bytes'] / 1e9:.3f} GB on the card | launches a "
+            f"step {got} | first tokens {res['first_tokens']} | {smi}")
+        if any(got[k] != n for k, n in want.items()):
+            failed.append(f"{name}: launches a step {got}, expected {want}")
+        if not res["tokens_equal"]:
+            failed.append(f"{name}: greedy output differs between runs")
+        if not res["tokens_valid"]:
+            failed.append(f"{name}: output shape or a token outside the "
+                          f"vocabulary")
+        if not (math.isfinite(res["step_ms"]) and res["step_ms"] > 0):
+            failed.append(f"{name}: step time {res['step_ms']}")
+    launches = bench_decode.kernel_launches()
+    extra = (results["megakernel"]["weight_bytes"]
+             - results["composed"]["weight_bytes"])
+    d = 4096
+    want_extra = 32 * (4 * d * d + 4 * 4 * d)   # wqo_q + wqo_scale a layer
+    log(f"fused: the megakernel's weights take {extra / 1e9:.4f} GB more on "
+        f"the card than the composed route's (32 x [4096, 16384] int8 + "
+        f"scales = {want_extra / 1e9:.4f} GB)")
+    if extra != want_extra:
+        failed.append(f"fused copy of Wqkv | Wo: {extra} bytes, expected "
+                      f"{want_extra}")
+    base = results["composed"]["step_ms"]
+    log("fused: step time against the composed route of this call: "
+        + ", ".join(f"{n} {results[n]['step_ms'] / base:.3f}x"
+                    for n in ("megakernel", "fused_tail")))
+    if failed:
+        raise RuntimeError("fused phase failed: " + "; ".join(failed))
+    if profile:
+        _profile_fused()
+    return launches
+
+
+def _profile_layer_routes():
+    """One full-width decoder layer (int8 weights, b=8, one new token at
+    position 200 of a bf16 cache of 256) on the composed, megakernel and
+    fused-tail routes, the same weights and cache for all three: device ms
+    and kernel launches a call, from torch.profiler over 20 calls. What a
+    fused route replaces is the composed layer less what the two share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from otter_tpu_torch.models.decoder import DecoderLayer, init_cache
+    from otter_tpu_torch.ops import quant
+    from otter_tpu_torch.ops.masks import alibi_slopes
+
+    text = serving_cfg().text.replace(megakernel=True, decode_kernel=False)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 50)
+    layer = DecoderLayer(text, torch.bfloat16, DEV)
+    flat = {}
+    for name, t in list(layer.named_buffers()) + list(layer.named_parameters()):
+        if name.endswith("kernel_q"):
+            q, sc = quant.quantize_kernel(0.02 * torch.randn(
+                t.shape, generator=gen, device=DEV))
+            flat[name], flat[name[:-len("kernel_q")] + "scale_q"] = q, sc
+        elif name.endswith(".scale"):
+            flat[name] = 1 + 0.02 * torch.randn(t.shape, generator=gen,
+                                                device=DEV)
+    fused = quant.add_fused_wqo(
+        {"layers_0/" + k.replace(".", "/"): v for k, v in flat.items()})
+    state = dict(layer.named_buffers())
+    state.update(layer.named_parameters())
+    with torch.no_grad():
+        for k, v in fused.items():
+            state[k[len("layers_0/"):].replace("/", ".")].copy_(v)
+    b, L, pos, nl = 8, 256, 200, text.num_hidden_layers
+    cache = init_cache(text.replace(num_hidden_layers=4), b, L,
+                       torch.bfloat16, DEV)
+    for t in cache.values():
+        t.normal_(generator=gen)
+    x = torch.randn(b, 1, text.hidden_size, generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    bias = (torch.arange(L, device=DEV)[None, None, None, :]
+            * alibi_slopes(text.num_attention_heads,
+                           device=DEV)[None, :, None, None])
+    kv_valid = (torch.arange(L, device=DEV) <= pos)[None].expand(b, L)
+    outs = {}
+    for route in ("composed", "megakernel", "fused_tail"):
+        layer.cfg = text.replace(megakernel=route == "megakernel",
+                                 fused_tail=route == "fused_tail")
+        it = iter(range(10 ** 9))
+
+        def call():
+            with torch.inference_mode():
+                return layer(x, layer=next(it) % 4, bias=bias, cache=cache,
+                             cache_pos=pos, kv_valid=kv_valid)
+
+        outs[route] = call()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, n = _report_profile(
+            prof, wall, f"profile layer[{route}] 20 calls",
+            f"profile_layer_{route}.txt")
+        err = float((outs[route].float() - outs["composed"].float())
+                    .abs().max())
+        log(f"profile layer[{route}]: {busy / 20 * 1e3:.4f} ms of device "
+            f"kernels and {n / 20:.1f} launches a call ({nl} layers a step: "
+            f"{busy / 20 * nl * 1e3:.2f} ms, {n / 20 * nl:.0f} launches); "
+            f"max |out - composed| {err:.3e}")
+
+
+def _profile_fused():
+    """torch.profiler over b=8 requests of 16 and 48 new tokens on each
+    fused run's model: device ms and kernel launches a decode step from
+    the difference of the two."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from otter_tpu_torch.config import GenerationConfig, otter_mpt7b
+    from otter_tpu_torch.generation.engine import OtterGenerator
+
+    _profile_layer_routes()
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8}
+    for name, kw, _ in FUSED_RUNS:
+        cfg = otter_mpt7b()
+        cfg = cfg.replace(text=cfg.text.replace(
+            quant="int8", megakernel=kw.get("megakernel", False),
+            fused_tail=kw.get("fused_tail", False),
+            decode_kernel=kw.get("decode_kernel", cfg.text.decode_kernel)))
+        engine = OtterGenerator(build_model(cfg),
+                                cache_dtype=dtypes[kw["cache_bit"]])
+        req = make_requests(cfg, 8, SEED + 19, full=True)[:2]
+        seen = {}
+        for n_new in (16, 48):
+            gen_cfg = GenerationConfig(max_new_tokens=n_new, eos_token_id=-1)
+            engine.generate(*req, gen=gen_cfg)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                engine.generate(*req, gen=gen_cfg)
+                wall = time.perf_counter() - t
+            seen[n_new] = _report_profile(
+                prof, wall, f"profile fused[{name}] b=8 new={n_new}",
+                f"profile_fused_{name}_new{n_new}.txt") + (wall,)
+        (b0, n0, w0), (b1, n1, w1) = seen[16], seen[48]
+        log(f"profile fused[{name}]: a decode step takes "
+            f"{(b1 - b0) / 32 * 1e3:.3f} ms of device kernels in "
+            f"{(n1 - n0) / 32:.1f} launches; {(w1 - w0) / 32 * 1e3:.3f} ms "
+            f"of wall time under the profiler")
+        del engine
 
 
 # ── phase 6: one SFT step, kernel path against the plain path ──────
@@ -932,13 +1223,13 @@ class _GradRecorder:
 def _step_grads(cfg, dtype, batch, ctx):
     """(loss, grad_norm, {path: f32 gradient}, launches) of one SFT step
     (remat, fused CE 256, embedding mask) of the model `cfg` in `dtype`
-    from RandomParams weights; the weights are left as they were."""
+    from random_params weights; the weights are left as they were."""
     import torch
     from otter_tpu_torch.models.convert import load_flax_params
     from otter_tpu_torch.models.otter import OtterVLM
     from otter_tpu_torch.train.step import TrainState, make_train_step
     model = OtterVLM(cfg, dtype=dtype, device=DEV, remat=True)
-    load_flax_params(model, RandomParams(cfg))
+    load_flax_params(model, random_params(cfg))
     rec = _GradRecorder()
     state = TrainState.create(model, cfg, rec)
     step = make_train_step(model, cfg, rec, mask_embedding=True,
@@ -1087,7 +1378,7 @@ def phase_train(smi: str, profile: bool = False):
     shutil.rmtree(run_dir, ignore_errors=True)
     cfg = sft.CONFIG_FACTORIES[args.model_config]()
     tok = SmokeTokenizer(cfg)
-    params = RandomParams(cfg)
+    params = random_params(cfg)
     wrappers = _flash_wrappers()
     batches = TimedBatches(make_train_batch(cfg, tok, SEED + 40, b, s),
                            warm + timed, wrappers)
@@ -1208,15 +1499,19 @@ KERNELS = {
                       "otter_tpu/ops/flash_attention.py:347"),
     "flash_bwd_dq": ("otter_tpu_torch/csrc/flash_bwd.cu",
                      "otter_tpu/ops/flash_attention.py:444"),
+    "decode_attn_megakernel": ("otter_tpu_torch/csrc/megakernel.cu",
+                               "otter_tpu/ops/megakernel.py:46"),
+    "int8_attn_tail": ("otter_tpu_torch/csrc/int8_attn_tail.cu",
+                       "otter_tpu/ops/quant.py:199"),
 }
-PHASES = "kernels,parity,serve,serve4,trainparity,train"
+PHASES = "kernels,parity,serve,serve4,fused,trainparity,train"
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=PHASES,
                     help=f"comma-separated subset of {PHASES}, plus profile "
-                         "(after serve, serve4 and train; not run by "
+                         "(after serve, serve4, fused and train; not run by "
                          "default). "
                          "Device and build always run.")
     args = ap.parse_args(argv)
@@ -1242,8 +1537,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         return out
 
-    entries = run("kernels", phase_kernels, gen) if "kernels" in phases \
-        else {}
+    entries = {}
+    if "kernels" in phases or "fusedkernels" in phases:
+        entries = run("kernels", phase_kernels, gen, "kernels" not in phases)
     if "parity" in phases:
         run("parity", phase_parity)
     by_path = {}
@@ -1255,6 +1551,8 @@ def main(argv=None) -> int:
                     phase_profile(engine, tag)
                 return launches
             by_path[tag] = run(tag, serve)
+    if "fused" in phases:
+        by_path["fused"] = run("fused", phase_fused, smi, "profile" in phases)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

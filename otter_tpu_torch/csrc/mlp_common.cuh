@@ -1,6 +1,7 @@
 // Shared by the weight-only quantized product kernels (int8_mlp.cu,
-// int4_mlp.cu): activations, cp.async helpers, and the second launch that
-// sums the CTAs' partial outputs in a fixed order.
+// int4_mlp.cu, int8_attn_tail.cu, megakernel.cu): activations, cp.async
+// helpers, and the launch that sums the CTAs' partial outputs in a fixed
+// order.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,11 +37,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // out = (sum over the nblk partial outputs ws[blk] [M, N], in order)
-//       * scale + bias, cast to bf16. No atomics: the result is the same
-// from run to run, so greedy decoding is reproducible.
+//       * scale + bias, cast to bf16; with a residual `resid` [M, N] bf16,
+// out = bf16(resid + that bf16 value): the product is rounded to the
+// activation dtype before the residual is added in f32. No atomics: the
+// result is the same from run to run, so greedy decoding is reproducible.
 __global__ void sum_partials_kernel(const float* __restrict__ ws,
                                     const float* __restrict__ scale,
                                     const float* __restrict__ bias,
+                                    const __nv_bfloat16* __restrict__ resid,
                                     __nv_bfloat16* __restrict__ out, int M,
                                     int N, int nblk) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -51,16 +55,19 @@ __global__ void sum_partials_kernel(const float* __restrict__ ws,
   for (int blk = 0; blk < nblk; ++blk) acc += ws[blk * stride + i];
   float y = acc * scale[n];
   if (bias != nullptr) y += bias[n];
+  if (resid != nullptr)
+    y = __bfloat162float(resid[i]) + __bfloat162float(__float2bfloat16(y));
   out[i] = __float2bfloat16(y);
 }
 
 inline int launch_sum_partials(const void* ws, const void* scale,
                                const void* bias, void* out, int M, int N,
-                               int nblk, cudaStream_t st) {
+                               int nblk, cudaStream_t st,
+                               const void* resid = nullptr) {
   const int total = M * N;
   sum_partials_kernel<<<(total + 255) / 256, 256, 0, st>>>(
       (const float*)ws, (const float*)scale, (const float*)bias,
-      (__nv_bfloat16*)out, M, N, nblk);
+      (const __nv_bfloat16*)resid, (__nv_bfloat16*)out, M, N, nblk);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ parameters as the flax modules do, so `a/b/kernel` is the state-dict key
 port tensor left unfilled, or a shape mismatch raises. Arrays may be
 numpy (the port holds no jax) or torch tensors already on the device.
 `export_flax_params(model)` is the inverse: the port's tensors as numpy
-under their flax paths.
+under their flax paths, without the decode megakernel's fused
+`attn/wqo_q` / `attn/wqo_scale` leaves, which `ops.quant.add_fused_wqo`
+derives from the others.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
     tensors.update(model.named_buffers())
     out = {}
     for name, t in tensors.items():
+        if name.endswith((".attn.wqo_q", ".attn.wqo_scale")):
+            continue   # derived at load time
         t = t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()

@@ -25,7 +25,14 @@ decode-attention kernel when `decode_kernel` says so (`"auto"`: an int8
 or int4 cache, or L >= 1024), else through dense attention over the
 layer's slice; the MLP with int8 (int4) weights goes through the fused
 `int8_mlp` (`int4_mlp`) kernel at decode with at most 32 tokens, else
-through two `Int8Dense` (`Int4Dense`).
+through two `Int8Dense` (`Int4Dense`). Two opt-in fused decode routes, int8
+weights only: `TextConfig.megakernel` sends a one-token step of at most 8
+rows over a cache in the activation dtype through
+`ops.megakernel.decode_attn_megakernel` (norm_1, qkv, cached attention,
+out-proj and residual in one call over the fused `attn/wqo_q` operand),
+then norm_2 and `int8_mlp`; `TextConfig.fused_tail` sends the layer's tail
+(out-proj + residual, norm_2, MLP + residual) through
+`ops.quant.int8_attn_tail`. The megakernel check comes first.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from otter_tpu_torch.config import OtterConfig, TextConfig
 from otter_tpu_torch.models.xattn import GatedCrossAttentionBlock
 from otter_tpu_torch.ops import decode_attention as da
+from otter_tpu_torch.ops import megakernel as mk
 from otter_tpu_torch.ops import quant as quant_ops
 from otter_tpu_torch.ops.attention import multi_head_attention
 from otter_tpu_torch.ops.layers import ACTIVATIONS, LayerNorm
@@ -113,6 +121,13 @@ class SelfAttention(nn.Module):
         self.out_proj = quant_ops.make_dense(cfg.quant, d, d,
                                              use_bias=not cfg.no_bias,
                                              dtype=dtype, device=device)
+        if cfg.megakernel and cfg.quant == "int8":
+            # the decode megakernel's fused [Wqkv | Wo] operand
+            # (`ops.quant.add_fused_wqo` makes it at load time)
+            self.register_buffer("wqo_q", torch.empty(
+                d, 4 * d, dtype=torch.int8, device=device))
+            self.register_buffer("wqo_scale", torch.ones(
+                4 * d, dtype=torch.float32, device=device))
 
     def _use_decode_kernel(self, cache_k: torch.Tensor) -> bool:
         mode = self.cfg.decode_kernel
@@ -122,7 +137,10 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, *, layer: int, attn_ids=None, bias=None,
                 cache: Optional[Cache] = None, cache_pos=None,
-                kv_valid=None, decode_span=None):
+                kv_valid=None, decode_span=None, project_out: bool = True):
+        """x [B, S, D] -> [B, S, D]; with `project_out=False` the raw
+        attention output [B, S, h*d], for a caller that runs the
+        out-projection itself (the fused layer tail)."""
         c = self.cfg
         b, s, _ = x.shape
         h, d = c.num_attention_heads, c.head_dim
@@ -163,7 +181,8 @@ class SelfAttention(nn.Module):
                 ids_mode="eq", causal=True, sm_scale=sm_scale)
             if cache is not None:   # prefill writes from offset 0
                 write_cache(cache, layer, k, v, 0)
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, h * d))
+        out = out.transpose(1, 2).reshape(b, s, h * d)
+        return self.out_proj(out) if project_out else out
 
 
 class MLP(nn.Module):
@@ -212,19 +231,63 @@ class MLP(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: TextConfig, dtype, device):
         super().__init__()
+        self.cfg, self.dtype = cfg, dtype
         self.norm_1 = _lp_norm(cfg, dtype, device)
         self.attn = SelfAttention(cfg, dtype, device)
         self.norm_2 = _lp_norm(cfg, dtype, device)
         self.ffn = MLP(cfg, dtype, device)
 
+    def _fused_eligible(self) -> bool:
+        """What both fused decode routes ask of the configuration."""
+        c = self.cfg
+        return c.quant == "int8" and c.no_bias and c.act == "gelu" \
+            and c.norm_type == "low_precision_layernorm"
+
     def forward(self, x, *, layer, attn_ids=None, bias=None, cache=None,
                 cache_pos=None, kv_valid=None, decode_span=None):
-        x = x + self.attn(self.norm_1(x), layer=layer, attn_ids=attn_ids,
-                          bias=bias, cache=cache, cache_pos=cache_pos,
-                          kv_valid=kv_valid, decode_span=decode_span)
-        return x + self.ffn(self.norm_2(x),
-                            decoding=cache is not None
-                            and cache_pos is not None)
+        c = self.cfg
+        decoding = cache is not None and cache_pos is not None
+        if (c.megakernel and self._fused_eligible() and not c.qk_ln
+                and not c.clip_qkv and c.num_attention_heads == c.kv_heads
+                and decoding and getattr(cache_pos, "ndim", 0) == 0
+                and x.shape[1] == 1 and x.shape[0] <= 8
+                and "k" in cache and cache["k"].dtype != torch.int8
+                and bias is not None):
+            # norm_1 + qkv + cached attention + out-proj + residual in one
+            # call; the new token's k/v come back and are appended in
+            # place. With one cache_pos for the batch the ALiBi column
+            # bias is the same for every row. The kernel attends every
+            # cache row below cache_pos (no kv_valid).
+            y, kn, vn = mk.decode_attn_megakernel(
+                x[:, 0].to(self.dtype), cache["k"], cache["v"], cache_pos,
+                bias[0, :, 0, :].float(), self.norm_1.scale,
+                self.attn.wqo_q, self.attn.wqo_scale, layer=layer,
+                eps=c.norm_eps, sm_scale=c.head_dim ** -0.5)
+            cache["k"][:, layer, :, cache_pos] = kn.to(cache["k"].dtype)
+            cache["v"][:, layer, :, cache_pos] = vn.to(cache["v"].dtype)
+            x = y[:, None, :]
+            return x + self.ffn(self.norm_2(x), decoding=True)
+
+        a = self.norm_1(x)
+        kw = dict(layer=layer, attn_ids=attn_ids, bias=bias, cache=cache,
+                  cache_pos=cache_pos, kv_valid=kv_valid,
+                  decode_span=decode_span)
+        tokens = x.numel() // x.shape[-1]
+        if c.fused_tail and self._fused_eligible() and tokens <= 32 \
+                and decoding:
+            # out-proj + residual + norm_2 + MLP + residual in one call
+            raw = self.attn(a, project_out=False, **kw)
+            out, ffn = self.attn.out_proj, self.ffn
+            y = quant_ops.int8_attn_tail(
+                raw.reshape(tokens, -1).to(self.dtype),
+                x.reshape(tokens, -1).to(self.dtype), out.kernel_q,
+                out.scale_q, self.norm_2.scale, ffn.up_proj.kernel_q,
+                ffn.up_proj.scale_q, ffn.down_proj.kernel_q,
+                ffn.down_proj.scale_q, eps=c.norm_eps, act=c.act)
+            return y.reshape(x.shape)
+
+        x = x + self.attn(a, **kw)
+        return x + self.ffn(self.norm_2(x), decoding=decoding)
 
 
 class Embed(nn.Module):
@@ -252,7 +315,7 @@ class Decoder(nn.Module):
         if cfg.arch != "mpt" or cfg.pos != "alibi" or not cfg.tie_embeddings \
                 or cfg.norm_type != "low_precision_layernorm" \
                 or cfg.quant not in (None, "int8", "int4") or cfg.lora_rank \
-                or cfg.megakernel or cfg.fused_tail or cfg.quant_embed:
+                or cfg.quant_embed:
             raise NotImplementedError(
                 "the port's decoder covers MPT (ALiBi, tied head, LP "
                 "LayerNorm, bf16, int8 or int4 weights) only")

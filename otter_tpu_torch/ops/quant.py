@@ -5,8 +5,12 @@ int8: weights are stored int8 [in, out] with per-output-channel f32 scales
 (`kernel_q`, `scale_q`, the flax leaf names). `Int8Dense` applies the
 scale on the output side; `int8_mlp` is the fused decode MLP, which
 launches the hand-written kernel `csrc/int8_mlp.cu` for CUDA tensors and
-runs `int8_mlp_plain` for CPU tensors. `quantize_kv` / `dequantize_kv`
-give the int8 KV-cache layout, byte for byte the JAX package's.
+runs `int8_mlp_plain` for CPU tensors. `int8_attn_tail` is the fused tail
+of a decode layer (attention out-projection + residual, LayerNorm, int8
+MLP + residual; `csrc/int8_attn_tail.cu`), and `add_fused_wqo` adds the
+fused `[Wqkv | Wo]` operand of the decode megakernel (`ops/megakernel.py`).
+`quantize_kv` / `dequantize_kv` give the int8 KV-cache layout, byte for
+byte the JAX package's.
 
 int4: two weights a byte (`kernel_q4`), values in [-7, 7], paired half and
 half along `pack_axis` (`quantize_kernel_int4`). `int4_mlp` is the fused
@@ -33,6 +37,8 @@ from otter_tpu_torch.ops.layers import ACTIVATIONS, Dense
 _ACT_IDS = {"gelu": 0, "relu": 1, "silu": 2, "sq_relu": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_mlp_bf16": ([_P] * 9 + [_I] * 5 + [_P], _I)}
+_SIGNATURES_TAIL = {"int8_attn_tail_bf16": (
+    [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _I, _P], _I)}
 _SIGNATURES_INT4 = {"int4_mlp_bf16": ([_P] * 7 + [_I] * 5 + [_P], _I),
                     "int4_matmul_bf16": ([_P] * 5 + [_I] * 4 + [_P], _I)}
 
@@ -140,6 +146,99 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
 int8_mlp.launches = 0
 
 
+def split_k(k: int, n: int) -> int:
+    """How many CTAs share the k weight rows of one 128-column block of a
+    streamed product [M, k] @ [k, n] (each takes a run of rows, and the
+    partial sums are added in a fixed order): enough to put about 256 CTAs
+    on the card, in whole 64-row stages."""
+    splits = 1
+    while splits < 16 and (n // 128) * splits < 256 \
+            and k % (128 * splits) == 0:
+        splits *= 2
+    return splits
+
+
+def int8_attn_tail_plain(attn_raw, resid, woq, so, norm_scale, w1q, s1, w2q,
+                         s2, *, eps: float = 1e-5, act: str = "gelu"):
+    """The kernel's function in plain PyTorch, rounding to the activation
+    dtype where the kernel rounds: the out-projection before the residual,
+    y, the norm's result, the hidden activation, the MLP's result."""
+    dt = attn_raw.dtype
+    o = (attn_raw.float() @ woq.to(dt).float()) * so.float()
+    y = (resid.float() + o.to(dt).float()).to(dt)
+    yf = y.float()
+    mean = yf.mean(-1, keepdim=True)
+    var = (yf - mean).square().mean(-1, keepdim=True)
+    n = ((yf - mean) * torch.rsqrt(var + eps) * norm_scale.float()).to(dt)
+    h = ACTIVATIONS[act]((n.float() @ w1q.to(dt).float()) * s1.float()).to(dt)
+    mlp = ((h.float() @ w2q.to(dt).float()) * s2.float()).to(dt)
+    return y + mlp
+
+
+def int8_attn_tail(attn_raw: torch.Tensor, resid: torch.Tensor,
+                   woq: torch.Tensor, so: torch.Tensor,
+                   norm_scale: torch.Tensor, w1q: torch.Tensor,
+                   s1: torch.Tensor, w2q: torch.Tensor, s2: torch.Tensor, *,
+                   eps: float = 1e-5, act: str = "gelu") -> torch.Tensor:
+    """The tail of a decode layer in one kernel call:
+
+        y   = resid + (attn_raw @ woq) * so          (attention out-proj)
+        n   = LayerNorm(y) * norm_scale              (f32 statistics)
+        out = y + act((n @ w1q) * s1) @ w2q * s2     (MLP)
+
+    attn_raw [M, hd], resid [M, D]; woq [hd, D], w1q [D, H], w2q [H, D]
+    int8 with f32 per-column scales; norm_scale [D]. CUDA tensors: bf16
+    activations, M <= 32, hd % 64 == 0, D % 128 == 0, H % 128 == 0,
+    everything contiguous and 16-byte aligned."""
+    m, hd = attn_raw.shape
+    d, h = w1q.shape
+    if resid.shape != (m, d) or woq.shape != (hd, d) or w2q.shape != (h, d) \
+            or so.shape != (d,) or s1.shape != (h,) or s2.shape != (d,) \
+            or norm_scale.shape != (d,):
+        raise ValueError(
+            f"int8_attn_tail: attn_raw {tuple(attn_raw.shape)}, resid "
+            f"{tuple(resid.shape)}, woq {tuple(woq.shape)}, w1q "
+            f"{tuple(w1q.shape)}, w2q {tuple(w2q.shape)}")
+    if act not in _INT4_ACTS:
+        raise ValueError(f"int8_attn_tail: act {act!r}")
+    if attn_raw.device.type == "cpu":
+        return int8_attn_tail_plain(attn_raw, resid, woq, so, norm_scale,
+                                    w1q, s1, w2q, s2, eps=eps, act=act)
+    _check_kernel_inputs("int8_attn_tail", attn_raw, woq, w1q, w2q)
+    if resid.dtype != torch.bfloat16 or not resid.is_contiguous():
+        raise TypeError("int8_attn_tail kernel takes a contiguous bf16 resid")
+    if m > 32 or hd % 64 or d % 128 or h % 128 or d > 12288:
+        raise ValueError(f"int8_attn_tail kernel: M={m} (<= 32), hd={hd} "
+                         f"(% 64), D={d} (% 128, <= 12288), H={h} (% 128)")
+    so, s1, s2, norm_scale = (t.float().contiguous()
+                              for t in (so, s1, s2, norm_scale))
+    dev = attn_raw.device
+    splits = split_k(hd, d)
+    # one scratch allocation (a decode step is bound by the host):
+    # ws_o | ws_mlp (f32) | y | normed (bf16)
+    n_o, n_mlp = splits * m * d, (h // 128) * m * d
+    scratch = torch.empty(n_o + n_mlp + m * d, dtype=torch.float32,
+                          device=dev)
+    ws_o = scratch.data_ptr()
+    ws_mlp = ws_o + 4 * n_o
+    y = ws_mlp + 4 * n_mlp
+    normed = y + 2 * m * d
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    lib = _build.library("int8_attn_tail", _SIGNATURES_TAIL)
+    err = lib.int8_attn_tail_bf16(
+        attn_raw.data_ptr(), resid.data_ptr(), woq.data_ptr(), so.data_ptr(),
+        norm_scale.data_ptr(), w1q.data_ptr(), s1.data_ptr(), w2q.data_ptr(),
+        s2.data_ptr(), ws_o, y, normed, ws_mlp, out.data_ptr(), m, hd, d, h,
+        float(eps), _ACT_IDS[act], splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "int8_attn_tail")
+    int8_attn_tail.launches += 1
+    return out
+
+
+int8_attn_tail.launches = 0
+
+
 # ── load-time transforms ─────────────────────────────────────────────
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -181,6 +280,37 @@ def quantize_params(flat: Dict[str, ArrayLike],
             out[base + "scale_q"] = scale
         else:
             out[k] = v
+    return out
+
+
+_WQKV_Q = re.compile(r"(.*layers_\d+/attn)/Wqkv/kernel_q$")
+
+
+def add_fused_wqo(flat: Dict[str, ArrayLike]) -> Dict[str, ArrayLike]:
+    """Add the decode megakernel's fused `[Wqkv | Wo]` leaves to a flat
+    {flax path: array} dict of quantized parameters: next to each decoder
+    layer's `attn/Wqkv/kernel_q` and `attn/out_proj/kernel_q`,
+    `attn/wqo_q` [d, 4d] int8 and `attn/wqo_scale` [4d] f32. One-time load
+    transform for `TextConfig(megakernel=True)`: the megakernel streams
+    qkv and out-proj as one operand, while prefill keeps the original
+    leaves (one more int8 copy of both on the device). Numpy in, numpy out
+    (byte-identical to the JAX package's); tensors stay on their device."""
+    out = dict(flat)
+    for key in flat:
+        m = _WQKV_Q.match(key)
+        if not m or m.group(1) + "/out_proj/kernel_q" not in flat:
+            continue
+        base = m.group(1)
+        wqkv, wo = flat[key], flat[base + "/out_proj/kernel_q"]
+        scales = [flat[base + "/Wqkv/scale_q"],
+                  flat[base + "/out_proj/scale_q"]]
+        if isinstance(wqkv, np.ndarray):
+            out[base + "/wqo_q"] = np.concatenate([wqkv, wo], axis=1)
+            out[base + "/wqo_scale"] = np.concatenate(
+                [np.asarray(t, np.float32) for t in scales])
+        else:
+            out[base + "/wqo_q"] = torch.cat([wqkv, wo], dim=1)
+            out[base + "/wqo_scale"] = torch.cat([t.float() for t in scales])
     return out
 
 
@@ -415,17 +545,6 @@ def int4_matmul_plain(x, wp, scale):
     return (y * scale.float()).to(dt)
 
 
-def _int4_matmul_splits(k: int, n: int) -> int:
-    """How many CTAs share one 128-column block's K (each takes a run of
-    packed rows and its partial sums are added in a fixed order): enough
-    to put about 256 CTAs on the card, in whole 64-row stages."""
-    splits = 1
-    while splits < 16 and (n // 128) * splits < 256 \
-            and (k // 2) % (128 * splits) == 0:
-        splits *= 2
-    return splits
-
-
 def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """(x @ unpack0(wp)) * scale with x [M, K], wp [K/2, N] (pack_axis 0),
@@ -443,7 +562,7 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
         raise ValueError(f"int4_matmul kernel: M={m} (<= 32), K={k} "
                          f"(% 128), N={n} (% 128)")
     scale = scale.float().contiguous()
-    splits = _int4_matmul_splits(k, n)
+    splits = split_k(k // 2, n)   # over the packed rows
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.library("int4_mlp", _SIGNATURES_INT4)

@@ -2,7 +2,8 @@
 the edge cases the serving and training paths' shapes do not reach (other
 head dims, "ge" ids, full-rank and broadcast biases, rows that attend
 nothing, lengths that are not multiples of the tile, odd batch sizes,
-biases and other activations in the MLP).
+biases and other activations in the MLP, the fused decode layer's two
+kernels at small widths, the ends of the cache and refused inputs).
 
 Needs an NVIDIA GPU; skipped without one. On the card:
 `pytest -m cuda tests/test_torch_cuda.py`. Tolerance: bf16 in and out,
@@ -18,6 +19,7 @@ import torch
 from otter_tpu_torch.ops import attention
 from otter_tpu_torch.ops import decode_attention as da
 from otter_tpu_torch.ops import flash_attention as fa
+from otter_tpu_torch.ops import megakernel as mk
 from otter_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
@@ -396,3 +398,118 @@ def test_int4_write_cache_then_decode_on_the_card(gen):
     _close(da.decode_attention(q, cache["kv"], cache["kv"], lengths, **kw),
            da.decode_attention_plain(q, cache["kv"], cache["kv"], lengths,
                                      **kw))
+
+
+# ── the fused decode layer: int8_attn_tail and decode_attn_megakernel ──
+
+def _qk(gen, rows, cols):
+    return quant.quantize_kernel(0.05 * torch.randn(
+        rows, cols, generator=gen, device="cuda"))
+
+
+def _tail_args(gen, m, hd=256, d=256, hid=512):
+    (wo, so), (w1, s1), (w2, s2) = _qk(gen, hd, d), _qk(gen, d, hid), \
+        _qk(gen, hid, d)
+    g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    return (_rnd(gen, m, hd), _rnd(gen, m, d), wo, so, g, w1, s1, w2, s2)
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 32])
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+def test_attn_tail_matches_plain(gen, m, act):
+    args = _tail_args(gen, m)
+    before = quant.int8_attn_tail.launches
+    out = quant.int8_attn_tail(*args, act=act)
+    assert quant.int8_attn_tail.launches == before + 1
+    _close(out, quant.int8_attn_tail_plain(*args, act=act))
+    again = quant.int8_attn_tail(*args, act=act)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)   # sums in a fixed order
+
+
+def test_attn_tail_rectangular_out_proj(gen):
+    # hd != D (an out-projection that is not square), H not a power of two
+    args = _tail_args(gen, 3, hd=128, d=384, hid=640)
+    _close(quant.int8_attn_tail(*args), quant.int8_attn_tail_plain(*args))
+
+
+def test_attn_tail_refuses_what_the_kernel_does_not_take(gen):
+    a, r, wo, so, g, w1, s1, w2, s2 = _tail_args(gen, 4)
+    with pytest.raises(TypeError):       # f32 activations
+        quant.int8_attn_tail(a.float(), r, wo, so, g, w1, s1, w2, s2)
+    with pytest.raises(TypeError):       # a weight that is not int8
+        quant.int8_attn_tail(a, r, wo.to(torch.bfloat16), so, g, w1, s1, w2,
+                             s2)
+    with pytest.raises(ValueError):      # a non-contiguous weight
+        quant.int8_attn_tail(a, r, wo.t(), so, g, w1, s1, w2, s2)
+    with pytest.raises(ValueError):      # more than 32 rows
+        big = _tail_args(gen, 33)
+        quant.int8_attn_tail(*big)
+    with pytest.raises(ValueError):      # D not a multiple of 128
+        quant.int8_attn_tail(*_tail_args(gen, 4, hd=192, d=192, hid=256))
+
+
+def _mk_args(gen, b, h, dh, L, nl, pos):
+    d = h * dh
+    (wq, sq), (wo, so) = _qk(gen, d, 3 * d), _qk(gen, d, d)
+    shape = (b, nl, h, L, dh) if nl else (b, h, L, dh)
+    kc, vc = _rnd(gen, *shape), _rnd(gen, *shape)
+    kc[..., pos:, :] = 1e4    # garbage at and past pos
+    vc[..., pos:, :] = 1e4
+    bias = 0.1 * torch.randn(h, L, generator=gen, device="cuda")
+    ln1 = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    return (_rnd(gen, b, d), kc, vc, pos, bias, ln1,
+            torch.cat([wq, wo], dim=1).contiguous(), torch.cat([sq, so]))
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("pos", [0, 1, 100, 159])
+def test_megakernel_matches_plain(gen, b, dh, pos):
+    h, L, nl = 4, 160, 3
+    args = _mk_args(gen, b, h, dh, L, nl, pos)
+    before = mk.decode_attn_megakernel.launches
+    outs = mk.decode_attn_megakernel(*args, layer=1)
+    assert mk.decode_attn_megakernel.launches == before + 1
+    refs = mk.decode_attn_megakernel_plain(*args, layer=1)
+    for o, r in zip(outs, refs):
+        assert bool(torch.isfinite(o.float()).all())
+        _close(o, r)
+    again = mk.decode_attn_megakernel(*args, layer=1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, a) for o, a in zip(outs, again))
+
+
+def test_megakernel_unstacked_cache_and_no_bias(gen):
+    x, kc, vc, pos, bias, ln1, wqo, sqo = _mk_args(gen, 2, 4, 128, 96, 0, 40)
+    # a bias wider than the cache (a row stride that is not L)
+    wide = 0.1 * torch.randn(4, 128, generator=gen, device="cuda")
+    for bias_col in (bias, None, wide):
+        outs = mk.decode_attn_megakernel(x, kc, vc, pos, bias_col, ln1, wqo,
+                                         sqo)
+        refs = mk.decode_attn_megakernel_plain(x, kc, vc, pos, bias_col, ln1,
+                                               wqo, sqo)
+        for o, r in zip(outs, refs):
+            _close(o, r)
+
+
+def test_megakernel_refuses_what_the_kernel_does_not_take(gen):
+    x, kc, vc, pos, bias, ln1, wqo, sqo = _mk_args(gen, 2, 4, 128, 96, 2, 40)
+    with pytest.raises(TypeError):       # an int8 cache
+        mk.decode_attn_megakernel(x, kc.to(torch.int8), vc.to(torch.int8),
+                                  pos, bias, ln1, wqo, sqo, layer=0)
+    with pytest.raises(TypeError):       # f32 activations
+        mk.decode_attn_megakernel(x.float(), kc, vc, pos, bias, ln1, wqo,
+                                  sqo, layer=0)
+    with pytest.raises(ValueError):      # a cache that is a strided view
+        mk.decode_attn_megakernel(x, kc[:, 0], vc[:, 0], pos, bias, ln1,
+                                  wqo, sqo)
+    with pytest.raises(ValueError):      # pos outside the cache
+        mk.decode_attn_megakernel(x, kc, vc, 96, bias, ln1, wqo, sqo,
+                                  layer=0)
+    with pytest.raises(ValueError):      # more than 8 rows
+        mk.decode_attn_megakernel(*_mk_args(gen, 9, 4, 128, 96, 2, 40),
+                                  layer=0)
+    with pytest.raises(ValueError):      # a head dim the kernel lacks
+        mk.decode_attn_megakernel(*_mk_args(gen, 2, 8, 32, 96, 2, 40),
+                                  layer=0)

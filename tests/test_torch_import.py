@@ -28,6 +28,12 @@ from otter_tpu_torch.ops.quant import (Int4AttnDense, Int4Dense, int4_matmul,
 from otter_tpu_torch.models.decoder import cache_len_of
 from otter_tpu_torch.generation.engine import OtterGenerator
 assert OtterGenerator.stream_generate
+# the fused decode layer and the decode bench live in these
+from otter_tpu_torch.ops.megakernel import (decode_attn_megakernel,
+                                            mpt_decode_layer_megakernel)
+from otter_tpu_torch.ops.quant import add_fused_wqo, int8_attn_tail
+from otter_tpu_torch.tools import bench_decode, random_weights
+assert bench_decode.run and random_weights.build_model
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules
@@ -35,6 +41,10 @@ print(" ".join(sorted(m for m in sys.modules
 sys.exit(1 if bad else 0)
 """
 # the modules of the training slice, which the walk above must reach
+_FUSED_DECODE_MODULES = {
+    "otter_tpu_torch.ops.megakernel", "otter_tpu_torch.tools",
+    "otter_tpu_torch.tools.bench_decode",
+    "otter_tpu_torch.tools.random_weights"}
 _TRAINING_MODULES = {
     "otter_tpu_torch.train.step", "otter_tpu_torch.train.sft",
     "otter_tpu_torch.train.args", "otter_tpu_torch.runtime.metrics",
@@ -53,8 +63,34 @@ def test_port_imports_no_jax_or_otter_tpu():
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     loaded = set(res.stdout.split())
-    assert len(loaded) >= 25                  # every module was imported
+    assert len(loaded) >= 29                  # every module was imported
     assert _TRAINING_MODULES <= loaded, _TRAINING_MODULES - loaded
+    assert _FUSED_DECODE_MODULES <= loaded, _FUSED_DECODE_MODULES - loaded
+
+
+def test_chip_smoke_imports_only_the_port_and_the_standard_library():
+    """Every import statement of chip_smoke.py, wherever it stands, names
+    torch, numpy, the port or the standard library."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    third_party = roots - set(sys.stdlib_module_names)
+    assert third_party == {"torch", "numpy", "otter_tpu_torch"}, third_party
+
+
+def test_bench_decode_entry_point_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the bench would run for real")
+    res = subprocess.run(
+        [sys.executable, "-m", "otter_tpu_torch.tools.bench_decode"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr and "metric" not in res.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu():

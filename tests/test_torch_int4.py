@@ -201,9 +201,14 @@ def test_int4_wrappers_reject_what_they_cannot_take():
 
 
 def test_int4_matmul_splits_fill_the_card_in_whole_stages():
-    # the serving widths: qkv and out-proj of MPT-7B
-    assert tquant._int4_matmul_splits(4096, 12288) == 4
-    assert tquant._int4_matmul_splits(4096, 4096) == 8
+    # the serving widths: qkv and out-proj of MPT-7B; `split_k` counts
+    # streamed rows, which for the packed product are K / 2
+    assert tquant.split_k(4096 // 2, 12288) == 4
+    assert tquant.split_k(4096 // 2, 4096) == 8
     for k, n in ((4096, 12288), (4096, 4096), (128, 128), (384, 256)):
-        splits = tquant._int4_matmul_splits(k, n)
+        splits = tquant.split_k(k // 2, n)
         assert (k // 2) % (64 * splits) == 0
+    # the int8 products of the fused decode layer stream K rows
+    assert tquant.split_k(4096, 12288) == 4
+    assert tquant.split_k(4096, 4096) == 8
+    assert tquant.split_k(64, 128) == 1

@@ -1,6 +1,7 @@
 """Shared fixtures for the port's parity tests: one tiny JAX model with
 int8 weights (another with int4 weights, another unquantized as the
-trainer sees it) and its PyTorch twin built from the same parameters.
+trainer sees it, others with a fused decode route on) and its PyTorch twin
+built from the same parameters.
 
 The JAX package is the reference. Parameters travel as numpy through
 `otter_tpu_torch.models.convert.load_flax_params`, the port's only weight
@@ -17,6 +18,7 @@ from flax import traverse_util
 
 from otter_tpu import config as jcfg
 from otter_tpu.models.otter import OtterVLM as JaxOtterVLM
+from otter_tpu.ops.quant import add_fused_wqo as jax_add_fused_wqo
 from otter_tpu.ops.quant import quantize_params as jax_quantize_params
 from otter_tpu.ops.quant import quantize_params_int4 as jax_quantize_int4
 from otter_tpu_torch import config as tcfg
@@ -35,26 +37,38 @@ def port_cfg(cfg):
     return tcfg.OtterConfig.from_dict(cfg.to_dict())
 
 
-@functools.lru_cache(maxsize=None)
-def jax_tiny(seed: int = 0, decode_kernel="auto"):
-    """(cfg, model, params, flat numpy params) of a tiny int8 OtterVLM. The
-    tanh gates are set away from their zero init so the cross-attention
-    blocks contribute to the output."""
-    cfg = tiny_cfg(decode_kernel)
-    model = JaxOtterVLM(cfg)
+def _quantized_tiny(quant, decode_kernel, seed, gate_seed, quantize):
+    """(cfg, model, params, flat numpy params) of a tiny OtterVLM with
+    `quant` weights: the unquantized model's random weights, the tanh gates
+    set away from their zero init so the cross-attention blocks contribute
+    to the output, through the JAX package's `quantize`. (A model
+    initialised with `quant` already set would hold all-zero `kernel_q`
+    leaves.)"""
+    base = jcfg.OtterConfig.tiny("mpt")
+    cfg = base.replace(text=base.text.replace(quant=quant,
+                                              decode_kernel=decode_kernel))
     vx = jnp.zeros((1, 1, 1, 3, 28, 28), jnp.float32)
     ids = jnp.zeros((1, 8), jnp.int32)
-    params = jax_quantize_params(
-        jax.jit(model.init)(jax.random.PRNGKey(seed), vx, ids))
+    params = jax.jit(JaxOtterVLM(base).init)(jax.random.PRNGKey(seed), vx,
+                                             ids)
     flat = {k: np.asarray(v) for k, v in
             traverse_util.flatten_dict(params, sep="/").items()}
-    rng = np.random.default_rng(seed + 100)
+    rng = np.random.default_rng(gate_seed)
     for k in flat:
         if k.endswith(("attn_gate", "ff_gate")):
             flat[k] = rng.uniform(0.3, 0.9, flat[k].shape).astype(np.float32)
-    params = traverse_util.unflatten_dict(
-        {k: jnp.asarray(v) for k, v in flat.items()}, sep="/")
-    return cfg, model, params, flat
+    params = quantize(traverse_util.unflatten_dict(flat, sep="/"))
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    return cfg, JaxOtterVLM(cfg), params, flat
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tiny(seed: int = 0, decode_kernel="auto"):
+    """(cfg, model, params, flat numpy params) of a tiny OtterVLM with
+    non-zero int8 weights (`quantize_params` of the unquantized init)."""
+    return _quantized_tiny("int8", decode_kernel, seed, seed + 100,
+                           jax_quantize_params)
 
 
 def torch_tiny(seed: int = 0, decode_kernel="auto"):
@@ -65,27 +79,31 @@ def torch_tiny(seed: int = 0, decode_kernel="auto"):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_tiny_int4(seed: int = 0, decode_kernel="auto"):
-    """(cfg, model, params, flat numpy params) of a tiny OtterVLM with
-    `quant="int4"`: the unquantized model's random weights (tanh gates set
-    away from zero) through the JAX package's `quantize_params_int4`."""
-    base = jcfg.OtterConfig.tiny("mpt")
-    cfg = base.replace(text=base.text.replace(quant="int4",
-                                              decode_kernel=decode_kernel))
-    vx = jnp.zeros((1, 1, 1, 3, 28, 28), jnp.float32)
-    ids = jnp.zeros((1, 8), jnp.int32)
-    params = jax.jit(JaxOtterVLM(base).init)(jax.random.PRNGKey(seed), vx,
-                                             ids)
-    flat = {k: np.asarray(v) for k, v in
-            traverse_util.flatten_dict(params, sep="/").items()}
-    rng = np.random.default_rng(seed + 300)
-    for k in flat:
-        if k.endswith(("attn_gate", "ff_gate")):
-            flat[k] = rng.uniform(0.3, 0.9, flat[k].shape).astype(np.float32)
-    params = jax_quantize_int4(traverse_util.unflatten_dict(flat, sep="/"))
-    flat = {k: np.asarray(v) for k, v in
-            traverse_util.flatten_dict(params, sep="/").items()}
+def jax_tiny_fused(route: str, seed: int = 0):
+    """The tiny int8 OtterVLM (`decode_kernel=False`) with one of the fused
+    decode routes switched on: `route` is "megakernel" (the parameters gain
+    the JAX package's `add_fused_wqo` leaves) or "fused_tail"."""
+    cfg, _, params, flat = jax_tiny(seed, False)
+    cfg = cfg.replace(text=cfg.text.replace(**{route: True}))
+    if route == "megakernel":
+        params = jax_add_fused_wqo(params)
+        flat = {k: np.asarray(v) for k, v in
+                traverse_util.flatten_dict(params, sep="/").items()}
     return cfg, JaxOtterVLM(cfg), params, flat
+
+
+def torch_tiny_fused(route: str, seed: int = 0):
+    cfg, _, _, flat = jax_tiny_fused(route, seed)
+    model = TorchOtterVLM(port_cfg(cfg), dtype=torch.float32, device="cpu")
+    load_flax_params(model, flat)
+    return model
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tiny_int4(seed: int = 0, decode_kernel="auto"):
+    """The same with `quant="int4"`, through `quantize_params_int4`."""
+    return _quantized_tiny("int4", decode_kernel, seed, seed + 300,
+                           jax_quantize_int4)
 
 
 def torch_tiny_int4(seed: int = 0, decode_kernel="auto"):
