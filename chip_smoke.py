@@ -20,7 +20,9 @@ unless every phase passes:
                  bytes / operations).
   4. parity      OTTER-MPT7B at full width with its depth cut, once with
                  int8 weights and an int8 KV cache and once with int4
-                 weights and an int4 cache: first-step logits (prefill and
+                 weights and an int4 cache, then OTTER-LLaMA2-Chat-7B and
+                 OtterHD-8B cut the same way with int8 weights and cache:
+                 first-step logits (prefill and
                  first cached decode step) through the kernels against the
                  same model with every kernel swapped for its plain version.
                  Then the int8 model with `megakernel=True` (bf16 cache) and
@@ -55,7 +57,26 @@ unless every phase passes:
                  tokens repeat between runs, and that (b) holds one more
                  int8 copy of Wqkv and Wo; prints step ms, tok/s and the
                  share of the memory roofline of the three.
-  9. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
+  9. llama       OTTER-LLaMA2-Chat-7B at full width and depth (32 layers of
+                 RoPE, RMSNorm and SwiGLU 11008, 8 xattn blocks, CLIP
+                 ViT-L/14, perceiver depth 6, untied head of 32002 rows),
+                 int8 weights and KV cache, decode_kernel="auto": the serve
+                 phase's requests through `generate` and, at batch 1,
+                 `stream_generate`. A decode step must launch `int8_matmul`
+                 once (the head), the int8 decode_attention 32 times and
+                 `int8_mlp` 8 times (the xattn FFs: the gated MLPs never
+                 reach it), a prefill `flash_fwd` 70 times.
+ 10. otterhd     OtterHD-8B (Fuyu: Persimmon-8B, 36 layers, 64 heads of 64,
+                 per-head q/k LayerNorm, partial rotary, squared-ReLU MLP
+                 16384 with biases, untied head of 262144 rows; image
+                 patches projected into the token stream), int8 weights,
+                 int8 embedding table, int8 KV cache: one request at a time
+                 through `generation.fuyu.fuyu_generate`, a 448x448 image
+                 (240 image tokens) and a 1080x1920 image (2340) with a
+                 16-token prompt each, 32 greedy tokens. A decode step must
+                 launch `int8_matmul` once, `int8_mlp` 36 times and the int8
+                 decode_attention 36 times, a prefill `flash_fwd` 36 times.
+ 11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
                  fused CE, embedding-row mask, lr 1e-4 constant). Checks
@@ -66,9 +87,10 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all nine. `profile` (not run by default) adds torch.profiler tables
-of one batch-8 request (with serve and with serve4), of the three fused
-runs (with fused: device ms and launches a decode step) and of one train
+runs all eleven. `profile` (not run by default) adds torch.profiler tables
+of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
+requests (with otterhd), of the three fused runs (with fused: device ms
+and launches a decode step) and of one train
 step (with train) to the output directory, `OUT_DIR`.
 """
 
@@ -297,10 +319,10 @@ def _sdpa_backward_ms(kw, do):
     return time_ms(both, 10) - time_ms(fwd, 10)
 
 
-def phase_kernels(gen, fused_only: bool = False):
-    """Every kernel against its plain version; `fused_only` (phase
-    `fusedkernels`, for bring-up) checks the fused decode layer's two
-    alone."""
+def phase_kernels(gen, only: str = ""):
+    """Every kernel against its plain version; `only` (for bring-up) checks
+    a part alone: "fused" (phase `fusedkernels`) the fused decode layer's
+    two, "head" (phase `headkernels`) `int8_matmul`."""
     import torch
     import torch.nn.functional as F
     from otter_tpu_torch.ops import decode_attention as da
@@ -333,8 +355,9 @@ def phase_kernels(gen, fused_only: bool = False):
                                f"versions: {failed}")
         return entries
 
-    if fused_only:
-        _fused_layer_kernels(gen, report, entries)
+    if only:
+        (_fused_layer_kernels if only == "fused" else _head_kernel)(
+            gen, report, entries)
         return done()
 
     # flash attention forward: four prefill configurations
@@ -574,7 +597,74 @@ def phase_kernels(gen, fused_only: bool = False):
         del kv, ks, vs
 
     _fused_layer_kernels(gen, report, entries)
+    _head_kernel(gen, report, entries)
     return done()
+
+
+def _head_kernel(gen, report, entries):
+    """`int8_matmul` against its plain version at the two untied heads that
+    reach it (K = 4096; N = 32002, LLaMA-2 with its two added tokens, whose
+    rows are not 16-byte aligned, and N = 262144, Fuyu) and at a small odd
+    shape. The 131 MB head comes in two copies used in turn, so that the
+    timed reads come from device memory and not from the 50 MB L2; the
+    1.07 GB head exceeds it alone. No single PyTorch call computes a product
+    of bf16 activations with an int8 weight: library "none". Beside it, for
+    information, the time of what the kernel replaces in the model:
+    `Int8Dense`'s composed product (convert to bf16, cuBLAS, scale)."""
+    import torch
+    from otter_tpu_torch.ops import quant
+    k_in = 4096
+
+    def head(n_out):
+        # quantized in column slices: an f32 copy of the 1.07 G weights and
+        # its temporaries would take tens of GB
+        wq = torch.empty(k_in, n_out, dtype=torch.int8, device="cuda")
+        sc = torch.empty(n_out, dtype=torch.float32, device="cuda")
+        for j in range(0, n_out, 32768):
+            q, s1 = quant.quantize_kernel(0.02 * torch.randn(
+                k_in, min(32768, n_out - j), generator=gen, device="cuda"))
+            wq[:, j:j + q.shape[1]], sc[j:j + q.shape[1]] = q, s1
+        return wq, sc
+
+    def composed(x, wq, sc):
+        return (x @ wq.to(torch.bfloat16)) * sc.to(torch.bfloat16)
+
+    for case, n_out, copies, ms_ in (("llama head N=32002", 32002, 2,
+                                      (1, 8, 32)),
+                                     ("fuyu head N=262144", 262144, 1,
+                                      (1, 8)),
+                                     ("odd N=130", 130, 1, (3,))):
+        sets = [head(n_out) for _ in range(copies)]
+        k_here = k_in
+        if n_out == 130:   # a view into a wider weight: stride 141, shift 7
+            k_here = 256
+            wide, sc = sets[0]
+            wide = torch.cat([wide[:k_here], wide[:k_here, :11]], dim=1)
+            sets = [(wide[:, 7:137], sc)]
+        for m in ms_:
+            x = torch.randn(m, k_here, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            out = quant.int8_matmul(x, *sets[0])
+            ref = quant.int8_matmul_plain(x, *sets[0])
+            torch.cuda.synchronize()
+            err, excess = max_err(out, ref)
+            if not bool(torch.isfinite(out.float()).all()):
+                excess = float("inf")
+            it = iter(range(10 ** 9))
+            nbytes = k_here * n_out + 4 * n_out + 2 * m * (k_here + n_out)
+            r = report("int8_matmul", f"{case} M={m}", err, excess,
+                       time_ms(lambda: quant.int8_matmul(
+                           x, *sets[next(it) % copies])),
+                       time_ms(lambda: quant.int8_matmul_plain(
+                           x, *sets[next(it) % copies]), 3, 1), None,
+                       nbytes, 2.0 * m * k_here * n_out)
+            composed_ms = time_ms(
+                lambda: composed(x, *sets[next(it) % copies]), 5, 1)
+            log(f"    Int8Dense's composed product on the same tensors: "
+                f"{composed_ms:.4f} ms")
+            if (n_out, m) == (32002, 8):
+                entries["int8_matmul"] = r
+        del sets
 
 
 def _fused_layer_kernels(gen, report, entries):
@@ -690,16 +780,20 @@ def random_params(cfg):
     return random_weights.RandomParams(cfg, DEV, seed=SEED)
 
 
-def train_cfg(depth_cut: bool = False):
-    """OTTER-MPT7B with bf16 weights (no quantization), as SFT trains it."""
-    from otter_tpu_torch.config import otter_mpt7b
-    cfg = otter_mpt7b()
-    if not depth_cut:
-        return cfg
+def _depth_cut(cfg):
+    """Every width kept; 4 decoder layers, 1 xattn block, CLIP 2,
+    perceiver 1."""
     return cfg.replace(
         text=cfg.text.replace(num_hidden_layers=4),
         vision=cfg.vision.replace(num_hidden_layers=2),
         perceiver=cfg.perceiver.replace(depth=1))
+
+
+def train_cfg(depth_cut: bool = False):
+    """OTTER-MPT7B with bf16 weights (no quantization), as SFT trains it."""
+    from otter_tpu_torch.config import otter_mpt7b
+    cfg = otter_mpt7b()
+    return _depth_cut(cfg) if depth_cut else cfg
 
 
 class SmokeTokenizer:
@@ -743,13 +837,30 @@ def make_train_batch(cfg, tok, seed: int, b: int = 2, s: int = 1024):
 def serving_cfg(depth_cut: bool = False, quant: str = "int8"):
     from otter_tpu_torch.config import otter_mpt7b
     cfg = otter_mpt7b()
-    text = cfg.text.replace(quant=quant, decode_kernel="auto")
-    if not depth_cut:
-        return cfg.replace(text=text)
-    return cfg.replace(
-        text=text.replace(num_hidden_layers=4),
-        vision=cfg.vision.replace(num_hidden_layers=2),
-        perceiver=cfg.perceiver.replace(depth=1))
+    cfg = cfg.replace(text=cfg.text.replace(quant=quant,
+                                            decode_kernel="auto"))
+    return _depth_cut(cfg) if depth_cut else cfg
+
+
+def llama_cfg(depth_cut: bool = False):
+    """OTTER-LLaMA2-Chat-7B as the worker serves it with `--load-bit int8
+    --cache-bit int8`."""
+    from otter_tpu_torch.config import otter_llama2_chat7b
+    cfg = otter_llama2_chat7b()
+    cfg = cfg.replace(text=cfg.text.replace(quant="int8",
+                                            decode_kernel="auto"))
+    return _depth_cut(cfg) if depth_cut else cfg
+
+
+def otterhd_cfg(depth_cut: bool = False):
+    """OtterHD-8B (Fuyu) with int8 weights and the int8 embedding table."""
+    from otter_tpu_torch.config import FuyuConfig
+    cfg = FuyuConfig()
+    text = cfg.text.replace(quant="int8", quant_embed=True,
+                            decode_kernel="auto")
+    if depth_cut:
+        text = text.replace(num_hidden_layers=4)
+    return cfg.replace(text=text)
 
 
 def make_requests(cfg, batch: int, seed: int, full: bool = False):
@@ -783,7 +894,7 @@ def plain_kernels():
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
              quant.int8_mlp, quant.int4_mlp, quant.int4_matmul,
              da.decode_attention, mk.decode_attn_megakernel,
-             quant.int8_attn_tail)
+             quant.int8_attn_tail, quant.int8_matmul)
     fa.flash_attention_fwd = fa.flash_attention_plain
     fa.flash_attention_bwd = fa.flash_attention_bwd_plain
     quant.int8_mlp = quant.int8_mlp_plain
@@ -792,12 +903,14 @@ def plain_kernels():
     da.decode_attention = da.decode_attention_plain
     mk.decode_attn_megakernel = mk.decode_attn_megakernel_plain
     quant.int8_attn_tail = quant.int8_attn_tail_plain
+    quant.int8_matmul = quant.int8_matmul_plain
     try:
         yield
     finally:
         (fa.flash_attention_fwd, fa.flash_attention_bwd, quant.int8_mlp,
          quant.int4_mlp, quant.int4_matmul, da.decode_attention,
-         mk.decode_attn_megakernel, quant.int8_attn_tail) = saved
+         mk.decode_attn_megakernel, quant.int8_attn_tail,
+         quant.int8_matmul) = saved
 
 
 # ── phase 4: kernel path against the plain path ─────────────────────
@@ -812,8 +925,11 @@ def first_step_logits(model, cfg, cache_dtype, vision_x, lang_x, attn):
         mask = torch.from_numpy(attn).to(dev)
         b, p = ids.shape
         cache = init_cache(cfg.text, b, 256, cache_dtype, dev)
-        logits0, cache, lat = model(vx, ids, attention_mask=mask,
-                                    cache=cache, head_last_only=True)
+        # positions count real tokens (rope models; ALiBi ignores them)
+        real_len = mask.sum(-1)
+        logits0, cache, lat = model(
+            vx, ids, attention_mask=mask, cache=cache, head_last_only=True,
+            positions=(mask.cumsum(-1) - 1).clamp_min(0))
         tok = torch.full((b, 1), cfg.text.vocab_size // 2, device=dev)
         kv_valid = torch.zeros((b, 256), dtype=torch.bool, device=dev)
         kv_valid[:, :p] = mask.bool()
@@ -821,8 +937,49 @@ def first_step_logits(model, cfg, cache_dtype, vision_x, lang_x, attn):
         media = (ids == cfg.media_token_id).int().sum(-1)
         logits1, _, _ = model(None, tok, vis_latents=lat, cache=cache,
                               cache_pos=p, kv_valid=kv_valid,
+                              positions=real_len[:, None],
                               media_counts=media)
         return logits0[:, -1].float(), logits1[:, -1].float()
+
+
+def fuyu_first_step_logits(model, cfg, ids, patches, idx, mask):
+    """The same for a FuyuVLM: the last prompt position's logits with the
+    image patches merged, then one cached step."""
+    import torch
+    from otter_tpu_torch.models.fuyu import make_fuyu_cache
+    with torch.inference_mode():
+        dev = model.device
+        ids, idx, mask = (torch.from_numpy(a).to(dev) for a in
+                          (ids, idx, mask))
+        patches = torch.from_numpy(patches).to(dev).to(model.dtype)
+        b, s = ids.shape
+        cache = make_fuyu_cache(cfg, b, 384, torch.int8, dev)
+        logits0, cache = model(
+            ids, image_patches=patches, image_patches_indices=idx,
+            attention_mask=mask, cache=cache, head_last_only=True,
+            positions=(mask.cumsum(-1) - 1).clamp_min(0))
+        kv_valid = torch.zeros((b, 384), dtype=torch.bool, device=dev)
+        kv_valid[:, :s] = mask.bool()
+        kv_valid[:, s] = True
+        tok = torch.full((b, 1), cfg.text.vocab_size // 2, device=dev)
+        logits1, _ = model(tok, cache=cache, cache_pos=s, kv_valid=kv_valid,
+                           positions=mask.sum(-1)[:, None])
+        return logits0[:, -1].float(), logits1[:, -1].float()
+
+
+def _hold_logits(tag: str, kern, plain):
+    """Prefill and first-step logits, kernel path against plain path."""
+    import torch
+    for name, a, r in zip(("prefill", "decode step 1"), kern, plain):
+        err = float((a - r).abs().max())
+        scale = float(r.abs().max())
+        ok = torch.isfinite(a).all() and err <= 5e-2 * scale
+        log(f"parity[{tag}, {name}]: logits "
+            f"max_abs_err {err:.4e} vs max|plain| {scale:.4e} "
+            f"(tolerance 5e-2 * max|plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{tag}: kernel path disagrees with the "
+                               f"plain path at the {name} logits")
 
 
 def phase_parity():
@@ -834,17 +991,33 @@ def phase_parity():
         kern = first_step_logits(model, cfg, cache_dtype, *req)
         with plain_kernels():
             plain = first_step_logits(model, cfg, cache_dtype, *req)
-        for name, a, r in zip(("prefill", "decode step 1"), kern, plain):
-            err = float((a - r).abs().max())
-            scale = float(r.abs().max())
-            ok = torch.isfinite(a).all() and err <= 5e-2 * scale
-            log(f"parity[{quant} weights and cache, {name}]: logits "
-                f"max_abs_err {err:.4e} vs max|plain| {scale:.4e} "
-                f"(tolerance 5e-2 * max|plain|) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"{quant}: kernel path disagrees with the "
-                                   f"plain path at the {name} logits")
+        _hold_logits(f"{quant} weights and cache", kern, plain)
         del model
+
+    # the rope models with untied int8 heads: the decode step's logits come
+    # out of int8_matmul
+    from otter_tpu_torch.ops import quant as quant_ops
+    from otter_tpu_torch.tools.random_weights import fuyu_request
+    cfg = llama_cfg(depth_cut=True)
+    model = build_model(cfg)
+    req = make_requests(cfg, 8, SEED + 3)
+    before = quant_ops.int8_matmul.launches
+    kern = first_step_logits(model, cfg, torch.int8, *req)
+    with plain_kernels():
+        plain = first_step_logits(model, cfg, torch.int8, *req)
+    _hold_logits("llama2-chat-7b, int8 weights and cache", kern, plain)
+    del model
+    cfg = otterhd_cfg(depth_cut=True)
+    model = build_model(cfg)
+    req = fuyu_request(cfg, 448, 448, 16, SEED + 4, left_pad=8)
+    kern = fuyu_first_step_logits(model, cfg, *req)
+    with plain_kernels():
+        plain = fuyu_first_step_logits(model, cfg, *req)
+    _hold_logits("otterhd-8b, int8 weights, embedding and cache", kern, plain)
+    del model
+    if quant_ops.int8_matmul.launches != before + 2:
+        raise RuntimeError("parity: the two untied heads did not go through "
+                           "int8_matmul once each")
 
     # the fused decode routes, on full-length prompts (the megakernel
     # attends every cache row below the position: no left padding):
@@ -882,25 +1055,58 @@ def phase_parity():
 
 # ── phase 5: serve requests at full width ───────────────────────────
 
-def phase_serve(smi: str, quant_mode: str = "int8"):
-    """Serve the requests with int8 weights and cache (phase `serve`) or
-    int4 weights and cache (phase `serve4`)."""
+# kernels each serving phase must launch (and no other), and for the llama
+# phase the exact launches of one decode step and of one prefill
+SERVE_PATHS = {
+    "serve": {"flash_fwd", "int8_mlp", "decode_attention"},
+    # no model routes a projection through int4_matmul (the JAX package
+    # keeps them int8): it is held against its plain version in the kernels
+    # phase only
+    "serve4": {"flash_fwd", "int4_mlp", "decode_attention_int4"},
+    "llama": {"flash_fwd", "int8_mlp", "decode_attention", "int8_matmul"},
+}
+LLAMA_STEP = {"int8_matmul": 1, "decode_attention": 32, "int8_mlp": 8}
+# 24 CLIP + 6 perceiver + 32 decoder + 8 xattn attention calls
+LLAMA_PREFILL = {"flash_fwd": 70}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _weight_bytes(model) -> int:
+    return _nbytes(*model.parameters(), *model.buffers())
+
+
+def _launches_of(fn) -> dict:
+    """The kernels' launch counts over one call of `fn`, zeros left out."""
+    from otter_tpu_torch.tools import bench_decode
+    before = bench_decode.kernel_launches()
+    fn()
+    after = bench_decode.kernel_launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def phase_serve(smi: str, tag: str = "serve"):
+    """Serve the requests on OTTER-MPT7B with int8 weights and cache (phase
+    `serve`) or int4 weights and cache (phase `serve4`), or on
+    OTTER-LLaMA2-Chat-7B with int8 weights and cache (phase `llama`)."""
     import numpy as np
     import torch
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
     from otter_tpu_torch.tools import bench_decode
 
-    int4 = quant_mode == "int4"
-    tag = "serve4" if int4 else "serve"
-    cfg = serving_cfg(quant=quant_mode)
+    int4 = tag == "serve4"
+    quant_mode = "int4" if int4 else "int8"
+    cfg = llama_cfg() if tag == "llama" else serving_cfg(quant=quant_mode)
     t0 = time.perf_counter()
     model = build_model(cfg)
-    n_bytes = sum(t.numel() * t.element_size() for t in
-                  list(model.parameters()) + list(model.buffers()))
-    log(f"{tag}: {cfg.text.num_hidden_layers}-layer model, {quant_mode} "
-        f"weights ({n_bytes / 1e9:.2f} GB on the card) and {quant_mode} KV "
-        f"cache, built and loaded in {time.perf_counter() - t0:.1f} s")
+    n_bytes = _weight_bytes(model)
+    log(f"{tag}: {cfg.text.num_hidden_layers}-layer {cfg.text.arch} model, "
+        f"{quant_mode} weights ({n_bytes / 1e9:.3f} GB on the card) and "
+        f"{quant_mode} KV cache, built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
     engine = OtterGenerator(model, cache_dtype="int4" if int4 else torch.int8)
     bench_decode.reset_kernel_launches()
     for b in (1, 8):
@@ -951,13 +1157,25 @@ def phase_serve(smi: str, quant_mode: str = "int8"):
             f"{[round(x * 1e3, 2) for x in times[1]]} ms, 32-token runs "
             f"{[round(x * 1e3, 2) for x in times[32]]} ms | {smi} | first "
             f"tokens {out[0, p:p + 8].tolist()}")
+    if tag == "llama":
+        # what one prefill and one decode step launch, exactly (no eos, so
+        # the 3-token request takes its two steps)
+        req = make_requests(cfg, 8, SEED + 19)
+        prefill = _launches_of(lambda: engine.generate(
+            *req, gen=GenerationConfig(max_new_tokens=1)))
+        three = _launches_of(lambda: engine.generate(
+            *req, gen=GenerationConfig(max_new_tokens=3, eos_token_id=-1)))
+        step = {k: (n - prefill.get(k, 0)) / 2 for k, n in three.items()
+                if n != prefill.get(k, 0)}
+        log(f"{tag}: a prefill launches {prefill}, a decode step {step}")
+        if prefill != LLAMA_PREFILL or step != LLAMA_STEP:
+            raise RuntimeError(
+                f"{tag}: a prefill launched {prefill} (expected "
+                f"{LLAMA_PREFILL}), a decode step {step} (expected "
+                f"{LLAMA_STEP})")
     launches = bench_decode.kernel_launches()
     log(f"{tag}: kernel launches during the requests {launches}")
-    # no model routes a projection through int4_matmul (the JAX package
-    # keeps them int8): it is held against its plain version in the kernels
-    # phase only
-    path = ({"flash_fwd", "int4_mlp", "decode_attention_int4"} if int4
-            else {"flash_fwd", "int8_mlp", "decode_attention"})
+    path = SERVE_PATHS[tag]
     dead = sorted(k for k in path if launches[k] == 0)
     stray = sorted(k for k, n in launches.items() if n and k not in path)
     if dead or stray:
@@ -966,29 +1184,125 @@ def phase_serve(smi: str, quant_mode: str = "int8"):
     return launches, engine
 
 
+# ── phase 10: OtterHD-8B, one request at a time ─────────────────────
+
+OTTERHD_STEP = {"int8_matmul": 1, "int8_mlp": 36, "decode_attention": 36}
+OTTERHD_PREFILL = {"flash_fwd": 36}
+
+
+def phase_otterhd(smi: str, profile: bool = False):
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.fuyu import fuyu_generate
+    from otter_tpu_torch.tools import bench_decode
+    from otter_tpu_torch.tools.random_weights import fuyu_request
+
+    cfg = otterhd_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    n_bytes = _weight_bytes(model)
+    lm = model.language_model
+    table = _nbytes(lm.wte_q, lm.wte_s)
+    plain_table = lm.wte_q.numel() * 2   # the same table in bf16
+    log(f"otterhd: {cfg.text.num_hidden_layers}-layer persimmon model, int8 "
+        f"weights, int8 embedding table and int8 KV cache: "
+        f"{n_bytes / 1e9:.3f} GB on the card "
+        f"({(n_bytes - table + plain_table) / 1e9:.3f} GB without "
+        f"quant_embed: the table takes {table / 1e9:.3f} GB, "
+        f"{plain_table / 1e9:.3f} in bf16), built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(req, n_new):
+        return list(fuyu_generate(
+            model, *req, gen=GenerationConfig(max_new_tokens=n_new),
+            cache_dtype=torch.int8))
+
+    bench_decode.reset_kernel_launches()
+    for height, width in ((448, 448), (1080, 1920)):
+        req = fuyu_request(cfg, height, width, 16, SEED + 20)
+        s = req[0].shape[1]
+        run(req, 2)   # warm-up
+        times = {1: [], 32: []}
+        outs = []
+        for _ in range(REPS):
+            for n_new in (1, 32):
+                t = time.perf_counter()
+                out = run(req, n_new)
+                times[n_new].append(time.perf_counter() - t)
+            outs.append(out)
+        if len(outs[0]) != 32 or not all(
+                0 <= t < cfg.text.total_vocab for t in outs[0]):
+            raise RuntimeError(f"otterhd {height}x{width}: tokens {outs[0]}")
+        if any(o != outs[0] for o in outs[1:]):
+            raise RuntimeError(f"otterhd {height}x{width}: greedy output "
+                               f"differs between runs of the same request")
+        prefill_s = float(np.median(times[1]))
+        decode_s = float(np.median(times[32])) - prefill_s
+        log(f"otterhd {height}x{width}: {s - 16} image tokens + 16 prompt "
+            f"tokens, 32 new tokens | prefill (to the first token) "
+            f"{prefill_s * 1e3:.2f} ms | decode {31 / decode_s:.2f} tok/s "
+            f"({decode_s / 31 * 1e3:.2f} ms/step) | medians of {REPS}; "
+            f"1-token runs {[round(x * 1e3, 2) for x in times[1]]} ms, "
+            f"32-token runs {[round(x * 1e3, 2) for x in times[32]]} ms | "
+            f"{smi} | first tokens {outs[0][:8]}")
+        prefill = _launches_of(lambda: run(req, 1))
+        three = _launches_of(lambda: run(req, 3))
+        step = {k: (n - prefill.get(k, 0)) / 2 for k, n in three.items()
+                if n != prefill.get(k, 0)}
+        log(f"otterhd {height}x{width}: a prefill launches {prefill}, a "
+            f"decode step {step}")
+        if prefill != OTTERHD_PREFILL or step != OTTERHD_STEP:
+            raise RuntimeError(
+                f"otterhd: a prefill launched {prefill} (expected "
+                f"{OTTERHD_PREFILL}), a decode step {step} (expected "
+                f"{OTTERHD_STEP})")
+    launches = bench_decode.kernel_launches()
+    log(f"otterhd: kernel launches during the requests {launches}")
+    if profile:
+        for height, width in ((448, 448), (1080, 1920)):
+            req = fuyu_request(cfg, height, width, 16, SEED + 20)
+            phase_profile(lambda n_new: run(req, n_new),
+                          f"otterhd {height}x{width}")
+    return launches
+
+
 # ── optional: where the time goes in one b=8 request ────────────────
 
-def phase_profile(engine, tag: str = "serve"):
-    """torch.profiler over a b=8 request: prefill alone (1 new token), then
-    prefill + 31 decode steps. Writes the kernel tables to chiprun_out/
-    and prints the device-busy share and the top kernels."""
-    import torch
+def phase_profile(run, tag: str):
+    """torch.profiler over one request served by `run(n_new)`: the prefill
+    alone (1 new token), then the prefill + 31 decode steps; a decode
+    step's device time and launches from the difference. Writes the kernel
+    tables to OUT_DIR and prints the device-busy share and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from otter_tpu_torch.config import GenerationConfig
 
-    cfg = engine.cfg
-    req = make_requests(cfg, 8, SEED + 18)
     os.makedirs(OUT_DIR, exist_ok=True)
+    seen = {}
     for n_new in (1, 32):
-        gen_cfg = GenerationConfig(max_new_tokens=n_new)
-        engine.generate(*req, gen=gen_cfg)
+        run(n_new)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            engine.generate(*req, gen=gen_cfg)
+            run(n_new)
             wall = time.perf_counter() - t
-        _report_profile(prof, wall, f"profile {tag} b=8 new={n_new}",
-                        f"profile_{tag}_b8_new{n_new}.txt")
+        seen[n_new] = _report_profile(
+            prof, wall, f"profile {tag} new={n_new}",
+            f"profile_{tag.replace(' ', '_').replace('=', '')}_new{n_new}"
+            f".txt") + (wall,)
+    (b0, n0, w0), (b1, n1, w1) = seen[1], seen[32]
+    log(f"profile {tag}: a decode step takes {(b1 - b0) / 31 * 1e3:.3f} ms "
+        f"of device kernels in {(n1 - n0) / 31:.1f} launches; "
+        f"{(w1 - w0) / 31 * 1e3:.3f} ms of wall time under the profiler")
+
+
+def _profile_engine(engine, tag: str):
+    """`phase_profile` of a b=8 request through `OtterGenerator.generate`."""
+    from otter_tpu_torch.config import GenerationConfig
+    req = make_requests(engine.cfg, 8, SEED + 18)
+    phase_profile(lambda n_new: engine.generate(
+        *req, gen=GenerationConfig(max_new_tokens=n_new, eos_token_id=-1)),
+        f"{tag} b=8")
 
 
 def _report_profile(prof, wall: float, label: str, fname: str):
@@ -1503,16 +1817,19 @@ KERNELS = {
                                "otter_tpu/ops/megakernel.py:46"),
     "int8_attn_tail": ("otter_tpu_torch/csrc/int8_attn_tail.cu",
                        "otter_tpu/ops/quant.py:199"),
+    "int8_matmul": ("otter_tpu_torch/csrc/int8_matmul.cu",
+                    "otter_tpu/ops/quant.py:22"),
 }
-PHASES = "kernels,parity,serve,serve4,fused,trainparity,train"
+PHASES = "kernels,parity,serve,serve4,fused,llama,otterhd,trainparity,train"
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=PHASES,
                     help=f"comma-separated subset of {PHASES}, plus profile "
-                         "(after serve, serve4, fused and train; not run by "
-                         "default). "
+                         "(after serve, serve4, llama, fused and train; not "
+                         "run by default), fusedkernels and headkernels "
+                         "(parts of kernels, for bring-up). "
                          "Device and build always run.")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1538,21 +1855,31 @@ def main(argv=None) -> int:
         return out
 
     entries = {}
-    if "kernels" in phases or "fusedkernels" in phases:
-        entries = run("kernels", phase_kernels, gen, "kernels" not in phases)
+    if "kernels" in phases:
+        entries = run("kernels", phase_kernels, gen)
+    else:
+        for name, only in (("fusedkernels", "fused"), ("headkernels", "head")):
+            if name in phases:
+                entries.update(run(name, phase_kernels, gen, only))
     if "parity" in phases:
         run("parity", phase_parity)
     by_path = {}
-    for tag, quant_mode in (("serve", "int8"), ("serve4", "int4")):
+    def serve(tag):
+        launches, engine = phase_serve(smi, tag)
+        if "profile" in phases:
+            _profile_engine(engine, tag)
+        return launches
+
+    for tag in ("serve", "serve4"):
         if tag in phases:
-            def serve():
-                launches, engine = phase_serve(smi, quant_mode)
-                if "profile" in phases:
-                    phase_profile(engine, tag)
-                return launches
-            by_path[tag] = run(tag, serve)
+            by_path[tag] = run(tag, serve, tag)
     if "fused" in phases:
         by_path["fused"] = run("fused", phase_fused, smi, "profile" in phases)
+    if "llama" in phases:
+        by_path["llama"] = run("llama", serve, "llama")
+    if "otterhd" in phases:
+        by_path["otterhd"] = run("otterhd", phase_otterhd, smi,
+                                 "profile" in phases)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

@@ -78,9 +78,12 @@ class PerceiverConfig(_JsonMixin):
 
 @dataclass(frozen=True)
 class TextConfig(_JsonMixin):
-    """Decoder-only LM backbone. The port implements `arch="mpt"` (ALiBi,
-    low-precision LayerNorm, fused Wqkv, tied embeddings, GELU MLP); the
-    other fields are kept so configs load unchanged."""
+    """Decoder-only LM backbone; `arch` selects the family: "mpt" (ALiBi,
+    low-precision LayerNorm, fused Wqkv, tied embeddings, GELU MLP),
+    "mosaic_gpt" (the older MPT variant), "llama" (RoPE, RMSNorm, SwiGLU,
+    untied head), "falcon" (rotary, fused multiquery qkv, parallel
+    attention + MLP) and "persimmon" (partial rotary, per-head q/k
+    LayerNorm, squared-ReLU MLP, biases)."""
 
     arch: str = "mpt"
     vocab_size: int = 50432
@@ -192,6 +195,165 @@ def otter_mpt7b() -> OtterConfig:
         cross_attn_every_n_layers=4,
         media_token_id=50278, eoc_token_id=50277,
     )
+
+
+def otter_mpt1b() -> OtterConfig:
+    """Flamingo-MPT-1B-RedPajama (reference
+    `flamingo/flamingo-mpt-1B-redpajama.json`): MosaicGPT 1B, ALiBi, qk_ln,
+    gated xattn every layer."""
+    return OtterConfig(
+        vision=VisionConfig(),
+        text=TextConfig(arch="mosaic_gpt", vocab_size=50432, hidden_size=2048,
+                        num_hidden_layers=24, num_attention_heads=16,
+                        max_seq_len=2048, pos="alibi", qk_ln=True,
+                        norm_type="low_precision_layernorm", act="gelu",
+                        tie_embeddings=True, no_bias=True),
+        perceiver=PerceiverConfig(dim=1024, max_num_frames=None),
+        cross_attn_every_n_layers=1,
+        media_token_id=50278, eoc_token_id=50277,
+    )
+
+
+def otter_llama7b_video(max_num_frames: int = 128) -> OtterConfig:
+    """OTTER-Video-LLaMA7B-DenseCaption."""
+    return OtterConfig(
+        vision=VisionConfig(),
+        text=TextConfig(arch="llama", vocab_size=32000, extra_vocab=4,
+                        hidden_size=4096, num_hidden_layers=32,
+                        num_attention_heads=32, intermediate_size=11008,
+                        max_seq_len=2048, pos="rope", norm_type="rmsnorm",
+                        norm_eps=1e-6, act="silu_glu", tie_embeddings=False,
+                        no_bias=True),
+        perceiver=PerceiverConfig(dim=1024, max_num_frames=max_num_frames),
+        cross_attn_every_n_layers=4,
+        media_token_id=32001, eoc_token_id=32002,
+    )
+
+
+def otter_mpt30b() -> OtterConfig:
+    """Flamingo-MPT-30B (reference `flamingo/flamingo-mpt-30B.json`):
+    d=7168, 64 heads, 48 layers, 8k context, gated xattn every 7 layers."""
+    return OtterConfig(
+        vision=VisionConfig(),
+        text=TextConfig(arch="mpt", vocab_size=50432, hidden_size=7168,
+                        num_hidden_layers=48, num_attention_heads=64,
+                        max_seq_len=8192, pos="alibi",
+                        norm_type="low_precision_layernorm", act="gelu",
+                        tie_embeddings=True, no_bias=True),
+        perceiver=PerceiverConfig(dim=1024, max_num_frames=None),
+        cross_attn_every_n_layers=7,
+        media_token_id=50278, eoc_token_id=50277,
+    )
+
+
+def otter_falcon7b() -> OtterConfig:
+    """Flamingo-Falcon-7B (reference `flamingo/flamingo-falcon-7B.json`):
+    rotary + fused-qkv multiquery, parallel attn+MLP block, LN with bias."""
+    return OtterConfig(
+        vision=VisionConfig(),
+        text=TextConfig(arch="falcon", vocab_size=65024, extra_vocab=2,
+                        hidden_size=4544, num_hidden_layers=32,
+                        num_attention_heads=71, num_kv_heads=1,
+                        intermediate_size=4 * 4544, max_seq_len=2048,
+                        pos="rope", norm_type="low_precision_layernorm",
+                        act="gelu", tie_embeddings=False, no_bias=True),
+        perceiver=PerceiverConfig(dim=1024, max_num_frames=None),
+        cross_attn_every_n_layers=4,
+        media_token_id=65025, eoc_token_id=65024,
+    )
+
+
+def _otter_llama(hidden: int, layers: int, heads: int, ffn: int,
+                 norm_eps: float, xattn_every: int,
+                 max_seq_len: int = 2048) -> OtterConfig:
+    """LLaMA-family flamingo preset. The injection scripts resize the
+    embedding 32000 -> 32002 (`injecting_llama2_into_flamingo.py:82-89`,
+    `injecting_vicuna_into_flamingo.py:87-94`): <|endofchunk|>=32000,
+    <image>=32001."""
+    return OtterConfig(
+        vision=VisionConfig(),
+        text=TextConfig(arch="llama", vocab_size=32000, extra_vocab=2,
+                        hidden_size=hidden, num_hidden_layers=layers,
+                        num_attention_heads=heads, intermediate_size=ffn,
+                        max_seq_len=max_seq_len, pos="rope",
+                        norm_type="rmsnorm", norm_eps=norm_eps,
+                        act="silu_glu", tie_embeddings=False, no_bias=True),
+        perceiver=PerceiverConfig(dim=1024, max_num_frames=None),
+        cross_attn_every_n_layers=xattn_every,
+        media_token_id=32001, eoc_token_id=32000,
+    )
+
+
+def otter_llama2_chat7b() -> OtterConfig:
+    """Flamingo-LLaMA2-Chat-7B (reference
+    `flamingo/flamingo-llama2-chat-7B.json`)."""
+    return _otter_llama(4096, 32, 32, 11008, 1e-5, 4)
+
+
+def otter_llama2_chat13b() -> OtterConfig:
+    """Flamingo-LLaMA2-Chat-13B (reference
+    `flamingo/flamingo-llama2-chat-13B.json`): xattn every 8 layers,
+    4k context."""
+    return _otter_llama(5120, 40, 40, 13824, 1e-5, 8, max_seq_len=4096)
+
+
+def otter_vicuna7b() -> OtterConfig:
+    """Flamingo-Vicuna-7B-v1.3 (reference
+    `flamingo/flamingo-vicuna-7B-v1.3.json`)."""
+    return _otter_llama(4096, 32, 32, 11008, 1e-6, 4)
+
+
+def otter_vicuna33b() -> OtterConfig:
+    """Flamingo-Vicuna-33B-v1.3 (reference
+    `flamingo/flamingo-vicuna-33B-v1.3.json`)."""
+    return _otter_llama(6656, 60, 52, 17920, 1e-6, 4)
+
+
+# every reference model JSON preset
+# (`src/otter_ai/models/flamingo/flamingo-*.json`) by short name
+PRESETS = {
+    "mpt1b": otter_mpt1b,
+    "mpt7b": otter_mpt7b,
+    "mpt30b": otter_mpt30b,
+    "llama7b-video": otter_llama7b_video,
+    "llama2-chat-7b": otter_llama2_chat7b,
+    "llama2-chat-13b": otter_llama2_chat13b,
+    "vicuna-7b": otter_vicuna7b,
+    "vicuna-33b": otter_vicuna33b,
+    "falcon7b": otter_falcon7b,
+}
+
+
+@dataclass(frozen=True)
+class FuyuConfig(_JsonMixin):
+    """Fuyu/OtterHD: encoder-free VLM (reference `fuyu/modeling_fuyu.py:19`).
+    Variable-resolution image patches are linearly projected into the token
+    stream of a Persimmon-8B decoder."""
+
+    text: TextConfig = field(default_factory=lambda: TextConfig(
+        arch="persimmon", vocab_size=262144, hidden_size=4096,
+        num_hidden_layers=36, num_attention_heads=64, intermediate_size=16384,
+        max_seq_len=16384, pos="rope", rope_theta=25000.0,
+        rope_partial_factor=0.5, norm_type="layernorm", qk_ln=True,
+        act="sq_relu", tie_embeddings=False, no_bias=False))
+    patch_size: int = 30
+    num_channels: int = 3
+    max_image_height: int = 1080
+    max_image_width: int = 1920
+    image_newline_id: int = 71019
+    image_placeholder_id: int = 71011
+
+    @classmethod
+    def tiny(cls) -> "FuyuConfig":
+        return cls(
+            text=TextConfig(arch="persimmon", vocab_size=512, hidden_size=64,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            intermediate_size=256, max_seq_len=256, pos="rope",
+                            rope_partial_factor=0.5, norm_type="layernorm",
+                            qk_ln=True, act="sq_relu", tie_embeddings=False,
+                            no_bias=False),
+            patch_size=4, max_image_height=16, max_image_width=16,
+            image_newline_id=509, image_placeholder_id=508)
 
 
 @dataclass(frozen=True)

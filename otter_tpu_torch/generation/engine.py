@@ -149,11 +149,18 @@ class OtterGenerator:
             self.cfg.text, b, cache_len, self.cache_dtype, device=dev,
             param_bytes=self.param_bytes)
         cache = init_cache(self.cfg.text, b, cache_len, cache_dtype, dev)
+        # a token's position counts the real tokens before it: left padding
+        # does not move a prompt (ALiBi takes no positions)
+        real_len = positions = None
+        if self.cfg.text.pos != "alibi":
+            real_len = attention_mask.sum(-1)
+            positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
         logits, cache, vis_latents = self.model(
             _on(vision_x, dev), lang_x, attention_mask=attention_mask,
-            cache=cache, head_last_only=True)
+            positions=positions, cache=cache, head_last_only=True)
         st = SimpleNamespace(
             gen=gen, generator=generator, p=p, cache=cache,
+            real_len=real_len,
             vis_latents=vis_latents,
             eos=(gen.eos_token_id if gen.eos_token_id is not None
                  else self.cfg.eoc_token_id),
@@ -187,10 +194,12 @@ class OtterGenerator:
         """One cached decode step: feed token t - 1, sample token t."""
         pos = st.p + st.t - 1
         st.kv_valid[:, pos] = True
+        positions = (None if st.real_len is None
+                     else (st.real_len + (st.t - 1))[:, None])
         logits, st.cache, _ = self.model(
             None, st.tok[:, None], vis_latents=st.vis_latents,
             cache=st.cache, cache_pos=pos, kv_valid=st.kv_valid,
-            media_counts=st.media_counts)
+            positions=positions, media_counts=st.media_counts)
         self._sample(st, logits[:, -1])
 
     def generate(self, vision_x, lang_x, attention_mask=None,

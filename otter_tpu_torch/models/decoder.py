@@ -1,14 +1,25 @@
-"""MPT decoder with gated cross-attention (counterpart of
-`otter_tpu/models/decoder.py`, `arch="mpt"`).
+"""Decoder-only LM backbone with gated cross-attention (counterpart of
+`otter_tpu/models/decoder.py`).
 
-ALiBi, low-precision LayerNorm, fused Wqkv, no biases, tied embeddings,
-GELU MLP, and a `GatedCrossAttentionBlock` before every
-`cross_attn_every_n_layers`-th layer (`(i + 1) % n == 0`).
+One parameterized implementation, selected by `TextConfig.arch`:
 
-The KV cache is one stacked array per k/v, [B, n_layers, H, L, D] (int8
-caches add f32 scales [B, n_layers, H, L]; an int4 cache is one fused
-`kv` array of that shape, k in the low nibbles and v in the high, with the
-same scales), as `init_cache` builds it.
+  - "mpt"        ALiBi, low-precision LayerNorm, fused Wqkv, no biases,
+                 tied embeddings, GELU MLP
+  - "mosaic_gpt" the older Mosaic variant, same structure
+  - "llama"      RoPE, RMSNorm, SwiGLU, untied head
+  - "falcon"     rotary, fused multiquery qkv, parallel attention + MLP
+  - "persimmon"  partial rotary, per-head q/k LayerNorm, squared-ReLU MLP,
+                 biases everywhere
+
+and a `GatedCrossAttentionBlock` before every
+`cross_attn_every_n_layers`-th layer (`(i + 1) % n == 0`). Submodules and
+parameters carry the flax names, so `models.convert.load_flax_params` is
+one to one.
+
+The KV cache is one stacked array per k/v, [B, n_layers, kv_heads, L, D]
+(int8 caches add f32 scales [B, n_layers, kv_heads, L]; an int4 cache is
+one fused `kv` array of that shape, k in the low nibbles and v in the high,
+with the same scales), as `init_cache` builds it.
 JAX updates it functionally with `dynamic_update_slice`; here the layers
 write their slots in place with slice assignment, so one buffer serves the
 whole generation and no per-layer copy is ever made.
@@ -22,17 +33,25 @@ cross-entropy.
 Routing follows the JAX module: prefill and training attention go through
 the dispatcher (flash kernels on the GPU); cached decode goes through the
 decode-attention kernel when `decode_kernel` says so (`"auto"`: an int8
-or int4 cache, or L >= 1024), else through dense attention over the
-layer's slice; the MLP with int8 (int4) weights goes through the fused
-`int8_mlp` (`int4_mlp`) kernel at decode with at most 32 tokens, else
-through two `Int8Dense` (`Int4Dense`). Two opt-in fused decode routes, int8
-weights only: `TextConfig.megakernel` sends a one-token step of at most 8
+or int4 cache, or L >= 1024) and the cache is as wide as the query
+(`kv_heads == heads`), else through dense attention over the layer's
+slice; the MLP with int8 (int4) weights goes through the fused `int8_mlp`
+(`int4_mlp`) kernel at decode with at most 32 tokens (a gated `silu_glu`
+MLP never does), else through its `Int8Dense` (`Int4Dense`) projections;
+an untied quantized `lm_head` goes through `ops.quant.int8_matmul` at
+decode with at most 32 tokens, else through its `Int8Dense`. Two opt-in
+fused decode routes, int8 weights only: `TextConfig.megakernel` sends a
+one-token step of at most 8
 rows over a cache in the activation dtype through
 `ops.megakernel.decode_attn_megakernel` (norm_1, qkv, cached attention,
 out-proj and residual in one call over the fused `attn/wqo_q` operand),
 then norm_2 and `int8_mlp`; `TextConfig.fused_tail` sends the layer's tail
 (out-proj + residual, norm_2, MLP + residual) through
-`ops.quant.int8_attn_tail`. The megakernel check comes first.
+`ops.quant.int8_attn_tail`. The megakernel check comes first. Both ask for
+MPT's shape of layer (no biases, GELU, low-precision LayerNorm).
+
+Not ported: LoRA adapters, the prefix-LM and sequence-id masks, and cached
+steps of more than one token; the constructor or the forward refuses them.
 """
 
 from __future__ import annotations
@@ -49,15 +68,26 @@ from otter_tpu_torch.ops import decode_attention as da
 from otter_tpu_torch.ops import megakernel as mk
 from otter_tpu_torch.ops import quant as quant_ops
 from otter_tpu_torch.ops.attention import multi_head_attention
-from otter_tpu_torch.ops.layers import ACTIVATIONS, LayerNorm
+from otter_tpu_torch.ops.layers import (ACTIVATIONS, LayerNorm, RMSNorm,
+                                        cached_rotary_tables, rotate,
+                                        select_rotary)
 from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE, alibi_slopes
 
 Cache = Dict[str, torch.Tensor]
 
 
-def _lp_norm(c: TextConfig, dtype, device) -> LayerNorm:
-    # MPT removes the LayerNorm biases (`modeling_mpt.py:83-87`)
-    return LayerNorm(c.hidden_size, eps=c.norm_eps, use_bias=False,
+ARCHS = ("mpt", "mosaic_gpt", "llama", "falcon", "persimmon")
+
+
+def _norm(c: TextConfig, dtype, device) -> nn.Module:
+    """The block norm by `norm_type`. MPT removes the LayerNorm biases
+    (`modeling_mpt.py:83-87`); falcon keeps them even with bias-free
+    linears (`falcon/modelling_RW.py:368`)."""
+    if c.norm_type == "rmsnorm":
+        return RMSNorm(c.hidden_size, eps=c.norm_eps, dtype=dtype,
+                       device=device)
+    return LayerNorm(c.hidden_size, eps=c.norm_eps,
+                     use_bias=(not c.no_bias) or c.arch == "falcon",
                      dtype=dtype, device=device)
 
 
@@ -96,7 +126,11 @@ def write_cache(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor,
 
 def dense_decode_attention(q, k, v, kv_valid, bias, *, sm_scale):
     """Dense attention for cached decoding (small q_len against
-    [B, H, L, D]); kv_valid bool [B, L] marks attendable entries."""
+    [B, H_kv, L, D]); kv_valid bool [B, L] marks attendable entries."""
+    h, hk = q.shape[1], k.shape[1]
+    if hk != h:
+        k = k.repeat_interleave(h // hk, dim=1)
+        v = v.repeat_interleave(h // hk, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if bias is not None:
         logits = logits + bias.float()
@@ -109,19 +143,42 @@ def dense_decode_attention(q, k, v, kv_valid, bias, *, sm_scale):
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TextConfig, dtype, device):
         super().__init__()
-        if cfg.kv_heads != cfg.num_attention_heads or cfg.qk_ln \
-                or cfg.clip_qkv:
-            raise NotImplementedError("the port's MPT attention has no "
-                                      "MQA, qk_ln or clip_qkv yet")
         self.cfg = cfg
-        d = cfg.hidden_size
-        self.Wqkv = quant_ops.make_dense(cfg.quant, d, 3 * d,
-                                         use_bias=not cfg.no_bias,
-                                         dtype=dtype, device=device)
-        self.out_proj = quant_ops.make_dense(cfg.quant, d, d,
-                                             use_bias=not cfg.no_bias,
-                                             dtype=dtype, device=device)
-        if cfg.megakernel and cfg.quant == "int8":
+        c, d = cfg, cfg.hidden_size
+        h, hk, hd = c.num_attention_heads, c.kv_heads, c.head_dim
+        kw = dict(use_bias=not c.no_bias, dtype=dtype, device=device)
+        dense = lambda n_in, n_out: quant_ops.make_dense(c.quant, n_in,
+                                                         n_out, **kw)
+        if c.arch == "llama":
+            self.q_proj = dense(d, h * hd)
+            self.k_proj = dense(d, hk * hd)
+            self.v_proj = dense(d, hk * hd)
+        elif c.arch == "falcon":
+            # fused multiquery layout [q (h*d) | k (hk*d) | v (hk*d)]
+            self.Wqkv = dense(d, (h + 2 * hk) * hd)
+        elif c.arch == "persimmon" or hk == h:
+            self.Wqkv = dense(d, 3 * d)
+        else:
+            # mpt / mosaic_gpt multiquery: [q (d_model) | k | v (hk*d each)]
+            self.Wqkv = dense(d, d + 2 * hk * hd)
+        if c.qk_ln and c.arch in ("mpt", "mosaic_gpt"):
+            # full-width LayerNorm on q and k (`mpt/attention.py:246-251`)
+            ln = dict(eps=c.norm_eps, use_bias=not c.no_bias, dtype=dtype,
+                      device=device)
+            self.q_ln = LayerNorm(d, **ln)
+            self.k_ln = LayerNorm(hk * hd, **ln)
+        elif c.qk_ln and c.arch == "persimmon":
+            # per-head LayerNorm before rope
+            # (`fuyu/modeling_persimmon.py:286-287`)
+            ln = dict(eps=c.norm_eps, use_bias=True, dtype=dtype,
+                      device=device)
+            self.q_ln, self.k_ln = LayerNorm(hd, **ln), LayerNorm(hd, **ln)
+        elif c.qk_ln and c.arch == "llama":
+            # idefics: per-head RMSNorm after rope
+            ln = dict(eps=c.norm_eps, dtype=dtype, device=device)
+            self.q_ln, self.k_ln = RMSNorm(hd, **ln), RMSNorm(hd, **ln)
+        self.out_proj = dense(h * hd, d)
+        if c.megakernel and c.quant == "int8":
             # the decode megakernel's fused [Wqkv | Wo] operand
             # (`ops.quant.add_fused_wqo` makes it at load time)
             self.register_buffer("wqo_q", torch.empty(
@@ -135,32 +192,60 @@ class SelfAttention(nn.Module):
             return cache_k.shape[3] >= 1024 or cache_k.dtype == torch.int8
         return bool(mode)
 
-    def forward(self, x, *, layer: int, attn_ids=None, bias=None,
+    def _qkv(self, x):
+        """The three projections of x [B, S, D], still [B, S, heads * d]."""
+        c = self.cfg
+        h, hk, d = c.num_attention_heads, c.kv_heads, c.head_dim
+        if c.arch == "llama":
+            return self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        qkv = self.Wqkv(x)
+        if c.arch == "persimmon" or (c.arch != "falcon" and hk == h):
+            return qkv.chunk(3, dim=-1)
+        nq = h * d if c.arch == "falcon" else c.hidden_size
+        return qkv.split([nq, hk * d, hk * d], dim=-1)
+
+    def forward(self, x, *, layer: int, rope=None, attn_ids=None, bias=None,
                 cache: Optional[Cache] = None, cache_pos=None,
                 kv_valid=None, decode_span=None, project_out: bool = True):
         """x [B, S, D] -> [B, S, D]; with `project_out=False` the raw
         attention output [B, S, h*d], for a caller that runs the
-        out-projection itself (the fused layer tail)."""
+        out-projection itself (the fused layer tail). `rope` is the pair
+        of rotary rows selected at this call's positions
+        (`ops.layers.select_rotary`) when `pos == "rope"`."""
         c = self.cfg
         b, s, _ = x.shape
-        h, d = c.num_attention_heads, c.head_dim
+        h, hk, d = c.num_attention_heads, c.kv_heads, c.head_dim
         sm_scale = d ** -0.5
-        q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
-                   for t in self.Wqkv(x).chunk(3, dim=-1))
+        q, k, v = self._qkv(x)
+        if c.clip_qkv:
+            q, k, v = (t.clamp(-c.clip_qkv, c.clip_qkv) for t in (q, k, v))
+        if c.qk_ln and c.arch in ("mpt", "mosaic_gpt"):
+            q, k = self.q_ln(q), self.k_ln(k)
+        q = q.reshape(b, s, h, d).transpose(1, 2)
+        k = k.reshape(b, s, hk, d).transpose(1, 2)
+        v = v.reshape(b, s, hk, d).transpose(1, 2)
+        if c.qk_ln and c.arch == "persimmon":
+            q, k = self.q_ln(q), self.k_ln(k)
+        if rope is not None:
+            q, k = rotate(q, *rope), rotate(k, *rope)
+        if c.qk_ln and c.arch == "llama":
+            q, k = self.q_ln(q), self.k_ln(k)
         if cache is not None and cache_pos is not None:
             write_cache(cache, layer, k, v, cache_pos)
             int4 = "kv" in cache   # k|v fused by nibble in one array
             main = cache["kv" if int4 else "k"]
             quant = main.dtype == torch.int8
-            if self._use_decode_kernel(main) and s == 1:
+            if self._use_decode_kernel(main) and s == 1 \
+                    and h == main.shape[2]:
                 lengths, starts = decode_span
                 scales = ({"k_scale": cache["k_scale"],
                            "v_scale": cache["v_scale"],
                            "kv_bits": 4 if int4 else 8} if quant else {})
                 out = da.decode_attention(
                     q[:, :, 0], main, main if int4 else cache["v"], lengths,
-                    bias[:, :, 0, :], starts=starts, layer=layer,
-                    sm_scale=sm_scale, **scales)[:, :, None, :]
+                    None if bias is None else bias[:, :, 0, :],
+                    starts=starts, layer=layer, sm_scale=sm_scale,
+                    **scales)[:, :, None, :]
             else:
                 if int4:
                     ck, cv = quant_ops.dequantize_kv_int4(
@@ -201,6 +286,9 @@ class MLP(nn.Module):
                 cfg.mlp_dim, cfg.hidden_size, pack_axis=1, **kw)
         else:
             kw = dict(use_bias=not cfg.no_bias, dtype=dtype, device=device)
+            if cfg.act == "silu_glu":
+                self.gate_proj = quant_ops.make_dense(
+                    cfg.quant, cfg.hidden_size, cfg.mlp_dim, **kw)
             self.up_proj = quant_ops.make_dense(cfg.quant, cfg.hidden_size,
                                                 cfg.mlp_dim, **kw)
             self.down_proj = quant_ops.make_dense(cfg.quant, cfg.mlp_dim,
@@ -217,14 +305,19 @@ class MLP(nn.Module):
                 x.reshape(tokens, -1).to(self.dtype), up.kernel_q4,
                 up.scale_q, down.kernel_q4, down.scale_q, act=c.act)
             return y.reshape(x.shape[:-1] + (c.hidden_size,))
-        if decoding and c.quant == "int8" and tokens <= 32:
+        if decoding and c.quant == "int8" and tokens <= 32 \
+                and c.act in ("gelu", "silu", "relu", "sq_relu"):
             # decode: both int8 weight streams in one fused kernel launch
+            # (with persimmon's biases and squared ReLU too)
             up, down = self.up_proj, self.down_proj
             y = quant_ops.int8_mlp(
                 x.reshape(tokens, -1).to(self.dtype), up.kernel_q,
                 up.scale_q, down.kernel_q, down.scale_q, act=c.act,
                 b1=getattr(up, "bias", None), b2=getattr(down, "bias", None))
             return y.reshape(x.shape[:-1] + (c.hidden_size,))
+        if c.act == "silu_glu":
+            gate = ACTIVATIONS["silu"](self.gate_proj(x))
+            return self.down_proj(gate * self.up_proj(x))
         return self.down_proj(ACTIVATIONS[c.act](self.up_proj(x)))
 
 
@@ -232,9 +325,10 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: TextConfig, dtype, device):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        self.norm_1 = _lp_norm(cfg, dtype, device)
+        self.norm_1 = _norm(cfg, dtype, device)
         self.attn = SelfAttention(cfg, dtype, device)
-        self.norm_2 = _lp_norm(cfg, dtype, device)
+        if cfg.arch != "falcon":   # falcon: attention and MLP off norm_1
+            self.norm_2 = _norm(cfg, dtype, device)
         self.ffn = MLP(cfg, dtype, device)
 
     def _fused_eligible(self) -> bool:
@@ -243,10 +337,19 @@ class DecoderLayer(nn.Module):
         return c.quant == "int8" and c.no_bias and c.act == "gelu" \
             and c.norm_type == "low_precision_layernorm"
 
-    def forward(self, x, *, layer, attn_ids=None, bias=None, cache=None,
-                cache_pos=None, kv_valid=None, decode_span=None):
+    def forward(self, x, *, layer, rope=None, attn_ids=None, bias=None,
+                cache=None, cache_pos=None, kv_valid=None, decode_span=None):
         c = self.cfg
         decoding = cache is not None and cache_pos is not None
+        kw = dict(layer=layer, rope=rope, attn_ids=attn_ids, bias=bias,
+                  cache=cache, cache_pos=cache_pos, kv_valid=kv_valid,
+                  decode_span=decode_span)
+        if c.arch == "falcon":
+            # parallel attention + MLP off one norm
+            # (`falcon/modelling_RW.py`: parallel_attn)
+            ln = self.norm_1(x)
+            return x + self.attn(ln, **kw) + self.ffn(ln, decoding=decoding)
+
         if (c.megakernel and self._fused_eligible() and not c.qk_ln
                 and not c.clip_qkv and c.num_attention_heads == c.kv_heads
                 and decoding and getattr(cache_pos, "ndim", 0) == 0
@@ -269,9 +372,6 @@ class DecoderLayer(nn.Module):
             return x + self.ffn(self.norm_2(x), decoding=True)
 
         a = self.norm_1(x)
-        kw = dict(layer=layer, attn_ids=attn_ids, bias=bias, cache=cache,
-                  cache_pos=cache_pos, kv_valid=kv_valid,
-                  decode_span=decode_span)
         tokens = x.numel() // x.shape[-1]
         if c.fused_tail and self._fused_eligible() and tokens <= 32 \
                 and decoding:
@@ -306,21 +406,41 @@ class Embed(nn.Module):
 
 
 class Decoder(nn.Module):
-    """MPT causal LM with an optional gated cross-attention interleave."""
+    """Causal LM with an optional gated cross-attention interleave."""
 
     def __init__(self, cfg: TextConfig, otter_cfg: Optional[OtterConfig] = None,
                  dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         self.remat = remat
-        if cfg.arch != "mpt" or cfg.pos != "alibi" or not cfg.tie_embeddings \
-                or cfg.norm_type != "low_precision_layernorm" \
-                or cfg.quant not in (None, "int8", "int4") or cfg.lora_rank \
-                or cfg.quant_embed:
+        if cfg.arch not in ARCHS or cfg.pos not in ("alibi", "rope",
+                                                    "learned"):
+            raise ValueError(f"decoder: arch {cfg.arch!r}, pos {cfg.pos!r}")
+        missing = [name for name, on in (
+            ("lora_rank", cfg.lora_rank), ("prefix_lm", cfg.prefix_lm),
+            ("attn_uses_sequence_id", cfg.attn_uses_sequence_id),
+            (f"quant={cfg.quant!r}",
+             cfg.quant not in (None, "int8", "int4"))) if on]
+        if missing:
             raise NotImplementedError(
-                "the port's decoder covers MPT (ALiBi, tied head, LP "
-                "LayerNorm, bf16, int8 or int4 weights) only")
+                f"not ported yet: {', '.join(missing)}")
+        if cfg.quant_embed and cfg.tie_embeddings:
+            raise ValueError(
+                "quant_embed requires untied embeddings (the tied head "
+                "would re-read the quantized table at matmul precision)")
         self.cfg, self.otter_cfg, self.dtype = cfg, otter_cfg, dtype
-        self.wte = Embed(cfg.total_vocab, cfg.hidden_size, dtype, device)
+        if cfg.quant_embed:
+            # int8 table with per-row scales (`ops.quant.quantize_embed`)
+            self.register_buffer("wte_q", torch.empty(
+                cfg.total_vocab, cfg.hidden_size, dtype=torch.int8,
+                device=device))
+            self.register_buffer("wte_s", torch.ones(
+                cfg.total_vocab, dtype=torch.float32, device=device))
+        else:
+            self.wte = Embed(cfg.total_vocab, cfg.hidden_size, dtype, device)
+        if cfg.pos == "learned":
+            self.wpe = nn.Parameter(torch.empty(
+                cfg.max_seq_len, cfg.hidden_size, dtype=torch.float32,
+                device=device))
         self.xattn_every = (otter_cfg.cross_attn_every_n_layers
                             if otter_cfg is not None else 0)
         for i in range(cfg.num_hidden_layers):
@@ -335,9 +455,21 @@ class Decoder(nn.Module):
                            else cfg.quant_xattn),
                     dtype=dtype, device=device))
             self.add_module(f"layers_{i}", DecoderLayer(cfg, dtype, device))
-        self.norm_f = _lp_norm(cfg, dtype, device)
+        self.norm_f = _norm(cfg, dtype, device)
+        if not cfg.tie_embeddings:
+            # untied heads follow the weight-quant policy
+            self.lm_head = quant_ops.make_dense(
+                cfg.quant, cfg.hidden_size, cfg.total_vocab, use_bias=False,
+                dtype=dtype, device=device)
 
-    def forward(self, input_ids, *, attention_mask=None, vis_latents=None,
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.cfg.quant_embed:
+            return (self.wte_q[input_ids].to(self.dtype)
+                    * self.wte_s[input_ids][..., None].to(self.dtype))
+        return self.wte(input_ids)
+
+    def forward(self, input_ids, *, merge_embeds=None, attention_mask=None,
+                positions=None, vis_latents=None,
                 xattn_q_ids=None, xattn_kv_ids=None, xattn_out_keep=None,
                 cache: Optional[Cache] = None, cache_pos=None,
                 kv_valid=None, head_last_only: bool = False,
@@ -346,36 +478,52 @@ class Decoder(nn.Module):
         """Prefill/forward: cache None (no cache: training) or a
         preallocated cache with cache_pos None (prefill writes from offset
         0). Decode: cache_pos set (an int, or per-row offsets [B]) and
-        kv_valid [B, L] marking attendable entries. Returns (logits [B, S|1, V], cache), or with
-        skip_head the final-norm hidden states [B, S, D] in place of the
-        logits."""
+        kv_valid [B, L] marking attendable entries. `positions` [B, S] are
+        the tokens' positions for rope and learned embeddings (default
+        0 .. S-1). `merge_embeds` (values [B, S, H], mask [B, S]) puts
+        `values` in place of the token embedding where the mask is set
+        (Fuyu's image patches). Returns (logits [B, S|1, V], cache), or
+        with skip_head the final-norm hidden states [B, S, D] in place of
+        the logits."""
         c = self.cfg
-        x = self.wte(input_ids)
+        x = self.embed(input_ids)
+        if merge_embeds is not None:
+            values, vmask = merge_embeds
+            x = torch.where(vmask[..., None], values.to(x.dtype), x)
         b, s, _ = x.shape
         decoding = cache is not None and cache_pos is not None
-        slopes = alibi_slopes(c.num_attention_heads, c.alibi_bias_max,
-                              device=x.device)
-        attn_ids = decode_span = None
+        if decoding and s != 1:
+            raise NotImplementedError("cached steps of more than one token "
+                                      "are not ported yet")
+        if c.pos != "alibi" and positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if c.pos == "learned":
+            x = x + self.wpe.to(self.dtype)[positions]
+        rope = None
+        if c.pos == "rope":
+            # selected once a call for every layer
+            rope = select_rotary(*cached_rotary_tables(
+                int(c.head_dim * c.rope_partial_factor), c.max_seq_len,
+                c.rope_theta, x.device), positions, self.dtype)
+        bias = attn_ids = decode_span = None
         if decoding:
             L = cache_len_of(cache)
-            # column j gets j * slope: softmax-shift-equivalent to the
-            # reference's (j - query_pos) * slope for every query row
-            if s != 1:
-                raise NotImplementedError("cached steps of more than one "
-                                          "token are not ported yet")
-            rel = torch.arange(L, device=x.device)
-            bias = rel[None, None, None, :] * slopes[None, :, None, None]
             idx = torch.arange(L, device=x.device)[None, :]
             valid = kv_valid.bool()
             # once per step, in the kernel's int32, for every layer
             lengths = torch.where(valid, idx + 1, 0).amax(-1).int()
             starts = torch.where(valid, idx, L).amin(-1).int()
             decode_span = (lengths, starts)
-        else:
-            rel = torch.arange(1 - s, 1, device=x.device)
+        elif attention_mask is not None:
+            attn_ids = attention_mask.int()
+        if c.pos == "alibi":
+            slopes = alibi_slopes(c.num_attention_heads, c.alibi_bias_max,
+                                  device=x.device)
+            # decode: column j gets j * slope, softmax-shift-equivalent to
+            # the reference's (j - query_pos) * slope for every query row
+            rel = (torch.arange(L, device=x.device) if decoding
+                   else torch.arange(1 - s, 1, device=x.device))
             bias = rel[None, None, None, :] * slopes[None, :, None, None]
-            if attention_mask is not None:
-                attn_ids = attention_mask.int()
 
         for i in range(c.num_hidden_layers):
             if self.xattn_every and (i + 1) % self.xattn_every == 0 \
@@ -385,18 +533,31 @@ class Decoder(nn.Module):
             layer = getattr(self, f"layers_{i}")
             if self.remat and cache is None and torch.is_grad_enabled():
                 # keep only the layer's input; recompute the rest backward
-                x = checkpoint(layer, x, layer=i, attn_ids=attn_ids,
-                               bias=bias, use_reentrant=False)
+                x = checkpoint(layer, x, layer=i, rope=rope,
+                               attn_ids=attn_ids, bias=bias,
+                               use_reentrant=False)
             else:
-                x = layer(x, layer=i, attn_ids=attn_ids, bias=bias,
-                          cache=cache, cache_pos=cache_pos,
+                x = layer(x, layer=i, rope=rope, attn_ids=attn_ids,
+                          bias=bias, cache=cache, cache_pos=cache_pos,
                           kv_valid=kv_valid, decode_span=decode_span)
         x = self.norm_f(x)
         if skip_head:
             return x, cache
         if head_last_only:
             x = x[:, -1:]
-        logits = self.wte.attend(x)
+        if c.tie_embeddings:
+            logits = self.wte.attend(x)
+        else:
+            tokens = x.shape[0] * x.shape[1]
+            if c.quant in ("int8", "int4") and tokens <= 32 and decoding:
+                # the head's read is the largest of a decode step and
+                # nothing overlaps it: one streamed int8 product
+                flat = x.reshape(tokens, c.hidden_size).to(self.dtype)
+                logits = quant_ops.int8_matmul(
+                    flat, self.lm_head.kernel_q, self.lm_head.scale_q
+                ).reshape(x.shape[:2] + (c.total_vocab,))
+            else:
+                logits = self.lm_head(x)
         if c.logit_scale is not None:
             logits = logits * c.logit_scale
         return logits, cache

@@ -39,7 +39,7 @@ class OtterVLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lang_encoder.wte.embedding.device
+        return next(self.parameters()).device
 
     def encode_vision(self, vision_x: torch.Tensor) -> torch.Tensor:
         """[B, T, F, C, H, W] float pixels -> latents [B, T, n, D]: CLIP,
@@ -53,12 +53,13 @@ class OtterVLM(nn.Module):
     def forward(self, vision_x, lang_x, attention_mask=None,
                 attend_previous: bool = True, vis_latents=None, cache=None,
                 cache_pos: Optional[int] = None, kv_valid=None,
-                media_counts=None, head_last_only: bool = False,
+                positions=None, media_counts=None, head_last_only: bool = False,
                 skip_head: bool = False):
         """Full forward; with `vis_latents` given, `vision_x` is ignored.
         During cached decoding (cache_pos set) `media_counts` [B] is the
         number of media in each prompt: generated tokens sit after all of
-        them, so their text_time is media_counts. Returns (logits, cache,
+        them, so their text_time is media_counts. `positions` [B, S] are
+        the tokens' positions (rope models; default 0 .. S-1). Returns (logits, cache,
         vis_latents); with skip_head the final-norm hidden states take the
         logits' place (the fused cross-entropy's input)."""
         c = self.cfg
@@ -79,7 +80,8 @@ class OtterVLM(nn.Module):
             out_keep = (q_ids > 0 if c.only_attend_immediate_media
                         else torch.ones_like(q_ids, dtype=torch.bool))
         logits, cache = self.lang_encoder(
-            lang_x, attention_mask=attention_mask, vis_latents=vis_latents,
+            lang_x, attention_mask=attention_mask, positions=positions,
+            vis_latents=vis_latents,
             xattn_q_ids=q_ids, xattn_kv_ids=kv_ids, xattn_out_keep=out_keep,
             cache=cache, cache_pos=cache_pos, kv_valid=kv_valid,
             head_last_only=head_last_only, skip_head=skip_head)

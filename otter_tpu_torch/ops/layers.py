@@ -14,6 +14,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -57,21 +58,39 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def cached_rotary_tables(dim: int, max_len: int, theta: float,
+                         device: torch.device):
+    """`rotary_tables` in f32, made once per (shape, theta, device): the
+    tables are constants, kept out of the modules' buffers."""
+    return rotary_tables(dim, max_len, theta=theta, device=device)
+
+
+def select_rotary(cos: torch.Tensor, sin: torch.Tensor,
+                  positions: torch.Tensor, dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tables' rows at `positions` [B, S], cast to `dtype` before any
+    multiply: ([B, 1, S, rot], [B, 1, S, rot])."""
+    return cos[positions][:, None].to(dtype), sin[positions][:, None].to(dtype)
+
+
+def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [B, H, S, D] with its first `rot = c.shape[-1]` channels turned by
+    the selected rows (c, s) of `select_rotary`; the rest pass through."""
+    rot = c.shape[-1]
+    xr = x[..., :rot]
+    xr = xr * c + _rotate_half(xr) * s
+    return xr if rot == x.shape[-1] else torch.cat([xr, x[..., rot:]], dim=-1)
+
+
 def apply_rotary(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, positions: torch.Tensor, *,
                  rotary_dim: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k [B, H, S, D]; positions [B, S] int; cos/sin [max_len, rot]."""
     rot = rotary_dim or q.shape[-1]
-    c = cos[positions][:, None].to(q.dtype)   # [B, 1, S, rot]
-    s = sin[positions][:, None].to(q.dtype)
-
-    def rope(x):
-        xr = x[..., :rot]
-        xr = xr * c + _rotate_half(xr) * s
-        return torch.cat([xr, x[..., rot:]], dim=-1)
-
-    return rope(q), rope(k)
+    c, s = select_rotary(cos[:, :rot], sin[:, :rot], positions, q.dtype)
+    return rotate(q, c, s), rotate(k, c, s)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +129,23 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x.to(self.dtype), self.scale, self.bias,
                           eps=self.eps)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with an f32 `scale` parameter (the flax name). The input is
+    cast to `dtype` first; statistics in f32, the normed value cast back
+    before the multiply by the scale."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-6, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x.to(self.dtype), self.scale, eps=self.eps)
 
 
 class Dense(nn.Module):

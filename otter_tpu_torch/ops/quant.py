@@ -9,8 +9,12 @@ runs `int8_mlp_plain` for CPU tensors. `int8_attn_tail` is the fused tail
 of a decode layer (attention out-projection + residual, LayerNorm, int8
 MLP + residual; `csrc/int8_attn_tail.cu`), and `add_fused_wqo` adds the
 fused `[Wqkv | Wo]` operand of the decode megakernel (`ops/megakernel.py`).
-`quantize_kv` / `dequantize_kv` give the int8 KV-cache layout, byte for
-byte the JAX package's.
+`int8_matmul` is the single streamed product `(x @ kernel_q) * scale` of
+the untied `lm_head` at decode (`csrc/int8_matmul.cu`; no other projection
+goes through it: `Int8Dense` keeps its composed product, as in the JAX
+package). `quantize_embed` gives the int8 embedding table of
+`TextConfig(quant_embed=True)`. `quantize_kv` / `dequantize_kv` give the
+int8 KV-cache layout, byte for byte the JAX package's.
 
 int4: two weights a byte (`kernel_q4`), values in [-7, 7], paired half and
 half along `pack_axis` (`quantize_kernel_int4`). `int4_mlp` is the fused
@@ -37,6 +41,8 @@ from otter_tpu_torch.ops.layers import ACTIVATIONS, Dense
 _ACT_IDS = {"gelu": 0, "relu": 1, "silu": 2, "sq_relu": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_mlp_bf16": ([_P] * 9 + [_I] * 5 + [_P], _I)}
+_SIGNATURES_MATMUL = {"int8_matmul_bf16": (
+    [_P] * 4 + [_I] * 3 + [ctypes.c_longlong, _P], _I)}
 _SIGNATURES_TAIL = {"int8_attn_tail_bf16": (
     [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _I, _P], _I)}
 _SIGNATURES_INT4 = {"int4_mlp_bf16": ([_P] * 7 + [_I] * 5 + [_P], _I),
@@ -144,6 +150,58 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
 
 
 int8_mlp.launches = 0
+
+
+def int8_matmul_plain(x, wq, scale):
+    """The kernel's function in plain PyTorch: an f32 product of x with the
+    int8 weight converted to x's dtype, scaled in f32, rounded once."""
+    dt = x.dtype
+    y = x.float() @ wq.to(dt).float()
+    return (y * scale.float()).to(dt)
+
+
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """(x @ wq) * scale with x [M, K], wq [K, N] int8, f32 scale [N] ->
+    [M, N] in x's dtype: the decode-shaped product of an untied int8
+    `lm_head`. CUDA tensors: x bf16, M <= 32, K % 64 == 0; any N >= 1, and
+    wq may be a view with any row stride (unit column stride): the weight
+    is read in place, once."""
+    if x.dim() != 2 or wq.dim() != 2 or wq.shape[0] != x.shape[1] \
+            or scale.shape != (wq.shape[1],) or wq.shape[1] < 1:
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)}, wq "
+                         f"{tuple(wq.shape)}, scale {tuple(scale.shape)}")
+    if wq.device != x.device or scale.device != x.device:
+        raise ValueError(f"int8_matmul: x on {x.device}, wq on {wq.device}, "
+                         f"scale on {scale.device}")
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, wq, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16 or wq.dtype != torch.int8:
+        raise TypeError("int8_matmul kernel takes bf16 x and an int8 weight")
+    (m, k), n = x.shape, wq.shape[1]
+    if m < 1 or m > 32 or k % 64:
+        raise ValueError(f"int8_matmul kernel: M={m} (1..32), K={k} (% 64)")
+    if n > 1 and wq.stride(1) != 1 or k > 1 and wq.stride(0) < n:
+        raise ValueError(f"int8_matmul kernel: weight strides {wq.stride()} "
+                         f"(rows must be runs of consecutive bytes)")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("int8_matmul kernel: x must be 16-byte aligned")
+    scale = scale.float().contiguous()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.library("int8_matmul", _SIGNATURES_MATMUL)
+    err = lib.int8_matmul_bf16(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
+        n, wq.stride(0) if k > 1 else n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "int8_matmul")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
 
 
 def split_k(k: int, n: int) -> int:
@@ -280,6 +338,35 @@ def quantize_params(flat: Dict[str, ArrayLike],
             out[base + "scale_q"] = scale
         else:
             out[k] = v
+    return out
+
+
+def quantize_embed(flat: Dict[str, ArrayLike]) -> Dict[str, ArrayLike]:
+    """Replace the `.../wte/embedding` entries of a flat {flax path: array}
+    dict with the decoder's `quant_embed` layout: `wte_q` [V, H] int8 and
+    `wte_s` [V] f32 per-row scales (symmetric max-abs per row). One-time
+    load transform for `TextConfig(quant_embed=True)`: a decode step
+    gathers one row either way, so this halves what the table takes on the
+    device, not what a step reads. Numpy in, numpy out (byte-identical to
+    the JAX package's); tensors stay on their device."""
+    out = {}
+    for k, v in flat.items():
+        if not k.endswith("wte/embedding"):
+            out[k] = v
+            continue
+        base = k[: -len("wte/embedding")]
+        if isinstance(v, np.ndarray):
+            w = np.asarray(v, np.float32)
+            scale = np.maximum(np.abs(w).max(axis=1), 1e-12) / 127.0
+            q = np.clip(np.rint(w / scale[:, None]), -127, 127)
+            out[base + "wte_q"] = q.astype(np.int8)
+            out[base + "wte_s"] = scale.astype(np.float32)
+        else:
+            w = v.float()
+            scale = w.abs().amax(dim=1).clamp_min(1e-12) / 127.0
+            q = torch.clamp(torch.round(w / scale[:, None]), -127, 127)
+            out[base + "wte_q"] = q.to(torch.int8)
+            out[base + "wte_s"] = scale
     return out
 
 

@@ -57,8 +57,8 @@ _CACHE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "int4": "int4"}
 
 def _wrappers():
     return (fa.flash_attention, quant.int8_mlp, quant.int4_mlp,
-            quant.int4_matmul, quant.int8_attn_tail, da.decode_attention,
-            mk.decode_attn_megakernel)
+            quant.int4_matmul, quant.int8_attn_tail, quant.int8_matmul,
+            da.decode_attention, mk.decode_attn_megakernel)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -71,7 +71,8 @@ def kernel_launches() -> Dict[str, int]:
             "decode_attention": da.decode_attention.launches - n_int4,
             "decode_attention_int4": n_int4,
             "decode_attn_megakernel": mk.decode_attn_megakernel.launches,
-            "int8_attn_tail": quant.int8_attn_tail.launches}
+            "int8_attn_tail": quant.int8_attn_tail.launches,
+            "int8_matmul": quant.int8_matmul.launches}
 
 
 def reset_kernel_launches() -> None:

@@ -513,3 +513,83 @@ def test_megakernel_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError):      # a head dim the kernel lacks
         mk.decode_attn_megakernel(*_mk_args(gen, 2, 8, 32, 96, 2, 40),
                                   layer=0)
+
+
+# ── int8_matmul: the untied lm_head's product at decode ──────────────
+
+def _head(gen, k, n):
+    return quant.quantize_kernel(0.02 * torch.randn(k, n, generator=gen,
+                                                    device="cuda"))
+
+
+@pytest.mark.parametrize("n", [1, 130, 384, 32002])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 17, 32])
+def test_int8_matmul_matches_plain(gen, m, n):
+    """Any N (32002: rows that are not 16-byte aligned, a guarded last
+    block) and every M up to 32, at K = 256."""
+    wq, scale = _head(gen, 256, n)
+    x = _rnd(gen, m, 256)
+    before = quant.int8_matmul.launches
+    out = quant.int8_matmul(x, wq, scale)
+    assert quant.int8_matmul.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    _close(out, quant.int8_matmul_plain(x, wq, scale))
+    assert torch.equal(quant.int8_matmul(x, wq, scale), out)   # repeatable
+
+
+@pytest.mark.parametrize("offset,width", [(0, 141), (7, 141), (16, 160),
+                                          (3, 133)])
+def test_int8_matmul_reads_a_strided_weight_in_place(gen, offset, width):
+    """A view into a wider weight: any row stride, any first byte; the
+    bytes around the view are poison the kernel must not use, and the view
+    reaches the last byte of its storage when offset + 130 == width."""
+    wide = torch.full((256, width), 127, dtype=torch.int8, device="cuda")
+    wq, scale = _head(gen, 256, 130)
+    view = wide[:, offset:offset + 130]
+    view.copy_(wq)
+    assert view.data_ptr() == wide.data_ptr() + offset
+    x = _rnd(gen, 5, 256)
+    _close(quant.int8_matmul(x, view, scale),
+           quant.int8_matmul_plain(x, wq, scale))
+
+
+def test_int8_matmul_takes_a_non_contiguous_x(gen):
+    wq, scale = _head(gen, 256, 130)
+    x = _rnd(gen, 256, 8).t()            # [8, 256], column-major
+    assert not x.is_contiguous()
+    _close(quant.int8_matmul(x, wq, scale),
+           quant.int8_matmul_plain(x, wq, scale))
+
+
+def test_int8_matmul_rows_do_not_depend_on_m(gen):
+    """M = 3 runs the kernel that computes 8 rows at a time with 5 rows
+    absent: its rows equal, bit for bit, those of the same x within an
+    8-row call (one order of summation a row)."""
+    wq, scale = _head(gen, 256, 130)
+    x = _rnd(gen, 8, 256)
+    out3 = quant.int8_matmul(x[:3], wq, scale)
+    assert out3.shape == (3, 130)
+    assert torch.equal(out3, quant.int8_matmul(x, wq, scale)[:3])
+
+
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(gen):
+    wq, scale = _head(gen, 256, 130)
+    x = _rnd(gen, 4, 256)
+    with pytest.raises(TypeError):
+        quant.int8_matmul(x.float(), wq, scale)
+    with pytest.raises(TypeError):
+        quant.int8_matmul(x, wq.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="M=33"):
+        quant.int8_matmul(_rnd(gen, 33, 256), wq, scale)
+    with pytest.raises(ValueError, match="K=96"):
+        quant.int8_matmul(_rnd(gen, 4, 96), *_head(gen, 96, 130))
+    with pytest.raises(ValueError, match="strides"):
+        quant.int8_matmul(x, _head(gen, 130, 256)[0].t(), scale)
+    for args in ((x.cpu(), wq, scale), (x, wq.cpu(), scale),
+                 (x, wq, scale.cpu())):
+        with pytest.raises(ValueError, match="on cpu"):
+            quant.int8_matmul(*args)
+    before = quant.int8_matmul.launches
+    with pytest.raises(ValueError):
+        quant.int8_matmul(x, wq, scale[:100])
+    assert quant.int8_matmul.launches == before

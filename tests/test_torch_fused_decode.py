@@ -252,7 +252,7 @@ def test_bench_decode_on_the_tiny_config(route):
     assert set(res["launches_per_step"]) == {
         "flash_fwd", "int8_mlp", "int4_mlp", "int4_matmul",
         "decode_attention", "decode_attention_int4",
-        "decode_attn_megakernel", "int8_attn_tail"}
+        "decode_attn_megakernel", "int8_attn_tail", "int8_matmul"}
     # the bytes a step reads, by hand from the tiny configuration: the
     # language model's tensors once (the fused copy in place of Wqkv and
     # out_proj under the megakernel) and the cache of 256

@@ -15,7 +15,7 @@ from otter_tpu.generation import sampling as jsampling
 from otter_tpu_torch.config import GenerationConfig as TGen
 from otter_tpu_torch.generation import engine as tengine
 from otter_tpu_torch.generation import sampling as tsampling
-from torch_parity_helpers import inputs, jax_tiny, torch_tiny
+from torch_parity_helpers import inputs, jax_tiny, llama_vlm_pair, torch_tiny
 
 
 def _ragged_batch(cfg):
@@ -48,6 +48,49 @@ def test_greedy_generate_identical_to_jax():
                                             gen=TGen(max_new_tokens=6))
     assert out.shape == ref.shape == (3, 12 + 6)
     np.testing.assert_array_equal(out, np.asarray(ref))
+
+
+def test_llama_greedy_generate_identical_to_jax():
+    """The tiny llama VLM (rope, RMSNorm, SwiGLU, untied int8 head, int8
+    cache): a ragged left-padded batch, where rope goes wrong first if the
+    positions count the padding. Every decode step's head goes through
+    `int8_matmul` on both sides."""
+    cfg, jmodel, params, tmodel = llama_vlm_pair()
+    vx, ids = inputs(cfg, 24, 2, 12)
+    mask = np.ones_like(ids)
+    mask[0, 7:] = 0
+    lang_x, attn = tengine.left_pad(ids, mask)
+    assert attn.sum(-1).tolist() == [7, 12]
+    ref = jengine.OtterGenerator(jmodel, params, cfg, cache_dtype="int8"
+                                 ).generate(jnp.asarray(vx),
+                                            jnp.asarray(lang_x),
+                                            jnp.asarray(attn),
+                                            gen=JGen(max_new_tokens=6))
+    out = tengine.OtterGenerator(tmodel, cache_dtype=torch.int8
+                                 ).generate(vx, lang_x, attn,
+                                            gen=TGen(max_new_tokens=6))
+    assert out.shape == ref.shape == (2, 12 + 6)
+    np.testing.assert_array_equal(out, np.asarray(ref))
+
+
+def test_llama_stream_generate_identical_to_jax():
+    """One left-padded request through both `stream_generate`s (decode
+    positions real_len + t)."""
+    cfg, jmodel, params, tmodel = llama_vlm_pair()
+    vx, ids = inputs(cfg, 25, 1, 12)
+    mask = np.ones_like(ids)
+    mask[0, 9:] = 0
+    lang_x, attn = tengine.left_pad(ids, mask)
+    gen_kw = dict(max_new_tokens=6, eos_token_id=-1)
+    ref = list(jengine.OtterGenerator(
+        jmodel, params, cfg, cache_dtype="int8").stream_generate(
+            jnp.asarray(vx), jnp.asarray(lang_x), jnp.asarray(attn),
+            gen=JGen(**gen_kw)))
+    engine = tengine.OtterGenerator(tmodel, cache_dtype=torch.int8)
+    out = list(engine.stream_generate(vx, lang_x, attn, gen=TGen(**gen_kw)))
+    assert out == ref and len(out) == 6
+    full = engine.generate(vx, lang_x, attn, gen=TGen(**gen_kw))
+    assert full[0, 12:].tolist() == out
 
 
 def test_sampled_generate_reproducible_with_generator():

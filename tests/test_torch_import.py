@@ -34,6 +34,12 @@ from otter_tpu_torch.ops.megakernel import (decode_attn_megakernel,
 from otter_tpu_torch.ops.quant import add_fused_wqo, int8_attn_tail
 from otter_tpu_torch.tools import bench_decode, random_weights
 assert bench_decode.run and random_weights.build_model
+# the untied int8 head, the other decoder archs and Fuyu live in these
+from otter_tpu_torch.ops.quant import int8_matmul, quantize_embed
+from otter_tpu_torch.config import PRESETS, FuyuConfig
+from otter_tpu_torch.models.fuyu import FuyuVLM, make_fuyu_cache
+from otter_tpu_torch.generation.fuyu import fuyu_generate
+assert random_weights.fuyu_request and len(PRESETS) == 9
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules
@@ -45,6 +51,8 @@ _FUSED_DECODE_MODULES = {
     "otter_tpu_torch.ops.megakernel", "otter_tpu_torch.tools",
     "otter_tpu_torch.tools.bench_decode",
     "otter_tpu_torch.tools.random_weights"}
+_FUYU_MODULES = {"otter_tpu_torch.models.fuyu",
+                 "otter_tpu_torch.generation.fuyu"}
 _TRAINING_MODULES = {
     "otter_tpu_torch.train.step", "otter_tpu_torch.train.sft",
     "otter_tpu_torch.train.args", "otter_tpu_torch.runtime.metrics",
@@ -63,7 +71,8 @@ def test_port_imports_no_jax_or_otter_tpu():
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     loaded = set(res.stdout.split())
-    assert len(loaded) >= 29                  # every module was imported
+    assert len(loaded) >= 31                  # every module was imported
+    assert _FUYU_MODULES <= loaded, _FUYU_MODULES - loaded
     assert _TRAINING_MODULES <= loaded, _TRAINING_MODULES - loaded
     assert _FUSED_DECODE_MODULES <= loaded, _FUSED_DECODE_MODULES - loaded
 
@@ -101,6 +110,22 @@ def test_chip_smoke_fails_without_a_gpu():
                          timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("preset", sorted(jcfg.PRESETS))
+def test_presets_equal_the_jax_package(preset):
+    assert tcfg.PRESETS[preset]().to_dict() == \
+        jcfg.PRESETS[preset]().to_dict()
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_fuyu_config_equals_the_jax_package(tiny):
+    jc = jcfg.FuyuConfig.tiny() if tiny else jcfg.FuyuConfig()
+    tc = tcfg.FuyuConfig.tiny() if tiny else tcfg.FuyuConfig()
+    assert tc.to_dict() == jc.to_dict()
+    assert tcfg.FuyuConfig.from_dict(json.loads(jc.to_json())) == tc
+    assert tcfg.OtterConfig.tiny("llama").to_dict() == \
+        jcfg.OtterConfig.tiny("llama").to_dict()
 
 
 @pytest.mark.parametrize("preset", ["tiny", "mpt7b"])

@@ -72,6 +72,57 @@ def test_quantize_params_matches_jax():
         assert np.asarray(v).tobytes() == np.asarray(ref[k]).tobytes(), k
 
 
+def test_quantize_embed_byte_identical():
+    rng = np.random.default_rng(8)
+    table = rng.standard_normal((40, 16)).astype(np.float32)
+    table[3] = 0.0                     # an all-zero row keeps a tiny scale
+    tree = {"params": {"language_model": {
+        "wte": {"embedding": table},
+        "norm_f": {"scale": np.ones(16, np.float32)}}}}
+    ref = traverse_util.flatten_dict(jquant.quantize_embed(tree), sep="/")
+    flat = traverse_util.flatten_dict(tree, sep="/")
+    out = tquant.quantize_embed(flat)
+    assert sorted(out) == sorted(ref)
+    assert "params/language_model/wte_q" in out
+    for k, v in out.items():
+        assert v.dtype == np.asarray(ref[k]).dtype, k
+        assert np.asarray(v).tobytes() == np.asarray(ref[k]).tobytes(), k
+    # tensors stay tensors and give the same bytes
+    tens = tquant.quantize_embed({k: torch.from_numpy(v)
+                                  for k, v in flat.items()})
+    for k, v in tens.items():
+        assert v.numpy().tobytes() == np.asarray(ref[k]).tobytes(), k
+
+
+@pytest.mark.parametrize("arch", ["llama", "persimmon"])
+def test_quantize_params_int4_keeps_gated_and_biased_mlps_int8(arch):
+    """A `silu_glu` triple (llama) and an ffn with biases (persimmon) stay
+    int8 under `quantize_params_int4`, as in the JAX package: same leaves,
+    same bytes, and no packed `kernel_q4` among them."""
+    rng = np.random.default_rng(9)
+    w = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    if arch == "llama":
+        ffn = {"gate_proj": {"kernel": w(8, 16)},
+               "up_proj": {"kernel": w(8, 16)},
+               "down_proj": {"kernel": w(16, 8)}}
+        attn = {"q_proj": {"kernel": w(8, 8)}}
+    else:
+        ffn = {"up_proj": {"kernel": w(8, 16), "bias": w(16)},
+               "down_proj": {"kernel": w(16, 8), "bias": w(8)}}
+        attn = {"Wqkv": {"kernel": w(8, 24), "bias": w(24)}}
+    tree = {"params": {"layers_0": {"ffn": ffn, "attn": attn},
+                       "lm_head": {"kernel": w(8, 12)}}}
+    ref = traverse_util.flatten_dict(jquant.quantize_params_int4(tree),
+                                     sep="/")
+    out = tquant.quantize_params_int4(traverse_util.flatten_dict(tree,
+                                                                 sep="/"))
+    assert sorted(out) == sorted(ref)
+    assert not any(k.endswith("kernel_q4") for k in out)
+    assert "params/lm_head/kernel_q" in out
+    for k, v in out.items():
+        assert np.asarray(v).tobytes() == np.asarray(ref[k]).tobytes(), k
+
+
 def test_int8_dense_matches_jax():
     x, w1, _ = _weights(4, 16, 24, 8)
     q, s = jquant.quantize_kernel(w1)

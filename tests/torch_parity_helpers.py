@@ -17,12 +17,17 @@ import torch
 from flax import traverse_util
 
 from otter_tpu import config as jcfg
+from otter_tpu.models.decoder import Decoder as JaxDecoder
+from otter_tpu.models.fuyu import FuyuVLM as JaxFuyuVLM
 from otter_tpu.models.otter import OtterVLM as JaxOtterVLM
+from otter_tpu.ops.quant import quantize_embed as jax_quantize_embed
 from otter_tpu.ops.quant import add_fused_wqo as jax_add_fused_wqo
 from otter_tpu.ops.quant import quantize_params as jax_quantize_params
 from otter_tpu.ops.quant import quantize_params_int4 as jax_quantize_int4
 from otter_tpu_torch import config as tcfg
 from otter_tpu_torch.models.convert import load_flax_params
+from otter_tpu_torch.models.decoder import Decoder as TorchDecoder
+from otter_tpu_torch.models.fuyu import FuyuVLM as TorchFuyuVLM
 from otter_tpu_torch.models.otter import OtterVLM as TorchOtterVLM
 
 
@@ -174,3 +179,141 @@ def train_batch(cfg, seed: int, batch: int = 2, seq: int = 24):
     labels[:, 9:19] = ids[:, 9:19]
     return {"vision_x": vision_x, "input_ids": ids, "attention_mask": mask,
             "labels": labels}
+
+
+# ── the decoder's other archs, the llama VLM and Fuyu ────────────────
+
+def _small_text(**kw):
+    base = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=128, max_seq_len=128,
+                tie_embeddings=False, no_bias=True)
+    base.update(kw)
+    return jcfg.TextConfig(**base)
+
+
+_LLAMA = dict(arch="llama", pos="rope", norm_type="rmsnorm", act="silu_glu")
+_MPT = dict(pos="alibi", norm_type="low_precision_layernorm", act="gelu",
+            tie_embeddings=True)
+ARCH_CASES = {
+    "llama": lambda: _small_text(**_LLAMA),
+    "llama_qk_ln": lambda: _small_text(qk_ln=True, **_LLAMA),
+    "persimmon": lambda: jcfg.FuyuConfig.tiny().text,
+    "falcon": lambda: _small_text(
+        arch="falcon", num_kv_heads=1, intermediate_size=256, pos="rope",
+        norm_type="low_precision_layernorm", act="gelu"),
+    "mosaic_gpt_qk_ln": lambda: _small_text(arch="mosaic_gpt", qk_ln=True,
+                                            **_MPT),
+    "mpt_mqa": lambda: _small_text(arch="mpt", num_kv_heads=1, qk_ln=True,
+                                   clip_qkv=1.5, **_MPT),
+    "mpt_learned": lambda: _small_text(
+        arch="mpt", logit_scale=0.5, **{**_MPT, "pos": "learned"}),
+}
+
+
+def _randomize_norms_and_biases(flat, seed):
+    """flax initialises biases to 0 and norm scales to 1: move both, so a
+    dropped bias or scale shows."""
+    rng = np.random.default_rng(seed)
+    for k, v in flat.items():
+        if k.endswith("/bias"):
+            flat[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith("/scale"):
+            flat[k] = (1 + 0.1 * rng.standard_normal(v.shape)).astype(
+                np.float32)
+
+
+def _quantized(model_for, base_cfg, cfg, init_args, seed, quant, quant_embed):
+    """(JAX params, flat numpy params) of `model_for(cfg)` from the random
+    unquantized weights of `model_for(base_cfg)`, through the JAX package's
+    load transforms."""
+    params = jax.jit(model_for(base_cfg).init)(jax.random.PRNGKey(seed),
+                                               *init_args)
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    _randomize_norms_and_biases(flat, seed + 400)
+    for k in flat:
+        if k.endswith(("attn_gate", "ff_gate")):
+            flat[k] = np.full(flat[k].shape, 0.6, np.float32)
+    params = traverse_util.unflatten_dict(flat, sep="/")
+    if quant == "int8":
+        params = jax_quantize_params(params)
+    elif quant == "int4":
+        params = jax_quantize_int4(params)
+    if quant_embed:
+        params = jax_quantize_embed(params)
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    return params, flat
+
+
+@functools.lru_cache(maxsize=None)
+def decoder_pair(case: str, quant=None, quant_embed: bool = False,
+                 decode_kernel="auto", seed: int = 0):
+    """(text cfg, JAX Decoder, its params, the port's Decoder with the same
+    weights in f32 on the CPU) for one of ARCH_CASES."""
+    base = ARCH_CASES[case]()
+    cfg = base.replace(quant=quant, quant_embed=quant_embed,
+                       decode_kernel=decode_kernel)
+    params, flat = _quantized(JaxDecoder, base, cfg,
+                              (jnp.zeros((1, 8), jnp.int32),), seed, quant,
+                              quant_embed)
+    tmodel = TorchDecoder(tcfg.TextConfig.from_dict(cfg.to_dict()),
+                          dtype=torch.float32, device="cpu")
+    load_flax_params(tmodel, flat)
+    return cfg, JaxDecoder(cfg), params, tmodel.eval()
+
+
+@functools.lru_cache(maxsize=None)
+def llama_vlm_pair(seed: int = 0):
+    """(cfg, JAX OtterVLM, params, port OtterVLM) of the tiny llama model
+    with int8 weights and `decode_kernel="auto"`."""
+    base = jcfg.OtterConfig.tiny("llama")
+    cfg = base.replace(text=base.text.replace(quant="int8",
+                                              decode_kernel="auto"))
+    init_args = (jnp.zeros((1, 1, 1, 3, 28, 28), jnp.float32),
+                 jnp.zeros((1, 8), jnp.int32))
+    params, flat = _quantized(JaxOtterVLM, base, cfg, init_args, seed, "int8",
+                              False)
+    tmodel = TorchOtterVLM(port_cfg(cfg), dtype=torch.float32, device="cpu")
+    load_flax_params(tmodel, flat)
+    return cfg, JaxOtterVLM(cfg), params, tmodel.eval()
+
+
+@functools.lru_cache(maxsize=None)
+def fuyu_pair(quant=None, quant_embed: bool = False, seed: int = 0):
+    """(cfg, JAX FuyuVLM, params, port FuyuVLM) of the tiny Fuyu model."""
+    base = jcfg.FuyuConfig.tiny()
+    cfg = base.replace(text=base.text.replace(
+        quant=quant, quant_embed=quant_embed, decode_kernel="auto"))
+    pd = base.patch_size ** 2 * base.num_channels
+    init_args = (jnp.zeros((1, 8), jnp.int32),)
+    init_kw = dict(image_patches=jnp.zeros((1, 2, pd), jnp.float32),
+                   image_patches_indices=jnp.zeros((1, 8), jnp.int32))
+    model_for = lambda c: _WithKwargs(JaxFuyuVLM(c), init_kw)
+    params, flat = _quantized(model_for, base, cfg, init_args, seed, quant,
+                              quant_embed)
+    tmodel = TorchFuyuVLM(tcfg.FuyuConfig.from_dict(cfg.to_dict()),
+                          dtype=torch.float32, device="cpu")
+    load_flax_params(tmodel, flat)
+    return cfg, JaxFuyuVLM(cfg), params, tmodel.eval()
+
+
+class _WithKwargs:
+    """A flax module whose `init` also gets fixed keyword arguments."""
+
+    def __init__(self, module, kw):
+        self.module, self.kw = module, kw
+
+    def init(self, rng, *args):
+        return self.module.init(rng, *args, **self.kw)
+
+
+def ragged(rng, vocab: int, batch: int = 2, seq: int = 10, pad: int = 3):
+    """Token ids [B, S], a left-padded mask (row 0 starts with `pad`
+    padding tokens) and the positions that count real tokens only."""
+    ids = rng.integers(1, vocab - 8, (batch, seq)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[0, :pad] = 0
+    positions = np.clip(np.cumsum(mask, -1) - 1, 0, None).astype(np.int32)
+    return ids, mask, positions
