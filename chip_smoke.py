@@ -15,9 +15,12 @@ unless every phase passes:
                  otter_tpu_torch/_build/.
   3. kernels     each kernel against its plain PyTorch version on the card,
                  in bf16, at the shapes the serving and training paths give
-                 it, with the tolerance printed; kernel, plain and
-                 library-call times and the bound (least time for the same
-                 bytes / operations).
+                 it (flash also at OtterHD's full-HD prefill and at head
+                 dims 80, 96 and 112), with the tolerance printed; kernel,
+                 plain and library-call times and the bound (least time
+                 for the same bytes / operations); for every flash case
+                 also the device times of the kernel and the library call
+                 (below ~0.05 ms a call's wall time is the host's).
   4. parity      OTTER-MPT7B at full width with its depth cut, once with
                  int8 weights and an int8 KV cache and once with int4
                  weights and an int4 cache, then OTTER-LLaMA2-Chat-7B and
@@ -87,7 +90,8 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all eleven. `profile` (not run by default) adds torch.profiler tables
+runs all eleven. `flashkernels` runs the flash part of the kernels phase
+alone. `profile` (not run by default) adds torch.profiler tables
 of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
 requests (with otterhd), of the three fused runs (with fused: device ms
 and launches a decode step) and of one train
@@ -132,6 +136,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of fn: CUDA events around `iters` calls
+    queued behind a ~10 ms spin kernel, so the card runs them back to back
+    whatever the host's pace. Where the host takes longer to launch a call
+    than the card to run it, `time_ms` measures the host; this does not."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)   # cycles: longer than the host's queueing
     start.record()
     for _ in range(iters):
         fn()
@@ -286,6 +309,47 @@ def _flash_bwd_cases(gen):
             ("mpt_s1000", mpt(1000, [1000, 777]))]
 
 
+def _fuyu_prefill_case(gen):
+    """OtterHD-8B's full-HD prefill: one request of 2356 tokens (a
+    1080x1920 image and a 16-token prompt), 64 heads of 64, causal, ids of
+    its attention mask (all ones)."""
+    import torch
+    s = 2356
+    q, k, v = (torch.randn(1, 64, s, 64, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    ids = torch.ones((1, s), dtype=torch.int32, device="cuda")
+    return ("fuyu_prefill", dict(q=q, k=k, v=v, q_ids=ids, kv_ids=ids,
+                                 causal=True, sm_scale=64 ** -0.5), None)
+
+
+def _flash_head_dim_cases(gen):
+    """Small cases at the head dims of mpt30b (112) and idefics-9b's ViT-H
+    tower and perceiver (80, 96): causal with ALiBi and left-padding ids
+    (the decoder), and non-causal with a full [B, 1, S_q, S_k] bias."""
+    import torch
+    from otter_tpu_torch.ops.masks import alibi_slopes
+    dev = "cuda"
+    cases = []
+    for d in (80, 96, 112):
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev,
+                                         dtype=torch.bfloat16)
+        s = 320
+        pos = torch.arange(s, device=dev)
+        ids = (pos[None, :] >= torch.tensor([0, 57], device=dev)[:, None]
+               ).int()
+        bias = (torch.arange(1 - s, 1, device=dev)[None, None, None, :]
+                * alibi_slopes(4, device=dev)[None, :, None, None])
+        cases.append((f"d{d}_causal", dict(
+            q=rnd(2, 4, s, d), k=rnd(2, 4, s, d), v=rnd(2, 4, s, d),
+            bias=bias, q_ids=ids, kv_ids=ids, causal=True,
+            sm_scale=d ** -0.5)))
+        cases.append((f"d{d}_cross", dict(
+            q=rnd(2, 4, 200, d), k=rnd(2, 4, 333, d), v=rnd(2, 4, 333, d),
+            bias=torch.randn(2, 1, 200, 333, generator=gen, device=dev),
+            sm_scale=d ** -0.5)))
+    return cases
+
+
 def _flash_bwd_cost(kw, products: int, outputs: int):
     """(bytes, operations) of one backward kernel: q, k, v, do read once
     (bf16), lse and di (f32), bias and ids, `outputs` of dq/dk/dv written
@@ -304,10 +368,11 @@ def _flash_bwd_cost(kw, products: int, outputs: int):
     return nbytes, 2.0 * products * b * h * d * pairs
 
 
-def _sdpa_backward_ms(kw, do):
+def _sdpa_backward(kw, do):
     """SDPA's backward on the same inputs: time(forward + backward) -
     time(forward), with the mask as a float attn_mask (a finite fill, so
-    rows that attend nothing average v as the port does)."""
+    rows that attend nothing average v as the port does); the same
+    difference of device times."""
     import torch
     import torch.nn.functional as F
     mask = _sdpa_args(kw, fill=-1e30)
@@ -316,65 +381,50 @@ def _sdpa_backward_ms(kw, do):
     fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                                  scale=scale)
     both = lambda: torch.autograd.grad(fwd(), leaves, do)
-    return time_ms(both, 10) - time_ms(fwd, 10)
+    return (time_ms(both, 10) - time_ms(fwd, 10),
+            device_ms(both) - device_ms(fwd))
 
 
-def phase_kernels(gen, only: str = ""):
-    """Every kernel against its plain version; `only` (for bring-up) checks
-    a part alone: "fused" (phase `fusedkernels`) the fused decode layer's
-    two, "head" (phase `headkernels`) `int8_matmul`."""
+def _sdpa_fwd(kw, fill=float("-inf")):
+    """One SDPA call that computes the same attention: with is_causal and
+    no mask where the case has no bias and its ids mask nothing (SDPA's
+    own flash kernel), else with an additive mask."""
     import torch
     import torch.nn.functional as F
-    from otter_tpu_torch.ops import decode_attention as da
+    scale = kw.get("sm_scale", kw["q"].shape[-1] ** -0.5)
+    ids = [kw.get(n) for n in ("q_ids", "kv_ids")]
+    # "eq" ids that all hold one value allow every pair
+    one_id = ids[0] is None or (
+        kw.get("ids_mode", "eq") == "eq"
+        and int(torch.cat([i.flatten() for i in ids]).unique().numel()) == 1)
+    if kw.get("bias") is None and one_id:
+        causal = bool(kw.get("causal"))
+        return lambda: F.scaled_dot_product_attention(
+            kw["q"], kw["k"], kw["v"], is_causal=causal, scale=scale)
+    mask = _sdpa_args(kw, fill)
+    return lambda: F.scaled_dot_product_attention(
+        kw["q"], kw["k"], kw["v"], attn_mask=mask, scale=scale)
+
+
+def _flash_kernels(gen, report, entries):
+    """The flash forward and both backward kernels against their plain
+    twins: the serving prefill shapes, OtterHD's full-HD prefill, the
+    training shapes, and small cases at head dims 80, 96 and 112."""
+    import torch
     from otter_tpu_torch.ops import flash_attention as fa
-    from otter_tpu_torch.ops import quant
-    from otter_tpu_torch.ops.masks import alibi_slopes
-
-    tol = "|err| <= 2e-2 + 2e-2*|plain| (bf16 in/out, f32 inside)"
-    log(f"kernels: tolerance {tol}")
-    entries = {}
-    failed = []
-
-    def report(kernel, case, err, excess, ms, plain_ms, lib_ms, nbytes,
-               flops):
-        b_ms, b_by = bound_ms(nbytes, flops)
-        ok = excess <= 0 and math.isfinite(err)
-        log(f"  {kernel}[{case}]: max_abs_err {err:.3e} "
-            f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain "
-            f"{plain_ms:.4f} ms | library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        if not ok:
-            failed.append(f"{kernel}[{case}]")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-
-    def done():
-        if failed:
-            raise RuntimeError(f"kernels disagree with their plain "
-                               f"versions: {failed}")
-        return entries
-
-    if only:
-        (_fused_layer_kernels if only == "fused" else _head_kernel)(
-            gen, report, entries)
-        return done()
 
     # flash attention forward: four prefill configurations
-    for case, kw, keep in _flash_cases(gen):
+    for case, kw, keep in _flash_cases(gen) + [_fuyu_prefill_case(gen)]:
         out = fa.flash_attention(**kw)
         ref = fa.flash_attention_plain(**kw)
         torch.cuda.synchronize()
         keep4 = None if keep is None else keep[:, None, :, None].expand_as(out)
         err, excess = max_err(out, ref, keep4)
-        sdpa_mask = _sdpa_args(kw)
-        lib = lambda kw=kw, m=sdpa_mask: F.scaled_dot_product_attention(
-            kw["q"], kw["k"], kw["v"], attn_mask=m,
-            scale=kw.get("sm_scale", kw["q"].shape[-1] ** -0.5))
-        r = report("flash_fwd", case, err, excess,
-                   time_ms(lambda kw=kw: fa.flash_attention(**kw)),
+        kern = lambda kw=kw: fa.flash_attention(**kw)
+        r = report("flash_fwd", case, err, excess, time_ms(kern),
                    time_ms(lambda kw=kw: fa.flash_attention_plain(**kw), 5),
-                   time_ms(lib), *_flash_cost(kw))
+                   time_ms(_sdpa_fwd(kw)), *_flash_cost(kw),
+                   device=(device_ms(kern), device_ms(_sdpa_fwd(kw))))
         if case == "mpt_prefill":
             entries["flash_fwd"] = r
 
@@ -384,7 +434,8 @@ def phase_kernels(gen, only: str = ""):
         "above; backward |err| <= 2e-2*max|plain| + 2e-2*|plain| (bf16 "
         "out, f32 inside); backward plain = the whole plain backward (dq, "
         "dk, dv); backward library = SDPA forward+backward - forward")
-    for case, kw in _flash_bwd_cases(gen):
+    for case, kw in ([(f"train {c}", kw) for c, kw in _flash_bwd_cases(gen)]
+                     + _flash_head_dim_cases(gen)):
         args = [kw["q"], kw["k"], kw["v"], kw.get("bias"), kw.get("q_ids"),
                 kw.get("kv_ids")]
         opts = {n: kw[n] for n in ("causal", "sm_scale", "ids_mode")
@@ -392,13 +443,11 @@ def phase_kernels(gen, only: str = ""):
         out, lse = fa.flash_attention(*args, return_lse=True, **opts)
         # the forward at the training shapes too (row 1 of PERF.md's table)
         err, excess = max_err(out, fa.flash_attention_plain(*args, **opts))
-        sdpa_mask = _sdpa_args(kw, fill=-1e30)
-        report("flash_fwd", f"train {case}", err, excess,
-               time_ms(lambda: fa.flash_attention(*args, **opts), 10),
+        kern = lambda: fa.flash_attention(*args, **opts)
+        report("flash_fwd", case, err, excess, time_ms(kern, 10),
                time_ms(lambda: fa.flash_attention_plain(*args, **opts), 3, 1),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   kw["q"], kw["k"], kw["v"], attn_mask=sdpa_mask,
-                   scale=opts["sm_scale"]), 10), *_flash_cost(kw))
+               time_ms(_sdpa_fwd(kw, fill=-1e30), 10), *_flash_cost(kw),
+               device=(device_ms(kern), device_ms(_sdpa_fwd(kw, fill=-1e30))))
         do = torch.randn(out.shape, generator=gen, device="cuda",
                          dtype=torch.bfloat16)
         di = (out.float() * do.float()).sum(-1)
@@ -415,7 +464,7 @@ def phase_kernels(gen, only: str = ""):
                     torch.isfinite(a).all()))
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
             *args, out, lse, do, **opts), 3, 1)
-        lib_ms = _sdpa_backward_ms(kw, do)
+        lib_ms, lib_dev = _sdpa_backward(kw, do)
         for kernel, names, products, fn in (
                 ("flash_bwd_dkv", ("dk", "dv"), 4,
                  lambda: fa.flash_bwd_dkv(*args, lse, di, do, **opts)),
@@ -426,10 +475,68 @@ def phase_kernels(gen, only: str = ""):
             if not all(errs[n][2] for n in names):
                 excess = float("inf")
             r = report(kernel, case, err, excess, time_ms(fn, 10), plain_ms,
-                       lib_ms, *_flash_bwd_cost(kw, products, len(names)))
-            if case == "mpt":
+                       lib_ms, *_flash_bwd_cost(kw, products, len(names)),
+                       device=(device_ms(fn), lib_dev))
+            if case == "train mpt":
                 entries[kernel] = r
         del out, lse, do, di, dk, dv, dq, pq, pk, pv
+
+
+
+def phase_kernels(gen, only: str = ""):
+    """Every kernel against its plain version; `only` (for bring-up) checks
+    a part alone: "fused" (phase `fusedkernels`) the fused decode layer's
+    two, "head" (phase `headkernels`) `int8_matmul`, "flash" (phase
+    `flashkernels`) the flash forward and backward."""
+    import torch
+    import torch.nn.functional as F
+    from otter_tpu_torch.ops import decode_attention as da
+    from otter_tpu_torch.ops import quant
+    from otter_tpu_torch.ops.masks import alibi_slopes
+
+    tol = "|err| <= 2e-2 + 2e-2*|plain| (bf16 in/out, f32 inside)"
+    log(f"kernels: tolerance {tol}")
+    entries = {}
+    failed = []
+
+    def report(kernel, case, err, excess, ms, plain_ms, lib_ms, nbytes,
+               flops, device=None):
+        """`device`: (kernel, library) device ms from `device_ms` (CUDA
+        events around calls queued behind a spin kernel), where measured;
+        the TFLOP/s and share of the bound are the device's."""
+        b_ms, b_by = bound_ms(nbytes, flops)
+        ok = excess <= 0 and math.isfinite(err)
+        dev = ""
+        if device is not None:
+            dev = (f" | device: kernel {device[0]:.4f} ms "
+                   f"({flops / device[0] / 1e9:.1f} TFLOP/s, "
+                   f"{100 * b_ms / device[0]:.1f}% of the bound), library "
+                   f"{device[1]:.4f} ms")
+        log(f"  {kernel}[{case}]: max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain "
+            f"{plain_ms:.4f} ms | library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | bound "
+            f"{b_ms:.4f} ms ({b_by}){dev}")
+        if not ok:
+            failed.append(f"{kernel}[{case}]")
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms)
+        if device is not None:
+            r.update(device_ms=device[0], library_device_ms=device[1])
+        return r
+
+    def done():
+        if failed:
+            raise RuntimeError(f"kernels disagree with their plain "
+                               f"versions: {failed}")
+        return entries
+
+    if only:
+        {"fused": _fused_layer_kernels, "head": _head_kernel,
+         "flash": _flash_kernels}[only](gen, report, entries)
+        return done()
+
+    _flash_kernels(gen, report, entries)
 
     # int8 MLP: decoder MLP 4096 -> 16384 -> 4096 at M = 1 and 8
     k_in, hid = 4096, 16384
@@ -1828,7 +1935,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=PHASES,
                     help=f"comma-separated subset of {PHASES}, plus profile "
                          "(after serve, serve4, llama, fused and train; not "
-                         "run by default), fusedkernels and headkernels "
+                         "run by default), fusedkernels, headkernels and "
+                         "flashkernels "
                          "(parts of kernels, for bring-up). "
                          "Device and build always run.")
     args = ap.parse_args(argv)
@@ -1858,7 +1966,8 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         entries = run("kernels", phase_kernels, gen)
     else:
-        for name, only in (("fusedkernels", "fused"), ("headkernels", "head")):
+        for name, only in (("fusedkernels", "fused"), ("headkernels", "head"),
+                           ("flashkernels", "flash")):
             if name in phases:
                 entries.update(run(name, phase_kernels, gen, only))
     if "parity" in phases:
@@ -1896,7 +2005,9 @@ def main(argv=None) -> int:
             launches=sum(counts.values()), launches_by_path=counts,
             max_abs_err=e.get("max_abs_err"), ms=e.get("ms"),
             plain_ms=e.get("plain_ms"), bound_ms=e.get("bound_ms"),
-            bound_by=e.get("bound_by"), library_ms=e.get("library_ms")))
+            bound_by=e.get("bound_by"), library_ms=e.get("library_ms"),
+            **{k: e[k] for k in ("device_ms", "library_device_ms")
+               if k in e}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@
 // _bwd_pallas_call). Same function, per (q, k) pair:
 //   s  = (q.k) * sm_scale + bias      (f32 products, q unscaled)
 //   s  = mask ? s : mask_value        (ids eq/ge AND causal col <= row)
-//   p  = exp(s - lse)                 (f32, never rounded to bf16)
+//   p  = exp(s - lse)                 (f32)
 //   dp = do.v                         (f32)
 //   ds = p * (dp - di) * sm_scale
 //   dv += p^T do, dk += ds^T q, dq += ds k   (f32 accumulators)
@@ -17,28 +17,37 @@
 // constant). Keys past S_k and rows past S_q are bounds-checked out: they
 // add nothing and are never written.
 //
-// What bounds it on the H100: the backward does 4 (dK/dV) and 3 (dQ)
-// products of [64 x 64 x D] per tile pair, O(S_q S_k D) work on tiles that
-// sit in shared memory, so it is bound by operations, not bytes. This
-// first version runs them on the CUDA cores in f32 (no mma/wgmma yet):
-// tensor cores are the next step. The design keeps every tile in shared
-// memory and the accumulators in registers, so neither the S_q x S_k
-// probabilities nor their gradient reach device memory.
+// What bounds it on the H100: dK/dV does 4 and dQ 3 products of
+// [S_q x S_k x D] (half when causal) on tiles that sit in shared memory,
+// so both are bound by operations, not bytes.
 //
-// Design. Blocks run in parallel in no order, so the TPU's sequential grid
-// axis and its dk/dv/dq VMEM scratch become a loop inside one CTA of 256
-// threads:
-//   dK/dV: one CTA per (64-key tile, head, batch) walks the 64-query tiles,
-//          starting at the diagonal tile when causal.
-//   dQ:    one CTA per (64-query tile, head, batch) walks the 64-key tiles,
-//          stopping at the diagonal tile when causal.
-// In the 64 x 64 logits tile thread (r, c) = (tid / 16, tid % 16) owns
-// query rows 4r..4r+3 and key columns c + 16j (j < 4). For the products
-// into dk/dv it owns key rows 4r..4r+3 (into dq: query rows 4r..4r+3) and
+// dK/dV runs its four products on the tensor cores (wgmma, the pieces in
+// flash_sm90.cuh). One CTA of one warpgroup (128 threads) per (64-key
+// tile, head, batch); k and v stay in bf16 shared memory for the whole
+// walk, and the 64-query tiles of q and do, with their lse / di / q-id
+// rows, stream through a two-stage ring of 16-byte cp.async copies (tile
+// j + 1 in flight while tile j is multiplied), starting at the diagonal
+// tile when causal. S^T = k q^T and dP^T = v do^T are wgmma products of
+// two shared-memory tiles into f32 registers; P^T and dS^T are formed in
+// registers with the dead-row and masked-ds rules, rounded to bf16 and fed
+// back as the A operand of dv += P^T do and dk += dS^T q (do and q read
+// MN-major from the same shared tiles). The f32 accumulators live in
+// registers for the whole walk and leave through shared memory in 16-byte
+// stores. Numerics choice: the JAX kernel keeps p and ds in f32 for the
+// two accumulating products; here they are rounded to bf16 (the tensor
+// cores' input type) and the sums stay f32. That moves dk/dv by about
+// bf16's 2^-9 relative per term, inside the limits the port holds the
+// kernel to (2e-2 max|plain| + 2e-2 |plain|, and the train step's).
+//
+// dQ still runs on the CUDA cores in f32: one CTA of 256 threads per
+// (64-query tile, head, batch) walks the 64-key tiles, stopping at the
+// diagonal tile when causal. In the 64 x 64 logits tile thread (r, c) =
+// (tid / 16, tid % 16) owns query rows 4r..4r+3 and key columns c + 16j
+// (j < 4); for the product into dq it owns query rows 4r..4r+3 and
 // head-dim columns c + 16j (j < D/16). Row strides of D + 1 and 65 floats
 // keep the shared-memory reads free of bank conflicts.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "flash_sm90.cuh"
+
 #include <math.h>
 
 namespace {
@@ -167,90 +176,188 @@ __device__ __forceinline__ void tile_grads(const Args& a, int b, int h,
   }
 }
 
+// shared memory of the dK/dV kernel: k, v [64 x D] | stage 0: q, do
+// [64 x D], lse, di, q ids [64] | stage 1 (stages padded to 1024 bytes)
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
+struct DkvSmem {
+  static constexpr int V = 64 * D * 2;
+  static constexpr int STAGE0 = 2 * 64 * D * 2;
+  static constexpr int DO = 64 * D * 2;       // do after q in a stage
+  static constexpr int ROWS = 2 * 64 * D * 2; // lse, di, q ids after do
+  static constexpr int STAGE = ROWS + 1024;
+  static constexpr int BYTES = STAGE0 + 2 * STAGE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1) flash_bwd_dkv_kernel(
     Args a, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
-  constexpr int QS = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;            // [BK][QS]
-  float* Vs = Ks + BK * QS;    // [BK][QS]
-  float* Qs = Vs + BK * QS;    // [BQ][QS]
-  float* dOs = Qs + BQ * QS;   // [BQ][QS]
-  float* Ps = dOs + BQ * QS;   // [BQ][PS]
-  float* dSs = Ps + BQ * PS;   // [BQ][PS]
+  using namespace flash_sm90;
+  using L = Tile<D>;
+  using S = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
+  const int t = threadIdx.x, g = (t & 31) >> 2, tq = t & 3, w = t >> 5;
   const long long bh = (long long)b * a.H + h;
-  const int k0 = kt * BK;
-  load_tile<D>(Ks, a.k + bh * a.Sk * D, k0, a.Sk);
-  load_tile<D>(Vs, a.v + bh * a.Sk * D, k0, a.Sk);
+  const int Sq = a.Sq, Sk = a.Sk;
+  const int k0 = kt * 64;
+  const __nv_bfloat16* qp = a.q + bh * Sq * D;
+  const __nv_bfloat16* op = a.dout + bh * Sq * D;
+  const float* lse_bh = a.lse + bh * Sq;
+  const float* di_bh = a.di + bh * Sq;
+  const int* qid_b = a.ids_mode != 0 ? a.q_ids + (long long)b * Sq : nullptr;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb + h * a.bias_sh;
+  const bool bias_row = a.bias != nullptr && a.bias_sq == 0;
 
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  auto load_q = [&](int qt, int s) {
+    const int q0 = qt * 64;
+    const uint32_t base = sb + S::STAGE0 + s * S::STAGE;
+    load_tile_async<D, 64, 128>(base, qp, q0, Sq, t);
+    load_tile_async<D, 64, 128>(base + S::DO, op, q0, Sq, t);
+    const uint32_t rows = base + S::ROWS;
+    if (t < 64) {
+      load_row_async(rows, lse_bh, q0, Sq, t);
+      load_row_async(rows + 256, di_bh, q0, Sq, t);
+    } else if (qid_b != nullptr) {
+      load_row_async(rows + 512, qid_b, q0, Sq, t - 64);
+    }
+  };
 
-  const int n_q = (a.Sq + BQ - 1) / BQ;
+  // the thread's two key rows: their kv ids and, for a bias broadcast over
+  // query rows, their bias
+  int key[2], kid[2];
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + w * 16 + g + 8 * i;
+    const bool ok = key[i] < Sk;
+    kid[i] = (a.ids_mode != 0 && ok) ? a.kv_ids[(long long)b * Sk + key[i]]
+                                     : 0;
+    kbias[i] = (bias_row && ok) ? bias_bh[key[i]] : 0.f;
+  }
+  float dka[L::NCH][L::CW / 2], dva[L::NCH][L::CW / 2];
+#pragma unroll
+  for (int ch = 0; ch < L::NCH; ++ch)
+#pragma unroll
+    for (int e = 0; e < L::CW / 2; ++e) dka[ch][e] = dva[ch][e] = 0.f;
+
+  const float dead_below = 0.5f * a.mask_value;
+  const float inv_sk = 1.f / (float)Sk;
+  const int n_q = cdiv(Sq, 64);
   // causal: query tiles before the one holding row k0 see none of these keys
-  const int first = a.causal ? k0 / BQ : 0;
+  const int first = a.causal ? k0 / 64 : 0;
+  load_tile_async<D, 64, 128>(sb, a.k + bh * Sk * D, k0, Sk, t);
+  load_tile_async<D, 64, 128>(sb + S::V, a.v + bh * Sk * D, k0, Sk, t);
+  if (first < n_q) load_q(first, 0);
+  cp_async_commit();
   for (int qt = first; qt < n_q; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are no longer read
-    load_tile<D>(Qs, a.q + bh * a.Sq * D, q0, a.Sq);
-    load_tile<D>(dOs, a.dout + bh * a.Sq * D, q0, a.Sq);
-    Rows rw;
-    load_rows(a, b, bh, q0, r, rw);
+    const int s = (qt - first) & 1;
+    if (qt + 1 < n_q) {
+      load_q(qt + 1, s ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
     __syncthreads();
 
-    float p[4][4], ds[4][4];
-    tile_grads<D>(a, b, h, q0, k0, r, c, rw, Qs, dOs, Ks, Vs, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(r * 4 + i) * PS + c + 16 * j] = p[i][j];
-        dSs[(r * 4 + i) * PS + c + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
+    const int q0 = qt * 64;
+    const uint32_t qb = sb + S::STAGE0 + s * S::STAGE;
+    const float* lsm = reinterpret_cast<const float*>(
+        smem + S::STAGE0 + s * S::STAGE + S::ROWS);
+    const float* dsm = lsm + 64;
+    const int* qsm = reinterpret_cast<const int*>(lsm + 128);
 
-    // dv[key, d] += sum_q p[q, key] do[q, d]; dk[key, d] += ds[q, key] q[q, d]
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pv[4], sv[4], ov[DJ], qv[DJ];
+    float st[32], dpt[32];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[qq * PS + r * 4 + i];
-        sv[i] = dSs[qq * PS + r * 4 + i];
-      }
+    for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+    wgmma_ss_tile<D>(st, sb, 64, 0, qb, 64, 0);             // S^T = k q^T
+    wgmma_ss_tile<D>(dpt, sb + S::V, 64, 0, qb + S::DO, 64, 0);  // v do^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T, branch-free (a branch per element costs more than the
+    // products); the bias is a branch on a value uniform over the CTA.
+    // Element e is key row key[(e >> 1) & 1], query q0 + 8 (e >> 2) +
+    // 2 tq + (e & 1).
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ov[j] = dOs[qq * QS + c + 16 * j];
-        qv[j] = Qs[qq * QS + c + 16 * j];
-      }
+    for (int e = 0; e < 32; ++e) st[e] *= a.sm_scale;
+    if (bias_bh != nullptr) {
+      if (bias_row) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 32; ++e) st[e] += kbias[(e >> 1) & 1];
+      } else {
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], ov[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv[i], qv[j], dk_acc[i][j]);
+        for (int e = 0; e < 32; ++e) {
+          // rows past S_q and keys past S_k get p = 0 below
+          const int qrow = min(q0 + 8 * (e >> 2) + 2 * tq + (e & 1), Sq - 1);
+          st[e] += bias_bh[qrow * a.bias_sq + min(key[(e >> 1) & 1], Sk - 1)];
         }
+      }
     }
+    {
+      const int mode = a.ids_mode;
+      const bool causal = a.causal;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1, cl = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int qrow = q0 + cl, qid = qsm[cl];
+        const float lq = lsm[cl];
+        const bool valid = (qrow < Sq) & (key[i] < Sk);
+        const bool id_ok = (mode == 0) |
+                           (mode == 1 ? qid == kid[i] : qid >= kid[i]);
+        const bool ok = valid & id_ok & (!causal | (key[i] <= qrow));
+        const float p = expf(st[e] - lq);
+        // a row that attends no key: the forward averaged v over them all
+        const float dead = (valid & (lq < dead_below)) ? inv_sk : 0.f;
+        st[e] = ok ? p : dead;
+        dpt[e] = ok ? p * (dpt[e] - dsm[cl]) * a.sm_scale : 0.f;
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+    pack_a(st, pa);
+    pack_a(dpt, sa);
+#pragma unroll
+    for (int ch = 0; ch < L::NCH; ++ch) {
+      fence_regs(dva[ch]);
+      fence_regs(dka[ch]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tile<D>(dva, pa[kk], qb + S::DO, 64, kk * 16);  // P^T do
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tile<D>(dka, sa[kk], qb, 64, kk * 16);          // dS^T q
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int ch = 0; ch < L::NCH; ++ch) {
+      fence_regs(dva[ch]);
+      fence_regs(dka[ch]);
+    }
+    __syncthreads();  // stage s is refilled by the next iteration
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + r * 4 + i;
-    if (row >= a.Sk) continue;
-    const long long off = (bh * a.Sk + row) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + c + 16 * j] = __float2bfloat16(dk_acc[i][j]);
-      dv[off + c + 16 * j] = __float2bfloat16(dv_acc[i][j]);
-    }
-  }
+  __nv_bfloat16* st_k = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* st_v = st_k + 64 * (D + 8);
+  const float one[2] = {1.f, 1.f};
+  stage_acc<D>(st_k, dka, one, t);
+  stage_acc<D>(st_v, dva, one, t);
+  __syncthreads();
+  store_rows<D>(dk + bh * Sk * D, st_k, k0, Sk, t);
+  store_rows<D>(dv + bh * Sk * D, st_v, k0, Sk, t);
 }
 
 template <int D>
@@ -325,14 +432,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 
 template <int D>
 int launch_dkv(const Args& a, int B, void* dk, void* dv, cudaStream_t st) {
-  const size_t smem =
-      (size_t)(4 * 64 * (D + 1) + 2 * BQ * PS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t smem = DkvSmem<D>::BYTES + 1024;  // + alignment to 1024
+  cudaError_t err =
+      flash_sm90::allow_smem<flash_bwd_dkv_kernel<D>>((int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sk + BK - 1) / BK, a.H, B);
-  flash_bwd_dkv_kernel<D><<<grid, NT, smem, st>>>(
+  dim3 grid((a.Sk + 63) / 64, a.H, B);
+  flash_bwd_dkv_kernel<D><<<grid, 128, smem, st>>>(
       a, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
   return (int)cudaGetLastError();
 }
@@ -393,7 +498,11 @@ extern "C" int flash_bwd_dkv_bf16(
   switch (D) {
     case 16: return launch_dkv<16>(a, B, dk, dv, st);
     case 32: return launch_dkv<32>(a, B, dk, dv, st);
+    case 48: return launch_dkv<48>(a, B, dk, dv, st);
     case 64: return launch_dkv<64>(a, B, dk, dv, st);
+    case 80: return launch_dkv<80>(a, B, dk, dv, st);
+    case 96: return launch_dkv<96>(a, B, dk, dv, st);
+    case 112: return launch_dkv<112>(a, B, dk, dv, st);
     case 128: return launch_dkv<128>(a, B, dk, dv, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -412,7 +521,11 @@ extern "C" int flash_bwd_dq_bf16(
   switch (D) {
     case 16: return launch_dq<16>(a, B, dq, st);
     case 32: return launch_dq<32>(a, B, dq, st);
+    case 48: return launch_dq<48>(a, B, dq, st);
     case 64: return launch_dq<64>(a, B, dq, st);
+    case 80: return launch_dq<80>(a, B, dq, st);
+    case 96: return launch_dq<96>(a, B, dq, st);
+    case 112: return launch_dq<112>(a, B, dq, st);
     case 128: return launch_dq<128>(a, B, dq, st);
     default: return (int)cudaErrorInvalidValue;
   }

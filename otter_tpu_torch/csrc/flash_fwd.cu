@@ -5,222 +5,407 @@
 //   q is pre-scaled by sm_scale*log2(e), rounded to bf16 (q's dtype);
 //   s = q.k (f32) + bias*log2(e); s = mask ? s : mask_value, where the mask
 //   is the id comparison (eq / ge) AND the causal condition col <= row;
-//   base-2 online softmax with f32 statistics; p is rounded to bf16 before
+//   base-2 online softmax with f32 statistics (2^x on the special-function
+//   unit, a p below 2^-126 flushed to 0); p is rounded to bf16 before
 //   p.v; out = acc / l (l == 0 -> 1); lse = ln2 * (m + log2 l), natural log.
+// Keys past S_k are excluded outright (p = 0), which is what the TPU path's
+// PAD_ID ids did; with causal attention a query tile stops at the key tile
+// that holds its diagonal.
 //
-// What bounds it on the H100: at the slice's shapes (S <= 320, D 64/128)
-// the work is O(S^2 D) multiply-adds per (batch, head) on data that fits
-// in shared memory, so it is bound by operations, not bytes. This first
-// version runs them on the CUDA cores in f32 (no mma/wgmma yet): a tensor
-// core path is the next step. The design keeps every tile in shared memory
-// and the running max/sum/accumulator in registers, so the S x S logits
-// never reach device memory.
+// What bounds it on the H100: 4 S_q S_k D operations per (batch, head)
+// (half of that when causal) against 2 (2 S_q + 2 S_k) D bytes, so at
+// S >= 128 it is bound by operations, at bf16 tensor-core rate (989
+// TFLOP/s). Both products run on the tensor cores (wgmma), the logits and
+// probabilities never leave registers, and the loads of the next key tile
+// overlap the products on this one.
 //
-// Design: one CTA of 256 threads per (64-query tile, head, batch). The
-// sequential kv-grid axis and the m/l/acc VMEM scratch of the TPU kernel
-// become a loop over 64-key tiles inside the CTA. For causal attention the
-// loop stops at the tile holding the diagonal (the TPU's triangle grid).
-// Thread (r, c) = (tid / 16, tid % 16) owns query rows 4r..4r+3 and, in the
-// 64x64 logits tile, key columns c + 16j (j < 4); in the output it owns
-// head-dim columns c + 16j (j < D/16). Row max and row sum reduce over the
-// 16 lanes that share r. No padding of S or D is done: keys past S_k are
-// excluded outright (p = 0), which is what the TPU path's PAD_ID ids did.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Design. One CTA of two warpgroups (256 threads) per (128-query tile,
+// head, batch); each warpgroup owns 64 query rows. The sequential kv-grid
+// axis and the m/l/acc VMEM scratch of the TPU kernel become a loop over
+// 64-key tiles inside the CTA:
+//   - q (once) and the k/v tiles arrive by 16-byte cp.async (zero-filled
+//     past S) in bf16 shared memory, swizzled as wgmma's descriptors want
+//     (flash_sm90.cuh), through a ring of four stages: tile j + 2 is in
+//     flight while tile j is multiplied. q is scaled by sm_scale*log2(e)
+//     and rounded to bf16 in shared memory once.
+//   - S = q k^T: wgmma m64n64k16, both operands in shared memory, f32 in
+//     registers.
+//   - A bias broadcast over rows (ALiBi, [B|1, H|1, 1, S_k]) and the key
+//     tile's kv ids are staged in shared memory with the tile, once a tile;
+//     a bias with a query axis (a second instantiation) is read from
+//     device memory per logit.
+//   - Bias, mask and online softmax in registers, branch-free (row max and
+//     sum over the 4 lanes that share a row): a branch per logit cost more
+//     than the products, and a branch between a product's start and its
+//     wait makes ptxas serialize the products. P is rounded to bf16 in
+//     registers and is the A operand of O += P v (wgmma from registers, v
+//     MN-major in shared memory).
+//   - Tile j's P v is started beside tile j + 1's q k^T, so the softmax of
+//     tile j + 1 runs while the tensor cores do P v.
+//   - The output is staged in shared memory and leaves in 16-byte stores;
+//     LSE as f32.
+// Causal CTAs are launched longest first (the last query tile first); at
+// head dims up to 64 two CTAs share an SM.
+#include "flash_sm90.cuh"
+
+#include <limits.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+using namespace flash_sm90;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+constexpr int BQ = 128;  // query rows a CTA (64 a warpgroup)
+constexpr int BK = 64;   // keys a tile
+constexpr int NT = 256;
+
+struct FwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const float* bias;
+  long long bias_sb, bias_sh, bias_sq;
+  const int* q_ids;
+  const int* kv_ids;
+  int ids_mode;  // 0 none, 1 eq, 2 ge
+  __nv_bfloat16* out;
+  float* lse;
+  int H, Sq, Sk, causal;
+  float q_scale, mask_value;
+};
+
+// shared memory: q [BQ x D] | NS stages of k, v [BK x D] | NS stages of
+// the bias row [BK] f32 and the kv ids [BK] i32
+template <int D>
+struct FwdSmem {
+  static constexpr int NS = 4;
+  static constexpr int KV = BQ * D * 2;
+  static constexpr int V = BK * D * 2;        // v after k in a stage
+  static constexpr int STAGE = 2 * BK * D * 2;
+  static constexpr int ROWS = KV + NS * STAGE;
+  static constexpr int BYTES = ROWS + NS * 2 * BK * 4;
+};
+
+// the q tile times `scale`, rounded to bf16, in place
+template <int D>
+__device__ __forceinline__ void scale_q(uint8_t* tile, float scale, int tid) {
+  constexpr int VPR = D / 8;
+  for (int e = tid; e < BQ * VPR; e += NT) {
+    uint4* p = reinterpret_cast<uint4*>(
+        tile + Tile<D>::offset(BQ, e / VPR, (e % VPR) * 8));
+    uint4 x = *p;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *p = x;
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    long long bias_sb, long long bias_sh, long long bias_sq,
-    const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
-    int ids_mode, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-    int H, int Sq, int Sk, int causal, float q_scale, float mask_value) {
-  constexpr int QS = D + 1;   // padded row strides: conflict-free reads
-  constexpr int PS = BK + 1;
-  constexpr int DJ = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][QS]
-  float* Ks = Qs + BQ * QS;     // [BK][QS]
-  float* Vs = Ks + BK * QS;     // [BK][D]
-  float* Ps = Vs + BK * D;      // [BQ][PS]
+// kFullBias: the bias has a query axis and is read from device memory per
+// logit; otherwise a bias row, if any, is staged with the key tile. The
+// walk is straight-line code with no branch between a product's start and
+// its wait, which ptxas needs to keep the products asynchronous.
+template <int D, bool kFullBias>
+__global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
+    flash_fwd_kernel(FwdArgs a) {
+  using L = Tile<D>;
+  using S = FwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
-  const long long bh = (long long)b * H + h;
-  const __nv_bfloat16* qp = q + bh * Sq * D;
-  const __nv_bfloat16* kp = k + bh * Sk * D;
-  const __nv_bfloat16* vp = v + bh * Sk * D;
-  const int q0 = qt * BQ;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int tq = t & 3;
+  const long long bh = (long long)b * a.H + h;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const __nv_bfloat16* qp = a.q + bh * Sq * D;
+  const __nv_bfloat16* kp = a.k + bh * Sk * D;
+  const __nv_bfloat16* vp = a.v + bh * Sk * D;
+  const int q0 = qt * BQ, qw0 = q0 + wg * 64;
+  const int n_kv = cdiv(Sk, BK);
+  const int last = a.causal ? min(n_kv - 1, (q0 + BQ - 1) / BK) : n_kv - 1;
+  // a warpgroup's rows see no key past this tile: later tiles count as
+  // fully masked for it (p = 0), as if its walk stopped there
+  const int last_w = a.causal ? min(n_kv - 1, (qw0 + 63) / BK) : n_kv - 1;
+  const bool live = qw0 < Sq;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb + h * a.bias_sh;
+  const bool bias_row = a.bias != nullptr && a.bias_sq == 0;
+  const int* kid_b = a.ids_mode != 0 ? a.kv_ids + (long long)b * Sk : nullptr;
 
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int row = e / D, d = e % D;
-    float x = 0.f;
-    if (q0 + row < Sq)
-      x = round_bf16(__bfloat162float(qp[(long long)(q0 + row) * D + d]) *
-                     q_scale);
-    Qs[row * QS + d] = x;
-  }
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * BK, s = kt % S::NS;
+    const uint32_t kb = sb + S::KV + s * S::STAGE;
+    load_tile_async<D, BK, NT>(kb, kp, k0, Sk, tid);
+    load_tile_async<D, BK, NT>(kb + S::V, vp, k0, Sk, tid);
+    const uint32_t rows = sb + S::ROWS + s * 2 * BK * 4;
+    if (bias_row && tid < BK)
+      load_row_async(rows, bias_bh, k0, Sk, tid);
+    else if (kid_b != nullptr && tid >= BK && tid < 2 * BK)
+      load_row_async(rows + BK * 4, kid_b, k0, Sk, tid - BK);
+  };
 
-  int qid[4];
-  float m_i[4], l_i[4], acc[4][DJ];
+  int row[2], brow[2], qid[2];
+  float m_i[2], l_i[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    qid[i] = (ids_mode != 0 && row < Sq) ? q_ids[(long long)b * Sq + row] : 0;
+  for (int i = 0; i < 2; ++i) {
+    row[i] = qw0 + (t >> 5) * 16 + ((t & 31) >> 2) + 8 * i;
+    brow[i] = row[i] < Sq ? row[i] : Sq - 1;
+    qid[i] = (a.ids_mode != 0 && row[i] < Sq)
+                 ? a.q_ids[(long long)b * Sq + row[i]] : 0;
     m_i[i] = -INFINITY;
     l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
-
-  const int n_kv = (Sk + BK - 1) / BK;
-  const int last = causal ? min(n_kv - 1, (q0 + BQ - 1) / BK) : n_kv - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    for (int e = tid; e < BK * D; e += NT) {
-      const int row = e / D, d = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + row < Sk) {
-        const long long off = (long long)(k0 + row) * D + d;
-        kx = __bfloat162float(kp[off]);
-        vx = __bfloat162float(vp[off]);
-      }
-      Ks[row * QS + d] = kx;
-      Vs[row * D + d] = vx;
+  // ids that mask nothing for a warpgroup are dropped for it: "eq" when
+  // its rows' q ids and every kv id it can reach hold one value, "ge" when
+  // the least q id is at least the largest kv id (a prompt without padding,
+  // one image: most of the training and OtterHD batches)
+  int ids_mode = a.ids_mode;
+  if (ids_mode != 0) {
+    __shared__ int red[NT / 32][4];
+    int v[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};  // kv min/max, q min/max
+    const int k_end = min(Sk, (last + 1) * BK);
+    for (int c = tid; c < k_end; c += NT) {
+      const int x = kid_b[c];
+      v[0] = min(v[0], x);
+      v[1] = max(v[1], x);
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < Sq) {
+        v[2] = min(v[2], qid[i]);
+        v[3] = max(v[3], qid[i]);
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int y = __shfl_xor_sync(0xffffffffu, v[j], off);
+        v[j] = (j & 1) ? max(v[j], y) : min(v[j], y);
+      }
+    if ((tid & 31) == 0)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[tid >> 5][j] = v[j];
     __syncthreads();
-
-    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(r * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(c + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int wp = 0; wp < NT / 32; ++wp) {
+      v[0] = min(v[0], red[wp][0]);
+      v[1] = max(v[1], red[wp][1]);
+      if (wp >> 2 == wg) {  // q ids: this warpgroup's rows only
+        v[2] = min(v[2], red[wp][2]);
+        v[3] = max(v[3], red[wp][3]);
+      }
     }
+    const bool none = ids_mode == 1
+                          ? (v[2] == v[3]) & (v[0] == v[1]) & (v[0] == v[2])
+                          : v[2] >= v[1];
+    if (none) ids_mode = 0;
+  }
+  float o[L::NCH][L::CW / 2];
+#pragma unroll
+  for (int ch = 0; ch < L::NCH; ++ch)
+#pragma unroll
+    for (int e = 0; e < L::CW / 2; ++e) o[ch][e] = 0.f;
+  float sc[32];
+  uint32_t pa[4][4];  // P of a tile, bf16, waiting for its v
 
+  // S = q k^T of tile kt into sc (started, committed, not waited)
+  auto start_qk = [&](int kt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + r * 4 + i;
-      const int brow = row < Sq ? row : Sq - 1;
-      float p[4];
-      float mx = -INFINITY;
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+    wgmma_ss_tile<D>(sc, sb, BQ, wg * 64,
+                     sb + S::KV + (kt % S::NS) * S::STAGE, BK, 0);
+    wgmma_commit();
+  };
+  // bias, mask and the online softmax of tile kt, branch-free but for one
+  // branch uniform over the warpgroup: sc becomes p (f32), alpha the old
+  // sum's factor.
+  // Element e is row row[(e >> 1) & 1], key k0 + 8 (e >> 2) + 2 tq + (e & 1).
+  float alpha[2];
+  auto softmax = [&](int kt) {
+    const int k0 = kt * BK, s = kt % S::NS;
+    const float* bsm =
+        reinterpret_cast<const float*>(smem + S::ROWS + s * 2 * BK * 4);
+    const int* ksm = reinterpret_cast<const int*>(bsm + BK);
+    const int mode = ids_mode;
+    const bool causal = a.causal, skip = kt > last_w;
+    if (kFullBias | bias_row) {  // uniform over the CTA
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int cl = 8 * (e >> 2) + 2 * tq + (e & 1);
+        if constexpr (kFullBias)  // keys past S_k are masked: read a real one
+          sc[e] += bias_bh[brow[(e >> 1) & 1] * a.bias_sq +
+                           min(k0 + cl, Sk - 1)] * LOG2E;
+        else
+          sc[e] += bsm[cl] * LOG2E;
+      }
+    }
+    // a branch uniform over the warpgroup: tiles inside S_k, below the
+    // diagonal and without ids need no mask
+    if ((mode != 0) | skip | (k0 + BK > Sk) | (causal & (k0 + BK - 1 > qw0))) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1, cl = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int col = k0 + cl, kid = ksm[cl];
+        const bool id_ok =
+            (mode == 0) | (mode == 1 ? qid[i] == kid : qid[i] >= kid);
+        const bool ok = id_ok & (!causal | (col <= row[i]));
+        const float x = ok ? sc[e] : a.mask_value;
+        sc[e] = (skip | (col >= Sk)) ? -INFINITY : x;
+      }
+    }
+    // row max and sum as trees of four partials a row (short dependency
+    // chains: the softmax is the longest part of an iteration)
+    float mx[2][4], rs[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = k0 + c + 16 * j;
-        float x = s[i][j];
-        if (col >= Sk) {
-          x = -INFINITY;
-        } else {
-          if (bias != nullptr)
-            x += bias[b * bias_sb + h * bias_sh + brow * bias_sq + col] *
-                 LOG2E;
-          bool ok = true;
-          if (ids_mode == 1) ok = qid[i] == kv_ids[(long long)b * Sk + col];
-          else if (ids_mode == 2) ok = qid[i] >= kv_ids[(long long)b * Sk + col];
-          if (causal) ok = ok && (col <= row);
-          if (!ok) x = mask_value;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+        mx[i][j] = -INFINITY;
+        rs[i][j] = 0.f;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // every tile holds at least one key < Sk, so m_new is finite
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = exp2f(m_i[i] - m_new);
-      float rs = 0.f;
+    for (int e = 0; e < 32; ++e)
+      mx[(e >> 1) & 1][(e >> 2) & 3] =
+          fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], sc[e]);
+    // every tile a warpgroup does not skip holds a key < Sk, and tile 0 is
+    // never skipped, so m is finite from the first tile on
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = exp2f(s[i][j] - m_new);
-        rs += p[j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = alpha * l_i[i] + rs;
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(
+          m_i[i], quad_max(fmaxf(fmaxf(mx[i][0], mx[i][1]),
+                                 fmaxf(mx[i][2], mx[i][3]))));
+      alpha[i] = exp2_ftz(m_i[i] - m_new);
       m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(r * 4 + i) * PS + c + 16 * j] = round_bf16(p[j]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      sc[e] = exp2_ftz(sc[e] - m_i[i]);
+      rs[i][(e >> 2) & 3] += sc[e];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l_i[i] = alpha[i] * l_i[i] +
+               quad_sum((rs[i][0] + rs[i][1]) + (rs[i][2] + rs[i][3]));
+  };
+  // o += P v of tile kt (started, committed, not waited)
+  auto start_pv = [&](int kt) {
+    const uint32_t vb = sb + S::KV + (kt % S::NS) * S::STAGE + S::V;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tile<D>(o, pa[kk], vb, BK, kk * 16);
+    wgmma_commit();
+  };
+  auto fence_o = [&]() {
+#pragma unroll
+    for (int ch = 0; ch < L::NCH; ++ch) fence_regs(o[ch]);
+  };
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int ch = 0; ch < L::NCH; ++ch)
+#pragma unroll
+      for (int e = 0; e < L::CW / 2; ++e) o[ch][e] *= alpha[(e >> 1) & 1];
+    pack_a(sc, pa);
+  };
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(r * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * D + c + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+  // Tile kt's P v is started in iteration kt + 1, beside that iteration's
+  // q k^T, so the softmax of tile kt + 1 overlaps it on the tensor cores.
+  // A stage is refilled two iterations after its tile's q k^T and one
+  // after its P v: four stages. Every warpgroup runs every tile (a
+  // warpgroup past its rows or its diagonal computes p = 0), so that each
+  // product's start and wait stay in straight-line code.
+  load_tile_async<D, BQ, NT>(sb, qp, q0, Sq, tid);
+  load_kv(0);
+  cp_async_commit();
+  if (last >= 1) {
+    load_kv(1);
+    cp_async_commit();
   }
+  if (last >= 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+  __syncthreads();
+  scale_q<D>(smem, a.q_scale, tid);
+  fence_proxy_async();
+  __syncthreads();
+  if (last >= 2) {
+    load_kv(2);
+    cp_async_commit();
+  }
+  start_qk(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);
+  rescale_and_pack();
+  for (int kt = 1; kt <= last; ++kt) {
+    if (kt < last) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    fence_proxy_async();
+    // tile kt is visible; every warpgroup is past iteration kt - 1, so the
+    // P v of tile kt - 2 is done and its stage may be refilled
+    __syncthreads();
+    if (kt + 2 <= last) {
+      load_kv(kt + 2);
+      cp_async_commit();
+    }
+    fence_o();
+    start_qk(kt);   // its wgmma_fence also covers pa and o
+    start_pv(kt - 1);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    softmax(kt);
+    wgmma_wait<0>();
+    fence_o();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+    rescale_and_pack();
+  }
+  fence_o();
+  wgmma_fence();
+  start_pv(last);
+  wgmma_wait<0>();
+  fence_o();
+  __syncthreads();  // all of shared memory is free for the output
 
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem) + wg * 64 * (D + 8);
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    if (row >= Sq) continue;
-    const float l = l_i[i] == 0.f ? 1.f : l_i[i];
-    const float linv = 1.f / l;
-    __nv_bfloat16* op = out + (bh * Sq + row) * D;
+  for (int i = 0; i < 2; ++i) {
+    if (l_i[i] == 0.f) l_i[i] = 1.f;
+    inv[i] = 1.f / l_i[i];
+  }
+  if (live) stage_acc<D>(st, o, inv, t);
+  __syncthreads();
+  if (live) {
+    store_rows<D>(a.out + bh * Sq * D, st, qw0, Sq, t);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      op[c + 16 * j] = __float2bfloat16(acc[i][j] * linv);
-    if (c == 0) lse[bh * Sq + row] = LN2 * (m_i[i] + log2f(l));
+    for (int i = 0; i < 2; ++i)
+      if (tq == 0 && row[i] < Sq)
+        a.lse[bh * Sq + row[i]] = LN2 * (m_i[i] + log2f(l_i[i]));
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* bias,
-           long long bsb, long long bsh, long long bsq, const void* q_ids,
-           const void* kv_ids, int ids_mode, void* out, void* lse, int B,
-           int H, int Sq, int Sk, int causal, float q_scale, float mask_value,
-           cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <int D, bool kFullBias>
+int launch_variant(const FwdArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = FwdSmem<D>::BYTES + 1024;  // + alignment to 1024
+  cudaError_t err = allow_smem<flash_fwd_kernel<D, kFullBias>>((int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const float*)bias, bsb, bsh, bsq,
-      (const int*)q_ids, (const int*)kv_ids, ids_mode, (__nv_bfloat16*)out,
-      (float*)lse, H, Sq, Sk, causal, q_scale, mask_value);
+  dim3 grid(cdiv(a.Sq, BQ), a.H, B);
+  flash_fwd_kernel<D, kFullBias><<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const FwdArgs& a, int B, cudaStream_t stream) {
+  return a.bias != nullptr && a.bias_sq != 0
+             ? launch_variant<D, true>(a, B, stream)
+             : launch_variant<D, false>(a, B, stream);
 }
 
 }  // namespace
@@ -232,26 +417,36 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               int ids_mode, void* out, void* lse, int B,
                               int H, int Sq, int Sk, int D, int causal,
                               float q_scale, float mask_value, void* stream) {
+  FwdArgs a;
+  a.q = (const __nv_bfloat16*)q;
+  a.k = (const __nv_bfloat16*)k;
+  a.v = (const __nv_bfloat16*)v;
+  a.bias = (const float*)bias;
+  a.bias_sb = bias_sb;
+  a.bias_sh = bias_sh;
+  a.bias_sq = bias_sq;
+  a.q_ids = (const int*)q_ids;
+  a.kv_ids = (const int*)kv_ids;
+  a.ids_mode = ids_mode;
+  a.out = (__nv_bfloat16*)out;
+  a.lse = (float*)lse;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.causal = causal;
+  a.q_scale = q_scale;
+  a.mask_value = mask_value;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16:
-      return launch<16>(q, k, v, bias, bias_sb, bias_sh, bias_sq, q_ids,
-                        kv_ids, ids_mode, out, lse, B, H, Sq, Sk, causal,
-                        q_scale, mask_value, st);
-    case 32:
-      return launch<32>(q, k, v, bias, bias_sb, bias_sh, bias_sq, q_ids,
-                        kv_ids, ids_mode, out, lse, B, H, Sq, Sk, causal,
-                        q_scale, mask_value, st);
-    case 64:
-      return launch<64>(q, k, v, bias, bias_sb, bias_sh, bias_sq, q_ids,
-                        kv_ids, ids_mode, out, lse, B, H, Sq, Sk, causal,
-                        q_scale, mask_value, st);
-    case 128:
-      return launch<128>(q, k, v, bias, bias_sb, bias_sh, bias_sq, q_ids,
-                         kv_ids, ids_mode, out, lse, B, H, Sq, Sk, causal,
-                         q_scale, mask_value, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return launch<16>(a, B, st);
+    case 32: return launch<32>(a, B, st);
+    case 48: return launch<48>(a, B, st);
+    case 64: return launch<64>(a, B, st);
+    case 80: return launch<80>(a, B, st);
+    case 96: return launch<96>(a, B, st);
+    case 112: return launch<112>(a, B, st);
+    case 128: return launch<128>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 import warnings
 from types import SimpleNamespace
-from typing import Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,12 +61,15 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
                        ) -> CacheDtype:
     """Degrade-not-die KV-cache precision: when the requested cache does
     not fit next to the resident parameters, step down the ladder
-    (bf16 -> int8 -> int4) with a warning instead of failing. On CUDA the
-    budget is the free device memory from `torch.cuda.mem_get_info` less
-    the headroom; `OTTER_HBM_BYTES` (total bytes, parameters then
-    subtracted) and `OTTER_HBM_HEADROOM` override it. On the CPU the
-    request is returned unchanged."""
-    if device.type != "cuda":
+    (bf16 -> int8 -> int4) with a warning instead of failing. The budget
+    is `hbm_bytes` (or `OTTER_HBM_BYTES` on CUDA) less the headroom and
+    `param_bytes`; on CUDA without either, the card's total memory less
+    what live tensors hold (`torch.cuda.memory_allocated`, parameters
+    included) and the headroom. Blocks that torch's caching allocator
+    keeps from freed tensors count as free, so the answer does not depend
+    on what ran before. `OTTER_HBM_HEADROOM` overrides the 5 GB headroom.
+    On the CPU without `hbm_bytes` the request is returned unchanged."""
+    if device.type != "cuda" and hbm_bytes is None:
         return requested
     env_hbm = os.environ.get("OTTER_HBM_BYTES")
     env_head = os.environ.get("OTTER_HBM_HEADROOM")
@@ -77,7 +80,8 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
     if hbm_bytes is not None:
         budget = hbm_bytes - headroom_bytes - param_bytes
     else:
-        budget = torch.cuda.mem_get_info(device)[0] - headroom_bytes
+        budget = (torch.cuda.mem_get_info(device)[1]
+                  - torch.cuda.memory_allocated(device) - headroom_bytes)
     name = _cache_name(requested)
     for step in _LADDER[_LADDER.index(name):]:
         if cache_bytes(text_cfg, batch, cache_len, step) <= budget:
@@ -122,12 +126,28 @@ class OtterGenerator:
     device."""
 
     def __init__(self, model: OtterVLM,
-                 cache_dtype: CacheDtype = torch.bfloat16):
+                 cache_dtype: CacheDtype = torch.bfloat16,
+                 hbm_bytes: Optional[float] = None):
         self.model = model
         self.cfg: OtterConfig = model.cfg
         self.cache_dtype = cache_dtype
+        self.hbm_bytes = hbm_bytes
         self.param_bytes = sum(t.numel() * t.element_size() for t in
                                list(model.parameters()) + list(model.buffers()))
+        self._cache_dtypes: Dict[Tuple[int, int], CacheDtype] = {}
+
+    def _cache_dtype_for(self, b: int, cache_len: int) -> CacheDtype:
+        """The cache dtype for this (batch, cache_len): the requested one,
+        degraded down the ladder when it would not fit
+        (`select_cache_dtype`), chosen once per key so that equal requests
+        get equal caches."""
+        key = (b, cache_len)
+        if key not in self._cache_dtypes:
+            self._cache_dtypes[key] = select_cache_dtype(
+                self.cfg.text, b, cache_len, self.cache_dtype,
+                device=self.device, param_bytes=self.param_bytes,
+                hbm_bytes=self.hbm_bytes)
+        return self._cache_dtypes[key]
 
     @property
     def device(self) -> torch.device:
@@ -145,10 +165,8 @@ class OtterGenerator:
             attention_mask = torch.ones((b, p), dtype=torch.int32, device=dev)
         attention_mask = _on(attention_mask, dev).int()
         cache_len = _round_up(p + gen.max_new_tokens, 128)
-        cache_dtype = select_cache_dtype(
-            self.cfg.text, b, cache_len, self.cache_dtype, device=dev,
-            param_bytes=self.param_bytes)
-        cache = init_cache(self.cfg.text, b, cache_len, cache_dtype, dev)
+        cache = init_cache(self.cfg.text, b, cache_len,
+                           self._cache_dtype_for(b, cache_len), dev)
         # a token's position counts the real tokens before it: left padding
         # does not move a prompt (ALiBi takes no positions)
         real_len = positions = None

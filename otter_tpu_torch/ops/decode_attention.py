@@ -30,6 +30,9 @@ _SIGNATURES = {"decode_attention_bf16": (
     [_P, _P, _P, _P, _P, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I,
      _I, _F, _P], _I)}
 
+# head dims the kernel takes (the cache's D)
+KERNEL_HEAD_DIMS = (64, 128)
+
 
 def decode_attention_plain(q, k, v, lengths, bias=None, starts=None, *,
                            k_scale=None, v_scale=None, kv_bits: int = 8,
@@ -111,7 +114,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if int4 and (v.data_ptr() != k.data_ptr() or v.stride() != k.stride()):
         raise ValueError("decode_attention kernel: an int4 cache is one "
                          "fused array, passed as both k and v")
-    if d not in (64, 128):
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"decode_attention kernel: head dim {d}")
     if not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention kernel: the cache must be "

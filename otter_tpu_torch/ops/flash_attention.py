@@ -45,6 +45,7 @@ choices where the JAX kernels' answer is not the function's derivative:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -53,6 +54,8 @@ from otter_tpu_torch import _build
 from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE
 
 LOG2E = 1.4426950408889634
+# head dims the kernels take: every multiple of the tensor cores' k16 step
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
 _IDS_MODES = {"eq": 1, "ge": 2}
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
@@ -176,22 +179,57 @@ def flash_attention_bwd_plain(q, k, v, bias, q_ids, kv_ids, o, lse, do, *,
                       mask_value=mask_value)
 
 
+def check_kernel_inputs(head_dim: int, *dtypes: torch.dtype) -> None:
+    """Raise unless the flash kernels (forward, dK/dV and dQ alike) take
+    q/k/v of this head dim and these dtypes: bf16 only (TypeError), D a
+    multiple of 16 from 16 to 128 (ValueError)."""
+    if any(dt != torch.bfloat16 for dt in dtypes):
+        raise TypeError(f"flash_attention kernels take bf16 q/k/v, not "
+                        f"{dtypes}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernels: head dim {head_dim} "
+                         f"(a multiple of 16 up to 128)")
+
+
+def _aligned(x):
+    """x contiguous, on a 16-byte boundary (the kernels' vector loads).
+    Each torch call here costs the small shapes' time on the host, so a
+    tensor that already is so is returned without one."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _f32(x):
+    """x as a contiguous f32 tensor (no torch call when it is one)."""
+    if x.dtype != torch.float32:
+        x = x.float()
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _ids(ids, b, s):
+    """int32 ids as a contiguous [b, s] tensor."""
+    if ids.dtype != torch.int32:
+        ids = ids.int()
+    if ids.shape != (b, s):
+        ids = ids.expand(b, s)
+    return ids if ids.is_contiguous() else ids.contiguous()
+
+
 def _kernel_args(q, k, v, bias, q_ids, kv_ids, ids_mode):
     """Checks a CUDA call and lays out its operands as the kernels take
-    them: contiguous bf16 q/k/v, f32 bias read through broadcast strides,
-    contiguous int32 ids [B, S]."""
+    them: contiguous, 16-byte aligned bf16 q/k/v, f32 bias read through
+    broadcast strides, contiguous int32 ids [B, S]."""
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention kernels take bf16 q/k/v")
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"flash_attention kernels: head dim {d} unsupported")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_kernel_inputs(d, q.dtype, k.dtype, v.dtype)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bias_ptr, bstrides = None, (0, 0, 0)
     if bias is not None:
-        bias = bias.float()
+        if bias.dtype != torch.float32:
+            bias = bias.float()
         bb, bh, bq, bk = bias.shape
         if bb not in (1, b) or bh not in (1, h) or bq not in (1, s_q) \
                 or bk != s_k:
@@ -206,14 +244,20 @@ def _kernel_args(q, k, v, bias, q_ids, kv_ids, ids_mode):
     mode = 0
     qid_ptr = kid_ptr = None
     if q_ids is not None:
-        q_ids = q_ids.to(torch.int32).expand(b, s_q).contiguous()
-        kv_ids = kv_ids.to(torch.int32).expand(b, s_k).contiguous()
+        q_ids, kv_ids = _ids(q_ids, b, s_q), _ids(kv_ids, b, s_k)
         qid_ptr, kid_ptr = q_ids.data_ptr(), kv_ids.data_ptr()
         mode = _IDS_MODES[ids_mode]
     # the tensors are returned so the caller holds them over the launch
     alive = (q, k, v, bias, q_ids, kv_ids)
     return alive, (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
                   *bstrides, qid_ptr, kid_ptr, mode)
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_q_scale(sm_scale: float) -> float:
+    """sm_scale * log2(e) rounded to bf16: q is pre-scaled in its own dtype,
+    so the constant is rounded to bf16 too."""
+    return float(torch.tensor(sm_scale * LOG2E, dtype=torch.bfloat16))
 
 
 def flash_attention_fwd(q, k, v, bias=None, q_ids=None, kv_ids=None, *,
@@ -233,12 +277,10 @@ def flash_attention_fwd(q, k, v, bias=None, q_ids=None, kv_ids=None, *,
     alive, args = _kernel_args(q, k, v, bias, q_ids, kv_ids, ids_mode)
     out = torch.empty_like(alive[0])
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    # q is pre-scaled in its own dtype: the constant is rounded to bf16 too
-    q_scale = float(torch.tensor(sm_scale * LOG2E, dtype=q.dtype))
     lib = _build.library("flash_fwd", _SIGNATURES)
     err = lib.flash_fwd_bf16(
         *args, out.data_ptr(), lse.data_ptr(), b, h, s_q, s_k, d,
-        int(causal), q_scale, float(mask_value),
+        int(causal), _bf16_q_scale(float(sm_scale)), float(mask_value),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd")
     flash_attention.launches += 1
@@ -250,9 +292,8 @@ def _bwd_launch(fn_name, outs, q, k, v, bias, q_ids, kv_ids, lse, di, do,
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     _alive, args = _kernel_args(q, k, v, bias, q_ids, kv_ids, ids_mode)
-    lse = lse.float().contiguous()
-    di = di.float().contiguous()
-    do = do.to(torch.bfloat16).contiguous()
+    lse, di = _f32(lse), _f32(di)
+    do = _aligned(do if do.dtype == torch.bfloat16 else do.bfloat16())
     if lse.shape != (b, h, s_q) or di.shape != (b, h, s_q) \
             or do.shape != q.shape:
         raise ValueError("flash backward: lse/di must be [B, H, S_q] and do "
@@ -356,11 +397,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_lse: bool = False):
     """q [B, H, S_q, D], k/v [B, H, S_k, D] -> out [B, H, S_q, D]
     (and lse [B, H, S_q] f32 with return_lse, not differentiable). CUDA
-    tensors must be bf16 with D in {16, 32, 64, 128}. Differentiable in
-    q, k and v."""
-    _check_args(q, k, v, bias, q_ids, kv_ids, causal, ids_mode)
+    tensors must be bf16 with D a multiple of 16 up to 128. Differentiable in
+    q, k and v. The arguments are checked where the forward runs
+    (`flash_attention_fwd`), once a call."""
     if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[3] ** 0.5)
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     opts = dict(causal=causal, sm_scale=float(sm_scale), ids_mode=ids_mode,
                 mask_value=float(mask_value))
     needs_grad = torch.is_grad_enabled() and (

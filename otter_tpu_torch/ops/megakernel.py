@@ -38,6 +38,9 @@ _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 _SIGNATURES = {"decode_attn_megakernel_bf16": (
     [_P] * 4 + [_LL] + [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P], _I)}
 
+# head dims the kernel takes
+KERNEL_HEAD_DIMS = (64, 128)
+
 
 def _layer_of(cache: torch.Tensor, layer: Optional[int]) -> torch.Tensor:
     return cache if layer is None else cache[:, layer]
@@ -132,7 +135,7 @@ def decode_attn_megakernel(
             or v_cache.dtype != torch.bfloat16:
         raise TypeError("decode_attn_megakernel kernel takes bf16 x and a "
                         "bf16 cache")
-    if bsz > 8 or dh not in (64, 128) or d % 128 or d > 12288:
+    if bsz > 8 or dh not in KERNEL_HEAD_DIMS or d % 128 or d > 12288:
         raise ValueError(f"decode_attn_megakernel kernel: B={bsz} (<= 8), "
                          f"head dim {dh} (64 or 128), D={d} (% 128, "
                          f"<= 12288)")

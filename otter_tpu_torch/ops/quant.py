@@ -586,6 +586,15 @@ def _check_kernel_inputs(what: str, x: torch.Tensor, *weights: torch.Tensor):
                          f"contiguous and 16-byte aligned")
 
 
+def int4_mlp_refusal(m: int, k: int, h: int, n: int) -> Optional[str]:
+    """Why the int4 MLP kernel refuses x [M, K] through an [K, H] / [H, N]
+    pair, or None when it takes it."""
+    if m > 32 or k % 128 or h % 128 or n % 32:
+        return (f"int4_mlp kernel: M={m} (<= 32), K={k} (% 128), H={h} "
+                f"(% 128), N={n} (% 32)")
+    return None
+
+
 def int4_mlp(x: torch.Tensor, w1p: torch.Tensor, s1: torch.Tensor,
              w2p: torch.Tensor, s2: torch.Tensor, *,
              act: str = "gelu") -> torch.Tensor:
@@ -605,9 +614,9 @@ def int4_mlp(x: torch.Tensor, w1p: torch.Tensor, s1: torch.Tensor,
     if x.device.type == "cpu":
         return int4_mlp_plain(x, w1p, s1, w2p, s2, act=act)
     _check_kernel_inputs("int4_mlp", x, w1p, w2p)
-    if m > 32 or k % 128 or h % 128 or n % 32:
-        raise ValueError(f"int4_mlp kernel: M={m} (<= 32), K={k} (% 128), "
-                         f"H={h} (% 128), N={n} (% 32)")
+    refusal = int4_mlp_refusal(m, k, h, n)
+    if refusal is not None:
+        raise ValueError(refusal)
     s1, s2 = s1.float().contiguous(), s2.float().contiguous()
     ws = torch.empty((h // 128, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -48,7 +48,7 @@ def _rnd(gen, *shape):
                        dtype=torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("bias_shape", [None, "full", "row"])
 def test_flash_matches_plain(gen, d, bias_shape):
     b, h, s = 2, 3, 70
@@ -105,7 +105,7 @@ def _backward_pair(gen, q, k, v, kw):
     return kern, plain
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("s", [64, 97])
 def test_flash_backward_causal_alibi_ids(gen, d, s):
     b, h = 2, 3
@@ -120,7 +120,7 @@ def test_flash_backward_causal_alibi_ids(gen, d, s):
         _close_grad(a, r)
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 64, 96])
 def test_flash_backward_full_bias_unequal_lengths(gen, d):
     b, h, sq, sk = 2, 2, 70, 131
     q, k, v = _rnd(gen, b, h, sq, d), _rnd(gen, b, h, sk, d), \
@@ -132,7 +132,7 @@ def test_flash_backward_full_bias_unequal_lengths(gen, d):
 
 
 @pytest.mark.parametrize("mode", ["eq", "ge"])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 80, 112, 128])
 def test_flash_backward_media_ids_and_masked_rows(gen, mode, d):
     """Rows with q_id 0 attend no key: their dq is 0 and their do reaches
     dv as 1/S_k, in both versions."""
@@ -150,6 +150,25 @@ def test_flash_backward_media_ids_and_masked_rows(gen, mode, d):
         _close_grad(a, r)
     dead = (q_ids == 0)[:, None, :, None].expand_as(kern[0])
     assert bool((kern[0][dead] == 0).all())
+
+
+@pytest.mark.parametrize("d", [72, 136])
+def test_flash_refuses_head_dims_off_the_k16_grid(gen, d):
+    q = _rnd(gen, 1, 2, 40, d)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention(*(q[..., :64].float() for _ in range(3)))
+
+
+def test_flash_unaligned_views(gen):
+    """q/k/v views that start off a 16-byte boundary are copied, not read
+    misaligned."""
+    base = _rnd(gen, 2 * 3 * 50 * 80 + 1)
+    q = base[1:].view(2, 3, 50, 80)
+    assert q.data_ptr() % 16
+    _close(fa.flash_attention(q, q, q, causal=True),
+           fa.flash_attention_plain(q, q, q, causal=True))
 
 
 def test_loss_backward_through_the_dispatcher(gen):
@@ -593,3 +612,29 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError):
         quant.int8_matmul(x, wq, scale[:100])
     assert quant.int8_matmul.launches == before
+
+
+def test_degrade_budget_ignores_freed_blocks(gen):
+    """Two equal requests around a large freed tensor pick the same KV
+    cache dtype: torch's caching allocator keeps the freed block, so the
+    card's free memory drops by it, but the budget counts live tensors
+    only."""
+    from otter_tpu_torch import config
+    from otter_tpu_torch.generation import engine
+    text = config.otter_mpt7b().text
+    dev = torch.device("cuda")
+    b, cache_len = 8, 2048
+    need = engine.cache_bytes(text, b, cache_len, torch.bfloat16)
+    total = torch.cuda.mem_get_info(dev)[1]
+    # a headroom that leaves the bf16 cache 1 GB to spare
+    headroom = total - torch.cuda.memory_allocated(dev) - need - 1e9
+    pick = lambda: engine.select_cache_dtype(
+        text, b, cache_len, torch.bfloat16, device=dev,
+        headroom_bytes=headroom)
+    first = pick()
+    big = torch.empty(int(4e9), dtype=torch.uint8, device=dev)
+    del big
+    assert torch.cuda.memory_reserved(dev) - \
+        torch.cuda.memory_allocated(dev) >= 4e9
+    assert pick() == first == torch.bfloat16
+    torch.cuda.empty_cache()

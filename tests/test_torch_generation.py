@@ -50,6 +50,35 @@ def test_greedy_generate_identical_to_jax():
     np.testing.assert_array_equal(out, np.asarray(ref))
 
 
+def test_cache_dtype_memo_per_request_shape():
+    """The engine picks the cache dtype once per (b, cache_len), as the JAX
+    engine's `_cache_dtypes` memo does: a budget that fits an int8 cache
+    but not a bf16 one degrades the request, and the degraded int8 cache
+    gives the JAX int8 engine's tokens; the key keeps its dtype when the
+    budget changes later; another key is chosen afresh."""
+    cfg, jmodel, params, _ = jax_tiny()
+    vx, ids, mask = _ragged_batch(cfg)
+    lang_x, attn = tengine.left_pad(ids, mask)
+    model = torch_tiny()
+    b, cache_len = lang_x.shape[0], 128      # 12 + 6 tokens round up to 128
+    need = tengine.cache_bytes(cfg.text, b, cache_len, torch.bfloat16)
+    params_b = sum(t.numel() * t.element_size() for t in
+                   list(model.parameters()) + list(model.buffers()))
+    eng = tengine.OtterGenerator(model, hbm_bytes=5e9 + params_b + need - 1)
+    with pytest.warns(UserWarning, match="bf16 -> int8"):
+        out = eng.generate(vx, lang_x, attn, gen=TGen(max_new_tokens=6))
+    assert eng._cache_dtypes == {(b, cache_len): torch.int8}
+    ref = jengine.OtterGenerator(jmodel, params, cfg, cache_dtype="int8"
+                                 ).generate(jnp.asarray(vx),
+                                            jnp.asarray(lang_x),
+                                            jnp.asarray(attn),
+                                            gen=JGen(max_new_tokens=6))
+    np.testing.assert_array_equal(out, np.asarray(ref))
+    eng.hbm_bytes = 1e15
+    assert eng._cache_dtype_for(b, cache_len) == torch.int8
+    assert eng._cache_dtype_for(b, 2 * cache_len) == torch.bfloat16
+
+
 def test_llama_greedy_generate_identical_to_jax():
     """The tiny llama VLM (rope, RMSNorm, SwiGLU, untied int8 head, int8
     cache): a ragged left-padded batch, where rope goes wrong first if the

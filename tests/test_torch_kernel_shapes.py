@@ -1,0 +1,93 @@
+"""Which of the port's kernels refuse which model configuration on the
+card. The wrappers never fall back to the plain version for a CUDA tensor,
+so a shape a kernel refuses makes that model raise there. This walks every
+preset of `config.PRESETS`, `FuyuConfig` and the head dims of idefics-9b
+(ViT-H/14 tower 1280 / 16 = 80, perceiver 96: `otter_tpu/config.py:389,
+405-407`; the port has no idefics config yet) through the kernels' own
+guards and pins the refusals that remain, so that any change shows."""
+
+import pytest
+import torch
+
+from otter_tpu_torch import config
+from otter_tpu_torch.ops import decode_attention as da
+from otter_tpu_torch.ops import flash_attention as fa
+from otter_tpu_torch.ops import megakernel as mk
+from otter_tpu_torch.ops import quant
+
+# (model, kernel) -> why it refuses; every other pair is taken
+REFUSED = {
+    ("mpt30b", "decode_attention"): "head dim 112",
+    ("mpt30b", "megakernel"): "head dim 112",
+    ("falcon7b", "int4_mlp"): "K = 4544 is not a multiple of 128",
+}
+IDEFICS_HEAD_DIMS = {"vision": 80, "perceiver": 96, "text": 128, "xattn": 128}
+
+
+def _flash_takes(d: int) -> bool:
+    try:
+        fa.check_kernel_inputs(d, torch.bfloat16)
+    except ValueError:
+        return False
+    return True
+
+
+def _models():
+    for name, factory in config.PRESETS.items():
+        cfg = factory()
+        yield name, cfg.text, {
+            "vision": cfg.vision.head_dim, "perceiver": cfg.perceiver.dim_head,
+            "xattn": cfg.xattn_dim_head, "text": cfg.text.head_dim}
+    fuyu = config.FuyuConfig()
+    yield "fuyu-8b", fuyu.text, {"text": fuyu.text.head_dim}
+
+
+def _refusals(name, text, head_dims):
+    out = {}
+    for site, d in head_dims.items():
+        if not _flash_takes(d):
+            out[(name, "flash")] = f"{site} head dim {d}"
+    d = text.head_dim
+    if d not in da.KERNEL_HEAD_DIMS:
+        out[(name, "decode_attention")] = f"head dim {d}"
+    if d not in mk.KERNEL_HEAD_DIMS:
+        out[(name, "megakernel")] = f"head dim {d}"
+    k, h = text.hidden_size, text.mlp_dim
+    if quant.int4_mlp_refusal(1, k, h, k) is not None:
+        out[(name, "int4_mlp")] = f"K = {k} is not a multiple of 128"
+    return out
+
+
+def test_refusals_by_preset():
+    found = {}
+    for name, text, head_dims in _models():
+        found.update(_refusals(name, text, head_dims))
+    assert found == REFUSED
+
+
+@pytest.mark.parametrize("site,d", sorted(IDEFICS_HEAD_DIMS.items()))
+def test_flash_takes_idefics_head_dims(site, d):
+    assert _flash_takes(d), (site, d)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_flash_takes_every_multiple_of_16(d):
+    assert _flash_takes(d)
+
+
+@pytest.mark.parametrize("d", [8, 24, 72, 136, 256])
+def test_flash_refuses_other_head_dims(d):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.check_kernel_inputs(d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_flash_takes_bf16_only(dtype):
+    with pytest.raises(TypeError, match="bf16"):
+        fa.check_kernel_inputs(64, torch.bfloat16, dtype)
+
+
+def test_int4_mlp_refusal_names_the_shape():
+    assert quant.int4_mlp_refusal(8, 4096, 16384, 4096) is None
+    assert "K=4544" in quant.int4_mlp_refusal(8, 4544, 18176, 4544)
+    assert "M=33" in quant.int4_mlp_refusal(33, 4096, 16384, 4096)

@@ -6,10 +6,15 @@ and the same batch.
 Tolerances: losses and their gradients within 1e-5 (f32 on both sides,
 only the order of sums differs); after a whole step each parameter within
 1e-4 * max|JAX param| + 1e-5. AdamW's first step moves every weight by
-about lr whatever its gradient's size, so where a gradient is near 0 the
-two sides' rounding noise becomes a difference of up to a few % of lr:
-the steps run at the recipe's lr of 1e-4, where that stays well inside
-the tolerance and a missing or wrong-signed update does not.
+about lr whatever its gradient's size: m / sqrt(v) is g / (|g| + eps).
+Where a gradient is within a few eps of 0 the two sides' rounding noise
+in g is a sizable part of eps, and the updates may differ by a large part
+of lr (2.96e-5 at lr 1e-4 seen on one element of 16384, torch 2.13 on 8
+threads). After one step, an element whose JAX update is under lr / 2
+(so its gradient is near eps) is held within that tolerance plus lr / 2,
+which still fails a spurious ~lr move of an element the reference holds
+still; an element with a real gradient moves by ~lr and keeps the tight
+bound, so a missing or wrong-signed update there still fails.
 """
 
 import functools
@@ -79,11 +84,26 @@ def _port_steps(n_steps, mask_embedding, fused_ce_chunk, accum,
     return metrics, export_flax_params(model), state
 
 
-def _assert_params_close(port, ref, keys):
+@functools.lru_cache(maxsize=None)
+def _jax_start():
+    """The trainable params before any step."""
+    cfg, _, params, _ = jax_tiny_train()
+    return _flat(jstep.split_params(params, cfg)[0])
+
+
+def _assert_params_close(port, ref, keys, start=None):
+    """Each parameter within 1e-4 * max|ref| + 1e-5; with `start` (the
+    params before one step), plus lr / 2 on the elements whose reference
+    update is under lr / 2 (gradients near Adam's eps)."""
     for k in keys:
-        tol = 1e-4 * float(np.abs(ref[k]).max()) + 1e-5
-        np.testing.assert_allclose(port[k], ref[k], atol=tol, rtol=0,
-                                   err_msg=k)
+        tol = np.full(ref[k].shape, 1e-4 * float(np.abs(ref[k]).max()) + 1e-5)
+        if start is not None:
+            tol += LR / 2 * (np.abs(ref[k] - start[k]) < LR / 2)
+        err = np.abs(port[k] - ref[k])
+        bad = err > tol
+        assert not bad.any(), (
+            f"{k}: {int(bad.sum())} of {err.size} elements beyond the "
+            f"tolerance; worst {float((err - tol).max()):.3e} over it")
 
 
 def test_trainable_frozen_and_decay_sets_match_jax():
@@ -175,7 +195,7 @@ def test_one_step_matches_jax(variant, monkeypatch):
                                rtol=1e-5)
     np.testing.assert_allclose(metrics[0]["grad_norm"],
                                ref_metrics[0]["grad_norm"], rtol=1e-4)
-    _assert_params_close(params, ref_params, ref_params)
+    _assert_params_close(params, ref_params, ref_params, _jax_start())
     assert state.step == 1
 
 
