@@ -39,23 +39,37 @@
 // bf16's 2^-9 relative per term, inside the limits the port holds the
 // kernel to (2e-2 max|plain| + 2e-2 |plain|, and the train step's).
 //
-// dQ still runs on the CUDA cores in f32: one CTA of 256 threads per
-// (64-query tile, head, batch) walks the 64-key tiles, stopping at the
-// diagonal tile when causal. In the 64 x 64 logits tile thread (r, c) =
-// (tid / 16, tid % 16) owns query rows 4r..4r+3 and key columns c + 16j
-// (j < 4); for the product into dq it owns query rows 4r..4r+3 and
-// head-dim columns c + 16j (j < D/16). Row strides of D + 1 and 65 floats
-// keep the shared-memory reads free of bank conflicts.
+// dQ is the forward's walk with one more product, on the tensor cores as
+// well: one CTA of two warpgroups (256 threads) per (128-query tile, head,
+// batch), each warpgroup owning 64 query rows. q and do (bf16) stay in
+// shared memory for the whole walk, the lse / di / q-id rows in registers;
+// the 64-key tiles of k and v, with their bias row and kv ids, stream
+// through the forward's ring of four cp.async stages (tile j + 2 in flight
+// while tile j is multiplied), stopping at the diagonal tile when causal.
+// Per tile, S = q k^T and dP = do v^T are wgmma products of two shared
+// tiles into f32 registers; dS = exp(S sm_scale + bias - lse) (dP - di) is
+// formed in registers (0 wherever the mask holds, which also covers rows
+// that attend no key), rounded to bf16 and fed back as the register A
+// operand of dq += dS k, with k read MN-major from the tile already in
+// shared memory (the forward's P v trick). Tile j's dS k is started beside
+// tile j + 1's two products, so dS of tile j + 1 is formed while the
+// tensor cores run it. sm_scale multiplies dq once, at the store; the f32
+// accumulator lives in registers for the whole walk and leaves through
+// shared memory in 16-byte stores. Registers a thread: 32 (S) + 32 (dP) +
+// D / 2 (dq) f32 and 16 of the bf16 A fragment, which fit the forward's
+// CTA shape. As in the forward, bias kind and "needs a mask" are branches
+// uniform over a warpgroup around branch-free loops, ids that mask nothing
+// for a warpgroup are dropped for it, and every warpgroup runs every tile
+// (a tile past its rows or its diagonal gets dS = 0) so that each wgmma is
+// started in straight-line code: ptxas serializes wgmma behind a branch.
+// Numerics choice: the JAX kernel keeps ds in f32 for dq += ds k; here dS
+// is rounded to bf16 (the tensor cores' input type), as dK/dV rounds P and
+// dS, and the sum stays f32.
 #include "flash_sm90.cuh"
 
 #include <math.h>
 
 namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr int PS = BK + 1;
 
 struct Args {
   const __nv_bfloat16* q;
@@ -72,109 +86,6 @@ struct Args {
   int H, Sq, Sk, causal;
   float sm_scale, mask_value;
 };
-
-// rows [row0, row0 + 64) of a [n, D] bf16 matrix into f32 shared memory
-// with row stride D + 1; rows past n read as 0
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n) {
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
-    const int row = e / D, d = e % D;
-    dst[row * (D + 1) + d] =
-        row0 + row < n ? __bfloat162float(src[(long long)(row0 + row) * D + d])
-                       : 0.f;
-  }
-}
-
-// The statistics of one thread's four query rows.
-struct Rows {
-  float lse[4], di[4];
-  int qid[4];
-  bool dead[4];
-};
-
-__device__ __forceinline__ void load_rows(const Args& a, int b, long long bh,
-                                          int q0, int r, Rows& rw) {
-  const float dead_below = 0.5f * a.mask_value;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    const bool ok = row < a.Sq;
-    rw.lse[i] = ok ? a.lse[bh * a.Sq + row] : 0.f;
-    rw.di[i] = ok ? a.di[bh * a.Sq + row] : 0.f;
-    rw.qid[i] = (a.ids_mode != 0 && ok) ? a.q_ids[(long long)b * a.Sq + row]
-                                         : 0;
-    rw.dead[i] = ok && rw.lse[i] < dead_below;
-  }
-}
-
-// p and ds of the thread's 4 x 4 pairs of the tile at (q0, k0), from the
-// shared tiles Qs, dOs (query rows) and Ks, Vs (key rows).
-template <int D>
-__device__ __forceinline__ void tile_grads(const Args& a, int b, int h,
-                                           int q0, int k0, int r, int c,
-                                           const Rows& rw, const float* Qs,
-                                           const float* dOs, const float* Ks,
-                                           const float* Vs, float p[4][4],
-                                           float ds[4][4]) {
-  constexpr int QS = D + 1;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(r * 4 + i) * QS + d];
-      ov[i] = dOs[(r * 4 + i) * QS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(c + 16 * j) * QS + d];
-      vv[j] = Vs[(c + 16 * j) * QS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-  const float inv_sk = 1.f / (float)a.Sk;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + c + 16 * j;
-      float pij = 0.f, dsij = 0.f;
-      if (row < a.Sq && col < a.Sk) {
-        float x = s[i][j] * a.sm_scale;
-        if (a.bias != nullptr)
-          x += a.bias[b * a.bias_sb + h * a.bias_sh + row * a.bias_sq + col];
-        bool ok = true;
-        if (a.ids_mode == 1)
-          ok = rw.qid[i] == a.kv_ids[(long long)b * a.Sk + col];
-        else if (a.ids_mode == 2)
-          ok = rw.qid[i] >= a.kv_ids[(long long)b * a.Sk + col];
-        if (a.causal) ok = ok && (col <= row);
-        if (ok) {
-          pij = expf(x - rw.lse[i]);
-          dsij = pij * (dp[i][j] - rw.di[i]) * a.sm_scale;
-        } else if (rw.dead[i]) {
-          pij = inv_sk;  // the forward averaged v over the real keys
-        }
-      }
-      p[i][j] = pij;
-      ds[i][j] = dsij;
-    }
-  }
-}
 
 // shared memory of the dK/dV kernel: k, v [64 x D] | stage 0: q, do
 // [64 x D], lse, di, q ids [64] | stage 1 (stages padded to 1024 bytes)
@@ -360,74 +271,219 @@ __global__ void __launch_bounds__(128, 1) flash_bwd_dkv_kernel(
   store_rows<D>(dv + bh * Sk * D, st_v, k0, Sk, t);
 }
 
+// shared memory of the dQ kernel: q, do [DQ_BQ x D] | NS stages of k, v
+// [64 x D] | NS stages of the bias row [64] f32 and the kv ids [64] i32
+constexpr int DQ_BQ = 128;  // query rows a CTA (64 a warpgroup)
+constexpr int DQ_NT = 256;
+
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    Args a, __nv_bfloat16* __restrict__ dq) {
-  constexpr int QS = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][QS]
-  float* dOs = Qs + BQ * QS;   // [BQ][QS]
-  float* Ks = dOs + BQ * QS;   // [BK][QS]
-  float* Vs = Ks + BK * QS;    // [BK][QS]
-  float* dSs = Vs + BK * QS;   // [BQ][PS]
+struct DqSmem {
+  static constexpr int NS = 4;
+  static constexpr int DO = DQ_BQ * D * 2;      // do after q
+  static constexpr int KV = 2 * DQ_BQ * D * 2;  // the stages after do
+  static constexpr int V = 64 * D * 2;          // v after k in a stage
+  static constexpr int STAGE = 2 * 64 * D * 2;
+  static constexpr int ROWS = KV + NS * STAGE;
+  static constexpr int BYTES = ROWS + NS * 2 * 64 * 4;
+};
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
+// kFullBias: the bias has a query axis and is read from device memory per
+// logit; otherwise a bias row, if any, is staged with the key tile.
+template <int D, bool kFullBias>
+__global__ void __launch_bounds__(DQ_NT, 1)
+    flash_bwd_dq_kernel(Args a, __nv_bfloat16* __restrict__ dq) {
+  using namespace flash_sm90;
+  using L = Tile<D>;
+  using S = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int tq = t & 3;
   const long long bh = (long long)b * a.H + h;
-  const int q0 = qt * BQ;
-  load_tile<D>(Qs, a.q + bh * a.Sq * D, q0, a.Sq);
-  load_tile<D>(dOs, a.dout + bh * a.Sq * D, q0, a.Sq);
-  Rows rw;
-  load_rows(a, b, bh, q0, r, rw);
+  const int Sq = a.Sq, Sk = a.Sk;
+  const __nv_bfloat16* kp = a.k + bh * Sk * D;
+  const __nv_bfloat16* vp = a.v + bh * Sk * D;
+  const int q0 = qt * DQ_BQ, qw0 = q0 + wg * 64;
+  const int n_kv = cdiv(Sk, 64);
+  const int last = a.causal ? min(n_kv - 1, (q0 + DQ_BQ - 1) / 64) : n_kv - 1;
+  // a warpgroup's rows see no key past this tile: later tiles count as
+  // fully masked for it (dS = 0)
+  const int last_w = a.causal ? min(n_kv - 1, (qw0 + 63) / 64) : n_kv - 1;
+  const bool live = qw0 < Sq;
+  const float* bias_bh =
+      a.bias == nullptr ? nullptr : a.bias + b * a.bias_sb + h * a.bias_sh;
+  const bool bias_row = a.bias != nullptr && a.bias_sq == 0;
+  const int* kid_b = a.ids_mode != 0 ? a.kv_ids + (long long)b * Sk : nullptr;
 
-  float dq_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
+  auto load_kv = [&](int kt) {
+    const int s = kt % S::NS;
+    load_kv_stage<D, DQ_NT>(sb + S::KV + s * S::STAGE, S::V,
+                            sb + S::ROWS + s * 2 * 64 * 4, kp, vp,
+                            bias_row ? bias_bh : nullptr, kid_b, kt * 64, Sk,
+                            tid);
+  };
 
-  const int n_kv = (a.Sk + BK - 1) / BK;
-  const int last = a.causal ? min(n_kv - 1, (q0 + BQ - 1) / BK) : n_kv - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    load_tile<D>(Ks, a.k + bh * a.Sk * D, k0, a.Sk);
-    load_tile<D>(Vs, a.v + bh * a.Sk * D, k0, a.Sk);
-    __syncthreads();
+  // the thread's two query rows: lse in base 2, di, q id
+  int row[2], brow[2], qid[2];
+  float lse2[2], di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = qw0 + (t >> 5) * 16 + ((t & 31) >> 2) + 8 * i;
+    const bool ok = row[i] < Sq;
+    brow[i] = ok ? row[i] : Sq - 1;
+    lse2[i] = ok ? a.lse[bh * Sq + row[i]] * LOG2E : 0.f;
+    di[i] = ok ? a.di[bh * Sq + row[i]] : 0.f;
+    qid[i] = (a.ids_mode != 0 && ok) ? a.q_ids[(long long)b * Sq + row[i]]
+                                      : 0;
+  }
+  // ids that mask nothing for a warpgroup are dropped for it
+  const int ids_mode =
+      a.ids_mode == 0 ? 0
+                      : live_ids_mode<DQ_NT>(a.ids_mode, kid_b,
+                                             min(Sk, (last + 1) * 64), row,
+                                             qid, Sq, tid, wg);
+  float dqa[L::NCH][L::CW / 2];
+#pragma unroll
+  for (int ch = 0; ch < L::NCH; ++ch)
+#pragma unroll
+    for (int e = 0; e < L::CW / 2; ++e) dqa[ch][e] = 0.f;
+  float sc[32], dp[32];
+  uint32_t sa[4][4];  // dS of a tile, bf16, waiting for its k
+  const float scale2 = a.sm_scale * LOG2E;
 
-    float p[4][4], ds[4][4];
-    tile_grads<D>(a, b, h, q0, k0, r, c, rw, Qs, dOs, Ks, Vs, p, ds);
+  // S = q k^T and dP = do v^T of tile kt (started, committed, not waited)
+  auto start_sdp = [&](int kt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    const uint32_t kb = sb + S::KV + (kt % S::NS) * S::STAGE;
+    wgmma_ss_tile<D>(sc, sb, DQ_BQ, wg * 64, kb, 64, 0);
+    wgmma_ss_tile<D>(dp, sb + S::DO, DQ_BQ, wg * 64, kb + S::V, 64, 0);
+    wgmma_commit();
+  };
+  // dS / sm_scale of tile kt into sc, branch-free but for branches uniform
+  // over the warpgroup. Element e is row row[(e >> 1) & 1], key
+  // k0 + 8 (e >> 2) + 2 tq + (e & 1).
+  auto grads = [&](int kt) {
+    const int k0 = kt * 64, s = kt % S::NS;
+    const float* bsm =
+        reinterpret_cast<const float*>(smem + S::ROWS + s * 2 * 64 * 4);
+    const int* ksm = reinterpret_cast<const int*>(bsm + 64);
+    const int mode = ids_mode;
+    const bool causal = a.causal, skip = kt > last_w;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dSs[(r * 4 + i) * PS + c + 16 * j] = ds[i][j];
-    __syncthreads();
-
-    // dq[q, d] += sum_key ds[q, key] k[key, d]
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float sv[4], kv[DJ];
+    for (int e = 0; e < 32; ++e) sc[e] *= scale2;
+    if (kFullBias | bias_row) {  // uniform over the CTA
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(r * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[kk * QS + c + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dq_acc[i][j] = fmaf(sv[i], kv[j], dq_acc[i][j]);
+      for (int e = 0; e < 32; ++e) {
+        const int cl = 8 * (e >> 2) + 2 * tq + (e & 1);
+        if constexpr (kFullBias)  // keys past S_k are masked: read a real one
+          sc[e] += bias_bh[brow[(e >> 1) & 1] * a.bias_sq +
+                           min(k0 + cl, Sk - 1)] * LOG2E;
+        else
+          sc[e] += bsm[cl] * LOG2E;
+      }
     }
-  }
+    // tiles inside S_k, below the diagonal and without ids need no mask
+    if ((mode != 0) | skip | (k0 + 64 > Sk) | (causal & (k0 + 63 > qw0))) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1, cl = 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int col = k0 + cl, kid = ksm[cl];
+        const bool id_ok =
+            (mode == 0) | (mode == 1 ? qid[i] == kid : qid[i] >= kid);
+        const bool ok = id_ok & (!causal | (col <= row[i])) & !skip &
+                        (col < Sk);
+        sc[e] = ok ? sc[e] : -INFINITY;  // p = 0, so dS = 0
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      sc[e] = exp2_ftz(sc[e] - lse2[i]) * (dp[e] - di[i]);
+    }
+  };
+  // dq += dS k of tile kt (started, committed, not waited)
+  auto start_dq = [&](int kt) {
+    const uint32_t kb = sb + S::KV + (kt % S::NS) * S::STAGE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tile<D>(dqa, sa[kk], kb, 64, kk * 16);
+    wgmma_commit();
+  };
+  auto fence_dq = [&]() {
+#pragma unroll
+    for (int ch = 0; ch < L::NCH; ++ch) fence_regs(dqa[ch]);
+  };
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    if (row >= a.Sq) continue;
-    const long long off = (bh * a.Sq + row) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[off + c + 16 * j] = __float2bfloat16(dq_acc[i][j]);
+  // The ring and the overlap are the forward's: tile kt's dS k is started
+  // in iteration kt + 1 beside that iteration's two products; a stage is
+  // refilled two iterations after its tile's products and one after its
+  // dS k: four stages. Every warpgroup runs every tile.
+  load_tile_async<D, DQ_BQ, DQ_NT>(sb, a.q + bh * Sq * D, q0, Sq, tid);
+  load_tile_async<D, DQ_BQ, DQ_NT>(sb + S::DO, a.dout + bh * Sq * D, q0, Sq,
+                                   tid);
+  load_kv(0);
+  cp_async_commit();
+  if (last >= 1) {
+    load_kv(1);
+    cp_async_commit();
   }
+  if (last >= 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  if (last >= 2) {
+    load_kv(2);
+    cp_async_commit();
+  }
+  start_sdp(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  grads(0);
+  pack_a(sc, sa);
+  for (int kt = 1; kt <= last; ++kt) {
+    if (kt < last) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    fence_proxy_async();
+    // tile kt is visible; every warpgroup is past iteration kt - 1, so the
+    // dS k of tile kt - 2 is done and its stage may be refilled
+    __syncthreads();
+    if (kt + 2 <= last) {
+      load_kv(kt + 2);
+      cp_async_commit();
+    }
+    fence_dq();
+    start_sdp(kt);  // its wgmma_fence also covers sa and dqa
+    start_dq(kt - 1);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    fence_regs(dp);
+    grads(kt);
+    wgmma_wait<0>();
+    fence_dq();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(sa[kk]);
+    pack_a(sc, sa);
+  }
+  fence_dq();
+  wgmma_fence();
+  start_dq(last);
+  wgmma_wait<0>();
+  fence_dq();
+  __syncthreads();  // all of shared memory is free for the output
+
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem) + wg * 64 * (D + 8);
+  const float scale[2] = {a.sm_scale, a.sm_scale};
+  if (live) stage_acc<D>(st, dqa, scale, t);
+  __syncthreads();
+  if (live) store_rows<D>(dq + bh * Sq * D, st, qw0, Sq, t);
 }
 
 template <int D>
@@ -442,16 +498,23 @@ int launch_dkv(const Args& a, int B, void* dk, void* dv, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int D, bool kFullBias>
+int launch_dq_variant(const Args& a, int B, void* dq, cudaStream_t st) {
+  const size_t smem = DqSmem<D>::BYTES + 1024;  // + alignment to 1024
+  cudaError_t err =
+      flash_sm90::allow_smem<flash_bwd_dq_kernel<D, kFullBias>>((int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(flash_sm90::cdiv(a.Sq, DQ_BQ), a.H, B);
+  flash_bwd_dq_kernel<D, kFullBias><<<grid, DQ_NT, smem, st>>>(
+      a, (__nv_bfloat16*)dq);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dq(const Args& a, int B, void* dq, cudaStream_t st) {
-  const size_t smem = (size_t)(4 * 64 * (D + 1) + BQ * PS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  flash_bwd_dq_kernel<D><<<grid, NT, smem, st>>>(a, (__nv_bfloat16*)dq);
-  return (int)cudaGetLastError();
+  return a.bias != nullptr && a.bias_sq != 0
+             ? launch_dq_variant<D, true>(a, B, dq, st)
+             : launch_dq_variant<D, false>(a, B, dq, st);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias,

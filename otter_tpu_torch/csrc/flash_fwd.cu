@@ -48,7 +48,6 @@
 // head dims up to 64 two CTAs share an SM.
 #include "flash_sm90.cuh"
 
-#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -139,15 +138,11 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
   const int* kid_b = a.ids_mode != 0 ? a.kv_ids + (long long)b * Sk : nullptr;
 
   auto load_kv = [&](int kt) {
-    const int k0 = kt * BK, s = kt % S::NS;
-    const uint32_t kb = sb + S::KV + s * S::STAGE;
-    load_tile_async<D, BK, NT>(kb, kp, k0, Sk, tid);
-    load_tile_async<D, BK, NT>(kb + S::V, vp, k0, Sk, tid);
-    const uint32_t rows = sb + S::ROWS + s * 2 * BK * 4;
-    if (bias_row && tid < BK)
-      load_row_async(rows, bias_bh, k0, Sk, tid);
-    else if (kid_b != nullptr && tid >= BK && tid < 2 * BK)
-      load_row_async(rows + BK * 4, kid_b, k0, Sk, tid - BK);
+    const int s = kt % S::NS;
+    load_kv_stage<D, NT>(sb + S::KV + s * S::STAGE, S::V,
+                         sb + S::ROWS + s * 2 * BK * 4, kp, vp,
+                         bias_row ? bias_bh : nullptr, kid_b, kt * BK, Sk,
+                         tid);
   };
 
   int row[2], brow[2], qid[2];
@@ -161,51 +156,12 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
     m_i[i] = -INFINITY;
     l_i[i] = 0.f;
   }
-  // ids that mask nothing for a warpgroup are dropped for it: "eq" when
-  // its rows' q ids and every kv id it can reach hold one value, "ge" when
-  // the least q id is at least the largest kv id (a prompt without padding,
-  // one image: most of the training and OtterHD batches)
-  int ids_mode = a.ids_mode;
-  if (ids_mode != 0) {
-    __shared__ int red[NT / 32][4];
-    int v[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};  // kv min/max, q min/max
-    const int k_end = min(Sk, (last + 1) * BK);
-    for (int c = tid; c < k_end; c += NT) {
-      const int x = kid_b[c];
-      v[0] = min(v[0], x);
-      v[1] = max(v[1], x);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (row[i] < Sq) {
-        v[2] = min(v[2], qid[i]);
-        v[3] = max(v[3], qid[i]);
-      }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int y = __shfl_xor_sync(0xffffffffu, v[j], off);
-        v[j] = (j & 1) ? max(v[j], y) : min(v[j], y);
-      }
-    if ((tid & 31) == 0)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[tid >> 5][j] = v[j];
-    __syncthreads();
-#pragma unroll
-    for (int wp = 0; wp < NT / 32; ++wp) {
-      v[0] = min(v[0], red[wp][0]);
-      v[1] = max(v[1], red[wp][1]);
-      if (wp >> 2 == wg) {  // q ids: this warpgroup's rows only
-        v[2] = min(v[2], red[wp][2]);
-        v[3] = max(v[3], red[wp][3]);
-      }
-    }
-    const bool none = ids_mode == 1
-                          ? (v[2] == v[3]) & (v[0] == v[1]) & (v[0] == v[2])
-                          : v[2] >= v[1];
-    if (none) ids_mode = 0;
-  }
+  // ids that mask nothing for a warpgroup are dropped for it
+  const int ids_mode =
+      a.ids_mode == 0 ? 0
+                      : live_ids_mode<NT>(a.ids_mode, kid_b,
+                                          min(Sk, (last + 1) * BK), row, qid,
+                                          Sq, tid, wg);
   float o[L::NCH][L::CW / 2];
 #pragma unroll
   for (int ch = 0; ch < L::NCH; ++ch)

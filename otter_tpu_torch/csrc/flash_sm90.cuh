@@ -1,8 +1,9 @@
 // Shared pieces of the Hopper (sm_90a) flash-attention kernels in
 // flash_fwd.cu and flash_bwd.cu: asynchronous tile loads into bf16 shared
-// memory laid out as wgmma's descriptors want, the descriptors, the wgmma
-// products, and the helpers that move a warpgroup's f32 accumulator in
-// and out of registers.
+// memory laid out as wgmma's descriptors want (and the key-tile stage and
+// the ids-mode test that the forward and dQ walks share), the
+// descriptors, the wgmma products, and the helpers that move a
+// warpgroup's f32 accumulator in and out of registers.
 //
 // Tile layout. A tile of R rows x D bf16 columns (row-major in device
 // memory) is cut into D / CW column chunks of CW = 64, 32 or 16 elements
@@ -27,6 +28,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace flash_sm90 {
@@ -147,6 +149,73 @@ __device__ __forceinline__ void load_row_async(uint32_t dst, const void* src,
                                                int i0, int n, int e) {
   const bool ok = i0 + e < n;
   cp_async4(dst + 4 * e, (const uint32_t*)src + (ok ? i0 + e : 0), ok);
+}
+
+// key tile [k0, k0 + 64) of one (batch, head) into a stage by NT threads:
+// k and v rows (kb, kb + v_off), and the bias row (if bias) and the kv ids
+// (if kid) as 64 f32 / i32 at rows, rows + 256
+template <int D, int NT>
+__device__ __forceinline__ void load_kv_stage(
+    uint32_t kb, uint32_t v_off, uint32_t rows, const __nv_bfloat16* kp,
+    const __nv_bfloat16* vp, const float* bias, const int* kid, int k0,
+    int Sk, int tid) {
+  load_tile_async<D, 64, NT>(kb, kp, k0, Sk, tid);
+  load_tile_async<D, 64, NT>(kb + v_off, vp, k0, Sk, tid);
+  if (bias != nullptr && tid < 64)
+    load_row_async(rows, bias, k0, Sk, tid);
+  else if (kid != nullptr && tid >= 64 && tid < 128)
+    load_row_async(rows + 64 * 4, kid, k0, Sk, tid - 64);
+}
+
+// The ids mode warpgroup wg needs: 0 where its ids mask nothing, else
+// mode. "eq" masks nothing when its rows' q ids and every kv id in
+// [0, k_end) hold one value, "ge" when the least q id is at least the
+// largest kv id (a prompt without padding, one image: most of the
+// training and OtterHD batches). row / qid: the thread's two query rows
+// and their ids (rows past Sq count for nothing). Every thread of the CTA
+// of NT threads calls it (it holds a CTA barrier).
+template <int NT>
+__device__ __forceinline__ int live_ids_mode(int mode, const int* kid,
+                                             int k_end, const int (&row)[2],
+                                             const int (&qid)[2], int Sq,
+                                             int tid, int wg) {
+  __shared__ int red[NT / 32][4];
+  int v[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};  // kv min/max, q min/max
+  for (int c = tid; c < k_end; c += NT) {
+    const int x = kid[c];
+    v[0] = min(v[0], x);
+    v[1] = max(v[1], x);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (row[i] < Sq) {
+      v[2] = min(v[2], qid[i]);
+      v[3] = max(v[3], qid[i]);
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int y = __shfl_xor_sync(0xffffffffu, v[j], off);
+      v[j] = (j & 1) ? max(v[j], y) : min(v[j], y);
+    }
+  if ((tid & 31) == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[tid >> 5][j] = v[j];
+  __syncthreads();
+#pragma unroll
+  for (int wp = 0; wp < NT / 32; ++wp) {
+    v[0] = min(v[0], red[wp][0]);
+    v[1] = max(v[1], red[wp][1]);
+    if (wp >> 2 == wg) {  // q ids: this warpgroup's rows only
+      v[2] = min(v[2], red[wp][2]);
+      v[3] = max(v[3], red[wp][3]);
+    }
+  }
+  const bool none = mode == 1
+                        ? (v[2] == v[3]) & (v[0] == v[1]) & (v[0] == v[2])
+                        : v[2] >= v[1];
+  return none ? 0 : mode;
 }
 
 // ── wgmma ───────────────────────────────────────────────────────────

@@ -230,9 +230,14 @@ class OtterGenerator:
         if gen.num_beams > 1:
             raise NotImplementedError("beam search is not ported yet")
         st = self._prefill(vision_x, lang_x, attention_mask, gen, generator)
-        while st.t < gen.max_new_tokens and not bool(st.done.all()):
-            self._step(st)
+        self._decode(st, gen.max_new_tokens)
         return st.buffer[:, : st.p + gen.max_new_tokens].cpu().numpy()
+
+    def _decode(self, st: SimpleNamespace, until: int) -> None:
+        """`generate`'s decode loop: steps until `until` tokens are sampled
+        or every row is done (a host sync a step, for the done check)."""
+        while st.t < until and not bool(st.done.all()):
+            self._step(st)
 
     def stream_generate(self, vision_x, lang_x, attention_mask=None,
                         gen: Optional[GenerationConfig] = None,

@@ -12,6 +12,13 @@ multiplies the logits after q.k, the v scale the probabilities before
 p.v). An int4 cache (`kv_bits=4`) is one fused array, k in the low nibble
 of each byte and v in the high (`ops.quant.quantize_kv_int4`), passed as
 both `k` and `v` and read through one pointer.
+
+The kernel splits each (batch, head)'s span over several CTAs so that the
+grid fills the card: `split_plan` picks the number of splits from the
+shapes alone (the host never reads `starts` / `lengths`), the kernel cuts
+the real span as `split_chunks` does, and the chunks' partial (m, l, acc)
+are merged in chunk order (`merge_partials` is the rule) in a workspace
+that `_workspace` keeps per device.
 """
 
 from __future__ import annotations
@@ -27,11 +34,92 @@ from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 _SIGNATURES = {"decode_attention_bf16": (
-    [_P, _P, _P, _P, _P, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I,
-     _I, _F, _P], _I)}
+    [_P, _P, _P, _P, _P, _I, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I,
+     _I, _I, _I, _I, _I, _F, _P], _I)}
 
 # head dims the kernel takes (the cache's D)
 KERNEL_HEAD_DIMS = (64, 128)
+
+# The split plan. One CTA of the kernel holds 54 KB of shared memory, so
+# four share an SM of the H100's 132: the plan aims at one wave of them.
+SM_COUNT = 132
+CTAS_PER_SM = 4
+# the fewest k and v bytes a chunk reads: less and a CTA's fixed costs (its
+# q, the merge) outweigh its reads
+MIN_CHUNK_BYTES = 32768
+# bytes of k and v a cache position holds, by cache kind (0 bf16, 1 int8,
+# 2 fused int4), per head-dim element
+_KV_BYTES = {0: 4, 1: 2, 2: 1}
+
+
+def split_plan(b: int, h: int, span: int, d: int, kind: int):
+    """(splits, min_rows) of a call: B * H * splits CTAs at most one wave
+    of the card, and chunks of at least `min_rows` positions
+    (MIN_CHUNK_BYTES of k and v) but a row's last. `span` is the longest
+    span a row may have (the cache length, on the host); the kernel cuts
+    each row's real span with `split_chunks`. A pure function of the shapes
+    and the cache kind."""
+    min_rows = max(1, MIN_CHUNK_BYTES // (_KV_BYTES[kind] * d))
+    by_grid = SM_COUNT * CTAS_PER_SM // max(1, b * h)
+    return max(1, min(by_grid, span // min_rows)), min_rows
+
+
+def split_chunks(start: int, length: int, splits: int, min_rows: int):
+    """The chunks [lo, hi) the kernel's CTAs take of one row's span
+    [start, length), in chunk order (the kernel clamps start to >= 0 and
+    length to <= L first): none if the span is empty, else at most
+    `splits` of equal length (the last shorter), none empty, and all but
+    the last at least `min_rows` long (or the whole span)."""
+    span = length - start
+    if span <= 0:
+        return []
+    n = max(1, min(splits, span // min_rows))
+    chunk = -(-span // n)
+    return [(lo, min(lo + chunk, length))
+            for lo in range(start, length, chunk)]
+
+
+def merge_partials(parts):
+    """The kernel's merge of chunk partials, in chunk order. `parts` holds
+    one (m, l, acc) a chunk: m [...] the chunk's largest logit, l [...] its
+    sum of exp(s - m), acc [..., D] its sum of p v (f32). A chunk with
+    m = -inf (no valid key) adds nothing. -> acc / l [..., D] (l == 0 ->
+    1)."""
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_all = torch.zeros_like(m_all)
+    acc_all = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.where(m == float("-inf"), torch.zeros_like(m),
+                        torch.exp(m - m_all))
+        l_all = l_all + l * f
+        acc_all = acc_all + acc * f[..., None]
+    l_inv = torch.where(l_all == 0, torch.ones_like(l_all), 1.0 / l_all)
+    return acc_all * l_inv[..., None]
+
+
+def workspace_size(b: int, h: int, splits: int, d: int):
+    """(f32 elements, int32 counters) of the workspace a call of `splits`
+    splits needs: (m, l, acc[D]) for every chunk of every (batch, head),
+    and one counter a (batch, head)."""
+    return b * h * splits * (2 + d), b * h
+
+
+_workspaces = {}
+
+
+def _workspace(device: torch.device, floats: int, rows: int):
+    """(partials f32, counters int32) of at least `floats` and `rows`
+    elements on `device`, kept between calls (the counters must start at 0,
+    and the kernel leaves them so). Calls on one stream reuse them in
+    order; a larger call replaces them."""
+    key = device.index
+    ws, cnt = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < rows:
+        cnt = torch.zeros(max(rows, 1), dtype=torch.int32, device=device)
+    _workspaces[key] = (ws, cnt)
+    return ws, cnt
 
 
 def decode_attention_plain(q, k, v, lengths, bias=None, starts=None, *,
@@ -131,6 +219,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
     q = q.contiguous()
+    if q.data_ptr() % 16:   # the kernel reads q in 16-byte loads
+        q = q.clone()
     lengths = lengths.to(torch.int32).contiguous()
     starts = (torch.zeros_like(lengths) if starts is None
               else starts.to(torch.int32).contiguous())
@@ -146,14 +236,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          zip(bias.shape[:2], bias.stride()[:2]))
         bias_ptr = bias.data_ptr()
     out = torch.empty_like(q)
+    kind = 2 if int4 else int(quant)
+    splits, min_rows = split_plan(b, h, L, d, kind)
+    ws = cnt = None
+    if splits > 1:
+        ws, cnt = _workspace(q.device, *workspace_size(b, h, splits, d))
     lib = _build.library("decode_attention", _SIGNATURES)
     err = lib.decode_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, 2 if int4 else int(quant),
-        bias_ptr,
+        v_scale.data_ptr() if quant else None, kind, bias_ptr,
         *bstrides, lengths.data_ptr(), starts.data_ptr(), out.data_ptr(),
-        b, h, nl, layer, L, d, float(sm_scale),
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(),
+        b, h, nl, layer, L, d, splits, min_rows, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1

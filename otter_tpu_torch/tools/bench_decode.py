@@ -15,6 +15,16 @@ a decode step, without the prefill and the vision encoder. `--cache-len N`
 tokens over a cache of N, `decode_kernel="auto"`, an int8 cache unless
 `--cache-bit` says otherwise.
 
+Beside the paired wall-clock estimates, the device's own: torch.profiler
+(CUDA activity) over the steps that lie between the two windows (those
+that make the long window longer: steps short .. long of one more
+request, run by `generate`'s own decode loop), the kernels' durations
+summed and divided by their number (`device_step_ms`), and the same over
+each third of those steps (`device_step_ms_estimates`); None on the CPU.
+The host's share of a step moves the wall estimates by tens of percent
+between runs on a machine shared with other work; the kernels' times do
+not.
+
 `--megakernel` routes each decoder layer's attention half through
 `ops.megakernel.decode_attn_megakernel` (the weights gain the fused
 `[Wqkv | Wo]` copy, `ops.quant.add_fused_wqo`); `--fused-tail` routes each
@@ -99,6 +109,43 @@ def decode_step_bytes(model, batch: int, cache_len: int, cache_bit: str
                                  _CACHE_DTYPES[cache_bit])
 
 
+def _kernel_ms(fn) -> float:
+    """Device ms of what `fn()` runs on the card: the durations of the
+    CUDA activity in torch.profiler's trace, summed straight from its
+    events (no event tree is built)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()   # nothing earlier still runs in the window
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+
+
+def _device_step_ms(engine: OtterGenerator, vision_x, ids,
+                    gen: GenerationConfig, first: int, parts: int = 3):
+    """Device ms a decode step over steps `first` .. `gen.max_new_tokens`
+    of one request (those that the window of `gen.max_new_tokens` new
+    tokens runs and one of `first` does not), through `generate`'s own
+    prefill and decode loop, profiling only those steps: a profiled
+    request of ~2000 steps records millions of kernel events. Returns (the
+    mean over those steps, [the mean over each of `parts` consecutive runs
+    of them])."""
+    st = engine._prefill(vision_x, ids, None, gen, None)
+    engine._decode(st, first)
+    n = gen.max_new_tokens - first
+    ends = [first + n * (i + 1) // parts for i in range(parts)]
+    total, parts_ms, lo = 0.0, [], first
+    for hi in ends:
+        ms = _kernel_ms(lambda: engine._decode(st, hi))
+        total += ms
+        parts_ms.append(ms / (hi - lo))
+        lo = hi
+    return total / n, parts_ms
+
+
 def run(megakernel: bool = False, fused_tail: bool = False,
         cache_bit: Optional[str] = None, decode_kernel=None, batch: int = 8,
         cache_len: int = 0, device=None, cfg: Optional[OtterConfig] = None,
@@ -150,6 +197,7 @@ def run(megakernel: bool = False, fused_tail: bool = False,
 
     timed(new_short)   # warm-up: builds and loads the kernels
     timed(new_long)
+    on_gpu = device.type == "cuda"
     steps, outs, counts = [], [], None
     for _ in range(reps):
         t_short, _, n_short = timed(new_short)
@@ -158,9 +206,14 @@ def run(megakernel: bool = False, fused_tail: bool = False,
         outs.append(out)
         counts = {k: (n_long[k] - n_short[k]) / (new_long - new_short)
                   for k in n_long}
+    dev_step = dev_steps = None
+    if on_gpu:
+        dev_step, dev_steps = _device_step_ms(
+            engine, vision_x, ids, GenerationConfig(
+                max_new_tokens=new_long, do_sample=False, eos_token_id=-1),
+            new_short)
     step_s = float(np.median(steps))
     nbytes = decode_step_bytes(model, batch, used_cache, cache_bit)
-    on_gpu = device.type == "cuda"
     return {
         "metric": f"otter_mpt7b_int8_decode_b{batch}_L{used_cache}_"
                   f"{cache_bit}cache"
@@ -169,6 +222,9 @@ def run(megakernel: bool = False, fused_tail: bool = False,
         "step_ms": step_s * 1e3,
         "tokens_per_s": batch / step_s,
         "step_ms_estimates": [s * 1e3 for s in steps],
+        # the kernels' own time a step: not measured on the CPU
+        "device_step_ms": dev_step,
+        "device_step_ms_estimates": dev_steps,
         "decode_step_bytes": nbytes,
         # a device's share of its roofline: not measured on the CPU
         "roofline_ms": nbytes / H100_BYTES_PER_S * 1e3 if on_gpu else None,

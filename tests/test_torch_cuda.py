@@ -43,6 +43,18 @@ def _close(out, ref, keep=None):
     assert bool((d <= bound).all()), float(d.max())
 
 
+def _close_rows(out, ref):
+    """`_close` with the absolute 2e-2 scaled down to each row's (last
+    dim's) largest |plain| where that is below 1: a long decode span
+    averages its values down to ~0.03, where 2e-2 would pass a chunk that
+    drops or repeats keys."""
+    torch.cuda.synchronize()
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    bound = 2e-2 * r.amax(-1, keepdim=True).clamp(max=1) + 2e-2 * r
+    assert bool((d <= bound).all()), float(d.max())
+
+
 def _rnd(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
@@ -152,6 +164,57 @@ def test_flash_backward_media_ids_and_masked_rows(gen, mode, d):
     assert bool((kern[0][dead] == 0).all())
 
 
+def _dq_case(gen, d, case):
+    """(q, k, v, kwargs) of one dQ case: S_q crosses the 128-query tile and
+    leaves a warpgroup partly past the rows."""
+    b, h = 2, 3
+    if case == "row_bias_causal_ids":
+        s_q = s_k = 200
+        kw = dict(bias=(torch.arange(1 - s_k, 1, device="cuda")
+                        [None, None, None, :]
+                        * torch.rand(1, h, 1, 1, generator=gen,
+                                     device="cuda")), causal=True)
+        ids = torch.ones(b, s_q, dtype=torch.int32, device="cuda")
+        ids[1, 150:] = 0
+        kw.update(q_ids=ids, kv_ids=ids)
+    elif case == "full_bias_ragged":
+        s_q, s_k = 150, 77
+        kw = dict(bias=torch.randn(b, 1, s_q, s_k, generator=gen,
+                                   device="cuda"))
+    else:   # eq / ge media ids; q id 0 attends no key (dead rows)
+        s_q, s_k = 140, 70
+        q_ids = torch.randint(0, 3, (b, s_q), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        q_ids[:, :5] = 0
+        kv_ids = torch.arange(1, 3, device="cuda", dtype=torch.int32
+                              ).repeat_interleave(35)[None].expand(b, s_k)
+        kw = dict(q_ids=q_ids, kv_ids=kv_ids, ids_mode=case[:2])
+    return (_rnd(gen, b, h, s_q, d), _rnd(gen, b, h, s_k, d),
+            _rnd(gen, b, h, s_k, d), kw)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("case", ["row_bias_causal_ids", "full_bias_ragged",
+                                  "eq_dead_rows", "ge_dead_rows"])
+def test_flash_dq_matches_plain(gen, d, case):
+    """The dQ kernel alone against the plain backward's dq, from the plain
+    forward's lse: every head dim, row and full bias, eq and ge ids,
+    causal, ragged S, rows that attend no key (their dq is 0)."""
+    q, k, v, kw = _dq_case(gen, d, case)
+    args = (q, k, v, kw.get("bias"), kw.get("q_ids"), kw.get("kv_ids"))
+    opts = {n: kw[n] for n in ("causal", "ids_mode") if n in kw}
+    out, lse = fa.flash_attention_plain(*args, return_lse=True, **opts)
+    do = _rnd(gen, *out.shape)
+    di = (out.float() * do.float()).sum(-1)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(*args, lse, di, do, **opts)
+    assert fa.flash_bwd_dq.launches == before + 1
+    ref = fa.flash_attention_bwd_plain(*args, out, lse, do, **opts)[0]
+    _close_grad(dq, ref)
+    if case.endswith("dead_rows"):
+        assert bool((dq[:, :, :5] == 0).all())
+
+
 @pytest.mark.parametrize("d", [72, 136])
 def test_flash_refuses_head_dims_off_the_k16_grid(gen, d):
     q = _rnd(gen, 1, 2, 40, d)
@@ -252,6 +315,45 @@ def test_decode_attention_matches_plain(gen, int8, d):
     keep = (lengths > starts)[:, None, None].expand_as(out)
     _close(out, ref, keep)
     assert bool((out[3] == 0).all())   # nothing to attend: zeros
+
+
+def _decode_cache(gen, cache, b, nl, h, L, d):
+    """(k, v, scale kwargs) of a cache of one of the three kinds."""
+    if cache == "int4":
+        kv, ks, vs = _int4_cache(gen, b, nl, h, L, d)
+        return kv, kv, dict(k_scale=ks, v_scale=vs, kv_bits=4)
+    k, v = _rnd(gen, b, nl, h, L, d), _rnd(gen, b, nl, h, L, d)
+    if cache == "bf16":
+        return k, v, {}
+    (k, ks), (v, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+    return k, v, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,L", [(1, 2400), (8, 256)])
+def test_decode_attention_split_matches_plain(gen, cache, d, b, L):
+    """The split kernel at the long cache of OtterHD (b=1, L=2400: many
+    chunks a row) and at MPT's serving cache (b=8, L=256: few), ragged
+    starts and lengths, one row whose span is one position; two calls give
+    the same bits."""
+    nl, h = 2, 16
+    q = _rnd(gen, b, h, d)
+    k, v, kw = _decode_cache(gen, cache, b, nl, h, L, d)
+    starts = torch.tensor([0, 7, 100, 0, 31, 64, 5, 200][:b], device="cuda")
+    lengths = torch.tensor([L - 28, L, 101, L - 1, 150, L, 99, L - 3][:b],
+                           device="cuda")
+    bias = torch.randn(b, 1, L, generator=gen, device="cuda")
+    splits, _ = da.split_plan(b, h, L, d, {"bf16": 0, "int8": 1,
+                                           "int4": 2}[cache])
+    assert splits > 1 or b == 8
+    out = da.decode_attention(q, k, v, lengths, bias, starts, layer=1, **kw)
+    again = da.decode_attention(q, k, v, lengths, bias, starts, layer=1,
+                                **kw)
+    ref = da.decode_attention_plain(q, k, v, lengths, bias, starts, layer=1,
+                                    **kw)
+    _close_rows(out, ref)
+    assert torch.equal(out, again)
 
 
 def _int4_pair(gen, k, h, n):

@@ -13,6 +13,7 @@ on those rows for the comparison with the kernels, and the full gradient
 is compared with the reference path (ROADMAP Queue 3).
 """
 
+import functools
 import zlib
 
 import jax
@@ -108,21 +109,69 @@ def _close(a, b):
     np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("name", ["causal_alibi_pad_d64",
-                                  "causal_alibi_pad_d16", "ragged_d16",
-                                  "ragged_d64", "media_eq", "media_ge"])
-def test_backward_matches_jax_kernels(name):
+NAMED_CASES = ["causal_alibi_pad_d64", "causal_alibi_pad_d16", "ragged_d16",
+               "ragged_d64", "media_eq", "media_ge"]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_case(name):
+    """(arrays, kw, do, live, JAX kernels' out, JAX kernels' grads) of a
+    named case, once a process: the upstream gradient is zeroed on rows
+    that attend nothing, which the JAX kernels give no gradient (p = 0)."""
     arrays, kw = _case(name)
-    rng = np.random.default_rng(7)
-    do = _rand(rng, *arrays[0].shape)
+    do = _rand(np.random.default_rng(7), *arrays[0].shape)
     live = ~_dead_rows(arrays, kw)[:, None, :, None]
-    # the JAX kernels give rows that attend nothing no gradient (p = 0)
     do = do * live
-    out, grads = _port_grads(arrays, do, kw)
     ref_out, ref_grads = _jax_grads(_jax_kernel(kw), arrays, do)
+    return arrays, kw, do, live, ref_out, ref_grads
+
+
+@pytest.mark.parametrize("name", NAMED_CASES)
+def test_backward_matches_jax_kernels(name):
+    arrays, kw, do, live, ref_out, ref_grads = _kernel_case(name)
+    out, grads = _port_grads(arrays, do, kw)
     _close(np.where(live, out, 0), np.where(live, ref_out, 0))
     for g, r in zip(grads, ref_grads):
         _close(g, r)
+
+
+def _dq_bf16_ds(arrays, do, kw):
+    """dq as the dQ kernel computes it, in plain f32 on the CPU: dS /
+    sm_scale = p (dp - di), 0 wherever the mask holds, rounded to bf16 for
+    dq += dS k, and sm_scale applied to the f32 sum."""
+    q, k, v, bias, q_ids, kv_ids = (
+        None if a is None else torch.from_numpy(np.array(a)) for a in arrays)
+    do = torch.from_numpy(do)
+    causal, mode = kw["causal"], kw.get("ids_mode", "eq")
+    out, lse = fa.flash_attention(q, k, v, bias, q_ids, kv_ids,
+                                  return_lse=True, causal=causal,
+                                  ids_mode=mode)
+    di = (out * do).sum(-1)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if bias is not None:
+        s = s + bias
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, v) - di[..., None])
+    mask = fa._attend_mask(q, k, q_ids, kv_ids, causal, mode)
+    if mask is not None:
+        ds = torch.where(mask, ds, torch.zeros_like(ds))
+    ds = ds.to(torch.bfloat16).float()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale).numpy()
+
+
+@pytest.mark.parametrize("name", NAMED_CASES)
+def test_dq_with_bf16_ds_matches_jax_kernel(name):
+    """The dQ kernel's numerics (dS rounded to bf16 for the product, the
+    sum in f32) against the JAX `_bwd_dq_kernel`'s dq (f32 ds), within the
+    backward limit 2e-2 max|plain| + 2e-2 |plain|."""
+    arrays, kw, do, _, _, ref_grads = _kernel_case(name)
+    dq = _dq_bf16_ds(arrays, do, kw)
+    ref = ref_grads[0]
+    bound = 2e-2 * np.abs(dq).max() + 2e-2 * np.abs(dq)
+    assert (np.abs(dq - ref) <= bound).all(), np.abs(dq - ref).max()
+    # the rounding moves dq: the f32 plain and the JAX kernel agree to TOL
+    assert np.abs(dq - ref).max() > TOL or not dq.any()
 
 
 @pytest.mark.parametrize("name", ["media_eq", "media_ge",

@@ -270,6 +270,56 @@ def test_bench_decode_on_the_tiny_config(route):
     assert res["decode_step_bytes"] == want_weights + want_cache
 
 
+def test_bench_decode_device_step_is_none_on_the_cpu():
+    """The device's own step time (the difference of the two windows'
+    torch.profiler kernel sums) is reported beside the wall-clock
+    estimate, and is None where there is no device."""
+    res = bench_decode.run(device="cpu", cfg=OtterConfig.tiny("mpt"),
+                           batch=1, windows=(1, 2), reps=1)
+    assert "device_step_ms" in res and "device_step_ms_estimates" in res
+    assert res["device_step_ms"] is None
+    assert res["device_step_ms_estimates"] is None
+    assert len(res["step_ms_estimates"]) == 1
+
+
+def test_bench_decode_device_step_profiles_the_steps_between_windows(
+        monkeypatch):
+    """The device step profiles steps first .. max_new_tokens of one
+    request, in `parts` runs of `generate`'s decode loop, and divides each
+    run's kernel time by its steps; the tokens are `generate`'s."""
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools.random_weights import build_model
+
+    cfg = OtterConfig.tiny("mpt")
+    engine = OtterGenerator(build_model(cfg, torch.device("cpu"), 0))
+    seen = []
+
+    def kernel_ms(fn):
+        t0 = state[0].t
+        fn()
+        seen.append((t0, state[0].t))
+        return 6.0
+
+    state = []
+    prefill = engine._prefill
+    monkeypatch.setattr(engine, "_prefill",
+                        lambda *a: state.append(prefill(*a)) or state[0])
+    monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
+    rng = np.random.default_rng(0)
+    size = cfg.vision.image_size
+    vision_x = rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32)
+    ids = rng.integers(5, 50, (1, 6))
+    ids[:, 0] = cfg.media_token_id
+    gen = GenerationConfig(max_new_tokens=8, do_sample=False, eos_token_id=-1)
+    mean, parts = bench_decode._device_step_ms(engine, vision_x, ids, gen, 2)
+    assert seen == [(2, 4), (4, 6), (6, 8)]
+    assert parts == [3.0, 3.0, 3.0] and mean == 3.0
+    monkeypatch.undo()
+    assert np.array_equal(state[0].buffer[:, :6 + 8].numpy(),
+                          engine.generate(vision_x, ids, gen=gen))
+
+
 def _xattn_bytes():
     """Bytes of the tiny model's gated cross-attention blocks (bf16 model,
     int8 kernels with f32 scales), from a model on the meta device."""
