@@ -12,7 +12,10 @@ unless every phase passes:
                  limit.
   2. build       nvcc compiles every kernel in otter_tpu_torch/csrc (one
                  process per source, started together) into
-                 otter_tpu_torch/_build/.
+                 otter_tpu_torch/_build/; counts the tensor-core (HMMA /
+                 HGMMA) and f32 FFMA instructions of the fused int8 MLP's
+                 main kernel in `cuobjdump -sass` and fails if it has no
+                 HMMA.
   3. kernels     each kernel against its plain PyTorch version on the card,
                  in bf16, at the shapes the serving and training paths give
                  it (flash also at OtterHD's full-HD prefill and at head
@@ -20,7 +23,12 @@ unless every phase passes:
                  plain and library-call times and the bound (least time
                  for the same bytes / operations); for every flash case
                  also the device times of the kernel and the library call
-                 (below ~0.05 ms a call's wall time is the host's).
+                 (below ~0.05 ms a call's wall time is the host's);
+                 `int8_mlp` at 4096 -> 16384 -> 4096 (M = 1, 8, 32),
+                 OtterHD's with biases and sq_relu (M = 1) and falcon7b's
+                 4544 -> 18176 -> 4544 (M = 8), `int8_attn_tail` at M = 1,
+                 8 and 32, each with its device time and two calls compared
+                 bit for bit.
   4. parity      OTTER-MPT7B at full width with its depth cut, once with
                  int8 weights and an int8 KV cache and once with int4
                  weights and an int4 cache, then OTTER-LLaMA2-Chat-7B and
@@ -92,7 +100,9 @@ unless every phase passes:
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
 runs all eleven. `flashkernels` runs the flash part of the kernels phase
-alone. `profile` (not run by default) adds torch.profiler tables
+alone, `mlpkernels` its `int8_mlp` and `int8_attn_tail` cases. `--port-root
+DIR` imports `otter_tpu_torch` from another checkout, so that two versions
+of the port run one after the other in one call. `profile` (not run by default) adds torch.profiler tables
 of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
 requests (with otterhd), of the three fused runs (with fused: device ms
 and launches a decode step) and of one train
@@ -198,15 +208,52 @@ def phase_device():
 
 # ── phase 2: build ──────────────────────────────────────────────────
 
-def phase_build():
+def phase_build(check_sass: bool = True):
+    """`check_sass`: fail if the fused int8 MLP's main kernel runs no
+    tensor-core instruction (off for another version of the port)."""
     from otter_tpu_torch import _build
     t0 = time.perf_counter()
     logs = _build.build(_build.all_sources())
     log(f"build: {sorted(logs)} compiled in {time.perf_counter() - t0:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
+    counts = _sass_counts(_build, ("int8_mlp", "int8_attn_tail"),
+                          "int8_mlp_hidden_kernel")
     with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as f:
         for name, text in sorted(logs.items()):
             f.write(f"== {name}.cu\n{text}\n")
+        f.write(f"== SASS of int8_mlp_hidden_kernel\n{json.dumps(counts)}\n")
+    log(f"build: SASS of int8_mlp_hidden_kernel<n-tiles>: {counts}")
+    if check_sass and any(c["HMMA"] + c["HGMMA"] == 0
+                          for c in counts.values()):
+        raise RuntimeError("int8_mlp_hidden_kernel runs no tensor-core "
+                           "instruction")
+
+
+def _sass_counts(build, sources, kernel: str) -> dict:
+    """{source:function: counts of tensor-core (HMMA, HGMMA) and f32 FFMA
+    instructions} for every function of the built `sources` whose name
+    holds `kernel`, from `cuobjdump -sass`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for src in sources:
+        sass = subprocess.run([tool, "-sass", str(build._target(src))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                fn = f"{src}:{fn}" if kernel in fn else None
+                if fn:
+                    counts[fn] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+            elif fn:
+                for op in ("HGMMA", "HMMA", "FFMA"):
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[fn][op] += 1
+                        break
+    if not counts:
+        raise RuntimeError(f"no {kernel} in the SASS of {sources}")
+    return counts
 
 
 # ── phase 3: kernels against their plain versions ───────────────────
@@ -496,7 +543,8 @@ def phase_kernels(gen, only: str = ""):
     a part alone: "fused" (phase `fusedkernels`) the fused decode layer's
     two, "head" (phase `headkernels`) `int8_matmul`, "flash" (phase
     `flashkernels`) the flash forward and backward, "decode" (phase
-    `decodekernels`) `decode_attention`."""
+    `decodekernels`) `decode_attention`, "mlp" (phase `mlpkernels`)
+    `int8_mlp` and `int8_attn_tail`."""
     import torch
     from otter_tpu_torch.ops import quant
 
@@ -541,33 +589,14 @@ def phase_kernels(gen, only: str = ""):
 
     if only:
         {"fused": _fused_layer_kernels, "head": _head_kernel,
-         "flash": _flash_kernels, "decode": _decode_kernels}[only](
-            gen, report, entries)
+         "flash": _flash_kernels, "decode": _decode_kernels,
+         "mlp": _mlp_kernels}[only](gen, report, entries)
         return done()
 
     _flash_kernels(gen, report, entries)
 
-    # int8 MLP: decoder MLP 4096 -> 16384 -> 4096 at M = 1 and 8
+    _mlp_kernels(gen, report, entries)
     k_in, hid = 4096, 16384
-    w1q, s1 = quant.quantize_kernel(0.02 * torch.randn(
-        k_in, hid, generator=gen, device="cuda"))
-    w2q, s2 = quant.quantize_kernel(0.02 * torch.randn(
-        hid, k_in, generator=gen, device="cuda"))
-    for m in (1, 8):
-        x = torch.randn(m, k_in, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        args = (x, w1q, s1, w2q, s2)
-        out = quant.int8_mlp(*args)
-        ref = quant.int8_mlp_plain(*args)
-        torch.cuda.synchronize()
-        err, excess = max_err(out, ref)
-        nbytes = 2 * k_in * hid + 4 * (hid + k_in) + 2 * 2 * m * k_in
-        r = report("int8_mlp", f"M={m}", err, excess,
-                   time_ms(lambda: quant.int8_mlp(*args)),
-                   time_ms(lambda: quant.int8_mlp_plain(*args), 5), None,
-                   nbytes, 2.0 * m * 2 * k_in * hid)
-        if m == 8:
-            entries["int8_mlp"] = r
 
     # int4 MLP at the same widths (decoder MLP and xattn FF are both 4096
     # -> 16384 -> 4096, gelu): 0.5 byte a weight. Two weight sets in turn,
@@ -623,7 +652,7 @@ def phase_kernels(gen, only: str = ""):
         del sets
 
     _decode_kernels(gen, report, entries)
-    _fused_layer_kernels(gen, report, entries)
+    _fused_layer_kernels(gen, report, entries, tail=False)
     _head_kernel(gen, report, entries)
     return done()
 
@@ -808,12 +837,118 @@ def _head_kernel(gen, report, entries):
         del sets
 
 
-def _fused_layer_kernels(gen, report, entries):
-    """`int8_attn_tail` and `decode_attn_megakernel` against their plain
-    versions at MPT-7B's widths (D=4096, H=16384, 32 heads of 128). Two
-    weight sets in turn (and, for the megakernel, another cache layer each
-    launch), so that the timed reads come from device memory and not from
-    the 50 MB L2. No single PyTorch call computes either: library "none"."""
+def _qk(gen, rows, cols):
+    import torch
+    from otter_tpu_torch.ops import quant
+    return quant.quantize_kernel(0.02 * torch.randn(
+        rows, cols, generator=gen, device="cuda"))
+
+
+def _bits_repeat(fn, out) -> bool:
+    import torch
+    again = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(out, again)
+    if not same:
+        log("  two calls differ: the sums' order is not fixed")
+    return same
+
+
+def _mlp_kernels(gen, report, entries):
+    """`int8_mlp` alone, then `int8_attn_tail` alone (`_tail_kernels`),
+    against their plain versions, with device times: the decoder MLP 4096
+    -> 16384 -> 4096 (gelu) at M = 1, 8 and 32, OtterHD's (biases,
+    sq_relu) at M = 1, falcon7b's 4544 -> 18176 -> 4544 at M = 8. A call
+    reads 134-165 MB of weights, more than the 50 MB L2, so one weight set
+    serves. No single PyTorch call computes it: library "none"."""
+    import torch
+    from otter_tpu_torch.ops import quant
+    cases = (("M=1", 4096, 16384, 1, "gelu", False),
+             ("M=8", 4096, 16384, 8, "gelu", False),
+             ("M=32", 4096, 16384, 32, "gelu", False),
+             ("otterhd M=1 biases sq_relu", 4096, 16384, 1, "sq_relu", True),
+             ("falcon7b M=8", 4544, 18176, 8, "gelu", False))
+    weights = {}
+    for case, k, h, m, act, biases in cases:
+        if (k, h) not in weights:
+            weights.clear()
+            weights[(k, h)] = _qk(gen, k, h) + _qk(gen, h, k)
+        w1q, s1, w2q, s2 = weights[(k, h)]
+        kw = dict(act=act)
+        if biases:
+            kw.update(b1=0.1 * torch.randn(h, generator=gen, device="cuda"),
+                      b2=0.1 * torch.randn(k, generator=gen, device="cuda"))
+        x = torch.randn(m, k, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+
+        def call():
+            return quant.int8_mlp(x, w1q, s1, w2q, s2, **kw)
+
+        def plain():
+            return quant.int8_mlp_plain(x, w1q, s1, w2q, s2, **kw)
+
+        out, ref = call(), plain()
+        torch.cuda.synchronize()
+        err, excess = max_err(out, ref)
+        if not _bits_repeat(call, out):
+            excess = float("inf")
+        nbytes = (2 * k * h + 4 * (h + k) * (2 if biases else 1)
+                  + 2 * 2 * m * k)
+        r = report("int8_mlp", case, err, excess, time_ms(call),
+                   time_ms(plain, 5), None, nbytes, 2.0 * m * 2 * k * h,
+                   device=(device_ms(call), None))
+        if case == "M=8":
+            entries["int8_mlp"] = r
+    del weights
+    _tail_kernels(gen, report, entries)
+
+
+def _tail_kernels(gen, report, entries):
+    """`int8_attn_tail` (out-proj + residual, norm_2, MLP + residual) against
+    its plain version at MPT-7B's widths, M = 1, 8 and 32, two weight sets
+    in turn (151 MB each), two calls compared bit for bit."""
+    import torch
+    from otter_tpu_torch.ops import quant
+    d, hid = 4096, 16384
+    tails = []
+    for _ in range(2):
+        (wo, so), (w1, s1), (w2, s2) = (_qk(gen, d, d), _qk(gen, d, hid),
+                                        _qk(gen, hid, d))
+        gain = 1 + 0.02 * torch.randn(d, generator=gen, device="cuda")
+        tails.append((wo, so, gain, w1, s1, w2, s2))
+    for m in (1, 8, 32):
+        a, r = (torch.randn(m, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        out = quant.int8_attn_tail(a, r, *tails[0])
+        ref = quant.int8_attn_tail_plain(a, r, *tails[0])
+        torch.cuda.synchronize()
+        err, excess = max_err(out, ref)
+        if not bool(torch.isfinite(out.float()).all()) or not _bits_repeat(
+                lambda: quant.int8_attn_tail(a, r, *tails[0]), out):
+            excess = float("inf")
+        it = iter(range(10 ** 9))
+
+        def call():
+            return quant.int8_attn_tail(a, r, *tails[next(it) % 2])
+
+        nbytes = (d * d + 2 * d * hid) + 4 * (3 * d + hid) + 2 * 3 * m * d
+        res = report("int8_attn_tail", f"M={m}", err, excess, time_ms(call),
+                     time_ms(lambda: quant.int8_attn_tail_plain(
+                         a, r, *tails[next(it) % 2]), 5), None, nbytes,
+                     2.0 * m * (d * d + 2 * d * hid),
+                     device=(device_ms(call), None))
+        if m == 8:
+            entries["int8_attn_tail"] = res
+    del tails
+
+
+def _fused_layer_kernels(gen, report, entries, tail: bool = True):
+    """`int8_attn_tail` (with `tail`; `_tail_kernels`) and
+    `decode_attn_megakernel` against their plain versions at MPT-7B's
+    widths (D=4096, H=16384, 32 heads of 128). Two weight sets in turn
+    (and another cache layer each launch), so that the timed reads come
+    from device memory and not from the 50 MB L2. No single PyTorch call
+    computes either: library "none"."""
     import torch
     from otter_tpu_torch.ops import megakernel as mk
     from otter_tpu_torch.ops import quant
@@ -837,28 +972,8 @@ def _fused_layer_kernels(gen, report, entries):
         return (max(e for e, _ in pairs),
                 max(x for _, x in pairs) if finite else float("inf"))
 
-    # the layer tail: out-proj + residual, norm_2, MLP + residual
-    tails = []
-    for _ in range(2):
-        (wo, so), (w1, s1), (w2, s2) = qk(d, d), qk(d, hid), qk(hid, d)
-        tails.append((wo, so, gain(), w1, s1, w2, s2))
-    for m in (1, 8, 32):
-        a, r = rnd(m, d), rnd(m, d)
-        out = quant.int8_attn_tail(a, r, *tails[0])
-        ref = quant.int8_attn_tail_plain(a, r, *tails[0])
-        torch.cuda.synchronize()
-        err, excess = worst([out], [ref])
-        it = iter(range(10 ** 9))
-        nbytes = (d * d + 2 * d * hid) + 4 * (3 * d + hid) + 2 * 3 * m * d
-        res = report("int8_attn_tail", f"M={m}", err, excess,
-                     time_ms(lambda: quant.int8_attn_tail(
-                         a, r, *tails[next(it) % 2])),
-                     time_ms(lambda: quant.int8_attn_tail_plain(
-                         a, r, *tails[next(it) % 2]), 5), None, nbytes,
-                     2.0 * m * (d * d + 2 * d * hid))
-        if m == 8:
-            entries["int8_attn_tail"] = res
-    del tails
+    if tail:
+        _tail_kernels(gen, report, entries)
 
     # the attention half: norm_1, qkv, cached attention, out-proj + residual
     wqos = []
@@ -1974,17 +2089,23 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES}, plus profile "
                          "(after serve, serve4, llama, fused and train; not "
                          "run by default), fusedkernels, headkernels, "
-                         "flashkernels and decodekernels "
+                         "flashkernels, decodekernels and mlpkernels "
                          "(parts of kernels, for bring-up). "
                          "Device and build always run.")
+    ap.add_argument("--port-root", default=None,
+                    help="import otter_tpu_torch from this checkout instead "
+                         "(to run two versions of the port in one call)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     import torch
     smi = phase_device()
-    import otter_tpu_torch  # noqa: F401  (the checkout must hold the port)
+    if args.port_root is not None:
+        sys.path.insert(0, os.path.abspath(args.port_root))
+    import otter_tpu_torch  # (the checkout must hold the port)
+    log(f"port: {os.path.dirname(os.path.abspath(otter_tpu_torch.__file__))}")
     walls = {}
     t = time.perf_counter()
-    phase_build()
+    phase_build(check_sass=args.port_root is None)
     walls["build"] = time.perf_counter() - t
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2006,7 +2127,8 @@ def main(argv=None) -> int:
     else:
         for name, only in (("fusedkernels", "fused"), ("headkernels", "head"),
                            ("flashkernels", "flash"),
-                           ("decodekernels", "decode")):
+                           ("decodekernels", "decode"),
+                           ("mlpkernels", "mlp")):
             if name in phases:
                 entries.update(run(name, phase_kernels, gen, only))
     if "parity" in phases:

@@ -1,204 +1,321 @@
 // The fused int8 MLP's main kernel, shared by int8_mlp.cu and
-// int8_attn_tail.cu: CTA j computes the hidden units [128 j, 128 j + 128)
-// of act((x @ W1q) * s1 + b1), rounds them to bf16 in shared memory, and
-// writes its share of hidden @ W2q to its slice of an f32 workspace
-// [H/128, M, N]; `launch_sum_partials` (mlp_common.cuh) adds the slices.
-// int8_mlp.cu describes the design.
+// int8_attn_tail.cu (its phase 3): CTA j computes the hidden units
+// [128 j, 128 j + 128) of act((x @ W1q) * s1 + b1), rounds them to bf16 in
+// shared memory, and writes its share of hidden @ W2q to its slice of an
+// f32 workspace [H/128, M, N]; `launch_sum_partials` (mlp_common.cuh) adds
+// the slices in a fixed order.
+//
+// Replaces the body of the Pallas TPU kernel otter_tpu/ops/quant.py:int8_mlp
+// (:84, pallas_call :185), and the MLP half of int8_attn_tail (:199): every
+// int8 weight converted to bf16 (exact), the products summed in f32, the
+// hidden activation rounded to bf16 before the second product. Only the
+// order of the sums differs.
+//
+// What bounds it on the H100: bytes. A call reads K*H + H*N int8 weights
+// once (134 MB at 4096 -> 16384 -> 4096: 40 us at 3.35 TB/s) for 2 M
+// operations a weight, M <= 32: at most 64 operations a byte, far below the
+// ~295 a byte at which the bf16 tensor cores would bound it. So the
+// products cost little; what must stay low is the instructions a weight
+// byte (to issue no slower than the bytes arrive), and what must stay high
+// is the bytes in flight (Little's law: 3.35 TB/s x ~1 us / 132 SMs ~ 25 KB
+// an SM).
+//
+// Design:
+// - Products on the tensor cores: mma.sync m16n8k16 (bf16 in, f32
+//   accumulators) with the operands swapped. A 16-row tile of weights (16
+//   hidden units in phase 1, 16 output columns in phase 2) is the A
+//   operand; the M <= 32 activation rows are the B operand, in 1 to 4
+//   n-tiles of 8. mma.sync rather than wgmma: the call is ~2.1 GFLOP at
+//   M = 8, nothing beside 989 TFLOP/s, and mma.sync takes its A fragment
+//   from any registers, so the int8 bytes go from shared memory to the
+//   tensor cores with no layout to meet and no warpgroup to keep together.
+// - int8 -> bf16 in registers without I2F: each byte is permuted into the
+//   float 2^23 + (b + 128) (prmt), 2^23 + 128 is subtracted (exact for
+//   every int8), and the upper halves of two floats are packed into one
+//   bf16x2 (prmt). Each weight is converted once a call, whatever M is.
+// - No transposing pass: the weights land in shared memory as they lie in
+//   device memory (rows of the contracted dim). A thread reads four 32-bit
+//   words, rows 4t .. 4t+3 of a 16-row k step at one 4-column quad, and
+//   permutes them into the A fragments of two m16 tiles: inside a k step
+//   the contracted index is permuted (the mma's k slots 2t, 2t+1, 2t+8,
+//   2t+9 hold rows 4t .. 4t+3), and the B fragment is read in that order,
+//   one 8-byte load; a tile's rows g and g + 8 are columns 0 and 1 (or 2
+//   and 3) of quad g, which the hidden block's and the output's writes
+//   undo. 16-byte chunks are XOR-swizzled by row, so that every fragment
+//   read is free of bank conflicts.
+// - Rows of x in passes of 8 (one n-tile), each streaming W1 and W2.
+// - A ring of NS stages of 32 KB of weights (W1: 256 rows of the CTA's 128
+//   columns, with the matching 256 columns of x's rows; W2: the CTA's 128
+//   rows by 256 columns), filled by cp.async NS - 1 stages ahead; it drains
+//   at the phase boundary.
+// - Phase 1: warp w takes hidden units 32 (w % 4) .. + 31 over half the
+//   rows of every stage (w / 4); the two halves are added in a fixed order
+//   through shared memory, scaled by s1, biased, activated and rounded to
+//   bf16 into shared memory. Phase 2: warp w takes output columns 32 w ..
+//   + 31 of every stage over the CTA's 128 hidden rows and stores its sums
+//   to the CTA's workspace slice. No atomics: two calls give the same bits.
 #pragma once
 #include "mlp_common.cuh"
 
 namespace otter {
 
-constexpr int BH = 128;    // hidden units per CTA
-constexpr int NT = 256;    // threads per CTA
-constexpr int MMAX = 32;   // largest M (decode shapes)
-constexpr int KC = 64;     // phase 1: W1 rows per pipeline stage
-constexpr int NS1 = 3;     // phase 1: stages in flight
-constexpr int JB = 4;      // phase 2: W2 rows per pipeline stage
-constexpr int NCH = 4096;  // phase 2: output columns per pass (NT * 16)
-constexpr int NS2 = 4;     // phase 2: stages in flight
-constexpr int KG = NT / 32;  // phase 1: K groups, one warp each
+constexpr int BH = 128;       // hidden units per CTA
+constexpr int NT = 256;       // threads per CTA: 8 warps
+constexpr int MMAX = 32;      // largest M (decode shapes)
+constexpr int KC = 64;        // K is a multiple of KC
+constexpr int R1 = 256;       // phase 1: W1 rows a stage (x BH columns)
+constexpr int C2 = 256;       // phase 2: W2 columns a stage (x BH rows)
+constexpr int SW = R1 * BH;   // weight bytes a stage, either phase: 32 KB
+constexpr int NS = 2;         // stages in the ring
 
-template <int MT>
-struct Smem {
-  float hs[MMAX][BH];   // bf16-rounded hidden activations
-  union {
-    struct {
-      int8_t w[NS1][KC][BH];
-      __nv_bfloat16 x[NS1][MT][KC];
-    } p1;
-    float red[KG][MT][BH];   // phase 1: each K group's partial sums
-    int8_t w2[NS2][JB][NCH];
-  } u;
+// Shared memory with NB n-tiles (M <= 8 NB): the ring (each stage: its
+// weights, then for phase 1 x's 8 NB rows of R1 bf16), the bf16 hidden
+// block hs [8 NB][BH] and phase 1's f32 half sums red [8 NB][BH].
+template <int NB>
+struct Layout {
+  static constexpr int XROW = R1 * 2;
+  static constexpr int STAGE = SW + 8 * NB * XROW;
+  static constexpr int HS = NS * STAGE;
+  static constexpr int RED = HS + 8 * NB * BH * 2;
+  static constexpr int BYTES = RED + 8 * NB * BH * 4;
 };
 
-template <int MT>
-__global__ void __launch_bounds__(NT) int8_mlp_hidden_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
-    const float* __restrict__ s1, const float* __restrict__ b1,
-    const int8_t* __restrict__ w2, float* __restrict__ ws, int M, int K,
-    int H, int N, int act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<MT>& sm = *reinterpret_cast<Smem<MT>*>(smem_raw);
-  const int j0 = blockIdx.x * BH;
-  const int tid = threadIdx.x;
-  // phase 1 mapping: warp kg sums rows kg*8..kg*8+7 of every stage for
-  // the 4 hidden units c4..c4+3
-  const int kg = tid / 32, c4 = (tid % 32) * 4;
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
 
-  for (int e = tid; e < MMAX * BH; e += NT) sm.hs[e / BH][e % BH] = 0.f;
+// byte `sel` of u (int8 bytes XOR 0x80) as the bits of an exact float
+__device__ __forceinline__ uint32_t i8_float(uint32_t u, int sel) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + sel)) -
+      8388736.f);
+}
 
-  // phase 1: hidden block = act(x @ W1[:, j0:j0+BH] * s1 + b1), bf16-rounded
-  const int nk = K / KC;
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    auto load1 = [&](int stage, int kc) {
-      const int k0 = kc * KC;
-      for (int e = tid; e < KC * (BH / 16); e += NT) {
-        const int r = e / (BH / 16), cv = e % (BH / 16);
-        cp_async16(&sm.u.p1.w[stage][r][cv * 16],
-                   w1 + (long long)(k0 + r) * H + j0 + cv * 16, true);
-      }
-      for (int e = tid; e < MT * (KC / 8); e += NT) {
-        const int r = e / (KC / 8), cv = e % (KC / 8), m = m0 + r;
-        const bool ok = m < M;
-        cp_async16(&sm.u.p1.x[stage][r][cv * 8],
-                   ok ? x + (long long)m * K + k0 + cv * 8 : x, ok);
-      }
-      cp_async_commit();
-    };
-    float acc[MT][4];
+// w[i]: 4 int8 columns of contracted row 4t + i of a k step -> the A
+// fragments of two m16 tiles: tile 0's rows g, g + 8 are columns 0, 1,
+// tile 1's columns 2, 3; k slots (2t, 2t+1 | 2t+8, 2t+9) are rows
+// (4t, 4t+1 | 4t+2, 4t+3). bf16 is a float's upper half.
+__device__ __forceinline__ void a_frags(const uint32_t (&w)[4],
+                                        uint32_t (&a)[2][4]) {
+  uint32_t f[4][4];
 #pragma unroll
-    for (int r = 0; r < MT; ++r)
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) acc[r][t] = 0.f;
-#pragma unroll
-    for (int s = 0; s < NS1 - 1; ++s) {
-      if (s < nk) load1(s, s);
-      else cp_async_commit();
-    }
-    for (int kc = 0; kc < nk; ++kc) {
-      cp_async_wait<NS1 - 2>();
-      __syncthreads();
-      // the stage refilled here was consumed in the previous iteration
-      if (kc + NS1 - 1 < nk) load1((kc + NS1 - 1) % NS1, kc + NS1 - 1);
-      else cp_async_commit();
-      const int st = kc % NS1;
-#pragma unroll
-      for (int kk = kg * (KC / KG); kk < (kg + 1) * (KC / KG); ++kk) {
-        const char4 w = *reinterpret_cast<const char4*>(
-            &sm.u.p1.w[st][kk][c4]);
-        const float w0 = w.x, w1v = w.y, w2v = w.z, w3 = w.w;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float xv = __bfloat162float(sm.u.p1.x[st][r][kk]);
-          acc[r][0] = fmaf(xv, w0, acc[r][0]);
-          acc[r][1] = fmaf(xv, w1v, acc[r][1]);
-          acc[r][2] = fmaf(xv, w2v, acc[r][2]);
-          acc[r][3] = fmaf(xv, w3, acc[r][3]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();   // the stages are read: red may reuse their space
-#pragma unroll
-    for (int r = 0; r < MT; ++r)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) sm.u.red[kg][r][c4 + t] = acc[r][t];
-    __syncthreads();
-    // the K groups are added in a fixed order: the result is reproducible
-    for (int e = tid; e < MT * BH; e += NT) {
-      const int r = e / BH, col = e % BH, m = m0 + r;
-      if (m >= M) continue;
-      float z = 0.f;
-#pragma unroll
-      for (int g = 0; g < KG; ++g) z += sm.u.red[g][r][col];
-      z *= s1[j0 + col];
-      if (b1 != nullptr) z += b1[j0 + col];
-      sm.hs[m][col] = __bfloat162float(__float2bfloat16(apply_act(z, act)));
-    }
-    __syncthreads();
+    for (int c = 0; c < 4; ++c) f[i][c] = i8_float(u, c);
   }
+#pragma unroll
+  for (int tl = 0; tl < 2; ++tl) {
+    a[tl][0] = __byte_perm(f[0][2 * tl], f[1][2 * tl], 0x7632u);
+    a[tl][1] = __byte_perm(f[0][2 * tl + 1], f[1][2 * tl + 1], 0x7632u);
+    a[tl][2] = __byte_perm(f[2][2 * tl], f[3][2 * tl], 0x7632u);
+    a[tl][3] = __byte_perm(f[2][2 * tl + 1], f[3][2 * tl + 1], 0x7632u);
+  }
+}
 
-  // phase 2: ws[blk, :, n] = hidden block @ W2[j0:j0+BH, n]; each thread
-  // owns 16 consecutive columns of a 4096-column pass
-  constexpr int NJ = BH / JB;
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    for (int n0 = 0; n0 < N; n0 += NCH) {
-      const int nc = min(NCH, N - n0);
-      auto load2 = [&](int stage, int jb) {
-        for (int e = tid; e < JB * (nc / 16); e += NT) {
-          const int r = e / (nc / 16), cv = e % (nc / 16);
-          cp_async16(&sm.u.w2[stage][r][cv * 16],
-                     w2 + (long long)(j0 + jb * JB + r) * N + n0 + cv * 16,
-                     true);
-        }
-        cp_async_commit();
-      };
-      float acc[MT][16];
+// One warp's 8 k steps over 128 contracted rows: A from the weight tile
+// `wt` (row stride RS bytes; `wcol`: the thread's swizzled quad, rows
+// r0 .. r0 + 127), B from `bt` (8 NB rows of bf16, row stride BS bytes,
+// the contracted index starting at column `b0`; 16-byte chunks swizzled
+// by row & 7).
+template <int NB, int RS, int BS>
+__device__ __forceinline__ void k_steps(const unsigned char* wt, int r0,
+                                        int wcol, const unsigned char* bt,
+                                        int b0, int g, int t,
+                                        float (&acc)[2][NB][4]) {
 #pragma unroll
-      for (int r = 0; r < MT; ++r)
+  for (int ks = 0; ks < 8; ++ks) {
+    const int r = r0 + 16 * ks + 4 * t;
+    uint32_t w[4];
 #pragma unroll
-        for (int t = 0; t < 16; ++t) acc[r][t] = 0.f;
+    for (int i = 0; i < 4; ++i)
+      w[i] = *reinterpret_cast<const uint32_t*>(wt + (r + i) * RS + wcol);
+    uint32_t a[2][4];
+    a_frags(w, a);
+    const int bc = ((((b0 + 16 * ks) >> 3) + (t >> 1)) ^ g) << 4;
 #pragma unroll
-      for (int s = 0; s < NS2 - 1; ++s) load2(s, s);
-      for (int jb = 0; jb < NJ; ++jb) {
-        cp_async_wait<NS2 - 2>();
-        __syncthreads();
-        if (jb + NS2 - 1 < NJ) load2((jb + NS2 - 1) % NS2, jb + NS2 - 1);
-        else cp_async_commit();
-        const int st = jb % NS2;
-        if (tid * 16 < nc) {
-#pragma unroll
-          for (int r2 = 0; r2 < JB; ++r2) {
-            const int4 raw =
-                *reinterpret_cast<const int4*>(&sm.u.w2[st][r2][tid * 16]);
-            const int8_t* wv = reinterpret_cast<const int8_t*>(&raw);
-            float w[16];
-#pragma unroll
-            for (int t = 0; t < 16; ++t) w[t] = (float)wv[t];
-            const int j = jb * JB + r2;
-#pragma unroll
-            for (int r = 0; r < MT; ++r) {
-              const float hv = sm.hs[m0 + r][j];
-#pragma unroll
-              for (int t = 0; t < 16; ++t) acc[r][t] = fmaf(hv, w[t], acc[r][t]);
-            }
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // every stage is read before the next pass refills
-      if (tid * 16 < nc) {
-        float* wsb = ws + (long long)blockIdx.x * M * N + n0 + tid * 16;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const int m = m0 + r;
-          if (m < M) {
-#pragma unroll
-            for (int t = 0; t < 16; t += 4)
-              *reinterpret_cast<float4*>(wsb + (long long)m * N + t) =
-                  make_float4(acc[r][t], acc[r][t + 1], acc[r][t + 2],
-                              acc[r][t + 3]);
-          }
-        }
-      }
+    for (int n = 0; n < NB; ++n) {
+      const uint2 b = *reinterpret_cast<const uint2*>(
+          bt + (8 * n + g) * BS + bc + 8 * (t & 1));
+      mma_bf16(acc[0][n], a[0], b);
+      mma_bf16(acc[1][n], a[1], b);
     }
   }
 }
 
+template <int NB>
+__global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
+    const float* __restrict__ s1, const float* __restrict__ b1,
+    const int8_t* __restrict__ w2, float* __restrict__ ws, int M, int K,
+    int H, int N, int act) {
+  using L = Layout<NB>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int j0 = blockIdx.x * BH;
+  const int n1 = (K + R1 - 1) / R1, n2 = (N + C2 - 1) / C2;
+  int m0 = 0;   // the rows of this pass: m0 .. m0 + 8 NB - 1
+
+  // stage i of the stream (W1's n1, then W2's n2) into ring slot i % NS;
+  // chunk c of weight row r lands at chunk c ^ (2 ((r / 4) % 4)), chunk c
+  // of x's row m at c ^ (m % 8); past K or N, zeros
+  auto load = [&](int i, int lim) {
+    if (i >= lim) {
+      cp_async_commit();
+      return;
+    }
+    unsigned char* st = smem + (i % NS) * L::STAGE;
+    if (i < n1) {
+      const int k0 = i * R1;
+      for (int e = tid; e < R1 * (BH / 16); e += NT) {
+        const int r = e >> 3, c = e & 7;
+        const bool ok = k0 + r < K;
+        cp_async16(st + r * BH + ((c ^ ((r >> 1) & 6)) << 4),
+                   ok ? w1 + (long long)(k0 + r) * H + j0 + c * 16 : w1, ok);
+      }
+      for (int e = tid; e < 8 * NB * (R1 / 8); e += NT) {
+        const int m = e / (R1 / 8), c = e % (R1 / 8);
+        const bool ok = m0 + m < M && k0 + c * 8 < K;
+        cp_async16(st + SW + m * L::XROW + ((c ^ (m & 7)) << 4),
+                   ok ? x + (long long)(m0 + m) * K + k0 + c * 8 : x, ok);
+      }
+    } else if (i < n1 + n2) {
+      const int c0 = (i - n1) * C2;
+      for (int e = tid; e < BH * (C2 / 16); e += NT) {
+        const int r = e >> 4, c = e & 15;
+        const bool ok = c0 + c * 16 < N;
+        cp_async16(st + r * C2 + ((c ^ ((r >> 1) & 6)) << 4),
+                   ok ? w2 + (long long)(j0 + r) * N + c0 + c * 16 : w2, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // phase 1 mapping: hidden units 32 hg .. + 31, rows 128 kh .. + 127 of
+  // a stage; a thread's quad is units 32 hg + 4 g .. + 3
+  const int hg = warp & 3, kh = warp >> 2;
+  const int wcol1 = (((2 * hg + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  // phase 2 mapping: output columns 32 warp .. + 31 of a stage
+  const int wcol2 = (((2 * warp + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  unsigned char* hs = smem + L::HS;
+  float* red = reinterpret_cast<float*>(smem + L::RED);
+
+  for (m0 = 0; m0 < M; m0 += 8 * NB) {
+    float acc1[2][NB][4];
+#pragma unroll
+    for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc1[tl][n][c] = 0.f;
+
+    // phase 1, then phase 2, each through the ring from empty
+    for (int s = 0; s < NS - 1; ++s) load(s, n1);
+    for (int i = 0; i < n1; ++i) {
+      cp_async_wait<NS - 2>();
+      __syncthreads();
+      load(i + NS - 1, n1);
+      const unsigned char* st = smem + (i % NS) * L::STAGE;
+      k_steps<NB, BH, L::XROW>(st, 128 * kh, wcol1, st + SW, 128 * kh, g, t,
+                               acc1);
+    }
+    // hidden unit 32 hg + 4 g + 2 tl + c / 2 of row 8 n + 2 t + c % 2;
+    // the two row halves are added in a fixed order
+    if (kh == 1) {
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            red[(8 * n + 2 * t + (c & 1)) * BH + 32 * hg + 4 * g +
+                2 * tl + (c >> 1)] = acc1[tl][n][c];
+    }
+    __syncthreads();
+    if (kh == 0) {
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = 32 * hg + 4 * g + 2 * tl + (c >> 1);
+          const float sc = s1[j0 + j];
+          const float bias = b1 != nullptr ? b1[j0 + j] : 0.f;
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            const int m = 8 * n + 2 * t + (c & 1);
+            // scaled, then biased: two roundings, as the plain version
+            const float z =
+                __fmul_rn(acc1[tl][n][c] + red[m * BH + j], sc) + bias;
+            *reinterpret_cast<__nv_bfloat16*>(
+                hs + m * (BH * 2) + (((j >> 3) ^ (m & 7)) << 4) +
+                2 * (j & 7)) = __float2bfloat16(apply_act(z, act));
+          }
+        }
+    }
+    __syncthreads();
+    for (int s = 0; s < NS - 1; ++s) load(n1 + s, n1 + n2);
+    for (int i = n1; i < n1 + n2; ++i) {
+      cp_async_wait<NS - 2>();
+      __syncthreads();
+      load(i + NS - 1, n1 + n2);
+      const unsigned char* st = smem + (i % NS) * L::STAGE;
+      float acc2[2][NB][4];
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc2[tl][n][c] = 0.f;
+      k_steps<NB, C2, BH * 2>(st, 0, wcol2, hs, 0, g, t, acc2);
+      // column col + q of row 8 n + 2 t + e: acc2[q / 2][n][2 (q % 2) + e]
+      const int col = (i - n1) * C2 + 32 * warp + 4 * g;
+      if (col < N) {
+        float* out = ws + (long long)blockIdx.x * M * N + col;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = 8 * n + 2 * t + e;
+            if (m0 + m < M)
+              *reinterpret_cast<float4*>(out + (long long)(m0 + m) * N) =
+                  make_float4(acc2[0][n][e], acc2[0][n][2 + e],
+                              acc2[1][n][e], acc2[1][n][2 + e]);
+          }
+      }
+    }
+    __syncthreads();   // the ring and hs are free for the next pass
+  }
+  cp_async_wait<0>();
+}
+
+template <int NB>
+int launch_hidden_nb(const void* x, const void* w1, const void* s1,
+                     const void* b1, const void* w2, void* ws, int M, int K,
+                     int H, int N, int act, cudaStream_t st) {
+  constexpr int smem = Layout<NB>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_mlp_hidden_kernel<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_mlp_hidden_kernel<NB><<<H / BH, NT, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w1, (const float*)s1,
+      (const float*)b1, (const int8_t*)w2, (float*)ws, M, K, H, N, act);
+  return (int)cudaGetLastError();
+}
+
+// The kernel takes one n-tile and passes over M in groups of 8. MT is
+// kept in the signature for the callers (int8_attn_tail.cu passes 1 or 8)
+// and no longer picks a variant.
 template <int MT>
 int launch_hidden(const void* x, const void* w1, const void* s1,
                   const void* b1, const void* w2, void* ws, int M, int K,
                   int H, int N, int act, cudaStream_t st) {
-  const int smem = (int)sizeof(Smem<MT>);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_mlp_hidden_kernel<MT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int8_mlp_hidden_kernel<MT><<<H / BH, NT, smem, st>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w1, (const float*)s1,
-      (const float*)b1, (const int8_t*)w2, (float*)ws, M, K, H, N, act);
-  return (int)cudaGetLastError();
+  return launch_hidden_nb<1>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
 }
 
 }  // namespace otter

@@ -104,6 +104,15 @@ def int8_mlp_plain(x, w1q, s1, w2q, s2, *, act="gelu", b1=None, b2=None):
     return y.to(dt)
 
 
+def int8_mlp_refusal(m: int, k: int, h: int, n: int) -> Optional[str]:
+    """Why the int8 MLP kernel refuses x [M, K] through an [K, H] / [H, N]
+    pair, or None when it takes it."""
+    if m > 32 or k % 64 or h % 128 or n % 16:
+        return (f"int8_mlp kernel: M={m} (<= 32), K={k} (% 64), H={h} "
+                f"(% 128), N={n} (% 16)")
+    return None
+
+
 def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
              w2q: torch.Tensor, s2: torch.Tensor, *, act: str = "gelu",
              b1: Optional[torch.Tensor] = None,
@@ -125,9 +134,9 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
     if x.dtype != torch.bfloat16 or w1q.dtype != torch.int8 \
             or w2q.dtype != torch.int8:
         raise TypeError("int8_mlp kernel takes bf16 x and int8 weights")
-    if m > 32 or k % 64 or h % 128 or n % 16:
-        raise ValueError(f"int8_mlp kernel: M={m} (<= 32), K={k} (% 64), "
-                         f"H={h} (% 128), N={n} (% 16)")
+    refusal = int8_mlp_refusal(m, k, h, n)
+    if refusal is not None:
+        raise ValueError(refusal)
     x = x.contiguous()
     w1q, w2q = w1q.contiguous(), w2q.contiguous()
     if x.data_ptr() % 16 or w1q.data_ptr() % 16 or w2q.data_ptr() % 16:

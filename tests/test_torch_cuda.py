@@ -296,6 +296,58 @@ def test_int8_mlp_is_deterministic(gen):
         assert torch.equal(quant.int8_mlp(x, w1q, s1, w2q, s2), first)
 
 
+def _every_int8(gen, rows):
+    """[rows, 256] int8: each row holds all 256 values, in its own order."""
+    vals = torch.arange(-128, 128, device="cuda")
+    return torch.stack([vals[torch.randperm(256, generator=gen,
+                                            device="cuda")]
+                        for _ in range(rows)]).to(torch.int8)
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+def test_int8_mlp_converts_every_int8_exactly(gen, phase):
+    # 32 one-hot rows of x pick 32 rows of a weight whose rows hold all 256
+    # int8 values; the other product is the identity (W2 = 127 I scaled by
+    # 1/127 in phase 1, W1 = I in phase 2), and b1 = 128 (phase 1) keeps
+    # the hidden values 0..255 above relu's zero. Every sum has one nonzero
+    # term, so kernel and plain version agree bit for bit, and a weight
+    # converted wrongly shows as itself.
+    m = 32
+    pick = torch.randperm(256, generator=gen, device="cuda")[:m]
+    x = torch.zeros(m, 256, device="cuda", dtype=torch.bfloat16)
+    x[torch.arange(m, device="cuda"), pick] = 1
+    ones = torch.ones(256, device="cuda")
+    eye = torch.eye(256, device="cuda", dtype=torch.int8)
+    if phase == 1:
+        w1q, s1, b1 = _every_int8(gen, 256), ones, 128 * ones
+        w2q, s2 = 127 * eye, ones / 127
+        want = w1q[pick].float() + 128
+    else:
+        w1q, s1, b1 = eye, ones, None
+        w2q, s2 = _every_int8(gen, 256), ones
+        want = w2q[pick].float()
+    kw = dict(act="relu", b1=b1)
+    out = quant.int8_mlp(x, w1q, s1, w2q, s2, **kw)
+    ref = quant.int8_mlp_plain(x, w1q, s1, w2q, s2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(out, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [20, 32])
+def test_int8_mlp_ragged_output_and_k(gen, m):
+    # N = 4112 leaves a last column stage of 16; K = 320 a last row stage
+    # of 64
+    w1q, s1 = quant.quantize_kernel(0.05 * torch.randn(
+        320, 384, generator=gen, device="cuda"))
+    w2q, s2 = quant.quantize_kernel(0.05 * torch.randn(
+        384, 4112, generator=gen, device="cuda"))
+    x = _rnd(gen, m, 320)
+    out = quant.int8_mlp(x, w1q, s1, w2q, s2)
+    _close(out, quant.int8_mlp_plain(x, w1q, s1, w2q, s2))
+    assert torch.equal(quant.int8_mlp(x, w1q, s1, w2q, s2), out)
+
+
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
 def test_decode_attention_matches_plain(gen, int8, d):
@@ -523,14 +575,14 @@ def test_int4_write_cache_then_decode_on_the_card(gen):
 
 # ── the fused decode layer: int8_attn_tail and decode_attn_megakernel ──
 
-def _qk(gen, rows, cols):
-    return quant.quantize_kernel(0.05 * torch.randn(
+def _qk(gen, rows, cols, std=0.05):
+    return quant.quantize_kernel(std * torch.randn(
         rows, cols, generator=gen, device="cuda"))
 
 
-def _tail_args(gen, m, hd=256, d=256, hid=512):
-    (wo, so), (w1, s1), (w2, s2) = _qk(gen, hd, d), _qk(gen, d, hid), \
-        _qk(gen, hid, d)
+def _tail_args(gen, m, hd=256, d=256, hid=512, std=0.05):
+    (wo, so), (w1, s1), (w2, s2) = _qk(gen, hd, d, std), \
+        _qk(gen, d, hid, std), _qk(gen, hid, d, std)
     g = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
     return (_rnd(gen, m, hd), _rnd(gen, m, d), wo, so, g, w1, s1, w2, s2)
 
@@ -546,6 +598,20 @@ def test_attn_tail_matches_plain(gen, m, act):
     again = quant.int8_attn_tail(*args, act=act)
     torch.cuda.synchronize()
     assert torch.equal(out, again)   # sums in a fixed order
+
+
+def test_attn_tail_full_width_m32(gen):
+    # MPT-7B's widths at the largest M: W1 and W2 (134 MB) stream once.
+    # Weights of std 0.02, as a model's init (and chip_smoke.py's case):
+    # at 0.05 the MLP's output reaches |50|, where one bf16 step of its
+    # rounding before the residual (0.25) exceeds the tolerance of an
+    # output that the residual brings near 0.
+    args = _tail_args(gen, 32, hd=4096, d=4096, hid=16384, std=0.02)
+    out = quant.int8_attn_tail(*args)
+    _close(out, quant.int8_attn_tail_plain(*args))
+    again = quant.int8_attn_tail(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def test_attn_tail_rectangular_out_proj(gen):

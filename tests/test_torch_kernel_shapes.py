@@ -55,7 +55,19 @@ def _refusals(name, text, head_dims):
     k, h = text.hidden_size, text.mlp_dim
     if quant.int4_mlp_refusal(1, k, h, k) is not None:
         out[(name, "int4_mlp")] = f"K = {k} is not a multiple of 128"
+    for site, hid in _mlp_sites(name, text):
+        for m in (1, 8, 32):
+            if quant.int8_mlp_refusal(m, k, hid, k) is not None:
+                out[(name, "int8_mlp")] = f"{site} K = {k}, H = {hid}"
     return out
+
+
+def _mlp_sites(name, text):
+    """The decoder MLP and, where the model has one, the xattn FF: the two
+    sites that run the fused int8 MLP at decode."""
+    yield "decoder MLP", text.mlp_dim
+    if name in config.PRESETS:
+        yield "xattn FF", text.hidden_size * config.PRESETS[name]().xattn_ff_mult
 
 
 def test_refusals_by_preset():
@@ -91,3 +103,22 @@ def test_int4_mlp_refusal_names_the_shape():
     assert quant.int4_mlp_refusal(8, 4096, 16384, 4096) is None
     assert "K=4544" in quant.int4_mlp_refusal(8, 4544, 18176, 4544)
     assert "M=33" in quant.int4_mlp_refusal(33, 4096, 16384, 4096)
+
+
+def test_int8_mlp_refusal_names_the_shape():
+    assert quant.int8_mlp_refusal(32, 4544, 18176, 4544) is None
+    assert quant.int8_mlp_refusal(8, 7168, 28672, 7168) is None
+    assert "M=33" in quant.int8_mlp_refusal(33, 4096, 16384, 4096)
+    assert "K=4100" in quant.int8_mlp_refusal(8, 4100, 16384, 4096)
+    assert "H=16400" in quant.int8_mlp_refusal(8, 4096, 16400, 4096)
+    assert "N=4104" in quant.int8_mlp_refusal(8, 4096, 16384, 4104)
+
+
+@pytest.mark.parametrize("name", sorted(config.PRESETS) + ["fuyu-8b"])
+def test_int8_mlp_takes_every_preset_mlp(name):
+    text = (config.FuyuConfig() if name == "fuyu-8b"
+            else config.PRESETS[name]()).text
+    for site, hid in _mlp_sites(name, text):
+        for m in (1, 8, 32):
+            assert quant.int8_mlp_refusal(m, text.hidden_size, hid,
+                                          text.hidden_size) is None, (site, m)
