@@ -43,7 +43,8 @@
 //   and 3) of quad g, which the hidden block's and the output's writes
 //   undo. 16-byte chunks are XOR-swizzled by row, so that every fragment
 //   read is free of bank conflicts.
-// - Rows of x in passes of 8 (one n-tile), each streaming W1 and W2.
+// - One weight stream for every M <= 32: the n-tiles sit inside the tile
+//   loop (ceil(M/8) accumulators a fragment), so W1 and W2 are read once.
 // - A ring of NS stages of 32 KB of weights (W1: 256 rows of the CTA's 128
 //   columns, with the matching 256 columns of x's rows; W2: the CTA's 128
 //   rows by 256 columns), filled by cp.async NS - 1 stages ahead; it drains
@@ -159,7 +160,6 @@ __global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
   const int g = (tid & 31) >> 2, t = tid & 3;
   const int j0 = blockIdx.x * BH;
   const int n1 = (K + R1 - 1) / R1, n2 = (N + C2 - 1) / C2;
-  int m0 = 0;   // the rows of this pass: m0 .. m0 + 8 NB - 1
 
   // stage i of the stream (W1's n1, then W2's n2) into ring slot i % NS;
   // chunk c of weight row r lands at chunk c ^ (2 ((r / 4) % 4)), chunk c
@@ -180,9 +180,9 @@ __global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
       }
       for (int e = tid; e < 8 * NB * (R1 / 8); e += NT) {
         const int m = e / (R1 / 8), c = e % (R1 / 8);
-        const bool ok = m0 + m < M && k0 + c * 8 < K;
+        const bool ok = m < M && k0 + c * 8 < K;
         cp_async16(st + SW + m * L::XROW + ((c ^ (m & 7)) << 4),
-                   ok ? x + (long long)(m0 + m) * K + k0 + c * 8 : x, ok);
+                   ok ? x + (long long)m * K + k0 + c * 8 : x, ok);
       }
     } else if (i < n1 + n2) {
       const int c0 = (i - n1) * C2;
@@ -205,90 +205,87 @@ __global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
   unsigned char* hs = smem + L::HS;
   float* red = reinterpret_cast<float*>(smem + L::RED);
 
-  for (m0 = 0; m0 < M; m0 += 8 * NB) {
-    float acc1[2][NB][4];
+  float acc1[2][NB][4];
+#pragma unroll
+  for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc1[tl][n][c] = 0.f;
+
+  // phase 1, then phase 2, each through the ring from empty
+  for (int s = 0; s < NS - 1; ++s) load(s, n1);
+  for (int i = 0; i < n1; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    load(i + NS - 1, n1);
+    const unsigned char* st = smem + (i % NS) * L::STAGE;
+    k_steps<NB, BH, L::XROW>(st, 128 * kh, wcol1, st + SW, 128 * kh, g, t,
+                             acc1);
+  }
+  // hidden unit 32 hg + 4 g + 2 tl + c / 2 of row 8 n + 2 t + c % 2;
+  // the two row halves are added in a fixed order
+  if (kh == 1) {
 #pragma unroll
     for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
       for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc1[tl][n][c] = 0.f;
-
-    // phase 1, then phase 2, each through the ring from empty
-    for (int s = 0; s < NS - 1; ++s) load(s, n1);
-    for (int i = 0; i < n1; ++i) {
-      cp_async_wait<NS - 2>();
-      __syncthreads();
-      load(i + NS - 1, n1);
-      const unsigned char* st = smem + (i % NS) * L::STAGE;
-      k_steps<NB, BH, L::XROW>(st, 128 * kh, wcol1, st + SW, 128 * kh, g, t,
-                               acc1);
-    }
-    // hidden unit 32 hg + 4 g + 2 tl + c / 2 of row 8 n + 2 t + c % 2;
-    // the two row halves are added in a fixed order
-    if (kh == 1) {
+        for (int c = 0; c < 4; ++c)
+          red[(8 * n + 2 * t + (c & 1)) * BH + 32 * hg + 4 * g +
+              2 * tl + (c >> 1)] = acc1[tl][n][c];
+  }
+  __syncthreads();
+  if (kh == 0) {
 #pragma unroll
-      for (int tl = 0; tl < 2; ++tl)
+    for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
-        for (int n = 0; n < NB; ++n)
+      for (int c = 0; c < 4; ++c) {
+        const int j = 32 * hg + 4 * g + 2 * tl + (c >> 1);
+        const float sc = s1[j0 + j];
+        const float bias = b1 != nullptr ? b1[j0 + j] : 0.f;
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            red[(8 * n + 2 * t + (c & 1)) * BH + 32 * hg + 4 * g +
-                2 * tl + (c >> 1)] = acc1[tl][n][c];
-    }
+        for (int n = 0; n < NB; ++n) {
+          const int m = 8 * n + 2 * t + (c & 1);
+          // scaled, then biased: two roundings, as the plain version
+          const float z =
+              __fmul_rn(acc1[tl][n][c] + red[m * BH + j], sc) + bias;
+          *reinterpret_cast<__nv_bfloat16*>(
+              hs + m * (BH * 2) + (((j >> 3) ^ (m & 7)) << 4) +
+              2 * (j & 7)) = __float2bfloat16(apply_act(z, act));
+        }
+      }
+  }
+  __syncthreads();
+  for (int s = 0; s < NS - 1; ++s) load(n1 + s, n1 + n2);
+  for (int i = n1; i < n1 + n2; ++i) {
+    cp_async_wait<NS - 2>();
     __syncthreads();
-    if (kh == 0) {
+    load(i + NS - 1, n1 + n2);
+    const unsigned char* st = smem + (i % NS) * L::STAGE;
+    float acc2[2][NB][4];
 #pragma unroll
-      for (int tl = 0; tl < 2; ++tl)
+    for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = 32 * hg + 4 * g + 2 * tl + (c >> 1);
-          const float sc = s1[j0 + j];
-          const float bias = b1 != nullptr ? b1[j0 + j] : 0.f;
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-          for (int n = 0; n < NB; ++n) {
-            const int m = 8 * n + 2 * t + (c & 1);
-            // scaled, then biased: two roundings, as the plain version
-            const float z =
-                __fmul_rn(acc1[tl][n][c] + red[m * BH + j], sc) + bias;
-            *reinterpret_cast<__nv_bfloat16*>(
-                hs + m * (BH * 2) + (((j >> 3) ^ (m & 7)) << 4) +
-                2 * (j & 7)) = __float2bfloat16(apply_act(z, act));
-          }
+        for (int c = 0; c < 4; ++c) acc2[tl][n][c] = 0.f;
+    k_steps<NB, C2, BH * 2>(st, 0, wcol2, hs, 0, g, t, acc2);
+    // column col + q of row 8 n + 2 t + e: acc2[q / 2][n][2 (q % 2) + e]
+    const int col = (i - n1) * C2 + 32 * warp + 4 * g;
+    if (col < N) {
+      float* out = ws + (long long)blockIdx.x * M * N + col;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * n + 2 * t + e;
+          if (m < M)
+            *reinterpret_cast<float4*>(out + (long long)m * N) =
+                make_float4(acc2[0][n][e], acc2[0][n][2 + e],
+                            acc2[1][n][e], acc2[1][n][2 + e]);
         }
     }
-    __syncthreads();
-    for (int s = 0; s < NS - 1; ++s) load(n1 + s, n1 + n2);
-    for (int i = n1; i < n1 + n2; ++i) {
-      cp_async_wait<NS - 2>();
-      __syncthreads();
-      load(i + NS - 1, n1 + n2);
-      const unsigned char* st = smem + (i % NS) * L::STAGE;
-      float acc2[2][NB][4];
-#pragma unroll
-      for (int tl = 0; tl < 2; ++tl)
-#pragma unroll
-        for (int n = 0; n < NB; ++n)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc2[tl][n][c] = 0.f;
-      k_steps<NB, C2, BH * 2>(st, 0, wcol2, hs, 0, g, t, acc2);
-      // column col + q of row 8 n + 2 t + e: acc2[q / 2][n][2 (q % 2) + e]
-      const int col = (i - n1) * C2 + 32 * warp + 4 * g;
-      if (col < N) {
-        float* out = ws + (long long)blockIdx.x * M * N + col;
-#pragma unroll
-        for (int n = 0; n < NB; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int m = 8 * n + 2 * t + e;
-            if (m0 + m < M)
-              *reinterpret_cast<float4*>(out + (long long)(m0 + m) * N) =
-                  make_float4(acc2[0][n][e], acc2[0][n][2 + e],
-                              acc2[1][n][e], acc2[1][n][2 + e]);
-          }
-      }
-    }
-    __syncthreads();   // the ring and hs are free for the next pass
   }
   cp_async_wait<0>();
 }
@@ -308,14 +305,23 @@ int launch_hidden_nb(const void* x, const void* w1, const void* s1,
   return (int)cudaGetLastError();
 }
 
-// The kernel takes one n-tile and passes over M in groups of 8. MT is
-// kept in the signature for the callers (int8_attn_tail.cu passes 1 or 8)
-// and no longer picks a variant.
+// The kernel takes ceil(M / 8) n-tiles and streams the weights once for
+// any M <= MMAX. MT is kept in the signature for the callers
+// (int8_attn_tail.cu passes 1 or 8) and no longer picks a variant.
 template <int MT>
 int launch_hidden(const void* x, const void* w1, const void* s1,
                   const void* b1, const void* w2, void* ws, int M, int K,
                   int H, int N, int act, cudaStream_t st) {
-  return launch_hidden_nb<1>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
+  switch ((M + 7) / 8) {
+    case 1:
+      return launch_hidden_nb<1>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
+    case 2:
+      return launch_hidden_nb<2>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
+    case 3:
+      return launch_hidden_nb<3>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
+    default:
+      return launch_hidden_nb<4>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
+  }
 }
 
 }  // namespace otter
