@@ -45,10 +45,10 @@
 //   read is free of bank conflicts.
 // - One weight stream for every M <= 32: the n-tiles sit inside the tile
 //   loop (ceil(M/8) accumulators a fragment), so W1 and W2 are read once.
-// - A ring of NS stages of 32 KB of weights (W1: 256 rows of the CTA's 128
-//   columns, with the matching 256 columns of x's rows; W2: the CTA's 128
-//   rows by 256 columns), filled by cp.async NS - 1 stages ahead; it drains
-//   at the phase boundary.
+// - One ring for both phases: NS stages of 32 KB of weights (W1: 256 rows
+//   of the CTA's 128 columns, with the matching 256 columns of x's rows;
+//   W2: the CTA's 128 rows by 256 columns), filled by cp.async NS - 1
+//   stages ahead, so W2's first stages are in flight while phase 1 ends.
 // - Phase 1: warp w takes hidden units 32 (w % 4) .. + 31 over half the
 //   rows of every stage (w / 4); the two halves are added in a fixed order
 //   through shared memory, scaled by s1, biased, activated and rounded to
@@ -164,11 +164,7 @@ __global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
   // stage i of the stream (W1's n1, then W2's n2) into ring slot i % NS;
   // chunk c of weight row r lands at chunk c ^ (2 ((r / 4) % 4)), chunk c
   // of x's row m at c ^ (m % 8); past K or N, zeros
-  auto load = [&](int i, int lim) {
-    if (i >= lim) {
-      cp_async_commit();
-      return;
-    }
+  auto load = [&](int i) {
     unsigned char* st = smem + (i % NS) * L::STAGE;
     if (i < n1) {
       const int k0 = i * R1;
@@ -213,78 +209,77 @@ __global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc1[tl][n][c] = 0.f;
 
-  // phase 1, then phase 2, each through the ring from empty
-  for (int s = 0; s < NS - 1; ++s) load(s, n1);
-  for (int i = 0; i < n1; ++i) {
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) load(s);
+  for (int i = 0; i < n1 + n2; ++i) {
     cp_async_wait<NS - 2>();
     __syncthreads();
-    load(i + NS - 1, n1);
+    // the slot refilled here was read in the previous iteration
+    load(i + NS - 1);
     const unsigned char* st = smem + (i % NS) * L::STAGE;
-    k_steps<NB, BH, L::XROW>(st, 128 * kh, wcol1, st + SW, 128 * kh, g, t,
-                             acc1);
-  }
-  // hidden unit 32 hg + 4 g + 2 tl + c / 2 of row 8 n + 2 t + c % 2;
-  // the two row halves are added in a fixed order
-  if (kh == 1) {
+    if (i < n1) {
+      k_steps<NB, BH, L::XROW>(st, 128 * kh, wcol1, st + SW, 128 * kh, g, t,
+                               acc1);
+      if (i == n1 - 1) {
+        // hidden unit 32 hg + 4 g + 2 tl + c / 2 of row 8 n + 2 t + c % 2;
+        // the two row halves are added in a fixed order
+        if (kh == 1) {
 #pragma unroll
-    for (int tl = 0; tl < 2; ++tl)
+          for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
-      for (int n = 0; n < NB; ++n)
+            for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          red[(8 * n + 2 * t + (c & 1)) * BH + 32 * hg + 4 * g +
-              2 * tl + (c >> 1)] = acc1[tl][n][c];
-  }
-  __syncthreads();
-  if (kh == 0) {
-#pragma unroll
-    for (int tl = 0; tl < 2; ++tl)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = 32 * hg + 4 * g + 2 * tl + (c >> 1);
-        const float sc = s1[j0 + j];
-        const float bias = b1 != nullptr ? b1[j0 + j] : 0.f;
-#pragma unroll
-        for (int n = 0; n < NB; ++n) {
-          const int m = 8 * n + 2 * t + (c & 1);
-          // scaled, then biased: two roundings, as the plain version
-          const float z =
-              __fmul_rn(acc1[tl][n][c] + red[m * BH + j], sc) + bias;
-          *reinterpret_cast<__nv_bfloat16*>(
-              hs + m * (BH * 2) + (((j >> 3) ^ (m & 7)) << 4) +
-              2 * (j & 7)) = __float2bfloat16(apply_act(z, act));
+              for (int c = 0; c < 4; ++c)
+                red[(8 * n + 2 * t + (c & 1)) * BH + 32 * hg + 4 * g +
+                    2 * tl + (c >> 1)] = acc1[tl][n][c];
         }
+        __syncthreads();
+        if (kh == 0) {
+#pragma unroll
+          for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int j = 32 * hg + 4 * g + 2 * tl + (c >> 1);
+              const float sc = s1[j0 + j];
+              const float bias = b1 != nullptr ? b1[j0 + j] : 0.f;
+#pragma unroll
+              for (int n = 0; n < NB; ++n) {
+                const int m = 8 * n + 2 * t + (c & 1);
+                // scaled, then biased: two roundings, as the plain version
+                const float z =
+                    __fmul_rn(acc1[tl][n][c] + red[m * BH + j], sc) + bias;
+                *reinterpret_cast<__nv_bfloat16*>(
+                    hs + m * (BH * 2) + (((j >> 3) ^ (m & 7)) << 4) +
+                    2 * (j & 7)) = __float2bfloat16(apply_act(z, act));
+              }
+            }
+        }
+        __syncthreads();
       }
-  }
-  __syncthreads();
-  for (int s = 0; s < NS - 1; ++s) load(n1 + s, n1 + n2);
-  for (int i = n1; i < n1 + n2; ++i) {
-    cp_async_wait<NS - 2>();
-    __syncthreads();
-    load(i + NS - 1, n1 + n2);
-    const unsigned char* st = smem + (i % NS) * L::STAGE;
-    float acc2[2][NB][4];
+    } else {
+      float acc2[2][NB][4];
 #pragma unroll
-    for (int tl = 0; tl < 2; ++tl)
+      for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
-      for (int n = 0; n < NB; ++n)
+        for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc2[tl][n][c] = 0.f;
-    k_steps<NB, C2, BH * 2>(st, 0, wcol2, hs, 0, g, t, acc2);
-    // column col + q of row 8 n + 2 t + e: acc2[q / 2][n][2 (q % 2) + e]
-    const int col = (i - n1) * C2 + 32 * warp + 4 * g;
-    if (col < N) {
-      float* out = ws + (long long)blockIdx.x * M * N + col;
+          for (int c = 0; c < 4; ++c) acc2[tl][n][c] = 0.f;
+      k_steps<NB, C2, BH * 2>(st, 0, wcol2, hs, 0, g, t, acc2);
+      // column col + q of row 8 n + 2 t + e: acc2[q / 2][n][2 (q % 2) + e]
+      const int col = (i - n1) * C2 + 32 * warp + 4 * g;
+      if (col < N) {
+        float* out = ws + (long long)blockIdx.x * M * N + col;
 #pragma unroll
-      for (int n = 0; n < NB; ++n)
+        for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int m = 8 * n + 2 * t + e;
-          if (m < M)
-            *reinterpret_cast<float4*>(out + (long long)m * N) =
-                make_float4(acc2[0][n][e], acc2[0][n][2 + e],
-                            acc2[1][n][e], acc2[1][n][2 + e]);
-        }
+          for (int e = 0; e < 2; ++e) {
+            const int m = 8 * n + 2 * t + e;
+            if (m < M)
+              *reinterpret_cast<float4*>(out + (long long)m * N) =
+                  make_float4(acc2[0][n][e], acc2[0][n][2 + e],
+                              acc2[1][n][e], acc2[1][n][2 + e]);
+          }
+      }
     }
   }
   cp_async_wait<0>();
