@@ -49,6 +49,9 @@
 //   of the CTA's 128 columns, with the matching 256 columns of x's rows;
 //   W2: the CTA's 128 rows by 256 columns), filled by cp.async NS - 1
 //   stages ahead, so W2's first stages are in flight while phase 1 ends.
+//   NS = 4 keeps 96 KB in flight an SM. A grid of more CTAs than SMs
+//   (falcon7b's 142) runs two stages a CTA and two CTAs an SM where they
+//   fit (M <= 24): the same bytes in flight, and no second wave.
 // - Phase 1: warp w takes hidden units 32 (w % 4) .. + 31 over half the
 //   rows of every stage (w / 4); the two halves are added in a fixed order
 //   through shared memory, scaled by s1, biased, activated and rounded to
@@ -67,12 +70,11 @@ constexpr int KC = 64;        // K is a multiple of KC
 constexpr int R1 = 256;       // phase 1: W1 rows a stage (x BH columns)
 constexpr int C2 = 256;       // phase 2: W2 columns a stage (x BH rows)
 constexpr int SW = R1 * BH;   // weight bytes a stage, either phase: 32 KB
-constexpr int NS = 2;         // stages in the ring
 
-// Shared memory with NB n-tiles (M <= 8 NB): the ring (each stage: its
-// weights, then for phase 1 x's 8 NB rows of R1 bf16), the bf16 hidden
-// block hs [8 NB][BH] and phase 1's f32 half sums red [8 NB][BH].
-template <int NB>
+// Shared memory with NB n-tiles (M <= 8 NB) and NS stages: the ring (each
+// stage: its weights, then for phase 1 x's 8 NB rows of R1 bf16), the bf16
+// hidden block hs [8 NB][BH] and phase 1's f32 half sums red [8 NB][BH].
+template <int NB, int NS>
 struct Layout {
   static constexpr int XROW = R1 * 2;
   static constexpr int STAGE = SW + 8 * NB * XROW;
@@ -148,13 +150,13 @@ __device__ __forceinline__ void k_steps(const unsigned char* wt, int r0,
   }
 }
 
-template <int NB>
-__global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
+template <int NB, int NS>
+__global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
     const float* __restrict__ s1, const float* __restrict__ b1,
     const int8_t* __restrict__ w2, float* __restrict__ ws, int M, int K,
     int H, int N, int act) {
-  using L = Layout<NB>;
+  using L = Layout<NB, NS>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int g = (tid & 31) >> 2, t = tid & 3;
@@ -285,19 +287,36 @@ __global__ void __launch_bounds__(NT, 1) int8_mlp_hidden_kernel(
   cp_async_wait<0>();
 }
 
+template <int NB, int NS>
+int launch_hidden_ns(const void* x, const void* w1, const void* s1,
+                     const void* b1, const void* w2, void* ws, int M, int K,
+                     int H, int N, int act, cudaStream_t st) {
+  constexpr int smem = Layout<NB, NS>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_mlp_hidden_kernel<NB, NS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_mlp_hidden_kernel<NB, NS><<<H / BH, NT, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w1, (const float*)s1,
+      (const float*)b1, (const int8_t*)w2, (float*)ws, M, K, H, N, act);
+  return (int)cudaGetLastError();
+}
+
+// four stages for a grid of one wave; for more CTAs than SMs, two stages
+// and two CTAs an SM where two fit its 228 KB (each CTA reserves 1 KB)
 template <int NB>
 int launch_hidden_nb(const void* x, const void* w1, const void* s1,
                      const void* b1, const void* w2, void* ws, int M, int K,
                      int H, int N, int act, cudaStream_t st) {
-  constexpr int smem = Layout<NB>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_mlp_hidden_kernel<NB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int8_mlp_hidden_kernel<NB><<<H / BH, NT, smem, st>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w1, (const float*)s1,
-      (const float*)b1, (const int8_t*)w2, (float*)ws, M, K, H, N, act);
-  return (int)cudaGetLastError();
+  if constexpr (2 * (Layout<NB, 2>::BYTES + 1024) <= 228 * 1024) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (H / BH > sms)
+      return launch_hidden_ns<NB, 2>(x, w1, s1, b1, w2, ws, M, K, H, N, act,
+                                     st);
+  }
+  return launch_hidden_ns<NB, 4>(x, w1, s1, b1, w2, ws, M, K, H, N, act, st);
 }
 
 // The kernel takes ceil(M / 8) n-tiles and streams the weights once for
