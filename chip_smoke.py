@@ -951,13 +951,8 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
     computes either: library "none"."""
     import torch
     from otter_tpu_torch.ops import megakernel as mk
-    from otter_tpu_torch.ops import quant
     from otter_tpu_torch.ops.masks import alibi_slopes
-    d, hid, h, dh = 4096, 16384, 32, 128
-
-    def qk(rows, cols):
-        return quant.quantize_kernel(0.02 * torch.randn(
-            rows, cols, generator=gen, device="cuda"))
+    d, h, dh = 4096, 32, 128
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda",
@@ -978,7 +973,7 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
     # the attention half: norm_1, qkv, cached attention, out-proj + residual
     wqos = []
     for _ in range(2):
-        (wqkv, sqkv), (wo, so) = qk(d, 3 * d), qk(d, d)
+        (wqkv, sqkv), (wo, so) = _qk(gen, d, 3 * d), _qk(gen, d, d)
         wqos.append((gain(), torch.cat([wqkv, wo], dim=1).contiguous(),
                      torch.cat([sqkv, so])))
         del wqkv, wo
