@@ -27,8 +27,12 @@ unless every phase passes:
                  `int8_mlp` at 4096 -> 16384 -> 4096 (M = 1, 8, 32),
                  OtterHD's with biases and sq_relu (M = 1) and falcon7b's
                  4544 -> 18176 -> 4544 (M = 8), `int8_attn_tail` at M = 1,
-                 8 and 32, each with its device time and two calls compared
-                 bit for bit.
+                 8 and 32, `decode_attn_megakernel` at b = 1 and 8 over
+                 caches of 256 and 2048, each with its device time and two
+                 calls compared bit for bit (the megakernel also with the
+                 device time of each of its kernels at b=8 pos 255);
+                 `int8_matmul`, `int4_mlp` and `int4_matmul` with their
+                 device times.
   4. parity      OTTER-MPT7B at full width with its depth cut, once with
                  int8 weights and an int8 KV cache and once with int4
                  weights and an int4 cache, then OTTER-LLaMA2-Chat-7B and
@@ -100,7 +104,10 @@ unless every phase passes:
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
 runs all eleven. `flashkernels` runs the flash part of the kernels phase
-alone, `mlpkernels` its `int8_mlp` and `int8_attn_tail` cases. `--port-root
+alone, `mlpkernels` its `int8_mlp` and `int8_attn_tail` cases,
+`fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
+`int4_matmul`, `headkernels` `int8_matmul`, `decodekernels`
+`decode_attention`. `--port-root
 DIR` imports `otter_tpu_torch` from another checkout, so that two versions
 of the port run one after the other in one call. `profile` (not run by default) adds torch.profiler tables
 of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
@@ -544,7 +551,8 @@ def phase_kernels(gen, only: str = ""):
     two, "head" (phase `headkernels`) `int8_matmul`, "flash" (phase
     `flashkernels`) the flash forward and backward, "decode" (phase
     `decodekernels`) `decode_attention`, "mlp" (phase `mlpkernels`)
-    `int8_mlp` and `int8_attn_tail`."""
+    `int8_mlp` and `int8_attn_tail`, "int4" (phase `int4kernels`)
+    `int4_mlp` and `int4_matmul`."""
     import torch
     from otter_tpu_torch.ops import quant
 
@@ -590,18 +598,30 @@ def phase_kernels(gen, only: str = ""):
     if only:
         {"fused": _fused_layer_kernels, "head": _head_kernel,
          "flash": _flash_kernels, "decode": _decode_kernels,
-         "mlp": _mlp_kernels}[only](gen, report, entries)
+         "mlp": _mlp_kernels, "int4": _int4_kernels}[only](
+            gen, report, entries)
         return done()
 
     _flash_kernels(gen, report, entries)
 
     _mlp_kernels(gen, report, entries)
-    k_in, hid = 4096, 16384
+    _int4_kernels(gen, report, entries)
+    _decode_kernels(gen, report, entries)
+    _fused_layer_kernels(gen, report, entries, tail=False)
+    _head_kernel(gen, report, entries)
+    return done()
 
-    # int4 MLP at the same widths (decoder MLP and xattn FF are both 4096
-    # -> 16384 -> 4096, gelu): 0.5 byte a weight. Two weight sets in turn,
-    # so that the 67 MB a call come from device memory and not from the
-    # 50 MB L2. No single PyTorch call computes it: library "none".
+
+def _int4_kernels(gen, report, entries):
+    """`int4_mlp` at the decoder MLP's and the xattn FF's widths (both 4096
+    -> 16384 -> 4096, gelu: 0.5 byte a weight) and `int4_matmul` at MPT-7B's
+    qkv and out-proj widths, against their plain versions, with device
+    times. Enough weight sets in turn that the timed reads come from device
+    memory and not from the 50 MB L2. No single PyTorch call computes
+    either: library "none"."""
+    import torch
+    from otter_tpu_torch.ops import quant
+    k_in, hid = 4096, 16384
     int4_sets = [
         quant.quantize_kernel_int4(0.02 * torch.randn(
             k_in, hid, generator=gen, device="cuda"), 0)
@@ -615,19 +635,20 @@ def phase_kernels(gen, only: str = ""):
         torch.cuda.synchronize()
         err, excess = max_err(out, ref)
         it = iter(range(10 ** 9))
+
+        def call():
+            return quant.int4_mlp(x, *int4_sets[next(it) % 2])
+
         nbytes = k_in * hid + 4 * (hid + k_in) + 2 * 2 * m * k_in
-        r = report("int4_mlp", case, err, excess,
-                   time_ms(lambda: quant.int4_mlp(
-                       x, *int4_sets[next(it) % 2])),
+        r = report("int4_mlp", case, err, excess, time_ms(call),
                    time_ms(lambda: quant.int4_mlp_plain(
                        x, *int4_sets[next(it) % 2]), 5), None,
-                   nbytes, 2.0 * m * 2 * k_in * hid)
+                   nbytes, 2.0 * m * 2 * k_in * hid,
+                   device=(device_ms(call), None))
         if case == "M=8":
             entries["int4_mlp"] = r
     del int4_sets
 
-    # int4 matmul at the qkv and out-proj widths of MPT-7B; enough weight
-    # copies in turn to exceed the L2. Library "none".
     for case, n_out, copies in (("qkv", 3 * k_in, 3), ("out_proj", k_in, 8)):
         sets = [quant.quantize_kernel_int4(0.02 * torch.randn(
             k_in, n_out, generator=gen, device="cuda"), 0)
@@ -640,21 +661,20 @@ def phase_kernels(gen, only: str = ""):
             torch.cuda.synchronize()
             err, excess = max_err(out, ref)
             it = iter(range(10 ** 9))
+
+            def call():
+                return quant.int4_matmul(x, *sets[next(it) % copies])
+
             nbytes = k_in * n_out // 2 + 4 * n_out + 2 * m * (k_in + n_out)
             r = report("int4_matmul", f"{case} M={m}", err, excess,
-                       time_ms(lambda: quant.int4_matmul(
-                           x, *sets[next(it) % copies])),
+                       time_ms(call),
                        time_ms(lambda: quant.int4_matmul_plain(
                            x, *sets[next(it) % copies]), 5), None,
-                       nbytes, 2.0 * m * k_in * n_out)
+                       nbytes, 2.0 * m * k_in * n_out,
+                       device=(device_ms(call), None))
             if (case, m) == ("qkv", 8):
                 entries["int4_matmul"] = r
         del sets
-
-    _decode_kernels(gen, report, entries)
-    _fused_layer_kernels(gen, report, entries, tail=False)
-    _head_kernel(gen, report, entries)
-    return done()
 
 
 def _decode_cases(gen):
@@ -821,13 +841,17 @@ def _head_kernel(gen, report, entries):
             if not bool(torch.isfinite(out.float()).all()):
                 excess = float("inf")
             it = iter(range(10 ** 9))
+
+            def call():
+                return quant.int8_matmul(x, *sets[next(it) % copies])
+
             nbytes = k_here * n_out + 4 * n_out + 2 * m * (k_here + n_out)
             r = report("int8_matmul", f"{case} M={m}", err, excess,
-                       time_ms(lambda: quant.int8_matmul(
-                           x, *sets[next(it) % copies])),
+                       time_ms(call),
                        time_ms(lambda: quant.int8_matmul_plain(
                            x, *sets[next(it) % copies]), 3, 1), None,
-                       nbytes, 2.0 * m * k_here * n_out)
+                       nbytes, 2.0 * m * k_here * n_out,
+                       device=(device_ms(call), None))
             composed_ms = time_ms(
                 lambda: composed(x, *sets[next(it) % copies]), 5, 1)
             log(f"    Int8Dense's composed product on the same tensors: "
@@ -945,10 +969,13 @@ def _tail_kernels(gen, report, entries):
 def _fused_layer_kernels(gen, report, entries, tail: bool = True):
     """`int8_attn_tail` (with `tail`; `_tail_kernels`) and
     `decode_attn_megakernel` against their plain versions at MPT-7B's
-    widths (D=4096, H=16384, 32 heads of 128). Two weight sets in turn
-    (and another cache layer each launch), so that the timed reads come
-    from device memory and not from the 50 MB L2. No single PyTorch call
-    computes either: library "none"."""
+    widths (D=4096, H=16384, 32 heads of 128): the megakernel at b = 1 and
+    8, pos 0, 57 and 255 of a cache of 256 and pos 2047 of 2048, with two
+    calls compared bit for bit, its device time and, at b=8 pos 255, the
+    device time of each of its kernels (torch.profiler). Two weight sets in
+    turn (and another cache layer each launch), so that the timed reads
+    come from device memory and not from the 50 MB L2. No single PyTorch
+    call computes either: library "none"."""
     import torch
     from otter_tpu_torch.ops import megakernel as mk
     from otter_tpu_torch.ops.masks import alibi_slopes
@@ -977,8 +1004,9 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
         wqos.append((gain(), torch.cat([wqkv, wo], dim=1).contiguous(),
                      torch.cat([sqkv, so])))
         del wqkv, wo
-    for L, nl, cases in ((256, 4, ((8, 0), (8, 57), (8, 255), (1, 255))),
-                         (2048, 2, ((8, 2047),))):
+    cases_256 = tuple((b, pos) for b in (8, 1) for pos in (0, 57, 255))
+    for L, nl, cases in ((256, 4, cases_256), (2048, 2, ((8, 2047),
+                                                          (1, 2047)))):
         bias = (torch.arange(L, device="cuda")[None, :]
                 * alibi_slopes(h, device="cuda")[:, None]).float()
         kc, vc = rnd(8, nl, h, L, dh), rnd(8, nl, h, L, dh)
@@ -989,30 +1017,73 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
             v[:, :, :, pos:] = 1e4
             x = rnd(b, d)
             layer = nl - 1
-            outs = mk.decode_attn_megakernel(x, k, v, pos, bias, *wqos[0],
-                                             layer=layer)
+
+            def first():
+                return mk.decode_attn_megakernel(x, k, v, pos, bias,
+                                                 *wqos[0], layer=layer)
+
+            outs = first()
             refs = mk.decode_attn_megakernel_plain(x, k, v, pos, bias,
                                                    *wqos[0], layer=layer)
             torch.cuda.synchronize()
             err, excess = worst(outs, refs)
+            again = first()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, a) for o, a in zip(outs, again)):
+                log("  two calls differ: the sums' order is not fixed")
+                excess = float("inf")
             it = iter(range(10 ** 9))
 
-            def call(fn):
+            def call(fn=mk.decode_attn_megakernel):
                 i = next(it)
                 return fn(x, k, v, pos, bias, *wqos[i % 2], layer=i % nl)
 
             nbytes = (4 * d * d + 4 * 4 * d + 4 * d + 2 * 2 * b * h * pos * dh
                       + 4 * h * (pos + 1) + 2 * 4 * b * d)
             res = report("decode_attn_megakernel", f"b={b} L={L} pos={pos}",
-                         err, excess,
-                         time_ms(lambda: call(mk.decode_attn_megakernel)),
+                         err, excess, time_ms(call),
                          time_ms(lambda: call(
                              mk.decode_attn_megakernel_plain), 5), None,
-                         nbytes, 2.0 * b * 4 * d * d + 4.0 * b * h * pos * dh)
+                         nbytes, 2.0 * b * 4 * d * d + 4.0 * b * h * pos * dh,
+                         device=(device_ms(call), None))
             if (b, L, pos) == (8, 256, 255):
+                subs = _kernel_device_ms(call)
+                log("    its kernels, device ms a call (torch.profiler, 20 "
+                    "calls): " + ", ".join(f"{n} {t:.4f}"
+                                           for n, t in subs.items()))
+                res["sub_kernels_device_ms"] = subs
                 entries["decode_attn_megakernel"] = res
             del k, v
         del kc, vc
+
+
+def _kernel_device_ms(fn, iters: int = 20) -> dict:
+    """{kernel name: device ms a call of fn}, from torch.profiler's CUDA
+    activity over `iters` calls, largest first. Kernels that overlap (a
+    programmatic dependent launch waiting on its predecessor) each count
+    their whole span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        # "void (anonymous namespace)::name<128>(args)" -> "name<128>"
+        name = (e.key.replace("(anonymous namespace)::", "")
+                .replace("otter::", "").replace("void ", "")
+                .split("(")[0].strip())
+        times[name] = times.get(name, 0.0) + us / 1e3 / iters
+    return dict(sorted(times.items(), key=lambda kv: -kv[1]))
 
 
 # ── model construction ──────────────────────────────────────────────
@@ -2084,7 +2155,8 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {PHASES}, plus profile "
                          "(after serve, serve4, llama, fused and train; not "
                          "run by default), fusedkernels, headkernels, "
-                         "flashkernels, decodekernels and mlpkernels "
+                         "flashkernels, decodekernels, mlpkernels and "
+                         "int4kernels "
                          "(parts of kernels, for bring-up). "
                          "Device and build always run.")
     ap.add_argument("--port-root", default=None,
@@ -2123,7 +2195,7 @@ def main(argv=None) -> int:
         for name, only in (("fusedkernels", "fused"), ("headkernels", "head"),
                            ("flashkernels", "flash"),
                            ("decodekernels", "decode"),
-                           ("mlpkernels", "mlp")):
+                           ("mlpkernels", "mlp"), ("int4kernels", "int4")):
             if name in phases:
                 entries.update(run(name, phase_kernels, gen, only))
     if "parity" in phases:
@@ -2162,8 +2234,8 @@ def main(argv=None) -> int:
             max_abs_err=e.get("max_abs_err"), ms=e.get("ms"),
             plain_ms=e.get("plain_ms"), bound_ms=e.get("bound_ms"),
             bound_by=e.get("bound_by"), library_ms=e.get("library_ms"),
-            **{k: e[k] for k in ("device_ms", "library_device_ms")
-               if k in e}))
+            **{k: e[k] for k in ("device_ms", "library_device_ms",
+                                 "sub_kernels_device_ms") if k in e}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
