@@ -29,20 +29,13 @@
 //   M = 8, nothing beside 989 TFLOP/s, and mma.sync takes its A fragment
 //   from any registers, so the int8 bytes go from shared memory to the
 //   tensor cores with no layout to meet and no warpgroup to keep together.
-// - int8 -> bf16 in registers without I2F: each byte is permuted into the
-//   float 2^23 + (b + 128) (prmt), 2^23 + 128 is subtracted (exact for
-//   every int8), and the upper halves of two floats are packed into one
-//   bf16x2 (prmt). Each weight is converted once a call, whatever M is.
-// - No transposing pass: the weights land in shared memory as they lie in
-//   device memory (rows of the contracted dim). A thread reads four 32-bit
-//   words, rows 4t .. 4t+3 of a 16-row k step at one 4-column quad, and
-//   permutes them into the A fragments of two m16 tiles: inside a k step
-//   the contracted index is permuted (the mma's k slots 2t, 2t+1, 2t+8,
-//   2t+9 hold rows 4t .. 4t+3), and the B fragment is read in that order,
-//   one 8-byte load; a tile's rows g and g + 8 are columns 0 and 1 (or 2
-//   and 3) of quad g, which the hidden block's and the output's writes
-//   undo. 16-byte chunks are XOR-swizzled by row, so that every fragment
-//   read is free of bank conflicts.
+// - int8 -> bf16 in registers without I2F, and no transposing pass: the
+//   weights land in shared memory as they lie in device memory, and the
+//   A fragments are permuted out of them as int8_mma.cuh describes (its
+//   `a_frags`, `k_steps` and swizzles, shared with int8_rows.cuh's split-K
+//   product). Each weight is converted once a call, whatever M is; the
+//   hidden block's and the output's writes undo the fragments' column
+//   order.
 // - One weight stream for every M <= 32: the n-tiles sit inside the tile
 //   loop (ceil(M/8) accumulators a fragment), so W1 and W2 are read once.
 // - One ring for both phases: NS stages of 32 KB of weights (W1: 256 rows
@@ -59,6 +52,7 @@
 //   + 31 of every stage over the CTA's 128 hidden rows and stores its sums
 //   to the CTA's workspace slice. No atomics: two calls give the same bits.
 #pragma once
+#include "int8_mma.cuh"
 #include "mlp_common.cuh"
 
 namespace otter {
@@ -83,73 +77,6 @@ struct Layout {
   static constexpr int BYTES = RED + 8 * NB * BH * 4;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// byte `sel` of u (int8 bytes XOR 0x80) as the bits of an exact float
-__device__ __forceinline__ uint32_t i8_float(uint32_t u, int sel) {
-  return __float_as_uint(
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + sel)) -
-      8388736.f);
-}
-
-// w[i]: 4 int8 columns of contracted row 4t + i of a k step -> the A
-// fragments of two m16 tiles: tile 0's rows g, g + 8 are columns 0, 1,
-// tile 1's columns 2, 3; k slots (2t, 2t+1 | 2t+8, 2t+9) are rows
-// (4t, 4t+1 | 4t+2, 4t+3). bf16 is a float's upper half.
-__device__ __forceinline__ void a_frags(const uint32_t (&w)[4],
-                                        uint32_t (&a)[2][4]) {
-  uint32_t f[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t u = w[i] ^ 0x80808080u;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) f[i][c] = i8_float(u, c);
-  }
-#pragma unroll
-  for (int tl = 0; tl < 2; ++tl) {
-    a[tl][0] = __byte_perm(f[0][2 * tl], f[1][2 * tl], 0x7632u);
-    a[tl][1] = __byte_perm(f[0][2 * tl + 1], f[1][2 * tl + 1], 0x7632u);
-    a[tl][2] = __byte_perm(f[2][2 * tl], f[3][2 * tl], 0x7632u);
-    a[tl][3] = __byte_perm(f[2][2 * tl + 1], f[3][2 * tl + 1], 0x7632u);
-  }
-}
-
-// One warp's 8 k steps over 128 contracted rows: A from the weight tile
-// `wt` (row stride RS bytes; `wcol`: the thread's swizzled quad, rows
-// r0 .. r0 + 127), B from `bt` (8 NB rows of bf16, row stride BS bytes,
-// the contracted index starting at column `b0`; 16-byte chunks swizzled
-// by row & 7).
-template <int NB, int RS, int BS>
-__device__ __forceinline__ void k_steps(const unsigned char* wt, int r0,
-                                        int wcol, const unsigned char* bt,
-                                        int b0, int g, int t,
-                                        float (&acc)[2][NB][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const int r = r0 + 16 * ks + 4 * t;
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = *reinterpret_cast<const uint32_t*>(wt + (r + i) * RS + wcol);
-    uint32_t a[2][4];
-    a_frags(w, a);
-    const int bc = ((((b0 + 16 * ks) >> 3) + (t >> 1)) ^ g) << 4;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      const uint2 b = *reinterpret_cast<const uint2*>(
-          bt + (8 * n + g) * BS + bc + 8 * (t & 1));
-      mma_bf16(acc[0][n], a[0], b);
-      mma_bf16(acc[1][n], a[1], b);
-    }
-  }
-}
-
 template <int NB, int NS>
 __global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
@@ -163,9 +90,8 @@ __global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
   const int j0 = blockIdx.x * BH;
   const int n1 = (K + R1 - 1) / R1, n2 = (N + C2 - 1) / C2;
 
-  // stage i of the stream (W1's n1, then W2's n2) into ring slot i % NS;
-  // chunk c of weight row r lands at chunk c ^ (2 ((r / 4) % 4)), chunk c
-  // of x's row m at c ^ (m % 8); past K or N, zeros
+  // stage i of the stream (W1's n1, then W2's n2) into ring slot i % NS,
+  // chunks swizzled by `w_chunk` / `x_chunk`; past K or N, zeros
   auto load = [&](int i) {
     unsigned char* st = smem + (i % NS) * L::STAGE;
     if (i < n1) {
@@ -173,13 +99,13 @@ __global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
       for (int e = tid; e < R1 * (BH / 16); e += NT) {
         const int r = e >> 3, c = e & 7;
         const bool ok = k0 + r < K;
-        cp_async16(st + r * BH + ((c ^ ((r >> 1) & 6)) << 4),
+        cp_async16(st + r * BH + w_chunk(r, c),
                    ok ? w1 + (long long)(k0 + r) * H + j0 + c * 16 : w1, ok);
       }
       for (int e = tid; e < 8 * NB * (R1 / 8); e += NT) {
         const int m = e / (R1 / 8), c = e % (R1 / 8);
         const bool ok = m < M && k0 + c * 8 < K;
-        cp_async16(st + SW + m * L::XROW + ((c ^ (m & 7)) << 4),
+        cp_async16(st + SW + m * L::XROW + x_chunk(m, c),
                    ok ? x + (long long)m * K + k0 + c * 8 : x, ok);
       }
     } else if (i < n1 + n2) {
@@ -187,7 +113,7 @@ __global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
       for (int e = tid; e < BH * (C2 / 16); e += NT) {
         const int r = e >> 4, c = e & 15;
         const bool ok = c0 + c * 16 < N;
-        cp_async16(st + r * C2 + ((c ^ ((r >> 1) & 6)) << 4),
+        cp_async16(st + r * C2 + w_chunk(r, c),
                    ok ? w2 + (long long)(j0 + r) * N + c0 + c * 16 : w2, ok);
       }
     }
@@ -197,9 +123,9 @@ __global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
   // phase 1 mapping: hidden units 32 hg .. + 31, rows 128 kh .. + 127 of
   // a stage; a thread's quad is units 32 hg + 4 g .. + 3
   const int hg = warp & 3, kh = warp >> 2;
-  const int wcol1 = (((2 * hg + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  const int wcol1 = w_quad(hg, g, t);
   // phase 2 mapping: output columns 32 warp .. + 31 of a stage
-  const int wcol2 = (((2 * warp + (g >> 2)) ^ (2 * t)) << 4) + 4 * (g & 3);
+  const int wcol2 = w_quad(warp, g, t);
   unsigned char* hs = smem + L::HS;
   float* red = reinterpret_cast<float*>(smem + L::RED);
 
@@ -251,8 +177,8 @@ __global__ void __launch_bounds__(NT, NS == 2 ? 2 : 1) int8_mlp_hidden_kernel(
                 const float z =
                     __fmul_rn(acc1[tl][n][c] + red[m * BH + j], sc) + bias;
                 *reinterpret_cast<__nv_bfloat16*>(
-                    hs + m * (BH * 2) + (((j >> 3) ^ (m & 7)) << 4) +
-                    2 * (j & 7)) = __float2bfloat16(apply_act(z, act));
+                    hs + m * (BH * 2) + x_chunk(m, j >> 3) + 2 * (j & 7)) =
+                    __float2bfloat16(apply_act(z, act));
               }
             }
         }
