@@ -215,25 +215,47 @@ def phase_device():
 
 # ── phase 2: build ──────────────────────────────────────────────────
 
+# the int8 weight-streaming kernels that must run on the tensor cores, and
+# the sources they are built into
+TENSOR_CORE_KERNELS = {
+    "int8_mlp_hidden_kernel": ("int8_mlp", "int8_attn_tail"),
+    "int8_matmul_partial_kernel": ("megakernel", "int8_attn_tail"),
+}
+
+
 def phase_build(check_sass: bool = True):
-    """`check_sass`: fail if the fused int8 MLP's main kernel runs no
-    tensor-core instruction (off for another version of the port)."""
+    """`check_sass`: fail if an instantiation of a kernel of
+    `TENSOR_CORE_KERNELS` runs no tensor-core instruction (off for another
+    version of the port)."""
     from otter_tpu_torch import _build
     t0 = time.perf_counter()
     logs = _build.build(_build.all_sources())
     log(f"build: {sorted(logs)} compiled in {time.perf_counter() - t0:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
-    counts = _sass_counts(_build, ("int8_mlp", "int8_attn_tail"),
-                          "int8_mlp_hidden_kernel")
+    counts = {kernel: _sass_counts(_build, sources, kernel)
+              for kernel, sources in TENSOR_CORE_KERNELS.items()
+              if check_sass or kernel == "int8_mlp_hidden_kernel"}
     with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as f:
         for name, text in sorted(logs.items()):
             f.write(f"== {name}.cu\n{text}\n")
-        f.write(f"== SASS of int8_mlp_hidden_kernel\n{json.dumps(counts)}\n")
-    log(f"build: SASS of int8_mlp_hidden_kernel<n-tiles>: {counts}")
-    if check_sass and any(c["HMMA"] + c["HGMMA"] == 0
-                          for c in counts.values()):
-        raise RuntimeError("int8_mlp_hidden_kernel runs no tensor-core "
-                           "instruction")
+        for kernel, c in counts.items():
+            f.write(f"== SASS of {kernel}\n{json.dumps(c)}\n")
+    for kernel, c in counts.items():
+        log(f"build: SASS of {kernel}: " + ", ".join(
+            f"{fn.split(':')[0]}:{_short_template(fn)} HMMA {n['HMMA']} "
+            f"HGMMA {n['HGMMA']} FFMA {n['FFMA']}" for fn, n in c.items()))
+        if check_sass and any(n["HMMA"] + n["HGMMA"] == 0
+                              for n in c.values()):
+            raise RuntimeError(f"{kernel} runs no tensor-core instruction")
+
+
+def _short_template(fn: str) -> str:
+    """The template arguments of a mangled kernel name ("ILi4ELi4EE" ->
+    "<4,4>"), or the name where it has none."""
+    if "ILi" not in fn:
+        return fn.split(":")[-1]
+    args = fn.split("ILi", 1)[1].split("EE", 1)[0].split("ELi")
+    return "<" + ",".join(args) + ">"
 
 
 def _sass_counts(build, sources, kernel: str) -> dict:
@@ -577,7 +599,8 @@ def phase_kernels(gen, only: str = ""):
                    f"{100 * b_ms / device[0]:.1f}% of the bound), library "
                    f"{lib_dev}")
         log(f"  {kernel}[{case}]: max_abs_err {err:.3e} "
-            f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain "
+            f"{'ok' if ok else f'FAIL (by {excess:.3e})'} | kernel "
+            f"{ms:.4f} ms | plain "
             f"{plain_ms:.4f} ms | library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | bound "
             f"{b_ms:.4f} ms ({b_by}){dev}")
@@ -1058,10 +1081,11 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
 
 
 def _kernel_device_ms(fn, iters: int = 20) -> dict:
-    """{kernel name: device ms a call of fn}, from torch.profiler's CUDA
-    activity over `iters` calls, largest first. Kernels that overlap (a
-    programmatic dependent launch waiting on its predecessor) each count
-    their whole span."""
+    """{"i. kernel name": device ms a call of fn} for the i-th kernel that
+    one call of fn launches, from torch.profiler's CUDA activity over
+    `iters` calls (kernel durations as the card timed them). Kernels that
+    overlap (a programmatic dependent launch waiting on its predecessor)
+    each count their whole span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1072,18 +1096,21 @@ def _kernel_device_ms(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    kern = sorted((e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA),
+                  key=lambda e: e.start_ns())
+    if not kern or len(kern) % iters:
+        raise RuntimeError(f"{len(kern)} kernels in {iters} calls")
+    per_call = len(kern) // iters
     times = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
+    for i, e in enumerate(kern):
         # "void (anonymous namespace)::name<128>(args)" -> "name<128>"
-        name = (e.key.replace("(anonymous namespace)::", "")
+        name = (e.name().replace("(anonymous namespace)::", "")
                 .replace("otter::", "").replace("void ", "")
                 .split("(")[0].strip())
-        times[name] = times.get(name, 0.0) + us / 1e3 / iters
-    return dict(sorted(times.items(), key=lambda kv: -kv[1]))
+        key = f"{i % per_call + 1}. {name}"
+        times[key] = times.get(key, 0.0) + e.duration_ns() / 1e6 / iters
+    return times
 
 
 # ── model construction ──────────────────────────────────────────────

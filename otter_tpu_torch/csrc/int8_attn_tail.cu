@@ -20,8 +20,8 @@
 // column of y, which many CTAs produce, and the MLP's hidden blocks run in
 // parallel, so the phases are four kernels enqueued back to back by one C
 // entry point (one call from Python, no host work between them):
-//   1. int8_matmul_partial_kernel over Wo: split-K partial sums
-//      (int8_rows.cuh)
+//   1. int8_matmul_partial_kernel over Wo: split-K partial sums, every
+//      weight read once for any M <= 32 (int8_rows.cuh)
 //   2. row_norm_kernel: y and n, one CTA a row
 //   3. int8_mlp_hidden_kernel on n: the fused MLP's main kernel, partial
 //      sums of the second product to an f32 workspace (int8_mlp_kernel.cuh)
@@ -33,9 +33,9 @@
 //
 // What bounds it on the H100: it reads 9 D^2 int8 weights once (151 MB at
 // D = 4096, H = 4 D) for 2 M multiply-adds a weight, so it is bound by
-// bytes; every weight is read once at 1 byte and converted in registers.
-// Phases 1 and 2 run their products on the CUDA cores in f32; phase 3, the
-// MLP (134 of the 151 MB), on the tensor cores.
+// bytes; every weight is read once at 1 byte and converted in registers,
+// and both products (phase 1, and phase 3's MLP: 134 of the 151 MB) run
+// on the tensor cores.
 #include "int8_mlp_kernel.cuh"
 #include "int8_rows.cuh"
 

@@ -10,129 +10,191 @@
 // back by one C entry point. Sums across CTAs go through an f32 workspace
 // and are added in a fixed order: no atomics, so a result is the same from
 // run to run.
+//
+// The product (`int8_matmul_partial_kernel`) is bound by its weight bytes:
+// M <= 32 rows of x make at most 64 operations a weight byte. Its design,
+// for the H100:
+// - mma.sync m16n8k16 on the tensor cores, the int8 weight tile as the A
+//   operand converted in registers and x's rows as the B operand
+//   (int8_mma.cuh, shared with the fused MLP), so a weight costs ~3
+//   instructions whatever M is, where f32 FMAs on the CUDA cores cost ~13
+//   at M = 8.
+// - One weight stream for any M <= 32: ceil(M / 8) n-tiles inside the tile
+//   loop (template instantiations of 1 to 4), no pass over M.
+// - A CTA of 8 warps takes 128 columns and a run of K / splits rows, in
+//   stages of 128 rows (16 KB) through a cp.async ring of four slots:
+//   48 KB in flight a CTA and two CTAs an SM. The host's plan
+//   (ops/quant.py: split_k_rows) keeps the grid within one wave of two
+//   CTAs an SM.
 #pragma once
+#include "int8_mma.cuh"
 #include "mlp_common.cuh"
 
 namespace otter {
 
 constexpr int RB = 128;         // output columns per CTA
-constexpr int RNT = 256;        // threads per CTA
-constexpr int RKC = 64;         // weight rows per pipeline stage
-constexpr int RNS = 3;          // stages in flight
-constexpr int RKG = RNT / 32;   // row groups of a stage, one warp each
+constexpr int RNT = 256;        // threads per CTA: 8 warps
+constexpr int RKC = 128;        // weight rows per pipeline stage
+constexpr int RNS = 4;          // ring slots (RNS - 1 stages in flight)
 constexpr int RMAX = 32;        // largest M (decode shapes)
 constexpr int RNORM_NT = 1024;  // threads of a row_norm CTA
 
-template <int MT>
-union RowsSmem {
-  struct {
-    int8_t w[RNS][RKC][RB];
-    __nv_bfloat16 x[RNS][MT][RKC];
-  } st;
-  float red[RKG][MT][RB];   // each row group's partial sums
+// Shared memory of the product with NB n-tiles (M <= 8 NB): RNS ring
+// slots, each 128 weight rows of the CTA's 128 columns (16 KB) and the
+// matching 128 columns of x's 8 NB rows (bf16). After the walk the ring
+// holds the upper row half's sums, [8 NB][RB] f32.
+template <int NB>
+struct RowsLayout {
+  static constexpr int XROW = RKC * 2;
+  static constexpr int SW = RKC * RB;
+  static constexpr int STAGE = SW + 8 * NB * XROW;
+  static constexpr int BYTES = RNS * STAGE;
+  static_assert(8 * NB * RB * 4 <= BYTES, "room for the half sums");
 };
 
 // ws[s, m, j0 + c] = x[m, rows_s] @ w[rows_s, j0 + c] for CTA (j, s) of a
 // grid (N / 128, splits): x [M, K] bf16, w int8 with row stride ldw (a
 // block of N columns of a wider matrix: the caller offsets the pointer),
-// rows_s the s-th run of K / splits weight rows (a multiple of 64). The
-// block streams through shared memory in 64-row stages, three in flight
-// (cp.async); warp g sums rows 8 g .. 8 g + 7 of every stage for 4 columns
-// a lane, MT rows of x at a time, and the warps' sums are added in order.
-template <int MT>
-__global__ void __launch_bounds__(RNT) int8_matmul_partial_kernel(
+// rows_s the s-th run of K / splits weight rows (a multiple of 64; a
+// last stage of 64 rows is zero-filled). The products run on the tensor
+// cores (int8_mma.cuh): warp w takes columns 32 (w % 4) .. + 31 over rows
+// 64 (w / 4) .. + 63 of every stage, for all 8 NB rows of x at once, so
+// every weight is read once for any M <= 32; the two row halves are added
+// in a fixed order through shared memory. The weights of the first RNS - 1
+// stages are requested before x's, which the previous kernel writes.
+template <int NB>
+__global__ void __launch_bounds__(RNT, 2) int8_matmul_partial_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     float* __restrict__ ws, int M, int K, int N, int ldw) {
-  __shared__ __align__(16) RowsSmem<MT> sm;
-  const int tid = threadIdx.x;
-  const int kg = tid / 32, c4 = (tid % 32) * 4;
+  using L = RowsLayout<NB>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
   const int j0 = blockIdx.x * RB;
-  const int kr = K / gridDim.y, kb = blockIdx.y * kr, nk = kr / RKC;
+  const int kr = K / gridDim.y, kb = blockIdx.y * kr;
+  const int nk = (kr + RKC - 1) / RKC;
 
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    auto load = [&](int stage, int kc) {
-      const int k0 = kb + kc * RKC;
-      for (int e = tid; e < RKC * (RB / 16); e += RNT) {
-        const int r = e / (RB / 16), cv = e % (RB / 16);
-        cp_async16(&sm.st.w[stage][r][cv * 16],
-                   w + (long long)(k0 + r) * ldw + j0 + cv * 16, true);
-      }
-      for (int e = tid; e < MT * (RKC / 8); e += RNT) {
-        const int r = e / (RKC / 8), cv = e % (RKC / 8), m = m0 + r;
-        const bool ok = m < M;
-        cp_async16(&sm.st.x[stage][r][cv * 8],
-                   ok ? x + (long long)m * K + k0 + cv * 8 : x, ok);
-      }
-      cp_async_commit();
-    };
-    float acc[MT][4];
-#pragma unroll
-    for (int r = 0; r < MT; ++r)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[r][t] = 0.f;
-#pragma unroll
-    for (int s = 0; s < RNS - 1; ++s) {
-      if (s < nk) load(s, s);
-      else cp_async_commit();
+  // stage i's weights / x columns into ring slot i % RNS; past the run of
+  // rows, zeros (no commit: the caller groups them)
+  auto load_w = [&](int i) {
+    if (i >= nk) return;
+    unsigned char* st = smem + (i % RNS) * L::STAGE;
+    const int r0 = i * RKC;
+    for (int e = tid; e < RKC * (RB / 16); e += RNT) {
+      const int r = e >> 3, c = e & 7;
+      const bool ok = r0 + r < kr;
+      cp_async16(st + r * RB + w_chunk(r, c),
+                 ok ? w + (long long)(kb + r0 + r) * ldw + j0 + c * 16 : w,
+                 ok);
     }
-    for (int kc = 0; kc < nk; ++kc) {
-      cp_async_wait<RNS - 2>();
-      __syncthreads();
-      // the stage refilled here was consumed in the previous iteration
-      if (kc + RNS - 1 < nk) load((kc + RNS - 1) % RNS, kc + RNS - 1);
-      else cp_async_commit();
-      const int cur = kc % RNS;
-#pragma unroll
-      for (int kk = kg * (RKC / RKG); kk < (kg + 1) * (RKC / RKG); ++kk) {
-        const char4 wv =
-            *reinterpret_cast<const char4*>(&sm.st.w[cur][kk][c4]);
-        const float w0 = wv.x, w1 = wv.y, w2 = wv.z, w3 = wv.w;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const float xv = __bfloat162float(sm.st.x[cur][r][kk]);
-          acc[r][0] = fmaf(xv, w0, acc[r][0]);
-          acc[r][1] = fmaf(xv, w1, acc[r][1]);
-          acc[r][2] = fmaf(xv, w2, acc[r][2]);
-          acc[r][3] = fmaf(xv, w3, acc[r][3]);
-        }
-      }
+  };
+  auto load_x = [&](int i) {
+    if (i >= nk) return;
+    unsigned char* st = smem + (i % RNS) * L::STAGE + L::SW;
+    const int r0 = i * RKC;
+    for (int e = tid; e < 8 * NB * (RKC / 8); e += RNT) {
+      const int m = e >> 4, c = e & 15;
+      const bool ok = m < M && r0 + c * 8 < kr;
+      cp_async16(st + m * L::XROW + x_chunk(m, c),
+                 ok ? x + (long long)m * K + kb + r0 + c * 8 : x, ok);
     }
-    cp_async_wait<0>();
-    __syncthreads();   // the stages are read: red may reuse their space
+  };
+
+  float acc[2][NB][4];
 #pragma unroll
-    for (int r = 0; r < MT; ++r)
+  for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) sm.red[kg][r][c4 + t] = acc[r][t];
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[tl][n][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < RNS - 1; ++s) load_w(s);
+#pragma unroll
+  for (int s = 0; s < RNS - 1; ++s) load_x(s);
+  cp_async_commit();   // one group: the first RNS - 1 stages
+
+  const int cg = warp & 3, kh = warp >> 2;
+  const int wcol = w_quad(cg, g, t);
+  for (int i = 0; i < nk; ++i) {
+    if (i == 0) cp_async_wait<0>();
+    else cp_async_wait<RNS - 2>();
     __syncthreads();
-    for (int e = tid; e < MT * RB; e += RNT) {
-      const int r = e / RB, col = e % RB, m = m0 + r;
-      if (m >= M) continue;
-      float z = 0.f;
+    // the slot refilled here was read in the previous iteration
+    load_w(i + RNS - 1);
+    load_x(i + RNS - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % RNS) * L::STAGE;
+    k_steps<NB, RB, L::XROW, 4>(st, 64 * kh, wcol, st + L::SW, 64 * kh, g,
+                                t, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is read: it takes the half sums
+
+  // column 32 cg + 4 g + q of row 8 n + 2 t + e: acc[q / 2][n][2 (q % 2) + e]
+  float* red = reinterpret_cast<float*>(smem);
+  const int col = 32 * cg + 4 * g;
+  if (kh == 1) {
 #pragma unroll
-      for (int g = 0; g < RKG; ++g) z += sm.red[g][r][col];
-      ws[((long long)blockIdx.y * M + m) * N + j0 + col] = z;
-    }
-    __syncthreads();   // red is read before the next rows' stages land
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(red + (8 * n + 2 * t + e) * RB + col) =
+            make_float4(acc[0][n][e], acc[0][n][2 + e], acc[1][n][e],
+                        acc[1][n][2 + e]);
+  }
+  __syncthreads();
+  if (kh == 0) {
+    float* out = ws + (long long)blockIdx.y * M * N + j0 + col;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * n + 2 * t + e;
+        if (m >= M) continue;
+        const float4 hi =
+            *reinterpret_cast<const float4*>(red + m * RB + col);
+        *reinterpret_cast<float4*>(out + (long long)m * N) = make_float4(
+            acc[0][n][e] + hi.x, acc[0][n][2 + e] + hi.y,
+            acc[1][n][e] + hi.z, acc[1][n][2 + e] + hi.w);
+      }
   }
 }
 
 // Whether (M, K, N, ldw, splits) is a shape the product kernel takes.
 inline bool matmul_partial_ok(int M, int K, int N, int ldw, int splits) {
   return M >= 1 && M <= RMAX && N % RB == 0 && ldw % 16 == 0 && K % 8 == 0 &&
-         splits >= 1 && K % (RKC * splits) == 0;
+         splits >= 1 && K % (64 * splits) == 0;
 }
 
+template <int NB>
+int launch_matmul_partial_nb(const void* x, const void* w, void* ws, int M,
+                             int K, int N, int ldw, int splits,
+                             cudaStream_t st) {
+  constexpr int smem = RowsLayout<NB>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      int8_matmul_partial_kernel<NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_matmul_partial_kernel<NB><<<dim3(N / RB, splits), RNT, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws, M, K, N, ldw);
+  return (int)cudaGetLastError();
+}
+
+// ceil(M / 8) n-tiles: one weight stream for any M <= RMAX
 inline int launch_matmul_partial(const void* x, const void* w, void* ws,
                                  int M, int K, int N, int ldw, int splits,
                                  cudaStream_t st) {
-  const dim3 grid(N / RB, splits);
-  if (M == 1)
-    int8_matmul_partial_kernel<1><<<grid, RNT, 0, st>>>(
-        (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws, M, K, N, ldw);
-  else
-    int8_matmul_partial_kernel<8><<<grid, RNT, 0, st>>>(
-        (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws, M, K, N, ldw);
-  return (int)cudaGetLastError();
+  switch ((M + 7) / 8) {
+    case 1:
+      return launch_matmul_partial_nb<1>(x, w, ws, M, K, N, ldw, splits, st);
+    case 2:
+      return launch_matmul_partial_nb<2>(x, w, ws, M, K, N, ldw, splits, st);
+    case 3:
+      return launch_matmul_partial_nb<3>(x, w, ws, M, K, N, ldw, splits, st);
+    default:
+      return launch_matmul_partial_nb<4>(x, w, ws, M, K, N, ldw, splits, st);
+  }
 }
 
 // The sum of `v` over the CTA, the same in every thread: lanes by

@@ -159,7 +159,8 @@ def decode_attn_megakernel(
             bias_col = bias_col.contiguous()
         bias_ptr, bias_sh = bias_col.data_ptr(), bias_col.stride(0)
     dev = x.device
-    splits_qkv, splits_o = quant.split_k(d, 3 * d), quant.split_k(d, d)
+    splits_qkv = quant.split_k_rows(d, 3 * d)
+    splits_o = quant.split_k_rows(d, d)
     # two allocations (a decode step is bound by the host): the outputs
     # y | k_new | v_new, and the scratch ws_qkv | ws_o (f32) | normed | attn
     out = torch.empty((3, bsz, d), dtype=torch.bfloat16, device=dev)

@@ -614,6 +614,18 @@ def test_attn_tail_full_width_m32(gen):
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 32])
+def test_attn_tail_every_n_tile_count(gen, m):
+    # 1 to 4 n-tiles of 8 rows in the out-projection's product; its K of
+    # 320 rows is two and a half 128-row stages (the last half zero-filled)
+    args = _tail_args(gen, m, hd=320, d=512, hid=640)
+    out = quant.int8_attn_tail(*args)
+    _close(out, quant.int8_attn_tail_plain(*args))
+    again = quant.int8_attn_tail(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
 def test_attn_tail_rectangular_out_proj(gen):
     # hd != D (an out-projection that is not square), H not a power of two
     args = _tail_args(gen, 3, hd=128, d=384, hid=640)
@@ -658,6 +670,29 @@ def test_megakernel_matches_plain(gen, b, dh, pos):
     before = mk.decode_attn_megakernel.launches
     outs = mk.decode_attn_megakernel(*args, layer=1)
     assert mk.decode_attn_megakernel.launches == before + 1
+    refs = mk.decode_attn_megakernel_plain(*args, layer=1)
+    for o, r in zip(outs, refs):
+        assert bool(torch.isfinite(o.float()).all())
+        _close(o, r)
+    again = mk.decode_attn_megakernel(*args, layer=1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, a) for o, a in zip(outs, again))
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_megakernel_long_span_split_over_ctas(gen, b, dh):
+    # a span of 2047 rows over few heads: the attention phase cuts it into
+    # chunks on many CTAs and merges them in chunk order. The bias lifts a
+    # few keys far apart, so that the output depends on the weights the
+    # merge gives chunks that hold them (a flat softmax would average any
+    # error away).
+    h, L, nl, pos = 4, 2048, 2, 2047
+    args = list(_mk_args(gen, b, h, dh, L, nl, pos))
+    args[4][:, 5:9] += 6.0
+    args[4][:, 1000:1010] += 7.0
+    args[4][:, 2040:2046] += 6.5
+    outs = mk.decode_attn_megakernel(*args, layer=1)
     refs = mk.decode_attn_megakernel_plain(*args, layer=1)
     for o, r in zip(outs, refs):
         assert bool(torch.isfinite(o.float()).all())
