@@ -53,113 +53,92 @@ using namespace otter;
 
 namespace {
 
-constexpr int NW = 4;  // warps per attention CTA
+constexpr int NW = 4;          // warps per attention CTA
+constexpr int ANS = 3;         // steps in each warp's ring
+constexpr int STAGE_K = 2048;  // bytes of k rows a step (v the same)
+
+// The attention CTA's walk over bf16 cache rows, as decode_attention.cu
+// walks them: a row is LPR lanes of 16 bytes, a warp load covers RPW rows,
+// a step R rows (2 KB of k, 2 KB of v and R bias values).
+template <int DH>
+struct AttnGeo {
+  static constexpr int RB = DH * 2;                 // bytes a row
+  static constexpr int LPR = RB / 16;               // lanes a row
+  static constexpr int RPW = 32 / LPR;              // rows a warp load
+  static constexpr int R = STAGE_K / RB;            // rows a step
+  static constexpr int U = R / RPW;                 // loads a lane a step
+  static constexpr int STAGE = 2 * STAGE_K + 4 * R;  // k, v, bias
+  static constexpr int SMEM = NW * ANS * STAGE;
+  static_assert(U * RPW == R && R <= 32, "step shape");
+};
+
+struct AttnArgs {
+  const float* ws_qkv;        // [nsplit, B, 3D] partial sums of qkv
+  const float* sqo;           // [4D] column scales
+  const __nv_bfloat16* kc;    // [B, NL, H, L, DH]
+  const __nv_bfloat16* vc;
+  const float* bias;          // [H, >= L] rows of stride bias_sh, or null
+  long long bias_sh;
+  __nv_bfloat16* k_new;       // [B, H, DH]
+  __nv_bfloat16* v_new;
+  __nv_bfloat16* attn;        // [B, D]
+  float* part;                // [B, H, n_splits, 2 + DH]: m, l, acc a chunk
+  int* counters;              // [B, H], 0 between calls
+  int nsplit, B, H, NL, layer, L, pos, n_splits, min_rows;
+  float sm_scale;
+};
 
 template <int DH>
 __global__ void __launch_bounds__(NW * 32) megakernel_attention_kernel(
-    const float* __restrict__ ws_qkv, int nsplit,
-    const float* __restrict__ sqo, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, const float* __restrict__ bias,
-    long long bias_sh, __nv_bfloat16* __restrict__ k_new,
-    __nv_bfloat16* __restrict__ v_new, __nv_bfloat16* __restrict__ attn,
-    int B, int H, int NL, int layer, int L, int pos, float sm_scale) {
-  constexpr int DPL = DH / 32;  // head-dim columns per lane in p.v
-  __shared__ float qs[DH], kn[DH], vn[DH];
-  __shared__ float red_m[NW], red_l[NW];
-  __shared__ float red_acc[NW][DH];
+    AttnArgs a) {
+  using G = AttnGeo<DH>;
+  constexpr int R = G::R, RB = G::RB, LPR = G::LPR, RPW = G::RPW, U = G::U;
+  constexpr int DPL = DH / 32;  // head-dim columns per lane, new token
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float qs[DH], kn[DH], vn[DH], s_new_sh;
+  __shared__ float red_m[NW], red_l[NW], red_acc[NW][DH];
+  __shared__ int last;
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int D = H * DH;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int D = a.H * DH;
+  const long long bh = (long long)b * a.H + h;
+
+  // this CTA's chunk of [0, pos), cut as ops/decode_attention.py:
+  // split_chunks cuts it (pos 0: one CTA, no cache row)
+  int used = 1, lo = 0, hi = 0;
+  if (a.pos > 0) {
+    const int n = max(1, min(a.n_splits, a.pos / a.min_rows));
+    const int chunk = (a.pos + n - 1) / n;
+    used = (a.pos + chunk - 1) / chunk;
+    lo = split * chunk;
+    hi = min(lo + chunk, a.pos);
+  }
+  if (split >= used) return;
 
   // this head's q, k_new, v_new: the split-K partial sums in order, scaled
   // (f32), then rounded to bf16 where the attention reads them
-  for (int e = threadIdx.x; e < 3 * DH; e += NW * 32) {
+  for (int e = tid; e < 3 * DH; e += NW * 32) {
     const int part = e / DH, d = e % DH;
     const int col = part * D + h * DH + d;
     float acc = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      acc += ws_qkv[((long long)s * B + b) * 3 * D + col];
-    const __nv_bfloat16 r = __float2bfloat16(acc * sqo[col]);
-    const long long o = ((long long)b * H + h) * DH + d;
+    for (int s = 0; s < a.nsplit; ++s)
+      acc += a.ws_qkv[((long long)s * a.B + b) * 3 * D + col];
+    const __nv_bfloat16 r = __float2bfloat16(acc * a.sqo[col]);
+    const long long o = bh * DH + d;
     if (part == 0) {
       qs[d] = __bfloat162float(r);
     } else if (part == 1) {
       kn[d] = __bfloat162float(r);
-      k_new[o] = r;
+      if (split == 0) a.k_new[o] = r;
     } else {
       vn[d] = __bfloat162float(r);
-      v_new[o] = r;
+      if (split == 0) a.v_new[o] = r;
     }
   }
   __syncthreads();
-
-  const long long row = ((long long)b * NL + layer) * H + h;
-  const __nv_bfloat16* kp = kc + row * L * DH;
-  const __nv_bfloat16* vp = vc + row * L * DH;
-  const float* bp = bias != nullptr ? bias + h * bias_sh : nullptr;
-
-  float m = -INFINITY, l = 0.f, acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-
-  // cache rows [0, pos): the warps take 32-key chunks in turn
-  for (int base = warp * 32; base < pos; base += NW * 32) {
-    const int key = base + lane;
-    const bool valid = key < pos;
-    float s = -INFINITY;
-    if (valid) {
-      const __nv_bfloat16* kr = kp + (long long)key * DH;
-      float dot = 0.f;
-#pragma unroll
-      for (int d0 = 0; d0 < DH; d0 += 8) {
-        const int4 raw = *reinterpret_cast<const int4*>(kr + d0);
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h2[i]);
-          dot = fmaf(qs[d0 + 2 * i], f.x, dot);
-          dot = fmaf(qs[d0 + 2 * i + 1], f.y, dot);
-        }
-      }
-      s = dot * sm_scale;
-      if (bp != nullptr) s += bp[key];
-    }
-    float cmax = s;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
-    const float m_new = fmaxf(m, cmax);   // lane 0's key is valid: finite
-    const float alpha = expf(m - m_new);
-    const float p = valid ? expf(s - m_new) : 0.f;
-    float psum = p;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = alpha * l + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-    const float pq = __bfloat162float(__float2bfloat16(p));
-
-    const int jmax = min(32, pos - base);
-    for (int j = 0; j < jmax; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, pq, j);
-      const __nv_bfloat16* vr = vp + (long long)(base + j) * DH + lane * DPL;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        acc[i] = fmaf(pj, __bfloat162float(vr[i]), acc[i]);
-    }
-  }
-
-  if (lane == 0) {
-    red_m[warp] = m;
-    red_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) red_acc[warp][lane * DPL + i] = acc[i];
-  __syncthreads();
+  const float* bp =
+      a.bias != nullptr ? a.bias + (long long)h * a.bias_sh : nullptr;
   if (warp == 0) {
     // the new token's logit, from shared memory
     float s_new = 0.f;
@@ -169,61 +148,229 @@ __global__ void __launch_bounds__(NW * 32) megakernel_attention_kernel(
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
-    s_new *= sm_scale;
-    if (bp != nullptr) s_new += bp[pos];
+    s_new *= a.sm_scale;
+    if (bp != nullptr) s_new += bp[a.pos];
+    if (lane == 0) s_new_sh = s_new;
+  }
 
-    float mx = s_new;
+  const long long row = ((long long)b * a.NL + a.layer) * a.H + h;
+  const uint8_t* kp = reinterpret_cast<const uint8_t*>(a.kc) + row * a.L * RB;
+  const uint8_t* vp = reinterpret_cast<const uint8_t*>(a.vc) + row * a.L * RB;
+
+  // the lane's slice of q: columns [c0, c0 + 8) of every row it reads
+  const int c0 = (lane % LPR) * 8, rl = lane / LPR;
+  float qf[8];
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, red_m[w]);
-    const float p_new = expf(s_new - mx);
-    float lsum = p_new, o[DPL];
+  for (int j = 0; j < 8; ++j) qf[j] = qs[c0 + j];
+
+  uint8_t* ring = smem + warp * ANS * G::STAGE;
+  const int steps = (hi - lo + R - 1) / R;
+  const int n_w = steps > warp ? (steps - warp + NW - 1) / NW : 0;
+  const uint32_t col = (lane % LPR) * 16;
+
+  // rows of warp step i into ring slot i % ANS (rows past hi read as 0);
+  // always one commit group, empty past the warp's last step
+  auto fetch = [&](int i) {
+    if (i < n_w) {
+      const int base = lo + (warp + NW * i) * R;
+      uint8_t* st = ring + (i % ANS) * G::STAGE;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) o[i] = p_new * vn[lane * DPL + i];
+      for (int u = 0; u < U; ++u) {
+        const int rr = u * RPW + rl, p = base + rr;
+        const bool ok = p < hi;
+        const long long off = (long long)(ok ? p : 0) * RB + col;
+        cp_async16(st + rr * RB + col, kp + off, ok);
+        cp_async16(st + STAGE_K + rr * RB + col, vp + off, ok);
+      }
+      if (bp != nullptr && lane < R) {
+        const int p = base + lane;
+        const bool ok = p < hi;
+        cp_async4(st + 2 * STAGE_K + 4 * lane, bp + (ok ? p : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m = -INFINITY, l = 0.f, acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < ANS - 1; ++i) fetch(i);
+  for (int i = 0; i < n_w; ++i) {
+    fetch(i + ANS - 1);  // into the slot step i - 1 left
+    cp_async_wait<ANS - 1>();
+    __syncwarp();        // the bias came through other lanes
+    const uint8_t* st = ring + (i % ANS) * G::STAGE;
+    const float* sbias = reinterpret_cast<const float*>(st + 2 * STAGE_K);
+    const int base = lo + (warp + NW * i) * R;
+
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = u * RPW + rl;
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + rr * RB + col);
+      const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dot = fmaf(qf[2 * j], __uint_as_float(w4[j] << 16), dot);
+        dot = fmaf(qf[2 * j + 1], __uint_as_float(w4[j] & 0xFFFF0000u), dot);
+      }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      dot *= a.sm_scale;
+      if (bp != nullptr) dot += sbias[rr];
+      s[u] = base + rr < hi ? dot : -INFINITY;
+    }
+    // every step holds a row below hi: m_new is finite
+    float mx = s[0];
+#pragma unroll
+    for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u]);
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    m = m_new;
+    l *= alpha;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = u * RPW + rl;
+      const float p = expf(s[u] - m_new);
+      l += p;
+      const float pq = __bfloat162float(__float2bfloat16(p));
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(st + STAGE_K + rr * RB + col);
+      const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[2 * j] = fmaf(pq, __uint_as_float(w4[j] << 16), acc[2 * j]);
+        acc[2 * j + 1] =
+            fmaf(pq, __uint_as_float(w4[j] & 0xFFFF0000u), acc[2 * j + 1]);
+      }
+    }
+    __syncwarp();  // the slot is refilled by the next step's fetch
+  }
+  cp_async_wait<0>();
+
+  // the row groups' sums (every lane of a row group holds the same l)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+  }
+  if (lane == 0) {
+    red_m[warp] = m;
+    red_l[warp] = l;
+  }
+  if (lane < LPR)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red_acc[warp][c0 + j] = acc[j];
+  __syncthreads();
+
+  // the warps' sums in warp order; thread t < DH holds column t
+  float mc = red_m[0], lc = 0.f, ac = 0.f;
+#pragma unroll
+  for (int w = 1; w < NW; ++w) mc = fmaxf(mc, red_m[w]);
+  if (tid < DH) {
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      if (red_m[w] == -INFINITY) continue;   // a warp that saw no key
-      const float sc = expf(red_m[w] - mx);
-      lsum += red_l[w] * sc;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        o[i] = fmaf(red_acc[w][lane * DPL + i], sc, o[i]);
+      if (red_m[w] == -INFINITY) continue;  // a warp without rows
+      const float f = expf(red_m[w] - mc);
+      lc += red_l[w] * f;
+      ac = fmaf(red_acc[w][tid], f, ac);
     }
-    const float linv = 1.f / lsum;
-    __nv_bfloat16* op = attn + (long long)b * D + h * DH + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) op[i] = __float2bfloat16(o[i] * linv);
   }
+
+  // the output: the new token first, then the chunks in chunk order
+  const float s_new = s_new_sh;
+  __nv_bfloat16* op = a.attn + (long long)b * D + h * DH;
+  if (used == 1) {
+    if (tid < DH) {
+      const float mg = fmaxf(s_new, mc);
+      const float p_new = expf(s_new - mg);
+      float lg = p_new, ag = p_new * vn[tid];
+      if (mc != -INFINITY) {  // the CTA saw a cache row
+        const float f = expf(mc - mg);
+        lg += lc * f;
+        ag = fmaf(ac, f, ag);
+      }
+      op[tid] = __float2bfloat16(ag * (1.f / lg));
+    }
+    return;
+  }
+  float* part = a.part + (bh * a.n_splits + split) * (2 + DH);
+  if (tid < DH) part[2 + tid] = ac;
+  if (tid == 0) {
+    part[0] = mc;
+    part[1] = lc;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int done = atomicAdd(a.counters + bh, 1);
+    last = done == used - 1;
+    if (last) a.counters[bh] = 0;  // ready for the next call
+  }
+  __syncthreads();
+  if (!last || tid >= DH) return;
+  __threadfence();
+  // every chunk holds a row: each m is finite
+  const float* parts = a.part + bh * a.n_splits * (2 + DH);
+  float mg = s_new;
+  for (int s = 0; s < used; ++s) mg = fmaxf(mg, __ldcg(parts + s * (2 + DH)));
+  const float p_new = expf(s_new - mg);
+  float lg = p_new, ag = p_new * vn[tid];
+  for (int s = 0; s < used; ++s) {
+    const float* ps = parts + s * (2 + DH);
+    const float f = expf(__ldcg(ps) - mg);
+    lg += __ldcg(ps + 1) * f;
+    ag = fmaf(__ldcg(ps + 2 + tid), f, ag);
+  }
+  op[tid] = __float2bfloat16(ag * (1.f / lg));
 }
 
 template <int DH>
-int launch_attention(const void* ws_qkv, int nsplit, const void* sqo,
-                     const void* kc, const void* vc, const void* bias,
-                     long long bias_sh, void* k_new, void* v_new, void* attn,
-                     int B, int H, int NL, int layer, int L, int pos,
-                     float sm_scale, cudaStream_t st) {
-  megakernel_attention_kernel<DH><<<dim3(H, B), NW * 32, 0, st>>>(
-      (const float*)ws_qkv, nsplit, (const float*)sqo,
-      (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc, (const float*)bias,
-      bias_sh, (__nv_bfloat16*)k_new, (__nv_bfloat16*)v_new,
-      (__nv_bfloat16*)attn, B, H, NL, layer, L, pos, sm_scale);
+int launch_attention(const AttnArgs& a, cudaStream_t st) {
+  constexpr int smem = AttnGeo<DH>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      megakernel_attention_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  megakernel_attention_kernel<DH>
+      <<<dim3(a.n_splits, a.H, a.B), NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Scratch, allocated by the caller: normed and attn [B, D] bf16, ws_qkv
-// [splits_qkv, B, 3D] f32, ws_o [splits_o, B, D] f32.
+// [splits_qkv, B, 3D] f32, ws_o [splits_o, B, D] f32; for an attention
+// phase of attn_splits > 1 CTAs a (batch, head) (ops/megakernel.py:
+// attention_plan, with chunks of at least attn_min_rows rows), attn_part
+// [B, H, attn_splits, 2 + Dh] f32 and attn_counters [B, H] int32, 0 before
+// the call and left so.
 extern "C" int decode_attn_megakernel_bf16(
     const void* x, const void* k_cache, const void* v_cache, const void* bias,
     long long bias_sh, const void* ln1, const void* wqo, const void* sqo,
-    void* normed, void* ws_qkv, void* attn, void* ws_o, void* y, void* k_new,
-    void* v_new, int B, int H, int Dh, int NL, int layer, int L, int pos,
-    float eps, float sm_scale, int splits_qkv, int splits_o, void* stream) {
+    void* normed, void* ws_qkv, void* attn, void* ws_o, void* attn_part,
+    void* attn_counters, void* y, void* k_new, void* v_new, int B, int H,
+    int Dh, int NL, int layer, int L, int pos, float eps, float sm_scale,
+    int splits_qkv, int splits_o, int attn_splits, int attn_min_rows,
+    void* stream) {
   const int D = H * Dh;
   if (B < 1 || B > 8 || (Dh != 64 && Dh != 128) || pos < 0 || pos >= L ||
       layer < 0 || layer >= NL ||
       !matmul_partial_ok(B, D, 3 * D, 4 * D, splits_qkv) ||
-      !matmul_partial_ok(B, D, D, 4 * D, splits_o))
+      !matmul_partial_ok(B, D, D, 4 * D, splits_o) || attn_splits < 1 ||
+      attn_min_rows < 1 ||
+      (attn_splits > 1 && (attn_part == nullptr || attn_counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int err = launch_row_norm(x, nullptr, 0, nullptr, ln1, nullptr, normed, B,
@@ -232,13 +379,29 @@ extern "C" int decode_attn_megakernel_bf16(
   err = launch_matmul_partial(normed, wqo, ws_qkv, B, D, 3 * D, 4 * D,
                               splits_qkv, st);
   if (err != 0) return err;
-  err = Dh == 128
-      ? launch_attention<128>(ws_qkv, splits_qkv, sqo, k_cache, v_cache, bias,
-                              bias_sh, k_new, v_new, attn, B, H, NL, layer, L,
-                              pos, sm_scale, st)
-      : launch_attention<64>(ws_qkv, splits_qkv, sqo, k_cache, v_cache, bias,
-                             bias_sh, k_new, v_new, attn, B, H, NL, layer, L,
-                             pos, sm_scale, st);
+  AttnArgs a;
+  a.ws_qkv = (const float*)ws_qkv;
+  a.sqo = (const float*)sqo;
+  a.kc = (const __nv_bfloat16*)k_cache;
+  a.vc = (const __nv_bfloat16*)v_cache;
+  a.bias = (const float*)bias;
+  a.bias_sh = bias_sh;
+  a.k_new = (__nv_bfloat16*)k_new;
+  a.v_new = (__nv_bfloat16*)v_new;
+  a.attn = (__nv_bfloat16*)attn;
+  a.part = (float*)attn_part;
+  a.counters = (int*)attn_counters;
+  a.nsplit = splits_qkv;
+  a.B = B;
+  a.H = H;
+  a.NL = NL;
+  a.layer = layer;
+  a.L = L;
+  a.pos = pos;
+  a.n_splits = attn_splits;
+  a.min_rows = attn_min_rows;
+  a.sm_scale = sm_scale;
+  err = Dh == 128 ? launch_attention<128>(a, st) : launch_attention<64>(a, st);
   if (err != 0) return err;
   err = launch_matmul_partial(attn, (const int8_t*)wqo + 3 * D, ws_o, B, D, D,
                               4 * D, splits_o, st);

@@ -28,6 +28,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(n));
 }
+// 4-byte copy of the same kind (through L1: .cg takes 16 bytes only)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

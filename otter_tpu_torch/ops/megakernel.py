@@ -30,16 +30,43 @@ from typing import Optional, Tuple
 import torch
 
 from otter_tpu_torch import _build
+from otter_tpu_torch.ops import decode_attention as da
 from otter_tpu_torch.ops import quant
 from otter_tpu_torch.ops.layers import layer_norm
 
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 _SIGNATURES = {"decode_attn_megakernel_bf16": (
-    [_P] * 4 + [_LL] + [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P], _I)}
+    [_P] * 4 + [_LL] + [_P] * 12 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P],
+    _I)}
 
 # head dims the kernel takes
 KERNEL_HEAD_DIMS = (64, 128)
+
+
+def attention_plan(b: int, h: int, cache_len: int, dh: int):
+    """(splits, min_rows) of the kernel's attention phase: each (batch,
+    head)'s span [0, pos) is cut into at most `splits` chunks of at least
+    `min_rows` rows (`decode_attention.split_chunks(0, pos, ...)`), one CTA
+    a chunk, as `decode_attention` splits a bf16 cache: B * H * splits CTAs
+    within one wave of the card where B * H allows. A pure function of the
+    shapes (the cache length, not pos), so a step's grid does not move
+    with pos."""
+    return da.split_plan(b, h, cache_len, dh, 0)
+
+
+_counters = {}
+
+
+def _counters_for(device: torch.device, rows: int) -> torch.Tensor:
+    """The attention phase's int32 counters, one a (batch, head), kept per
+    device between calls: they must be 0 before a call, and the kernel
+    leaves them so."""
+    cnt = _counters.get(device.index)
+    if cnt is None or cnt.numel() < rows:
+        cnt = _counters[device.index] = torch.zeros(
+            rows, dtype=torch.int32, device=device)
+    return cnt
 
 
 def _layer_of(cache: torch.Tensor, layer: Optional[int]) -> torch.Tensor:
@@ -161,25 +188,31 @@ def decode_attn_megakernel(
     dev = x.device
     splits_qkv = quant.split_k_rows(d, 3 * d)
     splits_o = quant.split_k_rows(d, d)
+    attn_splits, min_rows = attention_plan(bsz, h, L, dh)
     # two allocations (a decode step is bound by the host): the outputs
-    # y | k_new | v_new, and the scratch ws_qkv | ws_o (f32) | normed | attn
+    # y | k_new | v_new, and the scratch ws_qkv | ws_o (f32) | normed |
+    # attn (bf16) | the attention chunks' partials (f32)
     out = torch.empty((3, bsz, d), dtype=torch.bfloat16, device=dev)
     n_qkv, n_o = splits_qkv * bsz * 3 * d, splits_o * bsz * d
-    scratch = torch.empty(n_qkv + n_o + bsz * d, dtype=torch.float32,
-                          device=dev)
+    n_part = bsz * h * attn_splits * (2 + dh) if attn_splits > 1 else 0
+    scratch = torch.empty(n_qkv + n_o + bsz * d + n_part,
+                          dtype=torch.float32, device=dev)
     ws_qkv = scratch.data_ptr()
     ws_o = ws_qkv + 4 * n_qkv
     normed = ws_o + 4 * n_o
     attn = normed + 2 * bsz * d
+    part = attn + 2 * bsz * d
+    counters = (_counters_for(dev, bsz * h).data_ptr() if attn_splits > 1
+                else None)
     y, k_new, v_new = out[0], out[1].view(bsz, h, dh), out[2].view(bsz, h, dh)
     lib = _build.library("megakernel", _SIGNATURES)
     err = lib.decode_attn_megakernel_bf16(
         x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias_ptr,
         bias_sh, ln1_scale.data_ptr(), wqo.data_ptr(), sqo.data_ptr(),
-        normed, ws_qkv, attn, ws_o, y.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), bsz, h, dh, nl, layer, L, pos, float(eps),
-        float(sm_scale), splits_qkv, splits_o,
-        torch.cuda.current_stream(dev).cuda_stream)
+        normed, ws_qkv, attn, ws_o, part if n_part else None, counters,
+        y.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), bsz, h, dh, nl,
+        layer, L, pos, float(eps), float(sm_scale), splits_qkv, splits_o,
+        attn_splits, min_rows, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "decode_attn_megakernel")
     decode_attn_megakernel.launches += 1
     return y, k_new, v_new

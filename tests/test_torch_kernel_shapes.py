@@ -122,3 +122,42 @@ def test_int8_mlp_takes_every_preset_mlp(name):
         for m in (1, 8, 32):
             assert quant.int8_mlp_refusal(m, text.hidden_size, hid,
                                           text.hidden_size) is None, (site, m)
+
+
+def _megakernel_presets():
+    """The presets whose decoder layer the megakernel route takes: MPT's
+    ALiBi attention without q/k LayerNorm, heads == kv heads, a head dim
+    the kernel has."""
+    for name, factory in sorted(config.PRESETS.items()):
+        text = factory().text
+        if text.pos == "alibi" and not text.qk_ln \
+                and text.num_attention_heads == text.kv_heads \
+                and text.head_dim in mk.KERNEL_HEAD_DIMS:
+            yield name, text
+
+
+def test_megakernel_presets_are_known():
+    assert [name for name, _ in _megakernel_presets()] == ["mpt7b"]
+
+
+@pytest.mark.parametrize("name,text", list(_megakernel_presets()))
+def test_megakernel_attention_split_covers_each_span_once(name, text):
+    # the kernel cuts [0, pos) as split_chunks does, with the plan that
+    # attention_plan gives for the cache length: every row below pos in
+    # exactly one chunk, at most `splits` chunks, and a grid of one wave
+    h, dh = text.num_attention_heads, text.head_dim
+    wave = da.SM_COUNT * da.CTAS_PER_SM
+    for cache_len in (256, 1024, text.max_seq_len):
+        for b in range(1, 9):
+            splits, min_rows = mk.attention_plan(b, h, cache_len, dh)
+            assert splits * b * h <= wave, (cache_len, b, splits)
+            poss = {0, 1, min_rows - 1, min_rows, min_rows + 1,
+                    cache_len // 2, cache_len - 1,
+                    *range(0, cache_len, 37)}
+            for pos in sorted(p for p in poss if 0 <= p < cache_len):
+                chunks = da.split_chunks(0, pos, splits, min_rows)
+                assert len(chunks) <= splits
+                rows = [r for lo, hi in chunks for r in range(lo, hi)]
+                assert rows == list(range(pos)), (cache_len, b, pos)
+                assert all(hi - lo >= min(min_rows, pos)
+                           for lo, hi in chunks[:-1])
