@@ -61,7 +61,8 @@ struct RowsLayout {
 // 64 (w / 4) .. + 63 of every stage, for all 8 NB rows of x at once, so
 // every weight is read once for any M <= 32; the two row halves are added
 // in a fixed order through shared memory. The weights of the first RNS - 1
-// stages are requested before x's, which the previous kernel writes.
+// stages are requested before `pdl_wait`, x's (which the previous kernel
+// writes) after it.
 template <int NB>
 __global__ void __launch_bounds__(RNT, 2) int8_matmul_partial_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
@@ -110,6 +111,7 @@ __global__ void __launch_bounds__(RNT, 2) int8_matmul_partial_kernel(
 
 #pragma unroll
   for (int s = 0; s < RNS - 1; ++s) load_w(s);
+  pdl_wait();          // x comes from the kernel before
 #pragma unroll
   for (int s = 0; s < RNS - 1; ++s) load_x(s);
   cp_async_commit();   // one group: the first RNS - 1 stages
@@ -124,6 +126,7 @@ __global__ void __launch_bounds__(RNT, 2) int8_matmul_partial_kernel(
     load_w(i + RNS - 1);
     load_x(i + RNS - 1);
     cp_async_commit();
+    if (i == max(nk - RNS, 0)) pdl_launch_dependents();  // last loads issued
     const unsigned char* st = smem + (i % RNS) * L::STAGE;
     k_steps<NB, RB, L::XROW, 4>(st, 64 * kh, wcol, st + L::SW, 64 * kh, g,
                                 t, acc);
@@ -170,30 +173,35 @@ inline bool matmul_partial_ok(int M, int K, int N, int ldw, int splits) {
 template <int NB>
 int launch_matmul_partial_nb(const void* x, const void* w, void* ws, int M,
                              int K, int N, int ldw, int splits,
-                             cudaStream_t st) {
+                             cudaStream_t st, bool pdl) {
   constexpr int smem = RowsLayout<NB>::BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       int8_matmul_partial_kernel<NB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int8_matmul_partial_kernel<NB><<<dim3(N / RB, splits), RNT, smem, st>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws, M, K, N, ldw);
-  return (int)cudaGetLastError();
+  return launch_kernel(pdl, int8_matmul_partial_kernel<NB>,
+                       dim3(N / RB, splits), RNT, smem, st,
+                       (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws,
+                       M, K, N, ldw);
 }
 
 // ceil(M / 8) n-tiles: one weight stream for any M <= RMAX
 inline int launch_matmul_partial(const void* x, const void* w, void* ws,
                                  int M, int K, int N, int ldw, int splits,
-                                 cudaStream_t st) {
+                                 cudaStream_t st, bool pdl = false) {
   switch ((M + 7) / 8) {
     case 1:
-      return launch_matmul_partial_nb<1>(x, w, ws, M, K, N, ldw, splits, st);
+      return launch_matmul_partial_nb<1>(x, w, ws, M, K, N, ldw, splits, st,
+                                         pdl);
     case 2:
-      return launch_matmul_partial_nb<2>(x, w, ws, M, K, N, ldw, splits, st);
+      return launch_matmul_partial_nb<2>(x, w, ws, M, K, N, ldw, splits, st,
+                                         pdl);
     case 3:
-      return launch_matmul_partial_nb<3>(x, w, ws, M, K, N, ldw, splits, st);
+      return launch_matmul_partial_nb<3>(x, w, ws, M, K, N, ldw, splits, st,
+                                         pdl);
     default:
-      return launch_matmul_partial_nb<4>(x, w, ws, M, K, N, ldw, splits, st);
+      return launch_matmul_partial_nb<4>(x, w, ws, M, K, N, ldw, splits, st,
+                                         pdl);
   }
 }
 
@@ -230,6 +238,8 @@ __global__ void __launch_bounds__(RNORM_NT) row_norm_kernel(
   __shared__ float red[RNORM_NT / 32];
   const int m = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const long long off = (long long)m * D;
+  pdl_wait();                // x and ws come from the kernels before
+  pdl_launch_dependents();   // the next kernel may stream its weights
   float part = 0.f;
   for (int c = tid; c < D; c += nt) {
     float v = __bfloat162float(x[off + c]);

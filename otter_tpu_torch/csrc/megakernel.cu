@@ -21,25 +21,35 @@
 // (batch, head-block) attention steps, then Wo column blocks) and keeps
 // n, qkv and attn in VMEM scratch between the steps. Here every phase
 // needs all columns of the one before, which many CTAs produce, so the
-// phases are five kernels enqueued back to back by one C entry point
-// (one call from Python, no host work between them):
+// phases are five kernels enqueued by one C entry point (one call from
+// Python, no host work between them):
 //   1. row_norm_kernel: n, one CTA a row (int8_rows.cuh)
 //   2. int8_matmul_partial_kernel over Wqkv: split-K partial sums of qkv
-//   3. megakernel_attention_kernel: one CTA a (head, batch) adds its
-//      3 * Dh columns' partial sums in order, scales them, writes k_new and
-//      v_new, and attends: the cache rows as decode_attention.cu does
-//      (a lane a key for q.k, a lane Dh/32 columns for p.v, online softmax,
-//      four warps merged in shared memory), then the new token out of
-//      shared memory
+//      on the tensor cores, every weight read once (int8_rows.cuh)
+//   3. megakernel_attention_kernel: the span [0, pos) of each (batch,
+//      head) cut into chunks, one CTA a chunk (attention_plan in
+//      ops/megakernel.py: one wave of the card where B * H allows). A CTA
+//      adds its head's 3 * Dh columns of partial sums in order and scales
+//      them (q, and k_new / v_new, which chunk 0 writes out), then walks
+//      its rows as decode_attention.cu does: a row is read whole by
+//      Dh / 8 lanes in 16-byte loads, their dot products added by xor
+//      shuffles; each of the four warps brings its 8- or 16-row steps in
+//      by a three-step cp.async ring (k, v and the bias); online softmax
+//      in f32 with p rounded to bf16 for p.v; the warps merged in warp
+//      order. The last CTA of a (batch, head) to finish (an integer
+//      counter, reset by that CTA) merges the new token's term and then
+//      the chunks' (m, l, acc) in chunk order: no float atomics.
 //   4. int8_matmul_partial_kernel over Wo
 //   5. sum_partials_kernel with the residual x: y (mlp_common.cuh)
-// n, the qkv partial sums and attn cross device memory between the
-// kernels (0.5 MB at B = 8, D = 4096): they stay in L2. A cooperative
-// launch with grid-wide barriers would save the four kernel boundaries
-// (a few microseconds) but ties the grid to one wave of co-resident CTAs;
-// left for later. The 8-row pad, the mask-and-sum row extraction, block_w
-// / block_h and the repeated block index that elides a DMA on the TPU have
-// no counterpart.
+// n, the qkv partial sums, the chunks' partials and attn cross device
+// memory between the kernels (~1 MB at B = 8, D = 4096): they stay in L2.
+// Kernels 2-5 are programmatic dependent launches: each starts while the
+// kernel before it drains, the products streaming their first weight
+// stages before they wait for their input (mlp_common.cuh: pdl_wait);
+// before its wait a kernel reads only weights, scales and the ALiBi bias
+// and writes nothing. The 8-row pad, the mask-and-sum row extraction,
+// block_w / block_h and the repeated block index that elides a DMA on the
+// TPU have no counterpart.
 //
 // What bounds it on the H100: it reads wqo once at 1 byte a weight (67 MB
 // at D = 4096) and 2 * B * H * pos * Dh cache elements (33.6 MB at B = 8,
@@ -115,54 +125,15 @@ __global__ void __launch_bounds__(NW * 32) megakernel_attention_kernel(
     hi = min(lo + chunk, a.pos);
   }
   if (split >= used) return;
-
-  // this head's q, k_new, v_new: the split-K partial sums in order, scaled
-  // (f32), then rounded to bf16 where the attention reads them
-  for (int e = tid; e < 3 * DH; e += NW * 32) {
-    const int part = e / DH, d = e % DH;
-    const int col = part * D + h * DH + d;
-    float acc = 0.f;
-    for (int s = 0; s < a.nsplit; ++s)
-      acc += a.ws_qkv[((long long)s * a.B + b) * 3 * D + col];
-    const __nv_bfloat16 r = __float2bfloat16(acc * a.sqo[col]);
-    const long long o = bh * DH + d;
-    if (part == 0) {
-      qs[d] = __bfloat162float(r);
-    } else if (part == 1) {
-      kn[d] = __bfloat162float(r);
-      if (split == 0) a.k_new[o] = r;
-    } else {
-      vn[d] = __bfloat162float(r);
-      if (split == 0) a.v_new[o] = r;
-    }
-  }
-  __syncthreads();
-  const float* bp =
-      a.bias != nullptr ? a.bias + (long long)h * a.bias_sh : nullptr;
-  if (warp == 0) {
-    // the new token's logit, from shared memory
-    float s_new = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      s_new = fmaf(qs[lane * DPL + i], kn[lane * DPL + i], s_new);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
-    s_new *= a.sm_scale;
-    if (bp != nullptr) s_new += bp[a.pos];
-    if (lane == 0) s_new_sh = s_new;
-  }
+  pdl_wait();                // qkv's partial sums come from the kernel before
+  pdl_launch_dependents();   // the out-projection may stream its weights
 
   const long long row = ((long long)b * a.NL + a.layer) * a.H + h;
   const uint8_t* kp = reinterpret_cast<const uint8_t*>(a.kc) + row * a.L * RB;
   const uint8_t* vp = reinterpret_cast<const uint8_t*>(a.vc) + row * a.L * RB;
-
-  // the lane's slice of q: columns [c0, c0 + 8) of every row it reads
+  const float* bp =
+      a.bias != nullptr ? a.bias + (long long)h * a.bias_sh : nullptr;
   const int c0 = (lane % LPR) * 8, rl = lane / LPR;
-  float qf[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) qf[j] = qs[c0 + j];
-
   uint8_t* ring = smem + warp * ANS * G::STAGE;
   const int steps = (hi - lo + R - 1) / R;
   const int n_w = steps > warp ? (steps - warp + NW - 1) / NW : 0;
@@ -190,13 +161,54 @@ __global__ void __launch_bounds__(NW * 32) megakernel_attention_kernel(
     }
     cp_async_commit();
   };
+  // the first cache rows are in flight while q, k_new and v_new finish
+#pragma unroll
+  for (int i = 0; i < ANS - 1; ++i) fetch(i);
+
+  // this head's q, k_new, v_new: the split-K partial sums in order, scaled
+  // (f32), then rounded to bf16 where the attention reads them
+  for (int e = tid; e < 3 * DH; e += NW * 32) {
+    const int part = e / DH, d = e % DH;
+    const int c = part * D + h * DH + d;
+    float acc = 0.f;
+    for (int s = 0; s < a.nsplit; ++s)
+      acc += a.ws_qkv[((long long)s * a.B + b) * 3 * D + c];
+    const __nv_bfloat16 r = __float2bfloat16(acc * a.sqo[c]);
+    const long long o = bh * DH + d;
+    if (part == 0) {
+      qs[d] = __bfloat162float(r);
+    } else if (part == 1) {
+      kn[d] = __bfloat162float(r);
+      if (split == 0) a.k_new[o] = r;
+    } else {
+      vn[d] = __bfloat162float(r);
+      if (split == 0) a.v_new[o] = r;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the new token's logit, from shared memory
+    float s_new = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i)
+      s_new = fmaf(qs[lane * DPL + i], kn[lane * DPL + i], s_new);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
+    s_new *= a.sm_scale;
+    if (bp != nullptr) s_new += bp[a.pos];
+    if (lane == 0) s_new_sh = s_new;
+  }
+
+  // the lane's slice of q: columns [c0, c0 + 8) of every row it reads
+  float qf[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qf[j] = qs[c0 + j];
 
   float m = -INFINITY, l = 0.f, acc[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j] = 0.f;
 
-#pragma unroll
-  for (int i = 0; i < ANS - 1; ++i) fetch(i);
   for (int i = 0; i < n_w; ++i) {
     fetch(i + ANS - 1);  // into the slot step i - 1 left
     cp_async_wait<ANS - 1>();
@@ -343,9 +355,8 @@ int launch_attention(const AttnArgs& a, cudaStream_t st) {
       megakernel_attention_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  megakernel_attention_kernel<DH>
-      <<<dim3(a.n_splits, a.H, a.B), NW * 32, smem, st>>>(a);
-  return (int)cudaGetLastError();
+  return launch_kernel(true, megakernel_attention_kernel<DH>,
+                       dim3(a.n_splits, a.H, a.B), NW * 32, smem, st, a);
 }
 
 }  // namespace
@@ -377,7 +388,7 @@ extern "C" int decode_attn_megakernel_bf16(
                             D, eps, st);
   if (err != 0) return err;
   err = launch_matmul_partial(normed, wqo, ws_qkv, B, D, 3 * D, 4 * D,
-                              splits_qkv, st);
+                              splits_qkv, st, true);
   if (err != 0) return err;
   AttnArgs a;
   a.ws_qkv = (const float*)ws_qkv;
@@ -404,10 +415,10 @@ extern "C" int decode_attn_megakernel_bf16(
   err = Dh == 128 ? launch_attention<128>(a, st) : launch_attention<64>(a, st);
   if (err != 0) return err;
   err = launch_matmul_partial(attn, (const int8_t*)wqo + 3 * D, ws_o, B, D, D,
-                              4 * D, splits_o, st);
+                              4 * D, splits_o, st, true);
   if (err != 0) return err;
   return launch_sum_partials(ws_o, (const float*)sqo + 3 * D, nullptr, y, B,
-                             D, splits_o, st, x);
+                             D, splits_o, st, x, true);
 }
 
 extern "C" const char* otter_error_string(int err) {

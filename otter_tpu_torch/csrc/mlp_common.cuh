@@ -44,6 +44,42 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Programmatic dependent launch (sm_90). A kernel launched with
+// `launch_kernel(true, ...)` may start while the kernel before it on the
+// stream still runs: before `pdl_wait` it must read only what no earlier
+// kernel of the step writes (weights, scales, gains, the ALiBi bias) and
+// write nothing to global memory; `pdl_wait` returns once that kernel has
+// finished and its writes are visible (at once for a plain launch).
+// `pdl_launch_dependents` lets the next such kernel start early, once
+// every CTA of this one has executed it or exited.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launch `kernel` on `st`, with `pdl` as a programmatic dependent of the
+// kernel before it; returns the launch's error.
+template <typename... Params, typename... Args>
+inline int launch_kernel(bool pdl, void (*kernel)(Params...), dim3 grid,
+                         int threads, int smem, cudaStream_t st,
+                         Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 // out = (sum over the nblk partial outputs ws[blk] [M, N], in order)
 //       * scale + bias, cast to bf16; with a residual `resid` [M, N] bf16,
 // out = bf16(resid + that bf16 value): the product is rounded to the
@@ -55,6 +91,7 @@ __global__ void sum_partials_kernel(const float* __restrict__ ws,
                                     const __nv_bfloat16* __restrict__ resid,
                                     __nv_bfloat16* __restrict__ out, int M,
                                     int N, int nblk) {
+  pdl_wait();   // ws comes from the kernel before
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M * N) return;
   const int n = i % N;
@@ -71,12 +108,13 @@ __global__ void sum_partials_kernel(const float* __restrict__ ws,
 inline int launch_sum_partials(const void* ws, const void* scale,
                                const void* bias, void* out, int M, int N,
                                int nblk, cudaStream_t st,
-                               const void* resid = nullptr) {
+                               const void* resid = nullptr,
+                               bool pdl = false) {
   const int total = M * N;
-  sum_partials_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      (const float*)ws, (const float*)scale, (const float*)bias,
-      (const __nv_bfloat16*)resid, (__nv_bfloat16*)out, M, N, nblk);
-  return (int)cudaGetLastError();
+  return launch_kernel(pdl, sum_partials_kernel, dim3((total + 255) / 256),
+                       256, 0, st, (const float*)ws, (const float*)scale,
+                       (const float*)bias, (const __nv_bfloat16*)resid,
+                       (__nv_bfloat16*)out, M, N, nblk);
 }
 
 }  // namespace otter
