@@ -23,9 +23,9 @@
 //   loop (template instantiations of 1 to 4), no pass over M.
 // - A CTA of 8 warps takes 128 columns and a run of K / splits rows, in
 //   stages of 128 rows (16 KB) through a cp.async ring of four slots:
-//   48 KB in flight a CTA and two CTAs an SM. The host's plan
-//   (ops/quant.py: split_k_rows) keeps the grid within one wave of two
-//   CTAs an SM.
+//   48 KB in flight a CTA, and two or three CTAs an SM (73 KB of shared
+//   memory at M <= 8, up to 96 KB above). The host's plan (ops/quant.py:
+//   split_k_rows) keeps the grid within one wave of them.
 #pragma once
 #include "int8_mma.cuh"
 #include "mlp_common.cuh"
@@ -175,9 +175,14 @@ int launch_matmul_partial_nb(const void* x, const void* w, void* ws, int M,
                              int K, int N, int ldw, int splits,
                              cudaStream_t st, bool pdl) {
   constexpr int smem = RowsLayout<NB>::BYTES;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       int8_matmul_partial_kernel<NB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // all of the SM's 228 KB as shared memory: three CTAs of one n-tile fit
+  err = cudaFuncSetAttribute(int8_matmul_partial_kernel<NB>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   return launch_kernel(pdl, int8_matmul_partial_kernel<NB>,
                        dim3(N / RB, splits), RNT, smem, st,

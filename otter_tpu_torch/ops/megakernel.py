@@ -186,8 +186,8 @@ def decode_attn_megakernel(
             bias_col = bias_col.contiguous()
         bias_ptr, bias_sh = bias_col.data_ptr(), bias_col.stride(0)
     dev = x.device
-    splits_qkv = quant.split_k_rows(d, 3 * d)
-    splits_o = quant.split_k_rows(d, d)
+    splits_qkv = quant.split_k_rows(d, 3 * d, bsz)
+    splits_o = quant.split_k_rows(d, d, bsz)
     attn_splits, min_rows = attention_plan(bsz, h, L, dh)
     # two allocations (a decode step is bound by the host): the outputs
     # y | k_new | v_new, and the scratch ws_qkv | ws_o (f32) | normed |

@@ -225,21 +225,22 @@ def split_k(k: int, n: int) -> int:
     return splits
 
 
-# The tensor-core split-K product of the fused decode layer's kernels
-# (`csrc/int8_rows.cuh`) fits two CTAs on each of the H100's 132 SMs.
-ROWS_SPLIT_CTAS = 2 * 132
+# The H100's SMs, for the split-K plan below.
+SM_COUNT = 132
 
 
-def split_k_rows(k: int, n: int) -> int:
+def split_k_rows(k: int, n: int, m: int) -> int:
     """How many CTAs share the k weight rows of one 128-column block of the
-    tensor-core split-K product (`int8_attn_tail`'s out-projection, the
-    megakernel's two products): the most, a power of two, that keeps the
-    (n / 128) x splits CTAs within one wave of two an SM and gives each a
-    whole number of 128-row stages. A pure function of the shapes, so the
-    partial sums are added in the same order on every card."""
+    tensor-core split-K product (`csrc/int8_rows.cuh`: `int8_attn_tail`'s
+    out-projection, the megakernel's two products) for m rows of x: the
+    most, a power of two, that keeps the (n / 128) x splits CTAs within one
+    wave of the CTAs an SM holds (three of 73 KB of shared memory at
+    m <= 8, two of 80-96 KB above) and gives each a whole number of
+    128-row stages. A pure function of the shapes, so the partial sums are
+    added in the same order on every card."""
+    ctas = (3 if m <= 8 else 2) * SM_COUNT
     splits = 1
-    while (n // 128) * splits * 2 <= ROWS_SPLIT_CTAS \
-            and k % (128 * splits * 2) == 0:
+    while (n // 128) * splits * 2 <= ctas and k % (128 * splits * 2) == 0:
         splits *= 2
     return splits
 
@@ -299,7 +300,7 @@ def int8_attn_tail(attn_raw: torch.Tensor, resid: torch.Tensor,
     so, s1, s2, norm_scale = (t.float().contiguous()
                               for t in (so, s1, s2, norm_scale))
     dev = attn_raw.device
-    splits = split_k_rows(hd, d)
+    splits = split_k_rows(hd, d, m)
     # one scratch allocation (a decode step is bound by the host):
     # ws_o | ws_mlp (f32) | y | normed (bf16)
     n_o, n_mlp = splits * m * d, (h // 128) * m * d

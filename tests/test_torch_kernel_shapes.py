@@ -161,3 +161,23 @@ def test_megakernel_attention_split_covers_each_span_once(name, text):
                 assert rows == list(range(pos)), (cache_len, b, pos)
                 assert all(hi - lo >= min(min_rows, pos)
                            for lo, hi in chunks[:-1])
+
+
+@pytest.mark.parametrize("name", sorted(config.PRESETS))
+def test_split_k_rows_keeps_one_wave(name):
+    # the tensor-core split-K product at every preset's qkv and
+    # out-projection widths: a grid within one wave of the CTAs an SM
+    # holds (three at M <= 8, two above), whole 128-row stages a CTA
+    d = config.PRESETS[name]().text.hidden_size
+    for n in (3 * d, d):
+        for m in (1, 8, 9, 32):
+            splits = quant.split_k_rows(d, n, m)
+            per_sm = 3 if m <= 8 else 2
+            assert (n // 128) * splits <= per_sm * quant.SM_COUNT \
+                or splits == 1
+            assert splits == 1 or d % (128 * splits) == 0
+
+
+def test_split_k_rows_at_mpt7b():
+    assert [quant.split_k_rows(4096, n, m) for n, m in
+            ((12288, 8), (4096, 8), (12288, 32), (4096, 32))] == [4, 8, 2, 8]
