@@ -241,21 +241,10 @@ def phase_build(check_sass: bool = True):
         for kernel, c in counts.items():
             f.write(f"== SASS of {kernel}\n{json.dumps(c)}\n")
     for kernel, c in counts.items():
-        log(f"build: SASS of {kernel}: " + ", ".join(
-            f"{fn.split(':')[0]}:{_short_template(fn)} HMMA {n['HMMA']} "
-            f"HGMMA {n['HGMMA']} FFMA {n['FFMA']}" for fn, n in c.items()))
+        log(f"build: SASS of {kernel}<n-tiles...>: {c}")
         if check_sass and any(n["HMMA"] + n["HGMMA"] == 0
                               for n in c.values()):
             raise RuntimeError(f"{kernel} runs no tensor-core instruction")
-
-
-def _short_template(fn: str) -> str:
-    """The template arguments of a mangled kernel name ("ILi4ELi4EE" ->
-    "<4,4>"), or the name where it has none."""
-    if "ILi" not in fn:
-        return fn.split(":")[-1]
-    args = fn.split("ILi", 1)[1].split("EE", 1)[0].split("ELi")
-    return "<" + ",".join(args) + ">"
 
 
 def _sass_counts(build, sources, kernel: str) -> dict:
@@ -575,9 +564,6 @@ def phase_kernels(gen, only: str = ""):
     `decodekernels`) `decode_attention`, "mlp" (phase `mlpkernels`)
     `int8_mlp` and `int8_attn_tail`, "int4" (phase `int4kernels`)
     `int4_mlp` and `int4_matmul`."""
-    import torch
-    from otter_tpu_torch.ops import quant
-
     tol = "|err| <= 2e-2 + 2e-2*|plain| (bf16 in/out, f32 inside)"
     log(f"kernels: tolerance {tol}")
     entries = {}

@@ -243,7 +243,6 @@ __global__ void __launch_bounds__(RNORM_NT) row_norm_kernel(
   __shared__ float red[RNORM_NT / 32];
   const int m = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const long long off = (long long)m * D;
-  pdl_wait();                // x and ws come from the kernels before
   pdl_launch_dependents();   // the next kernel may stream its weights
   float part = 0.f;
   for (int c = tid; c < D; c += nt) {

@@ -366,7 +366,7 @@ int launch_attention(const AttnArgs& a, cudaStream_t st) {
 // phase of attn_splits > 1 CTAs a (batch, head) (ops/megakernel.py:
 // attention_plan, with chunks of at least attn_min_rows rows), attn_part
 // [B, H, attn_splits, 2 + Dh] f32 and attn_counters [B, H] int32, 0 before
-// the call and left so.
+// the call and left so (decode_attention's workspace).
 extern "C" int decode_attn_megakernel_bf16(
     const void* x, const void* k_cache, const void* v_cache, const void* bias,
     long long bias_sh, const void* ln1, const void* wqo, const void* sqo,

@@ -55,20 +55,6 @@ def attention_plan(b: int, h: int, cache_len: int, dh: int):
     return da.split_plan(b, h, cache_len, dh, 0)
 
 
-_counters = {}
-
-
-def _counters_for(device: torch.device, rows: int) -> torch.Tensor:
-    """The attention phase's int32 counters, one a (batch, head), kept per
-    device between calls: they must be 0 before a call, and the kernel
-    leaves them so."""
-    cnt = _counters.get(device.index)
-    if cnt is None or cnt.numel() < rows:
-        cnt = _counters[device.index] = torch.zeros(
-            rows, dtype=torch.int32, device=device)
-    return cnt
-
-
 def _layer_of(cache: torch.Tensor, layer: Optional[int]) -> torch.Tensor:
     return cache if layer is None else cache[:, layer]
 
@@ -188,28 +174,30 @@ def decode_attn_megakernel(
     dev = x.device
     splits_qkv = quant.split_k_rows(d, 3 * d, bsz)
     splits_o = quant.split_k_rows(d, d, bsz)
-    attn_splits, min_rows = attention_plan(bsz, h, L, dh)
     # two allocations (a decode step is bound by the host): the outputs
-    # y | k_new | v_new, and the scratch ws_qkv | ws_o (f32) | normed |
-    # attn (bf16) | the attention chunks' partials (f32)
+    # y | k_new | v_new, and the scratch ws_qkv | ws_o (f32) | normed | attn
     out = torch.empty((3, bsz, d), dtype=torch.bfloat16, device=dev)
     n_qkv, n_o = splits_qkv * bsz * 3 * d, splits_o * bsz * d
-    n_part = bsz * h * attn_splits * (2 + dh) if attn_splits > 1 else 0
-    scratch = torch.empty(n_qkv + n_o + bsz * d + n_part,
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_qkv + n_o + bsz * d, dtype=torch.float32,
+                          device=dev)
     ws_qkv = scratch.data_ptr()
     ws_o = ws_qkv + 4 * n_qkv
     normed = ws_o + 4 * n_o
     attn = normed + 2 * bsz * d
-    part = attn + 2 * bsz * d
-    counters = (_counters_for(dev, bsz * h).data_ptr() if attn_splits > 1
-                else None)
+    # the attention chunks' partials and counters: decode_attention's
+    # workspace, of the same layout, kept per device (the counters are 0
+    # between calls); calls on one stream use it in turn
+    attn_splits, min_rows = attention_plan(bsz, h, L, dh)
+    part = counters = None
+    if attn_splits > 1:
+        part, counters = (t.data_ptr() for t in da._workspace(
+            dev, *da.workspace_size(bsz, h, attn_splits, dh)))
     y, k_new, v_new = out[0], out[1].view(bsz, h, dh), out[2].view(bsz, h, dh)
     lib = _build.library("megakernel", _SIGNATURES)
     err = lib.decode_attn_megakernel_bf16(
         x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias_ptr,
         bias_sh, ln1_scale.data_ptr(), wqo.data_ptr(), sqo.data_ptr(),
-        normed, ws_qkv, attn, ws_o, part if n_part else None, counters,
+        normed, ws_qkv, attn, ws_o, part, counters,
         y.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), bsz, h, dh, nl,
         layer, L, pos, float(eps), float(sm_scale), splits_qkv, splits_o,
         attn_splits, min_rows, torch.cuda.current_stream(dev).cuda_stream)
