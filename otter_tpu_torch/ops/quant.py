@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from otter_tpu_torch import _build
+from otter_tpu_torch.ops.decode_attention import SM_COUNT
 from otter_tpu_torch.ops.layers import ACTIVATIONS, Dense
 
 _ACT_IDS = {"gelu": 0, "relu": 1, "silu": 2, "sq_relu": 3}
@@ -223,10 +224,6 @@ def split_k(k: int, n: int) -> int:
             and k % (128 * splits) == 0:
         splits *= 2
     return splits
-
-
-# The H100's SMs, for the split-K plan below.
-SM_COUNT = 132
 
 
 def split_k_rows(k: int, n: int, m: int) -> int:

@@ -173,7 +173,7 @@ def test_split_k_rows_keeps_one_wave(name):
         for m in (1, 8, 9, 32):
             splits = quant.split_k_rows(d, n, m)
             per_sm = 3 if m <= 8 else 2
-            assert (n // 128) * splits <= per_sm * quant.SM_COUNT \
+            assert (n // 128) * splits <= per_sm * da.SM_COUNT \
                 or splits == 1
             assert splits == 1 or d % (128 * splits) == 0
 
