@@ -1065,27 +1065,43 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
         del kc, vc
 
 
-def _kernel_device_ms(fn, iters: int = 20) -> dict:
+def _kernel_device_ms(fn, iters: int = 20, tries: int = 3) -> dict:
     """{"i. kernel name": device ms a call of fn} for the i-th kernel that
     one call of fn launches, from torch.profiler's CUDA activity over
     `iters` calls (kernel durations as the card timed them). Kernels that
     overlap (a programmatic dependent launch waiting on its predecessor)
-    each count their whole span."""
+    each count their whole span.
+
+    The profiler keeps only the activity it places inside its window, and
+    CUPTI may lose a record: a profile whose kernel count is not a whole
+    multiple of `iters` is discarded and taken again, at most `tries`
+    times in all."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = sorted((e for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA),
-                  key=lambda e: e.start_ns())
-    if not kern or len(kern) % iters:
-        raise RuntimeError(f"{len(kern)} kernels in {iters} calls")
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # margins, so that no kernel lies at an edge of the window
+            time.sleep(0.01)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        kern = sorted((e for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA),
+                      key=lambda e: e.start_ns())
+        if kern and not len(kern) % iters:
+            break
+        log(f"    profile {attempt} of {tries} holds {len(kern)} kernels "
+            f"in {iters} calls: discarded")
+    else:
+        raise RuntimeError(f"{len(kern)} kernels in {iters} calls, "
+                           f"{tries} profiles")
     per_call = len(kern) // iters
     times = {}
     for i, e in enumerate(kern):
