@@ -3,8 +3,8 @@
 //
 //   int4_mlp:    h = round_x(act((x @ unpack0(W1p)) * s1)),
 //                y = (h @ unpack1(W2p)) * s2
-//                x [M, K] bf16 (M <= 32), W1p [K/2, H], s1 [H] f32,
-//                W2p [H, N/2], s2 [N] f32; y [M, N] bf16;
+//                x [M, K] bf16 (M <= 32, K % 32 == 0), W1p [K/2, H],
+//                s1 [H] f32, W2p [H, N/2], s2 [N] f32; y [M, N] bf16;
 //                ws is f32 scratch [H/128, M, N].
 //   int4_matmul: y = (x @ unpack0(Wp)) * scale
 //                x [M, K] bf16 (M <= 32), Wp [K/2, N], scale [N] f32;
@@ -19,49 +19,286 @@
 // pallas_call there). The TPU kernels walk their grid in order, unpack a
 // whole block with one concat, and give every block the full K so that
 // both nibbles of a byte are at hand. Here a CTA that streams packed rows
-// [p, p + 64) multiplies them with two slices of x, columns [p, p + 64)
-// for the low nibbles and [K/2 + p, K/2 + p + 64) for the high ones, so K
-// can be split among CTAs (int4_matmul does, to fill the card); and a
-// thread that holds 8 bytes of packed W2 owns 8 output columns at o and 8
-// at o + N/2. Partial outputs of the CTAs go to an f32 workspace and a
-// second small launch (mlp_common.cuh) sums them in a fixed order, scales
-// and casts: no atomics, so the result is the same from run to run.
+// [p, p + R) multiplies them with two slices of x, columns [p, p + R) for
+// the low nibbles and [K/2 + p, K/2 + p + R) for the high ones, and the
+// two nibbles of a packed W2 byte are output columns o and o + N/2.
+// Partial outputs of the CTAs go to an f32 workspace and a second small
+// launch (mlp_common.cuh) sums them in a fixed order, scales and casts:
+// no atomics, so the result is the same from run to run.
 //
 // What bounds them on the H100: at decode (M <= 32) they read 0.5 byte a
 // weight once (67 MB for the MPT-7B MLP, 25 MB for its qkv projection) for
-// 2 M multiply-adds a weight, so they are bound by bytes. The design reads
-// every packed byte once through cp.async pipelines, turns a nibble into
-// an f32 with one shift, one logic op and one subtraction (the nibble is
-// written into the mantissa of 2^23), and keeps the hidden activation in
-// shared memory. The products run on the CUDA cores in f32.
+// 2 M multiply-adds a weight, so they are bound by bytes: what must stay
+// low is the instructions a weight byte, and what must stay high is the
+// bytes in flight.
 //
-// int4_mlp: CTA j owns hidden units [128 j, 128 j + 128), 256 threads.
-//   Phase 1 (shared with int4_matmul, packed_block_product): W1p's
-//   128-column block streams through shared memory in stages of 64 packed
-//   rows (128 weight rows), three in flight, with the two matching slices
-//   of x; each of the 8 warps sums 8 packed rows of every stage for 4
-//   columns a lane; the warps' partial sums are added in a fixed order,
-//   scaled by s1, activated and rounded to bf16 into shared memory.
-//   Phase 2: W2p's 128-row block streams in 8-row stages of up to 2048
-//   packed columns, four in flight; each thread owns 8 packed columns (16
-//   outputs) and stores its partial sums in the CTA's workspace slice.
-// int4_matmul: CTA (j, s) owns output columns [128 j, 128 j + 128) and the
-//   s-th run of packed rows; phase 1 as above, partial sums to ws[s].
+// int4_mlp, the design of int8_mlp_kernel.cuh with nibbles: CTA j owns
+// hidden units [128 j, 128 j + 128), 8 warps.
+// - Products on the tensor cores: mma.sync m16n8k16 in bf16 with the
+//   operands swapped, a 16-column weight tile as A and the M <= 32 rows of
+//   x (phase 1) or of the bf16 hidden block (phase 2) as 1 to 4 n-tiles of
+//   B, inside the tile loop: every packed byte is read once a call, at any
+//   M. Nibbles become bf16 in registers, exactly and without I2F: a byte
+//   permute, a lop3 and a bf16x2 subtraction a pair (int4_mma.cuh).
+// - Phase 1: one load of four words gives two k steps (the low nibbles
+//   against x's columns p, the high ones against K/2 + p) of two tiles.
+//   Warp w takes hidden units 32 (w % 4) .. + 31 over half the rows of
+//   every stage (w / 4); the halves are added in a fixed order, scaled by
+//   s1, activated and rounded to bf16 into shared memory.
+// - Phase 2: one load gives four tiles, output columns o (low nibbles) and
+//   N/2 + o (high) of one k step. Warp w takes packed columns 32 w .. + 31
+//   of every stage over the CTA's 128 hidden rows and stores its sums to
+//   the CTA's workspace slice.
+// - One cp.async ring of 32 KB slots for both phases (phase 1: packed rows
+//   of W1p with x's two slices; phase 2: 128 rows of W2p), five slots in
+//   flight, so W2p's first stages arrive while phase 1 ends. A grid of
+//   more CTAs than SMs (falcon7b's 142) runs three slots a CTA and two
+//   CTAs an SM: no second wave.
+// - The sum of the H/128 partial outputs is a programmatic dependent
+//   launch of 8 warps a 32-value block (`sum_partials_grouped_kernel`),
+//   scheduled once phase 2 begins: one thread a value would wait on 128
+//   loads in turn where M N is small.
+// int4_matmul, on the CUDA cores: CTA (j, s) owns output columns
+//   [128 j, 128 j + 128) and the s-th run of packed rows; W1p's column
+//   block streams in stages of 64 packed rows, three in flight; a nibble
+//   becomes an f32 by a shift, a logic op and a subtraction (written into
+//   the mantissa of 2^23); each of the 8 warps sums 8 packed rows of every
+//   stage for 4 columns a lane, and the warps' sums are added in a fixed
+//   order into ws[s].
+#include "int4_mma.cuh"
 #include "mlp_common.cuh"
 
 namespace {
 
 using namespace otter;
 
-constexpr int BH = 128;    // columns of the packed-row product per CTA
-constexpr int NT = 256;    // threads per CTA
+constexpr int BH = 128;    // columns (int4_matmul) or hidden units a CTA
+constexpr int NT = 256;    // threads per CTA: 8 warps
 constexpr int MMAX = 32;   // largest M (decode shapes)
 constexpr int KC = 64;     // packed rows per pipeline stage (128 weight rows)
 constexpr int NS1 = 3;     // packed-row product: stages in flight
 constexpr int KG = NT / 32;  // packed-row product: row groups, one warp each
-constexpr int JB = 8;      // MLP phase 2: W2p rows per pipeline stage
-constexpr int NCP = 2048;  // MLP phase 2: packed columns per pass (NT * 8)
-constexpr int NS2 = 4;     // MLP phase 2: stages in flight
+
+// ── int4_mlp: the fused MLP on the tensor cores ──
+
+constexpr int SLOT = 32 * 1024;  // ring slot bytes, either phase
+constexpr int C2P = 256;         // phase 2: packed W2 columns a stage (x BH)
+
+// Shared memory with NB n-tiles (M <= 8 NB) and NS ring slots: each slot
+// holds, in phase 1, R1 packed rows of W1p's BH columns, then x's 8 NB rows
+// of the two matching R1-column slices (the low nibbles' columns p, then
+// the high nibbles' K/2 + p; R1: the most, in whole 32-row steps, that fit
+// a slot with them), in phase 2 the CTA's BH rows of C2P packed W2
+// columns; after the slots, the bf16 hidden block hs [8 NB][BH].
+template <int NB, int NS>
+struct Int4Layout {
+  static constexpr int R1 = SLOT / (BH + 32 * NB) / 32 * 32;
+  static constexpr int XOFF = R1 * BH;
+  static constexpr int XROW = 2 * R1 * 2;
+  static constexpr int HS = NS * SLOT;
+  static constexpr int BYTES = HS + 8 * NB * BH * 2;
+  static_assert(XOFF + 8 * NB * XROW <= SLOT && BH * C2P <= SLOT, "slot");
+};
+
+template <int NB, int NS>
+__global__ void __launch_bounds__(NT, NS <= 3 ? 2 : 1) int4_mlp_hidden_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
+    const float* __restrict__ s1, const int8_t* __restrict__ w2,
+    float* __restrict__ ws, int M, int K, int H, int N, int act) {
+  using L = Int4Layout<NB, NS>;
+  constexpr int R1 = L::R1, XC = R1 / 8;   // XC: 16-byte chunks of a slice
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int j0 = blockIdx.x * BH;
+  const int k2 = K / 2, n2 = N / 2;
+  const int n1 = (k2 + R1 - 1) / R1, nw2 = (n2 + C2P - 1) / C2P;
+  unsigned char* hs = smem + L::HS;
+
+  // stage i of the stream (W1p's n1, then W2p's nw2) into slot i % NS,
+  // chunks swizzled by `w_chunk` / `x_chunk`; past K/2 or N/2, zeros
+  auto load = [&](int i) {
+    unsigned char* st = smem + (i % NS) * SLOT;
+    if (i < n1) {
+      const int p0 = i * R1;
+      for (int e = tid; e < R1 * (BH / 16); e += NT) {
+        const int r = e >> 3, c = e & 7;
+        const bool ok = p0 + r < k2;
+        cp_async16(st + r * BH + w_chunk(r, c),
+                   ok ? w1 + (long long)(p0 + r) * H + j0 + c * 16 : w1, ok);
+      }
+      for (int e = tid; e < 8 * NB * 2 * XC; e += NT) {
+        const int m = e / (2 * XC), c = e % (2 * XC);
+        const int hi = c >= XC, col = p0 + (c - hi * XC) * 8;
+        const bool ok = m < M && col < k2;
+        cp_async16(st + L::XOFF + m * L::XROW + x_chunk(m, c),
+                   ok ? x + (long long)m * K + hi * k2 + col : x, ok);
+      }
+    } else if (i < n1 + nw2) {
+      const int c0 = (i - n1) * C2P;
+      for (int e = tid; e < BH * (C2P / 16); e += NT) {
+        const int r = e >> 4, c = e & 15;
+        const bool ok = c0 + c * 16 < n2;
+        cp_async16(st + r * C2P + w_chunk(r, c),
+                   ok ? w2 + (long long)(j0 + r) * n2 + c0 + c * 16 : w2, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) load(s);
+
+  // phase 1: warp w takes hidden units 32 hg .. + 31 over half kh of the
+  // packed rows of every stage; a thread's quad is units 32 hg + 4 g .. + 3
+  const int hg = warp & 3, kh = warp >> 2;
+  {
+    float acc[2][NB][4];
+#pragma unroll
+    for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[tl][n][c] = 0.f;
+    const int wcol = w_quad(hg, g, t), r0 = kh * (R1 / 2);
+    for (int i = 0; i < n1; ++i) {
+      cp_async_wait<NS - 2>();
+      __syncthreads();
+      // the slot refilled here was read in the previous iteration
+      load(i + NS - 1);
+      const unsigned char* st = smem + (i % NS) * SLOT;
+      int4_k_steps_rows<NB, BH, L::XROW, R1 / 32>(
+          st, r0, wcol, st + L::XOFF, r0, R1 + r0, g, t, acc);
+    }
+    // the two row halves are added in a fixed order, through the slot
+    // phase 1 read last (refilled only after the next barrier but one)
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem + ((n1 - 1) % NS) * SLOT);
+    // hidden unit 32 hg + 4 g + 2 tl + c / 2 of row 8 n + 2 t + c % 2
+    if (kh == 1) {
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            red[(8 * n + 2 * t + (c & 1)) * BH + 32 * hg + 4 * g + 2 * tl +
+                (c >> 1)] = acc[tl][n][c];
+    }
+    __syncthreads();
+    if (kh == 0) {
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = 32 * hg + 4 * g + 2 * tl + (c >> 1);
+          const float sc = s1[j0 + j];
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            const int m = 8 * n + 2 * t + (c & 1);
+            const float z = __fmul_rn(acc[tl][n][c] + red[m * BH + j], sc);
+            *reinterpret_cast<__nv_bfloat16*>(
+                hs + m * (BH * 2) + x_chunk(m, j >> 3) + 2 * (j & 7)) =
+                __float2bfloat16(apply_act(z, act));
+          }
+        }
+    }
+    __syncthreads();
+  }
+  // the sum of the partial outputs may be scheduled now (it waits for
+  // this grid's end before it reads)
+  pdl_launch_dependents();
+
+  // phase 2: warp w takes packed columns 32 w .. + 31 of every stage over
+  // the CTA's BH hidden rows; its low nibbles are output columns o, its
+  // high ones N/2 + o
+  const int wcol2 = w_quad(warp, g, t);
+  for (int i = n1; i < n1 + nw2; ++i) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    load(i + NS - 1);
+    const unsigned char* st = smem + (i % NS) * SLOT;
+    float acc[2][2][NB][4];
+#pragma unroll
+    for (int nib = 0; nib < 2; ++nib)
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[nib][tl][n][c] = 0.f;
+    int4_k_steps_cols<NB, C2P, BH * 2, BH / 16>(st, wcol2, hs, g, t, acc);
+    // column o + q of row 8 n + 2 t + e: acc[nib][q / 2][n][2 (q % 2) + e]
+    const int o = (i - n1) * C2P + 32 * warp + 4 * g;
+    if (o < n2) {
+      float* dst = ws + (long long)blockIdx.x * M * N + o;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * n + 2 * t + e;
+          if (m < M) {
+#pragma unroll
+            for (int nib = 0; nib < 2; ++nib)
+              *reinterpret_cast<float4*>(dst + (long long)m * N + nib * n2) =
+                  make_float4(acc[nib][0][n][e], acc[nib][0][n][2 + e],
+                              acc[nib][1][n][e], acc[nib][1][n][2 + e]);
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int NB, int NS>
+int launch_hidden_ns(const void* x, const void* w1, const void* s1,
+                     const void* w2, void* ws, int M, int K, int H, int N,
+                     int act, cudaStream_t st) {
+  constexpr int smem = Int4Layout<NB, NS>::BYTES;
+  auto kernel = int4_mlp_hidden_kernel<NB, NS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  return launch_kernel(false, kernel, dim3(H / BH), NT, smem, st,
+                       (const __nv_bfloat16*)x, (const int8_t*)w1,
+                       (const float*)s1, (const int8_t*)w2, (float*)ws, M, K,
+                       H, N, act);
+}
+
+// six slots (five in flight) for a grid of one wave; for more CTAs than
+// SMs (falcon7b's 142), three slots and two CTAs an SM: as many bytes in
+// flight an SM, and no second wave
+template <int NB>
+int launch_hidden_nb(const void* x, const void* w1, const void* s1,
+                     const void* w2, void* ws, int M, int K, int H, int N,
+                     int act, cudaStream_t st) {
+  static_assert(2 * (Int4Layout<NB, 3>::BYTES + 1024) <= 228 * 1024, "2/SM");
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (H / BH > sms)
+    return launch_hidden_ns<NB, 3>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+  return launch_hidden_ns<NB, 6>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+}
+
+// ceil(M / 8) n-tiles: the weights stream once for any M <= MMAX
+int launch_hidden(const void* x, const void* w1, const void* s1,
+                  const void* w2, void* ws, int M, int K, int H, int N,
+                  int act, cudaStream_t st) {
+  switch ((M + 7) / 8) {
+    case 1: return launch_hidden_nb<1>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+    case 2: return launch_hidden_nb<2>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+    case 3: return launch_hidden_nb<3>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+    default:
+      return launch_hidden_nb<4>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+  }
+}
+
+// ── int4_matmul: the packed-row product on the CUDA cores ──
 
 // nibble `i` (0 = lowest) of a word as a float in [-8, 7]: (n ^ 8) lands in
 // the mantissa of 2^23, and 2^23 + (n ^ 8) - (2^23 + 8) = n sign-extended
@@ -162,123 +399,6 @@ __device__ __forceinline__ void packed_block_product(
 }
 
 template <int MT>
-struct MlpSmem {
-  float hs[MMAX][BH];   // bf16-rounded hidden activations
-  union {
-    Phase1<MT> p1;
-    int8_t w2[NS2][JB][NCP];
-  } u;
-};
-
-template <int MT>
-__global__ void __launch_bounds__(NT) int4_mlp_hidden_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w1,
-    const float* __restrict__ s1, const int8_t* __restrict__ w2,
-    float* __restrict__ ws, int M, int K, int H, int N, int act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  MlpSmem<MT>& sm = *reinterpret_cast<MlpSmem<MT>*>(smem_raw);
-  const int j0 = blockIdx.x * BH;
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < MMAX * BH; e += NT) sm.hs[e / BH][e % BH] = 0.f;
-
-  // phase 1: hidden block = act(x @ unpack0(W1p)[:, j0:j0+BH] * s1),
-  // bf16-rounded
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    packed_block_product<MT>(sm.u.p1, x, w1, M, K, H, j0, m0, 0, K / 2);
-    // the row groups are added in a fixed order: the result is reproducible
-    for (int e = tid; e < MT * BH; e += NT) {
-      const int r = e / BH, col = e % BH, m = m0 + r;
-      if (m >= M) continue;
-      float z = 0.f;
-#pragma unroll
-      for (int g = 0; g < KG; ++g) z += sm.u.p1.red[g][r][col];
-      z *= s1[j0 + col];
-      sm.hs[m][col] = __bfloat162float(__float2bfloat16(apply_act(z, act)));
-    }
-    __syncthreads();
-  }
-
-  // phase 2: ws[blk, :, n] = hidden block @ unpack1(W2p)[j0:j0+BH, n]; each
-  // thread owns 8 packed columns of a 2048-column pass: outputs
-  // [o, o + 8) from the low nibbles and [N/2 + o, N/2 + o + 8) from the
-  // high ones
-  constexpr int NJ = BH / JB;
-  const int n2 = N / 2;
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    for (int n0 = 0; n0 < n2; n0 += NCP) {
-      const int nc = min(NCP, n2 - n0);
-      auto load2 = [&](int stage, int jb) {
-        for (int e = tid; e < JB * (nc / 16); e += NT) {
-          const int r = e / (nc / 16), cv = e % (nc / 16);
-          cp_async16(&sm.u.w2[stage][r][cv * 16],
-                     w2 + (long long)(j0 + jb * JB + r) * n2 + n0 + cv * 16,
-                     true);
-        }
-        cp_async_commit();
-      };
-      float acc[MT][16];   // [r][0..7] low nibbles, [r][8..15] high
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-#pragma unroll
-        for (int t = 0; t < 16; ++t) acc[r][t] = 0.f;
-#pragma unroll
-      for (int s = 0; s < NS2 - 1; ++s) load2(s, s);
-      for (int jb = 0; jb < NJ; ++jb) {
-        cp_async_wait<NS2 - 2>();
-        __syncthreads();
-        if (jb + NS2 - 1 < NJ) load2((jb + NS2 - 1) % NS2, jb + NS2 - 1);
-        else cp_async_commit();
-        const int st = jb % NS2;
-        if (tid * 8 < nc) {
-#pragma unroll
-          for (int r2 = 0; r2 < JB; ++r2) {
-            const uint2 raw =
-                *reinterpret_cast<const uint2*>(&sm.u.w2[st][r2][tid * 8]);
-            float wv[16];
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              wv[t] = nibble(raw.x, 2 * t);
-              wv[4 + t] = nibble(raw.y, 2 * t);
-              wv[8 + t] = nibble(raw.x, 2 * t + 1);
-              wv[12 + t] = nibble(raw.y, 2 * t + 1);
-            }
-            const int j = jb * JB + r2;
-#pragma unroll
-            for (int r = 0; r < MT; ++r) {
-              const float hv = sm.hs[m0 + r][j];
-#pragma unroll
-              for (int t = 0; t < 16; ++t)
-                acc[r][t] = fmaf(hv, wv[t], acc[r][t]);
-            }
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // every stage is read before the next pass refills
-      if (tid * 8 < nc) {
-        float* wsb = ws + (long long)blockIdx.x * M * N + n0 + tid * 8;
-#pragma unroll
-        for (int r = 0; r < MT; ++r) {
-          const int m = m0 + r;
-          if (m < M) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-#pragma unroll
-              for (int t = 0; t < 8; t += 4)
-                *reinterpret_cast<float4*>(wsb + (long long)m * N +
-                                           half * n2 + t) =
-                    make_float4(acc[r][8 * half + t], acc[r][8 * half + t + 1],
-                                acc[r][8 * half + t + 2],
-                                acc[r][8 * half + t + 3]);
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int MT>
 __global__ void __launch_bounds__(NT) int4_matmul_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     float* __restrict__ ws, int M, int K, int N) {
@@ -300,21 +420,6 @@ __global__ void __launch_bounds__(NT) int4_matmul_kernel(
 }
 
 template <int MT>
-int launch_mlp_hidden(const void* x, const void* w1, const void* s1,
-                      const void* w2, void* ws, int M, int K, int H, int N,
-                      int act, cudaStream_t st) {
-  const int smem = (int)sizeof(MlpSmem<MT>);
-  cudaError_t err = cudaFuncSetAttribute(
-      int4_mlp_hidden_kernel<MT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int4_mlp_hidden_kernel<MT><<<H / BH, NT, smem, st>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w1, (const float*)s1,
-      (const int8_t*)w2, (float*)ws, M, K, H, N, act);
-  return (int)cudaGetLastError();
-}
-
-template <int MT>
 int launch_matmul(const void* x, const void* w, void* ws, int M, int K,
                   int N, int splits, cudaStream_t st) {
   int4_matmul_kernel<MT><<<dim3(N / BH, splits), NT, 0, st>>>(
@@ -328,15 +433,14 @@ extern "C" int int4_mlp_bf16(const void* x, const void* w1, const void* s1,
                              const void* w2, const void* s2, void* ws,
                              void* out, int M, int K, int H, int N, int act,
                              void* stream) {
-  if (M < 1 || M > MMAX || K % (2 * KC) != 0 || H % BH != 0 || N % 32 != 0 ||
+  if (M < 1 || M > MMAX || K % 32 != 0 || H % BH != 0 || N % 32 != 0 ||
       act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int err = M == 1
-      ? launch_mlp_hidden<1>(x, w1, s1, w2, ws, M, K, H, N, act, st)
-      : launch_mlp_hidden<8>(x, w1, s1, w2, ws, M, K, H, N, act, st);
+  const int err = launch_hidden(x, w1, s1, w2, ws, M, K, H, N, act, st);
   if (err != 0) return err;
-  return launch_sum_partials(ws, s2, nullptr, out, M, N, H / BH, st);
+  return launch_sum_partials_grouped(ws, s2, out, M, N, H / BH, st,
+                                     /*pdl=*/true);
 }
 
 extern "C" int int4_matmul_bf16(const void* x, const void* w,

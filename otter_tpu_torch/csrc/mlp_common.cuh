@@ -117,4 +117,39 @@ inline int launch_sum_partials(const void* ws, const void* scale,
                        (__nv_bfloat16*)out, M, N, nblk);
 }
 
+// The same sum for a short output and many slices (the fused int4 MLP's:
+// M N as small as 4096, 128 or more slices), where one thread a value
+// would wait on its loads one after another: 8 warps a 32-value block,
+// warp q adding the slices q, q + 8, ... in order, then the 8 sums added
+// in order. out = that sum * scale, cast to bf16. N % 32 == 0. No
+// atomics: the same bits every call.
+__global__ void __launch_bounds__(256) sum_partials_grouped_kernel(
+    const float* __restrict__ ws, const float* __restrict__ scale,
+    __nv_bfloat16* __restrict__ out, int M, int N, int nblk) {
+  __shared__ float red[8][32];
+  pdl_wait();   // ws comes from the kernel before
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  const long long stride = (long long)M * N;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int blk = q; blk < nblk; blk += 8) acc += ws[blk * stride + i];
+  red[q][lane] = acc;
+  __syncthreads();
+  if (q == 0) {
+    float y = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) y += red[r][lane];
+    out[i] = __float2bfloat16(y * scale[i % N]);
+  }
+}
+
+inline int launch_sum_partials_grouped(const void* ws, const void* scale,
+                                       void* out, int M, int N, int nblk,
+                                       cudaStream_t st, bool pdl) {
+  return launch_kernel(pdl, sum_partials_grouped_kernel, dim3(M * N / 32),
+                       256, 0, st, (const float*)ws, (const float*)scale,
+                       (__nv_bfloat16*)out, M, N, nblk);
+}
+
 }  // namespace otter

@@ -243,10 +243,13 @@ def split_k_rows(k: int, n: int, m: int) -> int:
 
 
 def int8_attn_tail_plain(attn_raw, resid, woq, so, norm_scale, w1q, s1, w2q,
-                         s2, *, eps: float = 1e-5, act: str = "gelu"):
+                         s2, *, eps: float = 1e-5, act: str = "gelu",
+                         return_mlp: bool = False):
     """The kernel's function in plain PyTorch, rounding to the activation
     dtype where the kernel rounds: the out-projection before the residual,
-    y, the norm's result, the hidden activation, the MLP's result."""
+    y, the norm's result, the hidden activation, the MLP's result.
+    `return_mlp`: also return that MLP result (before the residual), whose
+    rounding a check of the kernel must allow for."""
     dt = attn_raw.dtype
     o = (attn_raw.float() @ woq.to(dt).float()) * so.float()
     y = (resid.float() + o.to(dt).float()).to(dt)
@@ -256,7 +259,7 @@ def int8_attn_tail_plain(attn_raw, resid, woq, so, norm_scale, w1q, s1, w2q,
     n = ((yf - mean) * torch.rsqrt(var + eps) * norm_scale.float()).to(dt)
     h = ACTIVATIONS[act]((n.float() @ w1q.to(dt).float()) * s1.float()).to(dt)
     mlp = ((h.float() @ w2q.to(dt).float()) * s2.float()).to(dt)
-    return y + mlp
+    return (y + mlp, mlp) if return_mlp else y + mlp
 
 
 def int8_attn_tail(attn_raw: torch.Tensor, resid: torch.Tensor,
@@ -615,8 +618,8 @@ def _check_kernel_inputs(what: str, x: torch.Tensor, *weights: torch.Tensor):
 def int4_mlp_refusal(m: int, k: int, h: int, n: int) -> Optional[str]:
     """Why the int4 MLP kernel refuses x [M, K] through an [K, H] / [H, N]
     pair, or None when it takes it."""
-    if m > 32 or k % 128 or h % 128 or n % 32:
-        return (f"int4_mlp kernel: M={m} (<= 32), K={k} (% 128), H={h} "
+    if m > 32 or k % 32 or h % 128 or n % 32:
+        return (f"int4_mlp kernel: M={m} (<= 32), K={k} (% 32), H={h} "
                 f"(% 128), N={n} (% 32)")
     return None
 
@@ -627,7 +630,7 @@ def int4_mlp(x: torch.Tensor, w1p: torch.Tensor, s1: torch.Tensor,
     """act((x @ unpack0(w1p)) * s1) @ unpack1(w2p) * s2 with x [M, K], w1p
     [K/2, H] (pack_axis 0), w2p [H, N/2] (pack_axis 1), f32 scales s1 [H],
     s2 [N]; the hidden activation is rounded to x's dtype before the second
-    product. CUDA tensors: x bf16, M <= 32, K % 128 == 0, H % 128 == 0,
+    product. CUDA tensors: x bf16, M <= 32, K % 32 == 0, H % 128 == 0,
     N % 32 == 0, everything contiguous and 16-byte aligned."""
     m, k = x.shape
     h, n = w2p.shape[0], 2 * w2p.shape[1]

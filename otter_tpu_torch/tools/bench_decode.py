@@ -21,6 +21,9 @@ that make the long window longer: steps short .. long of one more
 request, run by `generate`'s own decode loop), the kernels' durations
 summed and divided by their number (`device_step_ms`), and the same over
 each third of those steps (`device_step_ms_estimates`); None on the CPU.
+A third whose trace holds fewer kernel records a step than another's (the
+profiler can lose records) is profiled again from a copy of its starting
+state, up to 3 times, before the bench raises.
 The host's share of a step moves the wall estimates by tens of percent
 between runs on a machine shared with other work; the kernels' times do
 not.
@@ -46,6 +49,7 @@ import argparse
 import json
 import subprocess
 import time
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import numpy as np
@@ -109,13 +113,10 @@ def decode_step_bytes(model, batch: int, cache_len: int, cache_bit: str
                                  _CACHE_DTYPES[cache_bit])
 
 
-def _kernel_ms(fn) -> float:
-    """Device ms of what `fn()` runs on the card: the time in which at
-    least one CUDA activity of torch.profiler's trace runs, read straight
-    from its events (no event tree is built). Kernels on one stream run one
-    after another, so this is their durations' sum, except where a
-    programmatic dependent launch starts before its predecessor ends (the
-    megakernel's): the overlap counts once."""
+def _kernel_ms(fn):
+    """(device ms of what `fn()` runs on the card, the number of CUDA
+    records in its trace): torch.profiler's CUDA activity, read straight
+    from its events (no event tree is built), through `_busy_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,9 +124,19 @@ def _kernel_ms(fn) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return _busy_ms(events), len(events)
+
+
+def _busy_ms(events) -> float:
+    """The time in which at least one of `events` (CUDA records: start_ns,
+    duration_ns) runs. Kernels on one stream run one after another, so this
+    is their durations' sum, except where a programmatic dependent launch
+    starts before its predecessor ends (the megakernel's): the overlap
+    counts once."""
     spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+                   for e in events)
     busy, end = 0, None
     for lo, hi in spans:
         if end is None or lo >= end:
@@ -137,26 +148,60 @@ def _kernel_ms(fn) -> float:
     return busy / 1e6
 
 
+def _clone(v):
+    """A copy of a decode state's tensors (and of the containers that hold
+    them), to run the same steps again from it."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, SimpleNamespace):
+        return SimpleNamespace(**{k: _clone(x) for k, x in vars(v).items()})
+    if isinstance(v, dict):
+        return {k: _clone(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_clone(x) for x in v)
+    return v
+
+
 def _device_step_ms(engine: OtterGenerator, vision_x, ids,
-                    gen: GenerationConfig, first: int, parts: int = 3):
+                    gen: GenerationConfig, first: int, parts: int = 3,
+                    tries: int = 3):
     """Device ms a decode step over steps `first` .. `gen.max_new_tokens`
     of one request (those that the window of `gen.max_new_tokens` new
     tokens runs and one of `first` does not), through `generate`'s own
     prefill and decode loop, profiling only those steps: a profiled
     request of ~2000 steps records millions of kernel events. Returns (the
     mean over those steps, [the mean over each of `parts` consecutive runs
-    of them])."""
+    of them]).
+
+    Every step launches the same kernels, but the profiler can lose a
+    record: a run whose CUDA records a step fall short of another run's is
+    profiled again from a copy of the state it started from, up to `tries`
+    times, before this raises."""
     st = engine._prefill(vision_x, ids, None, gen, None)
     engine._decode(st, first)
     n = gen.max_new_tokens - first
     ends = [first + n * (i + 1) // parts for i in range(parts)]
-    total, parts_ms, lo = 0.0, [], first
+    runs, lo = [], first   # [state at lo, lo, hi, ms, records]
     for hi in ends:
-        ms = _kernel_ms(lambda: engine._decode(st, hi))
-        total += ms
-        parts_ms.append(ms / (hi - lo))
+        start = _clone(st)
+        ms, records = _kernel_ms(lambda: engine._decode(st, hi))
+        runs.append([start, lo, hi, ms, records])
         lo = hi
-    return total / n, parts_ms
+    for attempt in range(tries + 1):
+        per_step = max(r[4] // (r[2] - r[1]) for r in runs)
+        short = [r for r in runs if r[4] < per_step * (r[2] - r[1])]
+        if not short:
+            break
+        if attempt == tries:
+            raise RuntimeError(
+                f"decode steps' traces short of kernels after {tries} more "
+                f"profiles: {[(r[1], r[2], r[4]) for r in runs]} records, "
+                f"{per_step} a step expected")
+        for r in short:
+            again = _clone(r[0])
+            r[3], r[4] = _kernel_ms(lambda: engine._decode(again, r[2]))
+    parts_ms = [r[3] / (r[2] - r[1]) for r in runs]
+    return sum(r[3] for r in runs) / n, parts_ms
 
 
 def run(megakernel: bool = False, fused_tail: bool = False,

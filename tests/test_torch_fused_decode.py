@@ -6,6 +6,7 @@ taken, its behaviour on left-padded rows, the weight bridge for the fused
 leaves, and the decode bench at the tiny size."""
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -299,7 +300,7 @@ def test_bench_decode_device_step_profiles_the_steps_between_windows(
         t0 = state[0].t
         fn()
         seen.append((t0, state[0].t))
-        return 6.0
+        return 6.0, 11 * (state[0].t - t0)   # the same records every step
 
     state = []
     prefill = engine._prefill
@@ -318,6 +319,176 @@ def test_bench_decode_device_step_profiles_the_steps_between_windows(
     monkeypatch.undo()
     assert np.array_equal(state[0].buffer[:, :6 + 8].numpy(),
                           engine.generate(vision_x, ids, gen=gen))
+
+
+class _Event:
+    """A CUDA record of torch.profiler's trace, as `_busy_ms` and
+    `chip_smoke._kernel_device_ms` read it."""
+
+    def __init__(self, start, duration, name="k", cuda=True):
+        from torch.autograd import DeviceType
+        self._start, self._dur, self._name = start, duration, name
+        self._type = DeviceType.CUDA if cuda else DeviceType.CPU
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._dur
+
+    def device_type(self):
+        return self._type
+
+    def name(self):
+        return self._name
+
+
+def test_bench_decode_busy_time_counts_an_overlap_once():
+    # two kernels in a row, then a dependent launch that starts before its
+    # predecessor ends, and one inside another's span
+    ev = [_Event(0, 1000), _Event(1000, 500), _Event(2000, 1000),
+          _Event(2500, 1000), _Event(2600, 100)]
+    assert bench_decode._busy_ms(ev) == pytest.approx(
+        (1000 + 500 + 1500) / 1e6)
+    assert bench_decode._busy_ms([]) == 0.0
+
+
+def _bench_engine_and_request(max_new_tokens=8):
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools.random_weights import build_model
+
+    cfg = OtterConfig.tiny("mpt")
+    engine = OtterGenerator(build_model(cfg, torch.device("cpu"), 0))
+    rng = np.random.default_rng(0)
+    size = cfg.vision.image_size
+    vision_x = rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32)
+    ids = rng.integers(5, 50, (1, 6))
+    ids[:, 0] = cfg.media_token_id
+    gen = GenerationConfig(max_new_tokens=max_new_tokens, do_sample=False,
+                           eos_token_id=-1)
+    return engine, vision_x, ids, gen
+
+
+def _recording_decode(engine, seen):
+    """Wrap `engine._decode` so that each run records (its state's first
+    step, the step it ends at, the state object)."""
+    decode = engine._decode
+
+    def run(st, until):
+        t0 = st.t
+        decode(st, until)
+        seen.append((t0, st.t, st))
+    return run
+
+
+def test_bench_decode_device_step_profiles_a_short_third_again(monkeypatch):
+    """A third whose trace holds fewer records a step than the others'
+    (a record lost) is profiled again, from a copy of the state it started
+    from, and its new time replaces the short one."""
+    engine, vision_x, ids, gen = _bench_engine_and_request()
+    seen = []
+    monkeypatch.setattr(engine, "_decode", _recording_decode(engine, seen))
+    short = iter([True])   # the second third's first profile loses a record
+
+    def kernel_ms(fn):
+        fn()
+        t0, t1, _ = seen[-1]
+        if t0 == 4 and next(short, False):
+            return 1.0, 11 * (t1 - t0) - 1
+        return 6.0, 11 * (t1 - t0)
+
+    monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
+    mean, parts = bench_decode._device_step_ms(engine, vision_x, ids, gen, 2)
+    runs = [(t0, t1) for t0, t1, _ in seen]
+    # prefill samples token 1; steps 1 .. 2 warm up, then three thirds
+    assert runs == [(1, 2), (2, 4), (4, 6), (6, 8), (4, 6)]
+    # the repeat ran on a copy: not the state that went on to step 8
+    assert seen[-1][2] is not seen[-2][2]
+    assert not torch.equal(seen[-1][2].buffer, seen[-2][2].buffer)
+    assert parts == [3.0, 3.0, 3.0] and mean == 3.0
+
+
+def test_bench_decode_device_step_raises_on_a_trace_that_stays_short(
+        monkeypatch):
+    engine, vision_x, ids, gen = _bench_engine_and_request()
+    seen = []
+    monkeypatch.setattr(engine, "_decode", _recording_decode(engine, seen))
+
+    def kernel_ms(fn):
+        fn()
+        t0, t1, _ = seen[-1]
+        # 11 records a step, and one lost in every profile of steps 6 .. 8
+        return 6.0, 11 * (t1 - t0) - (t0 == 6)
+
+    monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
+    with pytest.raises(RuntimeError, match="short of kernels"):
+        bench_decode._device_step_ms(engine, vision_x, ids, gen, 2)
+    # each third once, then the short one 3 more times
+    assert [(t0, t1) for t0, t1, _ in seen[1:]] == \
+        [(2, 4), (4, 6), (6, 8), (6, 8), (6, 8), (6, 8)]
+
+
+def _fake_profile(events_by_call):
+    """A stand-in for torch.profiler.profile whose trace of the n-th
+    profile is events_by_call[n]."""
+    made = iter(events_by_call)
+
+    class Profile:
+        def __init__(self, *a, **kw):
+            events = next(made)
+            self.profiler = SimpleNamespace(kineto_results=SimpleNamespace(
+                events=lambda: events))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    return Profile
+
+
+def _mega_trace(calls, per_call=5, drop=()):
+    names = ["row_norm_kernel", "qkv", "attention", "wo", "sum_partials"]
+    ev, t = [], 0
+    for c in range(calls):
+        for k in range(per_call):
+            if (c, k) not in drop:
+                ev.append(_Event(t, 10 * (k + 1), f"void {names[k]}(args)"))
+            t += 100
+    ev.append(_Event(0, 5, "cpu op", cuda=False))
+    return ev
+
+
+@pytest.mark.parametrize("lost", [1, 20])
+def test_chip_smoke_kernel_device_ms_profiles_a_short_trace_again(
+        monkeypatch, lost):
+    """`_kernel_device_ms` holds a trace to the known kernels a call: a
+    trace short of 1 record, or of a whole call's worth of records (which
+    a check for a multiple of the calls would pass, with the kernels
+    mislabelled), is discarded and profiled again."""
+    import chip_smoke
+    drop = {(c, 1 + c % 4) for c in range(lost)} if lost < 20 else \
+        {(c, 2) for c in range(20)}
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profile(
+        [_mega_trace(20, drop=drop), _mega_trace(20)]))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    times = chip_smoke._kernel_device_ms(lambda: calls.append(1), 5)
+    assert len(calls) == 1 + 20 + 20
+    assert list(times) == ["1. row_norm_kernel", "2. qkv", "3. attention",
+                           "4. wo", "5. sum_partials"]
+    assert times["3. attention"] == pytest.approx(30 / 1e6)
+
+
+def test_chip_smoke_kernel_device_ms_raises_after_three_short_traces(
+        monkeypatch):
+    import chip_smoke
+    monkeypatch.setattr(torch.profiler, "profile", _fake_profile(
+        [_mega_trace(20, drop={(0, 0)})] * 3))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    with pytest.raises(RuntimeError, match="99 kernels in 20 calls of 5"):
+        chip_smoke._kernel_device_ms(lambda: None, 5)
 
 
 def _xattn_bytes():

@@ -142,18 +142,22 @@ def test_int4_attn_dense_matches_jax(tokens):
 @pytest.mark.parametrize("m", [1, 8, 32])
 @pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
 def test_plain_int4_mlp_matches_jax_kernel(act, m):
-    rng, (q1, s1), (q2, s2) = _pair(6)
-    x = rng.standard_normal((m, 64)).astype(np.float32)
-    ref = jquant.int4_mlp(
-        jnp.asarray(x, jnp.bfloat16), jnp.asarray(q1), jnp.asarray(s1),
-        jnp.asarray(q2), jnp.asarray(s2), act=act, block_h=128,
-        interpret=True)
-    before = tquant.int4_mlp.launches
-    out = tquant.int4_mlp(_bf16(x), _t(q1), _t(s1), _t(q2), _t(s2), act=act)
-    assert tquant.int4_mlp.launches == before   # CPU: the plain version
-    assert out.dtype == torch.bfloat16 and out.shape == (m, 64)
-    np.testing.assert_allclose(_f32(out), np.asarray(ref, np.float32),
-                               **BF16_TOL)
+    # K = 64 and 96: multiples of 32 that are not of 128, which the CUDA
+    # kernel takes (96: 48 packed rows, not a whole 32-row step either)
+    for k in (64, 96):
+        rng, (q1, s1), (q2, s2) = _pair(6, k=k)
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        ref = jquant.int4_mlp(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(q1), jnp.asarray(s1),
+            jnp.asarray(q2), jnp.asarray(s2), act=act, block_h=128,
+            interpret=True)
+        before = tquant.int4_mlp.launches
+        out = tquant.int4_mlp(_bf16(x), _t(q1), _t(s1), _t(q2), _t(s2),
+                              act=act)
+        assert tquant.int4_mlp.launches == before   # CPU: the plain version
+        assert out.dtype == torch.bfloat16 and out.shape == (m, 64)
+        np.testing.assert_allclose(_f32(out), np.asarray(ref, np.float32),
+                                   **BF16_TOL)
 
 
 def test_plain_int4_mlp_matches_jax_kernel_f32():

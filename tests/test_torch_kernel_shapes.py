@@ -19,7 +19,6 @@ from otter_tpu_torch.ops import quant
 REFUSED = {
     ("mpt30b", "decode_attention"): "head dim 112",
     ("mpt30b", "megakernel"): "head dim 112",
-    ("falcon7b", "int4_mlp"): "K = 4544 is not a multiple of 128",
 }
 IDEFICS_HEAD_DIMS = {"vision": 80, "perceiver": 96, "text": 128, "xattn": 128}
 
@@ -54,7 +53,7 @@ def _refusals(name, text, head_dims):
         out[(name, "megakernel")] = f"head dim {d}"
     k, h = text.hidden_size, text.mlp_dim
     if quant.int4_mlp_refusal(1, k, h, k) is not None:
-        out[(name, "int4_mlp")] = f"K = {k} is not a multiple of 128"
+        out[(name, "int4_mlp")] = f"K = {k} is not a multiple of 32"
     for site, hid in _mlp_sites(name, text):
         for m in (1, 8, 32):
             if quant.int8_mlp_refusal(m, k, hid, k) is not None:
@@ -101,7 +100,12 @@ def test_flash_takes_bf16_only(dtype):
 
 def test_int4_mlp_refusal_names_the_shape():
     assert quant.int4_mlp_refusal(8, 4096, 16384, 4096) is None
-    assert "K=4544" in quant.int4_mlp_refusal(8, 4544, 18176, 4544)
+    # falcon7b's widths: K % 128 != 0, taken since the kernel steps K / 2
+    # in 16-row k steps
+    assert quant.int4_mlp_refusal(8, 4544, 18176, 4544) is None
+    assert "K=4560" in quant.int4_mlp_refusal(8, 4560, 18176, 4560)
+    assert "H=18240" in quant.int4_mlp_refusal(8, 4544, 18240, 4544)
+    assert "N=4560" in quant.int4_mlp_refusal(8, 4544, 18176, 4560)
     assert "M=33" in quant.int4_mlp_refusal(33, 4096, 16384, 4096)
 
 
