@@ -1756,7 +1756,9 @@ def phase_fused(smi: str, profile: bool = False):
             f"step {res['step_ms']:.3f} ms ({res['tokens_per_s']:.2f} tok/s), "
             f"estimates {[round(x, 3) for x in res['step_ms_estimates']]} "
             f"ms | device step {res['device_step_ms']:.3f} ms, estimates "
-            f"{[round(x, 3) for x in res['device_step_ms_estimates']]} | reads {res['decode_step_bytes'] / 1e9:.3f} GB a step: "
+            f"{[round(x, 3) for x in res['device_step_ms_estimates']]} "
+            f"({res['device_step_profiles']} profiles: two a third where "
+            f"none lost a record) | reads {res['decode_step_bytes'] / 1e9:.3f} GB a step: "
             f"roofline {res['roofline_ms']:.3f} ms, share "
             f"{100 * res['roofline_share']:.2f}% of 3.35 TB/s | weights "
             f"{res['weight_bytes'] / 1e9:.3f} GB on the card | launches a "

@@ -21,9 +21,10 @@ that make the long window longer: steps short .. long of one more
 request, run by `generate`'s own decode loop), the kernels' durations
 summed and divided by their number (`device_step_ms`), and the same over
 each third of those steps (`device_step_ms_estimates`); None on the CPU.
-A third whose trace holds fewer kernel records a step than another's (the
-profiler can lose records) is profiled again from a copy of its starting
-state, up to 3 times, before the bench raises.
+Each third is profiled again from a copy of its starting state until two
+profiles hold the same number of kernel records (the profiler can lose
+records), up to 5 times, before the bench raises; `device_step_profiles`
+counts the profiles.
 The host's share of a step moves the wall estimates by tens of percent
 between runs on a machine shared with other work; the kernels' times do
 not.
@@ -164,44 +165,45 @@ def _clone(v):
 
 def _device_step_ms(engine: OtterGenerator, vision_x, ids,
                     gen: GenerationConfig, first: int, parts: int = 3,
-                    tries: int = 3):
+                    tries: int = 5):
     """Device ms a decode step over steps `first` .. `gen.max_new_tokens`
     of one request (those that the window of `gen.max_new_tokens` new
     tokens runs and one of `first` does not), through `generate`'s own
     prefill and decode loop, profiling only those steps: a profiled
     request of ~2000 steps records millions of kernel events. Returns (the
     mean over those steps, [the mean over each of `parts` consecutive runs
-    of them]).
+    of them], the number of profiles taken).
 
-    Every step launches the same kernels, but the profiler can lose a
-    record: a run whose CUDA records a step fall short of another run's is
-    profiled again from a copy of the state it started from, up to `tries`
-    times, before this raises."""
+    The profiler can lose a record, and the records a step differ with the
+    position (1420 against 1405 at b=8 on one route), so a run is held to
+    itself: each is profiled again from a copy of the state it started
+    from until two profiles hold the same number of CUDA records, at most
+    `tries` times in all, before this raises."""
     st = engine._prefill(vision_x, ids, None, gen, None)
     engine._decode(st, first)
     n = gen.max_new_tokens - first
     ends = [first + n * (i + 1) // parts for i in range(parts)]
-    runs, lo = [], first   # [state at lo, lo, hi, ms, records]
+    total, parts_ms, lo, profiles = 0.0, [], first, 0
     for hi in ends:
         start = _clone(st)
+        seen = {}   # records -> ms of the first profile that held them
         ms, records = _kernel_ms(lambda: engine._decode(st, hi))
-        runs.append([start, lo, hi, ms, records])
+        while True:
+            profiles += 1
+            if records in seen:
+                break
+            seen[records] = ms
+            if len(seen) == tries:
+                raise RuntimeError(
+                    f"decode steps {lo}..{hi}: no two of {tries} profiles "
+                    f"hold the same number of kernel records "
+                    f"({sorted(seen)}): records lost")
+            again = _clone(start)
+            ms, records = _kernel_ms(lambda: engine._decode(again, hi))
+        total += seen[records]
+        parts_ms.append(seen[records] / (hi - lo))
         lo = hi
-    for attempt in range(tries + 1):
-        per_step = max(r[4] // (r[2] - r[1]) for r in runs)
-        short = [r for r in runs if r[4] < per_step * (r[2] - r[1])]
-        if not short:
-            break
-        if attempt == tries:
-            raise RuntimeError(
-                f"decode steps' traces short of kernels after {tries} more "
-                f"profiles: {[(r[1], r[2], r[4]) for r in runs]} records, "
-                f"{per_step} a step expected")
-        for r in short:
-            again = _clone(r[0])
-            r[3], r[4] = _kernel_ms(lambda: engine._decode(again, r[2]))
-    parts_ms = [r[3] / (r[2] - r[1]) for r in runs]
-    return sum(r[3] for r in runs) / n, parts_ms
+    return total / n, parts_ms, profiles
 
 
 def run(megakernel: bool = False, fused_tail: bool = False,
@@ -264,9 +266,9 @@ def run(megakernel: bool = False, fused_tail: bool = False,
         outs.append(out)
         counts = {k: (n_long[k] - n_short[k]) / (new_long - new_short)
                   for k in n_long}
-    dev_step = dev_steps = None
+    dev_step = dev_steps = dev_profiles = None
     if on_gpu:
-        dev_step, dev_steps = _device_step_ms(
+        dev_step, dev_steps, dev_profiles = _device_step_ms(
             engine, vision_x, ids, GenerationConfig(
                 max_new_tokens=new_long, do_sample=False, eos_token_id=-1),
             new_short)
@@ -283,6 +285,8 @@ def run(megakernel: bool = False, fused_tail: bool = False,
         # the kernels' own time a step: not measured on the CPU
         "device_step_ms": dev_step,
         "device_step_ms_estimates": dev_steps,
+        # profiles taken of the thirds (two each where none lost a record)
+        "device_step_profiles": dev_profiles,
         "decode_step_bytes": nbytes,
         # a device's share of its roofline: not measured on the CPU
         "roofline_ms": nbytes / H100_BYTES_PER_S * 1e3 if on_gpu else None,

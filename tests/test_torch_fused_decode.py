@@ -280,44 +280,38 @@ def test_bench_decode_device_step_is_none_on_the_cpu():
     assert "device_step_ms" in res and "device_step_ms_estimates" in res
     assert res["device_step_ms"] is None
     assert res["device_step_ms_estimates"] is None
+    assert res["device_step_profiles"] is None
     assert len(res["step_ms_estimates"]) == 1
 
 
 def test_bench_decode_device_step_profiles_the_steps_between_windows(
         monkeypatch):
     """The device step profiles steps first .. max_new_tokens of one
-    request, in `parts` runs of `generate`'s decode loop, and divides each
+    request, in `parts` runs of `generate`'s decode loop, each twice (the
+    second from a copy of the state it started from), and divides each
     run's kernel time by its steps; the tokens are `generate`'s."""
-    from otter_tpu_torch.config import GenerationConfig
-    from otter_tpu_torch.generation.engine import OtterGenerator
-    from otter_tpu_torch.tools.random_weights import build_model
-
-    cfg = OtterConfig.tiny("mpt")
-    engine = OtterGenerator(build_model(cfg, torch.device("cpu"), 0))
+    engine, vision_x, ids, gen = _bench_engine_and_request()
     seen = []
+    monkeypatch.setattr(engine, "_decode", _recording_decode(engine, seen))
 
     def kernel_ms(fn):
-        t0 = state[0].t
         fn()
-        seen.append((t0, state[0].t))
-        return 6.0, 11 * (state[0].t - t0)   # the same records every step
+        t0, t1, _ = seen[-1]
+        return 6.0, 11 * (t1 - t0)   # the same records every step
 
-    state = []
-    prefill = engine._prefill
-    monkeypatch.setattr(engine, "_prefill",
-                        lambda *a: state.append(prefill(*a)) or state[0])
     monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
-    rng = np.random.default_rng(0)
-    size = cfg.vision.image_size
-    vision_x = rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32)
-    ids = rng.integers(5, 50, (1, 6))
-    ids[:, 0] = cfg.media_token_id
-    gen = GenerationConfig(max_new_tokens=8, do_sample=False, eos_token_id=-1)
-    mean, parts = bench_decode._device_step_ms(engine, vision_x, ids, gen, 2)
-    assert seen == [(2, 4), (4, 6), (6, 8)]
-    assert parts == [3.0, 3.0, 3.0] and mean == 3.0
+    mean, parts, profiles = bench_decode._device_step_ms(
+        engine, vision_x, ids, gen, 2)
+    # prefill samples token 1; steps 1 .. 2 warm up, then three thirds
+    assert [(t0, t1) for t0, t1, _ in seen] == \
+        [(1, 2), (2, 4), (2, 4), (4, 6), (4, 6), (6, 8), (6, 8)]
+    assert parts == [3.0, 3.0, 3.0] and mean == 3.0 and profiles == 6
+    # the repeats ran on copies: the request's own state went on to step 8
+    st = seen[0][2]
+    assert all(s is st for _, _, s in seen[:2] + seen[3:4] + seen[5:6])
+    assert all(s is not st for _, _, s in seen[2:3] + seen[4:5] + seen[6:])
     monkeypatch.undo()
-    assert np.array_equal(state[0].buffer[:, :6 + 8].numpy(),
+    assert np.array_equal(st.buffer[:, :6 + 8].numpy(),
                           engine.generate(vision_x, ids, gen=gen))
 
 
@@ -383,9 +377,9 @@ def _recording_decode(engine, seen):
 
 
 def test_bench_decode_device_step_profiles_a_short_third_again(monkeypatch):
-    """A third whose trace holds fewer records a step than the others'
-    (a record lost) is profiled again, from a copy of the state it started
-    from, and its new time replaces the short one."""
+    """A third whose two profiles hold different numbers of records (one
+    lost) is profiled again from a copy of the state it started from until
+    two agree, and the time of a profile that agrees is used."""
     engine, vision_x, ids, gen = _bench_engine_and_request()
     seen = []
     monkeypatch.setattr(engine, "_decode", _recording_decode(engine, seen))
@@ -399,18 +393,17 @@ def test_bench_decode_device_step_profiles_a_short_third_again(monkeypatch):
         return 6.0, 11 * (t1 - t0)
 
     monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
-    mean, parts = bench_decode._device_step_ms(engine, vision_x, ids, gen, 2)
-    runs = [(t0, t1) for t0, t1, _ in seen]
-    # prefill samples token 1; steps 1 .. 2 warm up, then three thirds
-    assert runs == [(1, 2), (2, 4), (4, 6), (6, 8), (4, 6)]
-    # the repeat ran on a copy: not the state that went on to step 8
-    assert seen[-1][2] is not seen[-2][2]
-    assert not torch.equal(seen[-1][2].buffer, seen[-2][2].buffer)
-    assert parts == [3.0, 3.0, 3.0] and mean == 3.0
+    mean, parts, profiles = bench_decode._device_step_ms(
+        engine, vision_x, ids, gen, 2)
+    assert [(t0, t1) for t0, t1, _ in seen] == [
+        (1, 2), (2, 4), (2, 4), (4, 6), (4, 6), (4, 6), (6, 8), (6, 8)]
+    assert parts == [3.0, 3.0, 3.0] and mean == 3.0 and profiles == 7
 
 
-def test_bench_decode_device_step_raises_on_a_trace_that_stays_short(
-        monkeypatch):
+def test_bench_decode_device_step_takes_other_records_a_step(monkeypatch):
+    """The records a step differ with the position (a route launches a few
+    kernels fewer late in a request): a third is held to its own repeat,
+    not to the other thirds."""
     engine, vision_x, ids, gen = _bench_engine_and_request()
     seen = []
     monkeypatch.setattr(engine, "_decode", _recording_decode(engine, seen))
@@ -418,15 +411,33 @@ def test_bench_decode_device_step_raises_on_a_trace_that_stays_short(
     def kernel_ms(fn):
         fn()
         t0, t1, _ = seen[-1]
-        # 11 records a step, and one lost in every profile of steps 6 .. 8
-        return 6.0, 11 * (t1 - t0) - (t0 == 6)
+        return 6.0, (11 if t0 < 6 else 10) * (t1 - t0)
 
     monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
-    with pytest.raises(RuntimeError, match="short of kernels"):
+    mean, parts, profiles = bench_decode._device_step_ms(
+        engine, vision_x, ids, gen, 2)
+    assert parts == [3.0, 3.0, 3.0] and profiles == 6
+
+
+def test_bench_decode_device_step_raises_on_a_trace_that_stays_short(
+        monkeypatch):
+    engine, vision_x, ids, gen = _bench_engine_and_request()
+    seen = []
+    monkeypatch.setattr(engine, "_decode", _recording_decode(engine, seen))
+    lost = iter(range(1, 100))
+
+    def kernel_ms(fn):
+        fn()
+        t0, t1, _ = seen[-1]
+        # every profile of steps 6 .. 8 loses another number of records
+        return 6.0, 11 * (t1 - t0) - (next(lost) if t0 == 6 else 0)
+
+    monkeypatch.setattr(bench_decode, "_kernel_ms", kernel_ms)
+    with pytest.raises(RuntimeError, match="records lost"):
         bench_decode._device_step_ms(engine, vision_x, ids, gen, 2)
-    # each third once, then the short one 3 more times
+    # each third twice, the last five times: no two of them agree
     assert [(t0, t1) for t0, t1, _ in seen[1:]] == \
-        [(2, 4), (4, 6), (6, 8), (6, 8), (6, 8), (6, 8)]
+        [(2, 4), (2, 4), (4, 6), (4, 6)] + [(6, 8)] * 5
 
 
 def _fake_profile(events_by_call):
