@@ -230,6 +230,7 @@ TENSOR_CORE_KERNELS = {
     "int8_mlp_hidden_kernel": ("int8_mlp", "int8_attn_tail"),
     "int4_mlp_hidden_kernel": ("int4_mlp",),
     "int8_matmul_partial_kernel": ("megakernel", "int8_attn_tail"),
+    "int8_matmul_kernel": ("int8_matmul",),
 }
 
 
@@ -831,14 +832,27 @@ def _decode_kernels(gen, report, entries):
         del k, v, kb, vb, kw
 
 
+def _has_cuda_kernel(op: str) -> bool:
+    """Whether the card's torch has a CUDA kernel for the aten `op` (a
+    yardstick's library call; the port never calls one)."""
+    import torch
+    has = torch._C._dispatch_has_kernel_for_dispatch_key(op, "CUDA")
+    log(f"  library: {op} has {'a' if has else 'no'} CUDA kernel in torch "
+        f"{torch.__version__}")
+    return has
+
+
 def _head_kernel(gen, report, entries):
     """`int8_matmul` against its plain version at the two untied heads that
     reach it (K = 4096; N = 32002, LLaMA-2 with its two added tokens, whose
     rows are not 16-byte aligned, and N = 262144, Fuyu) and at a small odd
-    shape. The 131 MB head comes in two copies used in turn, so that the
-    timed reads come from device memory and not from the 50 MB L2; the
-    1.07 GB head exceeds it alone. No single PyTorch call computes a product
-    of bf16 activations with an int8 weight: library "none". Beside it, for
+    shape (a view at shift 7), each with its device time and two calls
+    compared bit for bit. The 131 MB head comes in two copies used in turn,
+    so that the timed reads come from device memory and not from the 50 MB
+    L2; the 1.07 GB head exceeds it alone. The library call is
+    `torch._weight_int8pack_mm` (x @ W^T * scale with W int8 [N, K] and a
+    bf16 scale) where the card's torch has a CUDA kernel for it: the weight
+    is transposed once, outside the timed calls. Beside it, for
     information, the time of what the kernel replaces in the model:
     `Int8Dense`'s composed product (convert to bf16, cuBLAS, scale)."""
     import torch
@@ -859,6 +873,8 @@ def _head_kernel(gen, report, entries):
     def composed(x, wq, sc):
         return (x @ wq.to(torch.bfloat16)) * sc.to(torch.bfloat16)
 
+    has_lib = _has_cuda_kernel("aten::_weight_int8pack_mm")
+
     for case, n_out, copies, ms_ in (("llama head N=32002", 32002, 2,
                                       (1, 8, 32)),
                                      ("fuyu head N=262144", 262144, 1,
@@ -871,6 +887,8 @@ def _head_kernel(gen, report, entries):
             wide, sc = sets[0]
             wide = torch.cat([wide[:k_here], wide[:k_here, :11]], dim=1)
             sets = [(wide[:, 7:137], sc)]
+        lib_sets = [(w.t().contiguous(), sc.to(torch.bfloat16))
+                    for w, sc in sets] if has_lib else None
         for m in ms_:
             x = torch.randn(m, k_here, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
@@ -878,20 +896,31 @@ def _head_kernel(gen, report, entries):
             ref = quant.int8_matmul_plain(x, *sets[0])
             torch.cuda.synchronize()
             err, excess = max_err(out, ref)
-            if not bool(torch.isfinite(out.float()).all()):
+            if not bool(torch.isfinite(out.float()).all()) or not _bits_repeat(
+                    lambda: quant.int8_matmul(x, *sets[0]), out):
                 excess = float("inf")
             it = iter(range(10 ** 9))
 
             def call():
                 return quant.int8_matmul(x, *sets[next(it) % copies])
 
+            lib_ms = lib_dev = None
+            if lib_sets is not None:
+                def lib():
+                    return torch._weight_int8pack_mm(
+                        x, *lib_sets[next(it) % copies])
+
+                try:
+                    lib_ms, lib_dev = time_ms(lib), device_ms(lib)
+                except RuntimeError as e:   # a shape the op refuses
+                    log(f"    library call refused: {e}")
             nbytes = k_here * n_out + 4 * n_out + 2 * m * (k_here + n_out)
             r = report("int8_matmul", f"{case} M={m}", err, excess,
                        time_ms(call),
                        time_ms(lambda: quant.int8_matmul_plain(
-                           x, *sets[next(it) % copies]), 3, 1), None,
+                           x, *sets[next(it) % copies]), 3, 1), lib_ms,
                        nbytes, 2.0 * m * k_here * n_out,
-                       device=(device_ms(call), None))
+                       device=(device_ms(call), lib_dev))
             composed_ms = time_ms(
                 lambda: composed(x, *sets[next(it) % copies]), 5, 1)
             log(f"    Int8Dense's composed product on the same tensors: "

@@ -8,203 +8,307 @@
 //
 // Replaces the Pallas TPU kernel otter_tpu/ops/quant.py:int8_matmul (the
 // kernel body passed to pallas_call there), with its arithmetic: the int8
-// weight is converted after the load (exact in bf16 and in f32), products
-// are accumulated in f32 over all of K, multiplied by the scale in f32 and
+// weight is converted after the load (exact in bf16), products are
+// accumulated in f32 over all of K, multiplied by the scale in f32 and
 // rounded once to bf16. Its tiling is not carried over: the TPU kernel walks
 // a (N / block_out, K / block_in) grid in order with an accumulator in VMEM,
 // pads M to 8 sublanes and needs a block_out that divides N (at N = 32002
 // that search ends at 2 columns a block). Here one CTA owns 128 columns,
 // runs the whole K loop itself and writes its columns once: no workspace, no
 // second launch, no atomics, one fixed order of summation, so a result is
-// the same from run to run. N / 128 is 251 CTAs for LLaMA's head and 2048
-// for Fuyu's, against 132 SMs.
+// the same from run to run and a row's result does not depend on M.
 //
 // What bounds it on the H100: it reads K * N int8 weights once (131 MB and
 // 1.07 GB) for 2 M operations a weight with M <= 32, far below the ~295
 // operations a byte where the tensor cores would be the limit: bound by
-// bytes. The design reads every weight once at 1 byte and converts it in
-// registers.
+// bytes. But the byte bound leaves an SM little time a byte (its share of
+// the memory's rate is ~14.5 bytes a cycle), so what must stay low is the
+// instructions a weight byte (f32 FMAs on the CUDA cores cost ~13 a weight at M = 8 and
+// grow with M), and what must stay high is the bytes in flight.
 //
-// Rows that are not 16-byte aligned. With N = 32002 only every 8th weight row
-// starts on a 16-byte boundary, and a 128-column block of a row never does in
-// general, so 16-byte loads cannot start at the block's first column. Each
-// row's block is therefore fetched from the 16-byte boundary at or below its
-// first byte: nine 16-byte cp.async vectors cover the 128 wanted bytes at any
-// shift, land in a 144-byte row of shared memory, and the readers add the
-// row's shift (address & 15, the same for a whole warp) when they pick their
-// four bytes out of two 32-bit words (funnel shift). An aligned weight
-// (N % 16 == 0, Fuyu's) has shift 0 everywhere and its ninth vector is never
-// asked for. A vector that would reach before the weight's first byte or past
-// its last is filled byte by byte with guards instead (only the first and the
-// last row can meet that); vectors wholly past the block's last wanted column
-// are zeroed. Columns past N in the last block are computed on whatever the
-// vectors brought (bytes of the next row) and never written.
+// Design:
+// - mma.sync m16n8k16 in bf16 on the tensor cores with int8_mma.cuh's
+//   building blocks: a 16-column weight tile as the A operand, converted in
+//   registers by byte permutes (no I2F), and x's rows as 1 to 4 B n-tiles
+//   inside the tile loop, so every weight is read once for any M <= 32 at
+//   ~3 instructions a weight whatever M is.
+// - 8 warps a CTA: warp w takes columns 32 (w % 4) .. + 31 over rows
+//   64 (w / 4) .. + 63 of every 128-row stage (18.5 KB with the rows'
+//   ninth vectors); the two row halves are added in a fixed order through
+//   shared memory at the end, scaled, rounded and stored as bf16.
+// - A cp.async ring of four slots, three stages (~55 KB) in flight a CTA
+//   and two CTAs an SM: 251 CTAs for LLaMA's head are one wave, Fuyu's 2048
+//   run as CTAs free their slots. Wider blocks (256 columns), shorter
+//   stages (64 rows), a fifth slot and three CTAs an SM of three slots were
+//   all slower on the H100.
+// - No address arithmetic in the stage loop beyond a pointer a stage: the
+//   vectors a thread fetches and the words it reads are the same in every
+//   stage (a row's shift repeats every 16 rows), so their offsets are
+//   computed once; only the first and the last stage check the weight's
+//   ends and K. That cut 17% at N=262144 and 7% at N=32002.
 //
-// Design: 256 threads; the block streams through shared memory in 64-row
-// stages, three in flight (cp.async: the loads of the next stages overlap the
-// multiply-adds of this one) with the matching slice of x; warp g sums rows
-// 8 g .. 8 g + 7 of every stage for 4 columns a lane over MT rows of x at a
-// time (MT = 1, 8, 16 or 32, the smallest that holds M, so the weight is
-// streamed once whatever M is); the warps' sums are added in order, scaled
-// and stored. int8 -> f32 goes through one byte permute and one subtract a
-// weight (the byte, biased by 128, is placed in the mantissa of 2^23), not
-// through the slower integer conversion. The products run on the CUDA cores
-// in f32 in this first version.
+// Rows that are not 16-byte aligned. With N = ldw = 32002 only every 8th
+// weight row starts on a 16-byte boundary, and a 128-column block of a row
+// in general never does, so 16-byte loads cannot start at the block's first
+// column. Each row's block is fetched as it lies, from the 16-byte boundary
+// at or below its first byte: nine 16-byte cp.async vectors cover the 128
+// wanted bytes at any shift and land in a 144-byte row of shared memory.
+// The fragment readers add the row's shift (address & 15, from the row's
+// index) and take their four bytes out of two 32-bit words with a funnel
+// shift, reading the second word only where the shift is not a multiple of
+// 4; the rows are not realigned in memory or in shared memory. An aligned
+// weight (N % 16 == 0, Fuyu's) has shift 0 everywhere and its ninth vector
+// is never fetched. A vector that would reach before the weight's first
+// byte or past its last is filled byte by byte with guards instead (only
+// the first and the last row can meet that). Vectors wholly past the
+// block's last wanted column, and rows past K in a last half stage, are not
+// fetched: whatever their slot holds feeds only columns that are never
+// written or meets x's zero-filled columns (an int8 is always finite, so
+// the product is 0). Columns past N in the last block are computed on
+// whatever the vectors brought (bytes of the next row). Rows of a
+// stage lie 144 bytes apart with 32 more every 8 rows, so that the four
+// rows one thread reads (4t .. 4t + 3 of a 16-row k step, for t = 0 .. 3
+// across a quad) fall in different banks.
+#include "int8_mma.cuh"
 #include "mlp_common.cuh"
 
 using namespace otter;
 
 namespace {
 
-constexpr int QB = 128;        // output columns per CTA
-constexpr int QNT = 256;       // threads per CTA
-constexpr int QKC = 64;        // weight rows per pipeline stage
-constexpr int QNS = 3;         // stages in flight
-constexpr int QKG = QNT / 32;  // row groups of a stage, one warp each
-constexpr int QWS = QB + 16;   // bytes of a shared-memory weight row
-constexpr int QNV = QWS / 16;  // 16-byte vectors of such a row
-constexpr int QMAX = 32;       // largest M
+constexpr int QB = 128;          // output columns per CTA
+constexpr int QNT = 256;         // threads per CTA: 8 warps
+constexpr int QKC = 128;         // weight rows per pipeline stage
+constexpr int QNS = 4;           // ring slots (QNS - 1 stages in flight)
+constexpr int QMAX = 32;         // largest M
+constexpr int QWV = QB / 16 + 1; // 16-byte vectors fetched for a row: 9
+constexpr int QWK = QNT / QB;    // warps that share a column group: 2
+constexpr int QKS = QKC / QWK / 16;   // k steps a warp takes of a stage
+constexpr int QLV = (QKC * QWV + QNT - 1) / QNT;  // vectors a thread fetches
 
-template <int MT>
-union HeadSmem {
-  struct {
-    int8_t w[QNS][QKC][QWS];
-    __nv_bfloat16 x[QNS][MT][QKC];
-  } st;
-  float red[QKG][MT < 8 ? MT : 8][QB];   // the row groups' partial sums
-};
-
-// float(b) of the signed byte `sel` of u, where u holds bytes b ^ 0x80:
-// 0x4B0000uu is 2^23 + uu as a float, and uu = b + 128.
-__device__ __forceinline__ float byte_to_float(uint32_t u, uint32_t sel) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f;
+// byte offset of weight row r in a stage
+__device__ __forceinline__ int w_row(int r) {
+  return r * (16 * QWV) + 32 * (r >> 3);
 }
 
-template <int MT>
-__global__ void __launch_bounds__(QNT) int8_matmul_kernel(
+// Shared memory with NB n-tiles (M <= 8 NB): QNS ring slots, each 128
+// weight rows of the CTA's 128 columns as fetched, then the matching 128
+// columns of x's 8 NB rows (bf16, chunks placed by `x_chunk`). After the
+// walk the ring holds the upper row half's sums, [8 NB][QB] f32.
+template <int NB>
+struct HeadLayout {
+  static constexpr int SW = QKC * 16 * QWV + 32 * (QKC / 8);
+  static constexpr int XROW = QKC * 2;
+  static constexpr int STAGE = SW + 8 * NB * XROW;
+  static constexpr int BYTES = QNS * STAGE;
+  static_assert(8 * NB * QB * 4 <= BYTES, "room for the half sums");
+};
+
+// One warp's QKS k steps over 16 QKS rows of a stage from `wt` (the
+// first of them; rows 16 ks + 4 t + i): A from the fetched rows, thread
+// (g, t) reading its four columns of row 4 t + i of each 16-row step at
+// byte `lo[i]` + 8 sh[i] bits (the row's shift and the column, the same in
+// every step: a row's shift repeats every 16 rows), B from `xt` (columns
+// from b0) as int8_mma.cuh's `k_steps` reads it.
+template <int NB>
+__device__ __forceinline__ void head_k_steps(const unsigned char* wt,
+                                             const unsigned char* xt, int b0,
+                                             const int (&lo)[4],
+                                             const int (&sh)[4], int g, int t,
+                                             float (&acc)[2][NB][4]) {
+#pragma unroll
+  for (int ks = 0; ks < QKS; ++ks) {
+    const unsigned char* rows = wt + w_row(16 * ks);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(rows + lo[i]);
+      w[i] = sh[i] ? __funnelshift_r(p[0], p[1], 8 * sh[i]) : p[0];
+    }
+    uint32_t a[2][4];
+    a_frags(w, a);
+    const int bc = ((((b0 + 16 * ks) >> 3) + (t >> 1)) ^ g) << 4;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const uint2 b = *reinterpret_cast<const uint2*>(
+          xt + (8 * n + g) * HeadLayout<NB>::XROW + bc + 8 * (t & 1));
+      mma_bf16(acc[0][n], a[0], b);
+      mma_bf16(acc[1][n], a[1], b);
+    }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(QNT, 2) int8_matmul_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
     int K, int N, long long ldw) {
-  __shared__ __align__(16) HeadSmem<MT> sm;
-  const int tid = threadIdx.x;
-  const int kg = tid / 32, c4 = (tid % 32) * 4;
+  using L = HeadLayout<NB>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
   const int j0 = blockIdx.x * QB;
   const int nc = min(QB, N - j0);           // wanted columns of this block
   const int8_t* wj = w + j0;                // the block's byte of row 0
   const int8_t* w_end = w + (long long)(K - 1) * ldw + N;
-  const int nk = K / QKC;
-  // the shift of row k is (a0 + k * l15) & 15
+  const int nk = (K + QKC - 1) / QKC;
+  // the shift of stage row r is (a0 + r * l15) & 15 in every stage
   const int a0 = (int)(reinterpret_cast<uintptr_t>(wj) & 15);
   const int l15 = (int)(ldw & 15);
 
-  auto load = [&](int stage, int kc) {
-    const int k0 = kc * QKC;
-    for (int e = tid; e < QKC * QNV; e += QNT) {
-      const int r = e / QNV, v = e % QNV;
-      const int8_t* a = wj + (long long)(k0 + r) * ldw;
-      const int8_t* src = a - (reinterpret_cast<uintptr_t>(a) & 15) + v * 16;
-      int8_t* dst = &sm.st.w[stage][r][v * 16];
-      if (src >= a + nc) {
-        *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+  // The vectors this thread fetches in every stage: vector v of stage row
+  // r, goff[j] bytes from the stage's first row at the block's first
+  // column, into byte dst[j] of the slot; dst[j] < 0: none (a vector wholly
+  // past the wanted columns: what would land there feeds no written
+  // column, as do the rows past K of a last half stage, which are skipped).
+  long long goff[QLV];
+  int dst[QLV];
+#pragma unroll
+  for (int j = 0; j < QLV; ++j) {
+    const int e = tid + j * QNT, r = e / QWV, v = e - r * QWV;
+    const int s = (a0 + r * l15) & 15;
+    goff[j] = r * ldw + 16 * v - s;
+    dst[j] = e < QKC * QWV && 16 * v - s < nc ? w_row(r) + 16 * v : -1;
+  }
+
+  // stage i's weight rows and x columns into ring slot i % QNS (no commit:
+  // the caller groups them); only the first and the last stage can reach
+  // before the weight's first byte, past its last or past K
+  auto load = [&](int i) {
+    if (i >= nk) return;
+    unsigned char* st = smem + (i % QNS) * L::STAGE;
+    const int k0 = i * QKC;
+    const int8_t* sb = wj + k0 * ldw;
+    const bool edge = i == 0 || i == nk - 1;
+#pragma unroll
+    for (int j = 0; j < QLV; ++j) {
+      if (dst[j] < 0) continue;
+      const int8_t* src = sb + goff[j];
+      if (!edge) {
+        cp_async16(st + dst[j], src, true);
+      } else if (k0 + (tid + j * QNT) / QWV >= K) {
+        continue;
       } else if (src >= w && src + 16 <= w_end) {
-        cp_async16(dst, src, true);
+        cp_async16(st + dst[j], src, true);
       } else {
-        for (int t = 0; t < 16; ++t) {
-          const int8_t* p = src + t;
-          dst[t] = (p >= w && p < w_end) ? *p : (int8_t)0;
+        for (int b = 0; b < 16; ++b) {
+          const int8_t* p = src + b;
+          st[dst[j] + b] = (p >= w && p < w_end) ? *p : (int8_t)0;
         }
       }
     }
-    for (int e = tid; e < MT * (QKC / 8); e += QNT) {
-      const int r = e / (QKC / 8), cv = e % (QKC / 8);
-      const bool ok = r < M;
-      cp_async16(&sm.st.x[stage][r][cv * 8],
-                 ok ? x + (long long)r * K + k0 + cv * 8 : x, ok);
+    unsigned char* xs = st + L::SW;
+    for (int e = tid; e < 8 * NB * (QKC / 8); e += QNT) {
+      const int m = e / (QKC / 8), c = e % (QKC / 8);
+      const bool ok = m < M && k0 + c * 8 < K;
+      cp_async16(xs + m * L::XROW + x_chunk(m, c),
+                 ok ? x + (long long)m * K + k0 + c * 8 : x, ok);
     }
-    cp_async_commit();
   };
 
-  float acc[MT][4];
+  float acc[2][NB][4];
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
+  for (int tl = 0; tl < 2; ++tl)
 #pragma unroll
-    for (int t = 0; t < 4; ++t) acc[r][t] = 0.f;
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-  for (int s = 0; s < QNS - 1; ++s) {
-    if (s < nk) load(s, s);
-    else cp_async_commit();
+      for (int c = 0; c < 4; ++c) acc[tl][n][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < QNS - 1; ++s) load(s);
+  cp_async_commit();   // one group: the first QNS - 1 stages
+
+  // warp (cg, kh) takes columns 32 cg .. + 31 over stage rows r0 ..
+  // r0 + 16 QKS - 1; thread (g, t) reads columns col .. col + 3 of row
+  // 4 t + i of every 16-row step at byte lo[i] + sh[i] of that row
+  const int cg = warp % (QB / 32), kh = warp / (QB / 32);
+  const int col = 32 * cg + 4 * g, r0 = kh * 16 * QKS;
+  int lo[4], sh[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int off = w_row(4 * t + i) + ((a0 + (4 * t + i) * l15) & 15) + col;
+    lo[i] = off & ~3;
+    sh[i] = off & 3;
   }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<QNS - 2>();
+  for (int i = 0; i < nk; ++i) {
+    if (i == 0) cp_async_wait<0>();
+    else cp_async_wait<QNS - 2>();
     __syncthreads();
-    // the stage refilled here was consumed in the previous iteration
-    if (kc + QNS - 1 < nk) load((kc + QNS - 1) % QNS, kc + QNS - 1);
-    else cp_async_commit();
-    const int cur = kc % QNS;
-#pragma unroll
-    for (int kk = kg * (QKC / QKG); kk < (kg + 1) * (QKC / QKG); ++kk) {
-      const int pos = ((a0 + ((kc * QKC + kk) & 15) * l15) & 15) + c4;
-      const uint32_t* row =
-          reinterpret_cast<const uint32_t*>(&sm.st.w[cur][kk][0]);
-      const uint32_t u =
-          __funnelshift_r(row[pos >> 2], row[(pos >> 2) + 1], (pos & 3) * 8) ^
-          0x80808080u;
-      const float w0 = byte_to_float(u, 0x7650), w1 = byte_to_float(u, 0x7651),
-                  w2 = byte_to_float(u, 0x7652), w3 = byte_to_float(u, 0x7653);
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        const float xv = __bfloat162float(sm.st.x[cur][r][kk]);
-        acc[r][0] = fmaf(xv, w0, acc[r][0]);
-        acc[r][1] = fmaf(xv, w1, acc[r][1]);
-        acc[r][2] = fmaf(xv, w2, acc[r][2]);
-        acc[r][3] = fmaf(xv, w3, acc[r][3]);
-      }
-    }
+    // the slot refilled here was read in the previous iteration
+    load(i + QNS - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % QNS) * L::STAGE;
+    head_k_steps<NB>(st + w_row(r0), st + L::SW, r0, lo, sh, g, t, acc);
   }
   cp_async_wait<0>();
-  __syncthreads();   // the stages are read: red may reuse their space
+  __syncthreads();   // the ring is read: it takes the half sums
 
-  constexpr int RC = MT < 8 ? MT : 8;   // rows of x per reduction round
+  // column col + q of row 8 n + 2 t + e: acc[q / 2][n][2 (q % 2) + e]
+  float* red = reinterpret_cast<float*>(smem);
+  if (QWK == 2 && kh == 1) {
 #pragma unroll
-  for (int r0 = 0; r0 < MT; r0 += RC) {
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-    for (int r = 0; r < RC; ++r)
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(red + (8 * n + 2 * t + e) * QB + col) =
+            make_float4(acc[0][n][e], acc[0][n][2 + e], acc[1][n][e],
+                        acc[1][n][2 + e]);
+  }
+  if (QWK == 2) __syncthreads();
+  if (kh == 0) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t) sm.red[kg][r][c4 + t] = acc[r0 + r][t];
-    __syncthreads();
-    for (int e = tid; e < RC * QB; e += QNT) {
-      const int r = e / QB, col = e % QB, m = r0 + r;
-      if (m >= M || col >= nc) continue;
-      float z = 0.f;
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int g = 0; g < QKG; ++g) z += sm.red[g][r][col];
-      out[(long long)m * N + j0 + col] = __float2bfloat16(z * scale[j0 + col]);
-    }
-    __syncthreads();   // red is read before the next round overwrites it
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * n + 2 * t + e;
+        if (m >= M) continue;
+        const float4 hi =
+            QWK == 2 ? *reinterpret_cast<const float4*>(red + m * QB + col)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float v[4] = {acc[0][n][e] + hi.x, acc[0][n][2 + e] + hi.y,
+                            acc[1][n][e] + hi.z, acc[1][n][2 + e] + hi.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col + q < nc)
+            out[(long long)m * N + j0 + col + q] =
+                __float2bfloat16(v[q] * scale[j0 + col + q]);
+      }
   }
 }
 
-template <int MT>
+template <int NB>
 int launch(const void* x, const void* w, const void* scale, void* out, int M,
            int K, int N, long long ldw, cudaStream_t st) {
-  int8_matmul_kernel<MT><<<(N + QB - 1) / QB, QNT, 0, st>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale,
-      (__nv_bfloat16*)out, M, K, N, ldw);
-  return (int)cudaGetLastError();
+  constexpr int smem = HeadLayout<NB>::BYTES;
+  auto kernel = int8_matmul_kernel<NB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  return launch_kernel(false, kernel, dim3((N + QB - 1) / QB), QNT, smem, st,
+                       (const __nv_bfloat16*)x, (const int8_t*)w,
+                       (const float*)scale, (__nv_bfloat16*)out, M, K, N,
+                       ldw);
 }
 
 }  // namespace
 
+// ceil(M / 8) n-tiles: the weight streams once for any M <= QMAX
 extern "C" int int8_matmul_bf16(const void* x, const void* w,
                                 const void* scale, void* out, int M, int K,
                                 int N, long long ldw, void* stream) {
-  if (M < 1 || M > QMAX || K < QKC || K % QKC != 0 || N < 1 || ldw < N)
+  if (M < 1 || M > QMAX || K < 64 || K % 64 != 0 || N < 1 || ldw < N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (M == 1) return launch<1>(x, w, scale, out, M, K, N, ldw, st);
-  if (M <= 8) return launch<8>(x, w, scale, out, M, K, N, ldw, st);
-  if (M <= 16) return launch<16>(x, w, scale, out, M, K, N, ldw, st);
-  return launch<32>(x, w, scale, out, M, K, N, ldw, st);
+  switch ((M + 7) / 8) {
+    case 1: return launch<1>(x, w, scale, out, M, K, N, ldw, st);
+    case 2: return launch<2>(x, w, scale, out, M, K, N, ldw, st);
+    case 3: return launch<3>(x, w, scale, out, M, K, N, ldw, st);
+    default: return launch<4>(x, w, scale, out, M, K, N, ldw, st);
+  }
 }
 
 extern "C" const char* otter_error_string(int err) {

@@ -839,6 +839,41 @@ def test_int8_matmul_rows_do_not_depend_on_m(gen):
     assert torch.equal(out3, quant.int8_matmul(x, wq, scale)[:3])
 
 
+@pytest.mark.parametrize("m", [1, 8, 9, 32])
+def test_int8_matmul_at_llama_head(gen, m):
+    """LLaMA-2's head: K = 4096, N = ldw = 32002 (a row starts 16-byte
+    aligned only every 8th row; a last block of 2 columns)."""
+    wq, scale = _head(gen, 4096, 32002)
+    x = _rnd(gen, m, 4096)
+    out = quant.int8_matmul(x, wq, scale)
+    _close(out, quant.int8_matmul_plain(x, wq, scale))
+    assert torch.equal(quant.int8_matmul(x, wq, scale), out)
+
+
+def test_int8_matmul_grid_of_several_waves(gen):
+    """547 column blocks, more than the CTAs the card holds at once, with
+    unaligned rows."""
+    wq, scale = _head(gen, 256, 70001)
+    x = _rnd(gen, 5, 256)
+    out = quant.int8_matmul(x, wq, scale)
+    _close(out, quant.int8_matmul_plain(x, wq, scale))
+    assert torch.equal(quant.int8_matmul(x, wq, scale), out)
+
+
+@pytest.mark.parametrize("m", [8, 16, 24])
+def test_int8_matmul_n_tile_edges(gen, m):
+    """M and M + 1 run with different numbers of n-tiles: each matches the
+    plain version, and the M rows agree bit for bit (a row's order of
+    summation does not depend on M)."""
+    wq, scale = _head(gen, 512, 1000)
+    x = _rnd(gen, m + 1, 512)
+    small = quant.int8_matmul(x[:m], wq, scale)
+    large = quant.int8_matmul(x, wq, scale)
+    _close(small, quant.int8_matmul_plain(x[:m], wq, scale))
+    _close(large, quant.int8_matmul_plain(x, wq, scale))
+    assert torch.equal(large[:m], small)
+
+
 def test_int8_matmul_refuses_what_the_kernel_does_not_take(gen):
     wq, scale = _head(gen, 256, 130)
     x = _rnd(gen, 4, 256)
