@@ -231,6 +231,7 @@ TENSOR_CORE_KERNELS = {
     "int4_mlp_hidden_kernel": ("int4_mlp",),
     "int8_matmul_partial_kernel": ("megakernel", "int8_attn_tail"),
     "int8_matmul_kernel": ("int8_matmul",),
+    "int4_matmul_kernel": ("int4_mlp",),
 }
 
 
@@ -636,12 +637,14 @@ def _int4_kernels(gen, report, entries):
     0.5 byte a weight) at M = 1, 8 and 32 (32: the largest decode call), at
     the xattn FF's (the same widths) at M = 8 and at falcon7b's 4544 ->
     18176 -> 4544 at M = 8 (K % 128 != 0; 142 CTAs, beyond the 132 SMs),
-    and `int4_matmul` at MPT-7B's qkv and out-proj widths, against their
-    plain versions, with device times and (`int4_mlp`) two calls compared
+    and `int4_matmul` at MPT-7B's qkv and out-proj widths (M = 1, 8, 32),
+    against their plain versions, with device times and two calls compared
     bit for bit. Enough weight sets in turn that the timed reads come from
     device memory and not from the 50 MB L2 (67 MB a set at MPT's widths,
-    41 MB at falcon7b's). No single PyTorch call computes either: library
-    "none"."""
+    41 MB at falcon7b's). No single PyTorch call computes `int4_mlp`;
+    `int4_matmul`'s library call is `torch._weight_int4pack_mm` where the
+    card's torch has a CUDA kernel for it (`_int4pack`: the weight
+    converted once, outside the timed calls)."""
     import torch
     from otter_tpu_torch.ops import quant
     k_in = 4096
@@ -690,32 +693,75 @@ def _int4_kernels(gen, report, entries):
             entries["int4_mlp"] = r
     del int4_sets
 
+    has_lib = _has_cuda_kernel("aten::_weight_int4pack_mm")
     for case, n_out, copies in (("qkv", 3 * k_in, 3), ("out_proj", k_in, 8)):
         sets = [quant.quantize_kernel_int4(0.02 * torch.randn(
             k_in, n_out, generator=gen, device="cuda"), 0)
             for _ in range(copies)]
-        for m in (1, 8):
+        lib_sets = [_int4pack(wp, sc) for wp, sc in sets] if has_lib \
+            else None
+        for m in (1, 8, 32):
             x = torch.randn(m, k_in, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
             out = quant.int4_matmul(x, *sets[0])
             ref = quant.int4_matmul_plain(x, *sets[0])
             torch.cuda.synchronize()
             err, excess = max_err(out, ref)
+            if not bool(torch.isfinite(out.float()).all()) or not _bits_repeat(
+                    lambda: quant.int4_matmul(x, *sets[0]), out):
+                excess = float("inf")
             it = iter(range(10 ** 9))
 
             def call():
                 return quant.int4_matmul(x, *sets[next(it) % copies])
 
+            lib_ms = lib_dev = None
+            if lib_sets is not None:
+                def lib():
+                    wpk, sz = lib_sets[next(it) % copies]
+                    return torch._weight_int4pack_mm(x, wpk, 128, sz)
+
+                try:
+                    lib_err = max_err(torch._weight_int4pack_mm(
+                        x, lib_sets[0][0], 128, lib_sets[0][1]), ref)[0]
+                    lib_ms, lib_dev = time_ms(lib), device_ms(lib)
+                    log(f"    library: group size 128, the column's scale "
+                        f"rounded to bf16 in every group, zero points 0; "
+                        f"max |err| against the plain version "
+                        f"{lib_err:.3e}")
+                except RuntimeError as e:   # a shape the op refuses
+                    log(f"    library call refused: {e}")
             nbytes = k_in * n_out // 2 + 4 * n_out + 2 * m * (k_in + n_out)
             r = report("int4_matmul", f"{case} M={m}", err, excess,
                        time_ms(call),
                        time_ms(lambda: quant.int4_matmul_plain(
-                           x, *sets[next(it) % copies]), 5), None,
+                           x, *sets[next(it) % copies]), 5), lib_ms,
                        nbytes, 2.0 * m * k_in * n_out,
-                       device=(device_ms(call), None))
+                       device=(device_ms(call), lib_dev))
+            subs = _kernel_device_ms(call, 2)
+            log("    its kernels, device ms a call (torch.profiler, 20 "
+                "calls): " + ", ".join(f"{n} {t:.4f}" for n, t in subs.items()))
+            r["sub_kernels_device_ms"] = subs
             if (case, m) == ("qkv", 8):
                 entries["int4_matmul"] = r
-        del sets
+        del sets, lib_sets
+
+
+def _int4pack(wp, scale):
+    """`wp` (pack_axis 0, values in [-7, 7]) and its f32 per-column scale
+    as `torch._weight_int4pack_mm` takes them: unsigned nibbles q = v + 8
+    of W^T [N, K], two a byte along K (even k in the high nibble), tiled
+    by `torch._convert_weight_to_int4pack`, and a [K / 128, N, 2] bf16
+    table of (scale, zero point 0) for groups of 128 rows; the op
+    computes x @ ((q - 8) * scale + 0)."""
+    import torch
+    from otter_tpu_torch.ops import quant
+    q = (quant.unpack_int4(wp, 0).t().to(torch.int32) + 8)
+    packed = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8).contiguous()
+    k, n = 2 * wp.shape[0], wp.shape[1]
+    sz = torch.zeros(k // 128, n, 2, dtype=torch.bfloat16, device=wp.device)
+    sz[:, :, 0] = scale.to(torch.bfloat16)
+    return torch._convert_weight_to_int4pack(packed, 8), sz
 
 
 def _decode_cases(gen):

@@ -30,7 +30,9 @@
 // weight once (67 MB for the MPT-7B MLP, 25 MB for its qkv projection) for
 // 2 M multiply-adds a weight, so they are bound by bytes: what must stay
 // low is the instructions a weight byte, and what must stay high is the
-// bytes in flight.
+// bytes in flight. A single projection is short (25 MB is 7.5 us at the
+// memory's rate, MPT-7B's out-projection 2.5 us), so the time it takes to
+// get the first bytes of every CTA in flight counts too.
 //
 // int4_mlp, the design of int8_mlp_kernel.cuh with nibbles: CTA j owns
 // hidden units [128 j, 128 j + 128), 8 warps.
@@ -58,13 +60,25 @@
 //   launch of 8 warps a 32-value block (`sum_partials_grouped_kernel`),
 //   scheduled once phase 2 begins: one thread a value would wait on 128
 //   loads in turn where M N is small.
-// int4_matmul, on the CUDA cores: CTA (j, s) owns output columns
-//   [128 j, 128 j + 128) and the s-th run of packed rows; W1p's column
-//   block streams in stages of 64 packed rows, three in flight; a nibble
-//   becomes an f32 by a shift, a logic op and a subtraction (written into
-//   the mantissa of 2^23); each of the 8 warps sums 8 packed rows of every
-//   stage for 4 columns a lane, and the warps' sums are added in a fixed
-//   order into ws[s].
+// int4_matmul, int4_mlp's phase 1 without the activation, on the tensor
+// cores with the same fragments: CTA (j, s) owns output columns
+// [128 j, 128 j + 128) and the s-th run of packed rows (the host's plan,
+// ops/quant.py:split_k, puts 256-384 CTAs on the card for MPT-7B's
+// projections: 96 and 32 column blocks alone would leave most SMs idle).
+// - The M <= 32 rows of x are 1 to 4 B n-tiles inside the tile loop, so
+//   every packed byte is read once a call at any M (the CUDA-core version
+//   walked M in chunks of 8 and read the weight four times at M = 32).
+// - Stages of 64 packed rows (8 KB) through a cp.async ring of six slots,
+//   one commit group a stage, so that a CTA's products start when its
+//   first stage lands (a CTA streams only 4 to 8 stages): 5 stages, 40 KB,
+//   in flight a CTA, three CTAs an SM at M <= 8. One group for the first
+//   five stages was 9-21% slower on the H100, and so were twice the
+//   splits; four slots changed nothing, eight were slower at M = 32.
+// - Warp w takes columns 32 (w % 4) .. + 31 over half w / 4 of every
+//   stage's packed rows; the halves are added in a fixed order through
+//   shared memory and written to the CTA's workspace slice, and the sum of
+//   the slices is a programmatic dependent launch of
+//   `sum_partials_grouped_kernel`, scheduled once the products are done.
 #include "int4_mma.cuh"
 #include "mlp_common.cuh"
 
@@ -75,9 +89,6 @@ using namespace otter;
 constexpr int BH = 128;    // columns (int4_matmul) or hidden units a CTA
 constexpr int NT = 256;    // threads per CTA: 8 warps
 constexpr int MMAX = 32;   // largest M (decode shapes)
-constexpr int KC = 64;     // packed rows per pipeline stage (128 weight rows)
-constexpr int NS1 = 3;     // packed-row product: stages in flight
-constexpr int KG = NT / 32;  // packed-row product: row groups, one warp each
 
 // ── int4_mlp: the fused MLP on the tensor cores ──
 
@@ -298,133 +309,151 @@ int launch_hidden(const void* x, const void* w1, const void* s1,
   }
 }
 
-// ── int4_matmul: the packed-row product on the CUDA cores ──
+// ── int4_matmul: the packed-row product on the tensor cores ──
 
-// nibble `i` (0 = lowest) of a word as a float in [-8, 7]: (n ^ 8) lands in
-// the mantissa of 2^23, and 2^23 + (n ^ 8) - (2^23 + 8) = n sign-extended
-__device__ __forceinline__ float nibble(uint32_t word, int i) {
-  return __uint_as_float(((word >> (4 * i)) & 0xFu) ^ 0x4B000008u) -
-         8388616.f;
-}
+constexpr int MKC = 64;   // packed rows a stage (128 weight rows)
+constexpr int MNS = 6;    // ring slots (MNS - 1 stages in flight)
 
-template <int MT>
-union Phase1 {
-  struct {
-    int8_t w[NS1][KC][BH];             // packed rows
-    __nv_bfloat16 x[NS1][2][MT][KC];   // x for the low / the high nibbles
-  } st;
-  float red[KG][MT][BH];   // each row group's partial sums
+// Shared memory with NB n-tiles (M <= 8 NB): MNS ring slots, each MKC
+// packed rows of the CTA's BH columns (chunks swizzled by `w_chunk`), then
+// x's 8 NB rows of the two matching MKC-column slices (the low nibbles'
+// columns p, then the high nibbles' K/2 + p; chunks placed by `x_chunk`).
+// After the walk the ring holds the upper row half's sums, [8 NB][BH] f32.
+template <int NB>
+struct MatmulLayout {
+  static constexpr int SW = MKC * BH;
+  static constexpr int XROW = 2 * MKC * 2;
+  static constexpr int STAGE = SW + 8 * NB * XROW;
+  static constexpr int BYTES = MNS * STAGE;
+  static_assert(8 * NB * BH * 4 <= BYTES, "room for the half sums");
 };
 
-// red[g][r][c] = the g-th row group's share of
-//   x[m0 + r, :] @ unpack0(w)[rows, j0 + c]
-// over the packed rows [p0, p0 + np) of w [K/2, ldw] (np a multiple of KC),
-// i.e. weight rows [p0, p0 + np) and [K/2 + p0, K/2 + p0 + np). Rows of x
-// past M count as zero. Ends with the CTA synchronized on a filled `red`;
-// the caller adds the KG groups in order and synchronizes before the next
-// call.
-template <int MT>
-__device__ __forceinline__ void packed_block_product(
-    Phase1<MT>& sm, const __nv_bfloat16* __restrict__ x,
-    const int8_t* __restrict__ w, int M, int K, int ldw, int j0, int m0,
-    int p0, int np) {
-  const int tid = threadIdx.x;
-  // warp kg sums packed rows kg*8..kg*8+7 of every stage for the 4
-  // columns c4..c4+3
-  const int kg = tid / 32, c4 = (tid % 32) * 4;
-  const int nk = np / KC;
-  auto load = [&](int stage, int kc) {
-    const int pk = p0 + kc * KC;
-    for (int e = tid; e < KC * (BH / 16); e += NT) {
-      const int r = e / (BH / 16), cv = e % (BH / 16);
-      cp_async16(&sm.st.w[stage][r][cv * 16],
-                 w + (long long)(pk + r) * ldw + j0 + cv * 16, true);
-    }
-    for (int e = tid; e < 2 * MT * (KC / 8); e += NT) {
-      const int half = e / (MT * (KC / 8)), r = (e / (KC / 8)) % MT,
-                cv = e % (KC / 8), m = m0 + r;
-      const bool ok = m < M;
-      cp_async16(&sm.st.x[stage][half][r][cv * 8],
-                 ok ? x + (long long)m * K + half * (K / 2) + pk + cv * 8 : x,
-                 ok);
-    }
-    cp_async_commit();
-  };
-  float acc[MT][4];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[r][t] = 0.f;
-#pragma unroll
-  for (int s = 0; s < NS1 - 1; ++s) {
-    if (s < nk) load(s, s);
-    else cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<NS1 - 2>();
-    __syncthreads();
-    // the stage refilled here was consumed in the previous iteration
-    if (kc + NS1 - 1 < nk) load((kc + NS1 - 1) % NS1, kc + NS1 - 1);
-    else cp_async_commit();
-    const int cur = kc % NS1;
-#pragma unroll
-    for (int kk = kg * (KC / KG); kk < (kg + 1) * (KC / KG); ++kk) {
-      const uint32_t p =
-          *reinterpret_cast<const uint32_t*>(&sm.st.w[cur][kk][c4]);
-      float lo[4], hi[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        lo[t] = nibble(p, 2 * t);
-        hi[t] = nibble(p, 2 * t + 1);
-      }
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        const float xl = __bfloat162float(sm.st.x[cur][0][r][kk]);
-        const float xh = __bfloat162float(sm.st.x[cur][1][r][kk]);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          acc[r][t] = fmaf(xl, lo[t], acc[r][t]);
-          acc[r][t] = fmaf(xh, hi[t], acc[r][t]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the stages are read: red may reuse their space
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) sm.red[kg][r][c4 + t] = acc[r][t];
-  __syncthreads();
-}
-
-template <int MT>
-__global__ void __launch_bounds__(NT) int4_matmul_kernel(
+// ws[s, m, j0 + c] = x[m, :] @ unpack0(w)[rows_s, j0 + c] for CTA (j, s) of
+// a grid (N / BH, splits): rows_s the weight rows of the s-th run of
+// K / (2 splits) packed rows [p, p + np), i.e. [p, p + np) and
+// [K/2 + p, K/2 + p + np). int4_mlp's phase 1 without the activation: warp
+// w takes columns 32 (w % 4) .. + 31 over half w / 4 of every stage's
+// packed rows, for all 8 NB rows of x at once; the two halves are added in
+// a fixed order through shared memory.
+template <int NB>
+__global__ void __launch_bounds__(NT, NB == 1 ? 3 : 2) int4_matmul_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     float* __restrict__ ws, int M, int K, int N) {
-  __shared__ __align__(16) Phase1<MT> sm;
+  using L = MatmulLayout<NB>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
   const int j0 = blockIdx.x * BH;
-  const int np = (K / 2) / gridDim.y;
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    packed_block_product<MT>(sm, x, w, M, K, N, j0, m0, blockIdx.y * np, np);
-    for (int e = threadIdx.x; e < MT * BH; e += NT) {
-      const int r = e / BH, col = e % BH, m = m0 + r;
-      if (m >= M) continue;
-      float z = 0.f;
-#pragma unroll
-      for (int g = 0; g < KG; ++g) z += sm.red[g][r][col];
-      ws[((long long)blockIdx.y * M + m) * N + j0 + col] = z;
+  const int k2 = K / 2, np = k2 / gridDim.y, pb = blockIdx.y * np;
+  const int nk = np / MKC;
+
+  // stage i's packed rows and x's two slices into ring slot i % MNS (no
+  // commit: the caller groups them)
+  auto load = [&](int i) {
+    if (i >= nk) return;
+    unsigned char* st = smem + (i % MNS) * L::STAGE;
+    const int p0 = pb + i * MKC;
+    for (int e = tid; e < MKC * (BH / 16); e += NT) {
+      const int r = e >> 3, c = e & 7;
+      cp_async16(st + r * BH + w_chunk(r, c),
+                 w + (long long)(p0 + r) * N + j0 + c * 16, true);
     }
+    for (int e = tid; e < 8 * NB * (2 * MKC / 8); e += NT) {
+      const int m = e >> 4, c = e & 15, hi = c >> 3;
+      const bool ok = m < M;
+      cp_async16(st + L::SW + m * L::XROW + x_chunk(m, c),
+                 ok ? x + (long long)m * K + hi * k2 + p0 + (c & 7) * 8 : x,
+                 ok);
+    }
+  };
+
+  float acc[2][NB][4];
+#pragma unroll
+  for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[tl][n][c] = 0.f;
+
+  for (int s = 0; s < MNS - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+
+  const int cg = warp & 3, kh = warp >> 2;
+  const int wcol = w_quad(cg, g, t), r0 = kh * (MKC / 2);
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<MNS - 2>();
     __syncthreads();
+    // the slot refilled here was read in the previous iteration
+    load(i + MNS - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % MNS) * L::STAGE;
+    int4_k_steps_rows<NB, BH, L::XROW, MKC / 32>(
+        st, r0, wcol, st + L::SW, r0, MKC + r0, g, t, acc);
+  }
+  // the sum of the partials may be scheduled now (it waits for this
+  // grid's end before it reads)
+  pdl_launch_dependents();
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is read: it takes the half sums
+
+  // column 32 cg + 4 g + q of row 8 n + 2 t + e: acc[q / 2][n][2 (q % 2) + e]
+  float* red = reinterpret_cast<float*>(smem);
+  const int col = 32 * cg + 4 * g;
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(red + (8 * n + 2 * t + e) * BH + col) =
+            make_float4(acc[0][n][e], acc[0][n][2 + e], acc[1][n][e],
+                        acc[1][n][2 + e]);
+  }
+  __syncthreads();
+  if (kh == 0) {
+    float* out = ws + (long long)blockIdx.y * M * N + j0 + col;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * n + 2 * t + e;
+        if (m >= M) continue;
+        const float4 hi =
+            *reinterpret_cast<const float4*>(red + m * BH + col);
+        *reinterpret_cast<float4*>(out + (long long)m * N) = make_float4(
+            acc[0][n][e] + hi.x, acc[0][n][2 + e] + hi.y,
+            acc[1][n][e] + hi.z, acc[1][n][2 + e] + hi.w);
+      }
   }
 }
 
-template <int MT>
+template <int NB>
+int launch_matmul_nb(const void* x, const void* w, void* ws, int M, int K,
+                     int N, int splits, cudaStream_t st) {
+  constexpr int smem = MatmulLayout<NB>::BYTES;
+  auto kernel = int4_matmul_kernel<NB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  return launch_kernel(false, kernel, dim3(N / BH, splits), NT, smem, st,
+                       (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws,
+                       M, K, N);
+}
+
+// ceil(M / 8) n-tiles: the weights stream once for any M <= MMAX
 int launch_matmul(const void* x, const void* w, void* ws, int M, int K,
                   int N, int splits, cudaStream_t st) {
-  int4_matmul_kernel<MT><<<dim3(N / BH, splits), NT, 0, st>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w, (float*)ws, M, K, N);
-  return (int)cudaGetLastError();
+  switch ((M + 7) / 8) {
+    case 1: return launch_matmul_nb<1>(x, w, ws, M, K, N, splits, st);
+    case 2: return launch_matmul_nb<2>(x, w, ws, M, K, N, splits, st);
+    case 3: return launch_matmul_nb<3>(x, w, ws, M, K, N, splits, st);
+    default: return launch_matmul_nb<4>(x, w, ws, M, K, N, splits, st);
+  }
 }
 
 }  // namespace
@@ -447,13 +476,13 @@ extern "C" int int4_matmul_bf16(const void* x, const void* w,
                                 const void* scale, void* ws, void* out, int M,
                                 int K, int N, int splits, void* stream) {
   if (M < 1 || M > MMAX || N % BH != 0 || splits < 1 ||
-      (K / 2) % (KC * splits) != 0 || K % 2 != 0)
+      (K / 2) % (MKC * splits) != 0 || K % 2 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int err = M == 1 ? launch_matmul<1>(x, w, ws, M, K, N, splits, st)
-                         : launch_matmul<8>(x, w, ws, M, K, N, splits, st);
+  const int err = launch_matmul(x, w, ws, M, K, N, splits, st);
   if (err != 0) return err;
-  return launch_sum_partials(ws, scale, nullptr, out, M, N, splits, st);
+  return launch_sum_partials_grouped(ws, scale, out, M, N, splits, st,
+                                     /*pdl=*/true);
 }
 
 extern "C" const char* otter_error_string(int err) {

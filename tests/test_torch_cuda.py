@@ -495,6 +495,20 @@ def test_int4_matmul_matches_plain(gen, m, k, n):
     assert torch.equal(quant.int4_matmul(x, wp, scale), out)
 
 
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("n", [12288, 4096])
+def test_int4_matmul_at_mpt7b_widths(gen, m, n):
+    """MPT-7B's qkv (N = 12288) and out-projection (N = 4096) at K = 4096,
+    split over the packed rows: matches the plain version, and two calls
+    agree bit for bit (the partial sums are added in a fixed order)."""
+    wp, scale = quant.quantize_kernel_int4(0.02 * torch.randn(
+        4096, n, generator=gen, device="cuda"), 0)
+    x = _rnd(gen, m, 4096)
+    out = quant.int4_matmul(x, wp, scale)
+    _close(out, quant.int4_matmul_plain(x, wp, scale))
+    assert torch.equal(quant.int4_matmul(x, wp, scale), out)
+
+
 def test_int4_attn_dense_routes_by_token_count(gen):
     dense = quant.Int4AttnDense(256, 384, device="cuda")
     wp, scale = quant.quantize_kernel_int4(0.05 * torch.randn(

@@ -216,3 +216,18 @@ def test_int4_matmul_splits_fill_the_card_in_whole_stages():
     assert tquant.split_k(4096, 12288) == 4
     assert tquant.split_k(4096, 4096) == 8
     assert tquant.split_k(64, 128) == 1
+@pytest.mark.parametrize("k", [128, 384, 1024, 4096, 4544 * 2, 16384])
+def test_int4_matmul_plan_is_whole_stages_for_every_width(k):
+    """The kernel's plan (`split_k` over the K / 2 packed rows) is a pure
+    function of (K, N), the same for every M, and gives every split a
+    whole number of 64-row stages and at most 16 splits, for every N the
+    wrapper takes (N % 128 == 0); past one wave of 256 CTAs it adds
+    none."""
+    for n in range(128, 64 * 128 + 1, 128):
+        splits = tquant.split_k(k // 2, n)
+        assert splits >= 1 and splits & (splits - 1) == 0 and splits <= 16
+        assert (k // 2) % (64 * splits) == 0
+        if splits > 1:
+            assert (n // 128) * splits // 2 < 256
+
+
