@@ -77,13 +77,12 @@ using namespace otter;
 namespace {
 
 constexpr int QB = 128;          // output columns per CTA
-constexpr int QNT = 256;         // threads per CTA: 8 warps
+constexpr int QNT = 256;         // threads per CTA: 8 warps, 2 a column group
 constexpr int QKC = 128;         // weight rows per pipeline stage
 constexpr int QNS = 4;           // ring slots (QNS - 1 stages in flight)
 constexpr int QMAX = 32;         // largest M
 constexpr int QWV = QB / 16 + 1; // 16-byte vectors fetched for a row: 9
-constexpr int QWK = QNT / QB;    // warps that share a column group: 2
-constexpr int QKS = QKC / QWK / 16;   // k steps a warp takes of a stage
+constexpr int QKS = QKC / 2 / 16;    // k steps a warp takes of a stage
 constexpr int QLV = (QKC * QWV + QNT - 1) / QNT;  // vectors a thread fetches
 
 // byte offset of weight row r in a stage
@@ -199,7 +198,7 @@ __global__ void __launch_bounds__(QNT, 2) int8_matmul_kernel(
     }
     unsigned char* xs = st + L::SW;
     for (int e = tid; e < 8 * NB * (QKC / 8); e += QNT) {
-      const int m = e / (QKC / 8), c = e % (QKC / 8);
+      const int m = e >> 4, c = e & 15;
       const bool ok = m < M && k0 + c * 8 < K;
       cp_async16(xs + m * L::XROW + x_chunk(m, c),
                  ok ? x + (long long)m * K + k0 + c * 8 : x, ok);
@@ -221,7 +220,7 @@ __global__ void __launch_bounds__(QNT, 2) int8_matmul_kernel(
   // warp (cg, kh) takes columns 32 cg .. + 31 over stage rows r0 ..
   // r0 + 16 QKS - 1; thread (g, t) reads columns col .. col + 3 of row
   // 4 t + i of every 16-row step at byte lo[i] + sh[i] of that row
-  const int cg = warp % (QB / 32), kh = warp / (QB / 32);
+  const int cg = warp & 3, kh = warp >> 2;
   const int col = 32 * cg + 4 * g, r0 = kh * 16 * QKS;
   int lo[4], sh[4];
 #pragma unroll
@@ -245,7 +244,7 @@ __global__ void __launch_bounds__(QNT, 2) int8_matmul_kernel(
 
   // column col + q of row 8 n + 2 t + e: acc[q / 2][n][2 (q % 2) + e]
   float* red = reinterpret_cast<float*>(smem);
-  if (QWK == 2 && kh == 1) {
+  if (kh == 1) {
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
@@ -254,7 +253,7 @@ __global__ void __launch_bounds__(QNT, 2) int8_matmul_kernel(
             make_float4(acc[0][n][e], acc[0][n][2 + e], acc[1][n][e],
                         acc[1][n][2 + e]);
   }
-  if (QWK == 2) __syncthreads();
+  __syncthreads();
   if (kh == 0) {
 #pragma unroll
     for (int n = 0; n < NB; ++n)
@@ -263,8 +262,7 @@ __global__ void __launch_bounds__(QNT, 2) int8_matmul_kernel(
         const int m = 8 * n + 2 * t + e;
         if (m >= M) continue;
         const float4 hi =
-            QWK == 2 ? *reinterpret_cast<const float4*>(red + m * QB + col)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+            *reinterpret_cast<const float4*>(red + m * QB + col);
         const float v[4] = {acc[0][n][e] + hi.x, acc[0][n][2 + e] + hi.y,
                             acc[1][n][e] + hi.z, acc[1][n][2 + e] + hi.w};
 #pragma unroll

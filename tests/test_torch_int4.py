@@ -216,6 +216,8 @@ def test_int4_matmul_splits_fill_the_card_in_whole_stages():
     assert tquant.split_k(4096, 12288) == 4
     assert tquant.split_k(4096, 4096) == 8
     assert tquant.split_k(64, 128) == 1
+
+
 @pytest.mark.parametrize("k", [128, 384, 1024, 4096, 4544 * 2, 16384])
 def test_int4_matmul_plan_is_whole_stages_for_every_width(k):
     """The kernel's plan (`split_k` over the K / 2 packed rows) is a pure
@@ -229,5 +231,3 @@ def test_int4_matmul_plan_is_whole_stages_for_every_width(k):
         assert (k // 2) % (64 * splits) == 0
         if splits > 1:
             assert (n // 128) * splits // 2 < 256
-
-
