@@ -21,10 +21,11 @@ that make the long window longer: steps short .. long of one more
 request, run by `generate`'s own decode loop), the kernels' durations
 summed and divided by their number (`device_step_ms`), and the same over
 each third of those steps (`device_step_ms_estimates`); None on the CPU.
-Each third is profiled again from a copy of its starting state until two
-profiles hold the same number of kernel records (the profiler can lose
-records), up to 5 times, before the bench raises; `device_step_profiles`
-counts the profiles.
+Each profile leaves 50 ms idle at each edge of its window, and each third
+is profiled again from a copy of its starting state until two profiles
+hold the same number of kernel records (the profiler can lose records),
+up to 5 times, before the bench raises; `device_step_profiles` counts the
+profiles.
 The host's share of a step moves the wall estimates by tens of percent
 between runs on a machine shared with other work; the kernels' times do
 not.
@@ -114,17 +115,26 @@ def decode_step_bytes(model, batch: int, cache_len: int, cache_bit: str
                                  _CACHE_DTYPES[cache_bit])
 
 
+# Idle time the profiler's window holds before and after the profiled
+# work: without it, profiles of the same few dozen decode steps on an H100
+# held different numbers of kernel records, records lost in the trace.
+_PROFILE_MARGIN_S = 0.05
+
+
 def _kernel_ms(fn):
     """(device ms of what `fn()` runs on the card, the number of CUDA
     records in its trace): torch.profiler's CUDA activity, read straight
-    from its events (no event tree is built), through `_busy_ms`."""
+    from its events (no event tree is built), through `_busy_ms`. The
+    window leaves `_PROFILE_MARGIN_S` clear at each edge."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()   # nothing earlier still runs in the window
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(_PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(_PROFILE_MARGIN_S)
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
     return _busy_ms(events), len(events)

@@ -440,6 +440,41 @@ def test_bench_decode_device_step_raises_on_a_trace_that_stays_short(
         [(2, 4), (2, 4), (4, 6), (4, 6)] + [(6, 8)] * 5
 
 
+def test_bench_decode_kernel_ms_leaves_the_window_idle_at_its_edges(
+        monkeypatch):
+    """The profiled work starts `_PROFILE_MARGIN_S` after the profiler's
+    window opens and ends as long before it closes (the profiler loses
+    kernel records at the window's edges), and the result is the trace's
+    busy time and its number of CUDA records."""
+    order = []
+
+    class Profile:
+        def __init__(self, *a, **kw):
+            events = [_Event(0, 1000), _Event(500, 1000),
+                      _Event(0, 9, cuda=False)]
+            self.profiler = SimpleNamespace(kineto_results=SimpleNamespace(
+                events=lambda: events))
+
+        def __enter__(self):
+            order.append("open")
+            return self
+
+        def __exit__(self, *exc):
+            order.append("close")
+            return False
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: order.append("sync"))
+    monkeypatch.setattr(bench_decode.time, "sleep",
+                        lambda s: order.append(("sleep", s)))
+    ms, records = bench_decode._kernel_ms(lambda: order.append("work"))
+    margin = ("sleep", bench_decode._PROFILE_MARGIN_S)
+    assert order == ["sync", "open", margin, "work", "sync", margin, "close"]
+    assert bench_decode._PROFILE_MARGIN_S >= 0.05
+    assert ms == pytest.approx(1500 / 1e6) and records == 2
+
+
 def _fake_profile(events_by_call):
     """A stand-in for torch.profiler.profile whose trace of the n-th
     profile is events_by_call[n]."""
