@@ -97,6 +97,30 @@ unless every phase passes:
                  16-token prompt each, 32 greedy tokens. A decode step must
                  launch `int8_matmul` once, `int8_mlp` 36 times and the int8
                  decode_attention 36 times, a prefill `flash_fwd` 36 times.
+ 12. beam        beam search and mixed media (runs after otterhd): first
+                 OTTER-Video-LLaMA7B and OTTER-MPT7B cut in depth as in
+                 parity, the beam path's first logits (a prefill of B*K
+                 rows, the first beam step) through the kernels against
+                 plain; then OTTER-Video-LLaMA7B at full width and depth
+                 (32 layers, an untied head of 32004 rows, frame
+                 embeddings for 128 frames; int8 weights and KV cache): one
+                 still and one 16-frame video as uint8 [1, 2, 16, 224, 224,
+                 3] normalised on the card, the still's frames 1-15 masked,
+                 a 64-token prompt with the two media tokens. The still's
+                 latents under the mask must equal the still encoded alone
+                 within 2e-2 + 2e-2 |alone|; `stream_generate(vision_mask=)`
+                 yields 32 greedy tokens, the same twice; `generate` and
+                 `stream_beam_generate` with num_beams=3,
+                 no_repeat_ngram_size=3, 32 new tokens: two calls equal,
+                 the last streamed beam is generate's continuation. Then
+                 OTTER-MPT7B, serve's b=8 requests with 4 beams each (32
+                 rows). Prints TTFT and tok/s of the best beams; a beam
+                 step must launch `int8_matmul` 1, `decode_attention` 32
+                 and `int8_mlp` 8 times (video) or `int8_mlp` 40 and
+                 `decode_attention` 32 times (MPT), a beam prefill
+                 `flash_fwd` 70 times. The kernels phase holds the flash
+                 forward, `decode_attention` and `int8_matmul` at these
+                 requests' shapes too.
  11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
@@ -108,8 +132,9 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all eleven. `flashkernels` runs the flash part of the kernels phase
-alone, `mlpkernels` its `int8_mlp` and `int8_attn_tail` cases,
+runs all twelve (`--phases beam` the beam phase alone). `flashkernels`
+runs the flash part of the kernels phase alone, `mlpkernels` its
+`int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
 `int4_matmul`, `headkernels` `int8_matmul`, `decodekernels`
 `decode_attention`. `--port-root
@@ -319,6 +344,29 @@ def _flash_cases(gen):
         q=rnd(b, 8, s, 64), k=rnd(b, 8, 64, 64), v=rnd(b, 8, 64, 64),
         q_ids=text_time, kv_ids=kv_ids, ids_mode="eq",
         sm_scale=64 ** -0.5), text_time > 0))
+    # the beam phase's: MPT's prefill at 4 beams (32 rows); the video
+    # request's CLIP over 2 x 16 frames, its masked perceiver (64 latents
+    # against 16 x 256 tokens + 64; the still's frames 1-15 masked) and
+    # LLaMA's prefill of 64 tokens at 3 beams
+    m32 = mask.repeat_interleave(4, 0)
+    cases.append(("mpt_prefill beams K=4", dict(
+        q=rnd(32, 32, s, 128), k=rnd(32, 32, s, 128), v=rnd(32, 32, s, 128),
+        bias=bias, q_ids=m32, kv_ids=m32, causal=True,
+        sm_scale=128 ** -0.5), None))
+    cases.append(("clip video 32 frames", dict(
+        q=rnd(32, 16, 257, 64), k=rnd(32, 16, 257, 64),
+        v=rnd(32, 16, 257, 64)), None))
+    kv_ids = torch.ones((2, 16 * 256 + 64), dtype=torch.int32, device=dev)
+    kv_ids[0, 256:16 * 256] = 0
+    cases.append(("perceiver video masked", dict(
+        q=rnd(2, 8, 64, 64), k=rnd(2, 8, 16 * 256 + 64, 64),
+        v=rnd(2, 8, 16 * 256 + 64, 64),
+        q_ids=torch.ones((2, 64), dtype=torch.int32, device=dev),
+        kv_ids=kv_ids, ids_mode="eq", sm_scale=64 ** -0.5), None))
+    ones = torch.ones((3, 64), dtype=torch.int32, device=dev)
+    cases.append(("llama video prefill K=3", dict(
+        q=rnd(3, 32, 64, 128), k=rnd(3, 32, 64, 128), v=rnd(3, 32, 64, 128),
+        q_ids=ones, kv_ids=ones, causal=True, sm_scale=128 ** -0.5), None))
     return cases
 
 
@@ -790,6 +838,21 @@ def _decode_cases(gen):
     cases += [(f"{c} cache L=2048", mpt_q, c, mpt_starts, long,
                alibi(32, 2048), (8, 8, 32, 2048, 128))
               for c in ("int8", "int4")]
+    # the beam phase's: MPT-7B at 4 beams of 8 requests (32 rows; every
+    # slot below the position is attended, the padding too), and
+    # OTTER-Video-LLaMA7B at 3 beams (rotary: no bias; 64 + 32 tokens in a
+    # cache of 128)
+    cases.append(("int8 cache b=32 (MPT beams)",
+                  torch.randn(32, 32, 128, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  "int8", torch.zeros(32, device=dev, dtype=torch.int32),
+                  short.repeat_interleave(4), alibi(32, 256),
+                  (32, 8, 32, 256, 128)))
+    cases.append(("int8 cache b=3 L=128 (video beams)",
+                  torch.randn(3, 32, 128, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  "int8", i32([0, 0, 0]), i32([80, 80, 80]), None,
+                  (3, 32, 32, 128, 128)))
     # Persimmon is rotary: no bias; the cache holds the 2356-token prompt
     # and 16 new tokens, rounded up to a multiple of 128
     cases.append(("otterhd int8 b=1 L=2432",
@@ -923,6 +986,8 @@ def _head_kernel(gen, report, entries):
 
     for case, n_out, copies, ms_ in (("llama head N=32002", 32002, 2,
                                       (1, 8, 32)),
+                                     ("video-llama head N=32004", 32004, 2,
+                                      (3,)),
                                      ("fuyu head N=262144", 262144, 1,
                                       (1, 8)),
                                      ("odd N=130", 130, 1, (3,))):
@@ -1327,6 +1392,34 @@ def otterhd_cfg(depth_cut: bool = False):
     if depth_cut:
         text = text.replace(num_hidden_layers=4)
     return cfg.replace(text=text)
+
+
+def video_cfg(depth_cut: bool = False):
+    """OTTER-Video-LLaMA7B (frame embeddings for 128 frames, an untied head
+    of 32004 rows) with int8 weights, served with an int8 KV cache."""
+    from otter_tpu_torch.config import otter_llama7b_video
+    cfg = otter_llama7b_video()
+    cfg = cfg.replace(text=cfg.text.replace(quant="int8",
+                                            decode_kernel="auto"))
+    return _depth_cut(cfg) if depth_cut else cfg
+
+
+def video_request(cfg, seed: int, frames: int = 16, prompt: int = 64):
+    """One still and one `frames`-frame video as host-decoded uint8 pixels
+    [1, 2, F, 224, 224, 3] (the still's frames 1.. are zero padding), their
+    frame mask [1, 2, F] and a `prompt`-token prompt holding the two media
+    tokens (numpy)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    pixels = rng.integers(0, 256, (1, 2, frames, size, size, 3)).astype(
+        np.uint8)
+    pixels[0, 0, 1:] = 0
+    mask = np.ones((1, 2, frames), bool)
+    mask[0, 0, 1:] = False
+    ids = rng.integers(1, cfg.text.vocab_size, (1, prompt)).astype(np.int64)
+    ids[0, [0, prompt // 3]] = cfg.media_token_id
+    return pixels, mask, ids
 
 
 def make_requests(cfg, batch: int, seed: int, full: bool = False):
@@ -1736,6 +1829,232 @@ def phase_otterhd(smi: str, profile: bool = False):
             req = fuyu_request(cfg, height, width, 16, SEED + 20)
             phase_profile(lambda n_new: run(req, n_new),
                           f"otterhd {height}x{width}")
+    return launches
+
+
+# ── phase 12: beam search and mixed still+video media ────────────────
+
+# a beam decode step (B*K rows) and a beam prefill: OTTER-Video-LLaMA7B's
+# gated MLPs never reach int8_mlp (its 8 xattn FFs do), MPT-7B's 32 do
+BEAM_LAUNCHES = {
+    "video": ({"flash_fwd": 70}, LLAMA_STEP),
+    "mpt": ({"flash_fwd": 70},
+            {"int8_mlp": 40, "decode_attention": 32}),
+}
+BEAM_PATH = {"flash_fwd", "int8_mlp", "decode_attention", "int8_matmul"}
+BEAM_GEN = dict(no_repeat_ngram_size=3, max_new_tokens=32)
+
+
+def beam_first_logits(model, cfg, vision_x, lang_x, attn, k: int):
+    """The beam path's first logits: the prefill of B*K rows (each
+    request's logits [B, V]) and the first beam step's [B*K, V]."""
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    eng = OtterGenerator(model, cache_dtype=torch.int8)
+    with torch.inference_mode():
+        bs = eng._beam_prefill(vision_x, lang_x, attn, GenerationConfig(
+            max_new_tokens=4, num_beams=k))
+        rows = lang_x.shape[0] * k
+        tok = torch.full((rows, 1), cfg.text.vocab_size // 2,
+                         device=model.device)
+        logits1, _ = bs.step_fn(tok, bs.cache, 1)
+        return bs.init_logits.float(), logits1.float()
+
+
+def _beam_parity():
+    """(c): both configurations cut in depth, kernels against plain."""
+    for tag, cfg, k in (("video-llama7b beams K=3", video_cfg(True), 3),
+                        ("mpt7b beams K=4", serving_cfg(True), 4)):
+        model = build_model(cfg)
+        if cfg.text.arch == "llama":
+            pixels, _, ids = video_request(cfg, SEED + 30)
+            req = (pixels, ids, None)
+        else:
+            req = make_requests(cfg, 8, SEED + 31)
+        kern = beam_first_logits(model, cfg, *req, k)
+        with plain_kernels():
+            plain = beam_first_logits(model, cfg, *req, k)
+        _hold_logits(tag, kern, plain)
+        del model
+
+
+def _beam_launches(tag, run):
+    """The launches of one beam prefill and of one beam decode step
+    (`run(n_new)` runs a whole beam request), checked exactly."""
+    prefill = _launches_of(lambda: run(1))
+    three = _launches_of(lambda: run(3))
+    step = {k: (n - prefill.get(k, 0)) / 2 for k, n in three.items()
+            if n != prefill.get(k, 0)}
+    log(f"beam[{tag}]: a beam prefill launches {prefill}, a beam decode "
+        f"step {step}")
+    want_prefill, want_step = BEAM_LAUNCHES[tag]
+    if prefill != want_prefill or step != want_step:
+        raise RuntimeError(f"beam[{tag}]: a prefill launched {prefill} "
+                           f"(expected {want_prefill}), a step {step} "
+                           f"(expected {want_step})")
+
+
+def _timed(fn, reps: int = REPS):
+    """(median seconds, every run's ms, the last result) of `reps` calls."""
+    import numpy as np
+    times, out = [], None
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)), [round(x * 1e3, 2) for x in times], out
+
+
+def _cut_at(tokens, eos):
+    tokens = list(tokens)
+    return tokens[:tokens.index(eos)] if eos in tokens else tokens
+
+
+def phase_beam(smi: str):
+    """(a) OTTER-Video-LLaMA7B: a still and a 16-frame video in uint8 with
+    their frame mask through `stream_generate`, then beams through
+    `stream_beam_generate` and `generate`; (b) OTTER-MPT7B: serve's b=8
+    requests with 4 beams each (32 rows); (c, first) the beam path's
+    first logits at cut depth, kernels against plain."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools import bench_decode
+
+    _beam_parity()
+    bench_decode.reset_kernel_launches()
+
+    # (a) the video request
+    cfg = video_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    log(f"beam[video]: {cfg.text.num_hidden_layers}-layer llama model, "
+        f"head of {cfg.text.total_vocab} rows, frame embeddings for "
+        f"{cfg.perceiver.max_num_frames} frames, int8 weights "
+        f"({_weight_bytes(model) / 1e9:.3f} GB) and int8 KV cache, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    pixels, mask, ids = video_request(cfg, SEED + 40)
+    dev_pixels = torch.from_numpy(pixels).to(DEV)
+    dev_mask = torch.from_numpy(mask).to(DEV)
+    # the still's latents under the mask against the still alone (F = 1):
+    # 24 CLIP and 6 perceiver layers in bf16 at other shapes (32 frames
+    # against 1, 4160 keys against 320) round differently, so they are
+    # held as the model's outputs are (the parity phase's 5e-2 *
+    # max|ref|), beside the same difference on the plain path and the
+    # still's latents without the mask, which must miss by more
+    def still(fn):
+        with torch.inference_mode():
+            return fn(dev_pixels, dev_mask)[:, :1].float(), fn(
+                dev_pixels[:, :1, :1], None).float()
+
+    lat, alone = still(model.encode_vision)
+    with plain_kernels():
+        plain_lat, plain_alone = still(model.encode_vision)
+    unmasked, _ = still(lambda px, m: model.encode_vision(px))
+    scale = float(alone.abs().max())
+    err, excess = max_err(lat, alone)
+    noise = float((plain_lat - plain_alone).abs().max())
+    off = float((unmasked - alone).abs().max())
+    ok = (err <= 5e-2 * scale < off and bool(torch.isfinite(lat).all())
+          and lat.shape == alone.shape == (1, 1, cfg.perceiver.num_latents,
+                                           cfg.perceiver.dim))
+    log(f"beam[video]: the still's latents under the frame mask against the "
+        f"still alone (F=1): max_abs_err {err:.3e} vs max|alone| "
+        f"{scale:.3e} (tolerance 5e-2 * max|alone|; 2e-2 + 2e-2*|alone| "
+        f"{'met' if excess <= 0 else f'missed by {excess:.3e}'}); the plain "
+        f"path's own {noise:.3e}; without the mask {off:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("beam[video]: the masked still's latents "
+                           "disagree with the still alone")
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    eos = cfg.eoc_token_id
+    greedy = GenerationConfig(max_new_tokens=32)
+
+    def first_token():
+        stream = engine.stream_generate(pixels, ids, gen=greedy,
+                                        vision_mask=mask)
+        tok = next(stream, None)
+        stream.close()
+        return tok
+
+    first_token()                                            # warm-up
+    ttft, ttft_runs, _ = _timed(first_token)
+    streamed = [list(engine.stream_generate(pixels, ids, gen=greedy,
+                                            vision_mask=mask))
+                for _ in range(2)]
+    if streamed[0] != streamed[1] or not all(
+            0 <= t < cfg.text.total_vocab for t in streamed[0]):
+        raise RuntimeError(f"beam[video]: stream_generate gave {streamed}")
+    log(f"beam[video]: stream_generate(vision_mask=) 1 still + "
+        f"{pixels.shape[2]} frames (uint8, normalised on the card), "
+        f"{ids.shape[1]}-token prompt: "
+        f"time to the first token {ttft * 1e3:.2f} ms (runs {ttft_runs}), "
+        f"{len(streamed[0])} greedy tokens, equal in two runs | {smi} | "
+        f"first tokens {streamed[0][:8]}")
+    beams = GenerationConfig(num_beams=3, **BEAM_GEN)
+
+    def beam_run(n_new):
+        return engine.generate(pixels, ids, gen=GenerationConfig(
+            num_beams=3, no_repeat_ngram_size=3, max_new_tokens=n_new))
+
+    beam_run(2)                                              # warm-up
+    t1, runs1, _ = _timed(lambda: beam_run(1))
+    t32, runs32, out = _timed(lambda: beam_run(32))
+    again = engine.generate(pixels, ids, gen=beams)
+    if not np.array_equal(out, again):
+        raise RuntimeError("beam[video]: two generate calls differ")
+    yields = list(engine.stream_beam_generate(pixels, ids, gen=beams))
+    want = _cut_at(out[0, ids.shape[1]:].tolist(), eos)
+    if yields[-1] != want:
+        raise RuntimeError(f"beam[video]: the last streamed beam "
+                           f"{yields[-1]} is not generate's {want}")
+    log(f"beam[video]: generate(num_beams=3, no_repeat_ngram_size=3) | "
+        f"TTFT {t1 * 1e3:.2f} ms | decode {31 / (t32 - t1):.2f} tok/s of "
+        f"the best beam ({(t32 - t1) / 31 * 1e3:.2f} ms/step, 3 rows) | "
+        f"medians of {REPS}; 1-token runs {runs1} ms, 32-token runs "
+        f"{runs32} ms | two calls equal; stream_beam_generate's "
+        f"{len(yields)} yields end in generate's {len(want)} tokens | "
+        f"{smi} | first tokens {want[:8]}")
+    _beam_launches("video", beam_run)
+    del model, engine
+
+    # (b) MPT-7B, serve's b=8 requests with 4 beams each: 32 rows
+    cfg = serving_cfg()
+    model = build_model(cfg)
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    req = make_requests(cfg, 8, SEED + 18)
+
+    def mpt_run(n_new):
+        return engine.generate(*req, gen=GenerationConfig(
+            num_beams=4, no_repeat_ngram_size=3, max_new_tokens=n_new))
+
+    mpt_run(2)                                               # warm-up
+    t1, runs1, _ = _timed(lambda: mpt_run(1))
+    t32, runs32, out = _timed(lambda: mpt_run(32))
+    if not np.array_equal(out, mpt_run(32)):
+        raise RuntimeError("beam[mpt]: two generate calls differ")
+    p = req[1].shape[1]
+    if out.shape != (8, p + 32) or not (
+            (out >= 0) & (out < cfg.text.total_vocab)).all():
+        raise RuntimeError(f"beam[mpt]: output {out.shape}")
+    log(f"beam[mpt]: b=8 prompts {req[2].sum(1).tolist()} tokens + 1 image "
+        f"each, num_beams=4 (32 rows), no_repeat_ngram_size=3 | TTFT "
+        f"{t1 * 1e3:.2f} ms | decode {8 * 31 / (t32 - t1):.2f} tok/s of "
+        f"the best beams ({(t32 - t1) / 31 * 1e3:.2f} ms/step) | medians "
+        f"of {REPS}; 1-token runs {runs1} ms, 32-token runs {runs32} ms | "
+        f"two calls equal | {smi} | first tokens {out[0, p:p + 8].tolist()}")
+    _beam_launches("mpt", mpt_run)
+    launches = bench_decode.kernel_launches()
+    log(f"beam: kernel launches during the requests {launches}")
+    dead = sorted(k for k in BEAM_PATH if launches[k] == 0)
+    stray = sorted(k for k, n in launches.items()
+                   if n and k not in BEAM_PATH)
+    if dead or stray:
+        raise RuntimeError(f"beam: never launched {dead}; launched off its "
+                           f"path {stray}")
     return launches
 
 
@@ -2298,7 +2617,8 @@ KERNELS = {
     "int8_matmul": ("otter_tpu_torch/csrc/int8_matmul.cu",
                     "otter_tpu/ops/quant.py:22"),
 }
-PHASES = "kernels,parity,serve,serve4,fused,llama,otterhd,trainparity,train"
+PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,trainparity,"
+          "train")
 
 
 def main(argv=None) -> int:
@@ -2369,6 +2689,8 @@ def main(argv=None) -> int:
     if "otterhd" in phases:
         by_path["otterhd"] = run("otterhd", phase_otterhd, smi,
                                  "profile" in phases)
+    if "beam" in phases:
+        by_path["beam"] = run("beam", phase_beam, smi)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

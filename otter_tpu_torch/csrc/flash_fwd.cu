@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel otter_tpu/ops/flash_attention.py:_fwd_kernel
 // (launched from _fwd, entry point flash_attention). Same function:
 //   q is pre-scaled by sm_scale*log2(e), rounded to bf16 (q's dtype);
-//   s = q.k (f32) + bias*log2(e); s = mask ? s : mask_value, where the mask
-//   is the id comparison (eq / ge) AND the causal condition col <= row;
+//   s = max(q.k (f32) + bias*log2(e), mask_value); s = mask ? s : mask_value,
+//   where the mask is the id comparison (eq / ge) AND the causal condition
+//   col <= row (the max keeps a bias that masks, -0.7 f32-max, finite
+//   once scaled by log2(e), so a tile it masks whole leaves m finite);
 //   base-2 online softmax with f32 statistics (2^x on the special-function
 //   unit, a p below 2^-126 flushed to 0); p is rounded to bf16 before
 //   p.v; out = acc / l (l == 0 -> 1); lse = ln2 * (m + log2 l), natural log.
@@ -201,6 +203,7 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
                            min(k0 + cl, Sk - 1)] * LOG2E;
         else
           sc[e] += bsm[cl] * LOG2E;
+        sc[e] = fmaxf(sc[e], a.mask_value);
       }
     }
     // a branch uniform over the warpgroup: tiles inside S_k, below the

@@ -6,7 +6,15 @@ that writes the stacked KV cache and computes only the last position's
 logits (`head_last_only`), then decodes with a Python loop of single-token
 steps that update the cache in place. The JAX engine runs the same loop
 inside one jitted `lax.while_loop`. `stream_generate` runs the same
-prefill and steps for one request and yields each token as it is sampled.
+prefill and steps for one request and yields each token as it is sampled;
+a `vision_mask` marks the real frames of mixed still+video media.
+
+`num_beams > 1` runs beam search (`generation/beam.py`) over B*K rows:
+the prompt, its mask and the vision latents repeated K times a row (the
+reference's repeat for beams, `modeling_otter.py:1030-1032`; the JAX
+engine repeats the pixels, here the vision input is encoded once and its
+latents repeated, the same values for one CLIP pass in K).
+`stream_beam_generate` yields the current best beam every few steps.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import numpy as np
 import torch
 
 from otter_tpu_torch.config import GenerationConfig, OtterConfig, TextConfig
-from otter_tpu_torch.generation import sampling
+from otter_tpu_torch.generation import beam, sampling
 from otter_tpu_torch.models.decoder import init_cache
 from otter_tpu_torch.models.otter import OtterVLM
 
@@ -155,27 +163,39 @@ class OtterGenerator:
 
     @torch.inference_mode()
     def _prefill(self, vision_x, lang_x, attention_mask,
-                 gen: GenerationConfig, generator) -> SimpleNamespace:
+                 gen: GenerationConfig, generator=None, vision_mask=None,
+                 beams: int = 1) -> SimpleNamespace:
         """Encode the vision input, prefill the cache and sample the first
-        token: the state that `_step` advances."""
+        token: the state that `_step` advances. With `beams` K > 1 every
+        request becomes K rows (row i*K + j is beam j of request i; the
+        vision input encoded once, its latents repeated) and nothing is
+        sampled: `st.logits` holds each request's first logits [B, V]."""
         dev = self.device
         lang_x = _on(lang_x, dev).long()
         b, p = lang_x.shape
         if attention_mask is None:
             attention_mask = torch.ones((b, p), dtype=torch.int32, device=dev)
         attention_mask = _on(attention_mask, dev).int()
+        vis_latents = self.model.encode_vision(
+            _on(vision_x, dev),
+            None if vision_mask is None else _on(vision_mask, dev).bool())
+        if beams > 1:
+            lang_x, attention_mask, vis_latents = (
+                x.repeat_interleave(beams, 0)
+                for x in (lang_x, attention_mask, vis_latents))
+        rows = b * beams
         cache_len = _round_up(p + gen.max_new_tokens, 128)
-        cache = init_cache(self.cfg.text, b, cache_len,
-                           self._cache_dtype_for(b, cache_len), dev)
+        cache = init_cache(self.cfg.text, rows, cache_len,
+                           self._cache_dtype_for(rows, cache_len), dev)
         # a token's position counts the real tokens before it: left padding
         # does not move a prompt (ALiBi takes no positions)
         real_len = positions = None
         if self.cfg.text.pos != "alibi":
             real_len = attention_mask.sum(-1)
             positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
-        logits, cache, vis_latents = self.model(
-            _on(vision_x, dev), lang_x, attention_mask=attention_mask,
-            positions=positions, cache=cache, head_last_only=True)
+        logits, cache, _ = self.model(
+            None, lang_x, attention_mask=attention_mask, positions=positions,
+            vis_latents=vis_latents, cache=cache, head_last_only=True)
         st = SimpleNamespace(
             gen=gen, generator=generator, p=p, cache=cache,
             real_len=real_len,
@@ -185,12 +205,15 @@ class OtterGenerator:
             media_counts=(lang_x == self.cfg.media_token_id).int().sum(-1),
             valid_from=p - attention_mask.sum(-1),
             buffer=torch.cat([lang_x, torch.full(
-                (b, cache_len - p), gen.pad_token_id, dtype=torch.long,
+                (rows, cache_len - p), gen.pad_token_id, dtype=torch.long,
                 device=dev)], dim=1),
             kv_valid=torch.cat([attention_mask.bool(), torch.zeros(
-                (b, cache_len - p), dtype=torch.bool, device=dev)], dim=1),
-            done=torch.zeros(b, dtype=torch.bool, device=dev), t=0)
-        self._sample(st, logits[:, -1])
+                (rows, cache_len - p), dtype=torch.bool, device=dev)], dim=1),
+            done=torch.zeros(rows, dtype=torch.bool, device=dev), t=0)
+        if beams > 1:
+            st.logits = logits[::beams, -1]
+        else:
+            self._sample(st, logits[:, -1])
         return st
 
     def _sample(self, st: SimpleNamespace, logits: torch.Tensor) -> None:
@@ -225,10 +248,11 @@ class OtterGenerator:
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """vision_x [B,T,F,C,H,W] float pixels; lang_x [B,P] LEFT-padded
         (see `left_pad`). Returns [B, P + max_new_tokens] (prompt +
-        generation, eos-terminated, pad-filled)."""
+        generation, eos-terminated, pad-filled). num_beams > 1 runs beam
+        search and returns the best beam of each row."""
         gen = gen or GenerationConfig()
         if gen.num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
+            return self._beam_generate(vision_x, lang_x, attention_mask, gen)
         st = self._prefill(vision_x, lang_x, attention_mask, gen, generator)
         self._decode(st, gen.max_new_tokens)
         return st.buffer[:, : st.p + gen.max_new_tokens].cpu().numpy()
@@ -241,18 +265,20 @@ class OtterGenerator:
 
     def stream_generate(self, vision_x, lang_x, attention_mask=None,
                         gen: Optional[GenerationConfig] = None,
-                        generator: Optional[torch.Generator] = None
-                        ) -> Iterator[int]:
+                        generator: Optional[torch.Generator] = None,
+                        vision_mask=None) -> Iterator[int]:
         """One request (batch 1): yields each token id as it is sampled,
         with `generate`'s sampling and bans, and stops at eos (not
-        yielded) or after max_new_tokens."""
+        yielded) or after max_new_tokens. `vision_mask` [1, T, F] bool
+        marks the real frames of mixed still+video media. Greedy or
+        sampled only, as the JAX engine's: beams stream through
+        `stream_beam_generate`."""
         gen = gen or GenerationConfig()
-        if gen.num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
         if np.shape(lang_x)[0] != 1:
             raise ValueError("stream_generate serves one request; batch "
                              "with generate")
-        st = self._prefill(vision_x, lang_x, attention_mask, gen, generator)
+        st = self._prefill(vision_x, lang_x, attention_mask, gen, generator,
+                           vision_mask)
         while True:
             tok = int(st.tok[0])
             if tok == st.eos:
@@ -261,3 +287,75 @@ class OtterGenerator:
             if st.t >= gen.max_new_tokens:
                 return
             self._step(st)
+
+    # ── beam search ──────────────────────────────────────────────────
+
+    def _beam_prefill(self, vision_x, lang_x, attention_mask,
+                      gen: GenerationConfig) -> SimpleNamespace:
+        """The prefill of B*K rows and what `beam.beam_search` asks for:
+        each request's first logits with the bans applied, the cache, the
+        step, and the bans of a step (`kw`)."""
+        k = gen.num_beams
+        st = self._prefill(vision_x, lang_x, attention_mask, gen, beams=k)
+        p = st.p
+        prompt = st.buffer[:, :p]
+        cols = torch.arange(st.buffer.shape[1], device=prompt.device)[None]
+
+        def step_fn(tok, cache, t):
+            # as the JAX engine's beam step: every slot below p + t is
+            # attended, the prompt's left padding too (ROADMAP Queue 3)
+            pos = None if st.real_len is None else \
+                (st.real_len + t - 1)[:, None]
+            logits, cache, _ = self.model(
+                None, tok, vis_latents=st.vis_latents, cache=cache,
+                cache_pos=p + t - 1, kv_valid=st.kv_valid | (cols < p + t),
+                positions=pos, media_counts=st.media_counts)
+            return logits[:, -1], cache
+
+        def logits_processor(logits, gen_tokens, t):
+            # the left-padded prompt before the beam's tokens, so the bans
+            # see the whole context, as HF's processors do
+            return sampling.process_logits(
+                logits, torch.cat([prompt, gen_tokens], dim=1), p + t, gen,
+                st.valid_from)
+
+        bans = gen.no_repeat_ngram_size or gen.bad_words_ids
+        return SimpleNamespace(
+            prompt=prompt[::k], cache=st.cache, step_fn=step_fn,
+            init_logits=sampling.process_logits(
+                st.logits, prompt[::k], p, gen, st.valid_from[::k]),
+            kw=dict(num_beams=k, max_new_tokens=gen.max_new_tokens,
+                    eos_token_id=st.eos, pad_token_id=gen.pad_token_id,
+                    length_penalty=gen.length_penalty,
+                    logits_processor=logits_processor if bans else None))
+
+    @torch.inference_mode()
+    def _beam_generate(self, vision_x, lang_x, attention_mask,
+                       gen: GenerationConfig) -> np.ndarray:
+        bs = self._beam_prefill(vision_x, lang_x, attention_mask, gen)
+        out, _ = beam.beam_search(bs.step_fn, bs.init_logits, bs.cache,
+                                  **bs.kw)
+        return torch.cat([bs.prompt, out], dim=1).cpu().numpy()
+
+    @torch.inference_mode()
+    def stream_beam_generate(self, vision_x, lang_x, attention_mask=None,
+                             gen: Optional[GenerationConfig] = None,
+                             chunk: int = 4) -> Iterator[list]:
+        """Beam search for one request, streamed: yields the current best
+        beam's tokens (up to eos) every `chunk` steps; the last yield is
+        `generate(num_beams=K)`'s continuation. A later yield may revise
+        earlier tokens (the serving protocol re-renders the whole text)."""
+        gen = gen or GenerationConfig()
+        if np.shape(lang_x)[0] != 1:
+            raise ValueError("stream_beam_generate serves one request; "
+                             "batch with generate")
+        bs = self._beam_prefill(vision_x, lang_x, attention_mask, gen)
+        eos = bs.kw["eos_token_id"]
+        for out, t in beam.beam_search_chunks(
+                bs.step_fn, bs.init_logits, bs.cache, chunk=chunk, **bs.kw):
+            toks = []
+            for x in out[0, :t].tolist():
+                if x == eos:
+                    break
+                toks.append(x)
+            yield toks

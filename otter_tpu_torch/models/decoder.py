@@ -50,13 +50,20 @@ then norm_2 and `int8_mlp`; `TextConfig.fused_tail` sends the layer's tail
 `ops.quant.int8_attn_tail`. The megakernel check comes first. Both ask for
 MPT's shape of layer (no biases, GELU, low-precision LayerNorm).
 
-Not ported: LoRA adapters, the prefix-LM and sequence-id masks, and cached
-steps of more than one token; the constructor or the forward refuses them.
+Masks, as the JAX module builds them: a padding mask rides the flash
+kernel's "eq" ids, causal; `sequence_id` the same ids with pad keys at -1;
+`prefix_mask` (prefix-LM) the "ge" ids, not causal (prefix keys id 0, the
+others their position), with the symmetric ALiBi bias; both together a
+materialised [B, 1, S, S] bias. A cached step of S > 1 tokens (chunked
+prefill, speculative windows) adds a block-causal bias over the cache:
+the query at cache_pos + i attends the cache up to that position.
+
+Not ported: LoRA adapters; the constructor refuses them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -71,7 +78,8 @@ from otter_tpu_torch.ops.attention import multi_head_attention
 from otter_tpu_torch.ops.layers import (ACTIVATIONS, LayerNorm, RMSNorm,
                                         cached_rotary_tables, rotate,
                                         select_rotary)
-from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE, alibi_slopes
+from otter_tpu_torch.ops.masks import (DEFAULT_MASK_VALUE, alibi_bias,
+                                       alibi_slopes, mask_to_bias)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -261,9 +269,16 @@ class SelfAttention(nn.Module):
                 out = dense_decode_attention(q, ck, cv, kv_valid, bias,
                                              sm_scale=sm_scale)
         else:
+            # attn_ids: one [B, S] id array (padding / sequence_id: "eq",
+            # causal) or a (q_ids, kv_ids, mode, causal) tuple (prefix-LM)
+            if isinstance(attn_ids, tuple):
+                qi, ki, ids_mode, causal = attn_ids
+            else:
+                qi = ki = attn_ids
+                ids_mode, causal = "eq", True
             out = multi_head_attention(
-                q, k, v, bias=bias, q_ids=attn_ids, kv_ids=attn_ids,
-                ids_mode="eq", causal=True, sm_scale=sm_scale)
+                q, k, v, bias=bias, q_ids=qi, kv_ids=ki, ids_mode=ids_mode,
+                causal=causal, sm_scale=sm_scale)
             if cache is not None:   # prefill writes from offset 0
                 write_cache(cache, layer, k, v, 0)
         out = out.transpose(1, 2).reshape(b, s, h * d)
@@ -416,8 +431,7 @@ class Decoder(nn.Module):
                                                     "learned"):
             raise ValueError(f"decoder: arch {cfg.arch!r}, pos {cfg.pos!r}")
         missing = [name for name, on in (
-            ("lora_rank", cfg.lora_rank), ("prefix_lm", cfg.prefix_lm),
-            ("attn_uses_sequence_id", cfg.attn_uses_sequence_id),
+            ("lora_rank", cfg.lora_rank),
             (f"quant={cfg.quant!r}",
              cfg.quant not in (None, "int8", "int4"))) if on]
         if missing:
@@ -469,22 +483,26 @@ class Decoder(nn.Module):
         return self.wte(input_ids)
 
     def forward(self, input_ids, *, merge_embeds=None, attention_mask=None,
-                positions=None, vis_latents=None,
+                positions=None, prefix_mask=None, sequence_id=None,
+                vis_latents=None,
                 xattn_q_ids=None, xattn_kv_ids=None, xattn_out_keep=None,
                 cache: Optional[Cache] = None, cache_pos=None,
-                kv_valid=None, head_last_only: bool = False,
-                skip_head: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+                kv_valid=None, output_hidden: bool = False,
+                head_last_only: bool = False, skip_head: bool = False):
         """Prefill/forward: cache None (no cache: training) or a
         preallocated cache with cache_pos None (prefill writes from offset
         0). Decode: cache_pos set (an int, or per-row offsets [B]) and
-        kv_valid [B, L] marking attendable entries. `positions` [B, S] are
+        kv_valid [B, L] marking attendable entries; a step may hold several
+        tokens. `positions` [B, S] are
         the tokens' positions for rope and learned embeddings (default
         0 .. S-1). `merge_embeds` (values [B, S, H], mask [B, S]) puts
         `values` in place of the token embedding where the mask is set
-        (Fuyu's image patches). Returns (logits [B, S|1, V], cache), or
-        with skip_head the final-norm hidden states [B, S, D] in place of
-        the logits."""
+        (Fuyu's image patches). `prefix_mask` bool [B, S] (prefix-LM: a
+        query attends a key iff key <= query or the key is in the prefix)
+        and `sequence_id` int [B, S] (attention only within one id) are
+        prefill / training arguments. Returns (logits [B, S|1, V], cache),
+        with output_hidden also the final hidden states, or with skip_head
+        the final-norm hidden states [B, S, D] in place of the logits."""
         c = self.cfg
         x = self.embed(input_ids)
         if merge_embeds is not None:
@@ -492,9 +510,10 @@ class Decoder(nn.Module):
             x = torch.where(vmask[..., None], values.to(x.dtype), x)
         b, s, _ = x.shape
         decoding = cache is not None and cache_pos is not None
-        if decoding and s != 1:
-            raise NotImplementedError("cached steps of more than one token "
-                                      "are not ported yet")
+        if c.prefix_lm and prefix_mask is None and not decoding:
+            # the reference's error (`modeling_mpt.py:206`)
+            raise ValueError("prefix_mask is a required argument when the "
+                             "decoder is configured with prefix_lm=True")
         if c.pos != "alibi" and positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if c.pos == "learned":
@@ -514,16 +533,70 @@ class Decoder(nn.Module):
             lengths = torch.where(valid, idx + 1, 0).amax(-1).int()
             starts = torch.where(valid, idx, L).amin(-1).int()
             decode_span = (lengths, starts)
-        elif attention_mask is not None:
-            attn_ids = attention_mask.int()
         if c.pos == "alibi":
             slopes = alibi_slopes(c.num_attention_heads, c.alibi_bias_max,
+                                  device=x.device)[None, :, None, None]
+            if decoding:
+                # column j gets j * slope, softmax-shift-equivalent to the
+                # reference's (j - query_pos) * slope for every query row
+                bias = torch.arange(L, device=x.device)[None, None, None] \
+                    * slopes
+            elif prefix_mask is not None:
+                # bidirectional over the prefix: the symmetric -|i - j|
+                # form (`build_alibi_bias(full=True)`)
+                bias = alibi_bias(c.num_attention_heads, s, full=True,
+                                  alibi_bias_max=c.alibi_bias_max,
                                   device=x.device)
-            # decode: column j gets j * slope, softmax-shift-equivalent to
-            # the reference's (j - query_pos) * slope for every query row
-            rel = (torch.arange(L, device=x.device) if decoding
-                   else torch.arange(1 - s, 1, device=x.device))
-            bias = rel[None, None, None, :] * slopes[None, :, None, None]
+            else:
+                bias = torch.arange(1 - s, 1, device=x.device)[
+                    None, None, None] * slopes
+        # (made only where a mask needs it: a decode step is host-bound)
+        pos = None if decoding and s == 1 else torch.arange(s,
+                                                            device=x.device)
+        if decoding:
+            if s > 1:
+                # block causality inside the step: the query at
+                # cache_pos + i attends the cache up to that position
+                cols = torch.arange(L, device=x.device)
+                if isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
+                    qpos = cache_pos[:, None] + pos[None, :]
+                    mb = mask_to_bias(cols[None, None, :]
+                                      <= qpos[:, :, None])[:, None]
+                else:
+                    qpos = cache_pos + pos
+                    mb = mask_to_bias(cols[None, :]
+                                      <= qpos[:, None])[None, None]
+                bias = mb if bias is None else bias + mb
+        elif prefix_mask is not None and sequence_id is not None:
+            # both restrictions cannot ride one id comparison: a
+            # materialised bias, as the reference builds
+            # (`modeling_mpt.py:147-172`)
+            allowed = (pos[None, :, None] >= pos[None, None, :]) \
+                | prefix_mask.bool()[:, None, :]
+            allowed = allowed & (sequence_id[:, :, None]
+                                 == sequence_id[:, None, :])
+            if attention_mask is not None:
+                allowed = allowed & (attention_mask > 0)[:, None, :]
+            mb = mask_to_bias(allowed)[:, None]
+            bias = mb if bias is None else bias + mb
+            attn_ids = (None, None, "eq", False)
+        elif prefix_mask is not None:
+            # the kernel's "ge" ids: queries their position, prefix keys 0,
+            # other keys their position (q_id >= kv_id <=> key in prefix or
+            # key <= query), pad keys s + 1 (attended by nothing)
+            ok = (attention_mask > 0 if attention_mask is not None
+                  else torch.ones((b, s), dtype=torch.bool, device=x.device))
+            ki = torch.where(prefix_mask.bool() & ok, 0, pos[None, :])
+            ki = torch.where(ok, ki, s + 1)
+            attn_ids = (pos[None, :].expand(b, s).int(), ki.int(), "ge",
+                        False)
+        elif sequence_id is not None:
+            # block-diagonal same-document attention: pad keys id -1
+            attn_ids = sequence_id.int()
+            if attention_mask is not None:
+                attn_ids = torch.where(attention_mask > 0, attn_ids, -1)
+        elif attention_mask is not None:
+            attn_ids = attention_mask.int()
 
         for i in range(c.num_hidden_layers):
             if self.xattn_every and (i + 1) % self.xattn_every == 0 \
@@ -560,6 +633,8 @@ class Decoder(nn.Module):
                 logits = self.lm_head(x)
         if c.logit_scale is not None:
             logits = logits * c.logit_scale
+        if output_hidden:
+            return logits, cache, x
         return logits, cache
 
 

@@ -16,6 +16,7 @@ from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.models.clip import CLIPVisionModel
 from otter_tpu_torch.models.decoder import Decoder
 from otter_tpu_torch.models.perceiver import PerceiverResampler
+from otter_tpu_torch.ops.image_prep import normalize_u8
 from otter_tpu_torch.ops.masks import media_attention_ids
 
 
@@ -41,32 +42,47 @@ class OtterVLM(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def encode_vision(self, vision_x: torch.Tensor) -> torch.Tensor:
+    def encode_vision(self, vision_x: torch.Tensor,
+                      vision_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """[B, T, F, C, H, W] float pixels -> latents [B, T, n, D]: CLIP,
-        drop CLS, then the perceiver over each media's frames."""
+        drop CLS, then the perceiver over each media's frames.
+        `vision_mask` [B, T, F] bool marks the real frames (the padded
+        frames of mixed still+video requests attend nothing). uint8 input
+        [B, T, F, H, W, 3] (decoded and resized on the host) is normalised
+        here (`ops.image_prep.normalize_u8`)."""
+        if vision_x.dtype == torch.uint8:
+            vision_x = normalize_u8(vision_x, out_dtype=self.dtype)
         b, t, f = vision_x.shape[:3]
         flat = vision_x.reshape((b * t * f,) + vision_x.shape[3:])
         feats = self.vision_encoder(flat)[:, 1:, :]
         v, d = feats.shape[1], feats.shape[2]
-        return self.perceiver(feats.reshape(b, t, f, v, d))
+        return self.perceiver(feats.reshape(b, t, f, v, d), vision_mask)
 
     def forward(self, vision_x, lang_x, attention_mask=None,
                 attend_previous: bool = True, vis_latents=None, cache=None,
-                cache_pos: Optional[int] = None, kv_valid=None,
-                positions=None, media_counts=None, head_last_only: bool = False,
-                skip_head: bool = False):
+                cache_pos=None, kv_valid=None,
+                positions=None, media_counts=None, vision_mask=None,
+                head_last_only: bool = False, skip_head: bool = False,
+                xattn_ids=None, prefix_mask=None, sequence_id=None):
         """Full forward; with `vis_latents` given, `vision_x` is ignored.
         During cached decoding (cache_pos set) `media_counts` [B] is the
         number of media in each prompt: generated tokens sit after all of
-        them, so their text_time is media_counts. `positions` [B, S] are
-        the tokens' positions (rope models; default 0 .. S-1). Returns (logits, cache,
-        vis_latents); with skip_head the final-norm hidden states take the
-        logits' place (the fused cross-entropy's input)."""
+        them, so their text_time is media_counts. `xattn_ids` (q_ids,
+        kv_ids, out_keep) overrides both derivations (chunked prefill
+        passes slices of the whole prompt's media ids). `positions` [B, S]
+        are the tokens' positions (rope models; default 0 .. S-1);
+        `prefix_mask` and `sequence_id` are the decoder's prefix-LM and
+        same-document masks. Returns (logits, cache, vis_latents); with
+        skip_head the final-norm hidden states take the logits' place (the
+        fused cross-entropy's input)."""
         c = self.cfg
         if vis_latents is None:
-            vis_latents = self.encode_vision(vision_x)
+            vis_latents = self.encode_vision(vision_x, vision_mask)
         t_img, n_lat = vis_latents.shape[1], vis_latents.shape[2]
-        if cache_pos is None:
+        if xattn_ids is not None:
+            q_ids, kv_ids, out_keep = xattn_ids
+        elif cache_pos is None:
             q_ids, kv_ids, out_keep = media_attention_ids(
                 lang_x == c.media_token_id, t_img, n_lat,
                 only_attend_immediate_media=c.only_attend_immediate_media,
@@ -81,6 +97,7 @@ class OtterVLM(nn.Module):
                         else torch.ones_like(q_ids, dtype=torch.bool))
         logits, cache = self.lang_encoder(
             lang_x, attention_mask=attention_mask, positions=positions,
+            prefix_mask=prefix_mask, sequence_id=sequence_id,
             vis_latents=vis_latents,
             xattn_q_ids=q_ids, xattn_kv_ids=kv_ids, xattn_out_keep=out_keep,
             cache=cache, cache_pos=cache_pos, kv_valid=kv_valid,

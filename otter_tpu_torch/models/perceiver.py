@@ -30,20 +30,29 @@ class PerceiverBlock(nn.Module):
         self.ff_up = dense(d, d * cfg.ff_mult)
         self.ff_down = dense(d * cfg.ff_mult, d)
 
-    def forward(self, x, latents):
-        """x: [B*T, n1, D] media tokens; latents: [B*T, n2, D]."""
+    def forward(self, x, latents, kv_mask=None):
+        """x: [B*T, n1, D] media tokens; latents: [B*T, n2, D]. kv_mask:
+        optional [B*T, n1] bool; False tokens (padded frames of mixed
+        still+video requests) are attended by no latent. Keys of the
+        latents themselves are always attended, so no row is empty."""
         c = self.cfg
         x_n = self.norm_media(x)
         residual = latents
         lat_n = self.norm_latents(latents)
         q = self.to_q(lat_n)
         k, v = self.to_kv(torch.cat([x_n, lat_n], dim=-2)).chunk(2, dim=-1)
+        q_ids = kv_ids = None
+        if kv_mask is not None:
+            bt, n2 = latents.shape[:2]
+            q_ids = torch.ones((bt, n2), dtype=torch.int32, device=x.device)
+            kv_ids = torch.cat([kv_mask.int(), q_ids], dim=-1)
 
         def split(t):
             b, s, _ = t.shape
             return t.reshape(b, s, c.heads, c.dim_head).transpose(1, 2)
 
         out = multi_head_attention(split(q), split(k), split(v),
+                                   q_ids=q_ids, kv_ids=kv_ids, ids_mode="eq",
                                    sm_scale=c.dim_head ** -0.5)
         b, _, s, _ = out.shape
         out = self.to_out(out.transpose(1, 2).reshape(b, s, -1)) + residual
@@ -71,11 +80,17 @@ class PerceiverResampler(nn.Module):
                             PerceiverBlock(cfg, dtype, device))
         self.norm = LayerNorm(d, dtype=dtype, device=device)
 
-    def forward(self, x):
-        """x: [B, T, F, v, D] vision features -> [B, T, n_latents, D]."""
+    def forward(self, x, frame_mask=None):
+        """x: [B, T, F, v, D] vision features -> [B, T, n_latents, D].
+        frame_mask: optional [B, T, F] bool; the tokens of False frames
+        (padding in mixed still+video requests) are left out of the latent
+        attention."""
         c = self.cfg
         b, t, f, v, d = x.shape
         x = x.to(self.dtype)
+        kv_mask = None
+        if frame_mask is not None:
+            kv_mask = frame_mask.reshape(b * t, f).repeat_interleave(v, dim=-1)
         if c.max_num_frames is not None:
             x = x + self.frame_embs[:f].to(self.dtype)[None, None, :, None]
         x = x.reshape(b, t, f * v, d)
@@ -84,5 +99,5 @@ class PerceiverResampler(nn.Module):
         lat = self.latents.to(self.dtype).expand(b * t, c.num_latents, d)
         x = x.reshape(b * t, f * v, d)
         for i in range(c.depth):
-            lat = getattr(self, f"layers_{i}")(x, lat)
+            lat = getattr(self, f"layers_{i}")(x, lat, kv_mask)
         return self.norm(lat).reshape(b, t, c.num_latents, d)

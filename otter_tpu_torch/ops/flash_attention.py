@@ -17,7 +17,10 @@ It covers what the TPU kernels cover: causal masking, an additive f32 bias
 pair ("eq": padding and only-immediate media; "ge": attend-previous media).
 
 Forward numerics follow `_fwd` / `_fwd_kernel`: q is pre-scaled by
-sm_scale*log2(e) in q's dtype, the bias by log2(e); the softmax is base 2
+sm_scale*log2(e) in q's dtype, the bias by log2(e), the biased logit held
+at or above `mask_value` (a bias that masks, -0.7 f32-max, is -inf once
+scaled, and a key tile masked whole must leave the online softmax's
+running max finite); the softmax is base 2
 with f32 statistics; the mask replaces the biased logit with `mask_value`;
 p is cast to v's dtype before p.v; rows with l == 0 divide by 1; the
 returned LSE is in natural-log units. The TPU's 128-row and 128-lane
@@ -123,7 +126,9 @@ def flash_attention_plain(q, k, v, bias=None, q_ids=None, kv_ids=None, *,
     qs = q * torch.tensor(sm_scale * LOG2E, dtype=q.dtype)
     s = torch.einsum("bhqd,bhkd->bhqk", _wide(qs), _wide(k))
     if bias is not None:
-        s = s + _wide(bias) * LOG2E
+        # a masking bias (-0.7 f32-max) is -inf once scaled: held at
+        # mask_value, as the kernel holds it
+        s = torch.clamp_min(s + _wide(bias) * LOG2E, mask_value)
     mask = _attend_mask(q, k, q_ids, kv_ids, causal, ids_mode)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, mask_value))

@@ -69,13 +69,15 @@ class RandomParams(Mapping):
         return val.to(dtype)
 
 
-def build_model(cfg: ModelConfig, device, seed: int = 0):
-    """An `OtterVLM` (a `FuyuVLM` for a `FuyuConfig`) in bf16 on `device`
-    with `RandomParams` weights, quantized by the port's `quantize_params`
+def build_model(cfg: ModelConfig, device, seed: int = 0,
+                dtype=torch.bfloat16):
+    """An `OtterVLM` (a `FuyuVLM` for a `FuyuConfig`) in `dtype` on
+    `device` with `RandomParams` weights, quantized by the port's
+    `quantize_params`
     (`quantize_params_int4` for `quant="int4"`), with the decode
     megakernel's fused leaves when `cfg.text.megakernel` and the int8
     embedding table when `cfg.text.quant_embed`."""
-    model = _model_class(cfg)(cfg, dtype=torch.bfloat16, device=device)
+    model = _model_class(cfg)(cfg, dtype=dtype, device=device)
     plain = cfg.replace(text=cfg.text.replace(
         quant=None, quant_embed=False, megakernel=False, fused_tail=False))
     flat = RandomParams(plain, device, seed=seed)

@@ -187,21 +187,42 @@ def test_rotary_tables_are_not_buffers():
     assert not any("cos" in n or "sin" in n or "rot" in n for n in names)
 
 
+# prefix_lm and attn_uses_sequence_id were refused until the masks were
+# ported: the decoder now builds with them, and a prefix-LM forward asks
+# for its mask as the reference does (their parity: test_torch_masks.py)
+PORTED_SINCE_REFUSED = ("prefix_lm", "attn_uses_sequence_id")
+
+
 @pytest.mark.parametrize("field,value", [
     ("lora_rank", 4), ("prefix_lm", True), ("attn_uses_sequence_id", True),
     ("quant", "fp8")])
 def test_decoder_refuses_what_is_not_ported(field, value):
     cfg = tcfg.OtterConfig.tiny("mpt").text.replace(**{field: value})
+    if field in PORTED_SINCE_REFUSED:
+        model = Decoder(cfg, device="cpu")
+        assert getattr(model.cfg, field) is True
+        if field == "prefix_lm":
+            with pytest.raises(ValueError, match="prefix_mask"):
+                model(torch.zeros((1, 4), dtype=torch.long))
+        return
     with pytest.raises(NotImplementedError, match=field):
         Decoder(cfg, device="cpu")
 
 
 def test_decoder_refuses_multi_token_cached_steps():
+    """Cached steps of several tokens were refused until the block-causal
+    bias was ported: a 2-token step now gives a full forward's logits at
+    those positions (their parity with JAX: test_torch_masks.py)."""
     _, _, _, tmodel = decoder_pair("llama")
+    ids = torch.arange(1, 7, dtype=torch.long)[None] * 11
     cache = init_cache(tmodel.cfg, 1, 128, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="more than one token"):
-        tmodel(torch.zeros((1, 2), dtype=torch.long), cache=cache,
-               cache_pos=4, kv_valid=torch.ones((1, 128), dtype=torch.bool))
+    with torch.no_grad():
+        tmodel(ids[:, :4], cache=cache)
+        out, _ = tmodel(ids[:, 4:], cache=cache, cache_pos=4,
+                        kv_valid=torch.arange(128)[None] < 6,
+                        positions=torch.tensor([[4, 5]]))
+        full, _ = tmodel(ids)
+    _close(out, full[:, 4:], tol=1e-4)
 
 
 def test_quant_embed_requires_untied_head():

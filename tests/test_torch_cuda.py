@@ -98,6 +98,82 @@ def test_flash_media_ids_and_masked_rows(gen, mode):
            fa.flash_attention_plain(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefix_lm_ids_and_perceiver_frame_mask(gen, d):
+    """The two id masks this port's decoder and perceiver add: prefix-LM
+    ("ge", not causal, prefix keys id 0, the others their position, pad
+    keys s + 1) under the symmetric ALiBi bias [1, H, S, S]; and the
+    perceiver's frame mask ("eq": latents id 1 against padded frames' keys
+    at id 0) with many more keys than queries."""
+    from otter_tpu_torch.ops.masks import alibi_bias
+    b, h, s = 2, 4, 75
+    q, k, v = (_rnd(gen, b, h, s, d) for _ in range(3))
+    pos = torch.arange(s, device="cuda")
+    prefix = pos[None] < torch.tensor([[20], [41]], device="cuda")
+    ok = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    ok[1, s - 5:] = False
+    ki = torch.where(prefix & ok, 0, pos[None])
+    ki = torch.where(ok, ki, s + 1).int()
+    kw = dict(bias=alibi_bias(h, s, full=True, device="cuda"),
+              q_ids=pos[None].expand(b, s).int(), kv_ids=ki, ids_mode="ge")
+    _close(fa.flash_attention(q, k, v, **kw),
+           fa.flash_attention_plain(q, k, v, **kw))
+    sk = 3 * 64 + 16
+    q, k, v = _rnd(gen, b, h, 16, d), _rnd(gen, b, h, sk, d), \
+        _rnd(gen, b, h, sk, d)
+    kv_ids = torch.ones(b, sk, dtype=torch.int32, device="cuda")
+    kv_ids[0, 64:192] = 0
+    kw = dict(q_ids=torch.ones(b, 16, dtype=torch.int32, device="cuda"),
+              kv_ids=kv_ids, ids_mode="eq")
+    _close(fa.flash_attention(q, k, v, **kw),
+           fa.flash_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("flags", ["prefix_lm", "attn_uses_sequence_id",
+                                   "both"])
+def test_decoder_masks_through_the_kernel(gen, flags):
+    """A small bf16 MPT decoder with the prefix-LM and sequence-id masks:
+    the flash kernel's route (ids, or the materialised bias for both)
+    against the plain attention route, logits within 5e-2 max|plain|."""
+    from otter_tpu_torch import config as tcfg
+    from otter_tpu_torch.models.decoder import Decoder
+    on = {"both": dict(prefix_lm=True, attn_uses_sequence_id=True)}.get(
+        flags, {flags: True})
+    cfg = tcfg.TextConfig(vocab_size=256, hidden_size=256,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          max_seq_len=128, **on)
+    model = Decoder(cfg, dtype=torch.bfloat16, device="cuda")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=gen,
+                                       device="cuda") + (name.endswith(
+                                           "scale")))
+    b, s = 2, 96
+    ids = torch.randint(0, 256, (b, s), generator=gen, device="cuda")
+    kw = dict(attention_mask=torch.ones(b, s, dtype=torch.int32,
+                                        device="cuda"))
+    kw["attention_mask"][1, s - 7:] = 0
+    if cfg.prefix_lm:
+        kw["prefix_mask"] = torch.arange(s, device="cuda")[None] < \
+            torch.tensor([[30], [50]], device="cuda")
+    if cfg.attn_uses_sequence_id:
+        kw["sequence_id"] = (torch.arange(s, device="cuda")[None] // 40
+                             ).expand(b, s).int()
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        out, _ = model(ids, **kw)
+        saved = attention.default_impl
+        attention.default_impl = lambda q: "ref"
+        try:
+            ref, _ = model(ids, **kw)
+        finally:
+            attention.default_impl = saved
+    assert fa.flash_attention.launches == before + 2
+    keep = kw["attention_mask"].bool()
+    err = float((out.float() - ref.float()).abs()[keep].max())
+    assert err <= 5e-2 * float(ref.float().abs().max()), err
+
+
 def _close_grad(out, ref):
     torch.cuda.synchronize()
     d = (out.float() - ref.float()).abs()

@@ -40,6 +40,16 @@ from otter_tpu_torch.config import PRESETS, FuyuConfig
 from otter_tpu_torch.models.fuyu import FuyuVLM, make_fuyu_cache
 from otter_tpu_torch.generation.fuyu import fuyu_generate
 assert random_weights.fuyu_request and len(PRESETS) == 9
+# beams, mixed media, uint8 pixels and the user-facing API live in these
+from otter_tpu_torch.generation.beam import beam_search, beam_search_chunks
+from otter_tpu_torch.ops.image_prep import (device_preprocess, normalize_u8,
+                                            resize_normalize)
+from otter_tpu_torch.ops.masks import (alibi_bias, expand_media_mask_to_latents,
+                                       mask_to_bias, media_cross_attention_mask,
+                                       padding_mask_bias)
+from otter_tpu_torch.api import (FlamingoForConditionalGeneration,
+                                 OtterForConditionalGeneration)
+assert OtterGenerator.stream_beam_generate
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules
@@ -53,6 +63,9 @@ _FUSED_DECODE_MODULES = {
     "otter_tpu_torch.tools.random_weights"}
 _FUYU_MODULES = {"otter_tpu_torch.models.fuyu",
                  "otter_tpu_torch.generation.fuyu"}
+_BEAM_MEDIA_MODULES = {"otter_tpu_torch.generation.beam",
+                       "otter_tpu_torch.ops.image_prep",
+                       "otter_tpu_torch.api"}
 _TRAINING_MODULES = {
     "otter_tpu_torch.train.step", "otter_tpu_torch.train.sft",
     "otter_tpu_torch.train.args", "otter_tpu_torch.runtime.metrics",
@@ -71,8 +84,9 @@ def test_port_imports_no_jax_or_otter_tpu():
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     loaded = set(res.stdout.split())
-    assert len(loaded) >= 31                  # every module was imported
+    assert len(loaded) >= 34                  # every module was imported
     assert _FUYU_MODULES <= loaded, _FUYU_MODULES - loaded
+    assert _BEAM_MEDIA_MODULES <= loaded, _BEAM_MEDIA_MODULES - loaded
     assert _TRAINING_MODULES <= loaded, _TRAINING_MODULES - loaded
     assert _FUSED_DECODE_MODULES <= loaded, _FUSED_DECODE_MODULES - loaded
 

@@ -252,9 +252,17 @@ def decoder_pair(case: str, quant=None, quant_embed: bool = False,
                  decode_kernel="auto", seed: int = 0):
     """(text cfg, JAX Decoder, its params, the port's Decoder with the same
     weights in f32 on the CPU) for one of ARCH_CASES."""
-    base = ARCH_CASES[case]()
+    return text_decoder_pair(ARCH_CASES[case](), quant, quant_embed,
+                             decode_kernel, seed)
+
+
+def text_decoder_pair(base, quant=None, quant_embed: bool = False,
+                      decode_kernel="auto", seed: int = 0, **overrides):
+    """`decoder_pair` for any JAX TextConfig `base`; `overrides` change the
+    pair's config but not the one initialised (e.g. `prefix_lm`, whose
+    forward asks for a mask that `init` does not pass)."""
     cfg = base.replace(quant=quant, quant_embed=quant_embed,
-                       decode_kernel=decode_kernel)
+                       decode_kernel=decode_kernel, **overrides)
     params, flat = _quantized(JaxDecoder, base, cfg,
                               (jnp.zeros((1, 8), jnp.int32),), seed, quant,
                               quant_embed)
