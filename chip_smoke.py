@@ -121,6 +121,30 @@ unless every phase passes:
                  `flash_fwd` 70 times. The kernels phase holds the flash
                  forward, `decode_attention` and `int8_matmul` at these
                  requests' shapes too.
+ 13. worker      the serving worker (runs after beam): first OTTER-MPT7B
+                 cut in depth as in parity, its unquantized weights written
+                 as an HF checkpoint (`models.convert.port_to_hf`, .bin and
+                 .safetensors) and loaded through the worker's start-up
+                 (`serve.worker.load_otter_model`: the loader, then
+                 `quantize_params` a tensor at a time, the int8 model):
+                 every tensor bit-equal to the direct build, first-step
+                 logits and one served request equal. Then OTTER-MPT7B at
+                 full width and depth (int8 weights and KV cache) behind
+                 `ModelWorker` and the controller over localhost HTTP: four
+                 greedy requests of 32 new tokens (prompts of 32-128 tokens
+                 with the media token, a random 256x256 PNG each) at once
+                 straight to the worker, then one after another through the
+                 controller, 3 rounds. Each request's text must be equal at
+                 once, alone and to `tokenizer.decode` of
+                 `OtterGenerator.generate`'s tokens; each alone must launch
+                 its prefill's kernels (`flash_fwd` 70) and `decode_attention`
+                 32 and `int8_mlp` 40 a step; the launches of the four at
+                 once must equal the sum alone. Prints the time to the first
+                 streamed chunk, ms a token a request and the aggregate
+                 tok/s at once against one after another. The otterhd phase
+                 also sends one text-only request through the worker's fuyu
+                 stream function: its text must equal
+                 `post_process_box_coordinates` of `fuyu_generate`'s.
  11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
@@ -132,7 +156,7 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all twelve (`--phases beam` the beam phase alone). `flashkernels`
+runs all thirteen (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -1824,12 +1848,59 @@ def phase_otterhd(smi: str, profile: bool = False):
                 f"{OTTERHD_STEP})")
     launches = bench_decode.kernel_launches()
     log(f"otterhd: kernel launches during the requests {launches}")
+    _fuyu_stream(model, cfg, smi)
     if profile:
         for height, width in ((448, 448), (1080, 1920)):
             req = fuyu_request(cfg, height, width, 16, SEED + 20)
             phase_profile(lambda n_new: run(req, n_new),
                           f"otterhd {height}x{width}")
     return launches
+
+
+def _fuyu_stream(model, cfg, smi: str):
+    """The worker's fuyu family on the OtterHD model: one text-only request
+    through `make_fuyu_stream_fn` must return
+    `post_process_box_coordinates` of `fuyu_generate`'s text for the same
+    prompt."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.data.fuyu_processor import (FuyuImageProcessor,
+                                                     FuyuProcessor)
+    from otter_tpu_torch.generation.fuyu import fuyu_generate
+    from otter_tpu_torch.serve.worker import make_fuyu_stream_fn
+
+    tok = WorkerTokenizer({}, eos_token_id=2, bos_token_id=1)
+    processor = FuyuProcessor(
+        tok, FuyuImageProcessor(patch_size=cfg.patch_size),
+        image_placeholder_id=cfg.image_placeholder_id,
+        image_newline_id=cfg.image_newline_id)
+    rng = np.random.default_rng(SEED + 70)
+    # text ids below the image ids, as the Fuyu tokenizer's are
+    top = min(cfg.image_placeholder_id, cfg.image_newline_id)
+    prompt = " ".join(f"t{i}" for i in rng.integers(3, top, 16))
+    stream_fn = make_fuyu_stream_fn(model, processor, cfg, tok,
+                                    cache_dtype=torch.int8)
+    t0 = time.perf_counter()
+    chunks = list(stream_fn({"prompt": prompt,
+                             "generation_kwargs": {"max_new_tokens": 32}}))
+    wall = time.perf_counter() - t0
+    batch = processor([prompt], None, left_pad=True)
+    toks = list(fuyu_generate(
+        model, batch["input_ids"], batch["image_patches"],
+        batch["image_patches_indices"], batch["attention_mask"],
+        GenerationConfig(max_new_tokens=32, eos_token_id=tok.eos_token_id),
+        cache_dtype=torch.int8))
+    want = processor.post_process_box_coordinates(tok.decode(toks))
+    log(f"otterhd: a text-only request ({batch['input_ids'].shape[1]} "
+        f"tokens) through the worker's fuyu stream function: {len(toks)} "
+        f"tokens in {wall * 1e3:.1f} ms, {len(chunks)} chunks, the last "
+        f"{'equal' if chunks[-1] == want else 'NOT equal'} to "
+        f"fuyu_generate's text | {smi}")
+    if chunks[-1] != want:
+        raise RuntimeError(f"otterhd: the fuyu stream gave "
+                           f"{chunks[-1][:80]!r}, fuyu_generate "
+                           f"{want[:80]!r}")
 
 
 # ── phase 12: beam search and mixed still+video media ────────────────
@@ -2056,6 +2127,335 @@ def phase_beam(smi: str):
         raise RuntimeError(f"beam: never launched {dead}; launched off its "
                            f"path {stray}")
     return launches
+
+
+# ── phase 13: the serving worker over HTTP ──────────────────────────
+
+class WorkerTokenizer:
+    """The tokenizer surface the worker's stream functions and the Fuyu
+    processor use, over a made-up vocabulary: a prompt is
+    whitespace-separated tokens, each of `specials` ({text: id}) or
+    `t<id>` for any other id; `decode` writes each id as ` t<id>` (so text
+    decoded a chunk at a time joins into the whole), leaving out the
+    specials."""
+
+    def __init__(self, specials: dict, eos_token_id: int,
+                 bos_token_id=None):
+        self.specials = dict(specials)
+        self.eos_token_id, self.bos_token_id = eos_token_id, bos_token_id
+        self._special_ids = set(self.specials.values()) | {eos_token_id}
+
+    def __call__(self, text, return_tensors=None, **kw):
+        import numpy as np
+        ids = [self.specials[w] if w in self.specials else int(w[1:])
+               for w in text.split()]
+        if return_tensors == "np":
+            return {"input_ids": np.asarray([ids], np.int64)}
+        return {"input_ids": ids}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f" t{int(i)}" for i in ids
+                       if not (skip_special_tokens
+                               and int(i) in self._special_ids))
+
+
+def otter_tokenizer(cfg):
+    return WorkerTokenizer({"<image>": cfg.media_token_id,
+                            "<|endofchunk|>": cfg.eoc_token_id},
+                           eos_token_id=cfg.eoc_token_id)
+
+
+def png_base64(rgb) -> str:
+    """An RGB uint8 image [H, W, 3] as urlsafe base64 of a PNG file, the
+    worker's image payload (written with zlib: no image library)."""
+    import base64
+    import struct
+    import zlib
+    h, w, _ = rgb.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    return base64.urlsafe_b64encode(png).decode()
+
+
+def worker_requests(cfg, n: int, seed: int, new_tokens: int = 32):
+    """`n` greedy requests in the worker's JSON format: prompts of 32-128
+    tokens that start with the media token, one random 256x256 image
+    each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for length in np.linspace(32, 128, n).astype(int):
+        ids = rng.integers(1, cfg.eoc_token_id, length - 1)
+        prompt = "<image> " + " ".join(f"t{i}" for i in ids)
+        image = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)
+        out.append({"model": "otter", "prompt": prompt,
+                    "images": [png_base64(image)],
+                    "generation_kwargs": {"max_new_tokens": new_tokens}})
+    return out
+
+
+def post_stream(url: str, payload: dict):
+    """POST `payload` and read the `\\0`-delimited JSON chunks as they
+    arrive: (chunks, seconds to the first chunk, seconds to the last)."""
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    chunks, buf, first = [], b"", None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        while True:
+            data = resp.read1(65536)
+            if not data:
+                break
+            *done, buf = (buf + data).split(b"\0")
+            for c in done:
+                if c:
+                    first = first or time.perf_counter() - t0
+                    chunks.append(json.loads(c))
+    return chunks, first, time.perf_counter() - t0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _final_text(chunks, what: str) -> str:
+    if not chunks or any(c["error_code"] != 0 for c in chunks):
+        raise RuntimeError(f"worker: {what} failed: {chunks[-3:]}")
+    return chunks[-1]["text"]
+
+
+def _all_tensors(model) -> dict:
+    out = dict(model.named_parameters())
+    out.update(model.named_buffers())
+    return out
+
+
+def _checkpoint_route(smi: str):
+    """OTTER-MPT7B cut in depth: its unquantized weights written as an HF
+    checkpoint (`port_to_hf`, .bin and .safetensors), loaded back through
+    the worker's start-up (`load_otter_model`: the loader, `quantize_params`
+    tensor by tensor, the int8 model); every tensor, the first-step logits
+    and one served request must equal the model built directly from the
+    same weights."""
+    import tempfile
+    import torch
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.models.convert import port_to_hf, save_state_dict
+    from otter_tpu_torch.serve.worker import (load_otter_model,
+                                              make_otter_stream_fn)
+
+    cfg = serving_cfg(depth_cut=True)
+    plain = cfg.replace(text=cfg.text.replace(quant=None))
+    direct = build_model(cfg)
+    want = _all_tensors(direct)
+    hf = port_to_hf(random_params(plain), plain)
+    nbytes = _nbytes(*hf.values())
+    req = make_requests(cfg, 8, SEED + 50)
+    ref_logits = first_step_logits(direct, cfg, torch.int8, *req)
+    tok = otter_tokenizer(cfg)
+    request = worker_requests(cfg, 1, SEED + 51)[0]
+
+    def served(model):
+        fn = make_otter_stream_fn(OtterGenerator(model, cache_dtype=torch.int8),
+                                  tok, cfg)
+        return list(fn(request))[-1]
+
+    ref_text = served(direct)
+    with tempfile.TemporaryDirectory() as d:
+        for name in ("pytorch_model.bin", "model.safetensors"):
+            path = os.path.join(d, name)
+            t0 = time.perf_counter()
+            save_state_dict(hf, path)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            model, _ = load_otter_model(path, plain, load_bit="int8",
+                                        device=DEV)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            got = _all_tensors(model)
+            differ = sorted(k for k in want if k not in got
+                            or not torch.equal(got[k], want[k]))
+            logits = first_step_logits(model, cfg, torch.int8, *req)
+            same_logits = all(torch.equal(a, b)
+                              for a, b in zip(logits, ref_logits))
+            text = served(model)
+            log(f"worker[checkpoint {name}]: {len(hf)} HF tensors "
+                f"({nbytes / 1e9:.3f} GB bf16) written in {t_save:.1f} s, "
+                f"loaded, converted and quantized to int8 on the card in "
+                f"{t_load:.1f} s; {len(want) - len(differ)} of {len(want)} "
+                f"tensors bit-equal to the direct build, first-step logits "
+                f"{'equal' if same_logits else 'DIFFER'}, served text "
+                f"{'equal' if text == ref_text else 'DIFFERS'} | {smi}")
+            if differ or not same_logits or text != ref_text:
+                raise RuntimeError(f"worker: the checkpoint route ({name}) "
+                                   f"differs from the direct build: "
+                                   f"tensors {differ[:5]}")
+            del model, got
+            os.remove(path)
+    del direct, want
+
+
+def phase_worker(smi: str):
+    """The serving worker: the checkpoint route at cut depth, then
+    OTTER-MPT7B at full width and depth behind `ModelWorker` and the
+    controller over localhost HTTP."""
+    import threading
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.serve.controller import Controller
+    from otter_tpu_torch.serve.controller import build_app as controller_app
+    from otter_tpu_torch.serve.worker import (ModelWorker, build_app,
+                                              decode_media_to_vision_x,
+                                              make_otter_stream_fn,
+                                              run_app_in_thread)
+    from otter_tpu_torch.tools import bench_decode
+
+    _checkpoint_route(smi)
+
+    cfg = serving_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    log(f"worker: {cfg.text.num_hidden_layers}-layer mpt model, int8 "
+        f"weights ({_weight_bytes(model) / 1e9:.3f} GB) and int8 KV cache, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    tok = otter_tokenizer(cfg)
+    requests = worker_requests(cfg, 4, SEED + 60)
+
+    # what each request must return: generate's tokens for its inputs;
+    # and what its prefill launches (a prompt of 32 tokens or fewer also
+    # takes int8_mlp for the 8 xattn FFs)
+    want, prefills = [], []
+    for r in requests:
+        vx, _ = decode_media_to_vision_x(r["images"],
+                                         cfg.vision.image_size)
+        ids = tok(r["prompt"], return_tensors="np")["input_ids"]
+        out = engine.generate(vx, ids, gen=GenerationConfig(
+            max_new_tokens=32))
+        want.append(_cut_at(out[0, ids.shape[1]:].tolist(),
+                            cfg.eoc_token_id))
+        prefills.append(_launches_of(lambda: engine.generate(
+            vx, ids, gen=GenerationConfig(max_new_tokens=1))))
+        if prefills[-1].get("flash_fwd") != 70:
+            raise RuntimeError(f"worker: a prefill launched "
+                               f"{prefills[-1]}")
+
+    wport, cport = _free_port(), _free_port()
+    ctrl = f"http://127.0.0.1:{cport}"
+    url = f"http://127.0.0.1:{wport}"
+    stops = [run_app_in_thread(controller_app(Controller("shortest_queue")),
+                               "127.0.0.1", cport)]
+    try:
+        worker = ModelWorker(controller_addr=ctrl, worker_addr=url,
+                             model_name="otter",
+                             stream_fn=make_otter_stream_fn(engine, tok, cfg))
+        stops.append(run_app_in_thread(build_app(worker), "127.0.0.1",
+                                       wport))
+        post_stream(url + "/worker_generate_stream",
+                    dict(requests[0], generation_kwargs={
+                        "max_new_tokens": 2}))                  # warm-up
+
+        def concurrent():
+            results = [None] * len(requests)
+            barrier = threading.Barrier(len(requests))
+
+            def run(i):
+                barrier.wait()
+                results[i] = post_stream(url + "/worker_generate_stream",
+                                         requests[i])
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(requests))]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t
+            if any(th.is_alive() for th in threads) or None in results:
+                raise RuntimeError("worker: a concurrent request hung")
+            return results, wall
+
+        def solo():
+            # through the controller's dispatch and proxied stream
+            results, launches = [], []
+            for r in requests:
+                before = bench_decode.kernel_launches()
+                results.append(post_stream(ctrl + "/worker_generate_stream",
+                                           r))
+                after = bench_decode.kernel_launches()
+                launches.append({k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]})
+            return results, launches
+
+        rounds = []
+        for _ in range(REPS):
+            bench_decode.reset_kernel_launches()
+            conc, wall = concurrent()
+            conc_launches = bench_decode.kernel_launches()
+            alone, solo_launches = solo()
+            rounds.append((conc, wall, conc_launches, alone, solo_launches))
+    finally:
+        for stop in reversed(stops):
+            stop()
+
+    texts = [tok.decode(w) for w in want]
+    n_tok = [len(w) for w in want]
+    for k, (conc, wall, conc_launches, alone, solo_launches) in \
+            enumerate(rounds):
+        for i, text in enumerate(texts):
+            got_c = _final_text(conc[i][0], f"concurrent request {i}")
+            got_s = _final_text(alone[i][0], f"request {i} alone")
+            if not got_c == got_s == text:
+                raise RuntimeError(
+                    f"worker round {k}: request {i} gave {got_c[:60]!r} "
+                    f"concurrently, {got_s[:60]!r} alone, generate "
+                    f"{text[:60]!r}")
+        total = {}
+        for i, launches in enumerate(solo_launches):
+            steps = 31 if n_tok[i] == 32 else n_tok[i]
+            expect = dict(prefills[i])
+            for k2, per_step in (("decode_attention", 32), ("int8_mlp", 40)):
+                expect[k2] = expect.get(k2, 0) + per_step * steps
+            if launches != {k2: v for k2, v in expect.items() if v}:
+                raise RuntimeError(f"worker: request {i} alone launched "
+                                   f"{launches}, expected {expect}")
+            for k2, v in launches.items():
+                total[k2] = total.get(k2, 0) + v
+        conc_nonzero = {k2: v for k2, v in conc_launches.items() if v}
+        if conc_nonzero != total:
+            raise RuntimeError(f"worker: the concurrent run launched "
+                               f"{conc_nonzero}, the solo runs {total}")
+        seq_wall = sum(a[2] for a in alone)
+        log(f"worker round {k}: 4 requests (prompts "
+            f"{[len(r['prompt'].split()) for r in requests]} tokens + 1 "
+            f"256x256 PNG each, {n_tok} greedy tokens) over localhost "
+            f"HTTP | concurrently, straight to the worker: first chunk "
+            f"{[round(c[1] * 1e3, 2) for c in conc]} ms, "
+            f"{[round((c[2] - c[1]) / max(n - 2, 1) * 1e3, 2) for c, n in zip(conc, n_tok)]} "
+            f"ms a token a request after it, {sum(n_tok) / wall:.2f} tok/s "
+            f"aggregate ({wall * 1e3:.1f} ms) | one after another through "
+            f"the controller: first chunk "
+            f"{[round(a[1] * 1e3, 2) for a in alone]} ms, "
+            f"{[round((a[2] - a[1]) / max(n - 2, 1) * 1e3, 2) for a, n in zip(alone, n_tok)]} "
+            f"ms a token, {sum(n_tok) / seq_wall:.2f} tok/s "
+            f"({seq_wall * 1e3:.1f} ms) | texts equal concurrently, alone "
+            f"and to generate's; launches {conc_nonzero} = the solo sum | "
+            f"{smi}")
+    return rounds[0][2]
 
 
 # ── optional: where the time goes in one b=8 request ────────────────
@@ -2617,8 +3017,8 @@ KERNELS = {
     "int8_matmul": ("otter_tpu_torch/csrc/int8_matmul.cu",
                     "otter_tpu/ops/quant.py:22"),
 }
-PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,trainparity,"
-          "train")
+PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
+          "trainparity,train")
 
 
 def main(argv=None) -> int:
@@ -2691,6 +3091,8 @@ def main(argv=None) -> int:
                                  "profile" in phases)
     if "beam" in phases:
         by_path["beam"] = run("beam", phase_beam, smi)
+    if "worker" in phases:
+        by_path["worker"] = run("worker", phase_worker, smi)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

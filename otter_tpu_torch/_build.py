@@ -8,6 +8,12 @@ CUDA stream go in as `c_void_p`, and every entry point returns
 `cudaGetLastError()` after its launch, which `check` turns into an
 exception. Nothing here runs at import time; the first wrapper call on a
 CUDA tensor builds (if needed) and loads its library.
+
+The serving worker calls the wrappers from several threads at once (one
+executor thread a request), so a first use builds and loads under a lock,
+and `count_launch` adds to the wrappers' launch counters under another:
+ctypes releases the interpreter lock during a launch, and a bare `+= 1`
+loses counts when threads interleave.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -28,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.RLock()   # one build or first load at a time
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,7 +62,13 @@ def _target(name: str) -> Path:
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources that are not built yet, one nvcc process
     per source, all started together. Returns {name: nvcc output} for the
-    sources compiled by this call (ptxas register/shared-memory report)."""
+    sources compiled by this call (ptxas register/shared-memory report).
+    Threads that ask for the same source at once build it once."""
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     BUILD_DIR.mkdir(exist_ok=True)
     procs: List[tuple] = []
     for name in names:
@@ -84,16 +99,30 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     `signatures` {function: (argtypes, restype)} declared. Every source
     also exports `otter_error_string(int)`."""
     lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, (argtypes, restype) in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        lib.otter_error_string.argtypes = [ctypes.c_int]
-        lib.otter_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _build_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            lib.otter_error_string.argtypes = [ctypes.c_int]
+            lib.otter_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
+
+
+def count_launch(wrapper, int4: bool = False) -> None:
+    """One more launch on `wrapper`'s counter (`wrapper.launches`), and on
+    `wrapper.launches_int4` when `int4` (decode_attention over an int4
+    cache)."""
+    with _count_lock:
+        wrapper.launches += 1
+        if int4:
+            wrapper.launches_int4 += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -21,7 +21,8 @@ from otter_tpu_torch import config as cfgmod
 from otter_tpu_torch.config import GenerationConfig, OtterConfig
 from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.generation.engine import OtterGenerator, _on
-from otter_tpu_torch.models.convert import load_flax_params
+from otter_tpu_torch.models.convert import (load_flax_params,
+                                             load_otter_checkpoint)
 from otter_tpu_torch.models.otter import OtterVLM
 from otter_tpu_torch.tools import random_weights
 from otter_tpu_torch.train.step import causal_lm_loss
@@ -60,11 +61,16 @@ class OtterForConditionalGeneration:
     @classmethod
     def from_pretrained(cls, checkpoint_path: str,
                         config: Union[str, OtterConfig] = "mpt7b",
-                        dtype=torch.bfloat16):
-        raise NotImplementedError(
-            "from_pretrained needs the HF checkpoint converter, which is "
-            "not ported yet (ROADMAP Queue 1 item 4, models/convert.py); "
-            "pass params= as {flax path: array} meanwhile")
+                        dtype=torch.bfloat16, device=None):
+        """The model of `config` (a `CONFIGS` name or an `OtterConfig`)
+        with its seeded weights, then the HF checkpoint at
+        `checkpoint_path` (a file or a directory of shards) loaded over
+        them as a partial update (`models.convert.load_otter_checkpoint`;
+        a trainer's checkpoint holds only the trainable tensors)."""
+        cfg = CONFIGS[config]() if isinstance(config, str) else config
+        self = cls(cfg, dtype=dtype, device=device)
+        load_otter_checkpoint(checkpoint_path, self.cfg, self.model)
+        return self
 
     @property
     def engine(self) -> OtterGenerator:

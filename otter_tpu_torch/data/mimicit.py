@@ -1,11 +1,11 @@
-"""Label masking for MIMIC-IT batches (counterpart of
+"""Label masking and image preprocessing for MIMIC-IT (counterpart of
 `otter_tpu/data/mimicit.py`).
 
-Only the two functions the trainer's `prepare_batch` needs are here, copied
-as they are: `mask_answer_labels` and `find_and_remove_tokens`. The rest of
-the file (the dataset, its collation and the loader) comes with the loader
-slice (ROADMAP Queue 1, item 6): it decodes images with PIL and reads the
-task YAML with PyYAML, neither of which the port depends on yet.
+Three functions are here, copied as they are: `mask_answer_labels` and
+`find_and_remove_tokens` (the trainer's `prepare_batch`) and
+`preprocess_image` (the serving worker's image decode; PIL is imported
+inside it). The rest of the file (the dataset, its collation and the
+loader) comes with the loader slice (ROADMAP Queue 1, item 8.1).
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from otter_tpu_torch.data import templates
 
 
 def mask_answer_labels(input_ids: np.ndarray, *, answer_token_id: int,
@@ -57,3 +59,14 @@ def find_and_remove_tokens(input_ids: np.ndarray, labels: np.ndarray,
         out_lab[i, :n] = labels[i][keep]
         out_mask[i, :n] = attention_mask[i][keep]
     return out_ids, out_lab, out_mask
+
+
+def preprocess_image(img, size: int, mean=templates.FLAMINGO_MEAN,
+                     std=templates.FLAMINGO_STD) -> np.ndarray:
+    """bicubic resize -> [0,1] -> normalize; returns CHW float32
+    (`patch_resize_transform`, mimicit_dataset.py:134-143)."""
+    from PIL import Image
+    img = img.resize((size, size), Image.BICUBIC)
+    arr = np.asarray(img, np.float32) / 255.0
+    arr = (arr - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return arr.transpose(2, 0, 1)

@@ -24,6 +24,7 @@ that `_workspace` keeps per device.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -105,20 +106,28 @@ def workspace_size(b: int, h: int, splits: int, d: int):
 
 
 _workspaces = {}
+_workspaces_lock = threading.Lock()
 
 
 def _workspace(device: torch.device, floats: int, rows: int):
     """(partials f32, counters int32) of at least `floats` and `rows`
     elements on `device`, kept between calls (the counters must start at 0,
     and the kernel leaves them so). Calls on one stream reuse them in
-    order; a larger call replaces them."""
+    order; a larger call replaces them. Threads may share them: each user
+    (this kernel, the megakernel's attention kernel) reads and writes them
+    within one launch, and launches on one stream run in turn (the
+    megakernel's attention kernel is a programmatic dependent launch that
+    touches them only after `pdl_wait`, when the launch before it has
+    finished). A replaced pair stays alive while a caller holds it."""
     key = device.index
-    ws, cnt = _workspaces.get(key, (None, None))
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < rows:
-        cnt = torch.zeros(max(rows, 1), dtype=torch.int32, device=device)
-    _workspaces[key] = (ws, cnt)
+    with _workspaces_lock:
+        ws, cnt = _workspaces.get(key, (None, None))
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(max(floats, 1), dtype=torch.float32,
+                             device=device)
+        if cnt is None or cnt.numel() < rows:
+            cnt = torch.zeros(max(rows, 1), dtype=torch.int32, device=device)
+        _workspaces[key] = (ws, cnt)
     return ws, cnt
 
 
@@ -252,8 +261,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, h, nl, layer, L, d, splits, min_rows, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")
-    decode_attention.launches += 1
-    decode_attention.launches_int4 += int4
+    _build.count_launch(decode_attention, int4=int4)
     return out
 
 

@@ -288,7 +288,7 @@ def flash_attention_fwd(q, k, v, bias=None, q_ids=None, kv_ids=None, *,
         int(causal), _bf16_q_scale(float(sm_scale)), float(mask_value),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 
@@ -328,7 +328,7 @@ def flash_bwd_dkv(q, k, v, bias, q_ids, kv_ids, lse, di, do, *,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_dkv_bf16", (dk, dv), q, k, v, bias, q_ids,
                 kv_ids, lse, di, do, causal, sm_scale, mask_value, ids_mode)
-    flash_bwd_dkv.launches += 1
+    _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 
@@ -347,7 +347,7 @@ def flash_bwd_dq(q, k, v, bias, q_ids, kv_ids, lse, di, do, *,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_bwd_dq_bf16", (dq,), q, k, v, bias, q_ids, kv_ids,
                 lse, di, do, causal, sm_scale, mask_value, ids_mode)
-    flash_bwd_dq.launches += 1
+    _build.count_launch(flash_bwd_dq)
     return dq
 
 

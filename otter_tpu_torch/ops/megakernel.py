@@ -202,7 +202,7 @@ def decode_attn_megakernel(
         layer, L, pos, float(eps), float(sm_scale), splits_qkv, splits_o,
         attn_splits, min_rows, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "decode_attn_megakernel")
-    decode_attn_megakernel.launches += 1
+    _build.count_launch(decode_attn_megakernel)
     return y, k_new, v_new
 
 

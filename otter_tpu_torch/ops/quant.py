@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import re
+from collections.abc import Mapping
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -155,7 +156,7 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
         out.data_ptr(), m, k, h, n, _ACT_IDS[act],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "int8_mlp")
-    int8_mlp.launches += 1
+    _build.count_launch(int8_mlp)
     return out
 
 
@@ -207,7 +208,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
         n, wq.stride(0) if k > 1 else n,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "int8_matmul")
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     return out
 
 
@@ -319,7 +320,7 @@ def int8_attn_tail(attn_raw: torch.Tensor, resid: torch.Tensor,
         float(eps), _ACT_IDS[act], splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "int8_attn_tail")
-    int8_attn_tail.launches += 1
+    _build.count_launch(int8_attn_tail)
     return out
 
 
@@ -428,6 +429,23 @@ def add_fused_wqo(flat: Dict[str, ArrayLike]) -> Dict[str, ArrayLike]:
             out[base + "/wqo_q"] = torch.cat([wqkv, wo], dim=1)
             out[base + "/wqo_scale"] = torch.cat([t.float() for t in scales])
     return out
+
+
+def quantize_for(text_cfg, flat: Mapping) -> Dict[str, ArrayLike]:
+    """The load transforms of a model whose decoder is `text_cfg`, over a
+    {flax path: array} mapping of its unquantized parameters:
+    `quantize_params_int4` for `quant="int4"`, `quantize_params` (and
+    `add_fused_wqo` with `megakernel`) for "int8", `quantize_embed` with
+    `quant_embed`. A lazy mapping is read one tensor at a time."""
+    if text_cfg.quant == "int4":
+        flat = quantize_params_int4(flat)
+    elif text_cfg.quant == "int8":
+        flat = quantize_params(flat)
+        if text_cfg.megakernel:
+            flat = add_fused_wqo(flat)
+    if text_cfg.quant_embed:
+        flat = quantize_embed(flat)
+    return flat
 
 
 def quantize_kv(x: torch.Tensor):
@@ -655,7 +673,7 @@ def int4_mlp(x: torch.Tensor, w1p: torch.Tensor, s1: torch.Tensor,
         s2.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, h, n,
         _ACT_IDS[act], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "int4_mlp")
-    int4_mlp.launches += 1
+    _build.count_launch(int4_mlp)
     return out
 
 
@@ -696,7 +714,7 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor,
         out.data_ptr(), m, k, n, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "int4_matmul")
-    int4_matmul.launches += 1
+    _build.count_launch(int4_matmul)
     return out
 
 

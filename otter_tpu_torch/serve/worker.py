@@ -1,0 +1,563 @@
+"""Model worker (counterpart of `otter_tpu/serve/worker.py`): the port's
+generation engines behind the streaming HTTP protocol of the reference
+worker (`pipeline/serve/model_worker.py`):
+
+  - registers with the controller and heartbeats every WORKER_HEART_BEAT
+    seconds (model_worker.py:44-52,120-155)
+  - /worker_generate_stream: base64 images -> vision_x (B,T,F,C,H,W)
+    (:181-206; a list-of-lists means one video, frames along F) ->
+    streaming decode -> `\\0`-delimited JSON {"text": cumulative,
+    "error_code": 0} chunks (:251-263)
+  - /worker_get_status (:164-168)
+
+The otter family decodes through `OtterGenerator.stream_generate` (and
+`stream_beam_generate` for `num_beams > 1`), the fuyu family through
+`generation.fuyu.fuyu_generate`. Each request's generator runs on the
+aiohttp app's executor threads; requests on one model take turns a decode
+step at a time (`_one_step_at_a_time`), and the kernels' first use and
+launch counters are thread-safe (`_build.py`). Sampled requests draw from
+a `torch.Generator` seeded 0 for every request, as the JAX worker's engine
+uses one key.
+
+    python -m otter_tpu_torch.serve.worker --checkpoint DIR \\
+        --tokenizer DIR --load-bit int8 --cache-bit int8
+
+runs on the GPU (`--device cpu` for the CPU). Not ported yet, and refused
+at start: `--model-family idefics` (ROADMAP Queue 1 item 5) and
+`--continuous-batching`, `--session-cache`, `--draft-checkpoint` (item 6).
+"""
+
+from __future__ import annotations
+
+import base64
+import dataclasses
+import io
+import json
+import threading
+import time
+import uuid
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from otter_tpu_torch.config import GenerationConfig
+
+WORKER_HEART_BEAT_INTERVAL = 15
+SERVER_ERROR_MSG = ("**NETWORK ERROR DUE TO HIGH TRAFFIC. PLEASE REGENERATE "
+                    "OR REFRESH THIS PAGE.**")
+SAMPLING_SEED = 0
+
+
+def decode_media_to_vision_x(images, patch_size: int = 224,
+                             mean=None, std=None):
+    """Mixed media -> (vision_x [1, T, F, C, H, W], frame_mask [1, T, F]).
+
+    Each list element is a base64 still OR a list of base64 frames (one
+    video). Stills stack along T with F=1; videos contribute all their
+    frames along F. Mixing works: shorter items are zero-padded along F
+    and masked out of the perceiver attention. Strictly more capable than
+    the reference worker, which keeps only the LAST video
+    (model_worker.py:184-186 `images = images[-1]`)."""
+    from otter_tpu_torch.data.mimicit import preprocess_image
+    from otter_tpu_torch.data import templates
+    from PIL import Image
+    if not images:
+        return None, None
+    mean = mean or templates.FLAMINGO_MEAN
+    std = std or templates.FLAMINGO_STD
+
+    def dec(b64):
+        img = Image.open(io.BytesIO(
+            base64.urlsafe_b64decode(b64))).convert("RGB")
+        return preprocess_image(img, patch_size, mean, std)
+
+    items = [[dec(f) for f in (el if isinstance(el, list) else [el])]
+             for el in images]
+    t = len(items)
+    f = max(len(it) for it in items)
+    vx = np.zeros((1, t, f) + items[0][0].shape, np.float32)
+    mask = np.zeros((1, t, f), bool)
+    for i, frames in enumerate(items):
+        vx[0, i, : len(frames)] = np.stack(frames, 0)
+        mask[0, i, : len(frames)] = True
+    return vx, mask
+
+
+def decode_images_to_vision_x(images, patch_size: int = 224,
+                              mean=None, std=None) -> Optional[np.ndarray]:
+    """Back-compat wrapper returning only vision_x."""
+    vx, _ = decode_media_to_vision_x(images, patch_size, mean, std)
+    return vx
+
+
+class ModelWorker:
+    def __init__(self, *, controller_addr: str, worker_addr: str,
+                 model_name: str,
+                 stream_fn: Callable[[dict], Iterator[str]],
+                 limit_model_concurrency: int = 5,
+                 no_register: bool = False):
+        """stream_fn(params) yields cumulative generated text."""
+        self.controller_addr = controller_addr
+        self.worker_addr = worker_addr
+        self.worker_id = str(uuid.uuid4())[:6]
+        self.model_name = model_name
+        self.stream_fn = stream_fn
+        self.limit = limit_model_concurrency
+        self._active = 0
+        self._lock = threading.Lock()
+        if not no_register:
+            self.register_to_controller()
+            self.heart_beat_thread = threading.Thread(
+                target=self._heartbeat_loop, daemon=True)
+            self.heart_beat_thread.start()
+
+    # ── controller interaction ──────────────────────────────────────
+
+    def register_to_controller(self):
+        import requests
+        requests.post(self.controller_addr + "/register_worker", json={
+            "worker_name": self.worker_addr,
+            "check_heart_beat": True,
+            "worker_status": self.get_status(),
+        }, timeout=10)
+
+    def _heartbeat_loop(self):
+        import requests
+        while True:
+            time.sleep(WORKER_HEART_BEAT_INTERVAL)
+            try:
+                r = requests.post(
+                    self.controller_addr + "/receive_heart_beat",
+                    json={"worker_name": self.worker_addr,
+                          "queue_length": self.get_queue_length()},
+                    timeout=5)
+                if not r.json().get("exist"):
+                    self.register_to_controller()  # controller restarted
+            except Exception:
+                pass
+
+    def get_queue_length(self) -> int:
+        return max(self._active - self.limit, 0) + self._active
+
+    def get_status(self) -> dict:
+        return {"model_names": [self.model_name], "speed": 1,
+                "queue_length": self.get_queue_length()}
+
+    # ── generation ──────────────────────────────────────────────────
+
+    def generate_stream_gate(self, params: dict) -> Iterator[bytes]:
+        with self._lock:
+            self._active += 1
+        try:
+            for text in self.stream_fn(params):
+                yield json.dumps(
+                    {"text": text, "error_code": 0}).encode() + b"\0"
+        except ValueError as e:
+            yield json.dumps(
+                {"text": f"{SERVER_ERROR_MSG} ({e})",
+                 "error_code": 1}).encode() + b"\0"
+        except Exception as e:
+            yield json.dumps(
+                {"text": f"{SERVER_ERROR_MSG} ({type(e).__name__})",
+                 "error_code": 1}).encode() + b"\0"
+        finally:
+            with self._lock:
+                self._active -= 1
+
+
+def _parse_gen_kwargs(gk: dict) -> GenerationConfig:
+    return GenerationConfig(
+        max_new_tokens=int(gk.get("max_new_tokens", 512)),
+        do_sample=bool(gk.get("do_sample", False)),
+        temperature=float(gk.get("temperature", 1.0)),
+        top_k=int(gk.get("top_k", 0)),
+        top_p=float(gk.get("top_p", 1.0)),
+        num_beams=int(gk.get("num_beams", 1)),
+        length_penalty=float(gk.get("length_penalty", 1.0)),
+        no_repeat_ngram_size=int(gk.get("no_repeat_ngram_size", 0)),
+        bad_words_ids=(tuple(tuple(int(t) for t in seq)
+                             for seq in gk["bad_words_ids"])
+                       if gk.get("bad_words_ids") else None),
+    )
+
+
+def _generator(gen: GenerationConfig, device) -> Optional[torch.Generator]:
+    """A sampled request's random stream: seeded alike for every request
+    (None for greedy requests)."""
+    if not gen.do_sample:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(SAMPLING_SEED)
+    return g
+
+
+def _one_step_at_a_time(lock: threading.Lock, steps: Iterator):
+    """`steps` (an engine's token generator: its first item runs the
+    prefill, each later one a decode step) advanced under `lock`, so
+    requests on one model take turns a step at a time. Decoding several
+    requests at once without it is slower in aggregate than one after
+    another: each step makes ~1500 launches, each of which may give up
+    the interpreter lock, and threads queue for it at every one."""
+    while True:
+        with lock:
+            try:
+                item = next(steps)
+            except StopIteration:
+                return
+        yield item
+
+
+def _relay(tokenizer, token_iter, stream_interval: int) -> Iterator[str]:
+    """tokens -> cumulative text chunks every `stream_interval`."""
+    text, pending = "", []
+    for i, tok in enumerate(token_iter):
+        pending.append(tok)
+        if (i + 1) % stream_interval == 0:
+            text += tokenizer.decode(pending, skip_special_tokens=True)
+            pending = []
+            yield text
+    if pending:
+        text += tokenizer.decode(pending, skip_special_tokens=True)
+    yield text
+
+
+def make_otter_stream_fn(engine, tokenizer, cfg, *,
+                         stream_interval: int = 2):
+    """Bridges the HTTP params to `engine`, an `OtterGenerator`: greedy and
+    sampled requests through `stream_generate` (with the frame mask of
+    mixed still+video media), beams through `stream_beam_generate` (the
+    best beam so far per chunk, re-rendered whole: a later chunk may
+    revise earlier tokens). A request without images runs on one zero
+    image, as the JAX worker's does (CLIP, the perceiver and every xattn
+    block still run). Concurrent requests decode in turns, a step each
+    (`_one_step_at_a_time`)."""
+    patch_size = cfg.vision.image_size
+    lock = threading.Lock()
+
+    def stream_fn(params: dict) -> Iterator[str]:
+        prompt = params["prompt"]
+        vision_x, frame_mask = decode_media_to_vision_x(
+            params.get("images"), patch_size=patch_size)
+        if vision_x is None:
+            vision_x = np.zeros((1, 1, 1, 3, patch_size, patch_size),
+                                np.float32)
+            frame_mask = None
+        if frame_mask is not None and bool(frame_mask.all()):
+            frame_mask = None   # no padding -> skip the masked variant
+        gen = _parse_gen_kwargs(params.get("generation_kwargs", {}))
+        enc = tokenizer(prompt, return_tensors="np")
+        lang_x = np.asarray(enc["input_ids"]).astype(np.int64)
+        if gen.num_beams > 1:
+            for toks in _one_step_at_a_time(lock, engine.stream_beam_generate(
+                    vision_x, lang_x, gen=gen)):
+                yield tokenizer.decode(toks, skip_special_tokens=True)
+            return
+        yield from _relay(tokenizer, _one_step_at_a_time(
+            lock, engine.stream_generate(
+                vision_x, lang_x, gen=gen, vision_mask=frame_mask,
+                generator=_generator(gen, engine.device))), stream_interval)
+
+    return stream_fn
+
+
+def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
+                        stream_interval: int = 2, resolution=None,
+                        cache_dtype=None):
+    """Streaming bridge for Fuyu/OtterHD (the reference's Flask deploy
+    endpoint, `pipeline/serve/deploy/otterhd_endpoint.py:62-98`, rebuilt on
+    the worker protocol): variable-resolution patching through the
+    bucketed FuyuProcessor, `fuyu_generate`'s prefill and cached steps,
+    box/point coordinate post-processing on the final text. Generation
+    stops at the tokenizer's eos; concurrent requests decode in turns, a
+    step each."""
+    from otter_tpu_torch.generation.fuyu import fuyu_generate
+    lock = threading.Lock()
+
+    def stream_fn(http_params: dict) -> Iterator[str]:
+        prompt = http_params["prompt"]
+        gen = _parse_gen_kwargs(http_params.get("generation_kwargs", {}))
+        gen = dataclasses.replace(gen, eos_token_id=tokenizer.eos_token_id)
+        imgs = http_params.get("images") or []
+        image = None
+        if imgs:
+            from PIL import Image
+            b64 = imgs[0][0] if isinstance(imgs[0], list) else imgs[0]
+            image = Image.open(io.BytesIO(
+                base64.urlsafe_b64decode(b64))).convert("RGB")
+        batch = processor([prompt], [image] if image is not None else None,
+                          target_resolution=resolution, left_pad=True)
+        out_ids: list = []
+        for tok in _one_step_at_a_time(lock, fuyu_generate(
+                model, batch["input_ids"], batch["image_patches"],
+                batch["image_patches_indices"], batch["attention_mask"],
+                gen, cache_dtype=cache_dtype,
+                generator=_generator(gen, model.device))):
+            out_ids.append(tok)
+            if len(out_ids) % stream_interval == 0:
+                yield tokenizer.decode(out_ids, skip_special_tokens=True)
+        text = tokenizer.decode(out_ids, skip_special_tokens=True)
+        # bbox/point token spans -> scaled coordinates
+        yield processor.post_process_box_coordinates(text)
+
+    return stream_fn
+
+
+def build_app(worker: ModelWorker):
+    from aiohttp import web
+
+    async def worker_generate_stream(request):
+        params = await request.json()
+        resp = web.StreamResponse()
+        await resp.prepare(request)
+        loop = __import__("asyncio").get_event_loop()
+        gen = worker.generate_stream_gate(params)
+
+        def next_chunk():
+            try:
+                return next(gen)
+            except StopIteration:
+                return None
+
+        while True:
+            chunk = await loop.run_in_executor(None, next_chunk)
+            if chunk is None:
+                break
+            await resp.write(chunk)
+        return resp
+
+    async def worker_get_status(request):
+        return web.json_response(worker.get_status())
+
+    app = web.Application()
+    app.router.add_post("/worker_generate_stream", worker_generate_stream)
+    app.router.add_post("/worker_get_status", worker_get_status)
+    return app
+
+
+def run_app_in_thread(app, host: str, port: int) -> Callable[[], None]:
+    """Serve an aiohttp `app` on `host:port` from a daemon thread with its
+    own event loop; returns once the site listens, with a function that
+    stops it (so a process can host the worker, or a controller beside
+    it, while it does other work)."""
+    import asyncio
+    from aiohttp import web
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app)
+    started = threading.Event()
+    failure = []
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(runner.setup())
+            loop.run_until_complete(web.TCPSite(runner, host, port).start())
+        except OSError as e:
+            failure.append(e)
+            started.set()
+            return
+        started.set()
+        loop.run_forever()
+        loop.run_until_complete(runner.cleanup())
+        loop.close()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    if not started.wait(60):
+        raise RuntimeError(f"the app on {host}:{port} did not start")
+    if failure:
+        raise failure[0]
+
+    def stop():
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+
+    return stop
+
+
+# ── start-up: checkpoint -> model ─────────────────────────────────────
+
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32,
+           "int8": torch.bfloat16, "int4": torch.bfloat16}
+CACHE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "int4": "int4"}
+
+
+def load_otter_model(checkpoint: str, cfg, *, load_bit: str = "bf16",
+                     device=None):
+    """The worker's otter-family start-up: an `OtterVLM` of `cfg` with
+    `--load-bit` weights (int8 / int4: `quant` set, the decoder and xattn
+    kernels quantized as they load), every tensor zero, then the HF
+    checkpoint loaded over it (`models.convert.load_otter_checkpoint`: one
+    tensor at a time, quantized on the device). Returns (model, cfg)."""
+    from otter_tpu_torch.models.convert import load_otter_checkpoint
+    from otter_tpu_torch.models.otter import OtterVLM
+    cfg = cfg.replace(text=cfg.text.replace(decode_kernel="auto"))
+    if load_bit in ("int8", "int4"):
+        cfg = cfg.replace(text=cfg.text.replace(quant=load_bit))
+    model = OtterVLM(cfg, dtype=_DTYPES[load_bit], device=device)
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            t.zero_()
+    load_otter_checkpoint(checkpoint, cfg, model)
+    return model.eval(), cfg
+
+
+def load_fuyu_model(checkpoint: str, cfg, *, load_bit: str = "bf16",
+                    quant_embed: bool = False, device=None):
+    """The worker's fuyu-family start-up: a `FuyuVLM` of `cfg` loaded whole
+    from an adept/fuyu-8b-style checkpoint, each tensor converted and
+    quantized on the device (persimmon's biased MLPs have no int4 path:
+    int4 loads them as int8, as the JAX worker's `quantize_params_int4`
+    does). Returns (model, cfg)."""
+    from otter_tpu_torch.models.convert import (fuyu_hf_to_port,
+                                                load_flax_params,
+                                                load_state_dict)
+    from otter_tpu_torch.models.fuyu import FuyuVLM
+    from otter_tpu_torch.ops.quant import quantize_for
+    text = cfg.text.replace(decode_kernel="auto")
+    if load_bit in ("int8", "int4"):
+        text = text.replace(quant=load_bit)
+    if quant_embed:
+        text = text.replace(quant_embed=True)
+    cfg = cfg.replace(text=text)
+    model = FuyuVLM(cfg, dtype=_DTYPES[load_bit], device=device)
+    flat = fuyu_hf_to_port(load_state_dict(checkpoint), dtype=model.dtype,
+                           device=model.device,
+                           num_heads=cfg.text.num_attention_heads)
+    load_flax_params(model, quantize_for(cfg.text, flat))
+    return model.eval(), cfg
+
+
+def _load_config(spec: str, family: str):
+    """`--config`: a preset name, or a config JSON (`config.save_config`,
+    or `FuyuConfig.to_json` for the fuyu family, whose default is
+    adept/fuyu-8b's)."""
+    from otter_tpu_torch import config as cfgmod
+    if spec.endswith(".json"):
+        with open(spec) as f:
+            d = json.load(f)
+        cls = cfgmod.FuyuConfig if family == "fuyu" else cfgmod.OtterConfig
+        return cls.from_dict(d)
+    return cfgmod.FuyuConfig() if family == "fuyu" else cfgmod.PRESETS[spec]()
+
+
+def _run_fuyu_worker(args, device, stream_worker):
+    """Host a Fuyu/OtterHD checkpoint behind the worker protocol (the
+    reference's standalone OtterHD Flask endpoint, deploy/otterhd_endpoint
+    .py:62-98, gains controller registration/heartbeat and streaming)."""
+    from transformers import AutoTokenizer
+    from otter_tpu_torch.data.fuyu_processor import (FuyuImageProcessor,
+                                                     FuyuProcessor)
+    cfg = _load_config(args.config, "fuyu")
+    tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+    model, cfg = load_fuyu_model(args.checkpoint, cfg,
+                                 load_bit=args.load_bit,
+                                 quant_embed=args.quant_embed, device=device)
+    processor = FuyuProcessor(
+        tokenizer, FuyuImageProcessor(patch_size=cfg.patch_size),
+        image_placeholder_id=cfg.image_placeholder_id,
+        image_newline_id=cfg.image_newline_id)
+    resolution = None
+    if args.fuyu_resolution:
+        h, w = args.fuyu_resolution.lower().split("x")
+        resolution = (int(h), int(w))
+    cache = CACHE_DTYPES[args.cache_bit]
+    stream_worker(make_fuyu_stream_fn(
+        model, processor, cfg, tokenizer, resolution=resolution,
+        cache_dtype=None if cache == torch.bfloat16 else cache))
+
+
+def main(argv=None):
+    import argparse
+    from otter_tpu_torch.config import PRESETS
+    from otter_tpu_torch.device import resolve_device
+    p = argparse.ArgumentParser()
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=21002)
+    p.add_argument("--controller-address", default="http://localhost:21001")
+    p.add_argument("--worker-address", default=None)
+    p.add_argument("--model-name", default="otter")
+    p.add_argument("--checkpoint", required=True,
+                   help="HF-format checkpoint file or directory of shards "
+                        "(.bin, .pt, .safetensors)")
+    p.add_argument("--config", default="mpt7b",
+                   help=f"otter family: one of {sorted(PRESETS)}; either "
+                        "family: a config JSON (config.save_config; the "
+                        "fuyu family defaults to adept/fuyu-8b's)")
+    p.add_argument("--model-family", default="otter",
+                   choices=["otter", "idefics", "fuyu"],
+                   help="otter: Flamingo-style VLM presets; fuyu: "
+                        "Fuyu/OtterHD (adept/fuyu-8b-style) checkpoints; "
+                        "idefics: not ported yet (ROADMAP Queue 1 item 5)")
+    p.add_argument("--fuyu-resolution", default=None,
+                   help="fixed HxW (e.g. 448x448) instead of bucketed "
+                        "variable resolution (OtterHD serves high-res)")
+    p.add_argument("--tokenizer", required=True)
+    p.add_argument("--limit-model-concurrency", type=int, default=5)
+    p.add_argument("--load-bit", default="bf16",
+                   choices=["bf16", "fp32", "int8", "int4"],
+                   help="int8: weight-only int8 decoder and xattn kernels; "
+                        "int4: additionally nibble-packs un-biased "
+                        "two-matmul MLP pairs (0.5 B/weight; silu_glu and "
+                        "biased archs stay int8). fp32 runs on the CPU "
+                        "only: the CUDA kernels take bf16")
+    p.add_argument("--cache-bit", default="bf16",
+                   choices=["bf16", "int8", "int4"],
+                   help="int8 quantizes the KV cache (per-position max-abs "
+                        "scales, dequantized in the decode kernel); int4 "
+                        "nibble-packs k and v into one byte")
+    p.add_argument("--quant-embed", action="store_true",
+                   help="fuyu family: store the embedding table as int8 "
+                        "rows (the 262k-row bf16 table is 2.15 GB)")
+    p.add_argument("--no-register", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="the GPU by default; raises without one unless "
+                        "another device (cpu) is named")
+    p.add_argument("--continuous-batching", action="store_true",
+                   help="not ported yet (ROADMAP Queue 1 item 6)")
+    p.add_argument("--session-cache", type=int, default=0, metavar="N",
+                   help="not ported yet (ROADMAP Queue 1 item 6)")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 6)")
+    args = p.parse_args(argv)
+
+    if args.model_family == "idefics":
+        p.error("--model-family idefics is not ported yet: the idefics "
+                "model and its checkpoint rules are ROADMAP Queue 1 item 5")
+    for flag, given in (("--continuous-batching", args.continuous_batching),
+                        ("--session-cache", args.session_cache > 0),
+                        ("--draft-checkpoint", args.draft_checkpoint)):
+        if given:
+            p.error(f"{flag} is not ported yet: the batcher, the session "
+                    f"cache and speculative decoding are ROADMAP Queue 1 "
+                    f"item 6")
+    device = resolve_device(args.device)
+    if args.load_bit == "fp32" and device.type == "cuda":
+        p.error("--load-bit fp32 on a CUDA device: the kernels take bf16 "
+                "activations only; use bf16, int8 or int4")
+
+    def stream_worker(stream_fn):
+        from aiohttp import web
+        addr = args.worker_address or f"http://localhost:{args.port}"
+        worker = ModelWorker(
+            controller_addr=args.controller_address, worker_addr=addr,
+            model_name=args.model_name, stream_fn=stream_fn,
+            limit_model_concurrency=args.limit_model_concurrency,
+            no_register=args.no_register)
+        web.run_app(build_app(worker), host=args.host, port=args.port)
+
+    if args.model_family == "fuyu":
+        _run_fuyu_worker(args, device, stream_worker)
+        return
+    from transformers import AutoTokenizer
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    cfg = _load_config(args.config, "otter")
+    tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+    model, cfg = load_otter_model(args.checkpoint, cfg,
+                                  load_bit=args.load_bit, device=device)
+    engine = OtterGenerator(model, cache_dtype=CACHE_DTYPES[args.cache_bit])
+    stream_worker(make_otter_stream_fn(engine, tokenizer, cfg))
+
+
+if __name__ == "__main__":
+    main()

@@ -72,24 +72,16 @@ class RandomParams(Mapping):
 def build_model(cfg: ModelConfig, device, seed: int = 0,
                 dtype=torch.bfloat16):
     """An `OtterVLM` (a `FuyuVLM` for a `FuyuConfig`) in `dtype` on
-    `device` with `RandomParams` weights, quantized by the port's
-    `quantize_params`
-    (`quantize_params_int4` for `quant="int4"`), with the decode
-    megakernel's fused leaves when `cfg.text.megakernel` and the int8
-    embedding table when `cfg.text.quant_embed`."""
+    `device` with `RandomParams` weights through the load transforms its
+    config asks for (`ops.quant.quantize_for`: the port's
+    `quantize_params`, `quantize_params_int4` for `quant="int4"`, the
+    decode megakernel's fused leaves when `cfg.text.megakernel`, the int8
+    embedding table when `cfg.text.quant_embed`)."""
     model = _model_class(cfg)(cfg, dtype=dtype, device=device)
     plain = cfg.replace(text=cfg.text.replace(
         quant=None, quant_embed=False, megakernel=False, fused_tail=False))
-    flat = RandomParams(plain, device, seed=seed)
-    if cfg.text.quant == "int4":
-        flat = quant.quantize_params_int4(flat)
-    elif cfg.text.quant == "int8":
-        flat = quant.quantize_params(flat)
-        if cfg.text.megakernel:
-            flat = quant.add_fused_wqo(flat)
-    if cfg.text.quant_embed:
-        flat = quant.quantize_embed(flat)
-    load_flax_params(model, flat)
+    load_flax_params(model, quant.quantize_for(
+        cfg.text, RandomParams(plain, device, seed=seed)))
     return model.eval()
 
 

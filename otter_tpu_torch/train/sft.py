@@ -9,11 +9,12 @@ periodic and final checkpoints, and resume. `batches` is a re-iterable
 (e.g. a list) of collated batches in `MimicitLoader`'s
 `{"net_input": {"input_ids", "attention_masks", "patch_images"}}` format:
 the YAML -> dataset -> loader chain is not ported yet (ROADMAP Queue 1,
-item 6), so a call without `batches` raises. Weights come from `params`
+item 8.1), so a call without `batches` raises. Weights come from `params`
 ({flax path: array}, as `models.convert.load_flax_params` takes them) or,
 without them, from `init_params` (seeded normal(0, 0.02) matrices, unit
 norm scales, zero biases and gates; not the flax initializers, which come
-with `init_fns`).
+with `init_fns`); `pretrained_checkpoint` or `trained_ckpt` (an HF
+checkpoint) is then loaded over them as a partial update.
 
 The model runs on the GPU unless the caller passes `device="cpu"`.
 """
@@ -32,7 +33,8 @@ from otter_tpu_torch.config import OtterConfig
 from otter_tpu_torch.data.mimicit import (find_and_remove_tokens,
                                           mask_answer_labels)
 from otter_tpu_torch.device import resolve_device
-from otter_tpu_torch.models.convert import load_flax_params
+from otter_tpu_torch.models.convert import (load_flax_params,
+                                             load_otter_checkpoint)
 from otter_tpu_torch.models.otter import OtterVLM
 from otter_tpu_torch.runtime.checkpoint import CheckpointStore
 from otter_tpu_torch.runtime.metrics import AverageMeter, MetricsLogger
@@ -116,17 +118,14 @@ def main(args: TrainArgs, tokenizer=None,
     if batches is None:
         raise NotImplementedError(
             "the MIMIC-IT data chain (training_data_yaml -> MimicitDataset "
-            "-> MimicitLoader) is not ported yet (ROADMAP Queue 1, item 6): "
+            "-> MimicitLoader) is not ported yet (ROADMAP Queue 1, item 8.1): "
             "pass `batches`, collated batches in MimicitLoader's format")
     if tokenizer is None:
         raise ValueError("pass a tokenizer (convert_tokens_to_ids, "
                          "eos_token_id, pad_token_id)")
     if args.multi_host or max(args.dp, args.fsdp, args.sp, args.tp) > 1:
         raise NotImplementedError("multi-device training is not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
-    if args.pretrained_checkpoint or args.trained_ckpt:
-        raise NotImplementedError("loading HF checkpoints is not ported yet "
-                                  "(ROADMAP Queue 1, item 4): pass `params`")
+                                  "(ROADMAP Queue 1, item 9)")
     if args.save_hf_model:
         raise NotImplementedError("the HF export is not ported yet")
     device = resolve_device(device)
@@ -137,6 +136,10 @@ def main(args: TrainArgs, tokenizer=None,
         load_flax_params(model, params)
     else:
         init_params(model, args.seed)
+    if args.pretrained_checkpoint or args.trained_ckpt:
+        # an HF checkpoint over the initial weights, as a partial update
+        load_otter_checkpoint(args.trained_ckpt or args.pretrained_checkpoint,
+                              cfg, model)
 
     steps_per_epoch = len(batches) // args.gradient_accumulation_steps
     total_steps = max(steps_per_epoch * args.num_epochs, 1)

@@ -226,7 +226,7 @@ def make_optimizer(trainable: Iterable[str], *, lr: float = 1e-5,
     if state_bits == 8:
         raise NotImplementedError(
             "8-bit Adam states (train/opt8.py) are not ported yet: ROADMAP "
-            "Queue 1, item 6 (opt8 and the int8-frozen recipe)")
+            "Queue 1, item 8.2 (opt8 and the int8-frozen recipe)")
     return AdamW(make_schedule(schedule, lr, warmup_steps, total_steps),
                  weight_decay_mask(trainable), weight_decay=weight_decay,
                  grad_clip=grad_clip, grad_accum_steps=grad_accum_steps,

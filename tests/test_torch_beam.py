@@ -278,7 +278,7 @@ def test_api_generate_matches_jax(api_pair, kw):
                                   np.asarray(jm.generate(vx, ids, **kw)))
 
 
-def test_api_encode_vision_flamingo_and_from_pretrained(api_pair):
+def test_api_encode_vision_flamingo_and_from_pretrained(api_pair, tmp_path):
     cfg, jm, tm = api_pair
     vx, _ = inputs(cfg, 82, 1, 4)
     np.testing.assert_allclose(tm.encode_vision(vx).numpy(),
@@ -293,5 +293,14 @@ def test_api_encode_vision_flamingo_and_from_pretrained(api_pair):
                                                device="cpu", seed=3)
     for a, b in zip(fl.model.parameters(), again.model.parameters()):
         assert torch.equal(a, b)       # the seeded init repeats
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tapi.OtterForConditionalGeneration.from_pretrained("ckpt")
+    # from_pretrained: another seed's model, then an HF checkpoint of the
+    # seed-3 weights loaded over it, gives the seed-3 model
+    from otter_tpu_torch.models.convert import (export_flax_params,
+                                                port_to_hf, save_state_dict)
+    ckpt = str(tmp_path / "model.bin")
+    save_state_dict(port_to_hf(export_flax_params(again.model),
+                               port_cfg(cfg)), ckpt)
+    loaded = tapi.OtterForConditionalGeneration.from_pretrained(
+        ckpt, config=port_cfg(cfg), dtype=torch.float32, device="cpu")
+    for a, b in zip(loaded.model.parameters(), again.model.parameters()):
+        assert torch.equal(a, b)

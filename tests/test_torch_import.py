@@ -50,6 +50,13 @@ from otter_tpu_torch.ops.masks import (alibi_bias, expand_media_mask_to_latents,
 from otter_tpu_torch.api import (FlamingoForConditionalGeneration,
                                  OtterForConditionalGeneration)
 assert OtterGenerator.stream_beam_generate
+# the HF checkpoint converter and the serving stack live in these
+from otter_tpu_torch.models.convert import (hf_to_port, load_otter_checkpoint,
+                                            load_state_dict, port_to_hf)
+from otter_tpu_torch.serve import cli, controller, web, worker
+from otter_tpu_torch.data.fuyu_processor import FuyuProcessor
+from otter_tpu_torch.data.mimicit import preprocess_image
+assert worker.main and cli.main and controller.main and web.main
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules
@@ -66,6 +73,13 @@ _FUYU_MODULES = {"otter_tpu_torch.models.fuyu",
 _BEAM_MEDIA_MODULES = {"otter_tpu_torch.generation.beam",
                        "otter_tpu_torch.ops.image_prep",
                        "otter_tpu_torch.api"}
+_SERVING_MODULES = {
+    "otter_tpu_torch.serve", "otter_tpu_torch.serve.worker",
+    "otter_tpu_torch.serve.controller", "otter_tpu_torch.serve.web",
+    "otter_tpu_torch.serve.cli", "otter_tpu_torch.serve.conversation",
+    "otter_tpu_torch.serve.moderation", "otter_tpu_torch.serve.test_message",
+    "otter_tpu_torch.serve.register_worker", "otter_tpu_torch.data.templates",
+    "otter_tpu_torch.data.fuyu_processor", "otter_tpu_torch.models.convert"}
 _TRAINING_MODULES = {
     "otter_tpu_torch.train.step", "otter_tpu_torch.train.sft",
     "otter_tpu_torch.train.args", "otter_tpu_torch.runtime.metrics",
@@ -84,7 +98,8 @@ def test_port_imports_no_jax_or_otter_tpu():
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     loaded = set(res.stdout.split())
-    assert len(loaded) >= 34                  # every module was imported
+    assert len(loaded) >= 46                  # every module was imported
+    assert _SERVING_MODULES <= loaded, _SERVING_MODULES - loaded
     assert _FUYU_MODULES <= loaded, _FUYU_MODULES - loaded
     assert _BEAM_MEDIA_MODULES <= loaded, _BEAM_MEDIA_MODULES - loaded
     assert _TRAINING_MODULES <= loaded, _TRAINING_MODULES - loaded

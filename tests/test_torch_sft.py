@@ -127,3 +127,23 @@ def test_profiler_trace_writes_the_trace_and_the_table(tmp_path):
     assert "aten::mm" in (tmp_path / "kernels.txt").read_text()
     with profiler_trace("") as prof:
         assert prof is None
+
+
+def test_main_loads_an_hf_checkpoint_over_the_initial_weights(tmp_path):
+    """`trained_ckpt`: an HF checkpoint of some frozen tensors (CLIP's
+    first layer) loads over the seeded initial weights, as the JAX
+    trainer's `load_otter_checkpoint` does; frozen, they leave training
+    as they came in."""
+    from otter_tpu_torch.models.convert import port_to_hf, save_state_dict
+    from otter_tpu_torch.tools.random_weights import RandomParams
+    cfg = OtterConfig.tiny("mpt")
+    hf = {k: v for k, v in port_to_hf(RandomParams(
+        cfg, "cpu", seed=9), cfg).items()
+        if k.startswith("vision_encoder.vision_model.encoder.layers.0.")}
+    ckpt = str(tmp_path / "trained.bin")
+    save_state_dict(hf, ckpt)
+    state = sft.main(_args(tmp_path, trained_ckpt=ckpt), TinyTokenizer(),
+                     _batches(1), device="cpu")
+    fc1 = state.model.vision_encoder.layers_0.fc1.kernel
+    want = hf["vision_encoder.vision_model.encoder.layers.0.mlp.fc1.weight"]
+    assert torch.equal(fc1, want.t().float())
