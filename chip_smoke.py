@@ -43,6 +43,8 @@ unless every phase passes:
                  first-step logits (prefill and
                  first cached decode step) through the kernels against the
                  same model with every kernel swapped for its plain version.
+                 idefics-9b is cut the same way (4 layers: one xattn
+                 block) with int8 decoder layers and cache.
                  Then the int8 model with `megakernel=True` (bf16 cache) and
                  with `fused_tail=True` (int8 cache) on full-length prompts:
                  kernels against plain, and against the composed route of
@@ -145,6 +147,22 @@ unless every phase passes:
                  also sends one text-only request through the worker's fuyu
                  stream function: its text must equal
                  `post_process_box_coordinates` of `fuyu_generate`'s.
+ 14. idefics     idefics-9b (runs after worker; ViT-H/14 with its CLS,
+                 perceiver 6, LLaMA-7B with 8 gated xattn blocks, 68 added
+                 tokens) at full width and depth, random bf16 weights with
+                 int8 decoder layers (11.39 GB), int8 KV cache,
+                 decode_kernel="auto", through OtterGenerator: b=1 and b=8
+                 idefics-instruct prompts of 32-128 tokens with one
+                 224x224 image each, one b=1 prompt with two images
+                 interleaved and one with five, 32 greedy tokens (TTFT,
+                 ms a step, tok/s, repeatable); the xattn rows that attend
+                 no image finite; one request through the worker's
+                 idefics stream over localhost HTTP, its text equal to
+                 generate's. A prefill launches flash_fwd exactly 78
+                 times, a decode step decode_attention 32 (and flash_fwd 8
+                 with five images), nothing else. The kernels phase holds
+                 the flash forward at its four sites and a step's xattn
+                 over five images, and decode_attention at its cache.
  11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
@@ -156,7 +174,7 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all thirteen (`--phases beam` the beam phase alone). `flashkernels`
+runs all fourteen (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -166,7 +184,8 @@ DIR` imports `otter_tpu_torch` from another checkout, so that two versions
 of the port run one after the other in one call. `profile` (not run by default) adds torch.profiler tables
 of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
 requests (with otterhd), of the three fused runs (with fused: device ms
-and launches a decode step) and of one train
+and launches a decode step), of idefics-9b's b=8 request (with idefics)
+and of one train
 step (with train) to the output directory, `OUT_DIR`.
 """
 
@@ -391,7 +410,45 @@ def _flash_cases(gen):
     cases.append(("llama video prefill K=3", dict(
         q=rnd(3, 32, 64, 128), k=rnd(3, 32, 64, 128), v=rnd(3, 32, 64, 128),
         q_ids=ones, kv_ids=ones, causal=True, sm_scale=128 ** -0.5), None))
-    return cases
+    return cases + _idefics_flash_cases(rnd, mask, lens)
+
+
+def _idefics_flash_cases(rnd, mask, lens):
+    """idefics-9b's flash sites (the idefics phase's requests: b=8, one
+    image each, left-padded to 128): its ViT-H/14 tower (257 tokens, CLS
+    kept, 16 heads of 80), the perceiver (64 latents over 257 + 64 keys,
+    16 heads of 96), the decoder (causal, 32 heads of 128) and the gated
+    xattn (a dense f32 bias [B, 1, S, 64]: the left padding and the text
+    before the image attend no key, and those rows are compared too);
+    then a decode step's xattn over five images (one query, 320 keys, the
+    last image's 64 attended)."""
+    import torch
+    from otter_tpu_torch.ops.masks import DEFAULT_MASK_VALUE
+    dev, b, s = "cuda", 8, 128
+    pos = torch.arange(s, device=dev)
+    # the image after 3 real tokens ("User:" and the token around it)
+    sees = pos[None, :] >= (s - lens[:, None] + 3)
+    xbias = torch.where(sees, 0.0, DEFAULT_MASK_VALUE)[:, None, :, None] \
+        .expand(b, 1, s, 64).contiguous()
+    step_bias = torch.full((1, 1, 1, 320), DEFAULT_MASK_VALUE, device=dev)
+    step_bias[..., 256:] = 0.0
+    return [
+        ("idefics vit", dict(q=rnd(b, 16, 257, 80), k=rnd(b, 16, 257, 80),
+                             v=rnd(b, 16, 257, 80)), None),
+        ("idefics perceiver", dict(
+            q=rnd(b, 16, 64, 96), k=rnd(b, 16, 321, 96),
+            v=rnd(b, 16, 321, 96), sm_scale=96 ** -0.5), None),
+        ("idefics decoder", dict(
+            q=rnd(b, 32, s, 128), k=rnd(b, 32, s, 128),
+            v=rnd(b, 32, s, 128), q_ids=mask, kv_ids=mask, causal=True,
+            sm_scale=128 ** -0.5), None),
+        ("idefics xattn", dict(
+            q=rnd(b, 32, s, 128), k=rnd(b, 32, 64, 128),
+            v=rnd(b, 32, 64, 128), bias=xbias, sm_scale=128 ** -0.5), None),
+        ("idefics xattn step, 5 images", dict(
+            q=rnd(1, 32, 1, 128), k=rnd(1, 32, 320, 128),
+            v=rnd(1, 32, 320, 128), bias=step_bias, sm_scale=128 ** -0.5),
+         None)]
 
 
 def _flash_cost(kw):
@@ -576,6 +633,8 @@ def _flash_kernels(gen, report, entries):
         torch.cuda.synchronize()
         keep4 = None if keep is None else keep[:, None, :, None].expand_as(out)
         err, excess = max_err(out, ref, keep4)
+        if not bool(torch.isfinite(out).all()):
+            excess = float("inf")   # e.g. a row that attends no key
         kern = lambda kw=kw: fa.flash_attention(**kw)
         r = report("flash_fwd", case, err, excess, time_ms(kern),
                    time_ms(lambda kw=kw: fa.flash_attention_plain(**kw), 5),
@@ -877,6 +936,13 @@ def _decode_cases(gen):
                               dtype=torch.bfloat16),
                   "int8", i32([0, 0, 0]), i32([80, 80, 80]), None,
                   (3, 32, 32, 128, 128)))
+    # idefics-9b's serving cache: b=8, 32 heads of 128, rotary (no bias),
+    # prompts of 32-128 tokens left-padded to 128 and 32 new, L=256
+    cases.append(("idefics int8 b=8 L=256",
+                  torch.randn(8, 32, 128, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  "int8", i32([0, 28, 51, 96, 0, 64, 83, 38]),
+                  i32([160] * 8), None, (8, 32, 32, 256, 128)))
     # Persimmon is rotary: no bias; the cache holds the 2356-token prompt
     # and 16 new tokens, rounded up to a multiple of 128
     cases.append(("otterhd int8 b=1 L=2432",
@@ -1601,6 +1667,15 @@ def phase_parity():
     if quant_ops.int8_matmul.launches != before + 2:
         raise RuntimeError("parity: the two untied heads did not go through "
                            "int8_matmul once each")
+    # idefics-9b: int8 decoder layers, bf16 head, xattn and towers
+    cfg = idefics_cfg(depth_cut=True)
+    model = build_model(cfg)
+    req = idefics_requests(cfg, 8, SEED + 5)
+    kern = first_step_logits(model, cfg, torch.int8, *req)
+    with plain_kernels():
+        plain = first_step_logits(model, cfg, torch.int8, *req)
+    _hold_logits("idefics-9b, int8 decoder and cache", kern, plain)
+    del model
 
     # the fused decode routes, on full-length prompts (the megakernel
     # attends every cache row below the position: no left padding):
@@ -2458,6 +2533,288 @@ def phase_worker(smi: str):
     return rounds[0][2]
 
 
+# ── phase 14: IDEFICS (idefics-9b) behind the engine and the worker ──
+
+# a prefill: 32 ViT + 6 perceiver + 32 decoder + 8 xattn attention calls;
+# a decode step: 32 int8 decode_attention (the gated MLPs never reach
+# int8_mlp, the bf16 head never int8_matmul; a step's xattn over one image,
+# one query over 64 keys, takes the plain path as sub-tile), and with five
+# images (320 keys) the 8 xattn through flash_fwd too
+IDEFICS_PREFILL = {"flash_fwd": 78}
+IDEFICS_STEP = {"decode_attention": 32}
+IDEFICS_STEP_5 = {"decode_attention": 32, "flash_fwd": 8}
+IDEFICS_PATH = {"flash_fwd", "decode_attention"}
+# idefics-9b's tokenizer numbers <fake_token_around_image>, <image> and
+# <end_of_utterance> 32000-32002; the two role words are single ids here
+IDEFICS_SPECIALS = {"<fake_token_around_image>": 32000, "<image>": 32001,
+                    "<end_of_utterance>": 32002, "User:": 2659,
+                    "Assistant:": 4007}
+
+
+def idefics_cfg(depth_cut: bool = False):
+    """idefics-9b as the worker serves it with `--load-bit int8
+    --cache-bit int8`: int8 decoder layers; the head, xattn, perceiver and
+    ViT in bf16. `depth_cut`: every width kept; 4 decoder layers (the
+    interval of 4 leaves one xattn block), ViT 2, perceiver 1."""
+    from otter_tpu_torch.config import idefics9b
+    cfg = idefics9b()
+    cfg = cfg.replace(text=cfg.text.replace(quant="int8",
+                                            decode_kernel="auto"))
+    if depth_cut:
+        cfg = cfg.replace(text=cfg.text.replace(num_hidden_layers=4),
+                          vision=cfg.vision.replace(num_hidden_layers=2),
+                          perceiver=cfg.perceiver.replace(depth=1))
+    return cfg
+
+
+class IdeficsTokenizer(WorkerTokenizer):
+    """`WorkerTokenizer` over idefics-instruct prompts, whose specials
+    touch their neighbours (`User:<fake_token_around_image><image>...`)."""
+
+    def __call__(self, text, return_tensors=None, **kw):
+        import re
+        pat = "(" + "|".join(map(re.escape, self.specials)) + ")"
+        words = [w for part in re.split(pat, text)
+                 for w in ([part] if part in self.specials else part.split())]
+        return super().__call__(" ".join(words), return_tensors)
+
+
+def idefics_tokenizer(cfg):
+    return IdeficsTokenizer(IDEFICS_SPECIALS, eos_token_id=cfg.eos_token_id)
+
+
+def idefics_prompt(rng, n_tokens: int, images: int = 1) -> str:
+    """An idefics-instruct prompt of `n_tokens` ids
+    (`serve.conversation.render_prompt("idefics", ...)`): "User:", the
+    first image's placeholder, a question of random words with the other
+    images' placeholders spread through it, "<end_of_utterance>",
+    "Assistant:"."""
+    from otter_tpu_torch.serve.conversation import (IDEFICS_IMAGE_PLACEHOLDER,
+                                                   render_prompt)
+    n_words = n_tokens - 3 - 3 * images
+    words = [f"t{i}" for i in rng.integers(3, 32000, n_words)]
+    for j in range(1, images):
+        words.insert(j * n_words // images + j - 1,
+                     IDEFICS_IMAGE_PLACEHOLDER)
+    return render_prompt("idefics", [[" ".join(words), None]],
+                         with_image=True)
+
+
+def idefics_requests(cfg, batch: int, seed: int, images: int = 1,
+                     lens=None):
+    """`batch` idefics-instruct prompts of 32-128 ids (or `lens`), each
+    with `images` random 224x224 images (f32, normalised), left-padded to
+    128: (vision_x [B, N, 3, 224, 224], lang_x [B, 128], mask [B, 128])."""
+    import numpy as np
+    from otter_tpu_torch.generation.engine import left_pad
+    rng = np.random.default_rng(seed)
+    tok = idefics_tokenizer(cfg)
+    lens = rng.integers(32, 129, batch) if lens is None else lens
+    ids = np.zeros((batch, 128), np.int64)
+    mask = np.zeros((batch, 128), np.int32)
+    for i, n in enumerate(lens):
+        row = tok(idefics_prompt(rng, int(n), images))["input_ids"]
+        ids[i, :len(row)], mask[i, :len(row)] = row, 1
+    lang_x, attn = left_pad(ids, mask, target_len=128)
+    size = cfg.vision.image_size
+    vision_x = rng.standard_normal((batch, images, 3, size, size)).astype(
+        np.float32)
+    return vision_x, lang_x, attn
+
+
+@contextlib.contextmanager
+def _xattn_outputs_checked(found: list):
+    """Records, for each attention call with a bias in the idefics model
+    (the gated xattn), whether its output is finite on every row: the
+    rows of left padding and of text before the first image attend no
+    key."""
+    import torch
+    from otter_tpu_torch.models import idefics
+    mha = idefics.multi_head_attention
+
+    def checked(q, k, v, **kw):
+        out = mha(q, k, v, **kw)
+        if kw.get("bias") is not None:
+            found.append(bool(torch.isfinite(out).all()))
+        return out
+
+    idefics.multi_head_attention = checked
+    try:
+        yield
+    finally:
+        idefics.multi_head_attention = mha
+
+
+def phase_idefics(smi: str, profile: bool = False):
+    """idefics-9b at full width and depth (int8 decoder, int8 KV cache,
+    decode_kernel="auto") through `OtterGenerator` and, for one request,
+    the worker's idefics stream function over localhost HTTP; `profile`:
+    then `phase_profile` of the b=8 request."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.data.templates import (IDEFICS_STANDARD_MEAN,
+                                                IDEFICS_STANDARD_STD)
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.models import idefics
+    from otter_tpu_torch.serve.worker import (ModelWorker, build_app,
+                                              decode_media_to_vision_x,
+                                              make_idefics_stream_fn,
+                                              run_app_in_thread)
+    from otter_tpu_torch.tools import bench_decode
+
+    cfg = idefics_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    built = time.perf_counter() - t0
+    tensors = _all_tensors(model)
+    parts = {}
+    for name, t in tensors.items():
+        root = name.split(".")[0]
+        group = ("xattn" if root.startswith("xattn_") else
+                 "decoder" if root.startswith("layers_") else
+                 "wte + head" if root in ("wte", "lm_head",
+                                          "additional_embedding",
+                                          "additional_fc", "norm_f")
+                 else root)
+        parts[group] = parts.get(group, 0) + _nbytes(t)
+    n_bytes = sum(parts.values())
+    log(f"idefics: idefics-9b ({cfg.text.num_hidden_layers} llama layers, "
+        f"{cfg.text.num_hidden_layers // cfg.cross_layer_interval} gated "
+        f"xattn blocks, ViT-H/14 {cfg.vision.num_hidden_layers} layers, "
+        f"perceiver {cfg.perceiver.depth}), int8 decoder and int8 KV "
+        f"cache: {n_bytes / 1e9:.3f} GB on the card "
+        f"({', '.join(f'{k} {v / 1e9:.3f}' for k, v in parts.items())} GB), "
+        f"built in {built:.1f} s")
+    if not 11.0e9 <= n_bytes <= 11.8e9:
+        raise RuntimeError(f"idefics: {n_bytes / 1e9:.3f} GB of weights, "
+                           f"expected ~11.4")
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    tok = idefics_tokenizer(cfg)
+    vocab = cfg.text.vocab_size + cfg.additional_vocab_size
+
+    def gen(n):   # no early stop: the timed runs decode n tokens
+        return GenerationConfig(max_new_tokens=n, eos_token_id=-1)
+
+    def serve(tag, req):
+        """TTFT and tok/s of `req` (medians of REPS), greedy repeatable."""
+        b, p = req[1].shape
+        engine.generate(*req, gen=gen(2))   # warm-up
+        first, first_runs, _ = _timed(lambda: engine.generate(
+            *req, gen=gen(1)))
+        whole, whole_runs, out = _timed(lambda: engine.generate(
+            *req, gen=gen(32)))
+        again = engine.generate(*req, gen=gen(32))
+        if out.shape != (b, p + 32) or not ((out >= 0) & (out < vocab)).all():
+            raise RuntimeError(f"idefics {tag}: output {out.shape}")
+        if not np.array_equal(out, again):
+            raise RuntimeError(f"idefics {tag}: greedy output differs "
+                               f"between runs of the same request")
+        decode_s = whole - first
+        log(f"idefics {tag}: prompts {req[2].sum(1).tolist()} tokens, "
+            f"{req[0].shape[1]} image(s) each, 32 new tokens | TTFT "
+            f"{first * 1e3:.2f} ms | decode {b * 31 / decode_s:.2f} tok/s "
+            f"({decode_s / 31 * 1e3:.2f} ms/step) | medians of {REPS}; "
+            f"TTFT runs {first_runs} ms, 32-token runs {whole_runs} ms | "
+            f"{smi} | first tokens {out[0, p:p + 8].tolist()}")
+        return out
+
+    def launches(tag, req, want_prefill, want_step):
+        prefill = _launches_of(lambda: engine.generate(*req, gen=gen(1)))
+        three = _launches_of(lambda: engine.generate(*req, gen=gen(3)))
+        step = {k: (n - prefill.get(k, 0)) / 2 for k, n in three.items()
+                if n != prefill.get(k, 0)}
+        log(f"idefics {tag}: a prefill launches {prefill}, a decode step "
+            f"{step}")
+        if prefill != want_prefill or step != want_step:
+            raise RuntimeError(
+                f"idefics {tag}: a prefill launched {prefill} (expected "
+                f"{want_prefill}), a decode step {step} (expected "
+                f"{want_step})")
+
+    bench_decode.reset_kernel_launches()
+    for b in (1, 8):
+        req = idefics_requests(cfg, b, SEED + 80 + b)
+        serve(f"b={b}", req)
+    launches("b=8", req, IDEFICS_PREFILL, IDEFICS_STEP)
+    req8 = req
+
+    # the xattn rows that attend no image (left padding, "User:" and the
+    # token around the image) come out finite; the logits too
+    found = []
+    with _xattn_outputs_checked(found), torch.inference_mode():
+        dev = model.device
+        mask = torch.from_numpy(req[2]).to(dev)
+        logits, _, _ = model(
+            torch.from_numpy(req[0]).to(dev),
+            torch.from_numpy(req[1]).to(dev), attention_mask=mask,
+            positions=(mask.cumsum(-1) - 1).clamp_min(0))
+    blind = int((idefics.image_attention_incremental(
+        torch.from_numpy(req[1]), cfg.media_token_id, cfg.eos_token_id)
+        < 0).sum())
+    log(f"idefics b=8: prefill logits {tuple(logits.shape)} finite: "
+        f"{bool(torch.isfinite(logits).all())}; {len(found)} xattn outputs "
+        f"finite on every row ({blind} rows attend no image): {all(found)}")
+    if not (found and all(found) and bool(torch.isfinite(logits).all())):
+        raise RuntimeError("idefics: NaN in the xattn rows that attend no "
+                           "image or in the logits")
+    del logits
+
+    # two images interleaved: tokens after the second attend it alone
+    req2 = idefics_requests(cfg, 1, SEED + 90, images=2, lens=[96])
+    serve("2 images interleaved, b=1", req2)
+    # five images: a step's xattn over 320 keys takes the kernel
+    req5 = idefics_requests(cfg, 1, SEED + 91, images=5, lens=[112])
+    serve("5 images, b=1", req5)
+    launches("5 images", req5, IDEFICS_PREFILL, IDEFICS_STEP_5)
+
+    # one request through the worker's idefics stream function over HTTP
+    rng = np.random.default_rng(SEED + 92)
+    image = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)
+    payload = {"model": "idefics", "prompt": idefics_prompt(rng, 64),
+               "images": [png_base64(image)],
+               "generation_kwargs": {"max_new_tokens": 32}}
+    vx, _ = decode_media_to_vision_x(
+        payload["images"], cfg.vision.image_size, mean=IDEFICS_STANDARD_MEAN,
+        std=IDEFICS_STANDARD_STD)
+    vx = vx.reshape((1, -1) + vx.shape[3:])
+    ids = tok(payload["prompt"], return_tensors="np")["input_ids"]
+    out = engine.generate(vx, ids, gen=GenerationConfig(max_new_tokens=32))
+    want = tok.decode(_cut_at(out[0, ids.shape[1]:].tolist(),
+                              cfg.eoc_token_id))
+    port = _free_port()
+    worker = ModelWorker(controller_addr="", worker_addr="",
+                         model_name="idefics", no_register=True,
+                         stream_fn=make_idefics_stream_fn(engine, tok, cfg))
+    stop = run_app_in_thread(build_app(worker), "127.0.0.1", port)
+    try:
+        chunks, first, last = post_stream(
+            f"http://127.0.0.1:{port}/worker_generate_stream", payload)
+    finally:
+        stop()
+    got = _final_text(chunks, "the idefics request")
+    log(f"idefics: one request ({ids.shape[1]} tokens + a 256x256 PNG) "
+        f"through the worker's idefics stream function over localhost "
+        f"HTTP: first chunk {first * 1e3:.2f} ms, last {last * 1e3:.2f} ms, "
+        f"{len(chunks)} chunks, the text "
+        f"{'equal' if got == want else 'NOT equal'} to generate's | {smi}")
+    if got != want:
+        raise RuntimeError(f"idefics: the worker gave {got[:80]!r}, "
+                           f"generate {want[:80]!r}")
+
+    counts = bench_decode.kernel_launches()
+    log(f"idefics: kernel launches during the requests {counts}")
+    dead = sorted(k for k in IDEFICS_PATH if counts[k] == 0)
+    stray = sorted(k for k, n in counts.items() if n and k not in IDEFICS_PATH)
+    if dead or stray:
+        raise RuntimeError(f"idefics: never launched {dead}; launched off "
+                           f"its path {stray}")
+    if profile:
+        phase_profile(lambda n_new: engine.generate(*req8, gen=gen(n_new)),
+                      "idefics b=8")
+    return counts
+
+
 # ── optional: where the time goes in one b=8 request ────────────────
 
 def phase_profile(run, tag: str):
@@ -3018,15 +3375,16 @@ KERNELS = {
                     "otter_tpu/ops/quant.py:22"),
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
-          "trainparity,train")
+          "idefics,trainparity,train")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=PHASES,
                     help=f"comma-separated subset of {PHASES}, plus profile "
-                         "(after serve, serve4, llama, fused and train; not "
-                         "run by default), fusedkernels, headkernels, "
+                         "(after serve, serve4, llama, otterhd, fused, "
+                         "idefics and train; not run by default), "
+                         "fusedkernels, headkernels, "
                          "flashkernels, decodekernels, mlpkernels and "
                          "int4kernels "
                          "(parts of kernels, for bring-up). "
@@ -3093,6 +3451,9 @@ def main(argv=None) -> int:
         by_path["beam"] = run("beam", phase_beam, smi)
     if "worker" in phases:
         by_path["worker"] = run("worker", phase_worker, smi)
+    if "idefics" in phases:
+        by_path["idefics"] = run("idefics", phase_idefics, smi,
+                                 "profile" in phases)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

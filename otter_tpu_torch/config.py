@@ -309,6 +309,80 @@ def otter_vicuna33b() -> OtterConfig:
     return _otter_llama(6656, 60, 52, 17920, 1e-6, 4)
 
 
+@dataclass(frozen=True)
+class IdeficsPerceiverConfig(_JsonMixin):
+    """HF IdeficsPerceiverConfig: latents live at the VISION embed dim;
+    heads*head_dim need not equal embed_dim (idefics-9b: 16*96 vs 1280)."""
+
+    depth: int = 6
+    n_heads: int = 16
+    head_dim: int = 96
+    n_latents: int = 64
+    qk_layer_norms: bool = False
+
+
+@dataclass(frozen=True)
+class IdeficsModelConfig(_JsonMixin):
+    """IDEFICS VLM config (HF `IdeficsForVisionText2Text`). It has the
+    accessors `OtterGenerator` reads (`.text`, `.media_token_id`,
+    `.eoc_token_id`), so the engine drives `IdeficsVLM` unchanged.
+
+    HF's IdeficsDecoderLayer never enables q/k norms in SELF attention, so
+    `text.qk_ln` stays False; `qk_layer_norms` governs the gated xattn
+    blocks and the perceiver."""
+
+    vision: VisionConfig = field(default_factory=lambda: VisionConfig(
+        hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+        num_attention_heads=16, hidden_act="gelu"))
+    text: TextConfig = field(default_factory=lambda: TextConfig(
+        arch="llama", vocab_size=32000, hidden_size=4096,
+        num_hidden_layers=32, num_attention_heads=32,
+        intermediate_size=11008, max_seq_len=2048, pos="rope",
+        norm_type="rmsnorm", norm_eps=1e-6, act="silu_glu",
+        tie_embeddings=False, no_bias=True))
+    perceiver: IdeficsPerceiverConfig = field(
+        default_factory=IdeficsPerceiverConfig)
+    use_resampler: bool = True
+    cross_layer_interval: int = 4
+    # gate scalars: "float" (scalar) | "vector" (per-feature)
+    alpha_type: str = "float"
+    qk_layer_norms: bool = True
+    # decoupled trainable vocab appended after the frozen embedding
+    # (IdeficsDecoupledEmbedding / IdeficsDecoupledLinear)
+    additional_vocab_size: int = 0
+    media_token_id: int = 32001   # <image> (additional vocab)
+    eoc_token_id: int = 2         # generation stops at eos
+    eos_token_id: int = 2         # resets the image-attention window
+    answer_token_id: Optional[int] = None
+
+
+def idefics_tiny() -> IdeficsModelConfig:
+    """Small idefics config for tests."""
+    return IdeficsModelConfig(
+        vision=VisionConfig(hidden_size=48, intermediate_size=96,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            image_size=28, patch_size=14, hidden_act="gelu"),
+        text=TextConfig(arch="llama", vocab_size=120, hidden_size=64,
+                        num_hidden_layers=4, num_attention_heads=4,
+                        intermediate_size=96, max_seq_len=128, pos="rope",
+                        norm_type="rmsnorm", norm_eps=1e-6,
+                        act="silu_glu", tie_embeddings=False, no_bias=True),
+        perceiver=IdeficsPerceiverConfig(depth=2, n_heads=4, head_dim=16,
+                                         n_latents=6, qk_layer_norms=True),
+        cross_layer_interval=2, qk_layer_norms=True,
+        additional_vocab_size=8,
+        media_token_id=126, eoc_token_id=2, eos_token_id=2,
+        answer_token_id=125)
+
+
+def idefics9b() -> IdeficsModelConfig:
+    """HuggingFaceM4/idefics-9b: ViT-H/14 tower, LLaMA-7B trunk, xattn every
+    4 layers, 64 latents, qk layer norms everywhere."""
+    return IdeficsModelConfig(
+        additional_vocab_size=68,
+        perceiver=IdeficsPerceiverConfig(qk_layer_norms=True))
+
+
 # every reference model JSON preset
 # (`src/otter_ai/models/flamingo/flamingo-*.json`) by short name
 PRESETS = {

@@ -15,6 +15,11 @@ reference's repeat for beams, `modeling_otter.py:1030-1032`; the JAX
 engine repeats the pixels, here the vision input is encoded once and its
 latents repeated, the same values for one CLIP pass in K).
 `stream_beam_generate` yields the current best beam every few steps.
+
+The model is an `OtterVLM` or an `IdeficsVLM`: the engine asks of it
+`encode_vision(vision_x, vision_mask)` (latents [B, N, m, D]), the forward
+signature of both, `device`, and a config with `.text`,
+`.media_token_id` and `.eoc_token_id`.
 """
 
 from __future__ import annotations
@@ -27,12 +32,15 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from otter_tpu_torch.config import GenerationConfig, OtterConfig, TextConfig
+from otter_tpu_torch.config import (GenerationConfig, IdeficsModelConfig,
+                                    OtterConfig, TextConfig)
 from otter_tpu_torch.generation import beam, sampling
 from otter_tpu_torch.models.decoder import init_cache
+from otter_tpu_torch.models.idefics import IdeficsVLM
 from otter_tpu_torch.models.otter import OtterVLM
 
 CacheDtype = Union[torch.dtype, str]
+Model = Union[OtterVLM, IdeficsVLM]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -130,14 +138,14 @@ def left_pad(lang_x: np.ndarray, attention_mask: Optional[np.ndarray],
 
 
 class OtterGenerator:
-    """Greedy / sampled generation over an `OtterVLM`, on the model's
-    device."""
+    """Greedy / sampled generation over an `OtterVLM` or an `IdeficsVLM`,
+    on the model's device."""
 
-    def __init__(self, model: OtterVLM,
+    def __init__(self, model: Model,
                  cache_dtype: CacheDtype = torch.bfloat16,
                  hbm_bytes: Optional[float] = None):
         self.model = model
-        self.cfg: OtterConfig = model.cfg
+        self.cfg: Union[OtterConfig, IdeficsModelConfig] = model.cfg
         self.cache_dtype = cache_dtype
         self.hbm_bytes = hbm_bytes
         self.param_bytes = sum(t.numel() * t.element_size() for t in
@@ -246,7 +254,8 @@ class OtterGenerator:
     def generate(self, vision_x, lang_x, attention_mask=None,
                  gen: Optional[GenerationConfig] = None,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """vision_x [B,T,F,C,H,W] float pixels; lang_x [B,P] LEFT-padded
+        """vision_x [B,T,F,C,H,W] float pixels ([B,N,C,H,W] for
+        idefics); lang_x [B,P] LEFT-padded
         (see `left_pad`). Returns [B, P + max_new_tokens] (prompt +
         generation, eos-terminated, pad-filled). num_beams > 1 runs beam
         search and returns the best beam of each row."""

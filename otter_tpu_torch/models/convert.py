@@ -18,14 +18,16 @@ derives from the others.
 
 The HF side maps checkpoint names (the state_dict of the reference's
 `OtterForConditionalGeneration`, `modeling_otter.py:739`, and of
-adept/fuyu-8b) to those flax paths with the JAX package's rule tables:
+adept/fuyu-8b and of HF `IdeficsForVisionText2Text`) to those flax paths
+with the JAX package's rule tables:
 torch Linear weight [out, in] -> Dense kernel [in, out] (transposed), Conv2d
 weight [O, I, kh, kw] -> [kh, kw, I, O], norms weight/bias -> scale/bias.
-`hf_to_port` / `fuyu_hf_to_port` give a lazy {flax path: tensor} mapping:
-a tensor is read, transformed, cast and moved when it is indexed, so a 7B
-checkpoint passes through `ops.quant.quantize_params` one tensor at a time
-in its own dtype. `port_to_hf` is the inverse. The idefics rules come with
-the idefics model (ROADMAP Queue 1 item 5).
+`hf_to_port` / `fuyu_hf_to_port` / `idefics_hf_to_port` give a lazy
+{flax path: tensor} mapping: a tensor is read, transformed, cast and moved
+when it is indexed, so a 7B checkpoint passes through
+`ops.quant.quantize_params` one tensor at a time in its own dtype.
+`port_to_hf` is the inverse (the idefics rules for an
+`IdeficsModelConfig`).
 """
 
 from __future__ import annotations
@@ -442,6 +444,99 @@ def fuyu_rules(num_heads: int = 64) -> List[Rule]:
     return [(re.compile(p + r"$"), tmpl, tr) for p, tmpl, tr in rules]
 
 
+def idefics_rules(cfg) -> List[Rule]:
+    """HF `IdeficsForVisionText2Text` state_dict names -> `IdeficsVLM`
+    param paths. `cfg` is an `IdeficsModelConfig`: the gated xattn blocks
+    are indexed densely in HF (`gated_cross_attn_layers.J`) and by the
+    decoder layer they precede here (`xattn_{J * cross_layer_interval}`)."""
+    rules: list = list(_clip_rules("model.vision_model."))
+
+    # decoupled embedding / lm_head
+    rules += [
+        (r"model\.embed_tokens\.weight", "wte/embedding", None),
+        (r"model\.embed_tokens\.additional_embedding\.weight",
+         "additional_embedding/embedding", None),
+        (r"lm_head\.weight", "lm_head/kernel", _t),
+        (r"lm_head\.additional_fc\.weight", "additional_fc/kernel", _t),
+        (r"model\.norm\.weight", "norm_f/scale", None),
+    ]
+
+    # perceiver resampler (blocks.N.0 = attention, blocks.N.1 = MLP)
+    p = r"model\.perceiver_resampler\."
+    rules += [
+        (p + r"latents", "perceiver/latents", None),
+        (p + r"layer_norm\.weight", "perceiver/layer_norm/scale", None),
+        (p + r"layer_norm\.bias", "perceiver/layer_norm/bias", None),
+    ]
+    for ln in ("context_layer_norm", "latents_layer_norm",
+               "q_layer_norm", "k_layer_norm"):
+        rules += [
+            (p + rf"blocks\.(\d+)\.0\.{ln}\.weight",
+             f"perceiver/blocks_{{0}}_attn/{ln}/scale", None),
+            (p + rf"blocks\.(\d+)\.0\.{ln}\.bias",
+             f"perceiver/blocks_{{0}}_attn/{ln}/bias", None),
+        ]
+    for proj in ("q_proj", "k_proj", "v_proj", "output_proj"):
+        rules.append((p + rf"blocks\.(\d+)\.0\.{proj}\.weight",
+                      f"perceiver/blocks_{{0}}_attn/{proj}/kernel", _t))
+    rules += [
+        (p + r"blocks\.(\d+)\.1\.ln\.weight",
+         "perceiver/blocks_{0}_mlp/ln/scale", None),
+        (p + r"blocks\.(\d+)\.1\.ln\.bias",
+         "perceiver/blocks_{0}_mlp/ln/bias", None),
+        (p + r"blocks\.(\d+)\.1\.fc\.weight",
+         "perceiver/blocks_{0}_mlp/fc/kernel", _t),
+        (p + r"blocks\.(\d+)\.1\.c_proj\.weight",
+         "perceiver/blocks_{0}_mlp/c_proj/kernel", _t),
+    ]
+
+    # gated cross-attention, one concrete name set per block
+    n_xattn = cfg.text.num_hidden_layers // cfg.cross_layer_interval
+    for j in range(n_xattn):
+        g = re.escape(f"model.gated_cross_attn_layers.{j}.")
+        fx = f"xattn_{j * cfg.cross_layer_interval}"
+        for hf_p, fl_p in (("cross_attn.q_proj", "q_proj"),
+                           ("cross_attn.k_proj", "k_proj"),
+                           ("cross_attn.v_proj", "v_proj"),
+                           ("cross_attn.o_proj", "o_proj"),
+                           ("mlp.gate_proj", "gate_proj"),
+                           ("mlp.up_proj", "up_proj"),
+                           ("mlp.down_proj", "down_proj")):
+            rules.append((g + re.escape(hf_p) + r"\.weight",
+                          f"{fx}/{fl_p}/kernel", _t))
+        for hf_n, fl_n in (("input_layernorm", "input_layernorm"),
+                           ("post_attention_layernorm",
+                            "post_attention_layernorm"),
+                           ("cross_attn.q_layer_norm", "q_layer_norm"),
+                           ("cross_attn.k_layer_norm", "k_layer_norm")):
+            rules.append((g + re.escape(hf_n) + r"\.weight",
+                          f"{fx}/{fl_n}/scale", None))
+        rules.append((g + r"alpha_cross_attn", f"{fx}/alpha_cross_attn",
+                      None))
+        rules.append((g + r"alpha_dense", f"{fx}/alpha_dense", None))
+
+    # the LLaMA trunk (+ per-head q/k RMS norms)
+    b = r"model\.layers\.(\d+)\."
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        rules.append((b + rf"self_attn\.{proj}\.weight",
+                      f"layers_{{0}}/attn/{proj}/kernel", _t))
+    rules += [
+        (b + r"self_attn\.o_proj\.weight",
+         "layers_{0}/attn/out_proj/kernel", _t),
+        (b + r"self_attn\.q_layer_norm\.weight",
+         "layers_{0}/attn/q_ln/scale", None),
+        (b + r"self_attn\.k_layer_norm\.weight",
+         "layers_{0}/attn/k_ln/scale", None),
+        (b + r"input_layernorm\.weight", "layers_{0}/norm_1/scale", None),
+        (b + r"post_attention_layernorm\.weight",
+         "layers_{0}/norm_2/scale", None),
+    ]
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        rules.append((b + rf"mlp\.{proj}\.weight",
+                      f"layers_{{0}}/ffn/{proj}/kernel", _t))
+    return [(re.compile(pat + r"$"), tmpl, tr) for pat, tmpl, tr in rules]
+
+
 def _normalize_fuyu_key(name: str) -> str:
     """Accept both checkpoint vintages: adept/fuyu-8b files use
     `language_model.model.layers...` / `language_model.lm_head`, while
@@ -533,15 +628,28 @@ def fuyu_hf_to_port(state_dict: Mapping, *, dtype=None, device=None,
                            rename=_normalize_fuyu_key)
 
 
+def idefics_hf_to_port(state_dict: Mapping, cfg, *, dtype=None,
+                       device=None, strict: bool = False) -> ConvertedParams:
+    """HF `IdeficsForVisionText2Text` state_dict -> {flax path: tensor}
+    (`hf_to_flax(..., rules=idefics_rules(cfg))` in the JAX package),
+    lazily."""
+    return ConvertedParams(state_dict, idefics_rules(cfg), dtype=dtype,
+                           device=device, strict=strict)
+
+
 def port_to_hf(flat: Mapping, cfg, *, wrapped: bool = True,
                rules=None) -> Dict[str, torch.Tensor]:
     """Inverse mapping for HF-interop export (`flax_to_hf`,
     `otter_tpu/models/convert.py:496`; `save_hf_model` parity,
     train_utils.py:234-262): {flax path: array} (a leading "params/" is
-    dropped) -> {HF name: tensor} through the same rule table, the first
-    rule that produces a path giving its name. Paths no rule produces
-    (quantized leaves among them) are left out."""
-    rules = rules if rules is not None else otter_rules(cfg, wrapped)
+    dropped) -> {HF name: tensor} through the same rule table (the idefics
+    rules for an `IdeficsModelConfig`), the first rule that produces a
+    path giving its name. Paths no rule produces (quantized leaves among
+    them) are left out."""
+    if rules is None:
+        # an IdeficsModelConfig (as `train.step.split_params` tells it)
+        rules = (idefics_rules(cfg) if hasattr(cfg, "additional_vocab_size")
+                 else otter_rules(cfg, wrapped))
     inverse = [(re.compile(re.escape(tmpl).replace(r"\{0\}", r"(\d+)")),
                 pat, tr) for pat, tmpl, tr in rules]
     out: Dict[str, torch.Tensor] = {}

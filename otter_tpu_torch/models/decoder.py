@@ -420,6 +420,99 @@ class Embed(nn.Module):
         return x.to(self.embedding.dtype) @ self.embedding.t()
 
 
+def layer_inputs(c: TextConfig, x: torch.Tensor, dtype, *, positions=None,
+                 attention_mask=None, prefix_mask=None, sequence_id=None,
+                 cache: Optional[Cache] = None, cache_pos=None,
+                 kv_valid=None):
+    """What every `DecoderLayer` of one call takes besides x [B, S, D],
+    made once a call: (positions, {"rope", "attn_ids", "bias",
+    "decode_span"}). `positions` default to 0 .. S-1 (None under ALiBi);
+    `rope` is the rotary rows at them; `decode_span` the (lengths, starts)
+    of `kv_valid` that `decode_attention` takes; `attn_ids` and `bias`
+    carry the masks (see the module docstring)."""
+    b, s, _ = x.shape
+    decoding = cache is not None and cache_pos is not None
+    if c.pos != "alibi" and positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    rope = None
+    if c.pos == "rope":
+        rope = select_rotary(*cached_rotary_tables(
+            int(c.head_dim * c.rope_partial_factor), c.max_seq_len,
+            c.rope_theta, x.device), positions, dtype)
+    bias = attn_ids = decode_span = None
+    if decoding:
+        L = cache_len_of(cache)
+        idx = torch.arange(L, device=x.device)[None, :]
+        valid = kv_valid.bool()
+        # in the kernel's int32
+        lengths = torch.where(valid, idx + 1, 0).amax(-1).int()
+        starts = torch.where(valid, idx, L).amin(-1).int()
+        decode_span = (lengths, starts)
+    if c.pos == "alibi":
+        slopes = alibi_slopes(c.num_attention_heads, c.alibi_bias_max,
+                              device=x.device)[None, :, None, None]
+        if decoding:
+            # column j gets j * slope, softmax-shift-equivalent to the
+            # reference's (j - query_pos) * slope for every query row
+            bias = torch.arange(L, device=x.device)[None, None, None] \
+                * slopes
+        elif prefix_mask is not None:
+            # bidirectional over the prefix: the symmetric -|i - j|
+            # form (`build_alibi_bias(full=True)`)
+            bias = alibi_bias(c.num_attention_heads, s, full=True,
+                              alibi_bias_max=c.alibi_bias_max,
+                              device=x.device)
+        else:
+            bias = torch.arange(1 - s, 1, device=x.device)[
+                None, None, None] * slopes
+    # (made only where a mask needs it: a decode step is host-bound)
+    pos = None if decoding and s == 1 else torch.arange(s, device=x.device)
+    if decoding:
+        if s > 1:
+            # block causality inside the step: the query at
+            # cache_pos + i attends the cache up to that position
+            cols = torch.arange(L, device=x.device)
+            if isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
+                qpos = cache_pos[:, None] + pos[None, :]
+                mb = mask_to_bias(cols[None, None, :]
+                                  <= qpos[:, :, None])[:, None]
+            else:
+                qpos = cache_pos + pos
+                mb = mask_to_bias(cols[None, :] <= qpos[:, None])[None, None]
+            bias = mb if bias is None else bias + mb
+    elif prefix_mask is not None and sequence_id is not None:
+        # both restrictions cannot ride one id comparison: a
+        # materialised bias, as the reference builds
+        # (`modeling_mpt.py:147-172`)
+        allowed = (pos[None, :, None] >= pos[None, None, :]) \
+            | prefix_mask.bool()[:, None, :]
+        allowed = allowed & (sequence_id[:, :, None]
+                             == sequence_id[:, None, :])
+        if attention_mask is not None:
+            allowed = allowed & (attention_mask > 0)[:, None, :]
+        mb = mask_to_bias(allowed)[:, None]
+        bias = mb if bias is None else bias + mb
+        attn_ids = (None, None, "eq", False)
+    elif prefix_mask is not None:
+        # the kernel's "ge" ids: queries their position, prefix keys 0,
+        # other keys their position (q_id >= kv_id <=> key in prefix or
+        # key <= query), pad keys s + 1 (attended by nothing)
+        ok = (attention_mask > 0 if attention_mask is not None
+              else torch.ones((b, s), dtype=torch.bool, device=x.device))
+        ki = torch.where(prefix_mask.bool() & ok, 0, pos[None, :])
+        ki = torch.where(ok, ki, s + 1)
+        attn_ids = (pos[None, :].expand(b, s).int(), ki.int(), "ge", False)
+    elif sequence_id is not None:
+        # block-diagonal same-document attention: pad keys id -1
+        attn_ids = sequence_id.int()
+        if attention_mask is not None:
+            attn_ids = torch.where(attention_mask > 0, attn_ids, -1)
+    elif attention_mask is not None:
+        attn_ids = attention_mask.int()
+    return positions, dict(rope=rope, attn_ids=attn_ids, bias=bias,
+                           decode_span=decode_span)
+
+
 class Decoder(nn.Module):
     """Causal LM with an optional gated cross-attention interleave."""
 
@@ -508,96 +601,18 @@ class Decoder(nn.Module):
         if merge_embeds is not None:
             values, vmask = merge_embeds
             x = torch.where(vmask[..., None], values.to(x.dtype), x)
-        b, s, _ = x.shape
         decoding = cache is not None and cache_pos is not None
         if c.prefix_lm and prefix_mask is None and not decoding:
             # the reference's error (`modeling_mpt.py:206`)
             raise ValueError("prefix_mask is a required argument when the "
                              "decoder is configured with prefix_lm=True")
-        if c.pos != "alibi" and positions is None:
-            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        positions, kw = layer_inputs(
+            c, x, self.dtype, positions=positions,
+            attention_mask=attention_mask, prefix_mask=prefix_mask,
+            sequence_id=sequence_id, cache=cache, cache_pos=cache_pos,
+            kv_valid=kv_valid)
         if c.pos == "learned":
             x = x + self.wpe.to(self.dtype)[positions]
-        rope = None
-        if c.pos == "rope":
-            # selected once a call for every layer
-            rope = select_rotary(*cached_rotary_tables(
-                int(c.head_dim * c.rope_partial_factor), c.max_seq_len,
-                c.rope_theta, x.device), positions, self.dtype)
-        bias = attn_ids = decode_span = None
-        if decoding:
-            L = cache_len_of(cache)
-            idx = torch.arange(L, device=x.device)[None, :]
-            valid = kv_valid.bool()
-            # once per step, in the kernel's int32, for every layer
-            lengths = torch.where(valid, idx + 1, 0).amax(-1).int()
-            starts = torch.where(valid, idx, L).amin(-1).int()
-            decode_span = (lengths, starts)
-        if c.pos == "alibi":
-            slopes = alibi_slopes(c.num_attention_heads, c.alibi_bias_max,
-                                  device=x.device)[None, :, None, None]
-            if decoding:
-                # column j gets j * slope, softmax-shift-equivalent to the
-                # reference's (j - query_pos) * slope for every query row
-                bias = torch.arange(L, device=x.device)[None, None, None] \
-                    * slopes
-            elif prefix_mask is not None:
-                # bidirectional over the prefix: the symmetric -|i - j|
-                # form (`build_alibi_bias(full=True)`)
-                bias = alibi_bias(c.num_attention_heads, s, full=True,
-                                  alibi_bias_max=c.alibi_bias_max,
-                                  device=x.device)
-            else:
-                bias = torch.arange(1 - s, 1, device=x.device)[
-                    None, None, None] * slopes
-        # (made only where a mask needs it: a decode step is host-bound)
-        pos = None if decoding and s == 1 else torch.arange(s,
-                                                            device=x.device)
-        if decoding:
-            if s > 1:
-                # block causality inside the step: the query at
-                # cache_pos + i attends the cache up to that position
-                cols = torch.arange(L, device=x.device)
-                if isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
-                    qpos = cache_pos[:, None] + pos[None, :]
-                    mb = mask_to_bias(cols[None, None, :]
-                                      <= qpos[:, :, None])[:, None]
-                else:
-                    qpos = cache_pos + pos
-                    mb = mask_to_bias(cols[None, :]
-                                      <= qpos[:, None])[None, None]
-                bias = mb if bias is None else bias + mb
-        elif prefix_mask is not None and sequence_id is not None:
-            # both restrictions cannot ride one id comparison: a
-            # materialised bias, as the reference builds
-            # (`modeling_mpt.py:147-172`)
-            allowed = (pos[None, :, None] >= pos[None, None, :]) \
-                | prefix_mask.bool()[:, None, :]
-            allowed = allowed & (sequence_id[:, :, None]
-                                 == sequence_id[:, None, :])
-            if attention_mask is not None:
-                allowed = allowed & (attention_mask > 0)[:, None, :]
-            mb = mask_to_bias(allowed)[:, None]
-            bias = mb if bias is None else bias + mb
-            attn_ids = (None, None, "eq", False)
-        elif prefix_mask is not None:
-            # the kernel's "ge" ids: queries their position, prefix keys 0,
-            # other keys their position (q_id >= kv_id <=> key in prefix or
-            # key <= query), pad keys s + 1 (attended by nothing)
-            ok = (attention_mask > 0 if attention_mask is not None
-                  else torch.ones((b, s), dtype=torch.bool, device=x.device))
-            ki = torch.where(prefix_mask.bool() & ok, 0, pos[None, :])
-            ki = torch.where(ok, ki, s + 1)
-            attn_ids = (pos[None, :].expand(b, s).int(), ki.int(), "ge",
-                        False)
-        elif sequence_id is not None:
-            # block-diagonal same-document attention: pad keys id -1
-            attn_ids = sequence_id.int()
-            if attention_mask is not None:
-                attn_ids = torch.where(attention_mask > 0, attn_ids, -1)
-        elif attention_mask is not None:
-            attn_ids = attention_mask.int()
-
         for i in range(c.num_hidden_layers):
             if self.xattn_every and (i + 1) % self.xattn_every == 0 \
                     and vis_latents is not None:
@@ -606,13 +621,12 @@ class Decoder(nn.Module):
             layer = getattr(self, f"layers_{i}")
             if self.remat and cache is None and torch.is_grad_enabled():
                 # keep only the layer's input; recompute the rest backward
-                x = checkpoint(layer, x, layer=i, rope=rope,
-                               attn_ids=attn_ids, bias=bias,
+                x = checkpoint(layer, x, layer=i, rope=kw["rope"],
+                               attn_ids=kw["attn_ids"], bias=kw["bias"],
                                use_reentrant=False)
             else:
-                x = layer(x, layer=i, rope=rope, attn_ids=attn_ids,
-                          bias=bias, cache=cache, cache_pos=cache_pos,
-                          kv_valid=kv_valid, decode_span=decode_span)
+                x = layer(x, layer=i, cache=cache, cache_pos=cache_pos,
+                          kv_valid=kv_valid, **kw)
         x = self.norm_f(x)
         if skip_head:
             return x, cache

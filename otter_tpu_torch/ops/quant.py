@@ -354,6 +354,13 @@ DEFAULT_QUANT_PATTERNS = re.compile(
     r"|xattn_\d+/attn/(to_q|to_kv|to_out)"
     r"|lm_head)/kernel$")
 
+# the decoder layers only: the xattn blocks, the perceiver, the embeddings
+# and the head stay in the activation dtype. The idefics family loads so
+# (its head is a plain Dense in the JAX module too, which the default
+# patterns would quantize away from under it).
+FROZEN_DECODER_PATTERNS = re.compile(
+    r"(.*/)?layers_\d+/(attn|ffn)/[^/]+/kernel$")
+
 
 def quantize_params(flat: Dict[str, ArrayLike],
                     patterns=DEFAULT_QUANT_PATTERNS) -> Dict[str, ArrayLike]:
@@ -431,16 +438,20 @@ def add_fused_wqo(flat: Dict[str, ArrayLike]) -> Dict[str, ArrayLike]:
     return out
 
 
-def quantize_for(text_cfg, flat: Mapping) -> Dict[str, ArrayLike]:
+def quantize_for(text_cfg, flat: Mapping,
+                 patterns=DEFAULT_QUANT_PATTERNS) -> Dict[str, ArrayLike]:
     """The load transforms of a model whose decoder is `text_cfg`, over a
     {flax path: array} mapping of its unquantized parameters:
     `quantize_params_int4` for `quant="int4"`, `quantize_params` (and
     `add_fused_wqo` with `megakernel`) for "int8", `quantize_embed` with
-    `quant_embed`. A lazy mapping is read one tensor at a time."""
-    if text_cfg.quant == "int4":
+    `quant_embed`. Other `patterns` (the idefics family's
+    `FROZEN_DECODER_PATTERNS`) quantize the kernels they match to int8
+    under "int8" and "int4" alike: that family's gated MLPs never pack. A
+    lazy mapping is read one tensor at a time."""
+    if text_cfg.quant == "int4" and patterns is DEFAULT_QUANT_PATTERNS:
         flat = quantize_params_int4(flat)
-    elif text_cfg.quant == "int8":
-        flat = quantize_params(flat)
+    elif text_cfg.quant in ("int8", "int4"):
+        flat = quantize_params(flat, patterns)
         if text_cfg.megakernel:
             flat = add_fused_wqo(flat)
     if text_cfg.quant_embed:

@@ -11,8 +11,9 @@ worker (`pipeline/serve/model_worker.py`):
   - /worker_get_status (:164-168)
 
 The otter family decodes through `OtterGenerator.stream_generate` (and
-`stream_beam_generate` for `num_beams > 1`), the fuyu family through
-`generation.fuyu.fuyu_generate`. Each request's generator runs on the
+`stream_beam_generate` for `num_beams > 1`), the idefics family through
+`OtterGenerator.stream_generate` over an `IdeficsVLM`, the fuyu family
+through `generation.fuyu.fuyu_generate`. Each request's generator runs on the
 aiohttp app's executor threads; requests on one model take turns a decode
 step at a time (`_one_step_at_a_time`), and the kernels' first use and
 launch counters are thread-safe (`_build.py`). Sampled requests draw from
@@ -22,9 +23,13 @@ uses one key.
     python -m otter_tpu_torch.serve.worker --checkpoint DIR \\
         --tokenizer DIR --load-bit int8 --cache-bit int8
 
-runs on the GPU (`--device cpu` for the CPU). Not ported yet, and refused
-at start: `--model-family idefics` (ROADMAP Queue 1 item 5) and
-`--continuous-batching`, `--session-cache`, `--draft-checkpoint` (item 6).
+runs on the GPU (`--device cpu` for the CPU). `--model-family idefics`
+serves an HF `IdeficsForVisionText2Text` checkpoint (idefics-9b, or a
+config JSON); its int8 and int4 loads quantize the decoder layers only
+(`models.idefics.quantize_decoder`), where the JAX worker's default
+patterns also take the head, which its model then cannot find. Not ported
+yet, and refused at start: `--continuous-batching`, `--session-cache`,
+`--draft-checkpoint` (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -261,6 +266,40 @@ def make_otter_stream_fn(engine, tokenizer, cfg, *,
     return stream_fn
 
 
+def make_idefics_stream_fn(engine, tokenizer, cfg, *,
+                           stream_interval: int = 2):
+    """Streaming bridge for the IDEFICS family: stills are normalized with
+    the IDEFICS mean/std and stacked along N ([1, N, C, H, W]; a request
+    without images runs on one zero image), the prompt follows the
+    idefics-instruct chat contract (`serve/conversation.py`
+    `idefics_instruct`); greedy and sampled requests through
+    `engine.stream_generate`, which stops at eos. Concurrent requests
+    decode in turns, a step each."""
+    from otter_tpu_torch.data.templates import (IDEFICS_STANDARD_MEAN,
+                                                IDEFICS_STANDARD_STD)
+    patch_size = cfg.vision.image_size
+    lock = threading.Lock()
+
+    def stream_fn(params: dict) -> Iterator[str]:
+        vision_x, _ = decode_media_to_vision_x(
+            params.get("images"), patch_size=patch_size,
+            mean=IDEFICS_STANDARD_MEAN, std=IDEFICS_STANDARD_STD)
+        if vision_x is None:
+            vision_x = np.zeros((1, 1, 1, 3, patch_size, patch_size),
+                                np.float32)
+        # [1, T, F, C, H, W] -> [1, N, C, H, W] (idefics has no frame axis)
+        vision_x = vision_x.reshape((1, -1) + vision_x.shape[3:])
+        gen = _parse_gen_kwargs(params.get("generation_kwargs", {}))
+        enc = tokenizer(params["prompt"], return_tensors="np")
+        lang_x = np.asarray(enc["input_ids"]).astype(np.int64)
+        yield from _relay(tokenizer, _one_step_at_a_time(
+            lock, engine.stream_generate(
+                vision_x, lang_x, gen=gen,
+                generator=_generator(gen, engine.device))), stream_interval)
+
+    return stream_fn
+
+
 def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
                         stream_interval: int = 2, resolution=None,
                         cache_dtype=None):
@@ -428,16 +467,42 @@ def load_fuyu_model(checkpoint: str, cfg, *, load_bit: str = "bf16",
     return model.eval(), cfg
 
 
+def load_idefics_model(checkpoint: str, cfg, *, load_bit: str = "bf16",
+                       device=None):
+    """The worker's idefics-family start-up: an `IdeficsVLM` of `cfg`
+    loaded whole from an HF `IdeficsForVisionText2Text` checkpoint, each
+    tensor converted on the device (`models.convert.idefics_hf_to_port`),
+    the decoder layers quantized to int8 under `--load-bit int8` or
+    `int4` (`models.idefics.quantize_decoder`: the gated MLPs never pack,
+    and the head stays in bf16). Returns (model, cfg)."""
+    from otter_tpu_torch.models.convert import (idefics_hf_to_port,
+                                                load_flax_params,
+                                                load_state_dict)
+    from otter_tpu_torch.models.idefics import IdeficsVLM, quantize_decoder
+    text = cfg.text.replace(decode_kernel="auto")
+    if load_bit in ("int8", "int4"):
+        text = text.replace(quant=load_bit)
+    cfg = cfg.replace(text=text)
+    model = IdeficsVLM(cfg, dtype=_DTYPES[load_bit], device=device)
+    flat = idefics_hf_to_port(load_state_dict(checkpoint), cfg,
+                              dtype=model.dtype, device=model.device)
+    load_flax_params(model, quantize_decoder(cfg, flat))
+    return model.eval(), cfg
+
+
 def _load_config(spec: str, family: str):
-    """`--config`: a preset name, or a config JSON (`config.save_config`,
-    or `FuyuConfig.to_json` for the fuyu family, whose default is
-    adept/fuyu-8b's)."""
+    """`--config`: a preset name (otter family), or a config JSON
+    (`config.save_config`, or the family config's `to_json`). The fuyu
+    family defaults to adept/fuyu-8b's config, the idefics family to
+    idefics-9b's."""
     from otter_tpu_torch import config as cfgmod
+    classes = {"otter": cfgmod.OtterConfig, "fuyu": cfgmod.FuyuConfig,
+               "idefics": cfgmod.IdeficsModelConfig}
     if spec.endswith(".json"):
         with open(spec) as f:
-            d = json.load(f)
-        cls = cfgmod.FuyuConfig if family == "fuyu" else cfgmod.OtterConfig
-        return cls.from_dict(d)
+            return classes[family].from_dict(json.load(f))
+    if family == "idefics":
+        return cfgmod.idefics9b()
     return cfgmod.FuyuConfig() if family == "fuyu" else cfgmod.PRESETS[spec]()
 
 
@@ -481,14 +546,16 @@ def main(argv=None):
                    help="HF-format checkpoint file or directory of shards "
                         "(.bin, .pt, .safetensors)")
     p.add_argument("--config", default="mpt7b",
-                   help=f"otter family: one of {sorted(PRESETS)}; either "
+                   help=f"otter family: one of {sorted(PRESETS)}; any "
                         "family: a config JSON (config.save_config; the "
-                        "fuyu family defaults to adept/fuyu-8b's)")
+                        "fuyu family defaults to adept/fuyu-8b's, the "
+                        "idefics family to idefics-9b's)")
     p.add_argument("--model-family", default="otter",
                    choices=["otter", "idefics", "fuyu"],
-                   help="otter: Flamingo-style VLM presets; fuyu: "
-                        "Fuyu/OtterHD (adept/fuyu-8b-style) checkpoints; "
-                        "idefics: not ported yet (ROADMAP Queue 1 item 5)")
+                   help="otter: Flamingo-style VLM presets; idefics: HF "
+                        "IdeficsForVisionText2Text checkpoints (int8/int4 "
+                        "quantize the decoder layers only); fuyu: "
+                        "Fuyu/OtterHD (adept/fuyu-8b-style) checkpoints")
     p.add_argument("--fuyu-resolution", default=None,
                    help="fixed HxW (e.g. 448x448) instead of bucketed "
                         "variable resolution (OtterHD serves high-res)")
@@ -521,9 +588,6 @@ def main(argv=None):
                    help="not ported yet (ROADMAP Queue 1 item 6)")
     args = p.parse_args(argv)
 
-    if args.model_family == "idefics":
-        p.error("--model-family idefics is not ported yet: the idefics "
-                "model and its checkpoint rules are ROADMAP Queue 1 item 5")
     for flag, given in (("--continuous-batching", args.continuous_batching),
                         ("--session-cache", args.session_cache > 0),
                         ("--draft-checkpoint", args.draft_checkpoint)):
@@ -551,12 +615,16 @@ def main(argv=None):
         return
     from transformers import AutoTokenizer
     from otter_tpu_torch.generation.engine import OtterGenerator
-    cfg = _load_config(args.config, "otter")
+    cfg = _load_config(args.config, args.model_family)
     tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
-    model, cfg = load_otter_model(args.checkpoint, cfg,
-                                  load_bit=args.load_bit, device=device)
+    load, make_stream_fn = (
+        (load_idefics_model, make_idefics_stream_fn)
+        if args.model_family == "idefics"
+        else (load_otter_model, make_otter_stream_fn))
+    model, cfg = load(args.checkpoint, cfg, load_bit=args.load_bit,
+                      device=device)
     engine = OtterGenerator(model, cache_dtype=CACHE_DTYPES[args.cache_bit])
-    stream_worker(make_otter_stream_fn(engine, tokenizer, cfg))
+    stream_worker(make_stream_fn(engine, tokenizer, cfg))
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@
 bf16 weights, each made when it is read, from its own seed; `build_model`
 quantizes them tensor by tensor and loads them through
 `models.convert.load_flax_params`, so the unquantized set never sits in
-memory beside the model. `cfg` is an `OtterConfig` (any decoder arch) or a
-`FuyuConfig`. `fuyu_request` lays out a synthetic Fuyu request (image
+memory beside the model. `cfg` is an `OtterConfig` (any decoder arch), a
+`FuyuConfig` or an `IdeficsModelConfig`. `fuyu_request` lays out a synthetic Fuyu request (image
 placeholder rows, prompt ids, random patches) as the Fuyu processor does.
 """
 
@@ -19,16 +19,20 @@ from typing import Union
 import numpy as np
 import torch
 
-from otter_tpu_torch.config import FuyuConfig, OtterConfig
+from otter_tpu_torch.config import (FuyuConfig, IdeficsModelConfig,
+                                    OtterConfig)
+from otter_tpu_torch.models import idefics
 from otter_tpu_torch.models.convert import load_flax_params
 from otter_tpu_torch.models.fuyu import FuyuVLM
 from otter_tpu_torch.models.otter import OtterVLM
 from otter_tpu_torch.ops import quant
 
-ModelConfig = Union[OtterConfig, FuyuConfig]
+ModelConfig = Union[OtterConfig, FuyuConfig, IdeficsModelConfig]
 
 
 def _model_class(cfg: ModelConfig):
+    if isinstance(cfg, IdeficsModelConfig):
+        return idefics.IdeficsVLM
     return FuyuVLM if isinstance(cfg, FuyuConfig) else OtterVLM
 
 
@@ -36,7 +40,7 @@ class RandomParams(Mapping):
     """{flax path: tensor} of a model's random bf16 weights, made on
     `device` when read, each from its own seed: normal(0, std), LayerNorm
     scales 1 + that, tanh gates 1 (tanh(1) ~ 0.76, so the xattn blocks
-    contribute). Any tensor can be made again to check a trained copy."""
+    contribute; idefics' `alpha_cross_attn` and `alpha_dense` alike). Any tensor can be made again to check a trained copy."""
 
     def __init__(self, cfg: ModelConfig, device, std: float = 0.02,
                  seed: int = 0):
@@ -58,7 +62,8 @@ class RandomParams(Mapping):
     def __getitem__(self, path):
         shape, dtype = self.specs[path]
         leaf = path.rsplit("/", 1)[-1]
-        if leaf in ("attn_gate", "ff_gate"):
+        if leaf in ("attn_gate", "ff_gate", "alpha_cross_attn",
+                    "alpha_dense"):
             return torch.ones(shape, device=self.device, dtype=dtype)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + zlib.crc32(path.encode()))
@@ -71,17 +76,21 @@ class RandomParams(Mapping):
 
 def build_model(cfg: ModelConfig, device, seed: int = 0,
                 dtype=torch.bfloat16):
-    """An `OtterVLM` (a `FuyuVLM` for a `FuyuConfig`) in `dtype` on
-    `device` with `RandomParams` weights through the load transforms its
-    config asks for (`ops.quant.quantize_for`: the port's
-    `quantize_params`, `quantize_params_int4` for `quant="int4"`, the
-    decode megakernel's fused leaves when `cfg.text.megakernel`, the int8
-    embedding table when `cfg.text.quant_embed`)."""
+    """An `OtterVLM` (a `FuyuVLM` for a `FuyuConfig`, an `IdeficsVLM` for
+    an `IdeficsModelConfig`) in `dtype` on `device` with `RandomParams`
+    weights through the load transforms its config asks for
+    (`ops.quant.quantize_for`: the port's `quantize_params`,
+    `quantize_params_int4` for `quant="int4"`, the decode megakernel's
+    fused leaves when `cfg.text.megakernel`, the int8 embedding table when
+    `cfg.text.quant_embed`; `models.idefics.quantize_decoder` for idefics)."""
     model = _model_class(cfg)(cfg, dtype=dtype, device=device)
     plain = cfg.replace(text=cfg.text.replace(
         quant=None, quant_embed=False, megakernel=False, fused_tail=False))
-    load_flax_params(model, quant.quantize_for(
-        cfg.text, RandomParams(plain, device, seed=seed)))
+    weights = RandomParams(plain, device, seed=seed)
+    if isinstance(cfg, IdeficsModelConfig):
+        load_flax_params(model, idefics.quantize_decoder(cfg, weights))
+    else:
+        load_flax_params(model, quant.quantize_for(cfg.text, weights))
     return model.eval()
 
 

@@ -35,6 +35,7 @@ from otter_tpu_torch.data.mimicit import (find_and_remove_tokens,
 from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.models.convert import (load_flax_params,
                                              load_otter_checkpoint)
+from otter_tpu_torch.models.idefics import IdeficsVLM
 from otter_tpu_torch.models.otter import OtterVLM
 from otter_tpu_torch.runtime.checkpoint import CheckpointStore
 from otter_tpu_torch.runtime.metrics import AverageMeter, MetricsLogger
@@ -44,20 +45,26 @@ from otter_tpu_torch.train.step import (TrainState, make_optimizer,
 
 CONFIG_FACTORIES = {
     "mpt7b": cfgmod.otter_mpt7b,
+    "idefics9b": cfgmod.idefics9b,
+    "tiny-idefics": cfgmod.idefics_tiny,
     "tiny": lambda: OtterConfig.tiny("mpt"),
 }
 
 
 def build_model_and_config(args: TrainArgs, device=None):
     """Model-zoo dispatch (reference instruction_following.py:331-427):
-    otter and flamingo; parameters left uninitialized."""
-    if args.model_name == "idefics":
-        raise NotImplementedError("IDEFICS is not ported yet (ROADMAP Queue "
-                                  "1, item 3)")
-    if args.model_name not in ("otter", "flamingo"):
+    otter, flamingo and idefics; parameters left uninitialized."""
+    if args.model_name not in ("otter", "flamingo", "idefics"):
         raise ValueError(f"unknown model_name {args.model_name!r}")
     cfg = CONFIG_FACTORIES[args.model_config]()
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.model_name == "idefics":
+        if args.customized_config:
+            with open(args.customized_config) as f:
+                cfg = cfgmod.IdeficsModelConfig.from_dict(
+                    {**cfg.to_dict(), **json.load(f)})
+        return IdeficsVLM(cfg, dtype=dtype, device=device,
+                          remat=args.gradient_checkpointing), cfg
     if args.customized_config:
         with open(args.customized_config) as f:
             cfg = OtterConfig.from_dict({**cfg.to_dict(), **json.load(f)})
@@ -71,15 +78,17 @@ def build_model_and_config(args: TrainArgs, device=None):
 def init_params(model: torch.nn.Module, seed: int, std: float = 0.02
                 ) -> None:
     """Seeded random weights: normal(0, std) for every weight, 1 for norm
-    scales, 0 for biases and the xattn tanh gates (as the JAX module
-    initializes its gates)."""
+    scales, 0 for biases and the xattn tanh gates (idefics'
+    `alpha_cross_attn` / `alpha_dense` too, as the JAX modules initialize
+    their gates)."""
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             p.fill_(1.0)
-        elif leaf in ("bias", "attn_gate", "ff_gate"):
+        elif leaf in ("bias", "attn_gate", "ff_gate", "alpha_cross_attn",
+                      "alpha_dense"):
             p.zero_()
         else:
             p.copy_(std * torch.randn(p.shape, generator=gen,
@@ -157,7 +166,10 @@ def main(args: TrainArgs, tokenizer=None,
     state = TrainState.create(model, cfg, tx)
     step_fn = make_train_step(
         model, cfg, tx, mask_embedding=args.mask_lm_head,
-        attend_previous=not cfg.use_media_placement_augmentation,
+        # (the idefics config has no such field; its forward takes the
+        # argument and ignores it)
+        attend_previous=not getattr(cfg, "use_media_placement_augmentation",
+                                    False),
         fused_ce_chunk=args.fused_ce_chunk)
 
     save_dir = os.path.join(args.external_save_dir, args.run_name)

@@ -330,9 +330,15 @@ def make_train_step(model: nn.Module, cfg, tx: AdamW, *,
     (0-d tensors on the model's device: reading them waits for the step).
 
     fused_ce_chunk > 0 routes the loss through `chunked_causal_lm_loss`
-    (model forward with skip_head=True). Gradient checkpointing is the
-    model's `remat`.
+    (model forward with skip_head=True). The idefics model has no
+    skip_head (its head is decoupled: the loss trains `additional_fc`
+    through the concatenated logits), so it takes fused_ce_chunk=0, as in
+    the JAX package, whose forward refuses the argument. Gradient
+    checkpointing is the model's `remat`.
     """
+    if fused_ce_chunk and hasattr(cfg, "additional_vocab_size"):
+        raise ValueError("the idefics model has no fused cross-entropy "
+                         "(no skip_head): pass fused_ce_chunk=0")
     tcfg = cfg.text
     device = next(model.parameters()).device
     emb_mask = embedding_grad_mask(cfg, device) if mask_embedding else None

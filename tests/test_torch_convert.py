@@ -1,6 +1,7 @@
 """Port parity: the HF checkpoint converter (`models/convert.py`, HF side)
 against the JAX package's. The rule tables give the JAX `hf_to_flax`'s
-{path: array} exactly on HF-named tiny state_dicts of every arch;
+{path: array} exactly on HF-named tiny state_dicts of every arch and of
+idefics;
 `port_to_hf` inverts them; the partial load, its errors and
 `from_pretrained` behave as JAX's on checkpoint files written in the test
 (`.bin` and `.safetensors`); nothing is downloaded."""
@@ -20,9 +21,13 @@ from otter_tpu_torch import api as tapi
 from otter_tpu_torch.config import FuyuConfig
 from otter_tpu_torch.models import convert
 from otter_tpu_torch.models.fuyu import FuyuVLM
+from otter_tpu_torch.models.idefics import IdeficsVLM
 from otter_tpu_torch.models.otter import OtterVLM
-from otter_tpu_torch.serve.worker import load_fuyu_model, load_otter_model
-from torch_parity_helpers import ARCH_CASES, jax_tiny_train, port_cfg
+from otter_tpu_torch.serve.worker import (load_fuyu_model,
+                                          load_idefics_model,
+                                          load_otter_model)
+from torch_parity_helpers import (ARCH_CASES, idefics_port_cfg,
+                                  jax_tiny_train, port_cfg)
 
 LOGIT_TOL = 1e-3   # tests/test_torch_vlm.py's f32 logit bar
 
@@ -61,6 +66,13 @@ def _fuyu_flat(seed: int = 0):
     cfg = jcfg.FuyuConfig.tiny()
     meta = FuyuVLM(FuyuConfig.from_dict(cfg.to_dict()), dtype=torch.float32,
                    device="meta")
+    return cfg, _random_flat(meta, seed)
+
+
+def _idefics_flat(seed: int = 0):
+    cfg = jcfg.idefics_tiny()
+    meta = IdeficsVLM(idefics_port_cfg(cfg), dtype=torch.float32,
+                      device="meta")
     return cfg, _random_flat(meta, seed)
 
 
@@ -136,6 +148,61 @@ def test_fuyu_rules_match_jax(vintage):
     got = dict(convert.fuyu_hf_to_port(hf, strict=True, num_heads=heads))
     _assert_same(got, ref)
     _assert_same(got, flat)
+
+
+def test_idefics_rules_match_jax():
+    """HF `IdeficsForVisionText2Text` names from the JAX package's
+    `flax_to_hf(..., rules=idefics_rules(cfg))`: the port's
+    `idefics_hf_to_port` gives JAX's `hf_to_flax` with the same rules
+    exactly and the original parameters back, and `port_to_hf` (which
+    takes the idefics rules for an `IdeficsModelConfig`) the HF names and
+    arrays."""
+    cfg, flat = _idefics_flat()
+    rules = jconvert.idefics_rules(cfg)
+    hf = jconvert.flax_to_hf(flat, cfg, rules=rules)
+    assert len(hf) == len(flat)
+    assert "model.gated_cross_attn_layers.1.alpha_dense" in hf
+    assert "lm_head.additional_fc.weight" in hf
+    ref = jconvert.hf_to_flax(hf, cfg, rules=rules, strict=True)
+    tcfg = idefics_port_cfg(cfg)
+    got = dict(convert.idefics_hf_to_port(hf, tcfg, strict=True))
+    _assert_same(got, ref)
+    _assert_same(got, flat)
+    _assert_same(convert.port_to_hf(got, tcfg), hf)
+    rooted = {"params/" + k: torch.from_numpy(v) for k, v in flat.items()}
+    _assert_same(convert.port_to_hf(rooted, tcfg), hf)
+
+
+def test_idefics_worker_load_matches_jax(tmp_path):
+    """The worker's idefics start-up (`load_idefics_model`) from an
+    HF-named checkpoint: at `--load-bit int8` (and int4, which loads the
+    same) the tensors of JAX's `hf_to_flax` with the idefics rules under
+    `quantize_params(..., patterns=FROZEN_DECODER_PATTERNS)` (decoder
+    layers int8, the head float: the JAX worker's default patterns would
+    quantize the head, ROADMAP Queue 3); at fp32 the parameters
+    themselves."""
+    from otter_tpu.ops.quant import FROZEN_DECODER_PATTERNS
+    cfg, flat = _idefics_flat(4)
+    tcfg = idefics_port_cfg(cfg)
+    path = str(tmp_path / "idefics.safetensors")
+    convert.save_state_dict(convert.port_to_hf(flat, tcfg), path)
+    conv = jconvert.hf_to_flax(jconvert.load_state_dict(path), cfg,
+                               rules=jconvert.idefics_rules(cfg),
+                               dtype=np.float32)
+    tree = traverse_util.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in conv.items()}, sep="/")
+    tree = jax_quantize_params(tree, patterns=FROZEN_DECODER_PATTERNS)
+    ref = {k: np.asarray(v) for k, v in
+           traverse_util.flatten_dict(tree, sep="/").items()}
+    assert "lm_head/kernel" in ref and "layers_0/attn/q_proj/kernel_q" in ref
+    for bits in ("int8", "int4"):
+        model, mcfg = load_idefics_model(path, tcfg, load_bit=bits,
+                                         device="cpu")
+        assert mcfg.text.quant == bits and mcfg.text.decode_kernel == "auto"
+        assert model.dtype == torch.bfloat16
+        _assert_same(convert.export_flax_params(model), ref)
+    plain, _ = load_idefics_model(path, tcfg, load_bit="fp32", device="cpu")
+    _assert_same(convert.export_flax_params(plain), flat)
 
 
 def test_strict_conversion_names_unmatched_keys():

@@ -1,10 +1,10 @@
 """Which of the port's kernels refuse which model configuration on the
 card. The wrappers never fall back to the plain version for a CUDA tensor,
 so a shape a kernel refuses makes that model raise there. This walks every
-preset of `config.PRESETS`, `FuyuConfig` and the head dims of idefics-9b
-(ViT-H/14 tower 1280 / 16 = 80, perceiver 96: `otter_tpu/config.py:389,
-405-407`; the port has no idefics config yet) through the kernels' own
-guards and pins the refusals that remain, so that any change shows."""
+preset of `config.PRESETS`, `FuyuConfig` and `idefics9b()` (ViT-H/14
+tower 1280 / 16 = 80, perceiver 96, decoder and xattn 128) through the
+kernels' own guards and pins the refusals that remain, so that any change
+shows."""
 
 import pytest
 import torch
@@ -23,6 +23,11 @@ REFUSED = {
 IDEFICS_HEAD_DIMS = {"vision": 80, "perceiver": 96, "text": 128, "xattn": 128}
 
 
+def _idefics_head_dims(cfg):
+    return {"vision": cfg.vision.head_dim, "perceiver": cfg.perceiver.head_dim,
+            "text": cfg.text.head_dim, "xattn": cfg.text.head_dim}
+
+
 def _flash_takes(d: int) -> bool:
     try:
         fa.check_kernel_inputs(d, torch.bfloat16)
@@ -39,6 +44,8 @@ def _models():
             "xattn": cfg.xattn_dim_head, "text": cfg.text.head_dim}
     fuyu = config.FuyuConfig()
     yield "fuyu-8b", fuyu.text, {"text": fuyu.text.head_dim}
+    idefics = config.idefics9b()
+    yield "idefics-9b", idefics.text, _idefics_head_dims(idefics)
 
 
 def _refusals(name, text, head_dims):
@@ -78,6 +85,7 @@ def test_refusals_by_preset():
 
 @pytest.mark.parametrize("site,d", sorted(IDEFICS_HEAD_DIMS.items()))
 def test_flash_takes_idefics_head_dims(site, d):
+    assert _idefics_head_dims(config.idefics9b())[site] == d
     assert _flash_takes(d), (site, d)
 
 

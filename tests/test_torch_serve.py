@@ -2,12 +2,12 @@
 `data/templates.py` and `data/fuyu_processor.py`) against the JAX package's
 `tests/test_serve.py` surface. The copied modules (controller, web UI,
 conversation templates, moderation gate, Fuyu processor) give the
-originals' output; the worker's otter and fuyu stream functions serve over
-localhost HTTP the greedy text of the JAX worker's for the same requests on
-the same weights; concurrent requests equal each alone; the flags whose
-machinery is not ported refuse at start; `python -m
-otter_tpu_torch.serve.worker --device cpu` serves a checkpoint and a
-tokenizer made in the test."""
+originals' output; the worker's otter, idefics and fuyu stream functions
+serve over localhost HTTP the greedy text of the JAX worker's for the same
+requests on the same weights; concurrent requests equal each alone; the
+flags whose machinery is not ported refuse at start; `python -m
+otter_tpu_torch.serve.worker --device cpu` serves an otter and an idefics
+checkpoint and a tokenizer made in the test."""
 
 import base64
 import io
@@ -36,7 +36,7 @@ from otter_tpu_torch.serve import cli, controller, conversation, worker
 from otter_tpu_torch.serve.worker import (ModelWorker, build_app,
                                           make_otter_stream_fn,
                                           run_app_in_thread)
-from torch_parity_helpers import fuyu_pair, jax_tiny, torch_tiny
+from torch_parity_helpers import fuyu_pair, idefics_pair, jax_tiny, torch_tiny
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -446,6 +446,44 @@ def test_fuyu_stream_over_http_matches_jax_worker(box):
         stop()
 
 
+class IdeficsTok(TinyTokenizer):
+    """TinyTokenizer with the tiny idefics config's image token."""
+    specials = {"<image>": 126, "<answer>": 125, "<PAD>": 0}
+
+
+def test_idefics_stream_over_http_matches_jax_worker():
+    """The idefics stream function over HTTP (stills at the IDEFICS
+    mean/std stacked along N, `stream_generate` over the tiny IdeficsVLM
+    with int8 decoder layers and an int8 cache) gives the text of the JAX
+    worker's `make_idefics_stream_fn` on the same weights: one image, two
+    images interleaved with text, none (one zero image)."""
+    cfg, jmodel, params, tmodel = idefics_pair("int8")
+    tok = IdeficsTok()
+    jfn = jworker.make_idefics_stream_fn(
+        JaxGenerator(jmodel, params, cfg, cache_dtype="int8"), tok, cfg)
+    tfn = worker.make_idefics_stream_fn(
+        OtterGenerator(tmodel, cache_dtype=torch.int8), tok, cfg)
+    w = ModelWorker(controller_addr="", worker_addr="", model_name="idefics",
+                    stream_fn=tfn, no_register=True)
+    url, stop = _serve(build_app(w))
+    prompt = "User:<image> alpha beta gamma tell me Assistant:"
+    try:
+        for req in ({"prompt": prompt, "images": [_png(41)],
+                     "generation_kwargs": {"max_new_tokens": 6}},
+                    {"prompt": "<image> one two " + prompt,
+                     "images": [_png(42), _png(43)],
+                     "generation_kwargs": {"max_new_tokens": 5}},
+                    {"prompt": "User: no picture here Assistant:",
+                     "generation_kwargs": {"max_new_tokens": 4}}):
+            chunks = _stream(url, req)
+            assert all(c["error_code"] == 0 for c in chunks), chunks
+            want = list(jfn(req))
+            assert [c["text"] for c in chunks] == want
+            assert want[-1]
+    finally:
+        stop()
+
+
 def test_cli_chat_loop_streams_text(otter_pair):
     """`chat_loop` through StringIO: two turns, each printing what
     `stream_generate` yields for the rendered prompt, then EOF."""
@@ -483,7 +521,6 @@ def _main_args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model-family", "idefics"], "item 5"),
     (["--continuous-batching"], "item 6"),
     (["--session-cache", "4"], "item 6"),
     (["--draft-checkpoint", "draft.bin"], "item 6"),
@@ -506,7 +543,8 @@ def test_fp32_refused_on_the_card(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("family,load_bit", [
-    ("otter", "int8"), ("otter", "int4"), ("fuyu", "int8")])
+    ("otter", "int8"), ("otter", "int4"), ("fuyu", "int8"),
+    ("idefics", "int8")])
 def test_worker_runs_on_the_card_by_default(tmp_path, family, load_bit):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the worker would start for real")
@@ -520,18 +558,69 @@ def test_worker_runs_on_the_card_by_default(tmp_path, family, load_bit):
 def _tokenizer_dir(path, cfg):
     """A word-level HF tokenizer over the tiny vocabulary: `w<i>` is id i,
     the config's media and end-of-chunk tokens their ids."""
-    from tokenizers import Tokenizer, models, pre_tokenizers
-    from transformers import PreTrainedTokenizerFast
     vocab = {f"w{i}": i for i in range(cfg.eoc_token_id)}
     vocab.update({"<|endofchunk|>": cfg.eoc_token_id,
                   "<image>": cfg.media_token_id, "<unk>": 254, "</s>": 255})
+    return _save_tokenizer(path, vocab, ["<image>", "<|endofchunk|>"])
+
+
+def _save_tokenizer(path, vocab, specials):
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
     t = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
     t.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
     PreTrainedTokenizerFast(
         tokenizer_object=t, unk_token="<unk>", eos_token="</s>",
-        additional_special_tokens=["<image>", "<|endofchunk|>"]
-    ).save_pretrained(str(path))
+        additional_special_tokens=specials).save_pretrained(str(path))
     return str(path)
+
+
+def _idefics_files(tmp_path):
+    """(config, checkpoint, config JSON, tokenizer dir) of the tiny idefics
+    model: random weights as an HF-named checkpoint, a word-level
+    tokenizer with `w<i>` for the ordinary ids, <image> at the media id,
+    </s> at eos."""
+    from otter_tpu_torch.config import idefics_tiny
+    from otter_tpu_torch.models.convert import port_to_hf, save_state_dict
+    from otter_tpu_torch.tools.random_weights import RandomParams
+    cfg = idefics_tiny()
+    ckpt = str(tmp_path / "model.safetensors")
+    save_state_dict(port_to_hf(RandomParams(cfg, "cpu", seed=5), cfg), ckpt)
+    cfg_path = str(tmp_path / "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    vocab = {f"w{i}": i for i in range(3, cfg.text.vocab_size)}
+    vocab.update({"<image>": cfg.media_token_id, "<unk>": 127,
+                  "</s>": cfg.eos_token_id})
+    tok_dir = _save_tokenizer(tmp_path / "tok", vocab, ["<image>"])
+    return cfg, ckpt, cfg_path, tok_dir
+
+
+def test_idefics_family_loads_at_start(tmp_path, monkeypatch):
+    """`--model-family idefics` (refused before the family was ported)
+    starts: the config JSON, the checkpoint through `load_idefics_model`
+    at `--load-bit int4` (the decoder layers int8, the head bf16), an
+    engine and the worker's app, up to serving it."""
+    import aiohttp.web
+    from otter_tpu_torch.models.idefics import IdeficsVLM
+    from otter_tpu_torch.ops.quant import Int8Dense
+    cfg, ckpt, cfg_path, tok_dir = _idefics_files(tmp_path)
+    loaded, served = [], []
+    load = worker.load_idefics_model
+    monkeypatch.setattr(worker, "load_idefics_model", lambda *a, **k: (
+        loaded.append(load(*a, **k)) or loaded[-1]))
+    monkeypatch.setattr(aiohttp.web, "run_app",
+                        lambda app, **kw: served.append((app, kw)))
+    worker.main(["--model-family", "idefics", "--device", "cpu",
+                 "--no-register", "--config", cfg_path, "--checkpoint", ckpt,
+                 "--tokenizer", tok_dir, "--load-bit", "int4", "--port",
+                 "1234"])
+    (model, mcfg), = loaded
+    assert isinstance(model, IdeficsVLM) and mcfg.text.quant == "int4"
+    assert mcfg.text.num_hidden_layers == cfg.text.num_hidden_layers
+    assert isinstance(model.layers_0.ffn.gate_proj, Int8Dense)
+    assert model.lm_head.kernel.dtype == torch.bfloat16
+    assert len(served) == 1 and served[0][1]["port"] == 1234
 
 
 def test_worker_entry_point_serves_a_checkpoint(tmp_path):
@@ -550,15 +639,31 @@ def test_worker_entry_point_serves_a_checkpoint(tmp_path):
     cfg_path = str(tmp_path / "config.json")
     save_config(cfg, cfg_path)
     tok_dir = _tokenizer_dir(tmp_path / "tok", cfg)
+    req = {"prompt": "<image> w5 w17 w99 w3", "images": [_png(31)],
+           "generation_kwargs": {"max_new_tokens": 5}}
+    chunks = _run_worker(["--config", cfg_path, "--checkpoint", ckpt,
+                          "--tokenizer", tok_dir, "--load-bit", "int8",
+                          "--cache-bit", "int8"], req)
+    assert all(c["error_code"] == 0 for c in chunks), chunks
+    model, mcfg = worker.load_otter_model(ckpt, cfg, load_bit="int8",
+                                          device="cpu")
+    fn = make_otter_stream_fn(OtterGenerator(model, cache_dtype=torch.int8),
+                              AutoTokenizer.from_pretrained(tok_dir), mcfg)
+    assert [c["text"] for c in chunks] == list(fn(req))
+
+
+def _run_worker(args, req):
+    """Start `python -m otter_tpu_torch.serve.worker --device cpu
+    --no-register` with `args` on a free port, send `req`, stop it;
+    returns the chunks."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT), HF_HUB_OFFLINE="1",
                TRANSFORMERS_OFFLINE="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "otter_tpu_torch.serve.worker", "--device",
          "cpu", "--no-register", "--host", "127.0.0.1", "--port", str(port),
-         "--config", cfg_path, "--checkpoint", ckpt, "--tokenizer", tok_dir,
-         "--load-bit", "int8", "--cache-bit", "int8"],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+         *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
     try:
         deadline = time.time() + 240
         while True:
@@ -569,15 +674,30 @@ def test_worker_entry_point_serves_a_checkpoint(tmp_path):
             except OSError:
                 assert time.time() < deadline, "the worker did not start"
                 time.sleep(0.5)
-        req = {"prompt": "<image> w5 w17 w99 w3", "images": [_png(31)],
-               "generation_kwargs": {"max_new_tokens": 5}}
-        chunks = _stream(f"http://127.0.0.1:{port}", req)
+        return _stream(f"http://127.0.0.1:{port}", req)
     finally:
         proc.terminate()
         proc.wait(30)
+
+
+def test_worker_entry_point_serves_an_idefics_checkpoint(tmp_path):
+    """`python -m otter_tpu_torch.serve.worker --model-family idefics
+    --device cpu --no-register --config cfg.json` from an HF-named
+    checkpoint of the tiny idefics model and a tokenizer saved in the
+    test, at `--load-bit int8 --cache-bit int8`: one request with an image
+    gives the text of the same start-up run in this process."""
+    from transformers import AutoTokenizer
+    cfg, ckpt, cfg_path, tok_dir = _idefics_files(tmp_path)
+    req = {"prompt": "w5 <image> w17 w99 w3", "images": [_png(32)],
+           "generation_kwargs": {"max_new_tokens": 5}}
+    chunks = _run_worker(["--model-family", "idefics", "--config", cfg_path,
+                          "--checkpoint", ckpt, "--tokenizer", tok_dir,
+                          "--load-bit", "int8", "--cache-bit", "int8"], req)
     assert all(c["error_code"] == 0 for c in chunks), chunks
-    model, mcfg = worker.load_otter_model(ckpt, cfg, load_bit="int8",
-                                          device="cpu")
-    fn = make_otter_stream_fn(OtterGenerator(model, cache_dtype=torch.int8),
-                              AutoTokenizer.from_pretrained(tok_dir), mcfg)
+    model, mcfg = worker.load_idefics_model(ckpt, cfg, load_bit="int8",
+                                            device="cpu")
+    fn = worker.make_idefics_stream_fn(
+        OtterGenerator(model, cache_dtype=torch.int8),
+        AutoTokenizer.from_pretrained(tok_dir), mcfg)
     assert [c["text"] for c in chunks] == list(fn(req))
+    assert chunks[-1]["text"]

@@ -325,3 +325,79 @@ def ragged(rng, vocab: int, batch: int = 2, seq: int = 10, pad: int = 3):
     mask[0, :pad] = 0
     positions = np.clip(np.cumsum(mask, -1) - 1, 0, None).astype(np.int32)
     return ids, mask, positions
+
+
+# ── IDEFICS ──────────────────────────────────────────────────────────
+
+def _idefics_init_args(cfg):
+    size = cfg.vision.image_size
+    return (jnp.zeros((1, 1, 3, size, size), jnp.float32),
+            jnp.zeros((1, 8), jnp.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def idefics_flat(seed: int = 0):
+    """{flax path: numpy} of the tiny JAX IdeficsVLM's unquantized f32
+    weights: the flax init with its norms and biases moved
+    (`_randomize_norms_and_biases`) and its `alpha_cross_attn` /
+    `alpha_dense` gates (0 at init) set away from zero, so that the
+    cross-attention reaches the logits."""
+    from otter_tpu.models.idefics import IdeficsVLM as JaxIdeficsVLM
+    base = jcfg.idefics_tiny()
+    params = jax.jit(JaxIdeficsVLM(base).init)(jax.random.PRNGKey(seed),
+                                                *_idefics_init_args(base))
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    _randomize_norms_and_biases(flat, seed + 500)
+    rng = np.random.default_rng(seed + 600)
+    for k in flat:
+        if k.endswith(("alpha_cross_attn", "alpha_dense")):
+            flat[k] = rng.uniform(0.3, 0.9, flat[k].shape).astype(np.float32)
+    return flat
+
+
+def idefics_port_cfg(cfg):
+    return tcfg.IdeficsModelConfig.from_dict(cfg.to_dict())
+
+
+@functools.lru_cache(maxsize=None)
+def idefics_pair(quant=None, decode_kernel="auto", seed: int = 0):
+    """(cfg, JAX IdeficsVLM, its params, port IdeficsVLM with the same
+    weights in f32 on the CPU) of the tiny idefics model; `quant="int8"`
+    quantizes the decoder layers through the JAX package's
+    `quantize_params(..., patterns=FROZEN_DECODER_PATTERNS)`."""
+    from otter_tpu.models.idefics import IdeficsVLM as JaxIdeficsVLM
+    from otter_tpu.ops.quant import FROZEN_DECODER_PATTERNS
+    from otter_tpu_torch.models.idefics import IdeficsVLM
+    base = jcfg.idefics_tiny()
+    cfg = base.replace(text=base.text.replace(quant=quant,
+                                              decode_kernel=decode_kernel))
+    params = traverse_util.unflatten_dict(dict(idefics_flat(seed)), sep="/")
+    if quant is not None:
+        params = jax_quantize_params(params,
+                                     patterns=FROZEN_DECODER_PATTERNS)
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    tmodel = IdeficsVLM(idefics_port_cfg(cfg), dtype=torch.float32,
+                        device="cpu")
+    load_flax_params(tmodel, flat)
+    return cfg, JaxIdeficsVLM(cfg), params, tmodel.eval()
+
+
+def idefics_inputs(cfg, seed: int, batch: int = 2, seq: int = 14,
+                   images: int = 2):
+    """Pixels [B, N, 3, H, W] f32 and token ids [B, S] (numpy): the image
+    token at positions 1 and 7 (as many as `images`), an eos at 4 on row
+    0 (tokens 5-6 attend no image), a token of the additional vocab at 10
+    on the last row, ordinary tokens elsewhere."""
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    vision_x = rng.standard_normal(
+        (batch, images, 3, size, size)).astype(np.float32)
+    ids = rng.integers(3, cfg.text.vocab_size, (batch, seq)).astype(np.int32)
+    for i, p in enumerate((1, 7)[:images]):
+        ids[:, p] = cfg.media_token_id
+    ids[0, 4] = cfg.eos_token_id
+    ids[-1, 10] = cfg.text.vocab_size + 3
+    return vision_x, ids
