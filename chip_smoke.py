@@ -163,6 +163,25 @@ unless every phase passes:
                  with five images), nothing else. The kernels phase holds
                  the flash forward at its four sites and a step's xattn
                  over five images, and decode_attention at its cache.
+ 15. batch       the continuous batcher (runs after idefics):
+                 OTTER-MPT7B at full width and depth (int8 weights and
+                 KV cache) through ContinuousBatcher(num_slots=8,
+                 cache_len=2048, prefill_chunk=256): 20 requests (16
+                 greedy of 32-128 tokens, 2 of 300 and 480 prefilled in
+                 chunks, one with 3 beams, one sampled; one 224x224 image
+                 and 32 new tokens each), 8 at once then one every 50 ms.
+                 Each greedy and the beam request against generate alone:
+                 equal, or where bf16 products at another M part them,
+                 the parting step's logits within 5e-2 max|lone|; the
+                 sampled request repeats under one seed; every pooled
+                 step launches int8_mlp 40 and decode_attention 32
+                 times, nothing else. Prints aggregate tok/s and TTFT
+                 p50/p90, a pooled step at 8 rows beside generate's b=8
+                 step and under torch.profiler; then the worker with
+                 --continuous-batching --num-slots 4 over localhost
+                 HTTP (4 requests at once against one after another, 3
+                 rounds, the status carrying batching) and idefics-9b
+                 cut to 4 layers through 4 slots.
  11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
@@ -174,7 +193,7 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all fourteen (`--phases beam` the beam phase alone). `flashkernels`
+runs all fifteen (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -2817,6 +2836,576 @@ def phase_idefics(smi: str, profile: bool = False):
 
 # ── optional: where the time goes in one b=8 request ────────────────
 
+# ── phase 15: the continuous batcher ─────────────────────────────────
+
+# a pooled step, however many of the pool's rows are active: the 32
+# decoder MLPs and 8 xattn FFs through int8_mlp (M = the pool's rows),
+# 32 int8 decode_attention; a [B] cache_pos never takes the megakernel or
+# the tail. Admissions add flash_fwd (a prefill's 70, a chunk's xattn).
+BATCH_STEP = {"int8_mlp": 40, "decode_attention": 32}
+BATCH_PATH = {"flash_fwd", "int8_mlp", "decode_attention"}
+PARITY_BAR = 5e-2    # of max|lone logits|: the model-output tolerance
+
+
+class _StepRecorder:
+    """Wraps a batcher's pooled step, first-token sample and beam step
+    (they run on its scheduler thread): each step's launches, and, kept on
+    the card until read, each step's processed logits [n, V] and tokens
+    with the prompt length of each row's request (None for a free or beam
+    row) and the tokens the row emitted before the step; a first token and
+    its logits by prompt length; a beam group's live hypotheses before and
+    after each of its steps, with its rows' logits. Prompt lengths name
+    the requests: the phase's requests in one run all differ in length
+    (and hold one beam request)."""
+
+    def __init__(self, batcher):
+        from otter_tpu_torch.tools import bench_decode
+        step, first = batcher._decode_step, batcher._first_token
+        self.reset()
+
+        def decode_step(ca, st, lp, need_logits=False):
+            before = bench_decode.kernel_launches()
+            out = step(ca, st, lp, True)
+            after = bench_decode.kernel_launches()
+            self.launches.append({k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]})
+            owners = [s.real_len if s.active and s.group is None else None
+                      for s in batcher._slots]
+            self.steps.append((owners, ca["emitted"], out[4], out[0]))
+            return out if need_logits else out[:4]
+
+        def first_token(logits, ids, bucket, real, gen):
+            tok = first(logits, ids, bucket, real, gen)
+            self.first[real] = (logits[0], tok)
+            return tok
+
+        def beam_advance(grp, logits):
+            before = [list(h) for h in grp.hyps]
+            advance(grp, logits)
+            self.beam_steps.append((before, logits[grp.rows].float(),
+                                    [list(h) for h in grp.hyps]))
+
+        advance = batcher._beam_advance
+        batcher._decode_step, batcher._first_token = decode_step, first_token
+        batcher._beam_advance = beam_advance
+
+    def reset(self):
+        self.launches, self.steps, self.first = [], [], {}
+        self.beam_steps = []
+
+    def tokens(self, real_len: int):
+        """The batcher's tokens of a request and the logits behind each."""
+        logits, tok = self.first[real_len]
+        out = [(int(tok[0]), logits)]
+        for owners, emitted, step_logits, nxt in self.steps:
+            if real_len in owners:
+                i = owners.index(real_len)
+                if int(emitted[i]) == len(out):
+                    out.append((int(nxt[i]), step_logits[i]))
+        return out
+
+
+def _lone_logits(engine, vx, ids, j: int):
+    """The logits [V] behind token j of `generate` of one request alone."""
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    seen = []
+
+    def sample(st, logits):
+        seen.append(logits[0].float().clone())
+        OtterGenerator._sample(engine, st, logits)
+
+    engine._sample = sample
+    try:
+        engine.generate(vx, ids, gen=GenerationConfig(max_new_tokens=j + 1))
+    finally:
+        del engine._sample
+    return seen[j]
+
+
+def _hold_greedy(tag, engine, req, want, got, recorder, partings):
+    """A greedy request's tokens through the batcher (`got`) against
+    `generate`'s alone (`want`): equal where they are; where they part
+    (the pooled products run at M = the pool's rows, `generate`'s at M =
+    1), the logits behind the parting token within PARITY_BAR max|lone|,
+    the request and step reported in `partings`."""
+    if got == want:
+        return
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    vx, ids = req
+    real = ids.shape[1]
+    mine = recorder.tokens(real)
+    if [t for t, _ in mine[:len(got)]] != got:
+        raise RuntimeError(f"{tag}: the recorded tokens of the {real}-token "
+                           f"request are not its stream's")
+    if j >= len(mine):
+        raise RuntimeError(f"{tag}: the {real}-token request stopped at "
+                           f"{len(got)} tokens, alone at {len(want)}")
+    lone = _lone_logits(engine, vx, ids, j)
+    err = float((mine[j][1].float() - lone).abs().max())
+    bar = PARITY_BAR * float(lone.abs().max())
+    partings.append(f"{real}-token request parts at token {j} "
+                    f"({got[j] if j < len(got) else 'end'} against "
+                    f"{want[j] if j < len(want) else 'end'}): max |logits "
+                    f"- alone| {err:.4f} (bar {bar:.4f})")
+    if not err <= bar:
+        raise RuntimeError(f"{tag}: {partings[-1]}")
+
+
+def _lone_beam_steps(engine, req, gen):
+    """`generate(num_beams=K)` of one request alone, step by step: each
+    step's logits [K, V] and the live hypotheses after it (the first
+    tokens at index 0), and the best hypothesis at the end."""
+    import torch
+    from otter_tpu_torch.generation import beam
+    seen, hyps = [], []
+    with torch.inference_mode():
+        bs = engine._beam_prefill(*req, None, gen)
+        step = bs.step_fn
+
+        def step_fn(tok, cache, t):
+            logits, cache = step(tok, cache, t)
+            seen.append(logits.float().clone())
+            return logits, cache
+
+        st = beam._beam_setup(bs.init_logits, bs.cache, step_fn=step_fn,
+                              **bs.kw)
+        hyps.append(st.tokens[0, :, :1].tolist())
+        for t in range(1, gen.max_new_tokens):
+            beam._beam_step(st, t)
+            hyps.append(st.tokens[0, :, :t + 1].tolist())
+        best = beam._beam_best(st, gen.max_new_tokens)[0][0].tolist()
+    return seen, hyps, best
+
+
+def _hold_beam(tag, engine, req, gen, want, got, recorder, partings):
+    """A beam request through the batcher (`got`) against
+    `generate(num_beams=K)` alone (`want`): equal, or, where the two searches part
+    (the live hypotheses after a step differ: the pooled products run at
+    M = the pool's rows, the lone at M = K), that step's logits of the K
+    rows within PARITY_BAR max|lone|, the step reported in `partings`;
+    hypotheses equal at every step with different results fail."""
+    if got == want:
+        return
+    seen, hyps, best = _lone_beam_steps(engine, req, gen)
+    if _cut_at(best, engine.cfg.eoc_token_id) != want:
+        raise RuntimeError(f"{tag}: the beam search step by step is not "
+                           f"generate's")
+    steps = recorder.beam_steps
+    if not steps or steps[0][0] != hyps[0]:
+        raise RuntimeError(f"{tag}: the beams' first tokens differ")
+    for t, (_, logits, after) in enumerate(steps, 1):
+        if after == hyps[t]:
+            continue
+        err = float((logits - seen[t - 1]).abs().max())
+        bar = PARITY_BAR * float(seen[t - 1].abs().max())
+        partings.append(f"the beam search parts at step {t}: max |logits - "
+                        f"alone| of its {len(after)} rows {err:.4f} (bar "
+                        f"{bar:.4f})")
+        if not err <= bar:
+            raise RuntimeError(f"{tag}: {partings[-1]}")
+        return
+    raise RuntimeError(f"{tag}: the beams gave {got}, alone {want}, with "
+                       f"equal hypotheses at every step")
+
+
+def batch_requests(cfg, seed: int):
+    """The batch phase's 20 requests, each (kind, (vision_x [1, 1, 1, 3,
+    224, 224], ids [1, S]), GenerationConfig), 32 new tokens each: 16
+    greedy of 32-128 tokens, 2 greedy of 300 and 480 (bucket 512: chunked
+    at 256), one with 3 beams, one sampled (temperature 0.7, top_p 0.9);
+    no two of one length."""
+    import numpy as np
+    from otter_tpu_torch.config import GenerationConfig
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    greedy = GenerationConfig(max_new_tokens=32)
+    kinds = ([("greedy", int(n), greedy)
+              for n in np.linspace(32, 128, 16).astype(int)]
+             + [("greedy", 300, greedy), ("greedy", 480, greedy),
+                ("beam", 72, GenerationConfig(max_new_tokens=32,
+                                              num_beams=3)),
+                ("sampled", 90, GenerationConfig(
+                    max_new_tokens=32, do_sample=True, temperature=0.7,
+                    top_p=0.9))])
+    out = []
+    for kind, n, gen in kinds:
+        ids = rng.integers(1, cfg.eoc_token_id, (1, n)).astype(np.int64)
+        ids[0, 0] = cfg.media_token_id
+        vx = rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32)
+        out.append((kind, (vx, ids), gen))
+    return out
+
+
+def _consume(stream, stamps: list):
+    """A stream's tokens, each arrival's host time appended to `stamps`."""
+    toks = []
+    for tok in stream:
+        stamps.append(time.perf_counter())
+        toks.append(tok)
+    return toks
+
+
+def _run_requests(batcher, reqs, first: int, gap_s: float, stamps=None):
+    """`reqs` [(kind, (vx, ids), gen)] through `batcher`, each consumed on
+    its own thread: the first `first` at once, then one every `gap_s`.
+    Returns (tokens, arrival times, submit times, wall s); `stamps`, a
+    list of a list a request, receives the arrival times as they come."""
+    import threading
+    n = len(reqs)
+    toks, submitted = [None] * n, [0.0] * n
+    stamps = [[] for _ in reqs] if stamps is None else stamps
+
+    def run(i):
+        submitted[i] = time.perf_counter()
+        toks[i] = _consume(batcher.submit(*reqs[i][1], reqs[i][2]),
+                           stamps[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for i, th in enumerate(threads):
+        if i >= first:
+            time.sleep(gap_s)
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads) or None in toks:
+        raise RuntimeError("batch: a request hung")
+    return toks, stamps, submitted, wall
+
+
+def _step_launches_exact(tag, recorder, expect=None):
+    expect = BATCH_STEP if expect is None else expect
+    bad = [d for d in recorder.launches if d != expect]
+    if bad or not recorder.launches:
+        raise RuntimeError(f"{tag}: {len(bad)} of {len(recorder.launches)} "
+                           f"pooled steps launched otherwise than "
+                           f"{expect}: {bad[:3]}")
+
+
+def phase_batch(smi: str):
+    """The continuous batcher (`generation.batching.ContinuousBatcher`) on
+    OTTER-Image-MPT7B at full width and depth (int8 weights and KV cache,
+    decode_kernel="auto"): 20 requests through a pool of 8 (cache 2048,
+    prefill chunks of 256), each against `generate` alone; a pooled
+    step's wall beside `generate`'s b=8 step and the device's share of
+    it; the worker with `--continuous-batching --num-slots 4` over
+    localhost HTTP against the same four requests one after another; then
+    idefics-9b cut in depth through the batcher."""
+    import threading
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools import bench_decode
+
+    cfg = serving_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    log(f"batch: {cfg.text.num_hidden_layers}-layer mpt model, int8 "
+        f"weights ({_weight_bytes(model) / 1e9:.3f} GB) and int8 KV cache, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    eos = cfg.eoc_token_id
+
+    def pool(**kw):
+        b = ContinuousBatcher(model, **dict(dict(
+            num_slots=8, cache_len=2048, prefill_chunk=256,
+            cache_dtype=torch.int8, rng_seed=SEED), **kw))
+        return b, _StepRecorder(b)
+
+    def alone(req, gen):
+        out = engine.generate(*req, gen=gen)
+        return _cut_at(out[0, req[1].shape[1]:].tolist(), eos)
+
+    reqs = batch_requests(cfg, SEED + 100)
+    t0 = time.perf_counter()
+    want = [alone(r, g) if kind != "sampled" else None
+            for kind, r, g in reqs]
+    log(f"batch: each request alone through generate in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (1) 20 requests through a pool of 8: 8 at once, then one every 50 ms
+    b, rec = pool()
+    try:
+        _run_requests(b, reqs[:1] + reqs[16:17], 2, 0.0)   # warm-up
+    finally:
+        b.shutdown()
+    b, rec = pool()
+    try:
+        bench_decode.reset_kernel_launches()
+        got, stamps, submitted, wall = _run_requests(b, reqs, 8, 0.05)
+        path = {k: v for k, v in bench_decode.kernel_launches().items()
+                if v}
+        stats = b.stats()
+    finally:
+        b.shutdown()
+    if b._failure is not None:
+        raise RuntimeError("batch: the scheduler failed") from b._failure
+    _step_launches_exact("batch", rec)
+    stray = {k for k in path if k not in BATCH_PATH}
+    if stray or set(path) != BATCH_PATH:
+        raise RuntimeError(f"batch: the run launched {path}")
+    partings = []
+    for (kind, req, gen), g, w in zip(reqs, got, want):
+        if kind == "greedy":
+            _hold_greedy("batch", engine, req, w, g, rec, partings)
+        elif kind == "beam":
+            _hold_beam("batch", engine, req, gen, w, g, rec, partings)
+    kinds = [k for k, _, _ in reqs]
+    sampled = reqs[kinds.index("sampled")]
+    repeats = []
+    for _ in range(2):
+        one, _ = pool(num_slots=1, prefill_chunk=0)
+        try:
+            repeats.append(list(one.submit(*sampled[1], sampled[2])))
+        finally:
+            one.shutdown()
+    if repeats[0] != repeats[1] or not repeats[0]:
+        raise RuntimeError(f"batch: the sampled request gave {repeats} "
+                           f"under one seed")
+    n_tok = sum(len(g) for g in got)
+    ttft = [s[0] - t for s, t in zip(stamps, submitted)]
+    log(f"batch: 20 requests (16 greedy of 32-128 tokens, 2 of 300 and "
+        f"480 in chunks of 256, 3 beams, 1 sampled; one 224x224 image "
+        f"each, 32 new tokens) through 8 slots, 8 at once then one every "
+        f"50 ms: {n_tok} tokens in {wall * 1e3:.1f} ms, "
+        f"{n_tok / wall:.2f} tok/s aggregate; TTFT p50 "
+        f"{stats['ttft_p50_s'] * 1e3:.2f} ms, p90 "
+        f"{stats['ttft_p90_s'] * 1e3:.2f} ms (stats()), first tokens "
+        f"{np.percentile(ttft, 50) * 1e3:.2f} / "
+        f"{np.percentile(ttft, 90) * 1e3:.2f} ms at the consumer; "
+        f"{len(rec.launches)} pooled steps, each launching {BATCH_STEP}; "
+        f"run launches {path}; greedy and beam tokens equal to generate "
+        f"alone{'' if not partings else ' but where they part: ' + '; '.join(partings)} "
+        f"({len(partings)} of 19 part); "
+        f"the sampled request repeats under one seed | {smi}")
+    del rec
+
+    # (2) a pooled step at 8 active rows against generate's b=8 step
+    b8 = make_requests(cfg, 8, SEED + 101)
+    runs = {n: _timed(lambda n=n: engine.generate(*b8, gen=GenerationConfig(
+        max_new_tokens=n, eos_token_id=-1)))[1] for n in (1, 32)}
+    gen_step = [(a - c) / 31 for a, c in zip(runs[32], runs[1])]
+    eight = [("greedy", (b8[0][i:i + 1], b8[1][i:i + 1]),
+              GenerationConfig(max_new_tokens=72, eos_token_id=-1))
+             for i in range(8)]
+    steady = []
+    for profiled in (False, True):
+        b, rec = pool(max_admits_per_iter=8, prefill_chunk=0)
+        stamps, result = [[] for _ in eight], {}
+        runner = threading.Thread(target=lambda: result.update(
+            out=_run_requests(b, eight, 8, 0.0, stamps)))
+        try:
+            runner.start()
+            if profiled:
+                while len(stamps[0]) < 24 and runner.is_alive():
+                    time.sleep(0.002)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t, n0 = time.perf_counter(), len(stamps[0])
+                    while len(stamps[0]) < n0 + 16 and runner.is_alive():
+                        time.sleep(0.001)
+                    window = time.perf_counter() - t
+                    n_steps = len(stamps[0]) - n0
+            runner.join(600)
+        finally:
+            b.shutdown()
+        if "out" not in result:
+            raise RuntimeError("batch: the 8-row run failed")
+        _step_launches_exact("batch (8 rows)", rec)
+        if not profiled:
+            gaps = np.diff(np.asarray([s[16:64] for s in stamps]), axis=1)
+            steady = list(np.median(gaps, axis=1) * 1e3)
+            continue
+        busy, n_launch = _report_profile(
+            prof, window, f"batch: profile of {n_steps} pooled steps at 8 "
+            f"active rows", "profile_batch_8rows.txt")
+        log(f"batch: a pooled step at 8 rows under the profiler: "
+            f"{window / n_steps * 1e3:.3f} ms wall, "
+            f"{busy / n_steps * 1e3:.3f} ms of device kernels "
+            f"({100 * busy / window:.1f}% busy), "
+            f"{n_launch / n_steps:.1f} launches a step | {smi}")
+    log(f"batch: a pooled step at 8 active rows (median gap between a "
+        f"stream's tokens 16-64 of 72, per stream) "
+        f"{[round(x, 2) for x in steady]} ms; generate's b=8 step in the "
+        f"same call {[round(x, 2) for x in gen_step]} ms "
+        f"((t(32 new) - t(1 new)) / 31, {REPS} runs) | {smi}")
+
+    worker_path = _batch_worker(smi, model, cfg, engine)
+    _batch_idefics(smi)
+    for k, v in worker_path.items():
+        path[k] = path.get(k, 0) + v
+    return path
+
+
+def _batch_worker(smi: str, model, cfg, engine):
+    """The worker with `--continuous-batching --num-slots 4` built
+    in-process (a batcher of 4 slots, cache 2048, chunks of 256, behind
+    `make_batched_stream_fn`): four greedy 32-token requests at once over
+    localhost HTTP, then one after another, 3 rounds; each text equal to
+    the take-turns worker's (`generate`'s); the status carries
+    `batching`. Returns the launches of the rounds."""
+    import threading
+    import urllib.request
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    from otter_tpu_torch.serve.worker import (ModelWorker, build_app,
+                                              decode_images_to_vision_x,
+                                              make_batched_stream_fn,
+                                              run_app_in_thread)
+    from otter_tpu_torch.tools import bench_decode
+
+    tok = otter_tokenizer(cfg)
+    requests = worker_requests(cfg, 4, SEED + 102)
+    reqs, want = [], []
+    for r in requests:
+        vx = decode_images_to_vision_x(r["images"], cfg.vision.image_size)
+        ids = tok(r["prompt"], return_tensors="np")["input_ids"]
+        out = engine.generate(vx, ids, gen=GenerationConfig(
+            max_new_tokens=32))
+        reqs.append((vx, ids))
+        want.append(_cut_at(out[0, ids.shape[1]:].tolist(),
+                            cfg.eoc_token_id))
+    batcher = ContinuousBatcher(model, num_slots=4, cache_len=2048,
+                                prefill_chunk=256, cache_dtype=torch.int8)
+    rec = _StepRecorder(batcher)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    worker = ModelWorker(controller_addr="", worker_addr=url,
+                         model_name="otter", no_register=True,
+                         stream_fn=make_batched_stream_fn(batcher, tok, cfg))
+    stop = run_app_in_thread(build_app(worker), "127.0.0.1", port)
+    rounds, launches = [], {}
+    try:
+        post_stream(url + "/worker_generate_stream",
+                    dict(requests[0], generation_kwargs={
+                        "max_new_tokens": 2}))                  # warm-up
+        for _ in range(REPS):
+            rec.reset()
+            before = bench_decode.kernel_launches()
+            results = [None] * 4
+            barrier = threading.Barrier(4)
+
+            def run(i):
+                barrier.wait()
+                results[i] = post_stream(url + "/worker_generate_stream",
+                                         requests[i])
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(4)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t
+            if any(th.is_alive() for th in threads) or None in results:
+                raise RuntimeError("batch worker: a request hung")
+            partings = []
+            for i, (res, w) in enumerate(zip(results, want)):
+                text = _final_text(res[0], f"concurrent request {i}")
+                if text != tok.decode(w):
+                    got = _cut_at([t for t, _ in rec.tokens(
+                        reqs[i][1].shape[1])], cfg.eoc_token_id)
+                    if got == w:
+                        raise RuntimeError(
+                            f"batch worker: request {i}'s text differs "
+                            f"from its tokens': {text[:60]!r}")
+                    _hold_greedy("batch worker", engine, reqs[i], w, got,
+                                 rec, partings)
+            _step_launches_exact("batch worker", rec)
+            alone = []
+            for i, r in enumerate(requests):
+                # the pooled step runs all 4 rows whoever holds them: a
+                # request alone gives its text at once
+                alone.append(post_stream(url + "/worker_generate_stream", r))
+                if _final_text(alone[-1][0], f"request {i} alone") != \
+                        _final_text(results[i][0], f"request {i}"):
+                    raise RuntimeError(f"batch worker: request {i} alone "
+                                       f"differs from itself at once")
+            after = bench_decode.kernel_launches()
+            for k in after:
+                if after[k] != before[k]:
+                    launches[k] = launches.get(k, 0) + after[k] - before[k]
+            rounds.append((wall, sum(a[2] for a in alone), results, alone,
+                           partings))
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/worker_get_status", data=b"{}",
+                headers={"Content-Type": "application/json"}),
+                timeout=60) as resp:
+            status = json.loads(resp.read())
+    finally:
+        stop()
+        batcher.shutdown()
+    if "batching" not in status or status["batching"]["num_slots"] != 4:
+        raise RuntimeError(f"batch worker: status {status}")
+    n_tok = [len(w) for w in want]
+    for k, (wall, seq, conc, alone, partings) in enumerate(rounds):
+        log(f"batch worker round {k}: 4 requests (prompts "
+            f"{[r[1].shape[1] for r in reqs]} tokens + 1 256x256 PNG "
+            f"each, {n_tok} greedy tokens) over localhost HTTP to "
+            f"--continuous-batching --num-slots 4 | at once: first chunk "
+            f"{[round(c[1] * 1e3, 2) for c in conc]} ms, "
+            f"{sum(n_tok) / wall:.2f} tok/s aggregate ({wall * 1e3:.1f} "
+            f"ms) | one after another: first chunk "
+            f"{[round(a[1] * 1e3, 2) for a in alone]} ms, "
+            f"{sum(n_tok) / seq:.2f} tok/s ({seq * 1e3:.1f} ms) | at once "
+            f"/ one after another {seq / wall:.2f}x (the take-turns worker, "
+            f"PR 15: 0.86-1.08x) | texts equal to the take-turns worker's"
+            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)} | {smi}")
+    log(f"batch worker: /worker_get_status carries batching: "
+        f"{ {k: v for k, v in status['batching'].items() if k != 'recent'} }")
+    return launches
+
+
+def _batch_idefics(smi: str):
+    """idefics-9b cut in depth (4 decoder layers: one xattn block; every
+    width kept), int8 decoder and KV cache: four requests through a
+    batcher of 4 slots, each against `generate` alone."""
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    from otter_tpu_torch.generation.engine import OtterGenerator
+
+    cfg = idefics_cfg(depth_cut=True)
+    model = build_model(cfg)
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    vx, ids, mask = idefics_requests(cfg, 4, SEED + 103)
+    reqs = [(vx[i:i + 1], ids[i:i + 1][:, mask[i].astype(bool)])
+            for i in range(4)]
+    if len({r[1].shape[1] for r in reqs}) != 4:
+        raise RuntimeError("batch idefics: two prompts of one length")
+    gen = GenerationConfig(max_new_tokens=32)
+    want = [_cut_at(engine.generate(*r, gen=gen)[0, r[1].shape[1]:]
+                    .tolist(), cfg.eoc_token_id) for r in reqs]
+    b = ContinuousBatcher(model, num_slots=4, cache_len=2048,
+                          cache_dtype=torch.int8)
+    rec = _StepRecorder(b)
+    try:
+        got, _, _, wall = _run_requests(b, [("greedy", r, gen)
+                                            for r in reqs], 4, 0.0)
+    finally:
+        b.shutdown()
+    partings = []
+    for r, w, g in zip(reqs, want, got):
+        _hold_greedy("batch idefics", engine, r, w, g, rec, partings)
+    step = {"decode_attention": cfg.text.num_hidden_layers}
+    _step_launches_exact("batch idefics", rec, step)
+    log(f"batch idefics: idefics-9b cut to {cfg.text.num_hidden_layers} "
+        f"layers, int8 decoder and cache, 4 idefics-instruct requests "
+        f"(prompts {[r[1].shape[1] for r in reqs]} tokens, one image each) "
+        f"through 4 slots: {sum(len(g) for g in got)} tokens in "
+        f"{wall * 1e3:.1f} ms; tokens equal to generate alone"
+        f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}; "
+        f"each pooled step {step} | {smi}")
+
+
 def phase_profile(run, tag: str):
     """torch.profiler over one request served by `run(n_new)`: the prefill
     alone (1 new token), then the prefill + 31 decode steps; a decode
@@ -3375,7 +3964,7 @@ KERNELS = {
                     "otter_tpu/ops/quant.py:22"),
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
-          "idefics,trainparity,train")
+          "idefics,batch,trainparity,train")
 
 
 def main(argv=None) -> int:
@@ -3454,6 +4043,8 @@ def main(argv=None) -> int:
     if "idefics" in phases:
         by_path["idefics"] = run("idefics", phase_idefics, smi,
                                  "profile" in phases)
+    if "batch" in phases:
+        by_path["batch"] = run("batch", phase_batch, smi)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

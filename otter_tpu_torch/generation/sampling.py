@@ -118,3 +118,49 @@ def sample_token(logits: torch.Tensor, *, do_sample: bool,
     logits = apply_top_p(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def filter_rows(scaled: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row top-k + top-p filtering of pre-scaled logits [B, V];
+    `top_k` [B] int (0 = off), `top_p` [B] float (1.0 = off).
+
+    One full-vocab sort: the top-k filter sets a value-ordered suffix of
+    the sorted view to NEG_INF, so the sorted view of the filtered logits
+    is the same `where` applied to the sorted array and the nucleus pass
+    needs no second sort."""
+    v = scaled.shape[-1]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    # per-row top-k: threshold at the k-th largest (k = 0: no filter)
+    k_idx = (top_k.long() - 1).clamp(0, v - 1)
+    kth = torch.gather(sorted_desc, 1, k_idx[:, None])
+    kmask = top_k[:, None] > 0
+    neg = torch.full_like(scaled, NEG_INF)
+    scaled = torch.where(kmask & (scaled < kth), neg, scaled)
+    sorted_f = torch.where(kmask & (sorted_desc < kth), neg, sorted_desc)
+    # per-row top-p (nucleus), always keeping the argmax
+    probs = torch.softmax(sorted_f, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = cum - probs < top_p[:, None]
+    thresh = torch.where(keep, sorted_f,
+                         torch.full_like(sorted_f, float("inf"))
+                         ).amin(-1, keepdim=True)
+    return torch.where(scaled < thresh, neg, scaled)
+
+
+def sample_rows(logits: torch.Tensor, *, do_sample: torch.Tensor,
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+    """Per-row sampling, every control a [B] tensor: logits [B, V] ->
+    token [B] int64. Logits are scaled in float32; a sampled row draws by
+    the Gumbel-max rule (`jax.random.categorical`'s), with uniforms from
+    `generator` on the logits' device, so that no step waits on the host."""
+    greedy = logits.argmax(-1)
+    scaled = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
+    scaled = filter_rows(scaled, top_k, top_p)
+    u = torch.rand(scaled.shape, generator=generator,
+                   device=scaled.device).clamp_(1e-20, 1.0)
+    sampled = (scaled - torch.log(-torch.log(u))).argmax(-1)
+    return torch.where(do_sample, sampled, greedy)

@@ -27,9 +27,17 @@ runs on the GPU (`--device cpu` for the CPU). `--model-family idefics`
 serves an HF `IdeficsForVisionText2Text` checkpoint (idefics-9b, or a
 config JSON); its int8 and int4 loads quantize the decoder layers only
 (`models.idefics.quantize_decoder`), where the JAX worker's default
-patterns also take the head, which its model then cannot find. Not ported
-yet, and refused at start: `--continuous-batching`, `--session-cache`,
-`--draft-checkpoint` (ROADMAP Queue 1 item 6).
+patterns also take the head, which its model then cannot find.
+
+`--continuous-batching` (otter and idefics families) serves every request
+through one `generation.batching.ContinuousBatcher` instead: concurrent
+requests decode in one shared step over `--num-slots` slots of a
+`--cache-len` cache, long prompts prefill `--prefill-chunk` tokens at a
+time (otter family), and `/worker_get_status` reports the batcher's
+`stats()` under "batching". Not ported yet, and refused at start:
+`--session-cache` (ROADMAP Queue 1 item 6.3) and `--draft-checkpoint`
+(item 6.2). The fuyu family refuses `--continuous-batching`, which the JAX
+worker ignores there.
 """
 
 from __future__ import annotations
@@ -146,8 +154,14 @@ class ModelWorker:
         return max(self._active - self.limit, 0) + self._active
 
     def get_status(self) -> dict:
-        return {"model_names": [self.model_name], "speed": 1,
-                "queue_length": self.get_queue_length()}
+        status = {"model_names": [self.model_name], "speed": 1,
+                  "queue_length": self.get_queue_length()}
+        stats = getattr(self.stream_fn, "stats", None)
+        if stats is not None:
+            # a continuous-batching worker reports its latency aggregates
+            # (TTFT / decode-rate percentiles, queue depth)
+            status["batching"] = stats()
+        return status
 
     # ── generation ──────────────────────────────────────────────────
 
@@ -225,6 +239,32 @@ def _relay(tokenizer, token_iter, stream_interval: int) -> Iterator[str]:
     if pending:
         text += tokenizer.decode(pending, skip_special_tokens=True)
     yield text
+
+
+def make_batched_stream_fn(batcher, tokenizer, cfg, *,
+                           stream_interval: int = 2, mean=None, std=None):
+    """Bridges the HTTP params to `batcher`, a `ContinuousBatcher`:
+    concurrent requests decode in one shared step. mean/std select the
+    family's normalization (FLAMINGO by default; IDEFICS for idefics). A
+    request without images runs on one zero image. `stream_fn.stats` is
+    the batcher's `stats`, which `/worker_get_status` reports."""
+    patch_size = cfg.vision.image_size
+
+    def stream_fn(params: dict) -> Iterator[str]:
+        vision_x = decode_images_to_vision_x(params.get("images"),
+                                             patch_size=patch_size,
+                                             mean=mean, std=std)
+        if vision_x is None:
+            vision_x = np.zeros((1, 1, 1, 3, patch_size, patch_size),
+                                np.float32)
+        gen = _parse_gen_kwargs(params.get("generation_kwargs", {}))
+        enc = tokenizer(params["prompt"], return_tensors="np")
+        lang_x = np.asarray(enc["input_ids"]).astype(np.int64)
+        yield from _relay(tokenizer, batcher.submit(vision_x, lang_x, gen),
+                          stream_interval)
+
+    stream_fn.stats = batcher.stats
+    return stream_fn
 
 
 def make_otter_stream_fn(engine, tokenizer, cfg, *,
@@ -581,20 +621,38 @@ def main(argv=None):
                    help="the GPU by default; raises without one unless "
                         "another device (cpu) is named")
     p.add_argument("--continuous-batching", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 6)")
+                   help="otter and idefics families: multiplex concurrent "
+                        "requests through one shared decode step (slot "
+                        "pool) instead of taking turns")
+    p.add_argument("--num-slots", type=int, default=4)
+    p.add_argument("--prefill-chunk", type=int, default=256, metavar="C",
+                   help="continuous batching (otter family): split long "
+                        "prompt prefills into C-token cache-append steps "
+                        "interleaved with decode iterations, bounding "
+                        "every active stream's admission stall at one "
+                        "chunk instead of the whole prompt; 0 = one-shot "
+                        "prefill")
+    p.add_argument("--cache-len", type=int, default=2048)
     p.add_argument("--session-cache", type=int, default=0, metavar="N",
-                   help="not ported yet (ROADMAP Queue 1 item 6)")
+                   help="not ported yet (ROADMAP Queue 1 item 6.3)")
     p.add_argument("--draft-checkpoint", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 6)")
+                   help="not ported yet (ROADMAP Queue 1 item 6.2)")
     args = p.parse_args(argv)
 
-    for flag, given in (("--continuous-batching", args.continuous_batching),
-                        ("--session-cache", args.session_cache > 0),
-                        ("--draft-checkpoint", args.draft_checkpoint)):
+    if args.continuous_batching and args.session_cache > 0:
+        p.error("--session-cache is incompatible with "
+                "--continuous-batching: slots share one pooled KV "
+                "cache, so cross-turn prefix reuse is unavailable. "
+                "Drop one of the two flags.")
+    for flag, given, item in (
+            ("--session-cache", args.session_cache > 0, "6.3"),
+            ("--draft-checkpoint", args.draft_checkpoint, "6.2")):
         if given:
-            p.error(f"{flag} is not ported yet: the batcher, the session "
-                    f"cache and speculative decoding are ROADMAP Queue 1 "
-                    f"item 6")
+            p.error(f"{flag} is not ported yet: ROADMAP Queue 1 item "
+                    f"{item}")
+    if args.continuous_batching and args.model_family == "fuyu":
+        p.error("--continuous-batching serves the otter and idefics "
+                "families; the fuyu family decodes through fuyu_generate")
     device = resolve_device(args.device)
     if args.load_bit == "fp32" and device.type == "cuda":
         p.error("--load-bit fp32 on a CUDA device: the kernels take bf16 "
@@ -623,8 +681,31 @@ def main(argv=None):
         else (load_otter_model, make_otter_stream_fn))
     model, cfg = load(args.checkpoint, cfg, load_bit=args.load_bit,
                       device=device)
-    engine = OtterGenerator(model, cache_dtype=CACHE_DTYPES[args.cache_bit])
+    cache_dtype = CACHE_DTYPES[args.cache_bit]
+    if args.continuous_batching:
+        stream_worker(_batched_stream_fn(args, model, cfg, tokenizer,
+                                         cache_dtype))
+        return
+    engine = OtterGenerator(model, cache_dtype=cache_dtype)
     stream_worker(make_stream_fn(engine, tokenizer, cfg))
+
+
+def _batched_stream_fn(args, model, cfg, tokenizer, cache_dtype):
+    """`--continuous-batching`: one `ContinuousBatcher` over the model,
+    with the family's normalization. The idefics family prefills in one
+    shot, as the JAX worker builds its batcher."""
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    kw, norm = {}, {}
+    if args.model_family == "idefics":
+        from otter_tpu_torch.data.templates import (IDEFICS_STANDARD_MEAN,
+                                                    IDEFICS_STANDARD_STD)
+        norm = dict(mean=IDEFICS_STANDARD_MEAN, std=IDEFICS_STANDARD_STD)
+    else:
+        kw = dict(prefill_chunk=args.prefill_chunk)
+    batcher = ContinuousBatcher(model, num_slots=args.num_slots,
+                                cache_len=args.cache_len,
+                                cache_dtype=cache_dtype, **kw)
+    return make_batched_stream_fn(batcher, tokenizer, cfg, **norm)
 
 
 if __name__ == "__main__":

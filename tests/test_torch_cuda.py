@@ -3,7 +3,9 @@ the edge cases the serving and training paths' shapes do not reach (other
 head dims, "ge" ids, full-rank and broadcast biases, rows that attend
 nothing, lengths that are not multiples of the tile, odd batch sizes,
 biases and other activations in the MLP, the fused decode layer's two
-kernels at small widths, the ends of the cache and refused inputs).
+kernels at small widths, the ends of the cache and refused inputs), and
+the continuous batcher's pooled step on a small model, kernels against
+plain.
 
 Needs an NVIDIA GPU; skipped without one. On the card:
 `pytest -m cuda tests/test_torch_cuda.py`. Tolerance: bf16 in and out,
@@ -1011,3 +1013,96 @@ def test_degrade_budget_ignores_freed_blocks(gen):
         torch.cuda.memory_allocated(dev) >= 4e9
     assert pick() == first == torch.bfloat16
     torch.cuda.empty_cache()
+
+
+# ── the continuous batcher on the card ───────────────────────────────
+
+def _card_otter():
+    """A small OtterVLM on the card with seeded random weights: int8
+    decoder and xattn, head dim 64, MLP widths the int8 kernels take."""
+    from otter_tpu_torch.config import (OtterConfig, PerceiverConfig,
+                                        TextConfig, VisionConfig)
+    from otter_tpu_torch.tools.random_weights import build_model
+    cfg = OtterConfig(
+        vision=VisionConfig(hidden_size=128, intermediate_size=256,
+                            num_hidden_layers=1, num_attention_heads=2,
+                            image_size=28, patch_size=14),
+        text=TextConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=1024,
+                        max_seq_len=512, quant="int8", decode_kernel="auto"),
+        perceiver=PerceiverConfig(dim=128, depth=1, dim_head=64, heads=2,
+                                  num_latents=8),
+        cross_attn_every_n_layers=2, xattn_dim_head=64, xattn_heads=4,
+        media_token_id=509, eoc_token_id=508)
+    return build_model(cfg, "cuda", 0)
+
+
+def _card_requests(gen, lengths):
+    """(vision_x, ids) of one request a length, the media token first."""
+    out = []
+    for s in lengths:
+        ids = torch.randint(1, 500, (1, s), generator=gen, device="cuda")
+        ids[0, 0] = 509
+        vx = torch.randn((1, 1, 1, 3, 28, 28), generator=gen, device="cuda")
+        out.append((vx.cpu().numpy(), ids.cpu().numpy()))
+    return out
+
+
+def test_batcher_pooled_step_kernels_match_plain(gen, monkeypatch):
+    """Three requests through a pool of 4 on the card, then one more
+    pooled step over the pool they left: `int8_mlp` and `decode_attention`
+    launched once a layer (whatever rows are active), the logits within
+    5e-2 max|plain| of the same step with both swapped for their plain
+    versions."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    from otter_tpu_torch.tools import bench_decode
+    model = _card_otter()
+    reqs = _card_requests(gen, (9, 12, 15))
+    b = ContinuousBatcher(model, num_slots=4, cache_len=64, buckets=(16,),
+                          cache_dtype=torch.int8, max_admits_per_iter=4)
+    try:
+        got = [list(b.submit(vx, ids, Gen(max_new_tokens=6,
+                                          eos_token_id=-1)))
+               for vx, ids in reqs]
+    finally:
+        b.shutdown()
+    assert b._failure is None and [len(g) for g in got] == [6, 6, 6]
+    lp, st = b._static_args(b._slots)
+    ca = b._carried_args(b._slots)
+    ca["alive"] = torch.tensor([True, True, True, False], device="cuda")
+    saved = ({k: v.clone() for k, v in b._cache.items()}, b._buffer.clone(),
+             b._valid.clone())
+    before = bench_decode.kernel_launches()
+    kern = b._decode_step(ca, st, lp, True)[4].float()
+    torch.cuda.synchronize()
+    after = bench_decode.kernel_launches()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"int8_mlp": 3,
+                                          "decode_attention": 2}
+    b._cache, b._buffer, b._valid = saved
+    monkeypatch.setattr(da, "decode_attention", da.decode_attention_plain)
+    monkeypatch.setattr(quant, "int8_mlp", quant.int8_mlp_plain)
+    plain = b._decode_step(ca, st, lp, True)[4].float()
+    err = (kern[:3] - plain[:3]).abs().max().item()
+    assert err <= 5e-2 * plain[:3].abs().max().item(), err
+
+
+def test_batcher_finished_row_at_the_cache_end_on_the_card(gen):
+    """A request that fills its row of the cache stops there while
+    another decodes on: no write past the cache (which would be a
+    device-side assert for every stream), the other request finishes."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    model = _card_otter()
+    reqs = _card_requests(gen, (10, 14))
+    b = ContinuousBatcher(model, num_slots=2, cache_len=20, buckets=(16,),
+                          cache_dtype=torch.int8, max_admits_per_iter=2)
+    try:
+        short = b.submit(*reqs[0], Gen(max_new_tokens=10, eos_token_id=-1))
+        long_ = b.submit(*reqs[1], Gen(max_new_tokens=9, eos_token_id=-1))
+        got = [list(short), list(long_)]
+    finally:
+        b.shutdown()
+    torch.cuda.synchronize()
+    assert b._failure is None and [len(g) for g in got] == [5, 5]

@@ -484,6 +484,53 @@ def test_idefics_stream_over_http_matches_jax_worker():
         stop()
 
 
+def test_batched_stream_fn_matches_jax_worker(tmp_path):
+    """`make_batched_stream_fn` over the port's `ContinuousBatcher` (tiny
+    int8 model, int8 cache, two slots), served over HTTP with two requests
+    at once, gives the texts of the JAX worker's `make_batched_stream_fn`
+    over the JAX batcher on the same weights, with the same word-level
+    tokenizer; `/worker_get_status` carries the batcher's stats."""
+    from transformers import AutoTokenizer
+    from otter_tpu.generation.batching import \
+        ContinuousBatcher as JaxBatcher
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    cfg, jmodel, params, _ = jax_tiny()
+    tok = AutoTokenizer.from_pretrained(_tokenizer_dir(tmp_path, cfg))
+    kw = dict(num_slots=2, cache_len=64, buckets=(16,))
+    jb = JaxBatcher(jmodel, params, cfg, cache_dtype="int8", **kw)
+    tb = ContinuousBatcher(torch_tiny(), cache_dtype=torch.int8, **kw)
+    reqs = [{"prompt": "<image> w5 w17 w99 w3 w60", "images": [_png(33)],
+             "generation_kwargs": {"max_new_tokens": 6}},
+            {"prompt": "w8 w9 w10 w11",
+             "generation_kwargs": {"max_new_tokens": 5}}]
+    w = ModelWorker(controller_addr="", worker_addr="", model_name="otter",
+                    stream_fn=worker.make_batched_stream_fn(tb, tok, cfg),
+                    no_register=True)
+    url, stop = _serve(build_app(w))
+    try:
+        jfn = jworker.make_batched_stream_fn(jb, tok, cfg)
+        want = [list(jfn(r)) for r in reqs]
+        results = [None] * 2
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, _stream(url, reqs[i]))) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        for chunks, texts in zip(results, want):
+            assert all(c["error_code"] == 0 for c in chunks), chunks
+            assert [c["text"] for c in chunks] == texts and texts[-1]
+        import requests
+        status = requests.post(url + "/worker_get_status", timeout=30).json()
+        assert status["batching"]["completed"] == 2
+        assert set(status["batching"]) == set(jb.stats())
+    finally:
+        stop()
+        jb.shutdown()
+        tb.shutdown()
+
+
 def test_cli_chat_loop_streams_text(otter_pair):
     """`chat_loop` through StringIO: two turns, each printing what
     `stream_generate` yields for the rendered prompt, then EOF."""
@@ -521,16 +568,39 @@ def _main_args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--continuous-batching"], "item 6"),
+    (["--continuous-batching", "--draft-checkpoint", "draft.bin"],
+     "item 6"),
     (["--session-cache", "4"], "item 6"),
     (["--draft-checkpoint", "draft.bin"], "item 6"),
 ])
 def test_unported_flags_refuse_at_start(tmp_path, capsys, flags, item):
+    """Speculative decoding (item 6.2, with or without the batcher) and
+    the session cache (item 6.3) are refused before anything loads."""
     with pytest.raises(SystemExit) as e:
         worker.main(_main_args(tmp_path, "--device", "cpu", *flags))
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP Queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--continuous-batching", "--session-cache", "2"],
+     "--session-cache is incompatible with --continuous-batching: slots "
+     "share one pooled KV cache, so cross-turn prefix reuse is "
+     "unavailable. Drop one of the two flags."),
+    (["--continuous-batching", "--model-family", "fuyu"],
+     "--continuous-batching serves the otter and idefics families"),
+])
+def test_batching_flag_conflicts_refuse_at_start(tmp_path, capsys, flags,
+                                                 message):
+    """The session cache with the batcher gives the JAX worker's error
+    (`otter_tpu/serve/worker.py`, its continuous-batching branch); the
+    fuyu family, which the JAX worker serves without a word about the
+    flag, refuses it."""
+    with pytest.raises(SystemExit) as e:
+        worker.main(_main_args(tmp_path, "--device", "cpu", *flags))
+    assert e.value.code == 2
+    assert message in " ".join(capsys.readouterr().err.split())
 
 
 def test_fp32_refused_on_the_card(tmp_path, capsys, monkeypatch):
@@ -678,6 +748,30 @@ def _run_worker(args, req):
     finally:
         proc.terminate()
         proc.wait(30)
+
+
+def test_worker_entry_point_batches_an_idefics_checkpoint(tmp_path):
+    """`--model-family idefics --continuous-batching --num-slots 2`: the
+    worker serves through the batcher (stills at the IDEFICS mean/std), and
+    a request's text equals the take-turns worker's on the same start-up
+    run in this process."""
+    from transformers import AutoTokenizer
+    cfg, ckpt, cfg_path, tok_dir = _idefics_files(tmp_path)
+    req = {"prompt": "w5 <image> w17 w99 w3", "images": [_png(34)],
+           "generation_kwargs": {"max_new_tokens": 5}}
+    chunks = _run_worker(["--model-family", "idefics", "--config", cfg_path,
+                          "--checkpoint", ckpt, "--tokenizer", tok_dir,
+                          "--load-bit", "int8", "--cache-bit", "int8",
+                          "--continuous-batching", "--num-slots", "2",
+                          "--cache-len", "128"], req)
+    assert all(c["error_code"] == 0 for c in chunks), chunks
+    model, mcfg = worker.load_idefics_model(ckpt, cfg, load_bit="int8",
+                                            device="cpu")
+    fn = worker.make_idefics_stream_fn(
+        OtterGenerator(model, cache_dtype=torch.int8),
+        AutoTokenizer.from_pretrained(tok_dir), mcfg)
+    assert [c["text"] for c in chunks] == list(fn(req))
+    assert chunks[-1]["text"]
 
 
 def test_worker_entry_point_serves_an_idefics_checkpoint(tmp_path):
