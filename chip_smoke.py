@@ -25,7 +25,9 @@ unless every phase passes:
                  for the same bytes / operations); for every flash case
                  also the device times of the kernel and the library call
                  (below ~0.05 ms a call's wall time is the host's);
-                 `int8_mlp` at 4096 -> 16384 -> 4096 (M = 1, 8, 32),
+                 `int8_mlp` at 4096 -> 16384 -> 4096 (M = 1, 8, 32 and
+                 5, a verify window), Flamingo-MPT-1B's 2048 -> 8192 ->
+                 2048 (M = 1, 2, 5, 16),
                  OtterHD's with biases and sq_relu (M = 1) and falcon7b's
                  4544 -> 18176 -> 4544 (M = 8), `int8_attn_tail` at M = 1,
                  8 and 32, `decode_attn_megakernel` at b = 1 and 8 over
@@ -182,6 +184,34 @@ unless every phase passes:
                  HTTP (4 requests at once against one after another, 3
                  rounds, the status carrying batching) and idefics-9b
                  cut to 4 layers through 4 slots.
+ 16. spec        speculative decoding and the session cache (runs after
+                 batch): OTTER-MPT7B at full width and depth (int8
+                 weights and KV cache) with a Flamingo-MPT-1B draft (24
+                 mosaic_gpt layers with qk_ln, an xattn block before each;
+                 int8), random weights from a seed. (a) SpeculativeGenerator
+                 at b=1, gamma 4, 32 new tokens on serve's prompts: the
+                 MPT-1B draft and the target as its own draft (every
+                 proposal accepted: the prefill and ceil(31/5) = 7 rounds,
+                 unless a bf16 near-tie rejects one, judged by its
+                 logits), TTFT, ms and tokens a round, tok/s beside
+                 generate's; every round launches int8_mlp and
+                 decode_attention exactly as derived from the routing
+                 (`spec_round_launches`); stream = generate; tokens equal
+                 to generate alone, or the parting token's logits within
+                 5e-2 max|lone|. (b) ContinuousBatcher(num_slots=8,
+                 cache_len=2048, draft=MPT-1B, spec_gamma=4), the adaptive
+                 controller off then on (its cadence cut to 4 / 2
+                 iterations: it probes gamma 2 and plain decode and
+                 chooses): 8 greedy requests of 32 new tokens and one
+                 sampled of 8; exact launches of every round, plain step
+                 and catch-up; the wall of a round at 8 rows; the modes
+                 chosen (`stats()`); greedy tokens against the draft-free
+                 pool's, partings judged by their logits. (c) the worker
+                 with --draft-checkpoint and --session-cache 2 built
+                 in-process over localhost HTTP: a 3-turn conversation
+                 under one session id, each turn's time to the first chunk
+                 beside the stateless worker's, the texts equal; then
+                 sessions A, B, C: the least recently used is evicted.
  11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
                  main: 2 warm-up and 5 timed SFT steps on one synthetic
                  batch (b=2, 1024 tokens, one 224x224 image each, remat,
@@ -193,7 +223,7 @@ unless every phase passes:
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all fifteen (`--phases beam` the beam phase alone). `flashkernels`
+runs all sixteen (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -962,6 +992,20 @@ def _decode_cases(gen):
                               dtype=torch.bfloat16),
                   "int8", i32([0, 28, 51, 96, 0, 64, 83, 38]),
                   i32([160] * 8), None, (8, 32, 32, 256, 128)))
+    # Flamingo-MPT-1B, the speculative draft: 16 heads of 128, 24 layers,
+    # ALiBi; alone at b=1 (cache 256: 128 prompt columns and 32 new, with
+    # the round's room), and in 8 slots of a cache of 2048
+    cases.append(("mpt1b int8 b=1 L=256",
+                  torch.randn(1, 16, 128, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  "int8", i32([0]), i32([170]), alibi(16, 256),
+                  (1, 24, 16, 256, 128)))
+    cases.append(("mpt1b int8 b=8 L=2048",
+                  torch.randn(8, 16, 128, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+                  "int8", i32([0, 24, 51, 60, 0, 64, 83, 38]),
+                  i32([160, 150, 141, 129, 200, 133, 170, 190]),
+                  alibi(16, 2048), (8, 24, 16, 2048, 128)))
     # Persimmon is rotary: no bias; the cache holds the 2356-token prompt
     # and 16 new tokens, rounded up to a multiple of 128
     cases.append(("otterhd int8 b=1 L=2432",
@@ -1170,23 +1214,36 @@ def _bits_repeat(fn, out) -> bool:
 def _mlp_kernels(gen, report, entries):
     """`int8_mlp` alone, then `int8_attn_tail` alone (`_tail_kernels`),
     against their plain versions, with device times: the decoder MLP 4096
-    -> 16384 -> 4096 (gelu) at M = 1, 8 and 32, OtterHD's (biases,
-    sq_relu) at M = 1, falcon7b's 4544 -> 18176 -> 4544 at M = 8. A call
-    reads 134-165 MB of weights, more than the 50 MB L2, so one weight set
-    serves. No single PyTorch call computes it: library "none"."""
+    -> 16384 -> 4096 (gelu) at M = 1, 8 and 32 and at M = 5 (the verify
+    window of a speculative round at gamma 4, b=1), OtterHD's (biases,
+    sq_relu) at M = 1, falcon7b's 4544 -> 18176 -> 4544 at M = 8,
+    Flamingo-MPT-1B's 2048 -> 8192 -> 2048 (the draft's MLPs and xattn FFs)
+    at M = 1, 2 (its opener at b=1), 5 and 16 (its opener at 8 slots). A
+    7B call reads 134-165 MB of weights, more than the 50 MB L2, so one
+    weight set serves; a 1B call reads 33.6 MB, so its timed calls go
+    round four weight sets. No single PyTorch call computes it: library
+    "none"."""
     import torch
     from otter_tpu_torch.ops import quant
     cases = (("M=1", 4096, 16384, 1, "gelu", False),
              ("M=8", 4096, 16384, 8, "gelu", False),
              ("M=32", 4096, 16384, 32, "gelu", False),
+             ("M=5 (verify window)", 4096, 16384, 5, "gelu", False),
              ("otterhd M=1 biases sq_relu", 4096, 16384, 1, "sq_relu", True),
-             ("falcon7b M=8", 4544, 18176, 8, "gelu", False))
+             ("falcon7b M=8", 4544, 18176, 8, "gelu", False),
+             ("mpt1b M=1", 2048, 8192, 1, "gelu", False),
+             ("mpt1b M=2", 2048, 8192, 2, "gelu", False),
+             ("mpt1b M=5", 2048, 8192, 5, "gelu", False),
+             ("mpt1b M=16", 2048, 8192, 16, "gelu", False))
     weights = {}
     for case, k, h, m, act, biases in cases:
         if (k, h) not in weights:
             weights.clear()
-            weights[(k, h)] = _qk(gen, k, h) + _qk(gen, h, k)
-        w1q, s1, w2q, s2 = weights[(k, h)]
+            sets = 4 if 2 * k * h < 50e6 else 1
+            weights[(k, h)] = [_qk(gen, k, h) + _qk(gen, h, k)
+                               for _ in range(sets)]
+        w1q, s1, w2q, s2 = weights[(k, h)][0]
+        turn = iter(range(10 ** 9))
         kw = dict(act=act)
         if biases:
             kw.update(b1=0.1 * torch.randn(h, generator=gen, device="cuda"),
@@ -1196,6 +1253,10 @@ def _mlp_kernels(gen, report, entries):
 
         def call():
             return quant.int8_mlp(x, w1q, s1, w2q, s2, **kw)
+
+        def timed():   # the next weight set (the 1B cases' L2 rotation)
+            ws = weights[(k, h)]
+            return quant.int8_mlp(x, *ws[next(turn) % len(ws)], **kw)
 
         def plain():
             return quant.int8_mlp_plain(x, w1q, s1, w2q, s2, **kw)
@@ -1207,9 +1268,9 @@ def _mlp_kernels(gen, report, entries):
             excess = float("inf")
         nbytes = (2 * k * h + 4 * (h + k) * (2 if biases else 1)
                   + 2 * 2 * m * k)
-        r = report("int8_mlp", case, err, excess, time_ms(call),
+        r = report("int8_mlp", case, err, excess, time_ms(timed),
                    time_ms(plain, 5), None, nbytes, 2.0 * m * 2 * k * h,
-                   device=(device_ms(call), None))
+                   device=(device_ms(timed), None))
         if case == "M=8":
             entries["int8_mlp"] = r
     del weights
@@ -2905,8 +2966,9 @@ class _StepRecorder:
         return out
 
 
-def _lone_logits(engine, vx, ids, j: int):
-    """The logits [V] behind token j of `generate` of one request alone."""
+def _lone_logits(engine, vx, ids, j: int, **gen_kw):
+    """The logits [V] behind token j of `generate` of one request alone
+    (`gen_kw`: more of its GenerationConfig)."""
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
     seen = []
@@ -2917,7 +2979,8 @@ def _lone_logits(engine, vx, ids, j: int):
 
     engine._sample = sample
     try:
-        engine.generate(vx, ids, gen=GenerationConfig(max_new_tokens=j + 1))
+        engine.generate(vx, ids, gen=GenerationConfig(max_new_tokens=j + 1,
+                                                      **gen_kw))
     finally:
         del engine._sample
     return seen[j]
@@ -3404,6 +3467,542 @@ def _batch_idefics(smi: str):
         f"{wall * 1e3:.1f} ms; tokens equal to generate alone"
         f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}; "
         f"each pooled step {step} | {smi}")
+
+
+# ── phase 16: speculative decoding and the session cache ────────────
+
+SPEC_GAMMA = 4
+SPEC_TARGET = (32, 8)     # OTTER-MPT7B: decoder layers, xattn blocks
+SPEC_DRAFT = (24, 24)     # Flamingo-MPT-1B: an xattn block before each layer
+
+
+def draft_cfg():
+    """Flamingo-MPT-1B (mosaic_gpt, qk_ln, xattn every layer) as the worker
+    loads a draft: int8 weights, decode_kernel="auto"."""
+    from otter_tpu_torch.config import otter_mpt1b
+    cfg = otter_mpt1b()
+    return cfg.replace(text=cfg.text.replace(quant="int8",
+                                             decode_kernel="auto"))
+
+
+def _add(total: dict, part: dict) -> dict:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def window_launches(rows: int, s: int, dims) -> dict:
+    """The kernels a cached window of `s` tokens a row over `rows` rows
+    launches in a model of `dims` (decoder layers, xattn blocks) with int8
+    weights and cache: `int8_mlp` for every MLP and xattn FF at M = rows *
+    s <= 32 (else `Int8Dense`), `decode_attention` for every layer at
+    s = 1 (a window of s > 1 takes the dense path), `flash_fwd` for every
+    xattn block where a row has more than 8 queries (fewer stay on the
+    plain reference)."""
+    layers, xattn = dims
+    out = {}
+    if rows * s <= 32:
+        out["int8_mlp"] = layers + xattn
+    if s == 1:
+        out["decode_attention"] = layers
+    if s > 8:
+        out["flash_fwd"] = xattn
+    return out
+
+
+def spec_round_launches(rows: int, gamma: int, draft=SPEC_DRAFT) -> dict:
+    """A round's launches: the draft's s=2 opener and gamma-1 single steps,
+    the target's s=gamma+1 verify window."""
+    total = _add({}, window_launches(rows, 2, draft))
+    for _ in range(gamma - 1):
+        _add(total, window_launches(rows, 1, draft))
+    return _add(total, window_launches(rows, gamma + 1, SPEC_TARGET))
+
+
+def _spec_request(cfg, seed: int, length: int):
+    """One unpadded request of serve's kind: (vision_x [1, 1, 1, 3, 224,
+    224], ids [1, length]) with the media token first (numpy)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.eoc_token_id, (1, length)).astype(np.int64)
+    ids[0, 0] = cfg.media_token_id
+    size = cfg.vision.image_size
+    return (rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32),
+            ids)
+
+
+def _first_parting(got, want):
+    if got == want:
+        return None
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def _judge(tag, what, j, mine, other, got, want, partings):
+    """A parting at token j: the logits behind it within PARITY_BAR
+    max|other|, reported in `partings`."""
+    if mine is None or other is None:
+        raise RuntimeError(f"{tag}: {what} parts at token {j} ({got} "
+                           f"against {want}) with no logits to judge")
+    err = float((mine.float() - other.float()).abs().max())
+    bar = PARITY_BAR * float(other.float().abs().max())
+    partings.append(f"{what} parts at token {j} "
+                    f"({got[j] if j < len(got) else 'end'} against "
+                    f"{want[j] if j < len(want) else 'end'}): max |logits - "
+                    f"the other's| {err:.4f} (bar {bar:.4f})")
+    if not err <= bar:
+        raise RuntimeError(f"{tag}: {partings[-1]}")
+
+
+class _GenRecorder:
+    """Wraps a `SpeculativeGenerator`'s rounds, windows and first token:
+    each round's launches; the target's logits behind each buffer column
+    (a verify window's row j decides column pos + j, the prefill's last row
+    the first token); the draft windows' logits by column, where the draft
+    proposed."""
+
+    def __init__(self, sg):
+        from otter_tpu_torch.tools import bench_decode
+        self.reset()
+        rnd, window, first = sg._round, sg._window, sg._first_token
+        g = sg.gamma
+
+        def round_(*a, **k):
+            before = bench_decode.kernel_launches()
+            out = rnd(*a, **k)
+            after = bench_decode.kernel_launches()
+            self.launches.append({n: after[n] - before[n] for n in after
+                                  if after[n] != before[n]})
+            return out
+
+        def window_(model, toks, cache, cache_pos, *a, **k):
+            logits = window(model, toks, cache, cache_pos, *a, **k)
+            s = toks.shape[1]
+            if s == g + 1:       # the verify window: row j decides pos + j
+                for j in range(s):
+                    self.verify[cache_pos + j + 1] = logits[0, j]
+            else:                # a draft window proposes its last column
+                self.proposed[cache_pos + s] = logits[0, -1]
+            return logits
+
+        def first_(logits, *a, **k):
+            self.first = logits[0]
+            return first(logits, *a, **k)
+
+        sg._round, sg._window, sg._first_token = round_, window_, first_
+
+    def reset(self):
+        self.launches, self.verify, self.proposed, self.first = [], {}, {}, None
+
+    def logits(self, p: int, j: int):
+        return self.first if j == 0 else self.verify.get(p + j)
+
+
+def _spec_standalone(smi, model, draft, engine, cfg):
+    """(a) `SpeculativeGenerator` at b=1 on serve's prompts, gamma 4, 32
+    new tokens: the MPT-1B draft and the target as its own draft, beside
+    `generate` alone in the same call; exact launches a round; `stream` =
+    `generate`; tokens against `generate`'s, partings judged by their
+    logits."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    gen = lambda n: GenerationConfig(max_new_tokens=n, eos_token_id=-1)
+    reqs = [_spec_request(cfg, SEED + 120 + i, n)
+            for i, n in enumerate((48, 128, 96))]
+    plain = {n: _timed(lambda n=n: engine.generate(*reqs[0], gen=gen(n)))[1]
+             for n in (1, 32)}
+    plain_step = [(a - b) / 31 for a, b in zip(plain[32], plain[1])]
+    plain_rate = 31e3 / float(np.median([a - b for a, b in
+                                         zip(plain[32], plain[1])]))
+    log(f"spec: generate alone, b=1, {reqs[0][1].shape[1]}-token prompt: "
+        f"TTFT {plain[1]} ms, {[round(x, 2) for x in plain_step]} ms a "
+        f"step, {plain_rate:.2f} tok/s | {smi}")
+    full = math.ceil(31 / (SPEC_GAMMA + 1))
+    for name, d, dims in (("the MPT-1B draft", draft, SPEC_DRAFT),
+                          ("the target as its own draft", model,
+                           SPEC_TARGET)):
+        sg = SpeculativeGenerator(model, d, gamma=SPEC_GAMMA,
+                                  cache_dtype=torch.int8)
+        rec = _GenRecorder(sg)
+        t1 = _timed(lambda: sg.generate(*reqs[0], gen=gen(1)))[1]
+        rec.reset()
+        # (the recorder's cost a round is a few dict updates; the last
+        # timed run is also the first request's checked run)
+        _, t32, first_out = _timed(lambda: (rec.reset(), sg.generate(
+            *reqs[0], gen=gen(32)))[1])
+        emitted, rounds = sg.last_emitted, sg.last_rounds
+        dt = [a - b for a, b in zip(t32, t1)]
+        log(f"spec: {name}, b=1, gamma {SPEC_GAMMA}, "
+            f"{reqs[0][1].shape[1]}-token prompt: TTFT {t1} ms; {emitted} "
+            f"tokens in the prefill and {rounds} rounds "
+            f"({emitted / rounds:.3f} tokens a round, "
+            f"{(emitted - 1) / rounds:.3f} after the first); "
+            f"{[round(x / rounds, 2) for x in dt]} ms a round; "
+            f"{(emitted - 1) * 1e3 / float(np.median(dt)):.2f} tok/s against "
+            f"generate alone's {plain_rate:.2f} | {smi}")
+        want_round = spec_round_launches(1, SPEC_GAMMA, dims)
+        partings, rejected = [], []
+        # (a round of the MPT-1B draft emits ~1 token and costs ~4 target
+        # steps: two requests hold its tokens)
+        checked = reqs if d is model else reqs[:2]
+        for i, (vx, ids) in enumerate(checked):
+            if i:
+                rec.reset()
+                got_full = sg.generate(vx, ids, gen=gen(32))
+            else:
+                got_full = first_out
+            bad = [x for x in rec.launches if x != want_round]
+            if bad or not rec.launches:
+                raise RuntimeError(f"spec: {name}: {len(bad)} of "
+                                   f"{len(rec.launches)} rounds launched "
+                                   f"otherwise than {want_round}: {bad[:2]}")
+            p = ids.shape[1]
+            got = got_full[0, p:].tolist()
+            streamed = list(sg.stream(vx, ids, gen=gen(32))) if i == 0 \
+                else got
+            if streamed != got:
+                raise RuntimeError(f"spec: {name}: stream gave {streamed}, "
+                                   f"generate {got}")
+            want = engine.generate(vx, ids, gen=gen(32))[0, p:].tolist()
+            j = _first_parting(got, want)
+            if j is not None:
+                _judge("spec", f"{name}, the {p}-token request", j,
+                       rec.logits(p, j),
+                       _lone_logits(engine, vx, ids, j, eos_token_id=-1),
+                       got, want, partings)
+            if d is model:
+                # every proposal the target's own argmax: a rejection is a
+                # bf16 near-tie between its s=1 and s=5 windows
+                for c in sorted(rec.proposed):
+                    if c not in rec.verify or c >= p + 32:
+                        continue
+                    a, v = (int(rec.proposed[c].argmax()),
+                            int(rec.verify[c].argmax()))
+                    if a != v:
+                        _judge("spec", f"the self draft's proposal at column "
+                               f"{c} of the {p}-token request (its s=1 "
+                               f"window's {a}, the s=5 verify window's {v})",
+                               c - p, rec.proposed[c], rec.verify[c], [a],
+                               [v], rejected)
+                if sg.last_rounds != full and not rejected:
+                    raise RuntimeError(
+                        f"spec: the target as its own draft took "
+                        f"{sg.last_rounds} rounds for 32 tokens, not {full}")
+        del rec
+        log(f"spec: {name}: requests of "
+            f"{[r[1].shape[1] for r in checked]} tokens, 32 new each; every "
+            f"round launched {want_round}; stream = generate; tokens equal "
+            f"to generate alone"
+            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
+            + ("" if d is not model else
+               f"; every proposal accepted, 32 tokens in the prefill and "
+               f"{full} rounds" if not rejected else
+               f"; 32 tokens in the prefill and {full} rounds but where a "
+               f"proposal was rejected at a bf16 near-tie: "
+               + "; ".join(rejected)))
+
+
+class _PoolRecorder:
+    """Wraps a speculative pool's rounds, plain steps, catch-ups and first
+    tokens (they run on its scheduler thread): the launches and the host
+    clock of each, in order, and, kept on the card until read, each round's
+    (out, e) with the verify window's logits and each plain step's logits
+    and tokens, with the prompt length of each row's request (None for a
+    free row)."""
+
+    def __init__(self, b):
+        from otter_tpu_torch.tools import bench_decode
+        self.events, self.first = [], {}
+        counts = bench_decode.kernel_launches
+        model, rnd, step = b.model, b._spec_round, b._decode_step
+        first, catchup = b._first_token, b._run_catchup
+        seen = {}
+
+        def owners():
+            return [s.real_len if s.active else None for s in b._slots]
+
+        def timed(kind, fn, *a, **k):
+            before, t = counts(), time.perf_counter()
+            out = fn(*a, **k)
+            after = counts()
+            self.events.append(dict(kind=kind, t=t, owners=owners(),
+                                    launches={n: after[n] - before[n]
+                                              for n in after
+                                              if after[n] != before[n]}))
+            return out
+
+        class Verify:
+            """The target with its multi-token cached windows' logits
+            kept (the verify window is the target's only s > 1 cached
+            call in a round)."""
+
+            def __call__(self, *a, **k):
+                out = model(*a, **k)
+                if k.get("cache_pos") is not None and a[1].shape[1] > 1:
+                    seen["logits"] = out[0]
+                return out
+
+            def __getattr__(self, name):
+                return getattr(model, name)
+
+        def round_(ca, st, lp, g):
+            out = timed(("spec", g), rnd, ca, st, lp, g)
+            self.events[-1].update(out=out[0], e=out[1],
+                                   logits=seen.pop("logits"))
+            return out
+
+        def step_(ca, st, lp, need_logits=False):
+            out = timed("plain", step, ca, st, lp, True)
+            self.events[-1].update(emitted=ca["emitted"], logits=out[4],
+                                   nxt=out[0])
+            return out if need_logits else out[:4]
+
+        def first_(logits, ids, bucket, real, gen):
+            tok = first(logits, ids, bucket, real, gen)
+            self.first[real] = (logits[0], tok)
+            return tok
+
+        b.model, b._spec_round, b._decode_step = Verify(), round_, step_
+        b._first_token = first_
+        b._run_catchup = lambda: timed("catchup", catchup)
+
+    def tokens(self, real_len: int):
+        """A request's tokens and the logits behind each."""
+        logits, tok = self.first[real_len]
+        out = [(int(tok[0]), logits)]
+        for ev in self.events:
+            if real_len not in ev["owners"] or ev["kind"] == "catchup":
+                continue
+            i = ev["owners"].index(real_len)
+            if ev["kind"] == "plain":
+                if int(ev["emitted"][i]) == len(out):
+                    out.append((int(ev["nxt"][i]), ev["logits"][i]))
+                continue
+            for j in range(int(ev["e"][i])):
+                out.append((int(ev["out"][i, j]), ev["logits"][i, j]))
+        return out
+
+
+def _spec_pool(smi, model, draft, cfg):
+    """(b) `ContinuousBatcher(num_slots=8, cache_len=2048, draft=MPT-1B,
+    spec_gamma=4)`, the controller off then on, over 8 greedy requests and
+    one sampled: the wall and the launches of a round, the modes the
+    controller chose, tokens against the draft-free pool's (partings
+    judged by their logits)."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    every = batch_requests(cfg, SEED + 130)
+    reqs = [r for r in every if r[0] == "greedy"][:16:2]
+    # the sampled request waits for a slot: 8 new tokens keep its tail short
+    kind, req, gen = [r for r in every if r[0] == "sampled"][0]
+    reqs.append((kind, req, replace(gen, max_new_tokens=8)))
+
+    def pool(**kw):
+        return ContinuousBatcher(model, num_slots=8, cache_len=2048,
+                                 cache_dtype=torch.int8, rng_seed=SEED, **kw)
+
+    warm = pool(draft=draft, spec_gamma=SPEC_GAMMA, spec_adaptive=False)
+    try:
+        _run_requests(warm, [(k, r, replace(g, max_new_tokens=4))
+                             for k, r, g in reqs[:2]], 2, 0.0)
+    finally:
+        warm.shutdown()
+    b = pool()
+    free_rec = _StepRecorder(b)
+    try:
+        free, _, _, free_wall = _run_requests(b, reqs, 8, 0.0)
+    finally:
+        b.shutdown()
+    free_tok = sum(len(f) for f in free)
+    log(f"spec pool: the draft-free pool on the same requests: {free_tok} "
+        f"tokens in {free_wall * 1e3:.1f} ms ({free_tok / free_wall:.2f} "
+        f"tok/s) | {smi}")
+    plain_step = window_launches(8, 1, SPEC_TARGET)
+    rounds = {g: spec_round_launches(8, g) for g in (SPEC_GAMMA,
+                                                     SPEC_GAMMA // 2)}
+    # the draft's catch-up window: 256 columns a row (2048 less the
+    # largest bucket, 1024, capped at 256)
+    catchup = window_launches(8, 256, SPEC_DRAFT)
+    for adaptive in (False, True):
+        b = pool(draft=draft, spec_gamma=SPEC_GAMMA, spec_adaptive=adaptive)
+        # the controller's cadence cut from 32 / 8 to 4 / 2 iterations, so
+        # that a run of 32 tokens sees it probe the other modes and choose
+        b._replan_every, b._probe_len = 4, 2
+        rec = _PoolRecorder(b)
+        try:
+            got, _, _, wall = _run_requests(b, reqs, 8, 0.0)
+            stats = b.stats()
+        finally:
+            b.shutdown()
+        if b._failure is not None:
+            raise RuntimeError("spec: the pool failed") from b._failure
+        tag = f"spec pool (adaptive {'on' if adaptive else 'off'})"
+        for ev in rec.events:
+            want = (catchup if ev["kind"] == "catchup" else plain_step
+                    if ev["kind"] == "plain" else rounds[ev["kind"][1]])
+            if ev["launches"] != want:
+                raise RuntimeError(f"{tag}: a {ev['kind']} launched "
+                                   f"{ev['launches']}, not {want}")
+        kinds = [ev["kind"] for ev in rec.events]
+        spec_t = [b_["t"] - a_["t"] for a_, b_ in zip(rec.events,
+                                                      rec.events[1:])
+                  if a_["kind"] == b_["kind"] == ("spec", SPEC_GAMMA)
+                  and sum(o is not None for o in a_["owners"]) == 8]
+        partings = []
+        for (kind, req, gen), g, f in zip(reqs, got, free):
+            if kind != "greedy":
+                continue
+            real = req[1].shape[1]
+            j = _first_parting(g, f)
+            if j is None:
+                continue
+            mine, theirs = rec.tokens(real), free_rec.tokens(real)
+            _judge(tag, f"the {real}-token request", j,
+                   mine[j][1] if j < len(mine) else None,
+                   theirs[j][1] if j < len(theirs) else None, g, f,
+                   partings)
+        n_tok = sum(len(g) for g in got)
+        log(f"{tag}: 8 greedy requests of 32-128 tokens (32 new tokens) "
+            f"and one sampled (8), one 224x224 image each, through 8 slots "
+            f"with "
+            f"the MPT-1B draft, gamma {SPEC_GAMMA}: {n_tok} tokens in "
+            f"{wall * 1e3:.1f} ms ({n_tok / wall:.2f} tok/s); "
+            f"{kinds.count(('spec', SPEC_GAMMA))} rounds of gamma "
+            f"{SPEC_GAMMA}, {kinds.count(('spec', SPEC_GAMMA // 2))} of "
+            f"gamma {SPEC_GAMMA // 2}, {kinds.count('plain')} plain steps, "
+            f"{kinds.count('catchup')} catch-ups (controller cadence 4 / 2 "
+            f"iterations), each launching exactly "
+            f"{rounds[SPEC_GAMMA]}, {rounds[SPEC_GAMMA // 2]}, "
+            f"{plain_step}, {catchup}; a round at 8 rows "
+            f"{np.median(spec_t) * 1e3 if spec_t else float('nan'):.2f} ms "
+            f"wall (median of {len(spec_t)} between round dispatches); "
+            f"controller: mode {stats['spec']['mode']}, tokens a round "
+            f"{ {k: round(v, 3) for k, v in stats['spec']['accept_ema_tok_per_round'].items()} }, "
+            f"s an iteration "
+            f"{ {k: round(v, 5) for k, v in stats['spec']['iter_time_ema_s'].items()} }; "
+            f"greedy tokens equal to the draft-free pool's"
+            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
+            f" | {smi}")
+        del rec
+    del free_rec
+
+
+def _spec_worker(smi, model, draft, engine, cfg):
+    """(c) The worker in-process over localhost HTTP, built as the worker
+    builds it with `--draft-checkpoint` and `--session-cache 2`
+    (`_session_and_spec`): a 3-turn conversation under one session id, the
+    TTFT of each turn beside the stateless worker's on the same prompts,
+    the texts equal (or parting at a near-tie of the stateless logits);
+    then two sessions and a third: the least recently used is evicted."""
+    import types
+    import numpy as np
+    import torch
+    from otter_tpu_torch.serve.worker import (ModelWorker, _session_and_spec,
+                                              build_app,
+                                              decode_media_to_vision_x,
+                                              make_otter_stream_fn,
+                                              run_app_in_thread)
+    tok = otter_tokenizer(cfg)
+    args = types.SimpleNamespace(session_cache=2, cache_len=2048,
+                                 draft_gamma=SPEC_GAMMA)
+    routes = _session_and_spec(args, model, draft, torch.int8)
+    urls, stops = {}, []
+    try:
+        for name, kw in (("session", routes), ("stateless", {})):
+            port = _free_port()
+            w = ModelWorker(controller_addr="", worker_addr="",
+                            model_name="otter", no_register=True,
+                            stream_fn=make_otter_stream_fn(engine, tok, cfg,
+                                                           **kw))
+            stops.append(run_app_in_thread(build_app(w), "127.0.0.1", port))
+            urls[name] = f"http://127.0.0.1:{port}/worker_generate_stream"
+        first = worker_requests(cfg, 1, SEED + 140, new_tokens=16)[0]
+        post_stream(urls["session"], dict(first, session_id="warm"))
+        post_stream(urls["stateless"], first)
+        rng = np.random.default_rng(SEED + 141)
+        req, rows, partings = dict(first, session_id="chat"), [], []
+        for turn in range(3):
+            got, t_s, _ = post_stream(urls["session"], req)
+            want, t_p, _ = post_stream(urls["stateless"], req)
+            a, b_ = _final_text(got, "a session turn"), _final_text(
+                want, "a stateless turn")
+            stats = dict(routes["spec_sessions"].get("chat").last_stats)
+            if a != b_:
+                ga = [int(t[1:]) for t in a.split()]
+                wb = [int(t[1:]) for t in b_.split()]
+                j = _first_parting(ga, wb)
+                vx, _ = decode_media_to_vision_x(req["images"],
+                                                 cfg.vision.image_size)
+                ids = tok(req["prompt"], return_tensors="np")["input_ids"]
+                lone = _lone_logits(engine, vx, ids, j)
+                mine = ga[j] if j < len(ga) else cfg.eoc_token_id
+                gap = float(lone.max() - lone[mine])
+                bar = PARITY_BAR * float(lone.abs().max())
+                partings.append(f"turn {turn + 1} parts at token {j}: the "
+                                f"session's token {gap:.4f} below the "
+                                f"stateless argmax (bar {bar:.4f})")
+                if not gap <= bar:
+                    raise RuntimeError(f"spec worker: {partings[-1]}")
+            rows.append(f"turn {turn + 1} ({len(tok(req['prompt'])['input_ids'])}"
+                        f" prompt tokens; reused {stats['reused']}, window "
+                        f"{stats['window']} padded to {stats['window_pad']}): "
+                        f"TTFT {t_s * 1e3:.2f} ms against {t_p * 1e3:.2f} "
+                        f"stateless")
+            user = " ".join(f"t{i}" for i in rng.integers(
+                1, cfg.eoc_token_id, 24))
+            req = dict(req, prompt=req["prompt"] + a
+                       + f" <|endofchunk|> {user}")
+        pool = routes["spec_sessions"]
+        for sid in ("A", "B", "C"):
+            post_stream(urls["session"], dict(first, session_id=sid,
+                                              generation_kwargs={
+                                                  "max_new_tokens": 4}))
+        kept = sorted(k for k in pool._pool)
+        if kept != ["B", "C"]:
+            raise RuntimeError(f"spec worker: after sessions chat, A, B, C "
+                               f"in a pool of 2 it holds {kept}")
+        log(f"spec worker (--draft-checkpoint MPT-1B, --session-cache 2, "
+            f"gamma {SPEC_GAMMA}; 16 new tokens a turn; the time to the "
+            f"first chunk, which carries 2 tokens): "
+            + "; ".join(rows) + "; texts equal to the stateless worker's"
+            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
+            f"; after sessions chat, A, B and C the pool holds {kept} (the "
+            f"least recently used evicted) | {smi}")
+    finally:
+        for stop in stops:
+            stop()
+
+
+def phase_spec(smi: str):
+    """Speculative decoding and the session cache on OTTER-MPT7B (int8
+    weights and KV cache, decode_kernel="auto") with a Flamingo-MPT-1B
+    draft (int8), both at full width and depth: (a) the standalone
+    generator at b=1, (b) the slot pool with the draft, (c) the worker with
+    a draft and a session cache. Returns the phase's launches."""
+    import torch
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools import bench_decode
+    cfg = serving_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    dcfg = draft_cfg()
+    draft = build_model(dcfg)
+    log(f"spec: target {cfg.text.num_hidden_layers}-layer mpt "
+        f"({_weight_bytes(model) / 1e9:.3f} GB, int8), draft "
+        f"{dcfg.text.num_hidden_layers}-layer mosaic_gpt with "
+        f"{dcfg.text.num_hidden_layers} xattn blocks "
+        f"({_weight_bytes(draft) / 1e9:.3f} GB, int8), int8 KV caches, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    bench_decode.reset_kernel_launches()
+    _spec_standalone(smi, model, draft, engine, cfg)
+    _spec_pool(smi, model, draft, cfg)
+    _spec_worker(smi, model, draft, engine, cfg)
+    return {k: v for k, v in bench_decode.kernel_launches().items() if v}
 
 
 def phase_profile(run, tag: str):
@@ -3964,7 +4563,7 @@ KERNELS = {
                     "otter_tpu/ops/quant.py:22"),
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
-          "idefics,batch,trainparity,train")
+          "idefics,batch,spec,trainparity,train")
 
 
 def main(argv=None) -> int:
@@ -4045,6 +4644,8 @@ def main(argv=None) -> int:
                                  "profile" in phases)
     if "batch" in phases:
         by_path["batch"] = run("batch", phase_batch, smi)
+    if "spec" in phases:
+        by_path["spec"] = run("spec", phase_spec, smi)
     if "trainparity" in phases:
         run("trainparity", phase_trainparity)
     if "train" in phases:

@@ -26,8 +26,21 @@ t + 1 is already queued, so the host waits on nothing before it queues
 the next step. A first token reaches its stream through the finisher
 thread, which waits on the token's event, never on the device as a whole.
 
-Speculative decoding over the pool (`draft=`) is not ported yet (ROADMAP
-Queue 1 item 6.2).
+With a draft model (`draft=`) every iteration is a speculative round over
+the whole pool (`_spec_round`): the draft's s=2 opener and gamma-1 steps,
+each one pooled call with per-row offsets, then one s=gamma+1 verify window
+of the target, and a per-row accept that commits 1..gamma+1 tokens a row.
+Greedy rows emit the target's greedy tokens exactly; sampled rows follow
+the rejection rule (`speculative.accept_resample_rows`), which is exact for
+any proposal. A round hands the next one its slot state on the device, and
+its (tokens, counts) come back by one non-blocking copy, as a plain step's
+do. The adaptive controller (`spec_adaptive`) times iterations on the
+host's clock after their readbacks and picks among gamma, gamma // 2 and
+plain decode by the measured tokens a second, down to plain decode below
+break-even; a switch back from plain decode first re-ingests the columns
+that the draft missed (`_run_catchup`). Beam requests in a speculative pool
+run as num_beams=1: a beam revises its past, which a cache that never
+rolls back cannot.
 """
 
 from __future__ import annotations
@@ -48,13 +61,10 @@ from otter_tpu_torch.generation import sampling
 from otter_tpu_torch.generation.beam import _top_k
 from otter_tpu_torch.generation.engine import _on, left_pad, \
     select_cache_dtype
+from otter_tpu_torch.generation.speculative import accept_resample_rows
 from otter_tpu_torch.models.decoder import init_cache
 from otter_tpu_torch.models.idefics import IdeficsVLM
 from otter_tpu_torch.ops.masks import media_attention_ids
-
-SPEC_NOT_PORTED = ("slot-pool speculative decoding (draft=) is not ported "
-                   "yet: ROADMAP Queue 1 item 6.2")
-
 
 def _round_bucket(n: int, buckets: Tuple[int, ...]) -> int:
     for b in buckets:
@@ -78,9 +88,8 @@ def autotune_num_slots(model, cache_len: int, cache_dtype, *,
     of one cache row (k and v and, for a quantized cache, their scales),
     clamped to [1, max_slots]. The budget is `hbm_bytes`, else
     `OTTER_HBM_BYTES`, else the card's total memory; on the CPU one of the
-    first two must be given."""
-    if draft is not None:
-        raise NotImplementedError(SPEC_NOT_PORTED)
+    first two must be given. With a `draft` model (slot-pool speculation)
+    its parameters and its cache row join the footprint."""
     if hbm_bytes is None and os.environ.get("OTTER_HBM_BYTES"):
         hbm_bytes = float(os.environ["OTTER_HBM_BYTES"])
     if hbm_bytes is None:
@@ -88,10 +97,12 @@ def autotune_num_slots(model, cache_len: int, cache_dtype, *,
             raise ValueError("autotune_num_slots on the CPU needs hbm_bytes "
                              "or OTTER_HBM_BYTES")
         hbm_bytes = float(torch.cuda.mem_get_info(model.device)[1])
-    row = init_cache(model.cfg.text, 1, cache_len, cache_dtype,
-                     device="meta")
-    row_bytes = sum(t.numel() * t.element_size() for t in row.values())
-    free = hbm_bytes - _param_bytes(model) - headroom_bytes
+    models = [model] if draft is None else [model, draft]
+    row_bytes = sum(
+        t.numel() * t.element_size() for m in models
+        for t in init_cache(m.cfg.text, 1, cache_len, cache_dtype,
+                            device="meta").values())
+    free = hbm_bytes - sum(map(_param_bytes, models)) - headroom_bytes
     return max(1, min(max_slots, int(free // max(row_bytes, 1))))
 
 
@@ -120,6 +131,8 @@ class _Slot:
     t_submit: float = 0.0   # request enqueued
     t_admit: float = 0.0    # first token available
     t_first: float = 0.0    # first token delivered
+    # speculation: an EMA of the tokens a round committed for this slot
+    accept_ema: Optional[float] = None
 
 
 @dataclass
@@ -145,29 +158,46 @@ class ContinuousBatcher:
     """Slot-pool streaming engine over an `OtterVLM` or an `IdeficsVLM`
     on its device. `submit()` is thread-safe and returns an iterator of
     token ids; a scheduler thread runs every request through one decode
-    step per iteration."""
+    step per iteration (a speculative round with a `draft` model: an
+    `OtterVLM` of the target's vocabulary)."""
 
     def __init__(self, model, *, num_slots=4, cache_len: int = 2048,
                  buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024),
                  max_media: int = 1, cache_dtype=torch.bfloat16,
                  rng_seed: int = 0, max_admits_per_iter: int = 1,
                  hbm_bytes: Optional[float] = None, prefill_chunk: int = 0,
-                 draft=None):
-        if draft is not None:
-            raise NotImplementedError(SPEC_NOT_PORTED)
+                 draft=None, spec_gamma: int = 4,
+                 spec_adaptive: bool = True):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
+        self.model_d = draft
+        self.gamma = spec_gamma
+        if draft is not None:
+            if draft.cfg.text.vocab_size != self.cfg.text.vocab_size:
+                raise ValueError("slot-pool speculation needs one "
+                                 "vocabulary")
+            if max(buckets) + spec_gamma + 1 > cache_len:
+                raise ValueError("cache_len must leave a gamma+1 verify "
+                                 "window after the largest prompt bucket")
+        # columns a live row needs past its next write: a round writes
+        # gamma+1 from it, so in a speculative pool plain steps stop a row
+        # at the same bound and no round ever passes the cache's end
+        self._room = 1 if draft is None else spec_gamma + 1
         # degrade-not-die: a pool that does not fit the card drops its
-        # cache precision a step (bf16 -> int8 -> int4, with a warning)
+        # cache precision a step (bf16 -> int8 -> int4, with a warning);
+        # the draft's cache counts and takes the same dtype
         if num_slots != "auto":
             cache_dtype = select_cache_dtype(
                 self.cfg.text, num_slots, cache_len, cache_dtype,
-                device=self.device, param_bytes=_param_bytes(model),
-                hbm_bytes=hbm_bytes)
+                device=self.device,
+                param_bytes=_param_bytes(model) + (
+                    _param_bytes(draft) if draft is not None else 0),
+                hbm_bytes=hbm_bytes,
+                also=() if draft is None else (draft.cfg.text,))
         else:
             num_slots = autotune_num_slots(model, cache_len, cache_dtype,
-                                           hbm_bytes=hbm_bytes)
+                                           hbm_bytes=hbm_bytes, draft=draft)
         self.n = num_slots
         self.L = cache_len
         self.buckets = tuple(sorted(buckets))
@@ -222,6 +252,39 @@ class ContinuousBatcher:
         self._valid = torch.zeros((num_slots, cache_len), dtype=torch.bool,
                                   device=self.device)
         self._latents: Optional[torch.Tensor] = None  # lazy: latent dims
+        # the draft's pools: its cache mirrors the target's column layout
+        # (the same buffer and valid rows), so only the cache and the
+        # latents are its own
+        if draft is not None:
+            self._cache_d = init_cache(draft.cfg.text, num_slots, cache_len,
+                                       cache_dtype, self.device)
+            self._latents_d: Optional[torch.Tensor] = None
+
+        # the acceptance-adaptive controller: a round's time at one gamma
+        # does not depend on what it accepts, so spec(g) beats plain decode
+        # iff E[tokens a round] > T_spec(g) / T_plain. EMAs of the tokens a
+        # round at each gamma and of the seconds an iteration in each mode;
+        # the modes without a measurement are probed; the fastest wins by
+        # 5%. Every mode emits the same tokens (greedy rows exactly,
+        # sampled rows in distribution): probing costs time, never output
+        self.spec_adaptive = bool(spec_adaptive and draft is not None)
+        self._mode_now: Any = ("spec", spec_gamma)
+        self._probe_plan: List[Any] = []
+        self._accept_ema: Dict[int, float] = {}    # gamma -> tokens a round
+        self._iter_times: Dict[Any, float] = {}    # mode -> s an iteration
+        self._t_last_iter: Optional[float] = None
+        self._last_mode: Any = None
+        self._ctrl_count = 0
+        self._stale_count = 0      # iterations since suspended modes probed
+        self._draft_stale = False  # the draft's cache missed committed tokens
+        self._clock = time.monotonic
+        # the controller's cadence (attributes, so tests can shrink them)
+        self._replan_every = 32    # drained iterations between decisions
+        self._probe_len = 8        # iterations a probe of one mode
+        self._stale_every = 1024   # refresh the suspended modes' estimates
+        # the catch-up re-ingests at most this many of a row's last columns
+        # (and never past the cache's end: see `_run_catchup`)
+        self._catchup_w = min(256, cache_len - max(self.buckets))
 
         # pipelined decode: carried slot state on the device, and the
         # iterations whose tokens are still on their way to the host
@@ -257,6 +320,10 @@ class ContinuousBatcher:
         media than `max_media` is refused here: the pool holds that many
         latents a slot."""
         gen = gen or GenerationConfig()
+        if self.model_d is not None and gen.num_beams > 1:
+            # a beam revises its past, which a speculative pool's cache
+            # (never rolled back) cannot: such a request runs greedy
+            gen = replace(gen, num_beams=1)
         if gen.num_beams > self.n:
             gen = replace(gen, num_beams=self.n)
         vision_x = np.asarray(vision_x)
@@ -326,6 +393,16 @@ class ContinuousBatcher:
                 "decode_tok_s_p50": pct(rates, 0.5),
                 "recent": records[-8:],
             })
+        if self.model_d is not None:
+            name = lambda m: "plain" if m == "plain" else f"spec_gamma{m[1]}"
+            out["spec"] = {
+                "adaptive": self.spec_adaptive,
+                "mode": name(self._mode_now),
+                "accept_ema_tok_per_round": dict(self._accept_ema),
+                "iter_time_ema_s": {name(m): t for m, t
+                                    in self._iter_times.items()},
+                "slot_accept_ema": [s.accept_ema for s in self._slots],
+            }
         return out
 
     # ── device <-> host ───────────────────────────────────────────────
@@ -390,13 +467,15 @@ class ContinuousBatcher:
     # ── device pieces ─────────────────────────────────────────────────
 
     @torch.no_grad()
-    def _prefill(self, vision_x, ids, mask, bucket: int):
-        """One request's prefill at its bucket: (last logits [1, V], its
-        cache, vision latents)."""
-        cache = init_cache(self.cfg.text, 1, bucket, self.cache_dtype,
+    def _prefill(self, vision_x, ids, mask, bucket: int, model=None):
+        """One request's prefill at its bucket through `model` (the
+        target's by default): (last logits [1, V], its cache, vision
+        latents)."""
+        model = model or self.model
+        cache = init_cache(model.cfg.text, 1, bucket, self.cache_dtype,
                            self.device)
         positions = (mask.cumsum(-1) - 1).clamp_min(0)
-        logits, cache, lat = self.model(
+        logits, cache, lat = model(
             _on(vision_x, self.device), ids, attention_mask=mask,
             positions=positions, cache=cache, head_last_only=True)
         return logits[:, -1], cache, lat
@@ -414,6 +493,21 @@ class ContinuousBatcher:
         self._valid[slot] = False
         self._valid[slot, :bucket] = mask_row.bool()
         self._latents[slot, :lat.shape[1]] = lat[0]
+
+    def _admit_draft(self, vision_x, ids, mask, bucket: int, slot: int):
+        """The draft's half of an admission: its prefill of the same padded
+        prompt, its cache and latents into the draft's pools (the target's
+        insert wrote the shared buffer and valid rows). Its logits go
+        unused: a round opens from the target's first token."""
+        _, small, lat = self._prefill(vision_x, ids, mask, bucket,
+                                      self.model_d)
+        if self._latents_d is None:
+            self._latents_d = torch.zeros(
+                (self.n, self.max_media) + tuple(lat.shape[2:]),
+                dtype=lat.dtype, device=self.device)
+        for key, big in self._cache_d.items():
+            big[slot, :, :, :bucket] = small[key][0]
+        self._latents_d[slot, :lat.shape[1]] = lat[0]
 
     def _first_token(self, logits, ids, bucket: int, real: int,
                      gen: GenerationConfig) -> torch.Tensor:
@@ -477,7 +571,7 @@ class ContinuousBatcher:
         emitted2 = emitted + alive
         written2 = written + alive
         alive2 = (alive & (nxt != st["eos"]) & (emitted2 < st["max_new"])
-                  & (written2 < L))
+                  & (written2 + self._room <= L))
         out = (nxt, alive2, written2, emitted2)
         return out + (logits,) if need_logits else out
 
@@ -511,7 +605,7 @@ class ContinuousBatcher:
                     xattn=(q_ids, kv_ids, keep), real=real, bucket=bucket,
                     next=0, n=bucket // self.prefill_chunk,
                     media=int(np.sum(lang_x == self.cfg.media_token_id)),
-                    last=None)
+                    last=None, vision_x=vision_x)
         slot = self._slots[free]
         slot.gen = gen
         slot.out = out
@@ -567,6 +661,11 @@ class ContinuousBatcher:
             bucket, real = task["bucket"], task["real"]
             self._insert(free, task["cache"], bucket, task["ids"][0],
                          task["mask"][0], task["lat"])
+            if self.model_d is not None:
+                # the draft prefills in one shot: it is several times
+                # smaller, far below the stall a chunk bounds
+                self._admit_draft(task["vision_x"], task["ids"],
+                                  task["mask"], bucket, free)
             tok_dev = self._first_token(task["last"], task["ids"], bucket,
                                         real, gen)
             slot = self._slots[free]
@@ -585,6 +684,297 @@ class ContinuousBatcher:
         same across a group)."""
         for x in list(self._cache.values()) + [self._buffer, self._valid]:
             x.index_copy_(0, rows, x.index_select(0, parents))
+
+    # ── the speculative round ────────────────────────────────────────
+
+    @staticmethod
+    def _proc_rows(logits, temperature, top_k, top_p):
+        """The processed per-row sampling distribution [B, V]: the order of
+        `sampling.sample_rows`, so a draw of `sample_rows` is a draw from
+        these probabilities."""
+        scaled = (logits.float()
+                  / temperature.float().clamp_min(1e-6)[:, None])
+        return torch.softmax(sampling.filter_rows(scaled, top_k, top_p), -1)
+
+    @torch.no_grad()
+    def _spec_round(self, ca: Dict[str, torch.Tensor],
+                    st: Dict[str, Any],
+                    lp_configs: Tuple[Tuple[int, Any], ...], g: int):
+        """One speculative round of every slot: the draft's s=2 opener over
+        [buffer[W-1], toks] at W-1 (W = `written`, the column of `toks`, the
+        delivered token no model has ingested) and g-1 single steps, the
+        target's s=g+1 verify window [toks, d_1..d_g] at W, then each row's
+        accepted prefix and the target's correction (greedy rows), or the
+        rejection rule (sampled rows), cut at eos and at max_new_tokens.
+        Exactly the committed columns join `valid`; the rest of the window
+        stays outside it until a later round overwrites it. Returns (out
+        [B, g+1], e [B]: a row emits out[:e], and the next round's toks,
+        alive, written, emitted), all on the device.
+
+        The opener re-ingests W-1, the same k/v where it is cached: a fully
+        accepted round leaves the draft one column short (the target
+        verified d_g, the draft never ingested it). A dead row (finished,
+        or never admitted) keeps stepping with the pool; its writes go to
+        its own columns below the cache's end (JAX drops the writes past
+        it), which its next admission rewrites."""
+        toks, alive, written, emitted = (ca["toks"], ca["alive"],
+                                         ca["written"], ca["emitted"])
+        B, L, dev = self.n, self.L, self.device
+        rows = torch.arange(B, device=dev)
+        cols = torch.arange(L, device=dev)[None, :]
+        w = torch.where(alive, written, written.clamp_max(L - self.gamma - 1))
+
+        def win_valid(last_off: int):
+            # the committed columns and this round's window [W-1, W+off]
+            return self._valid | ((cols >= (w - 1)[:, None])
+                                  & (cols <= (w + last_off)[:, None]))
+
+        ctl = dict(do_sample=st["do_sample"], temperature=st["temperature"],
+                   top_k=st["top_k"], top_p=st["top_p"])
+        sampled = st["sampled"]
+
+        def propose(lg):
+            if not sampled:
+                return lg.argmax(-1), None
+            return (sampling.sample_rows(lg, generator=self._rng, **ctl),
+                    self._proc_rows(lg, ctl["temperature"], ctl["top_k"],
+                                    ctl["top_p"]))
+
+        self._buffer[rows, w] = toks
+        w1 = (w - 1).clamp_min(0)
+        pos0 = (st["real_len"] + emitted - 1).clamp_min(1)   # toks' position
+        draft = dict(vis_latents=self._latents_d, cache=self._cache_d,
+                     media_counts=st["media"])
+        lg, _, _ = self.model_d(
+            None, torch.stack([self._buffer[rows, w1], toks], 1),
+            cache_pos=w1, kv_valid=win_valid(0),
+            positions=torch.stack([pos0 - 1, pos0], 1), **draft)
+        ds, qs = [], []
+        for i in range(g):
+            if i:
+                lg, _, _ = self.model_d(
+                    None, ds[-1][:, None], cache_pos=w + i,
+                    kv_valid=win_valid(i), positions=(pos0 + i)[:, None],
+                    **draft)
+            d, q = propose(lg[:, -1])
+            ds.append(d)
+            qs.append(q)
+        d = torch.stack(ds, 1)                                 # [B, g]
+        window = torch.cat([toks[:, None], d], 1)
+        idx = torch.arange(g + 1, device=dev)
+        lg_t, _, _ = self.model(
+            None, window, vis_latents=self._latents, cache=self._cache,
+            cache_pos=w, kv_valid=win_valid(g),
+            positions=pos0[:, None] + idx[None, :], media_counts=st["media"])
+        self._buffer[rows[:, None], w[:, None] + idx[None, :]] = window
+        # row-gated sequence bans at every window position
+        for ci, (ngram, bad_words) in enumerate(lp_configs):
+            genc = GenerationConfig(no_repeat_ngram_size=ngram,
+                                    bad_words_ids=bad_words)
+            proc = torch.stack([sampling.process_logits(
+                lg_t[:, j], self._buffer, written + 1 + j, genc,
+                st["valid_from"]) for j in range(g + 1)], 1)
+            lg_t = torch.where((st["lp_idx"] == ci)[:, None, None], proc,
+                               lg_t)
+        # greedy: the agreeing prefix and the target's correction
+        t_arg = lg_t.argmax(-1)                                # [B, g+1]
+        m = torch.cumprod((t_arg[:, :g] == d).long(), 1).sum(1)
+        out = torch.where(idx[None] < m[:, None],
+                          torch.cat([d, d[:, -1:]], 1), t_arg)
+        if sampled:
+            v = lg_t.shape[-1]
+            rep = lambda x: x.repeat_interleave(g + 1)
+            p = self._proc_rows(lg_t.reshape(B * (g + 1), v),
+                                rep(ctl["temperature"]), rep(ctl["top_k"]),
+                                rep(ctl["top_p"])).reshape(B, g + 1, v)
+            out_s, n_s = accept_resample_rows(p, torch.stack(qs, 1), d,
+                                              self._rng)
+            out = torch.where(st["do_sample"][:, None], out_s, out)
+            m = torch.where(st["do_sample"], n_s - 1, m)
+        # cut at eos, then at the row's max_new_tokens
+        eos = st["eos"][:, None]
+        eos_at = torch.where(out == eos, idx[None], g + 1).amin(1)
+        e = torch.minimum(torch.minimum(m + 1, eos_at + 1),
+                          st["max_new"] - emitted)
+        e = torch.where(alive, e, torch.zeros_like(e))
+        self._valid = self._valid | ((cols >= written[:, None])
+                                     & (cols < (written + e)[:, None]))
+        written2, emitted2 = written + e, emitted + e
+        eos_hit = ((out == eos) & (idx[None] < e[:, None])).any(1)
+        alive2 = (alive & ~eos_hit & (emitted2 < st["max_new"])
+                  & (written2 + self._room <= L))
+        toks2 = torch.where(
+            e > 0, out.gather(1, (e - 1).clamp_min(0)[:, None])[:, 0], toks)
+        return out, e, toks2, alive2, written2, emitted2
+
+    # ── the acceptance-adaptive controller ───────────────────────────
+
+    def _modes_ladder(self) -> List[Any]:
+        """The candidate modes: gamma, gamma // 2 (at most two speculative
+        tiers) and plain decode."""
+        modes: List[Any] = [("spec", self.gamma)]
+        if self.gamma >= 2:
+            modes.append(("spec", max(1, self.gamma // 2)))
+        return modes + ["plain"]
+
+    def _next_mode(self) -> Any:
+        if not self.spec_adaptive:
+            return ("spec", self.gamma)
+        if self._probe_plan:
+            return self._probe_plan.pop(0)
+        return self._mode_now
+
+    def _note_iter_time(self, mode) -> None:
+        """An EMA of the host seconds an iteration in each mode. An
+        iteration is queued once the one before it has been read back
+        (pipeline depth 1), so the time between two queued iterations of
+        one mode follows the device's round; a mode switch or an admission
+        starts the timing afresh. No sync of its own."""
+        now = self._clock()
+        if self._last_mode == mode and self._t_last_iter is not None:
+            dt = now - self._t_last_iter
+            prev = self._iter_times.get(mode)
+            self._iter_times[mode] = dt if prev is None \
+                else 0.8 * prev + 0.2 * dt
+        self._t_last_iter = now
+        self._last_mode = mode
+
+    def _mode_rate(self, mode) -> Optional[float]:
+        """The estimated tokens a second a row of a mode (None: not yet
+        measured)."""
+        t = self._iter_times.get(mode)
+        if t is None:
+            return None
+        if mode == "plain":
+            return 1.0 / t
+        e = self._accept_ema.get(mode[1])
+        return None if e is None else e / t
+
+    def _maybe_replan(self) -> None:
+        """Every `_replan_every` drained iterations: probe a mode that has
+        no measurement (`_probe_len` iterations; probing changes no
+        output), else switch to the fastest measured mode with 5%
+        hysteresis. Every `_stale_every` iterations the suspended modes
+        are probed again, as acceptance drifts with the traffic."""
+        if not self.spec_adaptive or self._probe_plan:
+            return
+        self._ctrl_count += 1
+        self._stale_count += 1
+        if self._ctrl_count % self._replan_every:
+            return
+        modes = self._modes_ladder()
+        rates = {m: self._mode_rate(m) for m in modes}
+        unknown = [m for m in modes if rates[m] is None]
+        if unknown:
+            self._probe_plan.extend([unknown[0]] * self._probe_len)
+            return
+        if self._stale_count >= self._stale_every:
+            self._stale_count = 0
+            for m in modes:
+                if m != self._mode_now:
+                    self._probe_plan.extend([m] * self._probe_len)
+            return
+        best = max(modes, key=lambda m: rates[m])
+        if best != self._mode_now \
+                and rates[best] > 1.05 * rates[self._mode_now]:
+            self._mode_now = best
+
+    @torch.no_grad()
+    def _run_catchup(self) -> None:
+        """After plain steps the draft's cache misses their columns:
+        re-ingest each row's last `_catchup_w` generated columns (from its
+        first decode column on: the prompt's columns came with the
+        admission) in one draft window. Columns already cached get the
+        same k/v; columns at and after `written` get junk that the next
+        round overwrites before they are valid. The window stays inside
+        the cache: it starts at max(written - W, bucket) and W is at most
+        the cache less the largest bucket. Older gaps stay holes, which
+        cost acceptance, never output."""
+        st, W = self._statics, self._catchup_w
+        written = self._carried["written"]
+        floor = self._dev([s.bucket for s in self._slots], torch.long)
+        start = torch.maximum(written - W, floor)
+        cols = start[:, None] + torch.arange(W, device=self.device)[None, :]
+        self.model_d(
+            None, self._buffer.gather(1, cols.clamp_max(self.L - 1)),
+            vis_latents=self._latents_d, cache=self._cache_d,
+            cache_pos=start, kv_valid=self._valid,
+            positions=(cols - st["valid_from"][:, None]).clamp_min(0),
+            media_counts=st["media"])
+
+    def _step_spec(self) -> bool:
+        """One iteration of a speculative pool: a round (or, as the
+        controller chooses, a plain step or a round of a smaller gamma)
+        queued with no host wait, the carried slot state flowing on the
+        device, then the oldest in-flight iteration read back."""
+        slots = self._slots
+        if not any(s.active for s in slots):
+            self._drain_all()
+            return False
+        if self._dirty or self._carried is None:
+            self._lp_list, self._statics = self._static_args(slots)
+            self._carried = self._carried_args(slots)
+            self._dirty = False
+            self._t_last_iter = None
+        mode = self._next_mode()
+        self._note_iter_time(mode)
+        if mode == "plain":
+            self._draft_stale = True
+            res = self._dispatch(need_logits=False)
+            self._inflight.append((self._to_host(res[0]),
+                                   self._active_rows(), "plain"))
+        else:
+            if self._draft_stale:
+                self._run_catchup()
+                self._draft_stale = False
+            out, e, toks2, alive2, written2, emitted2 = self._spec_round(
+                self._carried, self._statics, self._lp_list, mode[1])
+            self._carried = dict(toks=toks2, alive=alive2, written=written2,
+                                 emitted=emitted2)
+            self._inflight.append((self._to_host(torch.cat(
+                [out, e[:, None]], 1)), self._active_rows(), mode))
+        while len(self._inflight) > self.pipeline_depth:
+            self._drain_one()
+        return True
+
+    def _drain_one_spec(self, copy, snapshot, g: int):
+        """Read a round's (out, e) and stream each row's emitted prefix;
+        the host's slot state follows the device's alive rule (eos,
+        max_new_tokens, the gamma+1 columns a round needs)."""
+        vals = self._host_values(copy)
+        out, e = vals[:, :g + 1], vals[:, g + 1]
+        live = [i for i in snapshot if self._slots[i].active]
+        if live:
+            # the controller's acceptance: the pool's mean tokens a round
+            mean_e = float(np.mean([e[i] for i in live]))
+            prev = self._accept_ema.get(g)
+            self._accept_ema[g] = mean_e if prev is None \
+                else 0.8 * prev + 0.2 * mean_e
+            for i in live:
+                s = self._slots[i]
+                s.accept_ema = (float(e[i]) if s.accept_ema is None
+                                else 0.8 * s.accept_ema + 0.2 * float(e[i]))
+        self._maybe_replan()
+        for i in snapshot:
+            s = self._slots[i]
+            if not s.active:
+                continue
+            eos, closed = self._eos(s.gen), False
+            for tok in out[i, :int(e[i])]:
+                tok = int(tok)
+                s.written += 1
+                s.emitted += 1
+                if tok == eos:
+                    s.out.put(None)
+                    self._finish(s)
+                    closed = True
+                    break
+                s.out.put(tok)
+                s.last_tok = tok
+            if not closed and (s.emitted >= s.gen.max_new_tokens
+                               or s.written + self._room > self.L):
+                s.out.put(None)
+                self._finish(s)
 
     # ── scheduler ─────────────────────────────────────────────────────
 
@@ -605,6 +995,8 @@ class ContinuousBatcher:
         ids, mask = _on(ids, self.device).long(), _on(mask, self.device)
         last_logits, small, lat = self._prefill(vision_x, ids, mask, bucket)
         self._insert(free, small, bucket, ids[0], mask[0], lat)
+        if self.model_d is not None:
+            self._admit_draft(vision_x, ids, mask, bucket, free)
         tok_dev = self._first_token(last_logits, ids, bucket, real, gen)
 
         slot = self._slots[free]
@@ -796,7 +1188,9 @@ class ContinuousBatcher:
             if len(self._completed) > 1024:
                 del self._completed[: len(self._completed) - 1024]
 
-    def _admit(self):
+    def _admit(self) -> int:
+        """Start what the queue and the free slots allow; returns how many
+        admissions began."""
         decoding = any(s.active for s in self._slots)
         started = []
         n_started = 0
@@ -850,6 +1244,7 @@ class ContinuousBatcher:
                 self._admit_finish_beam(slot, tok_dev)
             else:
                 self._force_q.put((slot, self._to_host(tok_dev)))
+        return n_started
 
     def _static_args(self, slots):
         """Per-admission host-built tensors and the distinct lp configs:
@@ -869,6 +1264,8 @@ class ContinuousBatcher:
             else:
                 lp_idx.append(-1)
         return tuple(lp_list), dict(
+            # a host flag: whether a round needs its sampled half
+            sampled=any(s.active and s.gen.do_sample for s in slots),
             real_len=arr(lambda s: s.real_len, torch.long),
             media=arr(lambda s: s.media, torch.int32),
             lp_idx=self._dev(lp_idx, torch.long),
@@ -912,8 +1309,13 @@ class ContinuousBatcher:
     def _drain_one(self):
         """Read the oldest in-flight iteration's tokens and stream them
         (the host's written / emitted / active advance as the device's
-        did in `_decode_step`)."""
-        copy, snapshot = self._inflight.pop(0)
+        did in `_decode_step`). An entry is (copy, rows, kind): kind
+        "plain" for a decode step, ("spec", gamma) for a round."""
+        copy, snapshot, kind = self._inflight.pop(0)
+        if kind != "plain":
+            return self._drain_one_spec(copy, snapshot, kind[1])
+        if self.model_d is not None:
+            self._maybe_replan()   # the controller counts plain steps too
         toks = self._host_values(copy)
         for i in snapshot:
             s = self._slots[i]
@@ -926,7 +1328,7 @@ class ContinuousBatcher:
                 s.out.put(None)
                 self._finish(s)
             elif s.emitted >= s.gen.max_new_tokens \
-                    or s.written >= self.L:
+                    or s.written + self._room > self.L:
                 s.out.put(tok)
                 s.out.put(None)
                 self._finish(s)
@@ -942,6 +1344,10 @@ class ContinuousBatcher:
         return [i for i, s in enumerate(self._slots) if s.active]
 
     def _step(self):
+        if self.model_d is not None:
+            # speculative rounds, pipelined as plain steps are (a draft
+            # pool holds no beam group: submit runs beams greedy)
+            return self._step_spec()
         if self._groups:
             # a beam group reads its candidates every iteration: no
             # pipelining while one is in the pool
@@ -951,7 +1357,8 @@ class ContinuousBatcher:
             self._drain_all()
             return False
         res = self._dispatch(need_logits=False)
-        self._inflight.append((self._to_host(res[0]), self._active_rows()))
+        self._inflight.append((self._to_host(res[0]), self._active_rows(),
+                               "plain"))
         while len(self._inflight) > self.pipeline_depth:
             self._drain_one()
         return True
@@ -963,7 +1370,8 @@ class ContinuousBatcher:
         res = self._dispatch(need_logits=True)
         for grp in list(self._groups.values()):
             self._beam_advance(grp, res[4])
-        self._inflight.append((self._to_host(res[0]), self._active_rows()))
+        self._inflight.append((self._to_host(res[0]), self._active_rows(),
+                               "plain"))
         self._drain_all()
         # the beam bookkeeping rewrote host slot state: rebuild carried
         self._dirty = True
@@ -1006,12 +1414,17 @@ class ContinuousBatcher:
                     or self._finished or self._ready_chunked):
                 # admissions change pooled state and reuse freed slots:
                 # drain in-flight iterations first, then activate finished
-                # admissions and insert new ones
+                # admissions and insert new ones. The carried state is
+                # rebuilt only where one of them changed a slot: a request
+                # that waits for a slot leaves it (and the controller's
+                # iteration timing) as it was
                 self._drain_all()
                 self._collect_admitted()
-                self._finalize_chunked()
-                self._admit()
-                self._dirty = True
+                if self._ready_chunked:
+                    self._finalize_chunked()
+                    self._dirty = True
+                if self._admit():
+                    self._dirty = True
             busy = self._step()
             # one prefill chunk rides after each decode iteration
             self._advance_chunked()

@@ -73,8 +73,8 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
                        requested: CacheDtype, *, device: torch.device,
                        param_bytes: int = 0,
                        hbm_bytes: Optional[float] = None,
-                       headroom_bytes: Optional[float] = None
-                       ) -> CacheDtype:
+                       headroom_bytes: Optional[float] = None,
+                       also: Tuple[TextConfig, ...] = ()) -> CacheDtype:
     """Degrade-not-die KV-cache precision: when the requested cache does
     not fit next to the resident parameters, step down the ladder
     (bf16 -> int8 -> int4) with a warning instead of failing. The budget
@@ -84,7 +84,9 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
     included) and the headroom. Blocks that torch's caching allocator
     keeps from freed tensors count as free, so the answer does not depend
     on what ran before. `OTTER_HBM_HEADROOM` overrides the 5 GB headroom.
-    On the CPU without `hbm_bytes` the request is returned unchanged."""
+    `also` are the text configs of caches of the same shape and dtype that
+    join the footprint (a speculative pool's draft cache). On the CPU
+    without `hbm_bytes` the request is returned unchanged."""
     if device.type != "cuda" and hbm_bytes is None:
         return requested
     env_hbm = os.environ.get("OTTER_HBM_BYTES")
@@ -100,11 +102,14 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
                   - torch.cuda.memory_allocated(device) - headroom_bytes)
     name = _cache_name(requested)
     for step in _LADDER[_LADDER.index(name):]:
-        if cache_bytes(text_cfg, batch, cache_len, step) <= budget:
+        if sum(cache_bytes(t, batch, cache_len, step)
+               for t in (text_cfg,) + tuple(also)) <= budget:
             if step != name:
                 warnings.warn(
                     f"KV cache degraded {name} -> {step}: a b={batch} "
-                    f"L={cache_len} {name} cache does not fit in "
+                    f"L={cache_len} {name} cache"
+                    f"{' (and the draft pool beside it)' if also else ''}"
+                    f" does not fit in "
                     f"{budget / 1e9:.1f} GB of device memory", stacklevel=2)
             return _DTYPES[step]
     warnings.warn(f"KV cache b={batch} L={cache_len} exceeds device memory "

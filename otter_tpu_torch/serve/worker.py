@@ -34,10 +34,28 @@ through one `generation.batching.ContinuousBatcher` instead: concurrent
 requests decode in one shared step over `--num-slots` slots of a
 `--cache-len` cache, long prompts prefill `--prefill-chunk` tokens at a
 time (otter family), and `/worker_get_status` reports the batcher's
-`stats()` under "batching". Not ported yet, and refused at start:
-`--session-cache` (ROADMAP Queue 1 item 6.3) and `--draft-checkpoint`
-(item 6.2). The fuyu family refuses `--continuous-batching`, which the JAX
-worker ignores there.
+`stats()` under "batching". The fuyu family refuses
+`--continuous-batching`, which the JAX worker ignores there.
+
+The otter family also takes, as the JAX worker does:
+
+  - `--draft-checkpoint` (with `--draft-config`, a preset, default mpt1b,
+    or a config JSON, and `--draft-gamma`): a small draft of the target's
+    vocabulary, loaded at the same `--load-bit`. Greedy and sampled
+    requests without bans or masked frames decode speculatively
+    (`generation.speculative.SpeculativeGenerator`); under
+    `--continuous-batching` every pooled iteration is a speculative round,
+    with the adaptive controller unless `--no-spec-adaptive`.
+  - `--session-cache N`: up to N conversations keep their KV cache between
+    turns (`generation.session.SessionPool`); a request with a
+    `session_id` prefills only what its session does not hold. With a
+    draft the two compose (`SpecChatSession`). A session serves one
+    stream at a time: a second request with the same id while the first
+    streams takes the stateless path, as one whose conversation outgrew
+    `--cache-len` does. Refused with `--continuous-batching` (the slots
+    share one cache), as the JAX worker refuses it.
+
+The idefics and fuyu families ignore both, as the JAX worker does.
 """
 
 from __future__ import annotations
@@ -268,7 +286,8 @@ def make_batched_stream_fn(batcher, tokenizer, cfg, *,
 
 
 def make_otter_stream_fn(engine, tokenizer, cfg, *,
-                         stream_interval: int = 2):
+                         stream_interval: int = 2, sessions=None, spec=None,
+                         spec_sessions=None):
     """Bridges the HTTP params to `engine`, an `OtterGenerator`: greedy and
     sampled requests through `stream_generate` (with the frame mask of
     mixed still+video media), beams through `stream_beam_generate` (the
@@ -276,9 +295,24 @@ def make_otter_stream_fn(engine, tokenizer, cfg, *,
     revise earlier tokens). A request without images runs on one zero
     image, as the JAX worker's does (CLIP, the perceiver and every xattn
     block still run). Concurrent requests decode in turns, a step each
-    (`_one_step_at_a_time`)."""
+    (`_one_step_at_a_time`).
+
+    The JAX worker's routes, in its order: with `spec_sessions` (a
+    `SessionPool` of `SpecChatSession`s) a request with a `session_id`
+    that speculation takes (no beams, bans or masked frames) streams from
+    its speculative session; with `sessions` (a `SessionPool` of
+    `ChatSession`s) one without beams or masked frames from its session;
+    with `spec` (a `SpeculativeGenerator`) one that speculation takes
+    through `spec.stream`; the rest through the engine. A conversation
+    that outgrew its session's cache drops the session and goes on down
+    the routes; a session that another stream holds sends the request to
+    the stateless routes."""
     patch_size = cfg.vision.image_size
     lock = threading.Lock()
+
+    def steps(token_iter):
+        return _relay(tokenizer, _one_step_at_a_time(lock, token_iter),
+                      stream_interval)
 
     def stream_fn(params: dict) -> Iterator[str]:
         prompt = params["prompt"]
@@ -293,15 +327,42 @@ def make_otter_stream_fn(engine, tokenizer, cfg, *,
         gen = _parse_gen_kwargs(params.get("generation_kwargs", {}))
         enc = tokenizer(prompt, return_tensors="np")
         lang_x = np.asarray(enc["input_ids"]).astype(np.int64)
+        sid = params.get("session_id")
+        spec_ok = (gen.num_beams <= 1 and not gen.no_repeat_ngram_size
+                   and not gen.bad_words_ids and frame_mask is None)
+        pools = []
+        if spec_sessions is not None and sid and spec_ok:
+            pools.append(spec_sessions)
+        if sessions is not None and sid and gen.num_beams <= 1 \
+                and frame_mask is None:
+            pools.append(sessions)
+        for pool in pools:
+            sess = pool.acquire(sid)
+            if sess is None:     # another stream holds it: stateless
+                break
+            try:
+                yield from steps(sess.stream(
+                    vision_x, lang_x, gen=gen,
+                    generator=_generator(gen, engine.device)))
+                return
+            except ValueError:
+                # the conversation outgrew the session's cache
+                pool.drop(sid)
+            finally:
+                pool.release(sess)
+        if spec is not None and spec_ok:
+            yield from steps(spec.stream(
+                vision_x, lang_x, gen=gen,
+                generator=_generator(gen, engine.device)))
+            return
         if gen.num_beams > 1:
             for toks in _one_step_at_a_time(lock, engine.stream_beam_generate(
                     vision_x, lang_x, gen=gen)):
                 yield tokenizer.decode(toks, skip_special_tokens=True)
             return
-        yield from _relay(tokenizer, _one_step_at_a_time(
-            lock, engine.stream_generate(
-                vision_x, lang_x, gen=gen, vision_mask=frame_mask,
-                generator=_generator(gen, engine.device))), stream_interval)
+        yield from steps(engine.stream_generate(
+            vision_x, lang_x, gen=gen, vision_mask=frame_mask,
+            generator=_generator(gen, engine.device)))
 
     return stream_fn
 
@@ -634,9 +695,31 @@ def main(argv=None):
                         "prefill")
     p.add_argument("--cache-len", type=int, default=2048)
     p.add_argument("--session-cache", type=int, default=0, metavar="N",
-                   help="not ported yet (ROADMAP Queue 1 item 6.3)")
+                   help="otter family: keep up to N conversations' KV "
+                        "caches between turns (a request with a session_id "
+                        "prefills only what its session does not hold); "
+                        "each pins a --cache-len cache on the card. 0 "
+                        "disables. Incompatible with --continuous-batching")
     p.add_argument("--draft-checkpoint", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 6.2)")
+                   help="otter family: a checkpoint of a small draft of the "
+                        "target's vocabulary: greedy and sampled requests "
+                        "decode speculatively (greedy output exact, sampled "
+                        "distributionally exact); with --session-cache the "
+                        "two compose per session_id")
+    p.add_argument("--draft-config", default="mpt1b",
+                   help=f"the draft's config: one of {sorted(PRESETS)} or a "
+                        "config JSON")
+    p.add_argument("--draft-gamma", type=int, default=4,
+                   help="draft tokens a verify round (the most, with "
+                        "--spec-adaptive)")
+    p.add_argument("--spec-adaptive", dest="spec_adaptive",
+                   action="store_true", default=True,
+                   help="continuous batching with a draft: pick gamma, "
+                        "gamma // 2 or plain decode by the measured tokens "
+                        "a second (default)")
+    p.add_argument("--no-spec-adaptive", dest="spec_adaptive",
+                   action="store_false",
+                   help="speculate at --draft-gamma always")
     args = p.parse_args(argv)
 
     if args.continuous_batching and args.session_cache > 0:
@@ -644,12 +727,6 @@ def main(argv=None):
                 "--continuous-batching: slots share one pooled KV "
                 "cache, so cross-turn prefix reuse is unavailable. "
                 "Drop one of the two flags.")
-    for flag, given, item in (
-            ("--session-cache", args.session_cache > 0, "6.3"),
-            ("--draft-checkpoint", args.draft_checkpoint, "6.2")):
-        if given:
-            p.error(f"{flag} is not ported yet: ROADMAP Queue 1 item "
-                    f"{item}")
     if args.continuous_batching and args.model_family == "fuyu":
         p.error("--continuous-batching serves the otter and idefics "
                 "families; the fuyu family decodes through fuyu_generate")
@@ -682,18 +759,55 @@ def main(argv=None):
     model, cfg = load(args.checkpoint, cfg, load_bit=args.load_bit,
                       device=device)
     cache_dtype = CACHE_DTYPES[args.cache_bit]
+    draft = None
+    if args.draft_checkpoint and args.model_family == "otter":
+        draft, _ = load_otter_model(
+            args.draft_checkpoint, _load_config(args.draft_config, "otter"),
+            load_bit=args.load_bit, device=device)
     if args.continuous_batching:
         stream_worker(_batched_stream_fn(args, model, cfg, tokenizer,
-                                         cache_dtype))
+                                         cache_dtype, draft))
         return
     engine = OtterGenerator(model, cache_dtype=cache_dtype)
-    stream_worker(make_stream_fn(engine, tokenizer, cfg))
+    if args.model_family != "otter":
+        stream_worker(make_stream_fn(engine, tokenizer, cfg))
+        return
+    stream_worker(make_otter_stream_fn(
+        engine, tokenizer, cfg,
+        **_session_and_spec(args, model, draft, cache_dtype)))
 
 
-def _batched_stream_fn(args, model, cfg, tokenizer, cache_dtype):
+def _session_and_spec(args, model, draft, cache_dtype) -> dict:
+    """The stateless otter worker's `sessions`, `spec` and `spec_sessions`
+    (`make_otter_stream_fn`), as the JAX worker builds them: the session
+    pool with `--session-cache`, the speculative generator with a draft,
+    and with both a pool of speculative sessions (the plain pool still
+    serves the session requests that speculation does not take)."""
+    from otter_tpu_torch.generation.session import (SessionPool,
+                                                    SpecChatSession)
+    from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    out = {}
+    if args.session_cache > 0:
+        out["sessions"] = SessionPool(
+            model, max_sessions=args.session_cache, cache_len=args.cache_len,
+            cache_dtype=cache_dtype)
+    if draft is not None:
+        spec = out["spec"] = SpeculativeGenerator(
+            model, draft, gamma=args.draft_gamma, cache_dtype=cache_dtype)
+        if args.session_cache > 0:
+            out["spec_sessions"] = SessionPool(
+                model, max_sessions=args.session_cache,
+                factory=lambda: SpecChatSession(spec,
+                                                cache_len=args.cache_len))
+    return out
+
+
+def _batched_stream_fn(args, model, cfg, tokenizer, cache_dtype,
+                       draft=None):
     """`--continuous-batching`: one `ContinuousBatcher` over the model,
-    with the family's normalization. The idefics family prefills in one
-    shot, as the JAX worker builds its batcher."""
+    with the family's normalization; with a draft, its pooled iterations
+    are speculative rounds. The idefics family prefills in one shot, as
+    the JAX worker builds its batcher."""
     from otter_tpu_torch.generation.batching import ContinuousBatcher
     kw, norm = {}, {}
     if args.model_family == "idefics":
@@ -701,7 +815,9 @@ def _batched_stream_fn(args, model, cfg, tokenizer, cache_dtype):
                                                     IDEFICS_STANDARD_STD)
         norm = dict(mean=IDEFICS_STANDARD_MEAN, std=IDEFICS_STANDARD_STD)
     else:
-        kw = dict(prefill_chunk=args.prefill_chunk)
+        kw = dict(prefill_chunk=args.prefill_chunk, draft=draft,
+                  spec_gamma=args.draft_gamma,
+                  spec_adaptive=args.spec_adaptive)
     batcher = ContinuousBatcher(model, num_slots=args.num_slots,
                                 cache_len=args.cache_len,
                                 cache_dtype=cache_dtype, **kw)

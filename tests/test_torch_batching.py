@@ -15,6 +15,7 @@ The JAX batchers run once a module (`jax_runs`), each at one bucket.
 import queue
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,7 @@ from otter_tpu_torch.config import GenerationConfig
 from otter_tpu_torch.generation import batching, sampling
 from otter_tpu_torch.generation.engine import OtterGenerator
 from torch_parity_helpers import (idefics_inputs, idefics_pair, inputs,
-                                  jax_tiny, torch_tiny)
+                                  jax_tiny, spec_pair, torch_tiny)
 
 SLOTS, L, BUCKET = 3, 64, 16
 CACHES = {"f32": (torch.float32, jnp.float32),
@@ -629,14 +630,18 @@ def test_a_submit_racing_a_failure_is_failed(model):
 
 
 def test_refusals(model):
-    """`draft=` (speculation, ROADMAP Queue 1 item 6.2) is refused, and so
-    is a request with more media than the pool holds a slot (its stream
-    never returns from the JAX batcher); the pool serves on after it."""
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        batching.ContinuousBatcher(model, draft=object())
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        batching.autotune_num_slots(model, L, torch.float32, hbm_bytes=1e9,
-                                    draft=object())
+    """A draft of another vocabulary, or a cache with no room for a verify
+    window after the largest bucket, is refused when the pool is built; a
+    request with more media than the pool holds a slot is refused at
+    submit (its stream never returns from the JAX batcher), and the pool
+    serves on after it."""
+    draft = spec_pair("mpt")[1][3]
+    with pytest.raises(ValueError, match="vocabulary"):
+        batching.ContinuousBatcher(model, draft=SimpleNamespace(
+            cfg=SimpleNamespace(text=SimpleNamespace(vocab_size=7))))
+    with pytest.raises(ValueError, match="gamma"):
+        batching.ContinuousBatcher(model, cache_len=L, buckets=(60,),
+                                   draft=draft, spec_gamma=4)
     vx, ids = inputs(model.cfg, 80, 1, 10, images=2)
     b = _port_batcher(model, "f32")
     try:
@@ -647,3 +652,318 @@ def test_refusals(model):
             == _alone(model, [one], 5)[0]
     finally:
         b.shutdown()
+
+
+# ── speculative rounds over the pool (draft=) ───────────────────────
+
+SPEC = (8, 10, 12)
+
+
+@pytest.fixture(scope="module")
+def draft():
+    return spec_pair("mpt")[1]
+
+
+@pytest.fixture(scope="module")
+def jax_spec_pool(draft):
+    """The JAX batcher with the draft attached (gamma 3, three slots):
+    three greedy requests of 7 new tokens."""
+    cfg_d, jmodel_d, params_d, _ = draft
+    reqs = _prompts(jax_tiny()[0], SPEC, 90)
+    b = _jax_batcher("f32", draft=(jmodel_d, params_d, cfg_d), spec_gamma=3,
+                     spec_adaptive=False)
+    try:
+        return [list(b.submit(vx, ids, JaxGen(max_new_tokens=7)))
+                for vx, ids in reqs]
+    finally:
+        b.shutdown()
+
+
+def _spec_batcher(model, draft_model, **kw):
+    kw.setdefault("spec_adaptive", False)
+    return batching.ContinuousBatcher(
+        model, num_slots=kw.pop("num_slots", SLOTS),
+        cache_len=kw.pop("cache_len", L), buckets=(BUCKET,),
+        cache_dtype=torch.float32, draft=draft_model, **kw)
+
+
+def _count_rounds(b):
+    """Wrap `b._spec_round`: the gamma of each round that emitted a token
+    (with pipelining one more round is queued before the host sees that
+    the last row finished)."""
+    rounds, spec_round = [], b._spec_round
+
+    def counted(*a):
+        out = spec_round(*a)
+        if int(out[1].sum()):
+            rounds.append(a[-1])
+        return out
+
+    b._spec_round = counted
+    return rounds
+
+
+def test_spec_pool_greedy_matches_single_stream(model, draft,
+                                                jax_spec_pool):
+    """Greedy requests through a pool with a draft (independent weights):
+    the JAX batcher's tokens and each request's `generate` alone."""
+    reqs = _prompts(model.cfg, SPEC, 90)
+    b = _spec_batcher(model, draft[3], spec_gamma=3)
+    rounds = _count_rounds(b)
+    try:
+        got = _run(b, reqs, [GenerationConfig(max_new_tokens=7)] * 3)
+    finally:
+        b.shutdown()
+    assert got == jax_spec_pool == _alone(model, reqs, 7)
+    assert rounds and set(rounds) == {3}
+
+
+def test_spec_pool_self_draft_accepts_everything(model):
+    """The target as its own draft: every greedy proposal is accepted, so
+    9 tokens arrive in the first token and ceil(8 / 5) = 2 rounds."""
+    vx, ids = _prompts(model.cfg, (10,), 91)[0]
+    b = _spec_batcher(model, model, num_slots=2, spec_gamma=4)
+    rounds = _count_rounds(b)
+    try:
+        got = list(b.submit(vx, ids, GenerationConfig(max_new_tokens=9)))
+    finally:
+        b.shutdown()
+    assert got == _alone(model, [(vx, ids)], 9)[0]
+    assert len(rounds) == 2
+    assert b.stats()["spec"]["accept_ema_tok_per_round"][4] >= 4
+
+
+def test_spec_pool_mixed_greedy_sampled_and_reuse(model, draft):
+    """Greedy and sampled requests share one pool of 2 (four requests:
+    slots are reused, the draft's pools rewritten): the greedy rows give
+    their tokens alone; the sampled rows emit 1..5 tokens, none eos."""
+    reqs = _prompts(model.cfg, (8, 9, 10, 11), 92)
+    gens = [GenerationConfig(max_new_tokens=5),
+            GenerationConfig(max_new_tokens=5),
+            GenerationConfig(max_new_tokens=5, do_sample=True,
+                             temperature=0.9, top_k=40),
+            GenerationConfig(max_new_tokens=5, do_sample=True, top_p=0.9)]
+    b = _spec_batcher(model, draft[3], num_slots=2, spec_gamma=3)
+    try:
+        got = _run(b, reqs, gens)
+    finally:
+        b.shutdown()
+    assert got[:2] == _alone(model, reqs[:2], 5)
+    for g in got[2:]:
+        assert 0 < len(g) <= 5 and model.cfg.eoc_token_id not in g
+
+
+def test_spec_pool_with_chunked_prefill(model, draft):
+    """A chunked target prefill and the draft's one-shot prefill compose:
+    the request's tokens alone."""
+    reqs = _prompts(model.cfg, (13,), 93)
+    b = _spec_batcher(model, draft[3], num_slots=2, spec_gamma=3,
+                      prefill_chunk=4)
+    try:
+        got = list(b.submit(*reqs[0], GenerationConfig(max_new_tokens=6)))
+    finally:
+        b.shutdown()
+    assert got == _alone(model, reqs, 6)[0]
+
+
+def test_spec_pool_caps_beams_to_one(model):
+    """A num_beams=3 request in a pool with a draft runs greedy (a beam
+    revises its past; the cache never rolls back)."""
+    reqs = _prompts(model.cfg, (9,), 94)
+    b = _spec_batcher(model, model, num_slots=2, spec_gamma=2)
+    try:
+        got = list(b.submit(*reqs[0], GenerationConfig(max_new_tokens=5,
+                                                       num_beams=3)))
+    finally:
+        b.shutdown()
+    assert got == _alone(model, reqs, 5)[0]
+
+
+class _Clock:
+    """A host clock that moves 1 s a call: iteration times are the same
+    in every mode, so the controller's choice follows acceptance alone."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def test_spec_adaptive_mode_switches_stay_exact(model, draft):
+    """With a shrunken cadence the controller probes the gamma ladder and
+    plain decode within one 40-token request, switching modes mid-stream
+    (the draft's catch-up after plain steps), and the greedy tokens stay
+    the request's alone. With the injected clock the choice is the mode
+    of the most tokens a round: plain decode (1 a step) loses to any
+    round."""
+    reqs = _prompts(model.cfg, (9,), 95)
+    b = _spec_batcher(model, draft[3], num_slots=2, cache_len=128,
+                      spec_gamma=2, spec_adaptive=True)
+    b._clock = _Clock()
+    b._replan_every, b._probe_len, b._stale_every = 4, 2, 12
+    catchups, run_catchup = [], b._run_catchup
+    b._run_catchup = lambda: catchups.append(1) or run_catchup()
+    rounds = _count_rounds(b)
+    try:
+        got = list(b.submit(*reqs[0], GenerationConfig(max_new_tokens=40)))
+        st = b.stats()["spec"]
+    finally:
+        b.shutdown()
+    assert got == _alone(model, reqs, 40)[0]
+    assert st["adaptive"]
+    assert set(st["iter_time_ema_s"]) == {"spec_gamma2", "spec_gamma1",
+                                          "plain"}
+    assert set(st["accept_ema_tok_per_round"]) == {1, 2}
+    assert catchups and set(rounds) == {1, 2}
+    assert st["mode"] != "plain"
+
+
+def test_spec_controller_times_rounds_while_a_request_waits(model, draft):
+    """Two requests on one slot: while the second waits in the queue, the
+    first's rounds leave the carried state as it was, so the controller
+    measures their time (a waiting request once rebuilt the state and
+    reset the timing every iteration, as the JAX loop does, and the
+    controller then measured nothing until the queue emptied)."""
+    reqs = _prompts(model.cfg, (9, 11), 98)
+    b = _spec_batcher(model, draft[3], num_slots=1, spec_gamma=2,
+                      spec_adaptive=True)
+    b._clock = _Clock()
+    b._replan_every, b._probe_len = 2, 1
+    seen, admit = [], b._admit_start
+
+    def admit_start(*a, **k):
+        seen.append(dict(b._iter_times))
+        return admit(*a, **k)
+
+    b._admit_start = admit_start
+    try:
+        got = _run(b, reqs, [GenerationConfig(max_new_tokens=12)] * 2)
+    finally:
+        b.shutdown()
+    assert got == _alone(model, reqs, 12)
+    assert len(seen) == 2 and seen[0] == {} and seen[1], seen
+
+
+def test_spec_adaptive_off_pins_gamma(model):
+    reqs = _prompts(model.cfg, (9,), 96)
+    b = _spec_batcher(model, model, num_slots=2, spec_gamma=2)
+    b._replan_every = 2
+    rounds = _count_rounds(b)
+    try:
+        got = list(b.submit(*reqs[0], GenerationConfig(max_new_tokens=12)))
+        st = b.stats()
+    finally:
+        b.shutdown()
+    assert got == _alone(model, reqs, 12)[0]
+    assert set(rounds) == {2}
+    assert list(st["spec"]["iter_time_ema_s"]) in ([], ["spec_gamma2"])
+    assert st["spec"]["mode"] == "spec_gamma2" and not st["spec"]["adaptive"]
+
+
+def test_spec_row_finishing_at_the_cache_end(model, draft):
+    """A row stops once a round would pass the cache's end (written +
+    gamma + 1 > cache_len) and then steps on with the pool, dead, while a
+    later request decodes: no round writes past the cache, and both give
+    their tokens alone."""
+    reqs = _prompts(model.cfg, (10, 12), 97)
+    b = _spec_batcher(model, draft[3], num_slots=2, cache_len=24,
+                      spec_gamma=3)
+    try:
+        first = b.submit(*reqs[0], GenerationConfig(max_new_tokens=20))
+        got_first = list(first)
+        second = b.submit(*reqs[1], GenerationConfig(max_new_tokens=6))
+        got_second = list(second)
+    finally:
+        b.shutdown()
+    assert b._failure is None
+    # bucket 16, room 4: the first token and 5..8 more
+    assert 6 <= len(got_first) <= 9
+    assert got_first == _alone(model, reqs[:1], 20)[0][:len(got_first)]
+    assert got_second == _alone(model, reqs[1:], 6)[0]
+
+
+def test_spec_round_matches_jax(model, draft):
+    """One round over a pool state built in numpy (two live rows at
+    different offsets, one of them banning repeated bigrams; a finished
+    row and an unused one) against the JAX batcher's round on the same
+    state: every output, the buffer and valid rows and the live rows'
+    caches."""
+    cfg_d, jmodel_d, params_d, tdraft = draft
+    st = _pool_state(model.cfg, "f32")
+    st["toks"] = np.asarray([17, 33, 0, 5])
+    lp, g = ((2, None),), 3
+    t = model.cfg.text
+    kv_d = {k: (np.random.default_rng(10 + i).standard_normal(
+        (4, cfg_d.text.num_hidden_layers, t.kv_heads, 32, t.head_dim))
+        * 0.5).astype(np.float32) for i, k in enumerate(("k", "v"))}
+    lat_d = np.random.default_rng(12).standard_normal(
+        (4, 1, cfg_d.perceiver.num_latents, cfg_d.perceiver.dim)).astype(
+        np.float32)
+    jb = _jax_batcher("f32", num_slots=4, cache_len=32,
+                      draft=(jmodel_d, params_d, cfg_d), spec_gamma=g)
+    jb.shutdown()
+    i32 = lambda k: jnp.asarray(st[k], jnp.int32)
+    jout = jb._get_spec_round(lp, g)(
+        jax_tiny()[2], params_d,
+        {k: jnp.asarray(v) for k, v in st["cache"].items()},
+        {k: jnp.asarray(v) for k, v in kv_d.items()}, i32("buffer"),
+        jnp.asarray(st["valid"]), jnp.asarray(st["latents"]),
+        jnp.asarray(lat_d), i32("toks"), jnp.asarray(st["alive"]),
+        i32("written"), i32("emitted"), i32("real_len"), i32("media"),
+        i32("lp_idx"), i32("valid_from"), jnp.asarray(st["do_sample"]),
+        jnp.asarray(st["temperature"]), i32("top_k"),
+        jnp.asarray(st["top_p"]), i32("eos"), i32("max_new"),
+        jax.random.PRNGKey(0))
+
+    b = _spec_batcher(model, tdraft, num_slots=4, cache_len=32,
+                      spec_gamma=g)
+    b.shutdown()
+    tt = lambda k, dtype=torch.long: torch.as_tensor(st[k]).to(dtype)
+    b._cache = {k: torch.from_numpy(v.copy()) for k, v in st["cache"].items()}
+    b._cache_d = {k: torch.from_numpy(v.copy()) for k, v in kv_d.items()}
+    b._buffer, b._valid = tt("buffer"), tt("valid", torch.bool)
+    b._latents = torch.from_numpy(st["latents"])
+    b._latents_d = torch.from_numpy(lat_d)
+    ca = dict(toks=tt("toks"), alive=tt("alive", torch.bool),
+              written=tt("written"), emitted=tt("emitted"))
+    statics = {k: tt(k, dtype) for k, dtype in (
+        ("real_len", torch.long), ("media", torch.int32),
+        ("lp_idx", torch.long), ("valid_from", torch.long),
+        ("do_sample", torch.bool), ("temperature", torch.float32),
+        ("top_k", torch.long), ("top_p", torch.float32),
+        ("eos", torch.long), ("max_new", torch.long))}
+    statics["sampled"] = False
+    got = b._spec_round(ca, statics, lp, g)
+    (jo, je, jtoks, jalive, jwritten, jemitted, jcache, jcache_d, jbuffer,
+     jvalid) = jout
+    live = [0, 1]
+    assert got[0].numpy()[live].tolist() == np.asarray(jo)[live].tolist()
+    for mine, ref in zip(got[1:], (je, jtoks, jalive, jwritten, jemitted)):
+        assert mine.tolist() == np.asarray(ref).tolist()
+    assert np.array_equal(b._valid.numpy(), np.asarray(jvalid))
+    rows = [0, 1, 3]
+    assert np.array_equal(b._buffer.numpy()[rows], np.asarray(jbuffer)[rows])
+    for mine, ref in ((b._cache, jcache), (b._cache_d, jcache_d)):
+        for k in ref:
+            np.testing.assert_allclose(mine[k].numpy()[live],
+                                       np.asarray(ref[k])[live], atol=1e-5,
+                                       err_msg=k)
+
+
+def test_spec_autotune_counts_the_draft(model, draft):
+    """With a draft, its parameters and its cache row join the pool's
+    footprint, as in JAX's `autotune_num_slots(draft=)`."""
+    cfg, _, params, _ = jax_tiny()
+    cfg_d, _, params_d, tdraft = draft
+    pbytes = lambda p: sum(int(np.prod(x.shape)) * jnp.dtype(x.dtype).itemsize
+                           for x in jax.tree_util.tree_leaves(p))
+    for budget in (pbytes(params) + pbytes(params_d) + 5.5e5,
+                   1e9, 0.0):
+        assert (batching.autotune_num_slots(
+            model, L, torch.float32, hbm_bytes=budget, headroom_bytes=0.0,
+            draft=tdraft)
+            == jbatching.autotune_num_slots(
+                params, cfg, L, jnp.float32, hbm_bytes=budget,
+                headroom_bytes=0.0, draft=(None, params_d, cfg_d)))

@@ -3,9 +3,9 @@ the edge cases the serving and training paths' shapes do not reach (other
 head dims, "ge" ids, full-rank and broadcast biases, rows that attend
 nothing, lengths that are not multiples of the tile, odd batch sizes,
 biases and other activations in the MLP, the fused decode layer's two
-kernels at small widths, the ends of the cache and refused inputs), and
-the continuous batcher's pooled step on a small model, kernels against
-plain.
+kernels at small widths, the ends of the cache and refused inputs), the
+continuous batcher's pooled step and speculative decoding (alone and in
+the pool) on a small model, kernels against plain.
 
 Needs an NVIDIA GPU; skipped without one. On the card:
 `pytest -m cuda tests/test_torch_cuda.py`. Tolerance: bf16 in and out,
@@ -1106,3 +1106,124 @@ def test_batcher_finished_row_at_the_cache_end_on_the_card(gen):
         b.shutdown()
     torch.cuda.synchronize()
     assert b._failure is None and [len(g) for g in got] == [5, 5]
+
+
+# ── speculative decoding on the card ─────────────────────────────────
+
+def _card_draft():
+    """A one-layer mosaic_gpt draft (qk_ln, an xattn block before it) of
+    `_card_otter`'s vocabulary on the card, int8, seeded."""
+    from otter_tpu_torch.tools.random_weights import build_model
+    cfg = _card_otter().cfg
+    cfg = cfg.replace(text=cfg.text.replace(
+        arch="mosaic_gpt", qk_ln=True, num_hidden_layers=1),
+        cross_attn_every_n_layers=1)
+    return build_model(cfg, "cuda", 1)
+
+
+def _launch_diff(fn):
+    from otter_tpu_torch.tools import bench_decode
+    before = bench_decode.kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = bench_decode.kernel_launches()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def test_speculative_generator_kernels_match_plain(gen, monkeypatch):
+    """`SpeculativeGenerator` at b=1 on the card, gamma 3: every round
+    launches `int8_mlp` for the draft's opener (M = 2) and steps (M = 1)
+    and the target's verify window (M = 4), `decode_attention` for the
+    draft's steps; the tokens equal those with both kernels swapped for
+    their plain versions, and `stream` gives them too."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    model, draft = _card_otter(), _card_draft()
+    vx, ids = _card_requests(gen, (13,))[0]
+    sg = SpeculativeGenerator(model, draft, gamma=3, cache_dtype=torch.int8)
+    rounds, rnd = [], sg._round
+
+    def counted(*a, **k):
+        out, launched = _launch_diff(lambda: rnd(*a, **k))
+        rounds.append(launched)
+        return out
+
+    sg._round = counted
+    g = Gen(max_new_tokens=10, eos_token_id=-1)
+    kern = sg.generate(vx, ids, gen=g)
+    assert rounds and all(r == {"int8_mlp": 2 + 2 * 2 + 3,
+                                "decode_attention": 2 * 1}
+                          for r in rounds), rounds
+    sg._round = rnd
+    assert list(sg.stream(vx, ids, gen=g)) == kern[0, 13:].tolist()
+    monkeypatch.setattr(da, "decode_attention", da.decode_attention_plain)
+    monkeypatch.setattr(quant, "int8_mlp", quant.int8_mlp_plain)
+    plain = sg.generate(vx, ids, gen=g)
+    assert kern.tolist() == plain.tolist()
+
+
+def test_spec_pool_kernels_match_plain(gen, monkeypatch):
+    """Three requests through a pool of 4 with the draft (gamma 2) on the
+    card: every round launches `int8_mlp` for the opener (M = 8), the step
+    (M = 4) and the verify window (M = 12) and `decode_attention` for the
+    step; the tokens equal the pool's with both kernels swapped for their
+    plain versions."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    model, draft = _card_otter(), _card_draft()
+    reqs = _card_requests(gen, (9, 12, 15))
+
+    def run(count: bool):
+        b = ContinuousBatcher(model, num_slots=4, cache_len=64,
+                              buckets=(16,), cache_dtype=torch.int8,
+                              max_admits_per_iter=4, draft=draft,
+                              spec_gamma=2, spec_adaptive=False)
+        launched, rnd = [], b._spec_round
+
+        def counted(*a):
+            out, n = _launch_diff(lambda: rnd(*a))
+            launched.append(n)
+            return out
+
+        if count:   # (the plain versions carry no launch counters)
+            b._spec_round = counted
+        try:
+            got = [list(b.submit(vx, ids, Gen(max_new_tokens=7,
+                                              eos_token_id=-1)))
+                   for vx, ids in reqs]
+        finally:
+            b.shutdown()
+        assert b._failure is None
+        return got, launched
+
+    kern, launched = run(True)
+    assert launched and all(r == {"int8_mlp": 2 + 2 + 3,
+                                  "decode_attention": 1}
+                            for r in launched), launched
+    monkeypatch.setattr(da, "decode_attention", da.decode_attention_plain)
+    monkeypatch.setattr(quant, "int8_mlp", quant.int8_mlp_plain)
+    assert [len(g) for g in kern] == [7, 7, 7] and run(False)[0] == kern
+
+
+def test_spec_row_at_the_cache_end_on_the_card(gen):
+    """A pool row that stops within gamma+1 columns of the cache's end
+    steps on, dead, while another request decodes: no round writes past
+    the cache (a device-side assert for every stream)."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    model, draft = _card_otter(), _card_draft()
+    reqs = _card_requests(gen, (10, 14))
+    b = ContinuousBatcher(model, num_slots=2, cache_len=24, buckets=(16,),
+                          cache_dtype=torch.int8, draft=draft, spec_gamma=3,
+                          spec_adaptive=False)
+    try:
+        first = list(b.submit(*reqs[0], Gen(max_new_tokens=20,
+                                            eos_token_id=-1)))
+        second = list(b.submit(*reqs[1], Gen(max_new_tokens=4,
+                                             eos_token_id=-1)))
+    finally:
+        b.shutdown()
+    torch.cuda.synchronize()
+    assert b._failure is None
+    assert 6 <= len(first) <= 9 and len(second) == 4

@@ -531,6 +531,108 @@ def test_batched_stream_fn_matches_jax_worker(tmp_path):
         tb.shutdown()
 
 
+# ── the worker's session and speculative routes ─────────────────────
+
+SESSION_KW = dict(cache_len=128, prompt_bucket=16, window_bucket=8,
+                  min_reuse=4)
+
+
+def _conversation(stream_fn, first: dict, turns: int = 3, sid="s1"):
+    """Each turn's chunks through `stream_fn`: the prompt grows by the
+    reply's text and a new user turn, under one session id."""
+    req, texts = dict(first, session_id=sid), []
+    for t in range(turns):
+        texts.append(list(stream_fn(req)))
+        req = dict(req, prompt=req["prompt"] + " " + texts[-1][-1]
+                   + f"<|endofchunk|>User: and then {t} more GPT:<answer>")
+    return texts
+
+
+@pytest.fixture(scope="module")
+def spec_worker():
+    """The JAX worker's and the port's otter stream functions with a
+    session pool, a speculative generator (the tiny f32 MPT target, the
+    2-layer mosaic_gpt draft, gamma 3) and a pool of speculative sessions,
+    and the port's stateless stream function, with TinyTokenizer."""
+    from otter_tpu.generation import session as jsession
+    from otter_tpu.generation import speculative as jspec
+    from otter_tpu_torch.generation import session, speculative
+    from torch_parity_helpers import spec_pair
+    (cfg, jm, jp, tm), (cfg_d, jm_d, jp_d, tm_d) = spec_pair("mpt")
+    tok = TinyTokenizer()
+    jsg = jspec.SpeculativeGenerator(jm, jp, cfg, jm_d, jp_d, cfg_d, gamma=3,
+                                     cache_dtype=jnp.float32)
+    jfn = jworker.make_otter_stream_fn(
+        JaxGenerator(jm, jp, cfg, cache_dtype=jnp.float32), tok, cfg,
+        sessions=jsession.SessionPool(jm, jp, cfg, max_sessions=2,
+                                      cache_dtype=jnp.float32, **SESSION_KW),
+        spec=jsg, spec_sessions=jsession.SessionPool(
+            jm, jp, cfg, max_sessions=2, factory=lambda: (
+                jsession.SpecChatSession(jsg, **SESSION_KW))))
+    engine = OtterGenerator(tm, cache_dtype=torch.float32)
+    sg = speculative.SpeculativeGenerator(tm, tm_d, gamma=3,
+                                          cache_dtype=torch.float32)
+    pools = dict(
+        sessions=session.SessionPool(tm, max_sessions=2,
+                                     cache_dtype=torch.float32, **SESSION_KW),
+        spec_sessions=session.SessionPool(tm, max_sessions=2, factory=lambda: (
+            session.SpecChatSession(sg, **SESSION_KW))))
+    tfn = make_otter_stream_fn(engine, tok, cfg, spec=sg, **pools)
+    return cfg, jfn, tfn, make_otter_stream_fn(engine, tok, cfg), pools
+
+
+def test_session_and_spec_routes_match_jax_worker(spec_worker):
+    """Three turns under one session id (the speculative session), a
+    session request with a bigram ban (the plain session: speculation
+    takes no bans), a request without a session (the speculative
+    generator) and a beam request (the engine): the JAX worker's texts
+    with the same routes, and the port's stateless worker's."""
+    cfg, jfn, tfn, plain, pools = spec_worker
+    first = {"prompt": "<image>User: alpha beta gamma delta tell me "
+                       "GPT:<answer>", "images": [_png(41)],
+             "generation_kwargs": {"max_new_tokens": 6}}
+    got = _conversation(tfn, first)
+    assert got == _conversation(jfn, first)
+    stateless = []
+    for t, texts in enumerate(got):
+        req = dict(first, prompt=first["prompt"] + "".join(
+            " " + got[i][-1] + f"<|endofchunk|>User: and then {i} more "
+            "GPT:<answer>" for i in range(t)))
+        stateless.append(list(plain(req)))
+    assert got == stateless and all(t[-1] for t in got)
+    sess = pools["spec_sessions"].get("s1")
+    assert not sess.last_stats["restart"] and sess.last_stats["reused"] > 16
+    banned = dict(first, session_id="s2", generation_kwargs={
+        "max_new_tokens": 6, "no_repeat_ngram_size": 2})
+    assert list(tfn(banned)) == list(jfn(banned)) == list(plain(banned))
+    assert pools["sessions"].get("s2").last_stats["restart"]
+    for req in (first, dict(first, generation_kwargs={
+            "max_new_tokens": 5, "num_beams": 2})):
+        assert list(tfn(req)) == list(jfn(req)) == list(plain(req))
+
+
+def test_same_session_twice_at_once_takes_the_stateless_path(spec_worker):
+    """A second request with a session id whose session a running stream
+    holds takes the stateless path (the JAX worker would advance the one
+    session's cache from both): both texts are the stateless worker's, and
+    the session holds the first request's conversation only."""
+    cfg, _, tfn, plain, pools = spec_worker
+    req = {"prompt": "<image>User: one two three four five six seven "
+                     "GPT:<answer>", "images": [_png(42)],
+           "session_id": "shared", "generation_kwargs": {"max_new_tokens": 8}}
+    other = dict(req, prompt=req["prompt"].replace("seven", "eight nine"))
+    first = tfn(req)
+    head = next(first)                       # the first stream holds it
+    second = list(tfn(other))
+    rest = list(first)
+    assert [head] + rest == list(plain(req))
+    assert second == list(plain(other))
+    sess = pools["spec_sessions"].get("shared")
+    assert sess.last_stats["restart"]
+    assert pools["spec_sessions"].acquire("shared") is sess
+    pools["spec_sessions"].release(sess)
+
+
 def test_cli_chat_loop_streams_text(otter_pair):
     """`chat_loop` through StringIO: two turns, each printing what
     `stream_generate` yields for the rendered prompt, then EOF."""
@@ -573,14 +675,50 @@ def _main_args(tmp_path, *extra):
     (["--session-cache", "4"], "item 6"),
     (["--draft-checkpoint", "draft.bin"], "item 6"),
 ])
-def test_unported_flags_refuse_at_start(tmp_path, capsys, flags, item):
-    """Speculative decoding (item 6.2, with or without the batcher) and
-    the session cache (item 6.3) are refused before anything loads."""
-    with pytest.raises(SystemExit) as e:
-        worker.main(_main_args(tmp_path, "--device", "cpu", *flags))
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP Queue 1 {item}" in err
+def test_unported_flags_refuse_at_start(tmp_path, monkeypatch, capsys,
+                                        flags, item):
+    """Speculative decoding (once refused as ROADMAP Queue 1 item 6.2, with
+    or without the batcher) and the session cache (item 6.3) now start: the
+    target and the draft load through `load_otter_model` at the same
+    `--load-bit`, and the stream function gets the batcher's draft, the
+    session pool or the speculative generator, as the JAX worker builds
+    them."""
+    import aiohttp.web
+    from otter_tpu_torch.generation.session import SessionPool
+    from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    model = torch_tiny()
+    loaded, built = [], {}
+    monkeypatch.setattr(worker, "load_otter_model", lambda ckpt, cfg, **kw: (
+        loaded.append((os.path.basename(ckpt), kw["load_bit"]))
+        or (model, model.cfg)))
+    monkeypatch.setattr(aiohttp.web, "run_app", lambda app, **kw: None)
+    for name in ("make_otter_stream_fn", "make_batched_stream_fn"):
+        make = getattr(worker, name)
+        monkeypatch.setattr(worker, name, lambda *a, _make=make, _name=name,
+                            **kw: built.setdefault(_name, (a, kw)) and
+                            _make(*a, **kw))
+    tok_dir = _tokenizer_dir(tmp_path / "tok", model.cfg)
+    worker.main(["--checkpoint", str(tmp_path / "target.bin"), "--tokenizer",
+                 tok_dir, "--device", "cpu", "--no-register", "--load-bit",
+                 "int8", *flags])
+    assert f"ROADMAP Queue 1 {item}" not in capsys.readouterr().err
+    want = [("target.bin", "int8")]
+    if "--draft-checkpoint" in flags:
+        want.append(("draft.bin", "int8"))
+    assert loaded == want
+    if "--continuous-batching" in flags:
+        (batcher, _, _), _ = built["make_batched_stream_fn"]
+        batcher.shutdown()
+        assert batcher.model_d is model and batcher.gamma == 4 \
+            and batcher.spec_adaptive
+        return
+    _, kw = built["make_otter_stream_fn"]
+    if "--session-cache" in flags:
+        assert isinstance(kw["sessions"], SessionPool) \
+            and kw["sessions"].max_sessions == 4 and "spec" not in kw
+    else:
+        assert isinstance(kw["spec"], SpeculativeGenerator) \
+            and kw["spec"].model_d is model and "sessions" not in kw
 
 
 @pytest.mark.parametrize("flags,message", [
@@ -724,8 +862,9 @@ def test_worker_entry_point_serves_a_checkpoint(tmp_path):
 
 def _run_worker(args, req):
     """Start `python -m otter_tpu_torch.serve.worker --device cpu
-    --no-register` with `args` on a free port, send `req`, stop it;
-    returns the chunks."""
+    --no-register` with `args` on a free port, send `req` (or each of a
+    list of requests, one after another), stop it; returns the chunks (a
+    list of them a request for a list)."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT), HF_HUB_OFFLINE="1",
                TRANSFORMERS_OFFLINE="1")
@@ -744,7 +883,10 @@ def _run_worker(args, req):
             except OSError:
                 assert time.time() < deadline, "the worker did not start"
                 time.sleep(0.5)
-        return _stream(f"http://127.0.0.1:{port}", req)
+        url = f"http://127.0.0.1:{port}"
+        if isinstance(req, list):
+            return [_stream(url, r) for r in req]
+        return _stream(url, req)
     finally:
         proc.terminate()
         proc.wait(30)
@@ -795,3 +937,50 @@ def test_worker_entry_point_serves_an_idefics_checkpoint(tmp_path):
         AutoTokenizer.from_pretrained(tok_dir), mcfg)
     assert [c["text"] for c in chunks] == list(fn(req))
     assert chunks[-1]["text"]
+
+
+def test_worker_entry_point_serves_a_session_with_a_draft(tmp_path):
+    """`python -m otter_tpu_torch.serve.worker --draft-checkpoint
+    draft.bin --draft-config draft.json --draft-gamma 3 --session-cache 2`
+    over an HF checkpoint of the tiny model and one of a 2-layer mosaic_gpt
+    draft (qk_ln, a cross-attention block before every layer) made in the
+    test, at `--load-bit int8 --cache-bit int8`: a 3-turn conversation
+    under one session id gives the texts of the stateless worker on the
+    same start-up run in this process."""
+    from transformers import AutoTokenizer
+    from otter_tpu_torch.config import OtterConfig, save_config
+    from otter_tpu_torch.models.convert import port_to_hf, save_state_dict
+    from otter_tpu_torch.tools.random_weights import RandomParams
+    cfg = OtterConfig.tiny("mpt")
+    cfg_d = cfg.replace(text=cfg.text.replace(
+        arch="mosaic_gpt", qk_ln=True, num_hidden_layers=2),
+        cross_attn_every_n_layers=1)
+    paths = {}
+    for name, c, seed in (("target", cfg, 3), ("draft", cfg_d, 4)):
+        paths[name] = str(tmp_path / f"{name}.bin")
+        save_state_dict(port_to_hf(RandomParams(c, "cpu", seed=seed), c),
+                        paths[name])
+        save_config(c, str(tmp_path / f"{name}.json"))
+    tok_dir = _tokenizer_dir(tmp_path / "tok", cfg)
+    reqs = [{"prompt": "<image> w5 w17 w99 w3 w40 w41 w42 w43 w44 w45 w46 "
+                       "w47 w48 w49 w50 w51 w52", "images": [_png(35)],
+             "session_id": "chat", "generation_kwargs": {"max_new_tokens": 5}}]
+    model, mcfg = worker.load_otter_model(paths["target"], cfg,
+                                          load_bit="int8", device="cpu")
+    plain = make_otter_stream_fn(OtterGenerator(model, cache_dtype=torch.int8),
+                                 AutoTokenizer.from_pretrained(tok_dir), mcfg)
+    want = []
+    for t in range(3):
+        want.append([c for c in plain(reqs[-1])])
+        reqs.append(dict(reqs[-1], prompt=reqs[-1]["prompt"] + " "
+                         + want[-1][-1] + f" <|endofchunk|> w{60 + t} w61"))
+    got = _run_worker(["--config", str(tmp_path / "target.json"),
+                       "--checkpoint", paths["target"], "--tokenizer",
+                       tok_dir, "--load-bit", "int8", "--cache-bit", "int8",
+                       "--draft-checkpoint", paths["draft"],
+                       "--draft-config", str(tmp_path / "draft.json"),
+                       "--draft-gamma", "3", "--session-cache", "2"],
+                      reqs[:3])
+    for chunks, texts in zip(got, want):
+        assert all(c["error_code"] == 0 for c in chunks), chunks
+        assert [c["text"] for c in chunks] == texts and texts[-1]

@@ -401,3 +401,31 @@ def idefics_inputs(cfg, seed: int, batch: int = 2, seq: int = 14,
     ids[0, 4] = cfg.eos_token_id
     ids[-1, 10] = cfg.text.vocab_size + 3
     return vision_x, ids
+
+
+# ── speculative pairs: a target and a draft of one vocabulary ────────
+
+def _vlm(cfg, seed: int):
+    """(cfg, JAX OtterVLM, params, port OtterVLM) of `cfg`, unquantized, in
+    f32: the flax init with its norms moved and its gates at 0.6."""
+    init_args = (jnp.zeros((1, 1, 1, 3, 28, 28), jnp.float32),
+                 jnp.zeros((1, 8), jnp.int32))
+    params, flat = _quantized(JaxOtterVLM, cfg, cfg, init_args, seed, None,
+                              False)
+    tmodel = TorchOtterVLM(port_cfg(cfg), dtype=torch.float32, device="cpu")
+    load_flax_params(tmodel, flat)
+    return cfg, JaxOtterVLM(cfg), params, tmodel.eval()
+
+
+@functools.lru_cache(maxsize=None)
+def spec_pair(arch: str = "mpt", seed: int = 0):
+    """(target, draft), each (cfg, JAX OtterVLM, params, port OtterVLM):
+    the tiny `arch` ("mpt" or "llama") OtterVLM, and a 2-layer draft of the
+    same vocabulary with a cross-attention block before every layer (for
+    "mpt" a mosaic_gpt decoder with qk_ln, as Flamingo-MPT-1B)."""
+    base = jcfg.OtterConfig.tiny(arch)
+    text = base.text.replace(num_hidden_layers=2)
+    if arch == "mpt":
+        text = text.replace(arch="mosaic_gpt", qk_ln=True)
+    draft = base.replace(text=text, cross_attn_every_n_layers=1)
+    return _vlm(base, seed), _vlm(draft, seed + 7)
