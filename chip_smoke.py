@@ -71,7 +71,14 @@ unless every phase passes:
                  (b=2, 1024 tokens, one image each, remat, fused CE) through
                  the kernels against the same step with every kernel swapped
                  for its plain version: loss, every trainable gradient,
-                 grad norm.
+                 grad norm, exact flash launches. The same for one step of
+                 the int8-frozen recipe with 8-bit Adam (also its int8 first
+                 moments, dequantized). Then `sft.main` over a data YAML
+                 (cut by --customized_config) through the kernels and
+                 through the plain versions: each step's loss and grad
+                 norm; the kernel run's --save_hf_model file loaded back by
+                 `load_otter_checkpoint` into a fresh model, every tensor
+                 equal to the trained one.
   8. fused       the decode bench (otter_tpu_torch/tools/bench_decode.py) at
                  full width and depth, b=8, prompt 128, cache 256, int8
                  weights, three times: (a) the composed decode layer with a
@@ -213,17 +220,41 @@ unless every phase passes:
                  beside the stateless worker's, the texts equal; then
                  sessions A, B, C: the least recently used is evicted.
  11. train       OTTER-MPT7B at full width in bf16 through train/sft.py's
-                 main: 2 warm-up and 5 timed SFT steps on one synthetic
-                 batch (b=2, 1024 tokens, one 224x224 image each, remat,
-                 fused CE, embedding-row mask, lr 1e-4 constant). Checks
-                 finite and falling loss, frozen weights bit-identical,
-                 every trainable group moved, and the flash forward and
-                 both backward kernels launched; prints step time,
-                 samples/s, tokens/s, peak memory and model FLOP share.
+                 `main(parse_args([...]))` as a user runs it: a data YAML
+                 written here (an IMAGE_TEXT group, one 256x256 image a
+                 sample, and an IMAGE_TEXT_IN_CONTEXT group, three
+                 in-context pairs and four images a sample; 560-960 tokens
+                 a sample), a WordLevel tokenizer directory written here
+                 (`--tokenizer`), the weighted loader, b=2, max_seq_len
+                 1024, remat, fused CE, embedding-row mask, lr 1e-4
+                 constant, two epochs (18 steps). Checks finite losses,
+                 the second epoch's mean below the first's, both groups
+                 drawn, frozen weights bit-identical, every trainable
+                 group moved, and exactly 102 flash_fwd and 46 of each
+                 backward kernel a step; prints step and data ms,
+                 samples/s, tokens/s, peak memory, the bytes of weights
+                 and optimizer state, and model FLOP share.
+ 17. train8      the single-card 7B recipe (tools/bench_train_7b.py) at
+                 full width: OTTER-MPT7B with int8 frozen decoder layers
+                 (FROZEN_DECODER_PATTERNS), bf16 xattn and trainables,
+                 8-bit Adam (no f32 masters), b=2, 1024 tokens, remat,
+                 fused CE 256, lr 1e-4: 2 warm-up and 5 timed steps on one
+                 batch. First one step without remat through
+                 `Int8Dense`'s `_Int8Product` and through the composed
+                 product: the latter's peak must exceed it by at least
+                 the frozen int8 kernels' bytes (autograd keeps their bf16
+                 copies). Checks falling loss, frozen tensors
+                 bit-identical, every trainable group moved, exact flash
+                 launches a step, and that `int8_mlp` refuses an input
+                 that needs a gradient; prints the bytes of frozen and
+                 trainable weights and optimizer state and the peak
+                 memory beside the train phase's, step ms, samples/s and
+                 tokens/s, and (train too) the optimizer update's ms in
+                 one more step.
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all sixteen (`--phases beam` the beam phase alone). `flashkernels`
+runs all seventeen (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -234,8 +265,8 @@ of the port run one after the other in one call. `profile` (not run by default) 
 of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
 requests (with otterhd), of the three fused runs (with fused: device ms
 and launches a decode step), of idefics-9b's b=8 request (with idefics)
-and of one train
-step (with train) to the output directory, `OUT_DIR`.
+and of one train step (with train and with train8) to the output
+directory, `OUT_DIR`.
 """
 
 from __future__ import annotations
@@ -1500,17 +1531,112 @@ def train_cfg(depth_cut: bool = False):
 class SmokeTokenizer:
     """The special-token ids `sft.prepare_batch` asks for, as OTTER-MPT7B's
     tokenizer (GPT-NeoX vocabulary plus Otter's added tokens) numbers
-    them."""
+    them: <answer> 50279 and <PAD> 50280 after <|endofchunk|> and
+    <image>."""
 
     eos_token_id = 0       # <|endoftext|>
-    pad_token_id = 50280   # <PAD>
 
     def __init__(self, cfg):
         self.ids = {"<|endofchunk|>": cfg.eoc_token_id,
-                    "<image>": cfg.media_token_id, "<answer>": 50279}
+                    "<image>": cfg.media_token_id,
+                    "<answer>": cfg.eoc_token_id + 2}
+        self.pad_token_id = cfg.eoc_token_id + 3
 
     def convert_tokens_to_ids(self, token):
         return self.ids[token]
+
+
+TRAIN_WORDS = 64   # distinct words in the trainer's synthetic texts
+
+
+def write_tokenizer(directory: str, cfg) -> str:
+    """An HF WordLevel tokenizer (`tokenizer.json` and
+    `tokenizer_config.json`, written as JSON: no tokenizer library here)
+    whose vocabulary fills ids 0 .. cfg.eoc_token_id - 1, so that the
+    trainer's added tokens (`sft.load_tokenizer`: <|endofchunk|>, <image>,
+    <answer>, then <PAD>) take the config's eoc and media ids and the two
+    after them. Whitespace pre-tokenizer; <|endoftext|> (id 0) is bos and
+    eos, as in GPT-NeoX's vocabulary."""
+    n = cfg.eoc_token_id
+    if cfg.media_token_id != n + 1:
+        raise ValueError("the config's media id must follow its eoc id")
+    words = ["<|endoftext|>", "<unk>", "User", "GPT", ":"]
+    words += [f"w{i}" for i in range(n - len(words))]
+    special = {"id": 0, "content": "<|endoftext|>", "single_word": False,
+               "lstrip": False, "rstrip": False, "normalized": False,
+               "special": True}
+    tokenizer = {"version": "1.0", "truncation": None, "padding": None,
+                 "added_tokens": [special], "normalizer": None,
+                 "pre_tokenizer": {"type": "Whitespace"},
+                 "post_processor": None, "decoder": None,
+                 "model": {"type": "WordLevel",
+                           "vocab": {w: i for i, w in enumerate(words)},
+                           "unk_token": "<unk>"}}
+    config = {"tokenizer_class": "PreTrainedTokenizerFast",
+              "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+              "unk_token": "<unk>", "model_max_length": 2048}
+    os.makedirs(directory, exist_ok=True)
+    for name, obj in (("tokenizer.json", tokenizer),
+                      ("tokenizer_config.json", config)):
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump(obj, f)
+    return directory
+
+
+def write_train_data(directory: str, seed: int, n_single: int = 12,
+                     n_context: int = 6, image_size: int = 256,
+                     long: bool = True) -> str:
+    """A MIMIC-IT data YAML (written as JSON, which YAML reads) over two
+    task groups, and its files: IMAGE_TEXT, one random image and one
+    instruction / answer pair a sample; IMAGE_TEXT_IN_CONTEXT, three
+    in-context pairs (its train config) before the sample's own, four
+    images. Texts are words of `write_tokenizer`'s vocabulary (one token a
+    word): a sample runs 560-960 tokens with the template's, or 40-90 with
+    `long=False`. Images are PNGs of `image_size` squared in one JSON
+    pack. Returns the YAML's path."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    scale = 1 if long else 0.1
+    pool = [f"IMG_{i}" for i in range(16)]
+    images = {i: png_base64(rng.integers(0, 256, (image_size, image_size, 3),
+                                         dtype=np.uint8)) for i in pool}
+    words = [f"w{i}" for i in range(TRAIN_WORDS)]
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi) * scale)
+                                   or 1))
+
+    single = {f"S_{i}": {"instruction": text(250, 400),
+                         "answer": text(300, 550),
+                         "image_ids": [pool[i % len(pool)]]}
+              for i in range(n_single)}
+    context = {f"C_{i}": {"instruction": text(60, 110),
+                          "answer": text(80, 130),
+                          "image_ids": [str(x) for x in rng.choice(
+                              pool, 4, replace=False)]}
+               for i in range(n_context)}
+    train_config = {k: [f"C_{(i + j) % n_context}" for j in (1, 2, 3)]
+                    for i, k in enumerate(context)}
+    files = {"images.json": images,
+             "single.json": {"data": single},
+             "context.json": {"data": context},
+             "context_train.json": train_config}
+    for name, obj in files.items():
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump(obj, f)
+    path = lambda name: os.path.join(os.path.abspath(directory), name)
+    spec = {"IMAGE_TEXT": {"SMOKE_SINGLE": {
+                "mimicit_path": path("single.json"),
+                "images_path": path("images.json"), "num_samples": 0}},
+            "IMAGE_TEXT_IN_CONTEXT": {"SMOKE_CONTEXT": {
+                "mimicit_path": path("context.json"),
+                "images_path": path("images.json"),
+                "train_config_path": path("context_train.json"),
+                "num_samples": 0}}}
+    with open(path("data.yaml"), "w") as f:
+        json.dump(spec, f)
+    return path("data.yaml")
 
 
 def make_train_batch(cfg, tok, seed: int, b: int = 2, s: int = 1024):
@@ -1830,6 +1956,74 @@ def _launches_of(fn) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def _int8dense_host_cost(engine, cfg, tag: str) -> None:
+    """What `Int8Dense`'s composed branch (the product where no input
+    needs a gradient) saves a b=8 decode step on the host against
+    running it through `_Int8Product` (`Function.apply`) as training
+    does: the `Int8Dense` calls a step (counted by a forward hook over a
+    3-token request less a 1-token one) times the host time a call of
+    the one takes beyond the other. The two are timed on a 64 x 64
+    layer, so that each call is host-bound, in blocks of 2000 calls in
+    the order a b b a b a, under inference mode as `generate` runs."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.ops import quant
+
+    calls = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, quant.Int8Dense):
+            calls[0] += 1
+
+    req = make_requests(cfg, 8, SEED + 19)
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        counts = []
+        for n_new in (1, 3):
+            calls[0] = 0
+            engine.generate(*req, gen=GenerationConfig(
+                max_new_tokens=n_new, eos_token_id=-1))
+            counts.append(calls[0])
+    finally:
+        handle.remove()
+    per_step = (counts[1] - counts[0]) / 2
+
+    m = quant.Int8Dense(64, 64, device=DEV)
+    with torch.no_grad():
+        m.kernel_q.copy_(torch.randint(-127, 128, (64, 64), device=DEV))
+    x = torch.randn(8, 64, device=DEV, dtype=torch.bfloat16)
+
+    def composed(x):
+        x = x.to(m.dtype)
+        return (x @ m.kernel_q.to(m.dtype)) * m.scale_q.to(m.dtype)
+
+    us = {"a": [], "b": []}
+    def function(x):
+        return quant._Int8Product.apply(x.to(m.dtype), m.kernel_q,
+                                        m.scale_q)
+
+    fns = {"a": composed, "b": function}
+    n = 2000
+    with torch.inference_mode():
+        if not torch.equal(composed(x), function(x)):
+            raise RuntimeError(f"{tag}: _Int8Product's forward differs from "
+                               f"the composed product")
+        for key in "abbaba":
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fns[key](x)
+            torch.cuda.synchronize()
+            us[key].append((time.perf_counter() - t) / n * 1e6)
+    extra = float(np.median(us["b"]) - np.median(us["a"]))
+    log(f"{tag}: Int8Dense calls a b=8 decode step {per_step:g}; host us a "
+        f"call (64 x 64, blocks of {n}): composed "
+        f"{[round(u, 2) for u in us['a']]}, _Int8Product "
+        f"{[round(u, 2) for u in us['b']]}: {extra:+.2f} us a call, "
+        f"{extra * per_step / 1e3:+.3f} ms a step")
+
+
 def phase_serve(smi: str, tag: str = "serve"):
     """Serve the requests on OTTER-MPT7B with int8 weights and cache (phase
     `serve`) or int4 weights and cache (phase `serve4`), or on
@@ -1925,6 +2119,8 @@ def phase_serve(smi: str, tag: str = "serve"):
     if dead or stray:
         raise RuntimeError(f"{tag}: never launched {dead}; launched off its "
                            f"path {stray}")
+    if tag == "serve":      # after the count: its requests are not timed
+        _int8dense_host_cost(engine, cfg, tag)
     return launches, engine
 
 
@@ -4263,30 +4459,86 @@ def _flash_wrappers():
             "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq}
 
 
-class _GradRecorder:
-    """Stands in for the optimizer: keeps the step's gradients (f32) and
-    leaves the weights as they were."""
+def train_step_flash(cfg) -> dict:
+    """Flash launches of one SFT step with remat: the forward runs CLIP's,
+    the perceiver's, the decoder's and the xattn blocks' attention once
+    and the decoder's again in the backward (its layers are recomputed);
+    the frozen CLIP has no backward. 102 / 46 / 46 at OTTER-MPT7B."""
+    clip, perc = cfg.vision.num_hidden_layers, cfg.perceiver.depth
+    dec = cfg.text.num_hidden_layers
+    xattn = dec // cfg.cross_attn_every_n_layers
+    return {"flash_fwd": clip + perc + 2 * dec + xattn,
+            "flash_bwd_dkv": dec + xattn + perc,
+            "flash_bwd_dq": dec + xattn + perc}
 
-    grads = None
 
-    def init(self, params):
-        return None
+def int8_train_cfg(depth_cut: bool = False):
+    """The single-card 7B recipe's model (`tools/bench_train_7b.py`): the
+    frozen decoder layers in int8, the xattn blocks in bf16."""
+    cfg = train_cfg(depth_cut)
+    return cfg.replace(text=cfg.text.replace(quant="int8", quant_xattn=None))
 
-    def update(self, grads, state, params):
-        self.grads = {k: g.detach().float().clone() for k, g in grads.items()}
 
-
-def _step_grads(cfg, dtype, batch, ctx):
-    """(loss, grad_norm, {path: f32 gradient}, launches) of one SFT step
-    (remat, fused CE 256, embedding mask) of the model `cfg` in `dtype`
-    from random_params weights; the weights are left as they were."""
+def build_int8_train_model(depth_cut: bool = False, dtype=None,
+                           remat: bool = True):
+    """The recipe's model with random_params weights: the unquantized
+    set's frozen decoder kernels quantized with FROZEN_DECODER_PATTERNS
+    (they are all frozen, so this is the JAX tool's split-then-quantize),
+    the rest in `dtype` (bf16)."""
     import torch
     from otter_tpu_torch.models.convert import load_flax_params
     from otter_tpu_torch.models.otter import OtterVLM
-    from otter_tpu_torch.train.step import TrainState, make_train_step
-    model = OtterVLM(cfg, dtype=dtype, device=DEV, remat=True)
-    load_flax_params(model, random_params(cfg))
-    rec = _GradRecorder()
+    from otter_tpu_torch.ops import quant
+    cfg = int8_train_cfg(depth_cut)
+    model = OtterVLM(cfg, dtype=dtype or torch.bfloat16, device=DEV,
+                     remat=remat)
+    load_flax_params(model, quant.quantize_params(
+        random_params(train_cfg(depth_cut)), quant.FROZEN_DECODER_PATTERNS))
+    return model, cfg
+
+
+class _GradRecorder:
+    """Stands in for the optimizer: keeps the step's gradients (f32) and
+    leaves the weights as they were; or, given an optimizer, keeps them and
+    then lets it update."""
+
+    grads = None
+
+    def __init__(self, tx=None):
+        self.tx = tx
+
+    def init(self, params):
+        return None if self.tx is None else self.tx.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().float().clone() for k, g in grads.items()}
+        if self.tx is not None:
+            self.tx.update(grads, state, params)
+
+
+def _step_grads(cfg, dtype, batch, ctx, adam8: bool = False):
+    """(loss, grad_norm, {path: f32 tensor}, launches) of one SFT step
+    (remat, fused CE 256, embedding mask) of the model `cfg` in `dtype`
+    from random_params weights. The tensors are the step's gradients, and
+    with `adam8` (the int8-frozen recipe's model and 8-bit Adam) also its
+    dequantized first moments ("mu:" + path) after the update; without
+    it the weights are left as they were."""
+    import torch
+    from otter_tpu_torch.models.convert import load_flax_params
+    from otter_tpu_torch.models.otter import OtterVLM
+    from otter_tpu_torch.train.step import (TrainState, make_optimizer,
+                                            make_train_step)
+    if adam8:
+        model, cfg = build_int8_train_model(depth_cut=True, dtype=dtype)
+    else:
+        model = OtterVLM(cfg, dtype=dtype, device=DEV, remat=True)
+        load_flax_params(model, random_params(cfg))
+    tx = None
+    if adam8:
+        from otter_tpu_torch.train.step import split_params
+        tx = make_optimizer(split_params(model, cfg)[0], lr=1e-4,
+                            total_steps=100, state_bits=8)
+    rec = _GradRecorder(tx)
     state = TrainState.create(model, cfg, rec)
     step = make_train_step(model, cfg, rec, mask_embedding=True,
                            fused_ce_chunk=256)
@@ -4296,28 +4548,23 @@ def _step_grads(cfg, dtype, batch, ctx):
     with ctx:
         _, m = step(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-    return loss, gnorm, rec.grads, {k: w.launches for k, w in
-                                    wrappers.items()}
+    out = dict(rec.grads)
+    if adam8:
+        o = state.opt_state
+        for k, p in state.trainable.items():
+            mu = (o.mu[k].float() * o.mu_s[k]).reshape(-1)[:p.numel()]
+            out["mu:" + k] = mu.reshape(p.shape)
+    return loss, gnorm, out, {k: w.launches for k, w in wrappers.items()}
 
 
-def phase_trainparity():
+def _hold_step(tag, runs, want_launches):
+    """A step through the kernels against the same step through the plain
+    versions (bf16) and, where bf16 itself strays, in f32: loss 1e-2
+    relative, grad norm 2e-2, each tensor within 5e-2 max|plain|."""
     import torch
-    from otter_tpu_torch.train import sft
-    from otter_tpu_torch.train.args import TrainArgs
-
-    cfg = train_cfg(depth_cut=True)
-    tok = SmokeTokenizer(cfg)
-    batch = sft.prepare_batch(make_train_batch(cfg, tok, SEED + 30), tok,
-                              TrainArgs())
-    runs = {}
-    for name, dtype, ctx in (
-            ("kernels", torch.bfloat16, contextlib.nullcontext()),
-            ("plain", torch.bfloat16, plain_kernels()),
-            ("plain_f32", torch.float32, plain_kernels())):
-        runs[name] = _step_grads(cfg, dtype, batch, ctx)
-        loss, gnorm, _, counts = runs[name]
-        log(f"trainparity[{name}]: loss {loss:.6f} grad_norm {gnorm:.6f} "
-            f"launches {counts}")
+    for name, (loss, gnorm, _, counts) in runs.items():
+        log(f"trainparity[{tag}, {name}]: loss {loss:.6f} grad_norm "
+            f"{gnorm:.6f} launches {counts}")
     (lk, gk, grads_k, ck), (lp, gp, grads_p, cp) = runs["kernels"], \
         runs["plain"]
     grads_f = runs["plain_f32"][2]
@@ -4326,7 +4573,7 @@ def phase_trainparity():
         failed.append(f"loss {lk} vs {lp} (limit 1e-2 relative)")
     if not (math.isfinite(gk) and abs(gk - gp) <= 2e-2 * abs(gp)):
         failed.append(f"grad_norm {gk} vs {gp} (limit 2e-2 relative)")
-    # Each gradient: kernels within 5e-2 * max|plain| of the bf16 plain
+    # Each tensor: kernels within 5e-2 * max|plain| of the bf16 plain
     # path. Where the bf16 plain path itself is farther than that from the
     # same step in f32 (a gradient at bf16's noise floor: at random init
     # the perceiver's latents are near-identical, so the xattn q path's
@@ -4334,8 +4581,8 @@ def phase_trainparity():
     # the limit plus the bf16 plain path's own error of the f32 step.
     rel = lambda a, r: float((a - r).abs().max()) / max(
         float(r.abs().max()), 1e-30)
-    log("trainparity: per gradient, max err / max|ref|: kernels vs bf16 "
-        "plain (limit 5e-2) | kernels vs f32 plain | bf16 plain vs f32 "
+    log(f"trainparity[{tag}]: per tensor, max err / max|ref|: kernels vs "
+        "bf16 plain (limit 5e-2) | kernels vs f32 plain | bf16 plain vs f32 "
         "plain")
     floor = []
     for k, g in grads_p.items():
@@ -4348,47 +4595,224 @@ def phase_trainparity():
             ok = e_kf <= e_pf + 5e-2
             floor.append(k)
         if not ok or not torch.isfinite(grads_k[k]).all():
-            failed.append(f"grad {k}: {e_kp:.3e} (vs f32 {e_kf:.3e}, bf16 "
+            failed.append(f"{k}: {e_kp:.3e} (vs f32 {e_kf:.3e}, bf16 "
                           f"plain vs f32 {e_pf:.3e})")
-    log(f"trainparity: {len(grads_p)} gradients; held against the f32 step "
-        f"(bf16 plain itself beyond 5e-2 of it): {floor}")
-    if any(ck[k] == 0 for k in FLASH_COUNTERS) or any(cp.values()):
-        failed.append(f"launches: kernel run {ck}, plain run {cp}")
+    log(f"trainparity[{tag}]: {len(grads_p)} tensors; held against the f32 "
+        f"step (bf16 plain itself beyond 5e-2 of it): {floor}")
+    if ck != want_launches or any(cp.values()):
+        failed.append(f"launches: kernel run {ck} (want {want_launches}), "
+                      f"plain run {cp}")
     if failed:
-        raise RuntimeError("train step: kernel path disagrees with the "
-                           "plain path: " + "; ".join(failed))
+        raise RuntimeError(f"train step ({tag}): kernel path disagrees "
+                           "with the plain path: " + "; ".join(failed))
+
+
+def _yaml_argv(cfg, yaml_path, tok_dir, save_dir, run_name, *extra):
+    """The trainer's command line over a data YAML (OTTER-MPT7B, b=2, up to
+    1024 tokens, `cfg`'s image size, remat, fused CE 256, embedding-row
+    mask, lr 1e-4 constant, no final checkpoint: the optimizer state is
+    tens of GB)."""
+    return ["--training_data_yaml", yaml_path, "--tokenizer", tok_dir,
+            "--model_config", "mpt7b", "--batch_size", "2",
+            "--max_seq_len", "1024",
+            "--patch_image_size", str(cfg.vision.image_size),
+            "--gradient_checkpointing",
+            "--mask_lm_head", "--learning_rate", "1e-4",
+            "--warmup_steps", "0", "--logging_steps", "1",
+            "--final_checkpoint", "--external_save_dir", save_dir,
+            "--run_name", run_name, "--seed", str(SEED), "--workers", "4",
+            *extra]
+
+
+def _read_metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _yaml_parity(cfg, work: str):
+    """The trainer over a data YAML at cut depth (via
+    `--customized_config`), once through the kernels and once through the
+    plain versions, on the same batches (the loader's order is seeded):
+    each step's loss within 1e-2 relative, its grad norm within 2e-2.
+    The kernel run also writes `--save_hf_model`'s
+    final_weights.safetensors, which `load_otter_checkpoint` loads into a
+    fresh model: every tensor equal to the trained one (the trainable
+    ones are exported from their f32 masters, whose bf16 rounding the
+    model holds)."""
+    import torch
+    from otter_tpu_torch.models.convert import load_otter_checkpoint
+    from otter_tpu_torch.models.otter import OtterVLM
+    from otter_tpu_torch.train import sft
+    from otter_tpu_torch.train.args import parse_args
+    custom = os.path.join(work, "cut.json")
+    with open(custom, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    yaml_path = write_train_data(os.path.join(work, "data"), SEED + 60,
+                                 n_single=4, n_context=2)
+    tok_dir = write_tokenizer(os.path.join(work, "tok"), cfg)
+    per_step = train_step_flash(cfg)
+    runs = {}
+    for name, ctx in (("kernels", contextlib.nullcontext()),
+                      ("plain", plain_kernels())):
+        argv = _yaml_argv(cfg, yaml_path, tok_dir, work, name,
+                          "--customized_config", custom)
+        if name == "kernels":
+            argv.append("--save_hf_model")
+        wrappers = _flash_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with ctx:
+            state = sft.main(parse_args(argv), params=random_params(cfg),
+                             device=DEV)
+        metrics = _read_metrics(os.path.join(work, name))
+        counts = {k: w.launches for k, w in wrappers.items()}
+        runs[name] = (metrics, counts, time.perf_counter() - t0)
+        log(f"trainparity[yaml, {name}]: {len(metrics)} steps in "
+            f"{runs[name][2]:.1f} s, losses "
+            f"{[round(m['loss'], 5) for m in metrics]}, grad norms "
+            f"{[round(m['grad_norm'], 5) for m in metrics]}, launches "
+            f"{counts}")
+        if name == "kernels":
+            trained = state
+        else:
+            del state
+    (mk, ck, _), (mp, cp, _) = runs["kernels"], runs["plain"]
+    failed = []
+    if len(mk) != len(mp) or not mk:
+        failed.append(f"steps {len(mk)} vs {len(mp)}")
+    for i, (a, b) in enumerate(zip(mk, mp)):
+        if not (math.isfinite(a["loss"])
+                and abs(a["loss"] - b["loss"]) <= 1e-2 * abs(b["loss"])):
+            failed.append(f"step {i + 1} loss {a['loss']} vs {b['loss']}")
+        if not abs(a["grad_norm"] - b["grad_norm"]) <= 2e-2 * b["grad_norm"]:
+            failed.append(f"step {i + 1} grad norm {a['grad_norm']} vs "
+                          f"{b['grad_norm']}")
+    want = {k: v * len(mk) for k, v in per_step.items()}
+    if ck != want or any(cp.values()):
+        failed.append(f"launches {ck} (want {want}), plain {cp}")
+
+    path = os.path.join(work, "kernels", "final_weights.safetensors")
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    fresh = OtterVLM(cfg, dtype=torch.bfloat16, device=DEV)
+    load_otter_checkpoint(path, cfg, fresh)
+    t_load = time.perf_counter() - t0
+    mine = dict(fresh.named_parameters())
+    differ = [k for k, p in trained.model.named_parameters()
+              if not torch.equal(p, mine[k])]
+    log(f"trainparity[yaml]: final_weights.safetensors {size / 1e9:.3f} GB "
+        f"(f32), loaded into a fresh model in {t_load:.1f} s: "
+        f"{len(mine) - len(differ)} of {len(mine)} tensors equal to the "
+        f"trained ones")
+    if differ:
+        failed.append(f"the HF export loads back unequal: {differ[:5]}")
+    os.remove(path)
+    if failed:
+        raise RuntimeError("trainparity (data YAML): " + "; ".join(failed))
+
+
+def phase_trainparity():
+    import tempfile
+    import torch
+    from otter_tpu_torch.train import sft
+    from otter_tpu_torch.train.args import TrainArgs
+
+    cfg = train_cfg(depth_cut=True)
+    tok = SmokeTokenizer(cfg)
+    batch = sft.prepare_batch(make_train_batch(cfg, tok, SEED + 30), tok,
+                              TrainArgs())
+    per_step = train_step_flash(cfg)
+    for tag, adam8 in (("bf16 step", False),
+                       ("int8-frozen, 8-bit Adam step", True)):
+        runs = {name: _step_grads(cfg, dtype, batch, ctx, adam8)
+                for name, dtype, ctx in (
+                    ("kernels", torch.bfloat16, contextlib.nullcontext()),
+                    ("plain", torch.bfloat16, plain_kernels()),
+                    ("plain_f32", torch.float32, plain_kernels()))}
+        _hold_step(tag, runs, per_step)
+        del runs
+    with tempfile.TemporaryDirectory() as work:
+        _yaml_parity(cfg, work)
 
 
 # ── phase 7: SFT steps at full width through train/sft.py ───────────
 
-class TimedBatches:
-    """The same collated batch `n` times, as the trainer's data: each
-    request for the next batch waits for the device and notes the time and
-    the kernels' launch counts, so step i took times[i + 1] - times[i]."""
+class StepMarks:
+    """Wraps `sft.prepare_batch` for a run of `main`: each call, the start
+    of a step, waits for the device and notes the time, the kernels'
+    launch counts and the batch's shape, so step i took times[i + 1] -
+    times[i] (its data wait included) and launched counts[i + 1] -
+    counts[i]. Call `mark()` once more after `main` returns. It also
+    wraps `sft.build_loaders`: `data` holds the loader's own wait for each
+    batch (after the device has finished the step before: `main`'s
+    data_time also holds that drain, as its `end` is taken before the
+    logging that reads the loss)."""
 
-    def __init__(self, batch, n: int, counters):
-        self.batch, self.n, self.counters = batch, n, counters
-        self.times, self.counts = [], []
+    def __init__(self, counters):
+        self.counters = counters
+        self.times, self.counts, self.shapes, self.data = [], [], [], []
 
-    def __len__(self):
-        return self.n
+    @contextlib.contextmanager
+    def around(self, sft):
+        real, real_build = sft.prepare_batch, sft.build_loaders
 
-    def __iter__(self):
-        for _ in range(self.n):
-            self._mark()
-            yield self.batch
-        self._mark()
+        def marked(batch, tok, args):
+            self.mark()
+            out = real(batch, tok, args)
+            self.shapes.append((tuple(out["input_ids"].shape),
+                                out["vision_x"].shape[1]))
+            return out
 
-    def _mark(self):
+        sft.prepare_batch = marked
+        sft.build_loaders = lambda *a, **k: _TimedLoader(
+            real_build(*a, **k), self.data)
+        try:
+            yield self
+        finally:
+            sft.prepare_batch, sft.build_loaders = real, real_build
+
+    def mark(self):
         import torch
         torch.cuda.synchronize()
         self.times.append(time.perf_counter())
         self.counts.append({k: w.launches for k, w in self.counters.items()})
 
+    def per_step(self):
+        return [{k: c1[k] - c0[k] for k in c0}
+                for c0, c1 in zip(self.counts, self.counts[1:])]
 
-def _model_flops(model, cfg, b: int, s: int) -> float:
+
+class _TimedLoader:
+    """A loader whose every batch's wait is appended to `waits` (s),
+    timed from after a device sync."""
+
+    def __init__(self, loader, waits):
+        self.loader, self.waits = loader, waits
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        import torch
+        it = iter(self.loader)
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def _model_flops(model, cfg, b: int, s: int, images: float = 1) -> float:
     """Matmul FLOPs of one step, from the parameter counts (attention's
-    own q.k and p.v products are not counted)."""
+    own q.k and p.v products are not counted); `images` a sample."""
     groups = {"dec": 0, "xattn": 0, "head": 0, "clip": 0, "perc": 0}
     for name, p in model.named_parameters():
         if name.startswith("vision_encoder."):
@@ -4401,8 +4825,11 @@ def _model_flops(model, cfg, b: int, s: int) -> float:
             groups["head"] += p.numel()
         else:
             groups["dec"] += p.numel()
-    t, t_img, t_lat = b * s, b * (cfg.vision.num_patches + 1), \
-        b * cfg.perceiver.num_latents
+    for name, t in model.named_buffers():     # int8 decoder kernels
+        if name.endswith("kernel_q"):
+            groups["dec"] += t.numel()
+    t, t_img, t_lat = b * s, b * images * (cfg.vision.num_patches + 1), \
+        b * images * cfg.perceiver.num_latents
     lm = groups["dec"] + groups["xattn"] + groups["head"]
     return (4 * t * lm + 2 * t * (groups["xattn"] + groups["head"])
             + 2 * t * (groups["dec"] + groups["head"])
@@ -4412,130 +4839,416 @@ def _model_flops(model, cfg, b: int, s: int) -> float:
 FLOPS_FORMULA = ("4*T*(P_dec+P_xattn+P_head) [forward + activation grads] "
                  "+ 2*T*(P_xattn+P_head) [weight grads] + 2*T*(P_dec+P_head) "
                  "[remat and fused-CE recompute] + 2*T_img*P_clip + "
-                 "6*T_lat*P_perc, T = b*s text tokens, T_img = b*257, "
-                 "T_lat = b*64")
+                 "6*T_lat*P_perc, T = b*s text tokens, T_img = b*257 a "
+                 "image, T_lat = b*64 a image")
+
+# what the train phase measured, for train8 to print beside its own
+_TRAIN_MEMORY = {}
 
 
-def phase_train(smi: str, profile: bool = False):
-    import numpy as np
+def _state_bytes(state) -> dict:
+    """Bytes of the frozen weights (parameters and the int8 buffers), the
+    trainable weights and the optimizer state."""
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    return {"frozen": nb(state.frozen.values())
+            + nb(b for _, b in state.model.named_buffers()),
+            "trainable": nb(state.trainable.values()),
+            "optimizer": state.opt_state.nbytes()}
+
+
+def _gb(d: dict) -> str:
+    return ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in d.items())
+
+
+def _check_frozen(tag, state, params, paths):
     import torch
-    from otter_tpu_torch.train import sft
-    from otter_tpu_torch.train.args import TrainArgs
-
-    b, s, warm, timed = 2, 1024, 2, 5
-    args = TrainArgs(
-        model_name="otter", model_config="mpt7b", precision="bf16",
-        batch_size=b, gradient_checkpointing=True, fused_ce_chunk=256,
-        mask_lm_head=True, learning_rate=1e-4, lr_scheduler="constant",
-        warmup_steps=0, logging_steps=1, final_checkpoint=False,
-        external_save_dir=os.path.join(OUT_DIR, "train"), run_name="mpt7b",
-        seed=SEED)
-    run_dir = os.path.join(args.external_save_dir, args.run_name)
-    shutil.rmtree(run_dir, ignore_errors=True)
-    cfg = sft.CONFIG_FACTORIES[args.model_config]()
-    tok = SmokeTokenizer(cfg)
-    params = random_params(cfg)
-    wrappers = _flash_wrappers()
-    batches = TimedBatches(make_train_batch(cfg, tok, SEED + 40, b, s),
-                           warm + timed, wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    state = sft.main(args, tok, batches, params=params, device=DEV)
-    wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
-
-    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        losses = [json.loads(line)["loss"] for line in f]
-    steps = np.diff(batches.times)
-    per_step = [{k: c1[k] - c0[k] for k in c0}
-                for c0, c1 in zip(batches.counts, batches.counts[1:])]
-    step_s = float(np.median(steps[warm:]))
-    n_train = sum(p.numel() for p in state.trainable.values())
-    n_all = sum(p.numel() for p in state.model.parameters())
-    flops = _model_flops(state.model, cfg, b, s)
-    log(f"train: OTTER-MPT7B bf16, {n_all / 1e9:.3f}B parameters, "
-        f"{n_train / 1e9:.3f}B trainable (f32 masters + moments), b={b} "
-        f"s={s}, one 224x224 image each, remat, fused CE 256, lr 1e-4 | "
-        f"{smi}")
-    log(f"train: main() {wall:.1f} s for {warm + timed} steps; losses "
-        f"{[round(x, 5) for x in losses]}")
-    log(f"train: step ms {[round(float(x) * 1e3, 2) for x in steps]} | "
-        f"median of "
-        f"the last {timed}: {step_s * 1e3:.2f} ms, {b / step_s:.3f} "
-        f"samples/s, {b * s / step_s:.1f} tokens/s | {smi}")
-    log(f"train: peak memory (torch.cuda.max_memory_allocated) "
-        f"{peak / 2 ** 30:.2f} GiB ({peak} bytes)")
-    log(f"train: model FLOPs {flops / 1e12:.2f} TFLOP a step = "
-        f"{FLOPS_FORMULA}; {flops / step_s / 1e12:.1f} TFLOP/s = "
-        f"{100 * flops / step_s / H100_BF16_FLOP_PER_S:.2f}% of 989 TFLOP/s "
-        f"| {smi}")
-    log(f"train: launches per step {per_step}; whole run {launches}")
-
     failed = []
-    if len(losses) != warm + timed or not all(map(math.isfinite, losses)):
-        failed.append(f"losses {losses}")
-    elif not losses[-1] < losses[0]:
-        failed.append(f"loss did not fall: {losses}")
     with torch.no_grad():
-        for path in ("vision_encoder/layers_0/fc1/kernel",
-                     "lang_encoder/layers_0/attn/Wqkv/kernel",
-                     "lang_encoder/norm_f/scale"):
+        for path in paths:
             now = state.frozen[path]
             before = params["params/" + path]
             same = torch.equal(now, before)
-            log(f"train: frozen {path} checksum before "
+            log(f"{tag}: frozen {path} checksum before "
                 f"{float(before.double().sum()):.10e} after "
                 f"{float(now.double().sum()):.10e} "
                 f"{'bit-identical' if same else 'CHANGED'}")
             if not same:
                 failed.append(f"frozen {path} changed")
-            del before
-        moved = {}
+    return failed
+
+
+def _check_moved(tag, state, before):
+    """Every trainable tensor moved, by group (wte, xattn, perceiver)."""
+    import torch
+    moved = {}
+    with torch.no_grad():
         for path, p in state.trainable.items():
             group = ("wte" if "/wte/" in path else "xattn" if "xattn_" in path
                      else "perceiver")
             n_moved, n = moved.get(group, (0, 0))
-            moved[group] = (n_moved + int(not torch.equal(
-                p, params["params/" + path])), n + 1)
-    log(f"train: trainable tensors changed by group {moved}")
+            moved[group] = (n_moved + int(not torch.equal(p, before(path))),
+                            n + 1)
+    log(f"{tag}: trainable tensors changed by group {moved}")
     if sorted(moved) != ["perceiver", "wte", "xattn"] or any(
             m != n for m, n in moved.values()):
-        failed.append(f"trainable tensors unchanged: {moved}")
-    dead = [k for k in FLASH_COUNTERS if launches[k] == 0]
-    if dead:
-        failed.append(f"never launched: {dead}")
+        return [f"trainable tensors unchanged: {moved}"]
+    return []
+
+
+def phase_train(smi: str, profile: bool = False):
+    import tempfile
+    import numpy as np
+    import torch
+    from otter_tpu_torch.train import sft
+    from otter_tpu_torch.train.args import parse_args
+
+    save_dir = os.path.join(OUT_DIR, "train")
+    run_dir = os.path.join(save_dir, "mpt7b")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg = sft.CONFIG_FACTORIES["mpt7b"]()
+    params = random_params(cfg)
+    wrappers = _flash_wrappers()
+    marks = StepMarks(wrappers)
+    with tempfile.TemporaryDirectory() as work:
+        yaml_path = write_train_data(os.path.join(work, "data"), SEED + 40)
+        tok_dir = write_tokenizer(os.path.join(work, "tok"), cfg)
+        args = parse_args(_yaml_argv(cfg, yaml_path, tok_dir, save_dir,
+                                     "mpt7b", "--num_epochs", "2"))
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases left allocated is not this phase's
+        base = torch.cuda.memory_allocated()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with marks.around(sft):
+            state = sft.main(args, params=params, device=DEV)
+        marks.mark()
+        wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak_abs = torch.cuda.max_memory_allocated()
+    peak = peak_abs - base
+
+    metrics = _read_metrics(run_dir)
+    losses = [m["loss"] for m in metrics]
+    data_s = marks.data
+    # main's data_time a step, from metrics.jsonl's running average
+    data_avg = [m["data_time"] for m in metrics]
+    main_data_s = [data_avg[0]] + [(i + 1) * data_avg[i]
+                                   - i * data_avg[i - 1]
+                                   for i in range(1, len(data_avg))]
+    steps = np.diff(marks.times)
+    per_step = marks.per_step()
+    warm = 2
+    tokens = [b * s for (b, s), _ in marks.shapes]
+    images = [t for _, t in marks.shapes]
+    step_s = float(np.median(steps[warm:]))
+    tok_s = sum(tokens[warm:]) / float(np.sum(steps[warm:]))
+    b = args.batch_size
+    n_train = sum(p.numel() for p in state.trainable.values())
+    n_all = sum(p.numel() for p in state.model.parameters())
+    mean_s = int(np.mean([s for (_, s), _ in marks.shapes]))
+    flops = _model_flops(state.model, cfg, b, mean_s, float(np.mean(images)))
+    mem = _state_bytes(state)
+    _TRAIN_MEMORY.update(mem, peak=peak)
+    log(f"train: OTTER-MPT7B bf16 through sft.main(parse_args([...])) over "
+        f"a data YAML (IMAGE_TEXT and IMAGE_TEXT_IN_CONTEXT, "
+        f"{len(metrics)} steps in 2 epochs), a WordLevel tokenizer "
+        f"directory, "
+        f"{n_all / 1e9:.3f}B parameters, {n_train / 1e9:.3f}B trainable "
+        f"(f32 masters + moments), b={b}, remat, fused CE 256, lr 1e-4 | "
+        f"{smi}")
+    log(f"train: batches (b, padded length, images a sample) "
+        f"{[(bb, s, t) for ((bb, s), t) in marks.shapes]}")
+    log(f"train: main() {wall:.1f} s for {len(metrics)} steps; losses "
+        f"{[round(x, 5) for x in losses]}")
+    log(f"train: step ms (wall between steps, data wait included) "
+        f"{[round(float(x) * 1e3, 2) for x in steps]} | median of the last "
+        f"{len(steps) - warm}: {step_s * 1e3:.2f} ms, {b / step_s:.3f} "
+        f"samples/s, {tok_s:.1f} tokens/s (padded) | {smi}")
+    log(f"train: data ms a step (the loader's own wait, after a device "
+        f"sync) {[round(x * 1e3, 2) for x in data_s]}; median of the last "
+        f"{len(data_s) - warm}: {float(np.median(data_s[warm:])) * 1e3:.2f}"
+        f" ms. main's data_time a step (metrics.jsonl: the loader's wait "
+        f"plus the device finishing the step before) "
+        f"{[round(x * 1e3, 2) for x in main_data_s]}; "
+        f"samples_per_sec_per_chip (main's running average) "
+        f"{metrics[-1]['samples_per_sec_per_chip']:.3f}")
+    log(f"train: peak memory (torch.cuda.max_memory_allocated, above the "
+        f"{base / 2 ** 30:.2f} GiB allocated before the phase) "
+        f"{peak / 2 ** 30:.2f} GiB ({peak} bytes), absolute "
+        f"{peak_abs / 2 ** 30:.2f} GiB; {_gb(mem)}")
+    log(f"train: model FLOPs {flops / 1e12:.2f} TFLOP a step at the mean "
+        f"padded length {mean_s} and images {np.mean(images):.2f} = "
+        f"{FLOPS_FORMULA}; "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+        f"{100 * flops / step_s / H100_BF16_FLOP_PER_S:.2f}% of 989 TFLOP/s "
+        f"| {smi}")
+    log(f"train: launches per step {per_step}; whole run {launches}")
+
+    # two epochs over the same data (the weighted choice draws the
+    # batches anew): the second's mean loss, after a pass, is lower
+    half = len(losses) // 2
+    mean1, mean2 = np.mean(losses[:half]), np.mean(losses[half:])
+    log(f"train: mean loss epoch 1 {mean1:.5f}, epoch 2 {mean2:.5f}")
+    failed = []
+    if not losses or not all(map(math.isfinite, losses)):
+        failed.append(f"losses {losses}")
+    elif not mean2 < mean1:
+        failed.append(f"loss did not fall: {losses}")
+    if len(set(images)) < 2:
+        failed.append(f"one task group only: images a sample {images}")
+    failed += _check_frozen("train", state, params, (
+        "vision_encoder/layers_0/fc1/kernel",
+        "lang_encoder/layers_0/attn/Wqkv/kernel",
+        "lang_encoder/norm_f/scale"))
+    failed += _check_moved("train", state,
+                           lambda path: params["params/" + path])
+    want = train_step_flash(cfg)
+    if any(c != want for c in per_step) or len(per_step) != len(metrics):
+        failed.append(f"flash launches a step {per_step}, want {want}")
     if failed:
         raise RuntimeError("train phase failed: " + "; ".join(failed))
+    from otter_tpu_torch.train.step import make_optimizer
+    tok = SmokeTokenizer(cfg)
+    batch = sft.prepare_batch(make_train_batch(cfg, tok, SEED + 40), tok,
+                              args)
+    _update_share("train", state, cfg, make_optimizer(
+        list(state.trainable), lr=args.learning_rate), batch, smi)
     if profile:
-        _profile_train_step(state, cfg, args, batches.batch, tok)
+        _profile_train_step("profile train step", state, cfg, batch,
+                            make_optimizer(list(state.trainable),
+                                           lr=args.learning_rate),
+                            "profile_train.txt")
     del state
     return launches
 
 
-def _profile_train_step(state, cfg, args, batch, tok):
+class _TimedUpdate:
+    """An optimizer's update timed between two device syncs."""
+
+    ms = None
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state, params):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.tx.update(grads, state, params)
+        torch.cuda.synchronize()
+        self.ms = (time.perf_counter() - t0) * 1e3
+
+
+def _update_share(tag, state, cfg, tx, batch, smi):
+    """One more step of `state` on `batch` with `tx`'s update timed alone:
+    how much of a step the optimizer takes."""
+    import torch
+    from otter_tpu_torch.train.step import make_train_step
+    timed = _TimedUpdate(tx)
+    step = make_train_step(state.model, cfg, timed, mask_embedding=True,
+                           fused_ce_chunk=256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    float(m["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    log(f"{tag}: one more step (b=2, 1024 tokens) {wall:.2f} ms, of which "
+        f"the optimizer's update {timed.ms:.2f} ms between syncs | {smi}")
+
+
+class _NoUpdate:
+    """An optimizer that updates nothing: a step's forward and backward
+    alone."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        pass
+
+
+def _backward_peak(model, cfg, batch) -> int:
+    """Peak bytes allocated over one step's forward and backward (no
+    update) above what was allocated before it."""
+    import torch
+    from otter_tpu_torch.train.step import TrainState, make_train_step
+    tx = _NoUpdate()
+    state = TrainState.create(model, cfg, tx)
+    step = make_train_step(model, cfg, tx, mask_embedding=True,
+                           fused_ce_chunk=256)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, m = step(state, batch)
+    float(m["loss"])
+    return torch.cuda.max_memory_allocated() - base
+
+
+@contextlib.contextmanager
+def _composed_int8():
+    """`Int8Dense` as it was before `_Int8Product`: autograd keeps the
+    forward's bf16 copy of every frozen int8 kernel for the backward."""
+    from otter_tpu_torch.ops import quant
+    quant._Int8Product.apply = lambda x, k, s: (x @ k.to(x.dtype)) * \
+        s.to(x.dtype)
+    try:
+        yield
+    finally:
+        del quant._Int8Product.apply      # back to Function.apply
+
+
+def phase_train8(smi: str, profile: bool = False):
+    """The single-card 7B recipe (`tools/bench_train_7b.py`) at full width
+    and depth: int8 frozen decoder layers, bf16 xattn and trainables,
+    8-bit Adam (no f32 masters), b=2, 1024 tokens, remat, fused CE 256."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.ops import quant
+    from otter_tpu_torch.train import sft
+    from otter_tpu_torch.train.args import TrainArgs
+    from otter_tpu_torch.train.step import (TrainState, make_optimizer,
+                                            make_train_step, split_params)
+
+    b, s, warm, timed = 2, 1024, 2, 5
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()   # left by earlier phases
+    t0 = time.perf_counter()
+    model, cfg = build_int8_train_model()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    tok = SmokeTokenizer(cfg)
+    batch = sft.prepare_batch(make_train_batch(cfg, tok, SEED + 70, b, s),
+                              tok, TrainArgs())
+
+    # the int8 kernels' bf16 copies: one step without remat, as
+    # `_Int8Product` runs it and as the composed product would
+    model.lang_encoder.remat = False
+    peak_fn = _backward_peak(model, cfg, batch)
+    with _composed_int8():
+        peak_composed = _backward_peak(model, cfg, batch)
+    model.lang_encoder.remat = True
+    kernel_bytes = sum(t.numel() for n, t in model.named_buffers()
+                       if n.endswith("kernel_q"))
+    log(f"train8: one step without remat, peak above the model: "
+        f"_Int8Product {peak_fn / 1e9:.3f} GB, the composed product "
+        f"{peak_composed / 1e9:.3f} GB: {(peak_composed - peak_fn) / 1e9:.3f}"
+        f" GB more (the frozen int8 kernels in bf16: "
+        f"{2 * kernel_bytes / 1e9:.3f} GB) | {smi}")
+
+    trainable, _ = split_params(model, cfg)
+    with torch.no_grad():
+        for p in trainable.values():
+            p.grad = None
+    tx = make_optimizer(trainable, lr=1e-4, total_steps=100, state_bits=8)
+    state = TrainState.create(model, cfg, tx)
+    step = make_train_step(model, cfg, tx, mask_embedding=True,
+                           fused_ce_chunk=256)
+    last = cfg.text.num_hidden_layers - 1
+    frozen_paths = ("lang_encoder.layers_0.attn.Wqkv.kernel_q",
+                    f"lang_encoder.layers_{last}.ffn.down_proj.kernel_q",
+                    "vision_encoder.layers_0.fc1.kernel",
+                    "lang_encoder.norm_f.scale")
+    tensors = {**dict(model.named_parameters()),
+               **dict(model.named_buffers())}
+    frozen_before = {k: tensors[k].detach().clone() for k in frozen_paths}
+    trained_before = {k: p.detach().clone() for k, p in trainable.items()}
+    mem = _state_bytes(state)
+    wrappers = _flash_wrappers()
+    marks = StepMarks(wrappers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(warm + timed):
+        marks.mark()
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    marks.mark()
+    peak_abs = torch.cuda.max_memory_allocated()
+    peak = peak_abs - base
+    steps = np.diff(marks.times)
+    per_step = marks.per_step()
+    step_s = float(np.median(steps[warm:]))
+    flops = _model_flops(model, cfg, b, s)
+    n_train = sum(p.numel() for p in trainable.values())
+    log(f"train8: OTTER-MPT7B, the int8-frozen recipe: decoder layers int8 "
+        f"(FROZEN_DECODER_PATTERNS), xattn bf16, {n_train / 1e9:.3f}B "
+        f"trainable bf16 with 8-bit Adam (blocks of 512, no masters), b={b} "
+        f"s={s}, remat, fused CE 256, lr 1e-4; built in {t_build:.1f} s | "
+        f"{smi}")
+    log(f"train8: bytes {_gb(mem)} ({mem['optimizer'] / n_train:.4f} a "
+        f"trainable parameter); the train phase (bf16, AdamW with f32 "
+        f"masters): {_gb({k: v for k, v in _TRAIN_MEMORY.items() if k != 'peak'}) or 'not run'}")
+    log(f"train8: peak memory (above the {base / 2 ** 30:.2f} GiB "
+        f"allocated before the phase) {peak / 2 ** 30:.2f} GiB ({peak} "
+        f"bytes), absolute {peak_abs / 2 ** 30:.2f} GiB; the train phase's {_TRAIN_MEMORY.get('peak', 0) / 2 ** 30:.2f}"
+        f" GiB")
+    log(f"train8: losses {[round(x, 5) for x in losses]}")
+    log(f"train8: step ms {[round(float(x) * 1e3, 2) for x in steps]} | "
+        f"median of the last {timed}: {step_s * 1e3:.2f} ms, "
+        f"{b / step_s:.3f} samples/s, {b * s / step_s:.1f} tokens/s; model "
+        f"FLOPs {flops / 1e12:.2f} TFLOP a step, "
+        f"{100 * flops / step_s / H100_BF16_FLOP_PER_S:.2f}% of 989 TFLOP/s "
+        f"| {smi}")
+    log(f"train8: launches per step {per_step}")
+
+    failed = []
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        failed.append(f"losses {losses}")
+    for k in frozen_paths:
+        same = torch.equal(tensors[k], frozen_before[k])
+        log(f"train8: frozen {k} {'bit-identical' if same else 'CHANGED'}")
+        if not same:
+            failed.append(f"frozen {k} changed")
+    failed += _check_moved("train8", state, trained_before.__getitem__)
+    want = train_step_flash(cfg)
+    if any(c != want for c in per_step):
+        failed.append(f"flash launches a step {per_step}, want {want}")
+    if peak_composed - peak_fn < kernel_bytes:
+        failed.append(f"the composed int8 product's step took only "
+                      f"{(peak_composed - peak_fn) / 1e9:.3f} GB more")
+    # the fused MLP kernels have no backward: asked for one, they refuse
+    x = torch.ones(8, 64, dtype=torch.bfloat16, device=DEV,
+                   requires_grad=True)
+    w = torch.ones(64, 128, dtype=torch.int8, device=DEV)
+    sc = torch.ones(128, device=DEV)
+    try:
+        quant.int8_mlp(x, w, sc, w.t().contiguous(), sc[:64])
+        failed.append("int8_mlp returned an output cut from autograd")
+    except NotImplementedError as e:
+        log(f"train8: int8_mlp with an input that needs a gradient: {e}")
+    if failed:
+        raise RuntimeError("train8 phase failed: " + "; ".join(failed))
+    _update_share("train8", state, cfg, tx, batch, smi)
+    if profile:
+        _profile_train_step("profile train8 step", state, cfg, batch, tx,
+                            "profile_train8.txt")
+    del state, model
+    return {k: sum(c[k] for c in per_step) for k in FLASH_COUNTERS}
+
+
+def _profile_train_step(label, state, cfg, batch, tx, fname):
     """torch.profiler over one more step of the trained state (after the
     phase's checks): where a step's time goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from otter_tpu_torch.train import sft
-    from otter_tpu_torch.train.step import make_optimizer, make_train_step
-    tx = make_optimizer(state.trainable, lr=args.learning_rate)
+    from otter_tpu_torch.train.step import make_train_step
     step = make_train_step(state.model, cfg, tx, mask_embedding=True,
-                           fused_ce_chunk=args.fused_ce_chunk)
-    prepared = sft.prepare_batch(batch, tok, args)
-    step(state, prepared)
+                           fused_ce_chunk=256)
+    step(state, batch)
     torch.cuda.synchronize()
     os.makedirs(OUT_DIR, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(state, prepared)
+        step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    _report_profile(prof, wall, "profile train step", "profile_train.txt")
+    _report_profile(prof, wall, label, fname)
 
 
 KERNELS = {
@@ -4563,7 +5276,7 @@ KERNELS = {
                     "otter_tpu/ops/quant.py:22"),
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
-          "idefics,batch,spec,trainparity,train")
+          "idefics,batch,spec,trainparity,train,train8")
 
 
 def main(argv=None) -> int:
@@ -4596,6 +5309,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
+    left = {}
 
     def run(name, fn, *a):
         t0 = time.perf_counter()
@@ -4604,6 +5318,10 @@ def main(argv=None) -> int:
         import gc
         gc.collect()
         torch.cuda.empty_cache()
+        # what a phase leaves allocated is held through every later one
+        left[name] = torch.cuda.memory_allocated()
+        log(f"memory after {name}: {left[name] / 2 ** 30:.2f} GiB allocated "
+            f"({left[name]} bytes)")
         return out
 
     entries = {}
@@ -4651,8 +5369,13 @@ def main(argv=None) -> int:
     if "train" in phases:
         by_path["train"] = run("train", phase_train, smi,
                                "profile" in phases)
+    if "train8" in phases:
+        by_path["train8"] = run("train8", phase_train8, smi,
+                                "profile" in phases)
     log("phase wall times (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
+    log("GiB allocated after each phase: " + json.dumps(
+        {k: round(v / 2 ** 30, 3) for k, v in left.items()}))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         e = entries.get(name, {})

@@ -684,12 +684,14 @@ def load_otter_checkpoint(path: str, cfg, model: nn.Module) -> nn.Module:
     (`otter_tpu/models/convert.py:531`, mirroring the reference's
     `--trained_ckpt` partial load, instruction_following.py:438-443): the
     tensors the checkpoint holds are filled, the others keep their values.
-    Each tensor is converted on the model's device in the model's dtype,
-    then quantized as `model.cfg` asks (`ops.quant.quantize_for`), one at
-    a time. A shape mismatch raises, and so does a checkpoint that fills
-    nothing (wrong config or arch)."""
+    Each tensor is converted on the model's device in the dtype of the
+    model's tensor it fills (a bf16 model's f32 norm scales and latents
+    keep an f32 checkpoint's values), then quantized as `model.cfg` asks
+    (`ops.quant.quantize_for`) from the checkpoint's own dtype, as the JAX
+    package quantizes its f32 parameters. A shape mismatch raises, and so
+    does a checkpoint that fills nothing (wrong config or arch)."""
     from otter_tpu_torch.ops.quant import quantize_for
-    converted = hf_to_port(load_state_dict(path), cfg, dtype=model.dtype,
+    converted = hf_to_port(load_state_dict(path), cfg, dtype=None,
                            device=model.device)
     n = load_flax_params(model, quantize_for(model.cfg.text, converted),
                          partial=True)

@@ -51,10 +51,35 @@ _SIGNATURES_INT4 = {"int4_mlp_bf16": ([_P] * 7 + [_I] * 5 + [_P], _I),
                     "int4_matmul_bf16": ([_P] * 5 + [_I] * 4 + [_P], _I)}
 
 
+class _Int8Product(torch.autograd.Function):
+    """(x @ kernel_q) * scale for an `x` that needs its gradient: saves the
+    int8 kernel and converts it again in the backward, where autograd
+    would keep the forward's converted copy (2 bytes a weight, every frozen
+    layer's until its backward). dx = (dy * scale) @ kernel^T, the JAX
+    module's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q, scale_q):
+        ctx.save_for_backward(kernel_q, scale_q)
+        return (x @ kernel_q.to(x.dtype)) * scale_q.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        kernel_q, scale_q = ctx.saved_tensors
+        dx = (dy * scale_q.to(dy.dtype)) @ kernel_q.to(dy.dtype).t()
+        return dx, None, None
+
+
 class Int8Dense(nn.Module):
     """Dense with an int8 `kernel_q` [in, out] and f32 `scale_q` [out]
     buffers: y = (x @ kernel_q) * scale, the scale cast to the compute
-    dtype before the multiply (as the JAX module does)."""
+    dtype before the multiply (as the JAX module does). Where the input
+    needs its gradient (a frozen int8 layer under a trainable one) the
+    product runs as `_Int8Product`, which keeps no converted copy of the
+    weight for the backward. Otherwise (decode, under inference mode) it
+    runs as the two composed ops, which take less host time than
+    `Function.apply` on a host-bound decode step (`chip_smoke.py`'s serve
+    phase measures the difference)."""
 
     def __init__(self, in_features: int, features: int, *,
                  use_bias: bool = False, dtype=torch.bfloat16, device=None):
@@ -69,8 +94,12 @@ class Int8Dense(nn.Module):
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.to(self.dtype) @ self.kernel_q.to(self.dtype)
-        y = y * self.scale_q.to(self.dtype)
+        x = x.to(self.dtype)
+        if x.requires_grad and torch.is_grad_enabled():
+            y = _Int8Product.apply(x, self.kernel_q, self.scale_q)
+        else:
+            y = x @ self.kernel_q.to(self.dtype)
+            y = y * self.scale_q.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -115,6 +144,21 @@ def int8_mlp_refusal(m: int, k: int, h: int, n: int) -> Optional[str]:
     return None
 
 
+def refuse_backward(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be launched on an
+    input that needs its gradient: its output would leave the autograd
+    graph and the gradient through it would be silently missing. (The
+    plain versions, which CPU tensors take, are differentiable.) The
+    fused xattn FF takes `int8_mlp` / `int4_mlp` at 32 tokens or fewer,
+    so a model trained with quantized xattn needs more tokens than that,
+    or `quant_xattn=None` as the 7B int8 recipe has it."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel has no backward, and its input needs a "
+            "gradient (train with quant_xattn=None, or under no_grad)")
+
+
 def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
              w2q: torch.Tensor, s2: torch.Tensor, *, act: str = "gelu",
              b1: Optional[torch.Tensor] = None,
@@ -133,6 +177,7 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
         return int8_mlp_plain(x, w1q, s1, w2q, s2, act=act, b1=b1, b2=b2)
     if x.device.type != "cuda":
         raise ValueError(f"int8_mlp: unsupported device {x.device}")
+    refuse_backward("int8_mlp", x, b1, b2)
     if x.dtype != torch.bfloat16 or w1q.dtype != torch.int8 \
             or w2q.dtype != torch.int8:
         raise TypeError("int8_mlp kernel takes bf16 x and int8 weights")
@@ -672,6 +717,7 @@ def int4_mlp(x: torch.Tensor, w1p: torch.Tensor, s1: torch.Tensor,
     if x.device.type == "cpu":
         return int4_mlp_plain(x, w1p, s1, w2p, s2, act=act)
     _check_kernel_inputs("int4_mlp", x, w1p, w2p)
+    refuse_backward("int4_mlp", x)
     refusal = int4_mlp_refusal(m, k, h, n)
     if refusal is not None:
         raise ValueError(refusal)

@@ -5,7 +5,8 @@ keep the last N, one directory `checkpoint_<step>` per save holding
 `state.pt` (`torch.save`) and `meta.json`.
 
 The format is the port's own: reading or writing the JAX package's orbax
-checkpoints is out of scope, and so is the HF export.
+checkpoints is out of scope. `export_hf` writes the HF-named safetensors
+file of the JAX store's export.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import json
 import os
 import re
 import shutil
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -84,3 +85,25 @@ class CheckpointStore:
         while self.keep and len(steps) > self.keep:
             victim = steps.pop(0)
             shutil.rmtree(self._path(victim), ignore_errors=True)
+
+    # ── HF-interop export (save_final_weights parity) ───────────────
+
+    def export_hf(self, params: Dict[str, torch.Tensor], cfg,
+                  out_path: str) -> str:
+        """Write an HF-named .safetensors of the {flax path: tensor}
+        params (`train.step.TrainState.params`: the trainable leaves from
+        their f32 masters where the optimizer keeps them). Every floating tensor is written in f32, the JAX export's
+        dtype: a bf16 frozen weight is widened exactly, so it equals the
+        f32 value it was rounded from within bf16's rounding. Leaves no
+        rule produces (int8 kernels and scales) are left out, as in the
+        JAX export."""
+        from otter_tpu_torch.models.convert import port_to_hf, \
+            save_state_dict
+        hf = port_to_hf(params, cfg)
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)) or ".",
+                    exist_ok=True)
+        # widened on the host, not beside the model on its device
+        save_state_dict({k: v.detach().to("cpu", torch.float32)
+                         if v.is_floating_point() else v
+                         for k, v in hf.items()}, out_path)
+        return out_path

@@ -1,20 +1,29 @@
 """SFT trainer entry point (counterpart of `otter_tpu/train/sft.py`, the
-reference's `pipeline/train/instruction_following.py`) on one device.
+reference's `pipeline/train/instruction_following.py`) on one device:
 
-    main(args, tokenizer, batches)
+  subprocess pytest prerun gate      -> data.yaml_spec.verify_yaml
+  model zoo dispatch (:331-427)      -> config factories
+  weighted multi-dataloader sampling -> data.WeightedMultiLoader
+  masking()/find_and_remove_tokens   -> data.mimicit helpers
+  checkpointing                      -> runtime.checkpoint.CheckpointStore
 
-runs the JAX trainer's loop: build the model, split trainable/frozen,
-AdamW with f32 masters, the train step, metrics (console + metrics.jsonl),
-periodic and final checkpoints, and resume. `batches` is a re-iterable
-(e.g. a list) of collated batches in `MimicitLoader`'s
-`{"net_input": {"input_ids", "attention_masks", "patch_images"}}` format:
-the YAML -> dataset -> loader chain is not ported yet (ROADMAP Queue 1,
-item 8.1), so a call without `batches` raises. Weights come from `params`
-({flax path: array}, as `models.convert.load_flax_params` takes them) or,
-without them, from `init_params` (seeded normal(0, 0.02) matrices, unit
-norm scales, zero biases and gates; not the flax initializers, which come
-with `init_fns`); `pretrained_checkpoint` or `trained_ckpt` (an HF
-checkpoint) is then loaded over them as a partial update.
+    python -m otter_tpu_torch.train.sft --training_data_yaml=data.yaml \
+        --tokenizer=<HF tokenizer dir> --model_config=mpt7b ...
+
+`main(args, tokenizer, batches)` runs the JAX trainer's loop: the data
+YAML gate, the model, the tokenizer (`AutoTokenizer` of `--tokenizer`
+with Otter's three special tokens and `<PAD>`, unless one is passed), the
+task-group loaders, AdamW with f32 masters, the train step, metrics
+(console + metrics.jsonl), periodic and final checkpoints, resume, and
+with `--save_hf_model` the whole state in the final checkpoint and
+`final_weights.safetensors`. `batches`, a re-iterable of collated batches
+in `MimicitLoader`'s format, stands in for the YAML's loaders where given.
+Weights come from `params` ({flax path: array}, as
+`models.convert.load_flax_params` takes them) or, without them, from
+`init_params` (seeded normal(0, 0.02) matrices, unit norm scales, zero
+biases and gates; not the flax initializers, which come with `init_fns`);
+`pretrained_checkpoint` or `trained_ckpt` (an HF checkpoint) is then
+loaded over them as a partial update.
 
 The model runs on the GPU unless the caller passes `device="cpu"`.
 """
@@ -24,14 +33,16 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
 from otter_tpu_torch import config as cfgmod
 from otter_tpu_torch.config import OtterConfig
-from otter_tpu_torch.data.mimicit import (find_and_remove_tokens,
-                                          mask_answer_labels)
+from otter_tpu_torch.data import (MimicitDataset, MimicitLoader,
+                                  WeightedMultiLoader, find_and_remove_tokens,
+                                  load_yaml, mask_answer_labels,
+                                  tasks_from_spec, verify_yaml)
 from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.models.convert import (load_flax_params,
                                              load_otter_checkpoint)
@@ -45,6 +56,8 @@ from otter_tpu_torch.train.step import (TrainState, make_optimizer,
 
 CONFIG_FACTORIES = {
     "mpt7b": cfgmod.otter_mpt7b,
+    "mpt1b": cfgmod.otter_mpt1b,
+    "llama7b-video": cfgmod.otter_llama7b_video,
     "idefics9b": cfgmod.idefics9b,
     "tiny-idefics": cfgmod.idefics_tiny,
     "tiny": lambda: OtterConfig.tiny("mpt"),
@@ -95,6 +108,48 @@ def init_params(model: torch.nn.Module, seed: int, std: float = 0.02
                                       device=p.device, dtype=torch.float32))
 
 
+def load_tokenizer(name_or_path: str):
+    """`AutoTokenizer.from_pretrained` plus Otter's special tokens and a
+    `<PAD>` where the tokenizer has no pad token (`otter_tpu/train/sft.py:
+    136-142`)."""
+    from transformers import AutoTokenizer
+    tokenizer = AutoTokenizer.from_pretrained(name_or_path)
+    tokenizer.add_special_tokens({"additional_special_tokens": [
+        "<|endofchunk|>", "<image>", "<answer>"]})
+    if tokenizer.pad_token is None:
+        tokenizer.add_special_tokens({"pad_token": "<PAD>"})
+    return tokenizer
+
+
+def build_loaders(args: TrainArgs, cfg, tokenizer, rank: int,
+                  world: int) -> WeightedMultiLoader:
+    """One `MimicitLoader` a task group of the data YAML, under a
+    size-weighted random choice."""
+    spec = load_yaml(args.training_data_yaml)
+    per_process_batch = max(args.batch_size // max(world, 1), 1)
+    loaders: List[MimicitLoader] = []
+    for group, tasks in tasks_from_spec(spec).items():
+        if not tasks:
+            continue
+        ds = MimicitDataset(
+            tasks, tokenizer, task_group=group,
+            instruction_format=args.instruction_format,
+            max_seq_len=args.max_seq_len,
+            patch_image_size=args.patch_image_size,
+            resample_frames_to=args.resample_frames,
+            keep_symbols=args.keep_symbols,
+            populate_rel_ins=args.populate_rel_ins,
+            with_task_description=args.with_task_description,
+            device_preprocess=args.device_preprocess,
+            seed=args.seed)
+        loaders.append(MimicitLoader(
+            ds, per_process_batch, seed=args.seed, num_workers=args.workers,
+            rank=rank, world_size=world))
+    if not loaders:
+        raise ValueError("no task groups in the data YAML")
+    return WeightedMultiLoader(loaders, seed=args.seed)
+
+
 def prepare_batch(batch: dict, tokenizer, args: TrainArgs) -> Dict:
     """Collated loader batch -> train-step batch with masked labels."""
     ni = batch["net_input"]
@@ -124,23 +179,18 @@ def prepare_batch(batch: dict, tokenizer, args: TrainArgs) -> Dict:
 def main(args: TrainArgs, tokenizer=None,
          batches: Optional[Iterable[dict]] = None, *,
          params: Optional[Dict] = None, device=None) -> TrainState:
-    if batches is None:
-        raise NotImplementedError(
-            "the MIMIC-IT data chain (training_data_yaml -> MimicitDataset "
-            "-> MimicitLoader) is not ported yet (ROADMAP Queue 1, item 8.1): "
-            "pass `batches`, collated batches in MimicitLoader's format")
-    if tokenizer is None:
-        raise ValueError("pass a tokenizer (convert_tokens_to_ids, "
-                         "eos_token_id, pad_token_id)")
     if args.multi_host or max(args.dp, args.fsdp, args.sp, args.tp) > 1:
         raise NotImplementedError("multi-device training is not ported yet "
                                   "(ROADMAP Queue 1, item 9)")
-    if args.save_hf_model:
-        raise NotImplementedError("the HF export is not ported yet")
     device = resolve_device(device)
     rank, world = 0, 1
 
+    if batches is None:
+        # pre-run data validation gate (train_utils.py:155-164 behavior)
+        verify_yaml(args.training_data_yaml)
     model, cfg = build_model_and_config(args, device)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(args.tokenizer)
     if params is not None:
         load_flax_params(model, params)
     else:
@@ -150,7 +200,9 @@ def main(args: TrainArgs, tokenizer=None,
         load_otter_checkpoint(args.trained_ckpt or args.pretrained_checkpoint,
                               cfg, model)
 
-    steps_per_epoch = len(batches) // args.gradient_accumulation_steps
+    multi = (build_loaders(args, cfg, tokenizer, rank, world)
+             if batches is None else batches)
+    steps_per_epoch = len(multi) // args.gradient_accumulation_steps
     total_steps = max(steps_per_epoch * args.num_epochs, 1)
     warmup = args.warmup_steps
     if args.warmup_steps_ratio is not None:
@@ -189,8 +241,10 @@ def main(args: TrainArgs, tokenizer=None,
 
     global_step = state.step
     for epoch in range(start_epoch, args.num_epochs):
+        if hasattr(multi, "set_epoch"):
+            multi.set_epoch(epoch)
         end = time.time()
-        for batch in batches:
+        for batch in multi:
             data_time.update(time.time() - end)
             prepared = prepare_batch(batch, tokenizer, args)
             state, metrics = step_fn(state, prepared)
@@ -199,12 +253,15 @@ def main(args: TrainArgs, tokenizer=None,
             end = time.time()
             if global_step % args.logging_steps == 0:
                 bsz = prepared["input_ids"].shape[0]
+                # one device: samples/s a chip is samples/s
                 logger.log(global_step, {
                     "loss": metrics["loss"],
                     "grad_norm": metrics["grad_norm"],
                     "step_time": step_time.avg,
                     "data_time": data_time.avg,
                     "samples_per_sec": bsz * world / max(
+                        step_time.avg, 1e-9),
+                    "samples_per_sec_per_chip": bsz * world / max(
                         step_time.avg, 1e-9),
                     "epoch": epoch,
                 })
@@ -219,7 +276,10 @@ def main(args: TrainArgs, tokenizer=None,
 
     if rank == 0 and args.final_checkpoint:
         store.save(global_step, state, metadata={"epoch": args.num_epochs},
-                   trainable_only=True)
+                   trainable_only=not args.save_hf_model)
+    if rank == 0 and args.save_hf_model:
+        store.export_hf(state.params, cfg,
+                        os.path.join(save_dir, "final_weights.safetensors"))
     logger.close()
     return state
 

@@ -14,6 +14,8 @@ The same semantics as the JAX module, in PyTorch:
     master copies of the trainable parameters and f32 moments (the JAX
     package's f32-master policy, `parallel/precision.py`) and writes the
     masters back into the modules' (bf16) parameters after each update.
+    `make_optimizer(state_bits=8)` gives the 8-bit Adam of `opt8.py`
+    instead (int8 moments, no masters).
   - the HF shift-by-one loss with -100 masking, and the chunked fused
     cross-entropy that never builds the [B, S, V] logits: each chunk runs
     under `torch.utils.checkpoint`, so its logits are recomputed in the
@@ -118,27 +120,37 @@ def make_schedule(name: str, lr: float, warmup_steps: int,
     return schedule
 
 
+_STATE_TENSORS = ("master", "mu", "nu", "mu_s", "nu_s", "acc")
+
+
 @dataclass
 class OptState:
-    """AdamW state with f32 masters, and the MultiSteps accumulator."""
+    """AdamW state with f32 masters, and the MultiSteps accumulator. The
+    8-bit Adam of `train/opt8.py` keeps no masters and stores `mu` / `nu`
+    as int8 blocks with their f32 scales in `mu_s` / `nu_s`."""
     master: Dict[str, torch.Tensor]
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
     count: int = 0            # inner (applied) updates
     mini_step: int = 0        # MultiSteps position inside an accumulation
     acc: Dict[str, torch.Tensor] = field(default_factory=dict)
+    mu_s: Dict[str, torch.Tensor] = field(default_factory=dict)
+    nu_s: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     def state_dict(self) -> dict:
-        return {"master": self.master, "mu": self.mu, "nu": self.nu,
-                "count": self.count, "mini_step": self.mini_step,
-                "acc": self.acc}
+        return dict({k: getattr(self, k) for k in _STATE_TENSORS},
+                    count=self.count, mini_step=self.mini_step)
 
     def load_state_dict(self, sd: dict) -> None:
-        for key in ("master", "mu", "nu", "acc"):
+        for key in _STATE_TENSORS:
             mine = getattr(self, key)
-            for k, t in sd[key].items():
+            for k, t in sd.get(key, {}).items():
                 mine[k].copy_(t)
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for key in _STATE_TENSORS
+                   for t in getattr(self, key).values())
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -222,11 +234,18 @@ def make_optimizer(trainable: Iterable[str], *, lr: float = 1e-5,
                    mu_dtype=None, state_bits: Optional[int] = None
                    ) -> AdamW:
     """`trainable`: the trainable paths (the keys of `split_params`'s first
-    dict). mu_dtype=torch.bfloat16 stores Adam's first moment in bf16."""
+    dict). mu_dtype=torch.bfloat16 stores Adam's first moment in bf16.
+
+    state_bits=8 switches to blockwise int8 Adam states (`train/opt8.py`,
+    ~2.02 bytes a parameter and no f32 masters), in the JAX chain's order:
+    clip, 8-bit Adam, decoupled decay on the parameter, learning rate."""
     if state_bits == 8:
-        raise NotImplementedError(
-            "8-bit Adam states (train/opt8.py) are not ported yet: ROADMAP "
-            "Queue 1, item 8.2 (opt8 and the int8-frozen recipe)")
+        from otter_tpu_torch.train.opt8 import Adam8
+        return Adam8(make_schedule(schedule, lr, warmup_steps, total_steps),
+                     weight_decay_mask(trainable), weight_decay=weight_decay,
+                     grad_clip=grad_clip, grad_accum_steps=grad_accum_steps)
+    if state_bits is not None:
+        raise ValueError(f"state_bits must be None or 8, not {state_bits}")
     return AdamW(make_schedule(schedule, lr, warmup_steps, total_steps),
                  weight_decay_mask(trainable), weight_decay=weight_decay,
                  grad_clip=grad_clip, grad_accum_steps=grad_accum_steps,
@@ -298,6 +317,16 @@ class TrainState:
         trainable, frozen = split_params(model, cfg)
         return cls(step=0, model=model, trainable=trainable, frozen=frozen,
                    opt_state=tx.init(trainable))
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """{flax path: tensor} of every parameter, the trainable ones from
+        their f32 masters where the optimizer keeps them."""
+        master = getattr(self.opt_state, "master", None) or {}
+        out = {k: p.detach() for k, p in self.frozen.items()}
+        out.update({k: master.get(k, p).detach()
+                    for k, p in self.trainable.items()})
+        return out
 
 
 def embedding_grad_mask(cfg, device=None) -> torch.Tensor:

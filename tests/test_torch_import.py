@@ -57,6 +57,14 @@ from otter_tpu_torch.serve import cli, controller, web, worker
 from otter_tpu_torch.data.fuyu_processor import FuyuProcessor
 from otter_tpu_torch.data.mimicit import preprocess_image
 assert worker.main and cli.main and controller.main and web.main
+# the trainer's data chain, 8-bit Adam and the HF export live in these
+from otter_tpu_torch.data import (MimicitDataset, MimicitLoader,
+                                  WeightedMultiLoader, verify_yaml)
+from otter_tpu_torch.data import tokenizer_adapt, transforms
+from otter_tpu_torch.train.opt8 import Adam8
+from otter_tpu_torch.train.sft import build_loaders, load_tokenizer
+from otter_tpu_torch.runtime.checkpoint import CheckpointStore
+assert CheckpointStore.export_hf
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules
@@ -83,7 +91,10 @@ _SERVING_MODULES = {
 _TRAINING_MODULES = {
     "otter_tpu_torch.train.step", "otter_tpu_torch.train.sft",
     "otter_tpu_torch.train.args", "otter_tpu_torch.runtime.metrics",
-    "otter_tpu_torch.runtime.checkpoint", "otter_tpu_torch.data.mimicit"}
+    "otter_tpu_torch.runtime.checkpoint", "otter_tpu_torch.data.mimicit",
+    "otter_tpu_torch.data.loader", "otter_tpu_torch.data.yaml_spec",
+    "otter_tpu_torch.data.transforms", "otter_tpu_torch.data.tokenizer_adapt",
+    "otter_tpu_torch.train.opt8"}
 
 
 def _env():

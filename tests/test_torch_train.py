@@ -250,9 +250,147 @@ def test_embedding_mask_moves_only_the_answer_row():
     assert moved.tolist() == [cfg.answer_token_id]
 
 
-def test_int8_adam_states_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_optimizer(["perceiver/latents"], state_bits=8)
+@functools.lru_cache(maxsize=None)
+def _jax_adam8_steps(n_steps: int):
+    """Metrics of each step and the trainable params after the last, with
+    the JAX chain's 8-bit Adam (`make_optimizer(state_bits=8)`)."""
+    cfg, model, params, _ = jax_tiny_train()
+    batch = {k: jnp.asarray(v) for k, v in train_batch(cfg, 1).items()}
+    trainable, _ = jstep.split_params(params, cfg)
+    tx = jstep.make_optimizer(trainable, lr=LR, total_steps=10,
+                              state_bits=8)
+    state = jstep.TrainState.create(params, cfg, tx)
+    step = jax.jit(jstep.make_train_step(model, cfg, tx, fused_ce_chunk=8))
+    metrics = []
+    for _ in range(n_steps):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, _flat(state.trainable)
+
+
+def test_adam8_steps_match_jax():
+    """Three train steps with 8-bit Adam states (`state_bits=8`): the
+    losses within 1e-5 relative, the parameters as the one-step test holds
+    them after the first (an element's int8 state may round one LSB apart,
+    tests/test_torch_opt8.py)."""
+    ref_metrics, ref_params = _jax_adam8_steps(3)
+    cfg, _, _, _ = jax_tiny_train()
+    model = torch_tiny_train()
+    pcfg = port_cfg(cfg)
+    trainable, _ = tstep.split_params(model, pcfg)
+    tx = tstep.make_optimizer(trainable, lr=LR, total_steps=10,
+                              state_bits=8)
+    state = tstep.TrainState.create(model, pcfg, tx)
+    assert state.opt_state.master == {}
+    step = tstep.make_train_step(model, pcfg, tx, fused_ce_chunk=8)
+    for ref in ref_metrics:
+        state, m = step(state, train_batch(cfg, 1))
+        np.testing.assert_allclose(float(m["loss"]), ref["loss"], rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]), ref["grad_norm"],
+                                   rtol=1e-4)
+    params = export_flax_params(model)
+    _assert_params_close(params, ref_params, ref_params, _jax_start())
+
+
+def _snapped_int8_pair():
+    """The JAX package's `test_frozen_int8_grad_parity` setting: the tiny
+    f32 model whose frozen decoder kernels are exactly int8-representable,
+    its trainables and its int8-quantized frozen half, the int8 model
+    (`quant="int8"`, `quant_xattn=None`), one batch of 40 tokens (over 32,
+    so no fused decode kernel engages)."""
+    from otter_tpu.ops.quant import FROZEN_DECODER_PATTERNS, quantize_params
+    cfg, _, params, flat = jax_tiny_train()
+    qcfg = cfg.replace(text=cfg.text.replace(quant="int8",
+                                             quant_xattn=None))
+    flat = dict(flat)
+    for k, v in flat.items():
+        if FROZEN_DECODER_PATTERNS.match(k):
+            amax = np.abs(v).max(axis=0)
+            scale = np.where(amax > 0, amax / 127.0, 1.0)
+            flat[k] = (np.round(v / scale[None, :])
+                       * scale[None, :]).astype(np.float32)
+    params = traverse_util.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in flat.items()}, sep="/")
+    trainable, frozen = jstep.split_params(params, cfg)
+    frozen_int8 = quantize_params(frozen, patterns=FROZEN_DECODER_PATTERNS)
+    rng = np.random.default_rng(4)
+    b, s = 1, 40
+    vision_x = rng.standard_normal((b, 1, 1, 3, 28, 28)).astype(np.float32)
+    ids = rng.integers(5, 200, (b, s)).astype(np.int32)
+    ids[:, 0] = cfg.media_token_id
+    labels = np.where(rng.random((b, s)) < 0.5, ids, -100).astype(np.int32)
+    return qcfg, trainable, frozen_int8, (vision_x, ids, labels)
+
+
+def test_frozen_int8_gradient_matches_jax():
+    """The int8-frozen recipe's gradients: `Int8Dense` under a trainable
+    layer runs `_Int8Product`, which saves the int8 kernel (no converted
+    copy of any kernel is kept for the backward), and gives JAX's
+    gradients of the trainables within 2e-5 + 2e-4 |g| (the JAX test's
+    tolerance, f32 on both sides)."""
+    from otter_tpu.models.otter import OtterVLM as JaxOtterVLM
+    from otter_tpu_torch.models.otter import OtterVLM as TorchOtterVLM
+    from otter_tpu_torch.models.convert import load_flax_params
+    from otter_tpu_torch.ops import quant as tquant
+    qcfg, trainable, frozen_int8, (vx, ids, labels) = _snapped_int8_pair()
+    qmodel = JaxOtterVLM(qcfg, dtype=jnp.float32)
+
+    def jloss(t):
+        p = jstep.merge_params(t, frozen_int8)
+        logits, _, _ = qmodel.apply({"params": p}, jnp.asarray(vx),
+                                    jnp.asarray(ids),
+                                    attention_mask=jnp.ones(ids.shape,
+                                                            jnp.int32))
+        return jstep.causal_lm_loss(logits, jnp.asarray(labels))[0]
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(trainable)
+    jg = _flat(jg)
+
+    pcfg = port_cfg(qcfg)
+    model = TorchOtterVLM(pcfg, dtype=torch.float32, device="cpu")
+    load_flax_params(model, {**_flat(trainable), **_flat(frozen_int8)})
+    ttrain, _ = tstep.split_params(model, pcfg)
+    kernels = {tuple(m.kernel_q.shape) for m in model.modules()
+               if isinstance(m, tquant.Int8Dense)}
+    assert kernels
+    # a float tensor of a kernel's shape that is no parameter of the model
+    # would be a converted copy kept for the backward
+    own = {p.data_ptr() for p in model.parameters()}
+    saved = []
+
+    def pack(t):
+        saved.append((t.dtype, tuple(t.shape), t.data_ptr() in own))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        logits, _, _ = model(torch.from_numpy(vx),
+                             torch.from_numpy(ids).long(),
+                             attention_mask=torch.ones(ids.shape,
+                                                       dtype=torch.int32))
+        loss, _ = tstep.causal_lm_loss(logits, torch.from_numpy(labels))
+    loss.backward()
+    assert any(d == torch.int8 and s in kernels for d, s, _ in saved)
+    copies = [s for d, s, param in saved
+              if d.is_floating_point and s in kernels and not param]
+    assert not copies, copies
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=2e-5)
+    assert set(ttrain) == set(jg)
+    for k, p in ttrain.items():
+        np.testing.assert_allclose(p.grad.numpy(), jg[k], atol=2e-5,
+                                   rtol=2e-4, err_msg=k)
+
+
+def test_fused_mlp_kernels_refuse_an_input_that_needs_a_gradient():
+    """The int8 / int4 MLP kernels have no backward: the wrappers raise
+    rather than return an output cut from the autograd graph (the CUDA
+    route; CPU tensors take the differentiable plain version)."""
+    from otter_tpu_torch.ops import quant as tquant
+    x = torch.ones(4, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tquant.refuse_backward("int8_mlp", x, None)
+    with torch.no_grad():
+        tquant.refuse_backward("int8_mlp", x)
+    tquant.refuse_backward("int8_mlp", x.detach(), None)
 
 
 def test_label_masking_matches_jax_package():
