@@ -186,16 +186,20 @@ unless every phase passes:
                  step launches int8_mlp 40 and decode_attention 32
                  times, nothing else. Prints aggregate tok/s and TTFT
                  p50/p90, a pooled step at 8 rows beside generate's b=8
-                 step and under torch.profiler; then the worker with
+                 step and under torch.profiler (runs of 8 and 40 new
+                 tokens, each profiled whole, a step from their
+                 difference); then the worker with
                  --continuous-batching --num-slots 4 over localhost
                  HTTP (4 requests at once against one after another, 3
                  rounds, the status carrying batching) and idefics-9b
                  cut to 4 layers through 4 slots.
  16. spec        speculative decoding and the session cache (runs after
-                 batch): OTTER-MPT7B at full width and depth (int8
-                 weights and KV cache) with a Flamingo-MPT-1B draft (24
-                 mosaic_gpt layers with qk_ln, an xattn block before each;
-                 int8), random weights from a seed. (a) SpeculativeGenerator
+                 batch): OTTER-MPT7B at full width, its depth cut to 16
+                 layers and 4 xattn blocks (int8 weights and KV cache),
+                 with a Flamingo-MPT-1B draft cut to 12 of its 24
+                 mosaic_gpt layers (qk_ln, an xattn block before each;
+                 int8), random weights from a seed: the cuts keep the
+                 default run inside its time with the training phases. (a) SpeculativeGenerator
                  at b=1, gamma 4, 32 new tokens on serve's prompts: the
                  MPT-1B draft and the target as its own draft (every
                  proposal accepted: the prefill and ceil(31/5) = 7 rounds,
@@ -252,9 +256,57 @@ unless every phase passes:
                  tokens/s, and (train too) the optimizer update's ms in
                  one more step.
 
+ 18. pretrain    Flamingo pretraining as a user runs it:
+                 `pretrain.main([...])` on Flamingo-MPT-1B at full width
+                 and depth in bf16 over two LAION shards (64 noise-PNG /
+                 caption pairs each) and two MMC4 shards (16 documents of
+                 four sentences and three noise PNGs over the 10 KB
+                 filter) written here with `tarfile`, a WordLevel
+                 tokenizer directory, --batch_size_laion 32
+                 --batch_size_mmc4 8 (a 4x cut of the reference's 128 /
+                 32: the JAX pretrainer has no remat), 4 steps an epoch;
+                 then a second call with --num_epochs 2 that resumes from
+                 the epoch's checkpoint. Checks finite losses with
+                 loss_laion and loss_mmc4 logged each step, frozen tensors
+                 bit-identical, every trainable group moved, the resumed
+                 call at step 4 with the first call's trainables, and
+                 exactly 156 flash_fwd and 108 of each backward kernel a
+                 step; prints step ms, peak memory and the bytes of
+                 weights, optimizer state and checkpoint.
+ 19. fuyutrain   OtterHD-8B full fine-tune (`train/fuyu_sft.py`) at full
+                 width and depth: bf16 parameters, 8-bit Adam, remat, b=1,
+                 `FuyuBatcher(dynamic_resolution=True)` over one noise
+                 image each at 448², 512² and 768²: a warm-up step, three
+                 timed ones and the first batch again, whose loss must
+                 fall; every parameter moves; exactly 72 flash_fwd and 36
+                 of each backward kernel a step. Prints peak memory
+                 (absolute and above what earlier phases left), step ms,
+                 the 8-bit update's ms and tokens a step.
+ 20. lora        OTTER-MPT7B with int8 frozen decoder layers and LoRA rank
+                 16 on Wqkv, 8-bit Adam, b=2 x 1024, remat, fused CE: the
+                 first-step logits before training (B = 0) bit-equal to
+                 the LoRA-free model's; 2 warm-up and 3 timed steps in
+                 which the adapters are the only decoder-layer tensors
+                 that move and the int8 tensors stay bit-identical; then
+                 one greedy generate of 8 tokens from the trained model
+                 (composed route, int8 cache), the same twice.
+
+The kernels phase holds the flash forward and both backward kernels at
+the new phases' shapes too, and trainparity one pretraining step, one
+OtterHD step and one LoRA step at cut depth, each through the kernels
+against the plain versions. Where the bf16 plain step itself strays
+beyond the bar from the f32 step, a tensor is held to the f32 step with
+the plain step's spread under one-rounding nudges of every attention
+output as its floor; each step with a tensor at the floor then runs
+through two slightly broken flash kernels (dS with the next row's di;
+the softmax scale 1/8 too large), which the check must reject, and the
+pretraining step shows where its tensors at the floor move (forward
+kernel alone, backward kernels alone, torch's SDPA; also on a second
+batch).
+
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all seventeen (`--phases beam` the beam phase alone). `flashkernels`
+runs all twenty (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -599,7 +651,58 @@ def _flash_bwd_cases(gen):
             ("perceiver", dict(q=rnd(2, 8, 64, 64), k=rnd(2, 8, 320, 64),
                                v=rnd(2, 8, 320, 64), sm_scale=64 ** -0.5)),
             ("xattn_eq", xattn("eq")), ("xattn_ge", xattn("ge")),
-            ("mpt_s1000", mpt(1000, [1000, 777]))]
+            ("mpt_s1000", mpt(1000, [1000, 777]))] + _new_train_cases(rnd)
+
+
+def _new_train_cases(rnd):
+    """The pretrain, fuyutrain and lora phases' flash sites beyond the SFT
+    ones: OtterHD-8B's full fine-tune (b=1, 64 heads of 64, causal, the
+    768² batch's length), Flamingo-MPT-1B's LAION (b=32 x 32) and MMC4
+    (b=8 x 256) decoder batches (16 heads of 128, ALiBi, causal, right
+    padding) and their xattn blocks (8 heads of 64; MMC4's three media
+    tokens over 5 x 64 latents, "eq" as the model runs it and "ge")."""
+    import torch
+    from otter_tpu_torch.ops.masks import alibi_slopes
+    dev = "cuda"
+
+    def mpt1b(b, s):
+        lens = torch.linspace(s, s * 3 // 4, b, device=dev).long()
+        ids = (torch.arange(s, device=dev)[None, :] < lens[:, None]).int()
+        bias = (torch.arange(1 - s, 1, device=dev)[None, None, None, :]
+                * alibi_slopes(16, device=dev)[None, :, None, None])
+        return dict(q=rnd(b, 16, s, 128), k=rnd(b, 16, s, 128),
+                    v=rnd(b, 16, s, 128), bias=bias, q_ids=ids, kv_ids=ids,
+                    causal=True, sm_scale=128 ** -0.5)
+
+    def xattn(b, s, media, slots, mode):
+        tt = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        for p in media:
+            tt[:, p:] += 1
+        kv = torch.arange(1, slots + 1, dtype=torch.int32, device=dev
+                          ).repeat_interleave(64)[None].expand(b, -1)
+        return dict(q=rnd(b, 8, s, 64), k=rnd(b, 8, 64 * slots, 64),
+                    v=rnd(b, 8, 64 * slots, 64), q_ids=tt,
+                    kv_ids=kv.contiguous(), ids_mode=mode,
+                    sm_scale=64 ** -0.5)
+
+    s = fuyu_train_len(768)
+    ones = torch.ones((1, s), dtype=torch.int32, device=dev)
+    return [(f"fuyu 768 S={s}", dict(
+                q=rnd(1, 64, s, 64), k=rnd(1, 64, s, 64),
+                v=rnd(1, 64, s, 64), q_ids=ones, kv_ids=ones, causal=True,
+                sm_scale=64 ** -0.5)),
+            ("mpt1b laion", mpt1b(32, 32)), ("mpt1b mmc4", mpt1b(8, 256)),
+            ("mpt1b xattn laion", xattn(32, 32, [0], 1, "eq")),
+            ("mpt1b xattn mmc4 eq", xattn(8, 256, [0, 64, 128], 5, "eq")),
+            ("mpt1b xattn mmc4 ge", xattn(8, 256, [0, 64, 128], 5, "ge"))]
+
+
+def fuyu_train_len(size: int) -> int:
+    """Tokens of the fuyutrain phase's batch drawn at `size`²."""
+    cfg = fuyu_train_cfg()
+    text, image = fuyu_train_samples(SEED + 90, (size,))[0]
+    return fuyu_processor(cfg)([text], [image], target_resolution=(
+        size, size))["input_ids"].shape[1]
 
 
 def _fuyu_prefill_case(gen):
@@ -2516,10 +2619,9 @@ def otter_tokenizer(cfg):
                            eos_token_id=cfg.eoc_token_id)
 
 
-def png_base64(rgb) -> str:
-    """An RGB uint8 image [H, W, 3] as urlsafe base64 of a PNG file, the
-    worker's image payload (written with zlib: no image library)."""
-    import base64
+def png_bytes(rgb) -> bytes:
+    """An RGB uint8 image [H, W, 3] as a PNG file (written with zlib: no
+    image library)."""
     import struct
     import zlib
     h, w, _ = rgb.shape
@@ -2529,10 +2631,15 @@ def png_base64(rgb) -> str:
                 + struct.pack(">I", zlib.crc32(tag + data)))
 
     raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
-    return base64.urlsafe_b64encode(png).decode()
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def png_base64(rgb) -> str:
+    """`png_bytes` as urlsafe base64, the worker's image payload."""
+    import base64
+    return base64.urlsafe_b64encode(png_bytes(rgb)).decode()
 
 
 def worker_requests(cfg, n: int, seed: int, new_tokens: int = 32):
@@ -2709,6 +2816,7 @@ def phase_worker(smi: str):
     url = f"http://127.0.0.1:{wport}"
     stops = [run_app_in_thread(controller_app(Controller("shortest_queue")),
                                "127.0.0.1", cport)]
+    worker = None
     try:
         worker = ModelWorker(controller_addr=ctrl, worker_addr=url,
                              model_name="otter",
@@ -2762,6 +2870,10 @@ def phase_worker(smi: str):
     finally:
         for stop in reversed(stops):
             stop()
+        if worker is not None:
+            # its heartbeat thread would hold the worker, its engine and
+            # the model for the rest of the run
+            worker.close()
 
     texts = [tok.decode(w) for w in want]
     n_tok = [len(w) for w in want]
@@ -3353,7 +3465,6 @@ def phase_batch(smi: str):
     it; the worker with `--continuous-batching --num-slots 4` over
     localhost HTTP against the same four requests one after another; then
     idefics-9b cut in depth through the batcher."""
-    import threading
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3450,45 +3561,45 @@ def phase_batch(smi: str):
     runs = {n: _timed(lambda n=n: engine.generate(*b8, gen=GenerationConfig(
         max_new_tokens=n, eos_token_id=-1)))[1] for n in (1, 32)}
     gen_step = [(a - c) / 31 for a, c in zip(runs[32], runs[1])]
-    eight = [("greedy", (b8[0][i:i + 1], b8[1][i:i + 1]),
-              GenerationConfig(max_new_tokens=72, eos_token_id=-1))
-             for i in range(8)]
-    steady = []
-    for profiled in (False, True):
+
+    def rows8(n_new):
+        """The 8 requests (n_new tokens each) through a fresh pool of 8,
+        all admitted at once: (arrival times a request, wall s)."""
         b, rec = pool(max_admits_per_iter=8, prefill_chunk=0)
-        stamps, result = [[] for _ in eight], {}
-        runner = threading.Thread(target=lambda: result.update(
-            out=_run_requests(b, eight, 8, 0.0, stamps)))
+        stamps = [[] for _ in range(8)]
         try:
-            runner.start()
-            if profiled:
-                while len(stamps[0]) < 24 and runner.is_alive():
-                    time.sleep(0.002)
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t, n0 = time.perf_counter(), len(stamps[0])
-                    while len(stamps[0]) < n0 + 16 and runner.is_alive():
-                        time.sleep(0.001)
-                    window = time.perf_counter() - t
-                    n_steps = len(stamps[0]) - n0
-            runner.join(600)
+            t = time.perf_counter()
+            _run_requests(b, [("greedy", (b8[0][i:i + 1], b8[1][i:i + 1]),
+                               GenerationConfig(max_new_tokens=n_new,
+                                                eos_token_id=-1))
+                              for i in range(8)], 8, 0.0, stamps)
+            wall = time.perf_counter() - t
         finally:
             b.shutdown()
-        if "out" not in result:
-            raise RuntimeError("batch: the 8-row run failed")
         _step_launches_exact("batch (8 rows)", rec)
-        if not profiled:
-            gaps = np.diff(np.asarray([s[16:64] for s in stamps]), axis=1)
-            steady = list(np.median(gaps, axis=1) * 1e3)
-            continue
-        busy, n_launch = _report_profile(
-            prof, window, f"batch: profile of {n_steps} pooled steps at 8 "
-            f"active rows", "profile_batch_8rows.txt")
-        log(f"batch: a pooled step at 8 rows under the profiler: "
-            f"{window / n_steps * 1e3:.3f} ms wall, "
-            f"{busy / n_steps * 1e3:.3f} ms of device kernels "
-            f"({100 * busy / window:.1f}% busy), "
-            f"{n_launch / n_steps:.1f} launches a step | {smi}")
+        return stamps, wall
+
+    stamps, _ = rows8(72)
+    gaps = np.diff(np.asarray([s[16:64] for s in stamps]), axis=1)
+    steady = list(np.median(gaps, axis=1) * 1e3)
+    # Under torch.profiler (the device's kernels only): runs of 8 and of
+    # 40 new tokens, a step from the difference. Each run is profiled
+    # whole: the profiler starts before the pool's threads and stops after
+    # they have ended (started and stopped while they launched, it took
+    # the process down with a segfault in two default runs).
+    seen = {}
+    for n_new in (8, 40):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = rows8(n_new)
+        seen[n_new] = _report_profile(
+            prof, wall, f"batch: profile of 8 rows x {n_new} new tokens",
+            f"profile_batch_8rows_new{n_new}.txt") + (wall,)
+    (b0, n0, w0), (b1, n1, w1) = seen[8], seen[40]
+    log(f"batch: a pooled step at 8 rows under the profiler: "
+        f"{(w1 - w0) / 32 * 1e3:.3f} ms wall, {(b1 - b0) / 32 * 1e3:.3f} "
+        f"ms of device kernels ({100 * (b1 - b0) / (w1 - w0):.1f}% busy), "
+        f"{(n1 - n0) / 32:.1f} launches a step ((40 new - 8 new) / 32) "
+        f"| {smi}")
     log(f"batch: a pooled step at 8 active rows (median gap between a "
         f"stream's tokens 16-64 of 72, per stream) "
         f"{[round(x, 2) for x in steady]} ms; generate's b=8 step in the "
@@ -3601,6 +3712,7 @@ def _batch_worker(smi: str, model, cfg, engine):
             status = json.loads(resp.read())
     finally:
         stop()
+        worker.close()
         batcher.shutdown()
     if "batching" not in status or status["batching"]["num_slots"] != 4:
         raise RuntimeError(f"batch worker: status {status}")
@@ -3668,8 +3780,11 @@ def _batch_idefics(smi: str):
 # ── phase 16: speculative decoding and the session cache ────────────
 
 SPEC_GAMMA = 4
-SPEC_TARGET = (32, 8)     # OTTER-MPT7B: decoder layers, xattn blocks
-SPEC_DRAFT = (24, 24)     # Flamingo-MPT-1B: an xattn block before each layer
+# decoder layers, xattn blocks: half the depth of OTTER-MPT7B (32, 8) and
+# of Flamingo-MPT-1B (24, an xattn block before each layer), so that the
+# default run keeps inside its time with the training phases
+SPEC_TARGET = (16, 4)
+SPEC_DRAFT = (12, 12)
 
 
 def draft_cfg():
@@ -4106,7 +4221,7 @@ def _spec_worker(smi, model, draft, engine, cfg):
     args = types.SimpleNamespace(session_cache=2, cache_len=2048,
                                  draft_gamma=SPEC_GAMMA)
     routes = _session_and_spec(args, model, draft, torch.int8)
-    urls, stops = {}, []
+    urls, stops, workers = {}, [], []
     try:
         for name, kw in (("session", routes), ("stateless", {})):
             port = _free_port()
@@ -4114,6 +4229,7 @@ def _spec_worker(smi, model, draft, engine, cfg):
                             model_name="otter", no_register=True,
                             stream_fn=make_otter_stream_fn(engine, tok, cfg,
                                                            **kw))
+            workers.append(w)
             stops.append(run_app_in_thread(build_app(w), "127.0.0.1", port))
             urls[name] = f"http://127.0.0.1:{port}/worker_generate_stream"
         first = worker_requests(cfg, 1, SEED + 140, new_tokens=16)[0]
@@ -4171,21 +4287,25 @@ def _spec_worker(smi, model, draft, engine, cfg):
     finally:
         for stop in stops:
             stop()
+        for w in workers:
+            w.close()
 
 
 def phase_spec(smi: str):
     """Speculative decoding and the session cache on OTTER-MPT7B (int8
     weights and KV cache, decode_kernel="auto") with a Flamingo-MPT-1B
-    draft (int8), both at full width and depth: (a) the standalone
-    generator at b=1, (b) the slot pool with the draft, (c) the worker with
-    a draft and a session cache. Returns the phase's launches."""
+    draft (int8), both at full width and half their depth (`SPEC_TARGET`,
+    `SPEC_DRAFT`): (a) the standalone generator at b=1, (b) the slot pool
+    with the draft, (c) the worker with a draft and a session cache.
+    Returns the phase's launches."""
     import torch
     from otter_tpu_torch.generation.engine import OtterGenerator
     from otter_tpu_torch.tools import bench_decode
-    cfg = serving_cfg()
+    cut = lambda c, n: c.replace(text=c.text.replace(num_hidden_layers=n))
+    cfg = cut(serving_cfg(), SPEC_TARGET[0])
     t0 = time.perf_counter()
     model = build_model(cfg)
-    dcfg = draft_cfg()
+    dcfg = cut(draft_cfg(), SPEC_DRAFT[0])
     draft = build_model(dcfg)
     log(f"spec: target {cfg.text.num_hidden_layers}-layer mpt "
         f"({_weight_bytes(model) / 1e9:.3f} GB, int8), draft "
@@ -4504,14 +4624,17 @@ class _GradRecorder:
 
     grads = None
 
-    def __init__(self, tx=None):
-        self.tx = tx
+    def __init__(self, tx=None, dtype=None):
+        self.tx, self.dtype = tx, dtype
 
     def init(self, params):
         return None if self.tx is None else self.tx.init(params)
 
     def update(self, grads, state, params):
-        self.grads = {k: g.detach().float().clone() for k, g in grads.items()}
+        import torch
+        dt = self.dtype or torch.float32
+        self.grads = {k: g.detach().to(dt, copy=True)
+                      for k, g in grads.items()}
         if self.tx is not None:
             self.tx.update(grads, state, params)
 
@@ -4557,14 +4680,15 @@ def _step_grads(cfg, dtype, batch, ctx, adam8: bool = False):
     return loss, gnorm, out, {k: w.launches for k, w in wrappers.items()}
 
 
-def _hold_step(tag, runs, want_launches):
-    """A step through the kernels against the same step through the plain
-    versions (bf16) and, where bf16 itself strays, in f32: loss 1e-2
-    relative, grad norm 2e-2, each tensor within 5e-2 max|plain|."""
+def _step_failures(tag, runs, want_launches, nudged=None, quiet=False):
+    """(failures, tensors held against the f32 step) of `_hold_step`'s
+    check, logged per tensor unless `quiet`."""
     import torch
-    for name, (loss, gnorm, _, counts) in runs.items():
-        log(f"trainparity[{tag}, {name}]: loss {loss:.6f} grad_norm "
-            f"{gnorm:.6f} launches {counts}")
+    if not quiet:
+        for name, (loss, gnorm, _, counts) in runs.items():
+            log(f"trainparity[{tag}, {name}]: loss {loss:.6f} grad_norm "
+                f"{gnorm:.6f} launches {counts}")
+    say = (lambda *_: None) if quiet else log
     (lk, gk, grads_k, ck), (lp, gp, grads_p, cp) = runs["kernels"], \
         runs["plain"]
     grads_f = runs["plain_f32"][2]
@@ -4579,16 +4703,22 @@ def _hold_step(tag, runs, want_launches):
     # the perceiver's latents are near-identical, so the xattn q path's
     # ds = p * (dp - di) cancels), the kernel path must instead be within
     # the limit plus the bf16 plain path's own error of the f32 step.
-    rel = lambda a, r: float((a - r).abs().max()) / max(
-        float(r.abs().max()), 1e-30)
-    log(f"trainparity[{tag}]: per tensor, max err / max|ref|: kernels vs "
+    say(f"trainparity[{tag}]: per tensor, max err / max|ref|: kernels vs "
         "bf16 plain (limit 5e-2) | kernels vs f32 plain | bf16 plain vs f32 "
         "plain")
     floor = []
+    if nudged is not None:
+        say(f"trainparity[{tag}]: bf16 plain vs f32 plain is the larger of "
+            "the plain step's and the same step's with each attention "
+            "output moved by one bf16 rounding (shown after it)")
     for k, g in grads_p.items():
-        e_kp, e_kf, e_pf = (rel(grads_k[k], g), rel(grads_k[k], grads_f[k]),
-                            rel(g, grads_f[k]))
-        log(f"    {e_kp:.3e} | {e_kf:.3e} | {e_pf:.3e}  {k} (max|plain| "
+        e_kp, e_kf, e_pf = (_rel(grads_k[k], g), _rel(grads_k[k], grads_f[k]),
+                            _rel(g, grads_f[k]))
+        shown = f"{e_pf:.3e}"
+        if nudged is not None:
+            shown += f" / {nudged[k]:.3e}"
+            e_pf = max(e_pf, nudged[k])
+        say(f"    {e_kp:.3e} | {e_kf:.3e} | {shown}  {k} (max|plain| "
             f"{float(g.abs().max()):.3e})")
         ok = e_kp <= 5e-2
         if not ok and e_pf > 5e-2:
@@ -4597,14 +4727,34 @@ def _hold_step(tag, runs, want_launches):
         if not ok or not torch.isfinite(grads_k[k]).all():
             failed.append(f"{k}: {e_kp:.3e} (vs f32 {e_kf:.3e}, bf16 "
                           f"plain vs f32 {e_pf:.3e})")
-    log(f"trainparity[{tag}]: {len(grads_p)} tensors; held against the f32 "
+    say(f"trainparity[{tag}]: {len(grads_p)} tensors; held against the f32 "
         f"step (bf16 plain itself beyond 5e-2 of it): {floor}")
     if ck != want_launches or any(cp.values()):
         failed.append(f"launches: kernel run {ck} (want {want_launches}), "
                       f"plain run {cp}")
+    return failed, floor
+
+
+def _rel(a, r) -> float:
+    """max |a - r| / max |r|."""
+    return float((a.float() - r.float()).abs().max()) / max(
+        float(r.float().abs().max()), 1e-30)
+
+
+def _hold_step(tag, runs, want_launches, nudged=None):
+    """A step through the kernels against the same step through the plain
+    versions (bf16) and, where bf16 itself strays, in f32: loss 1e-2
+    relative, grad norm 2e-2, each tensor within 5e-2 max|plain|.
+    `nudged` ({path: error / max|f32|}): how far the bf16 plain step moves
+    from the f32 step when each attention output moves by one bf16
+    rounding (`_nudged_attention`, the largest over a few draws); where
+    given, the bf16 plain path's error is the larger of its own and
+    that. Returns the tensors held against the f32 step."""
+    failed, floor = _step_failures(tag, runs, want_launches, nudged)
     if failed:
         raise RuntimeError(f"train step ({tag}): kernel path disagrees "
                            "with the plain path: " + "; ".join(failed))
+    return floor
 
 
 def _yaml_argv(cfg, yaml_path, tok_dir, save_dir, run_name, *extra):
@@ -4732,6 +4882,7 @@ def phase_trainparity():
                     ("plain_f32", torch.float32, plain_kernels()))}
         _hold_step(tag, runs, per_step)
         del runs
+    _new_step_parity(batch)
     with tempfile.TemporaryDirectory() as work:
         _yaml_parity(cfg, work)
 
@@ -5231,6 +5382,890 @@ def phase_train8(smi: str, profile: bool = False):
     return {k: sum(c[k] for c in per_step) for k in FLASH_COUNTERS}
 
 
+# ── phases 18-20: Flamingo pretraining, the OtterHD full fine-tune, LoRA ─
+
+def pretrain_cfg(depth_cut: bool = False):
+    """Flamingo-MPT-1B (`PretrainArgs`'s default `--model_config mpt1b`)."""
+    from otter_tpu_torch.config import otter_mpt1b
+    cfg = otter_mpt1b()
+    return _depth_cut(cfg) if depth_cut else cfg
+
+
+def pretrain_step_flash(cfg, batches: int = 2) -> dict:
+    """Flash launches of one pretraining step (no remat: the JAX
+    pretrainer has none): for each of its batches CLIP, the perceiver, the
+    decoder and the xattn blocks forward, the decoder, the xattn blocks
+    and the perceiver backward (the frozen CLIP has none). 156 / 108 / 108
+    at Flamingo-MPT-1B."""
+    clip, perc = cfg.vision.num_hidden_layers, cfg.perceiver.depth
+    dec = cfg.text.num_hidden_layers
+    xattn = dec // cfg.cross_attn_every_n_layers
+    return {"flash_fwd": batches * (clip + perc + dec + xattn),
+            "flash_bwd_dkv": batches * (dec + xattn + perc),
+            "flash_bwd_dq": batches * (dec + xattn + perc)}
+
+
+def _noise_png(rng, n: int = 64) -> bytes:
+    """A noise PNG: at 64x64 ~12.4 KB, over MMC4's 10 KB filter."""
+    import numpy as np
+    return png_bytes(rng.integers(0, 256, (n, n, 3), dtype=np.uint8))
+
+
+def write_pretrain_shards(directory: str, seed: int, n_pairs: int = 64,
+                          n_docs: int = 16, shards: int = 2):
+    """`shards` LAION shards of `n_pairs` (noise PNG as .jpg, a caption of
+    12-24 words) and `shards` MMC4 shards of `n_docs` documents (four
+    sentences of 40-60 words, three noise PNGs in standard base64 matched
+    to the first three at similarity 0.3, so none is filtered and no
+    document is a single-image one), written with `tarfile`. Words are
+    `write_tokenizer`'s. Returns the two brace patterns."""
+    import base64
+    import io
+    import tarfile
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = lambda lo, hi: " ".join(
+        f"w{i}" for i in rng.integers(5, 5000, int(rng.integers(lo, hi))))
+    os.makedirs(directory, exist_ok=True)
+
+    def add(tf, name, data):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+
+    for s in range(shards):
+        with tarfile.open(os.path.join(directory, f"laion-{s}.tar"),
+                          "w") as tf:
+            for i in range(n_pairs):
+                add(tf, f"{s}{i:05d}.jpg", _noise_png(rng))
+                add(tf, f"{s}{i:05d}.txt", words(12, 24).encode())
+        with tarfile.open(os.path.join(directory, f"mmc4-{s}.tar"),
+                          "w") as tf:
+            for i in range(n_docs):
+                doc = {"text_list": [words(40, 60) for _ in range(4)],
+                       "image_info": [{
+                           "image_base64": base64.b64encode(
+                               _noise_png(rng)).decode(),
+                           "matched_sim": 0.3, "matched_text_index": j}
+                           for j in range(3)]}
+                add(tf, f"{s}{i:05d}.json", json.dumps(doc).encode())
+    last = shards - 1
+    return (os.path.join(directory, f"laion-{{0..{last}}}.tar"),
+            os.path.join(directory, f"mmc4-{{0..{last}}}.tar"))
+
+
+class _StepCalls:
+    """Wraps a step function: waits for the device before and after each
+    call and notes the times, the flash launches of the call and the
+    state's step count; `first(state)` runs before the first call."""
+
+    def __init__(self, counters, first=None):
+        self.counters, self.first = counters, first
+        self.spans, self.counts, self.steps = [], [], []
+
+    def wrap(self, step):
+        def marked(state, *a, **kw):
+            if not self.steps and self.first is not None:
+                self.first(state)
+            self.steps.append(state.step)
+            t0, c0 = self._mark()
+            out = step(state, *a, **kw)
+            t1, c1 = self._mark()
+            self.spans.append((t0, t1))
+            self.counts.append({k: c1[k] - c0[k] for k in c0})
+            return out
+        return marked
+
+    def _mark(self):
+        import torch
+        torch.cuda.synchronize()
+        return time.perf_counter(), {k: w.launches
+                                     for k, w in self.counters.items()}
+
+    def step_ms(self):
+        return [round((t1 - t0) * 1e3, 2) for t0, t1 in self.spans]
+
+    def gap_ms(self):
+        """Between a step's end and the next one's start: the loader."""
+        return [round((b[0] - a[1]) * 1e3, 2)
+                for a, b in zip(self.spans, self.spans[1:])]
+
+
+@contextlib.contextmanager
+def _wrapped_pretrain_step(pretrain, calls: _StepCalls):
+    real = pretrain.make_pretrain_step
+    pretrain.make_pretrain_step = lambda *a, **k: calls.wrap(real(*a, **k))
+    try:
+        yield
+    finally:
+        pretrain.make_pretrain_step = real
+
+
+def phase_pretrain(smi: str):
+    """Flamingo pretraining as a user runs it: `pretrain.main([...])`
+    (`python -m otter_tpu_torch.train.pretrain`) on Flamingo-MPT-1B at full
+    width and depth over LAION and MMC4 tar shards written here, with a
+    WordLevel tokenizer directory. Batches `--batch_size_laion 32
+    --batch_size_mmc4 8`: a 4x cut of the reference's 128 / 32, for
+    memory, since the JAX pretrainer has no remat flag. One epoch of 4
+    steps, then a second call with `--num_epochs 2` that resumes from the
+    epoch's checkpoint."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from otter_tpu_torch.train import pretrain
+
+    cfg = pretrain_cfg()
+    wrappers = _flash_wrappers()
+    kept = {}
+
+    def keep_first(state):
+        kept["frozen"] = {k: p.detach().clone()
+                          for k, p in state.frozen.items()}
+        kept["trainable"] = {k: p.detach().clone()
+                             for k, p in state.trainable.items()}
+
+    failed, launches = [], {k: 0 for k in FLASH_COUNTERS}
+    want = pretrain_step_flash(cfg)
+    with tempfile.TemporaryDirectory() as work:
+        laion, mmc4 = write_pretrain_shards(os.path.join(work, "shards"),
+                                            SEED + 80)
+        tok_dir = write_tokenizer(os.path.join(work, "tok"), cfg)
+        argv = ["--laion_shards", laion, "--mmc4_shards", mmc4,
+                "--tokenizer", tok_dir, "--model_config", "mpt1b",
+                "--patch_image_size", str(cfg.vision.image_size),
+                "--batch_size_laion", "32", "--batch_size_mmc4", "8",
+                "--train_num_samples_laion", "128",
+                "--train_num_samples_mmc4", "32", "--warmup_steps", "0",
+                "--logging_steps", "1", "--seed", str(SEED),
+                "--external_save_dir", work, "--run_name", "pretrain"]
+        run_dir = os.path.join(work, "pretrain")
+        ends = {}
+        for call, extra in ((1, []), (2, ["--num_epochs", "2"])):
+            calls = _StepCalls(wrappers, keep_first)
+            kept.clear()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _wrapped_pretrain_step(pretrain, calls):
+                state = pretrain.main(argv + extra, device=DEV)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            steps, per_step = calls.step_ms(), calls.counts
+            for c in per_step:
+                for k in launches:
+                    launches[k] += c[k]
+            metrics = _read_metrics(run_dir)
+            ckpt = os.path.join(run_dir, f"checkpoint_{state.step}")
+            with open(os.path.join(ckpt, "meta.json")) as f:
+                meta = json.load(f)
+            size = sum(os.path.getsize(os.path.join(ckpt, n))
+                       for n in os.listdir(ckpt))
+            mem = _state_bytes(state)
+            log(f"pretrain[call {call}]: Flamingo-MPT-1B bf16 through "
+                f"pretrain.main([...]) {' '.join(extra) or '(one epoch)'}: "
+                f"steps {calls.steps} in {wall:.1f} s (the model's init, "
+                f"the shards' decode and the checkpoint included); "
+                f"checkpoint_{state.step} {size / 1e9:.3f} GB, meta {meta}")
+            log(f"pretrain[call {call}]: step ms (between device syncs) "
+                f"{steps}; median of steps 2-: "
+                f"{float(np.median(steps[1:])):.2f} ms; the loader's wait "
+                f"between steps {calls.gap_ms()} ms; b 32 x 32 tokens "
+                f"(LAION) + 8 x 256 (MMC4, 5 image slots) | {smi}")
+            log(f"pretrain[call {call}]: peak memory "
+                f"{(peak - base) / 2 ** 30:.2f} GiB above the "
+                f"{base / 2 ** 30:.2f} GiB allocated before, absolute "
+                f"{peak / 2 ** 30:.2f} GiB; {_gb(mem)}")
+            log(f"pretrain[call {call}]: losses (loss, loss_laion, "
+                f"loss_mmc4) " + str([(round(m['loss'], 5),
+                                       round(m['loss_laion'], 5),
+                                       round(m['loss_mmc4'], 5))
+                                      for m in metrics]))
+            log(f"pretrain[call {call}]: flash launches a step {per_step}")
+            first = calls.steps[0] if calls.steps else None
+            if call == 1 and (calls.steps != [0, 1, 2, 3]
+                              or meta.get("epoch") != 1):
+                failed.append(f"call 1 ran steps {calls.steps}, meta {meta}")
+            if call == 2:
+                if calls.steps != [4, 5, 6, 7] or meta.get("epoch") != 2:
+                    failed.append(f"the resumed call ran steps "
+                                  f"{calls.steps}, meta {meta}")
+                differ = [k for k, p in kept["trainable"].items()
+                          if not torch.equal(p, ends[k])]
+                log(f"pretrain[call 2]: resumed at step {first}, epoch 1: "
+                    f"{len(ends) - len(differ)} of {len(ends)} trainable "
+                    f"tensors equal to the first call's last")
+                if differ:
+                    failed.append(f"restored trainables differ: "
+                                  f"{differ[:3]}")
+            if [m["step"] for m in metrics] != list(
+                    range(1, 4 * call + 1)):
+                failed.append(f"metrics steps {[m['step'] for m in metrics]}")
+            for m in metrics:
+                if not all(math.isfinite(m.get(k, float("nan"))) for k in
+                           ("loss", "loss_laion", "loss_mmc4")):
+                    failed.append(f"metrics {m}")
+            if any(c != want for c in per_step):
+                failed.append(f"flash launches a step {per_step}, want "
+                              f"{want}")
+            changed = [k for k, p in state.frozen.items()
+                       if not torch.equal(p, kept["frozen"][k])]
+            log(f"pretrain[call {call}]: frozen tensors: "
+                f"{len(state.frozen) - len(changed)} of {len(state.frozen)} "
+                f"bit-identical")
+            if changed:
+                failed.append(f"frozen changed: {changed[:3]}")
+            # every group moves; a tensor whose gradient is far below f32's
+            # resolution of its value stays (at random init the xattn
+            # blocks' q path: the perceiver's latents are near-identical)
+            moved, still = {}, []
+            for k, p in state.trainable.items():
+                group = ("wte" if "/wte/" in k else "xattn" if "xattn_" in k
+                         else "perceiver")
+                n_moved, n = moved.get(group, (0, 0))
+                same = torch.equal(p, kept["trainable"][k])
+                moved[group] = (n_moved + (not same), n + 1)
+                if same:
+                    still.append(k)
+            log(f"pretrain[call {call}]: trainable tensors changed by group "
+                f"{moved}; unchanged: {still}")
+            if sorted(moved) != ["perceiver", "wte", "xattn"] or not all(
+                    m for m, _ in moved.values()):
+                failed.append(f"a trainable group did not move: {moved}")
+            ends = {k: p.detach().clone() for k, p in
+                    state.trainable.items()}
+            del state
+            kept.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ends
+    if failed:
+        raise RuntimeError("pretrain phase failed: " + "; ".join(failed))
+    return launches
+
+
+def fuyu_train_cfg(depth_cut: bool = False):
+    """OtterHD-8B (`FuyuConfig()`, adept/fuyu-8b's widths and depth) in
+    bf16, as the full fine-tune trains it."""
+    from otter_tpu_torch.config import FuyuConfig
+    cfg = FuyuConfig()
+    if depth_cut:
+        cfg = cfg.replace(text=cfg.text.replace(num_hidden_layers=4))
+    return cfg
+
+
+class FuyuTrainTokenizer:
+    """The tokenizer surface the Fuyu processor reads (`__call__` ->
+    input_ids, `bos_token_id`, `eos_token_id`) over made-up ids: "\\x04"
+    (boa) is 71122 and eos 71013, as adept/fuyu-8b's tokenizer numbers
+    them; any other whitespace-separated word 1000 + its crc32 mod 70000
+    (below the image ids)."""
+
+    bos_token_id, eos_token_id, boa_id = 1, 71013, 71122
+
+    def __call__(self, text, add_special_tokens=False, truncation=True,
+                 max_length=None, **kw):
+        import re
+        import zlib
+        ids = []
+        for part in re.split("(\\x04)", text):
+            if part == "\x04":
+                ids.append(self.boa_id)
+            else:
+                ids += [1000 + zlib.crc32(w.encode()) % 70000
+                        for w in part.split()]
+        return {"input_ids": ids[:max_length] if max_length else ids}
+
+
+def fuyu_processor(cfg):
+    from otter_tpu_torch.data.fuyu_processor import (FuyuImageProcessor,
+                                                     FuyuProcessor)
+    return FuyuProcessor(FuyuTrainTokenizer(),
+                         FuyuImageProcessor(patch_size=cfg.patch_size),
+                         image_placeholder_id=cfg.image_placeholder_id,
+                         image_newline_id=cfg.image_newline_id)
+
+
+def fuyu_train_samples(seed: int, sizes=(448, 512, 768)):
+    """One (text, image) a size: `format_pair` of a 12-word instruction and
+    a 40-word answer closed by "\\x04" (as `tests/test_fuyu_sft.py`
+    writes them), a square noise image."""
+    import numpy as np
+    from otter_tpu_torch.data.mimicit import decode_base64_image
+    from otter_tpu_torch.data.templates import format_pair
+    rng = np.random.default_rng(seed)
+    words = lambda n: " ".join(f"w{i}" for i in rng.integers(0, 9999, n))
+    return [(format_pair(words(12), words(40), "fuyu") + "\x04",
+             decode_base64_image(png_base64(rng.integers(
+                 0, 256, (n, n, 3), dtype=np.uint8)))) for n in sizes]
+
+
+def fuyu_train_step_flash(cfg) -> dict:
+    """Flash launches of one full fine-tune step with remat: every decoder
+    layer forward, again in the backward, and each backward kernel
+    once. 72 / 36 / 36 at OtterHD-8B."""
+    n = cfg.text.num_hidden_layers
+    return {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+
+
+def build_fuyu_train_model(depth_cut: bool = False, dtype=None):
+    import torch
+    from otter_tpu_torch.models.convert import load_flax_params
+    from otter_tpu_torch.models.fuyu import FuyuVLM
+    cfg = fuyu_train_cfg(depth_cut)
+    model = FuyuVLM(cfg, dtype=dtype or torch.bfloat16, device=DEV,
+                    remat=True)
+    load_flax_params(model, random_params(cfg))
+    return model, cfg
+
+
+def _tensor_sums(tensors: dict) -> dict:
+    """{name: (sum, sum of |x|)} in f64: a tensor moved where either
+    changed."""
+    import torch
+    with torch.no_grad():
+        return {k: (float(t.double().sum()), float(t.double().abs().sum()))
+                for k, t in tensors.items()}
+
+
+def phase_fuyutrain(smi: str):
+    """OtterHD-8B full fine-tune (`train/fuyu_sft.py`) at full width and
+    depth: bf16 parameters, 8-bit Adam (no masters), remat, b=1, lr 1e-4;
+    `FuyuBatcher(dynamic_resolution=True)` over one image each at 448²,
+    512² and 768². One warm-up step and three timed ones (one batch each),
+    then the first batch again: its loss must have fallen."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.train import fuyu_sft
+    from otter_tpu_torch.train.step import flax_path, make_optimizer
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()     # left by earlier phases
+    t0 = time.perf_counter()
+    model, cfg = build_fuyu_train_model()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    batcher = fuyu_sft.FuyuBatcher(fuyu_processor(cfg),
+                                   dynamic_resolution=True, seed=SEED)
+    batches = [batcher([t], [im]) for t, im in fuyu_train_samples(SEED + 90)]
+    shapes = [(b["input_ids"].shape[1], b["image_patches"].shape[1])
+              for b in batches]
+    tx = _TimedUpdate(make_optimizer(
+        [flax_path(n) for n, _ in model.named_parameters()], lr=1e-4,
+        total_steps=100, state_bits=8))
+    state = fuyu_sft.fuyu_train_state(model, tx)
+    before = _tensor_sums({**dict(model.named_parameters())})
+    mem = _state_bytes(state)
+    step = fuyu_sft.make_fuyu_train_step(model, tx)
+    calls = _StepCalls(_flash_wrappers())
+    step = calls.wrap(step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, updates = [], []
+    for b in batches[:1] + batches + batches[:1]:
+        _, m = step(state, b)
+        losses.append(float(m["loss"]))
+        updates.append(tx.ms)
+    peak = torch.cuda.max_memory_allocated()
+    steps, per_step = calls.step_ms(), calls.counts
+    after = _tensor_sums(dict(model.named_parameters()))
+    still = [k for k in before if before[k] == after[k]]
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"fuyutrain: OtterHD-8B full fine-tune, {n_all / 1e9:.3f}B bf16 "
+        f"parameters, 8-bit Adam (no masters), remat, b=1, lr 1e-4; built "
+        f"in {t_build:.1f} s; {_gb(mem)} | {smi}")
+    log(f"fuyutrain: batches (tokens, image patches) {shapes} (the "
+        f"batcher's draws); steps on batches 0, 0, 1, 2, 0")
+    log(f"fuyutrain: step ms {steps}, of which the 8-bit update (between "
+        f"syncs) {[round(u, 2) for u in updates]}; timed steps (2-4) "
+        f"{steps[1:4]} ms for {[s for s, _ in shapes]} tokens | {smi}")
+    log(f"fuyutrain: peak memory {peak / 2 ** 30:.2f} GiB absolute, "
+        f"{(peak - base) / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} "
+        f"GiB earlier phases left")
+    log(f"fuyutrain: losses {[round(x, 5) for x in losses]}; flash "
+        f"launches a step {per_step}")
+    failed = []
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        failed.append(f"the repeated batch's loss did not fall: {losses}")
+    if still:
+        failed.append(f"{len(still)} of {len(before)} parameters did not "
+                      f"move, e.g. {still[:3]}")
+    want = fuyu_train_step_flash(cfg)
+    if any(c != want for c in per_step):
+        failed.append(f"flash launches a step {per_step}, want {want}")
+    del state, model, tx
+    if failed:
+        raise RuntimeError("fuyutrain phase failed: " + "; ".join(failed))
+    return {k: sum(c[k] for c in per_step) for k in FLASH_COUNTERS}
+
+
+LORA_RANK = 16
+
+
+def lora_cfg(depth_cut: bool = False):
+    """The int8-frozen recipe's model with LoRA rank 16 on every decoder
+    layer's Wqkv (`lora_alpha` 16, JAX's default), decoding as the serving
+    worker does (`decode_kernel="auto"`: the int8 cache through
+    `decode_attention`)."""
+    cfg = int8_train_cfg(depth_cut)
+    return cfg.replace(text=cfg.text.replace(lora_rank=LORA_RANK,
+                                             decode_kernel="auto"))
+
+
+def build_lora_model(depth_cut: bool = False, dtype=None):
+    """`lora_cfg`'s model: `build_int8_train_model`'s weights under
+    `base/` (`ops.lora.into_base`), the adapters drawn from SEED (B = 0)."""
+    import torch
+    from otter_tpu_torch.models.convert import load_flax_params
+    from otter_tpu_torch.models.otter import OtterVLM
+    from otter_tpu_torch.ops import lora, quant
+    cfg = lora_cfg(depth_cut)
+    model = OtterVLM(cfg, dtype=dtype or torch.bfloat16, device=DEV,
+                     remat=True)
+    load_flax_params(model, lora.into_base(quant.quantize_params(
+        random_params(train_cfg(depth_cut)), quant.FROZEN_DECODER_PATTERNS),
+        model), partial=True)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    lora.reset_adapters(model, gen)
+    return model, cfg
+
+
+def phase_lora(smi: str):
+    """QLoRA-style training of OTTER-MPT7B (JAX's
+    `tests/test_lora.py::test_lora_over_int8_base` at full size): int8
+    frozen decoder layers with LoRA rank 16 on Wqkv, bf16 xattn and
+    trainables, 8-bit Adam, b=2 x 1024, remat, fused CE 256, lr 1e-4; 2
+    warm-up and 3 timed steps; then one greedy `OtterGenerator.generate`
+    of 8 tokens from the trained model (composed route, int8 cache)."""
+    import gc
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.train import sft
+    from otter_tpu_torch.train.args import TrainArgs
+    from otter_tpu_torch.train.step import (TrainState, make_optimizer,
+                                            make_train_step, split_params)
+
+    b, s, warm, timed = 2, 1024, 2, 3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model, cfg = build_lora_model()
+    tok = SmokeTokenizer(cfg)
+    batch = sft.prepare_batch(make_train_batch(cfg, tok, SEED + 100, b, s),
+                              tok, TrainArgs())
+    fwd = lambda m: m(torch.as_tensor(batch["vision_x"], device=DEV),
+                      torch.as_tensor(batch["input_ids"], device=DEV).long(),
+                      attention_mask=torch.as_tensor(
+                          batch["attention_mask"], device=DEV))[0]
+    # B = 0 before training: the LoRA-free model's logits, bit for bit
+    with torch.no_grad():
+        lora_logits = fwd(model)
+        plain, _ = build_int8_train_model()
+        plain_logits = fwd(plain)
+        same = torch.equal(lora_logits, plain_logits)
+        gap = float((lora_logits.float() - plain_logits.float()).abs().max())
+    del plain, plain_logits, lora_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lora: before training (B = 0) the first-step logits "
+        f"[{b}, {s}, V] {'equal' if same else 'DIFFER from'} the LoRA-free "
+        f"model's bit for bit (max |diff| {gap:.3e})")
+
+    trainable, frozen = split_params(model, cfg)
+    adapters = [k for k in trainable if k.endswith(("lora_a", "lora_b"))]
+    tx = make_optimizer(trainable, lr=1e-4, total_steps=100, state_bits=8)
+    state = TrainState.create(model, cfg, tx)
+    step = make_train_step(model, cfg, tx, mask_embedding=True,
+                           fused_ce_chunk=256)
+    tensors = {**{k: p for k, p in state.trainable.items()},
+               **{k: p for k, p in state.frozen.items()},
+               **{n.replace(".", "/"): t for n, t in model.named_buffers()}}
+    layer_paths = [k for k in tensors if k.startswith("lang_encoder/layers_")]
+    before = _tensor_sums(tensors)
+    int8_before = {k: t.clone() for k, t in tensors.items()
+                   if t.dtype == torch.int8}
+    mem = _state_bytes(state)
+    calls = _StepCalls(_flash_wrappers())
+    step = calls.wrap(step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(warm + timed):
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    steps, per_step = calls.step_ms(), calls.counts
+    after = _tensor_sums(tensors)
+    moved = sorted({k for k in layer_paths if before[k] != after[k]})
+    int8_same = all(torch.equal(t, tensors[k])
+                    for k, t in int8_before.items())
+    step_s = float(np.median(steps[warm:])) / 1e3
+    n_ad = sum(state.trainable[k].numel() for k in adapters)
+    log(f"lora: OTTER-MPT7B, int8 frozen decoder layers with LoRA rank "
+        f"{LORA_RANK} on Wqkv (alpha 16; {len(adapters)} adapter tensors, "
+        f"{n_ad / 1e6:.2f}M parameters), xattn bf16, 8-bit Adam, b={b} "
+        f"s={s}, remat, fused CE 256, lr 1e-4; {_gb(mem)} | {smi}")
+    log(f"lora: losses {[round(x, 5) for x in losses]}; step ms "
+        f"{steps} | median of the last "
+        f"{timed}: {step_s * 1e3:.2f} ms, {b * s / step_s:.1f} tokens/s | "
+        f"{smi}")
+    log(f"lora: peak memory {(peak - base) / 2 ** 30:.2f} GiB above the "
+        f"{base / 2 ** 30:.2f} GiB allocated before, absolute "
+        f"{peak / 2 ** 30:.2f} GiB; flash launches a step {per_step}")
+    log(f"lora: decoder-layer tensors that moved: {len(moved)} (the "
+        f"{len(adapters)} adapters: "
+        f"{'yes' if moved == sorted(adapters) else 'NO'}); the "
+        f"{len(int8_before)} int8 tensors "
+        f"{'bit-identical' if int8_same else 'CHANGED'}")
+    failed = [] if same else [f"B = 0 logits differ by {gap}"]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        failed.append(f"losses {losses}")
+    if moved != sorted(adapters):
+        failed.append(f"decoder-layer tensors moved: "
+                      f"{sorted(set(moved) ^ set(adapters))[:4]}")
+    if not int8_same:
+        failed.append("a frozen int8 tensor changed")
+    still = [k for k in state.trainable if before[k] == after[k]]
+    if still:
+        failed.append(f"trainable tensors did not move: {still[:4]}")
+    want = train_step_flash(cfg)
+    if any(c != want for c in per_step):
+        failed.append(f"flash launches a step {per_step}, want {want}")
+    launches = {k: sum(c[k] for c in per_step) for k in FLASH_COUNTERS}
+
+    # one greedy request from the trained model: the composed route
+    del state, tx, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.eval()
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    vx, ids, mask = make_requests(cfg, 1, SEED + 101)
+    gen = GenerationConfig(max_new_tokens=8)
+    got = _launches_of(lambda: engine.generate(vx, ids, mask, gen=gen))
+    out = [engine.generate(vx, ids, mask, gen=gen) for _ in range(2)]
+    new = out[0][0, ids.shape[1]:].tolist()
+    log(f"lora: greedy generate of 8 tokens from the trained model "
+        f"({ids.shape[1]}-token prompt, one image): {new}, the same twice: "
+        f"{bool(np.array_equal(out[0], out[1]))}; launches {got}")
+    if not np.array_equal(out[0], out[1]) or len(new) != 8:
+        failed.append(f"generate gave {out[0].tolist()} then "
+                      f"{out[1].tolist()}")
+    # a prefill's CLIP, perceiver, decoder and xattn; then 7 steps of the
+    # decoder's int8 MLPs and int8-cache attention (the xattn FFs are bf16)
+    n = cfg.text.num_hidden_layers
+    want_gen = {"flash_fwd": cfg.vision.num_hidden_layers
+                + cfg.perceiver.depth + n + n // cfg.cross_attn_every_n_layers,
+                "int8_mlp": 7 * n, "decode_attention": 7 * n}
+    if got != want_gen:
+        failed.append(f"generate launched {got}, want {want_gen}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    del engine, model
+    if failed:
+        raise RuntimeError("lora phase failed: " + "; ".join(failed))
+    return launches
+
+
+# ── trainparity: the pretraining, fuyu and LoRA steps at cut depth ───
+
+def pretrain_batches(cfg, seed: int, pair=(4, 32), mmc4=(2, 256)):
+    """A LAION batch (one image, a caption closed by <|endofchunk|>, pair
+    labels) and an MMC4 batch (five image slots, three media tokens each
+    after an <|endofchunk|>, interleaved labels), right-padded with
+    `write_tokenizer`'s <PAD> (numpy), as the shard pipelines give them."""
+    import numpy as np
+    from otter_tpu_torch.train.pretrain import (interleaved_labels,
+                                                pair_labels)
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    m, e = cfg.media_token_id, cfg.eoc_token_id
+    pad = m + 1
+    out = []
+    for (b, s), slots in ((pair, 1), (mmc4, 5)):
+        ids = rng.integers(5, e, (b, s)).astype(np.int32)
+        lens = np.linspace(s, s * 3 // 4, b).astype(int)
+        media = [0] if slots == 1 else [0, s // 4, s // 2]
+        ids[:, media] = m
+        for p in media[1:]:
+            ids[:, p - 1] = e
+        for i, n in enumerate(lens):
+            ids[i, n - 1] = e
+            ids[i, n:] = pad
+        labels = (pair_labels(ids, pad, m) if slots == 1
+                  else interleaved_labels(ids, pad, m, e))
+        out.append({"vision_x": rng.standard_normal(
+                        (b, slots, 1, 3, size, size)).astype(np.float32),
+                    "input_ids": ids, "attention_mask": (ids != pad).astype(
+                        np.int32), "labels": labels})
+    return out
+
+
+@contextlib.contextmanager
+def _nudged_attention(seed: int):
+    """The plain versions, each attention output moved by one bf16
+    rounding (x * (1 +- 2^-8), the signs drawn from `seed`): the bf16
+    plain step's spread where the kernels differ from it."""
+    import torch
+    from otter_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+
+    def fwd(*a, return_lse=False, **kw):
+        out = fa.flash_attention_plain(*a, return_lse=True, **kw)
+        sign = torch.randint(0, 2, out[0].shape, generator=gen,
+                             device=out[0].device) * 2 - 1
+        moved = (out[0].float() * (1 + 2.0 ** -8 * sign)).to(out[0].dtype)
+        return (moved, out[1]) if return_lse else moved
+
+    with plain_kernels():
+        fa.flash_attention_fwd = fwd
+        yield
+
+
+@contextlib.contextmanager
+def _swapped_attention(fwd=None, bwd=None):
+    """`fwd` / `bwd` in place of the flash forward / backward wrappers
+    (each left as it is where None)."""
+    from otter_tpu_torch.ops import flash_attention as fa
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd or saved[0], \
+        bwd or saved[1]
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+
+# Slightly wrong flash kernels, to check the check: `_new_step_parity`
+# requires the held check (its bf16 floor included) to reject a step
+# through each of them.
+BROKEN_FLASH = ("dS with the next query row's di",
+                "softmax scale 1/8 too large")
+
+
+def _broken_flash(kind):
+    """The flash kernels with one slip (`BROKEN_FLASH`): the backward's
+    dS = p (dp - di) taken with the next query row's di (the kernels
+    themselves run, on a shifted di), or the softmax scale 1/8 too large
+    in the forward and the backward alike."""
+    from otter_tpu_torch.ops import flash_attention as fa
+    fwd0, bwd0 = fa.flash_attention_fwd, fa.flash_attention_bwd
+    if kind == BROKEN_FLASH[0]:
+        def bwd(q, k, v, bias, q_ids, kv_ids, o, lse, do, **kw):
+            di = (o.float() * do.float()).sum(-1).roll(-1, dims=-1)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, bias, q_ids, kv_ids, lse, di,
+                                      do, **kw)
+            dq = fa.flash_bwd_dq(q, k, v, bias, q_ids, kv_ids, lse, di, do,
+                                 **kw)
+            return dq, dk, dv
+        return _swapped_attention(bwd=bwd)
+
+    def scaled(kw, d):
+        return dict(kw, sm_scale=1.125 * (kw.get("sm_scale") or d ** -0.5))
+
+    def fwd(q, k, v, bias=None, q_ids=None, kv_ids=None, **kw):
+        return fwd0(q, k, v, bias, q_ids, kv_ids, **scaled(kw, q.shape[-1]))
+
+    def bwd(q, k, v, bias, q_ids, kv_ids, o, lse, do, **kw):
+        return bwd0(q, k, v, bias, q_ids, kv_ids, o, lse, do,
+                    **scaled(kw, q.shape[-1]))
+    return _swapped_attention(fwd, bwd)
+
+
+def _sdpa_attention():
+    """torch's `scaled_dot_product_attention` in place of the flash pair
+    (its backward by autograd over the forward recomputed): the library's
+    rounding beside the kernels'. Masked pairs take -1e9 and rows that
+    attend no key give zeros, as the kernels' do."""
+    import torch
+    import torch.nn.functional as F
+    from otter_tpu_torch.ops import flash_attention as fa
+
+    def attend(q, k, v, bias, q_ids, kv_ids, causal=False, sm_scale=None,
+               ids_mode="eq", **_):
+        mask = fa._attend_mask(q, k, q_ids, kv_ids, causal, ids_mode)
+        add = None if bias is None else bias.to(q.dtype)
+        if mask is not None:
+            zero = torch.zeros((), dtype=q.dtype, device=q.device)
+            add = torch.where(mask, zero if add is None else add,
+                              torch.full_like(zero, -1e9))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=add,
+                                           scale=sm_scale)
+        if mask is None:
+            return o
+        return torch.where(mask.any(-1, keepdim=True), o,
+                           torch.zeros_like(o))
+
+    def fwd(q, k, v, bias=None, q_ids=None, kv_ids=None, *,
+            return_lse=False, **kw):
+        with torch.no_grad():
+            o = attend(q, k, v, bias, q_ids, kv_ids, **kw)
+        # (the backward below recomputes; it reads no LSE)
+        lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=q.device)
+        return (o, lse) if return_lse else o
+
+    def bwd(q, k, v, bias, q_ids, kv_ids, o, lse, do, **kw):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attend(*leaves, bias, q_ids, kv_ids, **kw)
+            return torch.autograd.grad(out, leaves, do)
+    return _swapped_attention(fwd, bwd)
+
+
+def _recorded_step(run, rec, ctx):
+    """(loss, grad_norm, {path: grad}, flash launches) of `run()`, one
+    step whose optimizer is the `_GradRecorder` `rec`, under `ctx`."""
+    wrappers = _flash_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with ctx:
+        _, m = run()
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    return loss, gnorm, dict(rec.grads), {k: w.launches
+                                          for k, w in wrappers.items()}
+
+
+def _pretrain_grads(dtype, batches, ctx):
+    from otter_tpu_torch.models.convert import load_flax_params
+    from otter_tpu_torch.models.otter import OtterVLM
+    from otter_tpu_torch.train import pretrain
+    from otter_tpu_torch.train.step import TrainState
+    cfg = pretrain_cfg(depth_cut=True)
+    model = OtterVLM(cfg, dtype=dtype, device=DEV)
+    load_flax_params(model, random_params(cfg))
+    rec = _GradRecorder()
+    state = TrainState.create(model, cfg, rec)
+    step = pretrain.make_pretrain_step(model, cfg, rec)
+    return _recorded_step(lambda: step(state, *batches, attend_prev=True),
+                          rec, ctx)
+
+
+def _fuyu_grads(dtype, batch, ctx):
+    import torch
+    from otter_tpu_torch.train import fuyu_sft
+    model, _ = build_fuyu_train_model(depth_cut=True, dtype=dtype)
+    # (bf16 copies: three runs' f32 gradients of the 262144-row embedding
+    # and head would hold ~35 GB)
+    rec = _GradRecorder(dtype=torch.bfloat16)
+    state = fuyu_sft.fuyu_train_state(model, rec)
+    step = fuyu_sft.make_fuyu_train_step(model, rec)
+    return _recorded_step(lambda: step(state, batch), rec, ctx)
+
+
+def _lora_grads(dtype, batch, ctx):
+    from otter_tpu_torch.train.step import TrainState, make_train_step
+    model, cfg = build_lora_model(depth_cut=True, dtype=dtype)
+    rec = _GradRecorder()
+    state = TrainState.create(model, cfg, rec)
+    step = make_train_step(model, cfg, rec, mask_embedding=True,
+                           fused_ce_chunk=256)
+    return _recorded_step(lambda: step(state, batch), rec, ctx)
+
+
+def _new_step_parity(batch):
+    """One pretraining step (Flamingo-MPT-1B cut: both batches), one
+    OtterHD full fine-tune step (cut to 4 layers, a 448² image) and one
+    LoRA step (the int8-frozen recipe with rank 16, trainparity's batch),
+    each through the kernels against the plain versions (`_hold_step`,
+    with the bf16 floor of `_nudged_attention`'s three draws). Then,
+    where the floor held a tensor, the check is checked: a step through
+    each of `BROKEN_FLASH`'s kernels must fail it, floor included. The
+    pretraining step also shows where the tensors at the floor move
+    (`_floor_sources`), on its batch and on a second one."""
+    import torch
+    from otter_tpu_torch.train import fuyu_sft
+    fcfg = fuyu_train_cfg(depth_cut=True)
+    texts, images = zip(*fuyu_train_samples(SEED + 120, (448,)))
+    cases = (
+        ("pretrain step", _pretrain_grads,
+         pretrain_batches(pretrain_cfg(True), SEED + 110),
+         pretrain_step_flash(pretrain_cfg(True))),
+        ("fuyu step", _fuyu_grads,
+         fuyu_sft.FuyuBatcher(fuyu_processor(fcfg))(texts, images),
+         fuyu_train_step_flash(fcfg)),
+        ("LoRA step", _lora_grads, batch, train_step_flash(lora_cfg(True))))
+    missed = []
+    for tag, grads, arg, want in cases:
+        runs = {name: grads(dtype, arg, ctx) for name, dtype, ctx in (
+            ("kernels", torch.bfloat16, contextlib.nullcontext()),
+            ("plain", torch.bfloat16, plain_kernels()),
+            ("plain_f32", torch.float32, plain_kernels()))}
+        f32 = runs["plain_f32"][2]
+        nudged = {k: 0.0 for k in f32}
+        for i in range(3):
+            g = grads(torch.bfloat16, arg, _nudged_attention(SEED + 130 + i))[2]
+            nudged = {k: max(e, _rel(g[k], f32[k])) for k, e in nudged.items()}
+            del g
+        floor = _hold_step(tag, runs, want, nudged)
+        # (a step with no tensor at the floor holds every tensor to the
+        # bar alone: its controls would check nothing the floor changes)
+        for kind in BROKEN_FLASH if floor else ():
+            broken = dict(runs, kernels=grads(torch.bfloat16, arg,
+                                              _broken_flash(kind)))
+            held, _ = _step_failures(tag, broken, want, nudged, quiet=True)
+            bare, _ = _step_failures(tag, broken, want, quiet=True)
+            log(f"trainparity[{tag}] control, flash with {kind}: "
+                f"{'rejected' if held else 'PASSED'} by the check "
+                f"({len(held)} failures, first: {held[:2]}); "
+                f"{len(bare)} failures without the bf16 floor")
+            if not held:
+                missed.append(f"{tag}: {kind}")
+            del broken
+        if tag == "pretrain step":
+            _floor_sources(tag, grads, arg, runs, nudged, floor)
+            # the same readings on a second batch, not held: whether the
+            # paths keep their order there
+            second = pretrain_batches(pretrain_cfg(True), SEED + 111)
+            _floor_sources(tag + ", second batch", grads, second, {
+                name: grads(dtype, second, ctx) for name, dtype, ctx in (
+                    ("kernels", torch.bfloat16, contextlib.nullcontext()),
+                    ("plain", torch.bfloat16, plain_kernels()),
+                    ("plain_f32", torch.float32, plain_kernels()))},
+                None, floor)
+        del runs
+    if missed:
+        raise RuntimeError("trainparity: the check let a broken flash "
+                           "kernel through: " + "; ".join(missed))
+
+
+def _floor_sources(tag, grads, arg, runs, nudged, floor):
+    """For each tensor of `floor` (those held against the f32 step): its
+    error (/ max|f32|) through the kernels, through the forward kernel
+    alone (plain backward), through the backward kernels alone (plain
+    forward), through torch's SDPA, through the plain path and, given
+    `nudged`, the plain path's largest under one-rounding nudges; and the
+    same errors' maximum over the other tensors."""
+    import torch
+    from otter_tpu_torch.ops import flash_attention as fa
+    f32 = runs["plain_f32"][2]
+    cols = {"kernels": runs["kernels"][2]}
+    for name, ctx in (
+            ("fwd kernel", _swapped_attention(
+                bwd=fa.flash_attention_bwd_plain)),
+            ("bwd kernels", _swapped_attention(fwd=fa.flash_attention_plain)),
+            ("SDPA", _sdpa_attention())):
+        cols[name] = grads(torch.bfloat16, arg, ctx)[2]
+    cols["plain"] = runs["plain"][2]
+    errs = {name: {k: _rel(g[k], f32[k]) for k in f32}
+            for name, g in cols.items()}
+    if nudged is not None:
+        errs["plain, nudged"] = nudged
+    log(f"trainparity[{tag}]: where the tensors at the floor move, error / "
+        f"max|f32| of: {' | '.join(errs)}")
+    rest = [k for k in f32 if k not in floor]
+    for k in floor:
+        log("    " + " | ".join(f"{e[k]:.3e}" for e in errs.values())
+            + f"  {k} (max|f32| {float(f32[k].abs().max()):.3e})")
+    log("    " + " | ".join(f"{max(e[k] for k in rest):.3e}"
+                            for e in errs.values())
+        + f"  max over the other {len(rest)} tensors")
+    del cols
+
+
 def _profile_train_step(label, state, cfg, batch, tx, fname):
     """torch.profiler over one more step of the trained state (after the
     phase's checks): where a step's time goes."""
@@ -5276,10 +6311,14 @@ KERNELS = {
                     "otter_tpu/ops/quant.py:22"),
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
-          "idefics,batch,spec,trainparity,train,train8")
+          "idefics,batch,spec,trainparity,train,train8,pretrain,fuyutrain,"
+          "lora")
 
 
 def main(argv=None) -> int:
+    import faulthandler
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable(all_threads=True)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=PHASES,
                     help=f"comma-separated subset of {PHASES}, plus profile "
@@ -5319,6 +6358,8 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # what a phase leaves allocated is held through every later one
+        # (cuBLAS's workspaces, one for each thread that ran a product,
+        # count too: the worker runs its requests on one device thread)
         left[name] = torch.cuda.memory_allocated()
         log(f"memory after {name}: {left[name] / 2 ** 30:.2f} GiB allocated "
             f"({left[name]} bytes)")
@@ -5372,6 +6413,10 @@ def main(argv=None) -> int:
     if "train8" in phases:
         by_path["train8"] = run("train8", phase_train8, smi,
                                 "profile" in phases)
+    for name, fn in (("pretrain", phase_pretrain),
+                     ("fuyutrain", phase_fuyutrain), ("lora", phase_lora)):
+        if name in phases:
+            by_path[name] = run(name, fn, smi)
     log("phase wall times (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
     log("GiB allocated after each phase: " + json.dumps(

@@ -645,7 +645,12 @@ def port_to_hf(flat: Mapping, cfg, *, wrapped: bool = True,
     dropped) -> {HF name: tensor} through the same rule table (the idefics
     rules for an `IdeficsModelConfig`), the first rule that produces a
     path giving its name. Paths no rule produces (quantized leaves among
-    them) are left out."""
+    them) are left out. A LoRA model's adapters are merged into their
+    bases first (`ops.lora.merge_adapters`), where the JAX export leaves
+    the wrapped projections out."""
+    if any(k.endswith("/lora_a") for k in flat):
+        from otter_tpu_torch.ops.lora import merge_adapters
+        flat = merge_adapters(flat, cfg.text.lora_alpha / cfg.text.lora_rank)
     if rules is None:
         # an IdeficsModelConfig (as `train.step.split_params` tells it)
         rules = (idefics_rules(cfg) if hasattr(cfg, "additional_vocab_size")
@@ -688,13 +693,18 @@ def load_otter_checkpoint(path: str, cfg, model: nn.Module) -> nn.Module:
     model's tensor it fills (a bf16 model's f32 norm scales and latents
     keep an f32 checkpoint's values), then quantized as `model.cfg` asks
     (`ops.quant.quantize_for`) from the checkpoint's own dtype, as the JAX
-    package quantizes its f32 parameters. A shape mismatch raises, and so
-    does a checkpoint that fills nothing (wrong config or arch)."""
+    package quantizes its f32 parameters. In a LoRA model
+    (`lora_rank` > 0) a target projection's tensors fill its `base/`
+    (`ops.lora.into_base`, the JAX loader's lookup) and the adapters keep
+    their values. A shape mismatch raises, and so does a checkpoint that
+    fills nothing (wrong config or arch)."""
+    from otter_tpu_torch.ops.lora import into_base
     from otter_tpu_torch.ops.quant import quantize_for
     converted = hf_to_port(load_state_dict(path), cfg, dtype=None,
                            device=model.device)
-    n = load_flax_params(model, quantize_for(model.cfg.text, converted),
-                         partial=True)
+    n = load_flax_params(
+        model, into_base(quantize_for(model.cfg.text, converted), model),
+        partial=True)
     if n == 0:
         n_model = len(dict(model.named_parameters())) \
             + len(dict(model.named_buffers()))

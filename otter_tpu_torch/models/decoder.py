@@ -58,7 +58,10 @@ materialised [B, 1, S, S] bias. A cached step of S > 1 tokens (chunked
 prefill, speculative windows) adds a block-causal bias over the cache:
 the query at cache_pos + i attends the cache up to that position.
 
-Not ported: LoRA adapters; the constructor refuses them.
+LoRA adapters (`TextConfig.lora_rank`) wrap the arch's targets
+(`ops.lora`). `fused_tail` keeps them (its qkv runs in the attention
+module), as the JAX route does; the megakernel cannot, and the
+constructor refuses the pair.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from otter_tpu_torch.ops.attention import multi_head_attention
 from otter_tpu_torch.ops.layers import (ACTIVATIONS, LayerNorm, RMSNorm,
                                         cached_rotary_tables, rotate,
                                         select_rotary)
+from otter_tpu_torch.ops.lora import maybe_lora_dense
 from otter_tpu_torch.ops.masks import (DEFAULT_MASK_VALUE, alibi_bias,
                                        alibi_slopes, mask_to_bias)
 
@@ -155,20 +159,21 @@ class SelfAttention(nn.Module):
         c, d = cfg, cfg.hidden_size
         h, hk, hd = c.num_attention_heads, c.kv_heads, c.head_dim
         kw = dict(use_bias=not c.no_bias, dtype=dtype, device=device)
-        dense = lambda n_in, n_out: quant_ops.make_dense(c.quant, n_in,
-                                                         n_out, **kw)
+        # (LoRA adapters on the arch's targets, `ops.lora.LORA_TARGETS`)
+        dense = lambda name, n_in, n_out: maybe_lora_dense(c, name, n_in,
+                                                           n_out, **kw)
         if c.arch == "llama":
-            self.q_proj = dense(d, h * hd)
-            self.k_proj = dense(d, hk * hd)
-            self.v_proj = dense(d, hk * hd)
+            self.q_proj = dense("q_proj", d, h * hd)
+            self.k_proj = dense("k_proj", d, hk * hd)
+            self.v_proj = dense("v_proj", d, hk * hd)
         elif c.arch == "falcon":
             # fused multiquery layout [q (h*d) | k (hk*d) | v (hk*d)]
-            self.Wqkv = dense(d, (h + 2 * hk) * hd)
+            self.Wqkv = dense("Wqkv", d, (h + 2 * hk) * hd)
         elif c.arch == "persimmon" or hk == h:
-            self.Wqkv = dense(d, 3 * d)
+            self.Wqkv = dense("Wqkv", d, 3 * d)
         else:
             # mpt / mosaic_gpt multiquery: [q (d_model) | k | v (hk*d each)]
-            self.Wqkv = dense(d, d + 2 * hk * hd)
+            self.Wqkv = dense("Wqkv", d, d + 2 * hk * hd)
         if c.qk_ln and c.arch in ("mpt", "mosaic_gpt"):
             # full-width LayerNorm on q and k (`mpt/attention.py:246-251`)
             ln = dict(eps=c.norm_eps, use_bias=not c.no_bias, dtype=dtype,
@@ -185,7 +190,7 @@ class SelfAttention(nn.Module):
             # idefics: per-head RMSNorm after rope
             ln = dict(eps=c.norm_eps, dtype=dtype, device=device)
             self.q_ln, self.k_ln = RMSNorm(hd, **ln), RMSNorm(hd, **ln)
-        self.out_proj = dense(h * hd, d)
+        self.out_proj = dense("out_proj", h * hd, d)
         if c.megakernel and c.quant == "int8":
             # the decode megakernel's fused [Wqkv | Wo] operand
             # (`ops.quant.add_fused_wqo` makes it at load time)
@@ -523,13 +528,16 @@ class Decoder(nn.Module):
         if cfg.arch not in ARCHS or cfg.pos not in ("alibi", "rope",
                                                     "learned"):
             raise ValueError(f"decoder: arch {cfg.arch!r}, pos {cfg.pos!r}")
-        missing = [name for name, on in (
-            ("lora_rank", cfg.lora_rank),
-            (f"quant={cfg.quant!r}",
-             cfg.quant not in (None, "int8", "int4"))) if on]
-        if missing:
+        if cfg.quant not in (None, "int8", "int4"):
             raise NotImplementedError(
-                f"not ported yet: {', '.join(missing)}")
+                f"not ported yet: quant={cfg.quant!r}")
+        if cfg.megakernel and cfg.quant == "int8" and cfg.lora_rank > 0:
+            # the megakernel reads the fused [Wqkv | Wo] int8 operand,
+            # which holds no adapter; the JAX package makes no such
+            # operand for a LoRA tree and raises at the first decode step
+            raise ValueError("megakernel=True cannot serve LoRA adapters "
+                             "(lora_rank > 0): the fused operand has no "
+                             "adapter")
         if cfg.quant_embed and cfg.tie_embeddings:
             raise ValueError(
                 "quant_embed requires untied embeddings (the tied head "

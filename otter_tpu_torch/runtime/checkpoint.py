@@ -96,7 +96,8 @@ class CheckpointStore:
         dtype: a bf16 frozen weight is widened exactly, so it equals the
         f32 value it was rounded from within bf16's rounding. Leaves no
         rule produces (int8 kernels and scales) are left out, as in the
-        JAX export."""
+        JAX export. A LoRA model's adapters are merged into their float
+        bases (`port_to_hf`), where the JAX export drops the projection."""
         from otter_tpu_torch.models.convert import port_to_hf, \
             save_state_dict
         hf = port_to_hf(params, cfg)

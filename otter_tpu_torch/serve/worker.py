@@ -3,7 +3,9 @@ generation engines behind the streaming HTTP protocol of the reference
 worker (`pipeline/serve/model_worker.py`):
 
   - registers with the controller and heartbeats every WORKER_HEART_BEAT
-    seconds (model_worker.py:44-52,120-155)
+    seconds (model_worker.py:44-52,120-155) until `close()`, which the
+    JAX worker lacks (its loop holds the worker and its model for the
+    life of the process)
   - /worker_generate_stream: base64 images -> vision_x (B,T,F,C,H,W)
     (:181-206; a list-of-lists means one video, frames along F) ->
     streaming decode -> `\\0`-delimited JSON {"text": cumulative,
@@ -13,12 +15,14 @@ worker (`pipeline/serve/model_worker.py`):
 The otter family decodes through `OtterGenerator.stream_generate` (and
 `stream_beam_generate` for `num_beams > 1`), the idefics family through
 `OtterGenerator.stream_generate` over an `IdeficsVLM`, the fuyu family
-through `generation.fuyu.fuyu_generate`. Each request's generator runs on the
-aiohttp app's executor threads; requests on one model take turns a decode
-step at a time (`_one_step_at_a_time`), and the kernels' first use and
-launch counters are thread-safe (`_build.py`). Sampled requests draw from
-a `torch.Generator` seeded 0 for every request, as the JAX worker's engine
-uses one key.
+through `generation.fuyu.fuyu_generate`. Each request's generator is
+advanced on one device thread of its model (`DeviceThread`): requests on
+one model take turns a decode step at a time, in the order they ask, and
+the card holds one cuBLAS workspace for them all (a request thread each
+would keep one each, 32 MiB on an H100, for the life of the process).
+The kernels' first use and launch counters are thread-safe
+(`_build.py`). Sampled requests draw from a `torch.Generator` seeded 0
+for every request, as the JAX worker's engine uses one key.
 
     python -m otter_tpu_torch.serve.worker --checkpoint DIR \\
         --tokenizer DIR --load-bit int8 --cache-bit int8
@@ -65,7 +69,6 @@ import dataclasses
 import io
 import json
 import threading
-import time
 import uuid
 from typing import Callable, Iterator, Optional
 
@@ -137,11 +140,23 @@ class ModelWorker:
         self.limit = limit_model_concurrency
         self._active = 0
         self._lock = threading.Lock()
+        self._closed = threading.Event()
+        self.heart_beat_thread = None
         if not no_register:
             self.register_to_controller()
             self.heart_beat_thread = threading.Thread(
                 target=self._heartbeat_loop, daemon=True)
             self.heart_beat_thread.start()
+
+    def close(self) -> None:
+        """Stop the heartbeat thread and wait for it, so that nothing holds
+        the worker (and, through `stream_fn`, its model) once its app has
+        stopped. The JAX worker's loop never ends
+        (`otter_tpu/serve/worker.py:106-108`)."""
+        self._closed.set()
+        if self.heart_beat_thread is not None:
+            self.heart_beat_thread.join()
+            self.heart_beat_thread = None
 
     # ── controller interaction ──────────────────────────────────────
 
@@ -155,8 +170,7 @@ class ModelWorker:
 
     def _heartbeat_loop(self):
         import requests
-        while True:
-            time.sleep(WORKER_HEART_BEAT_INTERVAL)
+        while not self._closed.wait(WORKER_HEART_BEAT_INTERVAL):
             try:
                 r = requests.post(
                     self.controller_addr + "/receive_heart_beat",
@@ -229,20 +243,31 @@ def _generator(gen: GenerationConfig, device) -> Optional[torch.Generator]:
     return g
 
 
-def _one_step_at_a_time(lock: threading.Lock, steps: Iterator):
-    """`steps` (an engine's token generator: its first item runs the
-    prefill, each later one a decode step) advanced under `lock`, so
-    requests on one model take turns a step at a time. Decoding several
-    requests at once without it is slower in aggregate than one after
-    another: each step makes ~1500 launches, each of which may give up
-    the interpreter lock, and threads queue for it at every one."""
-    while True:
-        with lock:
-            try:
-                item = next(steps)
-            except StopIteration:
+class DeviceThread:
+    """The one thread that runs a model's work for every request: each
+    call of `steps` advances its generator here, one item at a time, in
+    the order the calls ask. Requests on one model take turns a step at a
+    time. Decoding several requests at once from their own threads is
+    slower in aggregate than one after another (each step makes ~1500
+    launches, each of which may give up the interpreter lock, and threads
+    queue for it at every one), and each thread that runs a product keeps
+    a cuBLAS workspace on the card. The thread ends when the object is
+    collected."""
+
+    _END = object()
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="device")
+
+    def steps(self, steps: Iterator) -> Iterator:
+        """`steps` (an engine's token generator: its first item runs the
+        prefill, each later one a decode step) advanced on this thread."""
+        while True:
+            item = self._pool.submit(next, steps, self._END).result()
+            if item is self._END:
                 return
-        yield item
+            yield item
 
 
 def _relay(tokenizer, token_iter, stream_interval: int) -> Iterator[str]:
@@ -295,7 +320,7 @@ def make_otter_stream_fn(engine, tokenizer, cfg, *,
     revise earlier tokens). A request without images runs on one zero
     image, as the JAX worker's does (CLIP, the perceiver and every xattn
     block still run). Concurrent requests decode in turns, a step each
-    (`_one_step_at_a_time`).
+    (`DeviceThread`).
 
     The JAX worker's routes, in its order: with `spec_sessions` (a
     `SessionPool` of `SpecChatSession`s) a request with a `session_id`
@@ -308,10 +333,10 @@ def make_otter_stream_fn(engine, tokenizer, cfg, *,
     the routes; a session that another stream holds sends the request to
     the stateless routes."""
     patch_size = cfg.vision.image_size
-    lock = threading.Lock()
+    device_thread = DeviceThread()
 
     def steps(token_iter):
-        return _relay(tokenizer, _one_step_at_a_time(lock, token_iter),
+        return _relay(tokenizer, device_thread.steps(token_iter),
                       stream_interval)
 
     def stream_fn(params: dict) -> Iterator[str]:
@@ -356,7 +381,7 @@ def make_otter_stream_fn(engine, tokenizer, cfg, *,
                 generator=_generator(gen, engine.device)))
             return
         if gen.num_beams > 1:
-            for toks in _one_step_at_a_time(lock, engine.stream_beam_generate(
+            for toks in device_thread.steps(engine.stream_beam_generate(
                     vision_x, lang_x, gen=gen)):
                 yield tokenizer.decode(toks, skip_special_tokens=True)
             return
@@ -379,7 +404,7 @@ def make_idefics_stream_fn(engine, tokenizer, cfg, *,
     from otter_tpu_torch.data.templates import (IDEFICS_STANDARD_MEAN,
                                                 IDEFICS_STANDARD_STD)
     patch_size = cfg.vision.image_size
-    lock = threading.Lock()
+    device_thread = DeviceThread()
 
     def stream_fn(params: dict) -> Iterator[str]:
         vision_x, _ = decode_media_to_vision_x(
@@ -393,10 +418,10 @@ def make_idefics_stream_fn(engine, tokenizer, cfg, *,
         gen = _parse_gen_kwargs(params.get("generation_kwargs", {}))
         enc = tokenizer(params["prompt"], return_tensors="np")
         lang_x = np.asarray(enc["input_ids"]).astype(np.int64)
-        yield from _relay(tokenizer, _one_step_at_a_time(
-            lock, engine.stream_generate(
-                vision_x, lang_x, gen=gen,
-                generator=_generator(gen, engine.device))), stream_interval)
+        yield from _relay(tokenizer, device_thread.steps(
+            engine.stream_generate(vision_x, lang_x, gen=gen,
+                                   generator=_generator(gen, engine.device))),
+            stream_interval)
 
     return stream_fn
 
@@ -412,7 +437,7 @@ def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
     stops at the tokenizer's eos; concurrent requests decode in turns, a
     step each."""
     from otter_tpu_torch.generation.fuyu import fuyu_generate
-    lock = threading.Lock()
+    device_thread = DeviceThread()
 
     def stream_fn(http_params: dict) -> Iterator[str]:
         prompt = http_params["prompt"]
@@ -428,7 +453,7 @@ def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
         batch = processor([prompt], [image] if image is not None else None,
                           target_resolution=resolution, left_pad=True)
         out_ids: list = []
-        for tok in _one_step_at_a_time(lock, fuyu_generate(
+        for tok in device_thread.steps(fuyu_generate(
                 model, batch["input_ids"], batch["image_patches"],
                 batch["image_patches_indices"], batch["attention_mask"],
                 gen, cache_dtype=cache_dtype,

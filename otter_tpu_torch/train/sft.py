@@ -21,7 +21,9 @@ in `MimicitLoader`'s format, stands in for the YAML's loaders where given.
 Weights come from `params` ({flax path: array}, as
 `models.convert.load_flax_params` takes them) or, without them, from
 `init_params` (seeded normal(0, 0.02) matrices, unit norm scales, zero
-biases and gates; not the flax initializers, which come with `init_fns`);
+biases and gates; not the flax initializers; the JAX trainer never reads
+`init_config`, and neither does this one: `models.init_fns` is called by
+hand on a bare decoder);
 `pretrained_checkpoint` or `trained_ckpt` (an HF checkpoint) is then
 loaded over them as a partial update.
 
@@ -90,8 +92,9 @@ def build_model_and_config(args: TrainArgs, device=None):
 @torch.no_grad()
 def init_params(model: torch.nn.Module, seed: int, std: float = 0.02
                 ) -> None:
-    """Seeded random weights: normal(0, std) for every weight, 1 for norm
-    scales, 0 for biases and the xattn tanh gates (idefics'
+    """Seeded random weights: normal(0, std) for every weight (LoRA's
+    `lora_a` too, its own initializer at the default std), 1 for norm
+    scales, 0 for biases, `lora_b` and the xattn tanh gates (idefics'
     `alpha_cross_attn` / `alpha_dense` too, as the JAX modules initialize
     their gates)."""
     gen = torch.Generator(device=model.device)
@@ -101,21 +104,24 @@ def init_params(model: torch.nn.Module, seed: int, std: float = 0.02
         if leaf == "scale":
             p.fill_(1.0)
         elif leaf in ("bias", "attn_gate", "ff_gate", "alpha_cross_attn",
-                      "alpha_dense"):
+                      "alpha_dense", "lora_b"):
             p.zero_()
         else:
             p.copy_(std * torch.randn(p.shape, generator=gen,
                                       device=p.device, dtype=torch.float32))
 
 
-def load_tokenizer(name_or_path: str):
-    """`AutoTokenizer.from_pretrained` plus Otter's special tokens and a
-    `<PAD>` where the tokenizer has no pad token (`otter_tpu/train/sft.py:
-    136-142`)."""
+OTTER_TOKENS = ("<|endofchunk|>", "<image>", "<answer>")
+
+
+def load_tokenizer(name_or_path: str, special_tokens=OTTER_TOKENS):
+    """`AutoTokenizer.from_pretrained` plus `special_tokens` (Otter's; the
+    pretrainer adds Flamingo's first two) and a `<PAD>` where the
+    tokenizer has no pad token (`otter_tpu/train/sft.py:136-142`)."""
     from transformers import AutoTokenizer
     tokenizer = AutoTokenizer.from_pretrained(name_or_path)
-    tokenizer.add_special_tokens({"additional_special_tokens": [
-        "<|endofchunk|>", "<image>", "<answer>"]})
+    tokenizer.add_special_tokens({"additional_special_tokens": list(
+        special_tokens)})
     if tokenizer.pad_token is None:
         tokenizer.add_special_tokens({"pad_token": "<PAD>"})
     return tokenizer
@@ -189,6 +195,11 @@ def main(args: TrainArgs, tokenizer=None,
         # pre-run data validation gate (train_utils.py:155-164 behavior)
         verify_yaml(args.training_data_yaml)
     model, cfg = build_model_and_config(args, device)
+    text = getattr(cfg, "text", None)
+    if args.save_hf_model and getattr(text, "lora_rank", 0) and text.quant:
+        # refused before training, not after it
+        from otter_tpu_torch.ops.lora import QUANTIZED_BASE_EXPORT
+        raise ValueError(f"--save_hf_model: {QUANTIZED_BASE_EXPORT}")
     if tokenizer is None:
         tokenizer = load_tokenizer(args.tokenizer)
     if params is not None:

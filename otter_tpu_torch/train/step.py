@@ -392,18 +392,28 @@ def make_train_step(model: nn.Module, cfg, tx: AdamW, *,
             p.grad = None
         loss, n = loss_fn(batch)
         loss.backward()
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for k, p in state.trainable.items()}
-        if emb_mask is not None:
-            for k in grads:
-                if k.endswith("wte/embedding"):
-                    grads[k] = grads[k] * emb_mask.to(grads[k].dtype)
-        grad_norm = global_norm(grads.values())
-        tx.update(grads, state.opt_state, state.trainable)
-        for p in state.trainable.values():
-            p.grad = None
-        state.step += 1
+        grad_norm = apply_grads(state, tx, emb_mask)
         return state, {"loss": loss.detach(), "tokens": n,
                        "grad_norm": grad_norm}
 
     return step
+
+
+def apply_grads(state: TrainState, tx, emb_mask=None) -> torch.Tensor:
+    """The update after a backward pass: every trainable tensor's gradient
+    (zeros where none reached it; with `emb_mask`, the embedding's rows
+    outside it zeroed), `tx.update`, the gradients cleared and the step
+    counted. Returns the gradients' global norm (before clipping)."""
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in state.trainable.items()}
+    if emb_mask is not None:
+        for k in grads:
+            if k.endswith("wte/embedding"):
+                grads[k] = grads[k] * emb_mask.to(grads[k].dtype)
+    grad_norm = global_norm(grads.values())
+    tx.update(grads, state.opt_state, state.trainable)
+    del grads
+    for p in state.trainable.values():
+        p.grad = None
+    state.step += 1
+    return grad_norm

@@ -189,8 +189,9 @@ def test_rotary_tables_are_not_buffers():
 
 # prefix_lm and attn_uses_sequence_id were refused until the masks were
 # ported: the decoder now builds with them, and a prefix-LM forward asks
-# for its mask as the reference does (their parity: test_torch_masks.py)
-PORTED_SINCE_REFUSED = ("prefix_lm", "attn_uses_sequence_id")
+# for its mask as the reference does (their parity: test_torch_masks.py);
+# lora_rank until the adapters were (their parity: test_torch_lora.py)
+PORTED_SINCE_REFUSED = ("prefix_lm", "attn_uses_sequence_id", "lora_rank")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -200,7 +201,10 @@ def test_decoder_refuses_what_is_not_ported(field, value):
     cfg = tcfg.OtterConfig.tiny("mpt").text.replace(**{field: value})
     if field in PORTED_SINCE_REFUSED:
         model = Decoder(cfg, device="cpu")
-        assert getattr(model.cfg, field) is True
+        assert getattr(model.cfg, field) == value
+        if field == "lora_rank":
+            assert model.layers_0.attn.Wqkv.lora_a.shape == (
+                cfg.hidden_size, value)
         if field == "prefix_lm":
             with pytest.raises(ValueError, match="prefix_mask"):
                 model(torch.zeros((1, 4), dtype=torch.long))

@@ -137,12 +137,19 @@ def test_prefix_lm_requires_prefix_mask():
 
 
 def test_lora_is_still_refused():
+    """LoRA was refused until the adapters were ported
+    (`test_torch_lora.py`): the decoder now builds them; what stays
+    refused is LoRA under the decode megakernel, whose fused operand has
+    no adapter (JAX raises at the first such step)."""
     from otter_tpu_torch import config as tcfg
     from otter_tpu_torch.models.decoder import Decoder
-    with pytest.raises(NotImplementedError, match="lora_rank"):
-        Decoder(tcfg.TextConfig(hidden_size=64, num_hidden_layers=1,
-                                num_attention_heads=4, vocab_size=64,
-                                lora_rank=4), device="cpu")
+    from otter_tpu_torch.ops.lora import LoraDense
+    cfg = tcfg.TextConfig(hidden_size=64, num_hidden_layers=1,
+                          num_attention_heads=4, vocab_size=64, lora_rank=4)
+    model = Decoder(cfg, device="cpu")
+    assert isinstance(model.layers_0.attn.Wqkv, LoraDense)
+    with pytest.raises(ValueError, match="megakernel"):
+        Decoder(cfg.replace(quant="int8", megakernel=True), device="cpu")
 
 
 # ── output_hidden ────────────────────────────────────────────────────

@@ -984,3 +984,85 @@ def test_worker_entry_point_serves_a_session_with_a_draft(tmp_path):
     for chunks, texts in zip(got, want):
         assert all(c["error_code"] == 0 for c in chunks), chunks
         assert [c["text"] for c in chunks] == texts and texts[-1]
+
+
+def test_worker_close_frees_the_worker(monkeypatch):
+    """A worker registered with a controller heartbeats until `close()`;
+    then its thread ends within two heartbeat intervals and nothing holds
+    the worker (the JAX worker's loop never ends)."""
+    import gc
+    import weakref
+
+    import requests
+
+    interval = 0.2
+    monkeypatch.setattr(worker, "WORKER_HEART_BEAT_INTERVAL", interval)
+    ctl = controller.Controller("lottery")
+    curl, cstop = _serve(controller.build_app(ctl))
+    try:
+        w = ModelWorker(controller_addr=curl, worker_addr="http://w-close",
+                        model_name="otter", stream_fn=lambda p: iter(()))
+        thread = w.heart_beat_thread
+        assert thread.is_alive()
+        beats = requests.post(curl + "/list_models", timeout=5).json()
+        assert beats["models"] == ["otter"]
+        time.sleep(2.5 * interval)          # at least one heartbeat
+        assert thread.is_alive()
+        start = time.monotonic()
+        w.close()
+        thread.join(timeout=2 * interval)
+        assert not thread.is_alive()
+        assert time.monotonic() - start < 2 * interval
+        ref = weakref.ref(w)
+        del w
+        gc.collect()
+        assert ref() is None
+    finally:
+        cstop()
+
+
+def test_requests_take_turns_on_one_device_thread():
+    """`DeviceThread.steps`: every request's generator advances on the one
+    device thread (so the card holds one cuBLAS workspace for them all),
+    each request gets its own items in order, an error reaches its
+    request, and the thread ends once the object is collected."""
+    import gc
+
+    device_thread = worker.DeviceThread()
+    ran_on = []
+
+    def tokens(tag, n):
+        for i in range(n):
+            ran_on.append(threading.get_ident())
+            yield (tag, i)
+
+    def failing():
+        yield "first"
+        raise ValueError("too long")
+
+    results, callers = {}, set()
+    barrier = threading.Barrier(3)
+
+    def request(tag):
+        callers.add(threading.get_ident())
+        barrier.wait()
+        results[tag] = list(device_thread.steps(tokens(tag, 5)))
+
+    threads = [threading.Thread(target=request, args=(t,)) for t in "abc"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert results == {t: [(t, i) for i in range(5)] for t in "abc"}
+    assert len(set(ran_on)) == 1 and not set(ran_on) & callers
+    it = device_thread.steps(failing())
+    assert next(it) == "first"
+    with pytest.raises(ValueError, match="too long"):
+        next(it)
+
+    runner = [t for t in threading.enumerate() if t.ident == ran_on[0]]
+    assert len(runner) == 1
+    del device_thread, it
+    gc.collect()
+    runner[0].join(5)
+    assert not runner[0].is_alive()
