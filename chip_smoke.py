@@ -290,6 +290,30 @@ unless every phase passes:
                  that move and the int8 tensors stay bit-identical; then
                  one greedy generate of 8 tokens from the trained model
                  (composed route, int8 cache), the same twice.
+ 21. parallel    the parallel layer on one card: the ring attention's
+                 per-rank code for 4 ranks in one process (the rotation
+                 by index) at MPT-7B's training self-attention (b=2,
+                 S=4096, 32 heads of 128, ALiBi column bias, padding ids)
+                 and OtterHD-8B's full-HD prefill (S=2356, 64 heads of 64)
+                 against one flash call over the whole sequence, forward
+                 and backward within the flash bars, with each side's
+                 device ms and exactly 10 launches of each flash kernel a
+                 ring; then `sft.main` with --multi_host at RANK=0,
+                 WORLD_SIZE=1 and --fsdp -1 (NCCL, the mesh and
+                 `fully_shard` at extent 1) on the train phase's model at
+                 cut depth against the unsharded `sft.main` over the same
+                 data YAML and seed (loss 1e-2, grad norm 2e-2 a step),
+                 its flash launches exact, and its final checkpoint
+                 restored equal.
+
+`--phases profilerace` (not in the default run) repeats, in a child
+process, the pattern in which two default runs crashed (ROADMAP Queue 3):
+a continuous batcher of 8 slots on OTTER-MPT7B serving 12 requests on
+consumer threads while the main thread starts and stops torch.profiler
+every ~0.2 s, four times; it reports how the child ended. (On an H100
+with torch 2.11 the child aborted inside the profiler's stop, "double
+free or corruption", in its first repetition: the batch phase profiles
+whole runs for that reason.)
 
 The kernels phase holds the flash forward and both backward kernels at
 the new phases' shapes too, and trainparity one pretraining step, one
@@ -306,7 +330,7 @@ batch).
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all twenty (`--phases beam` the beam phase alone). `flashkernels`
+runs all twenty-one (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -6286,6 +6310,311 @@ def _profile_train_step(label, state, cfg, batch, tx, fname):
     _report_profile(prof, wall, label, fname)
 
 
+
+# ── phase 21: the parallel layer (ring attention, the one-rank mesh) ─
+
+RING_RANKS = 4
+
+
+def _ring_cases(gen):
+    """The ring's two full-width shapes: MPT-7B's training self-attention
+    (32 heads of 128, b=2, S=4096, causal, ALiBi column bias, right
+    padding ids) and OtterHD-8B's full-HD prefill (64 heads of 64, b=1,
+    S=2356 = 4 x 589, causal)."""
+    import torch
+    from otter_tpu_torch.ops.masks import alibi_slopes
+    out = []
+    for name, b, h, s, d in (("mpt7b", 2, 32, 4096, 128),
+                             ("otterhd8b", 1, 64, 2356, 64)):
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=DEV,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        kw = dict(causal=True)
+        if name == "mpt7b":
+            slopes = alibi_slopes(h, 8.0, device=DEV)
+            kw["bias"] = (torch.arange(1 - s, 1, device=DEV)[None, None, None]
+                          * slopes[None, :, None, None]).float()
+            ids = torch.ones(b, s, dtype=torch.int32, device=DEV)
+            ids[0, -300:] = 0
+            ids[1, -700:] = 0
+            kw["q_ids"] = kw["kv_ids"] = ids
+        out.append((name, (q, k, v, do), kw))
+    return out
+
+
+def _bwd_excess(out, ref) -> float:
+    """The largest excess of |out - ref| over 2e-2 max|ref| + 2e-2 |ref|."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    return float((d - (2e-2 * r.max() + 2e-2 * r)).max())
+
+
+def _ring_phase_part(gen):
+    """The ring's per-rank code for RING_RANKS ranks in this process
+    (`ring_attention_local_fwd` / `_bwd`: the same block, merge and
+    rotation functions as a process ring, the rotation by index) against
+    one flash call over the whole sequence, forward and backward, with
+    each side's device ms. Returns (launches of one ring forward and
+    backward of each shape, failures)."""
+    import torch
+    from otter_tpu_torch.ops import flash_attention as fa
+    from otter_tpu_torch.ops.ring_attention import (ring_attention_local_bwd,
+                                                    ring_attention_local_fwd)
+    wrappers = _flash_wrappers()
+    n = RING_RANKS
+    total, failed = {k: 0 for k in wrappers}, []
+    for name, (q, k, v, do), kw in _ring_cases(gen):
+        for w in wrappers.values():
+            w.launches = 0
+        out, lse = ring_attention_local_fwd(q, k, v, n=n, **kw)
+        grads = ring_attention_local_bwd(q, k, v, out, lse, do, n=n, **kw)
+        torch.cuda.synchronize()
+        counts = {key: w.launches for key, w in wrappers.items()}
+        blocks = n * (n + 1) // 2          # causal: src <= idx
+        if counts != {key: blocks for key in wrappers}:
+            failed.append(f"{name}: ring launches {counts}, want {blocks} "
+                          f"of each")
+        for key in total:
+            total[key] += counts[key]
+        ref, ref_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        ref_grads = fa.flash_attention_bwd(q, k, v, kw.get("bias"),
+                                           kw.get("q_ids"), kw.get("kv_ids"),
+                                           ref, ref_lse, do, causal=True)
+        err, excess = max_err(out, ref)
+        g_excess = [_bwd_excess(g, r) for g, r in zip(grads, ref_grads)]
+        g_err = [float((g.float() - r.float()).abs().max())
+                 for g, r in zip(grads, ref_grads)]
+        ms = {
+            "ring_fwd": device_ms(lambda: ring_attention_local_fwd(
+                q, k, v, n=n, **kw), iters=3),
+            "ring_bwd": device_ms(lambda: ring_attention_local_bwd(
+                q, k, v, out, lse, do, n=n, **kw), iters=3),
+            "flash_fwd": device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, return_lse=True, **kw), iters=3),
+            "flash_bwd": device_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, kw.get("bias"), kw.get("q_ids"), kw.get("kv_ids"),
+                ref, ref_lse, do, causal=True), iters=3)}
+        log(f"parallel[ring {name}]: {tuple(q.shape)}, {n} ranks in one "
+            f"process, max|err| out {err:.3e} (excess {excess:.3e}), "
+            f"dq/dk/dv {[f'{e:.3e}' for e in g_err]} (excess "
+            f"{[f'{e:.3e}' for e in g_excess]}), launches {counts}; device "
+            f"ms: " + json.dumps({k_: round(v_, 4) for k_, v_ in ms.items()}))
+        if not (excess <= 0 and all(e <= 0 for e in g_excess)):
+            failed.append(f"{name}: the ring is outside the flash bars "
+                          f"(out {excess:.3e}, grads {g_excess})")
+        del out, lse, grads, ref, ref_lse, ref_grads
+    return total, failed
+
+
+def _one_rank_mesh_part(work: str):
+    """`sft.main` with --multi_host over NCCL at RANK=0, WORLD_SIZE=1 and
+    --fsdp -1 (the mesh and `fully_shard` at extent 1) on the train
+    phase's model at full width and cut depth, against the unsharded
+    `sft.main` over the same data YAML and seed: each step's loss within
+    1e-2 relative and its grad norm within 2e-2, as trainparity holds the
+    kernel run to the plain one. The mesh run's final checkpoint (rank 0
+    writes it) is restored into its state and every tensor loads back
+    equal. Returns (the mesh run's flash launches,
+    failures)."""
+    import torch
+    import torch.distributed as dist
+    from otter_tpu_torch.runtime.checkpoint import CheckpointStore
+    from otter_tpu_torch.train import sft
+    from otter_tpu_torch.train.args import parse_args
+    cfg = train_cfg(depth_cut=True)
+    custom = os.path.join(work, "cut.json")
+    with open(custom, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    yaml_path = write_train_data(os.path.join(work, "data"), SEED + 70,
+                                 n_single=4, n_context=2)
+    tok_dir = write_tokenizer(os.path.join(work, "tok"), cfg)
+    per_step = train_step_flash(cfg)
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    runs, failed = {}, []
+    for name in ("one", "mesh"):
+        argv = _yaml_argv(cfg, yaml_path, tok_dir, work, name,
+                          "--customized_config", custom)
+        if name == "mesh":
+            # the final checkpoint on, --multi_host, fsdp over every rank
+            argv = [a for a in argv if a != "--final_checkpoint"] + [
+                "--multi_host", "--fsdp", "-1"]
+            os.environ.update(env)
+        wrappers = _flash_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        try:
+            state = sft.main(parse_args(argv), params=random_params(cfg),
+                             device=DEV)
+            counts = {k: w.launches for k, w in wrappers.items()}
+            metrics = _read_metrics(os.path.join(work, name))
+            wall = time.perf_counter() - t0
+            log(f"parallel[sft.main {name}]: {len(metrics)} steps in "
+                f"{wall:.1f} s, losses "
+                f"{[round(m['loss'], 5) for m in metrics]}, grad norms "
+                f"{[round(m['grad_norm'], 5) for m in metrics]}, launches "
+                f"{counts}")
+            runs[name] = (metrics, counts)
+            if name == "mesh":
+                failed += _restore_check(CheckpointStore(
+                    os.path.join(work, name)), state)
+                dist.destroy_process_group()
+        finally:
+            if name == "mesh":
+                for key in env:
+                    os.environ.pop(key, None)
+        del state
+        torch.cuda.empty_cache()
+    (m1, _), (mm, cm) = runs["one"], runs["mesh"]
+    if len(m1) != len(mm) or not mm:
+        failed.append(f"steps {len(mm)} vs {len(m1)}")
+    for i, (a, b) in enumerate(zip(mm, m1)):
+        if not (math.isfinite(a["loss"])
+                and abs(a["loss"] - b["loss"]) <= 1e-2 * abs(b["loss"])):
+            failed.append(f"step {i + 1} loss {a['loss']} vs {b['loss']}")
+        if not abs(a["grad_norm"] - b["grad_norm"]) <= 2e-2 * b["grad_norm"]:
+            failed.append(f"step {i + 1} grad norm {a['grad_norm']} vs "
+                          f"{b['grad_norm']}")
+    want = {k: v * len(mm) for k, v in per_step.items()}
+    if cm != want:
+        failed.append(f"mesh launches {cm} (want {want})")
+    return cm, failed
+
+
+def _restore_check(store, state):
+    """Restore the latest checkpoint into `state` after zeroing its
+    trainable tensors and optimizer moments: every one loads back equal to
+    what it held."""
+    import torch
+    from otter_tpu_torch.train.step import local_tensor
+    before = {k: local_tensor(p).detach().clone()
+              for k, p in state.trainable.items()}
+    opt = {key: {k: t.clone() for k, t in getattr(state.opt_state,
+                                                  key).items()}
+           for key in ("master", "mu", "nu")}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for p in state.trainable.values():
+            local_tensor(p).zero_()
+        for key in opt:
+            for t in getattr(state.opt_state, key).values():
+                t.zero_()
+    store.restore(state)
+    wall = time.perf_counter() - t0
+    differ = [k for k, p in state.trainable.items()
+              if not torch.equal(local_tensor(p), before[k])]
+    differ += [f"{key}/{k}" for key, ts in opt.items()
+               for k, t in ts.items()
+               if not torch.equal(getattr(state.opt_state, key)[k], t)]
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(store.directory) for f in fs)
+    log(f"parallel[checkpoint]: {size / 1e9:.3f} GB written by rank 0, "
+        f"restored in {wall:.1f} s: {len(before) - len(differ)} of "
+        f"{len(before)} trainable tensors and every moment equal"
+        if not differ else f"parallel[checkpoint]: unequal {differ[:5]}")
+    return [f"the checkpoint loads back unequal: {differ[:5]}"] if differ \
+        else []
+
+
+def phase_parallel(smi: str, gen):
+    """The parallel layer on one card: the ring's per-rank code at MPT-7B's
+    and OtterHD-8B's shapes against one flash call, and the trainer's
+    one-rank NCCL mesh against the unsharded trainer. Returns the flash
+    launches of the ring drive and of the mesh run."""
+    import tempfile
+    t0 = time.perf_counter()
+    ring_counts, failed = _ring_phase_part(gen)
+    t_ring = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as work:
+        mesh_counts, more = _one_rank_mesh_part(work)
+    failed += more
+    log(f"parallel: ring part {t_ring:.1f} s, mesh part "
+        f"{time.perf_counter() - t0 - t_ring:.1f} s | {smi}")
+    if failed:
+        raise RuntimeError("parallel: " + "; ".join(failed))
+    return {k: ring_counts[k] + mesh_counts[k] for k in ring_counts}
+
+
+# ── the batch phase's old crash pattern (not in the default run) ─────
+
+PROFILE_RACE_REPS = 4
+
+
+def _profile_race():
+    """The pattern two default runs crashed in: a `ContinuousBatcher` of 8
+    slots on OTTER-MPT7B (int8, full width and depth) serves 12 requests on
+    consumer threads while the main thread starts and stops torch.profiler
+    (CPU and CUDA activity) every ~0.2 s, PROFILE_RACE_REPS times over."""
+    import threading
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    cfg = serving_cfg()
+    model = build_model(cfg)
+    reqs = batch_requests(cfg, SEED + 300)[:12]
+    windows = 0
+    for rep in range(PROFILE_RACE_REPS):
+        b = ContinuousBatcher(model, num_slots=8, cache_len=2048,
+                              prefill_chunk=256, cache_dtype=torch.int8,
+                              rng_seed=SEED)
+        done = []
+        try:
+            th = threading.Thread(target=lambda: done.append(
+                _run_requests(b, reqs, 8, 0.02)))
+            th.start()
+            while th.is_alive():
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+                time.sleep(0.2)
+                log(f"profilerace: repetition {rep + 1}, stopping profiler "
+                    f"window {windows + 1}")
+                prof.stop()
+                windows += 1
+                time.sleep(0.05)
+            th.join()
+        finally:
+            b.shutdown()
+        if b._failure is not None or not done:
+            raise RuntimeError("profilerace: the batcher failed") \
+                from b._failure
+        log(f"profilerace: repetition {rep + 1} passed ({windows} profiler "
+            f"windows so far)")
+    log(f"profilerace: {PROFILE_RACE_REPS} repetitions, {windows} profiler "
+        f"starts and stops, no crash")
+
+
+def phase_profilerace(smi: str):
+    """ROADMAP Queue 3's reproduction: `_profile_race` in a child process
+    (`--phases profilerace_child`), so that a crash there ends the child
+    only. Reports the child's exit code, the profiler windows it passed
+    and, where it crashed, the first lines of its fatal error; the child's
+    whole output goes to OUT_DIR/profilerace.txt. Either outcome is the
+    phase's reading: it fails only where the child could not run."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phases",
+         "profilerace_child"], capture_output=True, text=True, timeout=900)
+    text = out.stdout + out.stderr
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profilerace.txt"), "w") as f:
+        f.write(text)
+    lines = text.splitlines()
+    windows = [ln for ln in lines if ln.startswith("profilerace: repetition")
+               and "stopping" in ln]
+    fatal = [ln for ln in lines if "Fatal Python error" in ln
+             or "double free" in ln or "corrupt" in ln
+             or "Segmentation" in ln]
+    if out.returncode == 0:
+        log(f"profilerace: no crash: {lines[-3] if len(lines) > 2 else ''} "
+            f"| {smi}")
+    else:
+        log(f"profilerace: the child ended with rc {out.returncode} while "
+            f"stopping {windows[-1] if windows else 'no profiler window'}: "
+            f"{fatal[:3]} | {smi}")
+        if not windows:
+            raise RuntimeError("profilerace: the child failed before the "
+                               "pattern ran; see profilerace.txt")
+
 KERNELS = {
     "flash_fwd": ("otter_tpu_torch/csrc/flash_fwd.cu",
                   "otter_tpu/ops/flash_attention.py:84"),
@@ -6312,7 +6641,7 @@ KERNELS = {
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
           "idefics,batch,spec,trainparity,train,train8,pretrain,fuyutrain,"
-          "lora")
+          "lora,parallel")
 
 
 def main(argv=None) -> int:
@@ -6327,7 +6656,8 @@ def main(argv=None) -> int:
                          "fusedkernels, headkernels, "
                          "flashkernels, decodekernels, mlpkernels and "
                          "int4kernels "
-                         "(parts of kernels, for bring-up). "
+                         "(parts of kernels, for bring-up), profilerace "
+                         "(the batch phase's old crash pattern). "
                          "Device and build always run.")
     ap.add_argument("--port-root", default=None,
                     help="import otter_tpu_torch from this checkout instead "
@@ -6417,6 +6747,12 @@ def main(argv=None) -> int:
                      ("fuyutrain", phase_fuyutrain), ("lora", phase_lora)):
         if name in phases:
             by_path[name] = run(name, fn, smi)
+    if "parallel" in phases:
+        by_path["parallel"] = run("parallel", phase_parallel, smi, gen)
+    if "profilerace" in phases:
+        run("profilerace", phase_profilerace, smi)
+    if "profilerace_child" in phases:
+        _profile_race()
     log("phase wall times (s): " + json.dumps(
         {k: round(v, 1) for k, v in walls.items()}))
     log("GiB allocated after each phase: " + json.dumps(

@@ -431,6 +431,18 @@ class FuyuConfig(_JsonMixin):
 
 
 @dataclass(frozen=True)
+class ParallelConfig(_JsonMixin):
+    """The process mesh (`parallel/mesh.py`): dp x fsdp x sp x tp must equal
+    the number of ranks. ZeRO-3 is fsdp > 1, DDP dp > 1, tensor-parallel
+    projections tp > 1, sequence (ring-attention) parallelism sp > 1."""
+
+    dp: int = 1
+    fsdp: int = -1   # -1: every rank that dp, sp and tp leave
+    sp: int = 1
+    tp: int = 1
+
+
+@dataclass(frozen=True)
 class GenerationConfig(_JsonMixin):
     """Decode-loop settings (the HF `generate_kwargs` surface)."""
 

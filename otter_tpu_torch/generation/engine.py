@@ -24,6 +24,7 @@ signature of both, `device`, and a config with `.text`,
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from types import SimpleNamespace
@@ -41,6 +42,18 @@ from otter_tpu_torch.models.otter import OtterVLM
 
 CacheDtype = Union[torch.dtype, str]
 Model = Union[OtterVLM, IdeficsVLM]
+
+
+def _inference(fn):
+    """`torch.inference_mode` around a generator method, or `no_grad` for a
+    sharded model (`parallel.sharding.shard_params`): `fully_shard`'s
+    hooks cannot run on inference tensors."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        sharded = hasattr(self.model, "_shard_layouts")
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(self, *args, **kwargs)
+    return wrapped
 
 
 def _round_up(x: int, m: int) -> int:
@@ -174,7 +187,7 @@ class OtterGenerator:
     def device(self) -> torch.device:
         return self.model.device
 
-    @torch.inference_mode()
+    @_inference
     def _prefill(self, vision_x, lang_x, attention_mask,
                  gen: GenerationConfig, generator=None, vision_mask=None,
                  beams: int = 1) -> SimpleNamespace:
@@ -198,8 +211,10 @@ class OtterGenerator:
                 for x in (lang_x, attention_mask, vis_latents))
         rows = b * beams
         cache_len = _round_up(p + gen.max_new_tokens, 128)
+        # (a tensor-parallel model keeps its rank's kv heads)
         cache = init_cache(self.cfg.text, rows, cache_len,
-                           self._cache_dtype_for(rows, cache_len), dev)
+                           self._cache_dtype_for(rows, cache_len), dev,
+                           kv_heads=getattr(self.model, "tp_kv_heads", None))
         # a token's position counts the real tokens before it: left padding
         # does not move a prompt (ALiBi takes no positions)
         real_len = positions = None
@@ -243,7 +258,7 @@ class OtterGenerator:
         st.buffer[:, st.p + st.t] = st.tok
         st.t += 1
 
-    @torch.inference_mode()
+    @_inference
     def _step(self, st: SimpleNamespace) -> None:
         """One cached decode step: feed token t - 1, sample token t."""
         pos = st.p + st.t - 1
@@ -343,7 +358,7 @@ class OtterGenerator:
                     length_penalty=gen.length_penalty,
                     logits_processor=logits_processor if bans else None))
 
-    @torch.inference_mode()
+    @_inference
     def _beam_generate(self, vision_x, lang_x, attention_mask,
                        gen: GenerationConfig) -> np.ndarray:
         bs = self._beam_prefill(vision_x, lang_x, attention_mask, gen)

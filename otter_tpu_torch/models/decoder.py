@@ -191,6 +191,10 @@ class SelfAttention(nn.Module):
             ln = dict(eps=c.norm_eps, dtype=dtype, device=device)
             self.q_ln, self.k_ln = RMSNorm(hd, **ln), RMSNorm(hd, **ln)
         self.out_proj = dense("out_proj", h * hd, d)
+        # the (q, kv) heads this module computes, from head `head_offset`
+        # on: all of them, or a tensor-parallel rank's
+        # (`parallel.sharding.shard_params`)
+        self.heads, self.head_offset = (h, hk), 0
         if c.megakernel and c.quant == "int8":
             # the decode megakernel's fused [Wqkv | Wo] operand
             # (`ops.quant.add_fused_wqo` makes it at load time)
@@ -208,14 +212,13 @@ class SelfAttention(nn.Module):
     def _qkv(self, x):
         """The three projections of x [B, S, D], still [B, S, heads * d]."""
         c = self.cfg
-        h, hk, d = c.num_attention_heads, c.kv_heads, c.head_dim
+        (h, hk), d = self.heads, c.head_dim
         if c.arch == "llama":
             return self.q_proj(x), self.k_proj(x), self.v_proj(x)
         qkv = self.Wqkv(x)
         if c.arch == "persimmon" or (c.arch != "falcon" and hk == h):
             return qkv.chunk(3, dim=-1)
-        nq = h * d if c.arch == "falcon" else c.hidden_size
-        return qkv.split([nq, hk * d, hk * d], dim=-1)
+        return qkv.split([h * d, hk * d, hk * d], dim=-1)
 
     def forward(self, x, *, layer: int, rope=None, attn_ids=None, bias=None,
                 cache: Optional[Cache] = None, cache_pos=None,
@@ -227,8 +230,11 @@ class SelfAttention(nn.Module):
         (`ops.layers.select_rotary`) when `pos == "rope"`."""
         c = self.cfg
         b, s, _ = x.shape
-        h, hk, d = c.num_attention_heads, c.kv_heads, c.head_dim
+        (h, hk), d = self.heads, c.head_dim
         sm_scale = d ** -0.5
+        if bias is not None and h != c.num_attention_heads \
+                and bias.shape[1] == c.num_attention_heads:
+            bias = bias[:, self.head_offset:self.head_offset + h]
         q, k, v = self._qkv(x)
         if c.clip_qkv:
             q, k, v = (t.clamp(-c.clip_qkv, c.clip_qkv) for t in (q, k, v))
@@ -661,17 +667,19 @@ class Decoder(nn.Module):
 
 
 def init_cache(cfg: TextConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Cache:
+               dtype=torch.bfloat16, device=None,
+               kv_heads: Optional[int] = None) -> Cache:
     """Preallocated stacked KV cache [batch, n_layers, kv_heads, max_len,
     head_dim]; dtype torch.int8 (or "int8") adds f32 per-(position, head)
     scales [batch, n_layers, kv_heads, max_len]; dtype "int4" holds k and
     v in one int8 array `kv` of that shape (byte = k4 | v4 << 4) with the
-    same scales."""
+    same scales. `kv_heads` overrides the config's (a tensor-parallel
+    rank's local heads)."""
     int4 = dtype == "int4"
     if dtype in ("int8", "int4"):
         dtype = torch.int8
-    shape = (batch, cfg.num_hidden_layers, cfg.kv_heads, max_len,
-             cfg.head_dim)
+    shape = (batch, cfg.num_hidden_layers, kv_heads or cfg.kv_heads,
+             max_len, cfg.head_dim)
     if int4:
         cache = {"kv": torch.zeros(shape, dtype=dtype, device=device)}
     else:

@@ -1,2 +1,3 @@
 """Run-time helpers of the trainer (counterpart of `otter_tpu/runtime/`):
-metrics and logging (`metrics.py`), checkpoints (`checkpoint.py`)."""
+metrics and logging (`metrics.py`), checkpoints (`checkpoint.py`), synced
+timing (`timing.py`)."""

@@ -172,7 +172,13 @@ def build_app(controller: Controller):
 
     async def worker_generate_stream(request):
         """Proxy streaming to the dispatched worker
-        (controller.py:192-217)."""
+        (controller.py:192-217). The worker's reply is read on executor
+        threads (the request and each chunk), so the event loop serves
+        other requests meanwhile: the JAX controller reads it with
+        blocking calls inside the coroutine, which makes concurrent
+        streams through one controller take turns."""
+        import asyncio
+        import functools
         import requests
         params = await request.json()
         resp = web.StreamResponse()
@@ -182,10 +188,17 @@ def build_app(controller: Controller):
             await resp.write(json.dumps(
                 {"text": SERVER_ERROR_MSG, "error_code": 2}).encode() + b"\0")
             return resp
+        loop = asyncio.get_running_loop()
+        end = object()
         try:
-            r = requests.post(addr + "/worker_generate_stream", json=params,
-                              stream=True, timeout=25)
-            for chunk in r.iter_lines(decode_unicode=False, delimiter=b"\0"):
+            r = await loop.run_in_executor(None, functools.partial(
+                requests.post, addr + "/worker_generate_stream", json=params,
+                stream=True, timeout=25))
+            chunks = r.iter_lines(decode_unicode=False, delimiter=b"\0")
+            while True:
+                chunk = await loop.run_in_executor(None, next, chunks, end)
+                if chunk is end:
+                    break
                 if chunk:
                     await resp.write(chunk + b"\0")
         except Exception:

@@ -1,9 +1,7 @@
 """Training argument surface (counterpart of `otter_tpu/train/args.py`, the
 reference's `pipeline/train/train_args.py:15-206`) as a dataclass + argparse
 front-end. A copy of the JAX package's fields, so the two trainers take the
-same flags; the mesh fields (dp/fsdp/sp/tp, multi_host) are kept for that
-and must stay at one device until the parallel slice is ported.
-`final_checkpoint` is the port's one addition."""
+same flags. `final_checkpoint` is the port's one addition."""
 
 from __future__ import annotations
 
@@ -58,7 +56,7 @@ class TrainArgs:
     sp: int = 1      # sequence/context parallel (ring attention)
     tp: int = 1
     precision: str = "bf16"            # bf16 | fp32
-    multi_host: bool = False           # jax.distributed.initialize()
+    multi_host: bool = False           # start torch.distributed
     # checkpointing / logging
     external_save_dir: str = "runs"
     run_name: str = "otter-tpu"

@@ -24,9 +24,10 @@ import torch
 
 from otter_tpu_torch.data.fuyu_processor import FuyuProcessor
 from otter_tpu_torch.models.fuyu import FuyuVLM
-from otter_tpu_torch.train.step import (AdamW, TrainState, _on_device,
-                                        apply_grads, causal_lm_loss,
-                                        flax_path)
+from otter_tpu_torch.train.step import (AdamW, GlobalLoss, TrainState,
+                                        _on_device, apply_grads,
+                                        causal_lm_loss, flax_path,
+                                        local_params)
 
 DYNAMIC_RESOLUTIONS = ((448, 448), (512, 512), (768, 768))
 
@@ -62,8 +63,10 @@ def fuyu_train_state(model: FuyuVLM, tx: AdamW) -> TrainState:
     for name, p in model.named_parameters():
         p.requires_grad_(True)
         params[flax_path(name)] = p
+    if hasattr(model, "_shard_layouts"):
+        tx.shard(model._shard_layouts, model._shard_groups)
     return TrainState(step=0, model=model, trainable=params, frozen={},
-                      opt_state=tx.init(params))
+                      opt_state=tx.init(local_params(params)))
 
 
 def make_fuyu_train_step(model: FuyuVLM, tx: AdamW, *, mesh=None):
@@ -71,12 +74,11 @@ def make_fuyu_train_step(model: FuyuVLM, tx: AdamW, *, mesh=None):
     the `fuyu_train_state`. batch: `FuyuBatcher`'s arrays (or tensors).
     metrics: loss, tokens, grad_norm (0-d tensors on the model's device).
 
-    mesh: the JAX step's sequence-parallel ring attention; multi-device
-    training is not ported (ROADMAP Queue 1, item 9)."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet "
-                                  "(ROADMAP Queue 1, item 9)")
+    mesh: the model's mesh (`parallel.sharding.shard_params`): the
+    self-attention runs as the ring over its "seq" axis, as JAX
+    `fuyu_sft.py:55-70` routes it, and the loss is the global batch's."""
     device = model.device
+    global_loss = GlobalLoss(mesh)
 
     def loss_fn(b) -> Tuple[torch.Tensor, torch.Tensor]:
         logits, _ = model(
@@ -89,9 +91,12 @@ def make_fuyu_train_step(model: FuyuVLM, tx: AdamW, *, mesh=None):
         b = _on_device(batch, device)
         for p in state.trainable.values():
             p.grad = None
-        loss, n = loss_fn(b)
+        with global_loss.context():
+            loss, n = loss_fn(b)
+        loss, report, n = global_loss(loss, b["labels"], n)
         loss.backward()
-        return state, {"loss": loss.detach(), "tokens": n,
+        global_loss.sync_grads(state.trainable)
+        return state, {"loss": report, "tokens": n,
                        "grad_norm": apply_grads(state, tx)}
 
     return step

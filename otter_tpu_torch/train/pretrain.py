@@ -37,13 +37,20 @@ import torch
 
 from otter_tpu_torch.config import PRESETS, OtterConfig
 from otter_tpu_torch.data.webdataset import get_data
+from otter_tpu_torch.config import ParallelConfig
 from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.models.otter import OtterVLM
+from otter_tpu_torch.parallel.distributed import (init_distributed_device,
+                                                  mesh_from_args,
+                                                  process_rank,
+                                                  world_info_from_env)
+from otter_tpu_torch.parallel.mesh import batch_sharding, mesh_shape
+from otter_tpu_torch.parallel.sharding import shard_params
 from otter_tpu_torch.runtime.checkpoint import CheckpointStore
 from otter_tpu_torch.runtime.metrics import MetricsLogger
 from otter_tpu_torch.train.sft import (OTTER_TOKENS, init_params,
                                        load_tokenizer)
-from otter_tpu_torch.train.step import (TrainState, _on_device,
+from otter_tpu_torch.train.step import (GlobalLoss, TrainState, _on_device,
                                         apply_grads, causal_lm_loss,
                                         make_optimizer, split_params)
 
@@ -88,11 +95,12 @@ def make_pretrain_step(model: OtterVLM, cfg: OtterConfig, tx, *,
     tensors); either may be None (CC3M only, etc.). `attend_prev` is the
     media-placement augmentation's draw (`train` draws it each step).
     metrics: loss, loss_laion / loss_mmc4 (for the batches given) and
-    grad_norm, 0-d tensors on the model's device."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet "
-                                  "(ROADMAP Queue 1, item 9)")
+    grad_norm, 0-d tensors on the model's device.
+
+    mesh: the model's mesh (`parallel.sharding.shard_params`); each batch
+    is this rank's rows and each loss the mean over its global batch."""
     device = model.device
+    global_loss = GlobalLoss(mesh)
 
     def step(state: TrainState, laion_batch, mmc4_batch,
              attend_prev: bool = True):
@@ -106,14 +114,17 @@ def make_pretrain_step(model: OtterVLM, cfg: OtterConfig, tx, *,
             if batch is None:
                 continue
             b = _on_device(batch, device)
-            logits, _, _ = model(b["vision_x"], b["input_ids"].long(),
-                                 attention_mask=b["attention_mask"],
-                                 attend_previous=attend_prev)
-            loss, _ = causal_lm_loss(logits, b["labels"])
+            with global_loss.context():
+                logits, _, _ = model(b["vision_x"], b["input_ids"].long(),
+                                     attention_mask=b["attention_mask"],
+                                     attend_previous=attend_prev)
+                loss, n = causal_lm_loss(logits, b["labels"])
             del logits
+            loss, report, _ = global_loss(loss, b["labels"], n)
             (mult * loss).backward()
-            metrics[name] = loss.detach()
-            total = total + mult * loss.detach()
+            metrics[name] = report
+            total = total + mult * report
+        global_loss.sync_grads(state.trainable)
         metrics["loss"] = total
         metrics["grad_norm"] = apply_grads(state, tx)
         return state, metrics
@@ -121,20 +132,17 @@ def make_pretrain_step(model: OtterVLM, cfg: OtterConfig, tx, *,
     return step
 
 
-def _refuse_multi_device(args) -> None:
-    if args.multi_host or max(args.dp, args.fsdp, args.tp) > 1:
-        raise NotImplementedError("multi-device training is not ported yet "
-                                  "(ROADMAP Queue 1, item 9)")
-
-
 def train(args, tokenizer, *, dataset_types=("laion", "mmc4"),
           device=None) -> TrainState:
     """The pretraining loop; `args` is a `PretrainArgs` (its `model_cfg`
-    set, else the tiny MPT model)."""
-    _refuse_multi_device(args)
-    device = resolve_device(device)
-    rank, world = 0, 1
-    args.rank, args.world_size = rank, world
+    set, else the tiny MPT model). With --multi_host (or WORLD_SIZE > 1)
+    each process is a rank of the mesh: each data rank reads its part of
+    the shards, and the placement augmentation's draws follow the data
+    rank."""
+    mesh, device = mesh_from_args(args, device)
+    rank = process_rank()
+    data_rank, data_world = batch_sharding(mesh)
+    args.rank, args.world_size = data_rank, data_world
 
     cfg = getattr(args, "model_cfg", None) or OtterConfig.tiny("mpt")
     cfg = cfg.replace(use_media_placement_augmentation=True)  # Flamingo
@@ -145,6 +153,7 @@ def train(args, tokenizer, *, dataset_types=("laion", "mmc4"),
 
     init_params(model, args.seed)
     trainable, _ = split_params(model, cfg)
+    shard_params(mesh, model)
     tx = make_optimizer(
         trainable, lr=args.learning_rate, schedule=args.lr_scheduler,
         warmup_steps=args.warmup_steps,
@@ -158,10 +167,10 @@ def train(args, tokenizer, *, dataset_types=("laion", "mmc4"),
                  else args.loss_multiplier_cc3m)
     step_fn = make_pretrain_step(
         model, cfg, tx, loss_multiplier_laion=pair_mult,
-        loss_multiplier_mmc4=args.loss_multiplier_mmc4)
+        loss_multiplier_mmc4=args.loss_multiplier_mmc4, mesh=mesh)
 
     save_dir = os.path.join(args.external_save_dir, args.run_name)
-    store = CheckpointStore(save_dir, keep=3)
+    store = CheckpointStore(save_dir, keep=3, rank=rank)
     start_epoch = 0
     if store.latest_step() is not None:   # epoch resume
         state, meta = store.restore(state)
@@ -170,7 +179,7 @@ def train(args, tokenizer, *, dataset_types=("laion", "mmc4"),
     logger = MetricsLogger(run_name=args.run_name, rank=rank,
                            jsonl_path=os.path.join(save_dir,
                                                    "metrics.jsonl"))
-    pyrng = random.Random(args.seed + rank)
+    pyrng = random.Random(args.seed + data_rank)
     media_id, eoc_id = cfg.media_token_id, cfg.eoc_token_id
     pad_id = tokenizer.pad_token_id or 0
 
@@ -200,8 +209,8 @@ def train(args, tokenizer, *, dataset_types=("laion", "mmc4"),
                 batches.get("mmc4"), attend_prev=attend_prev)
             if state.step % args.logging_steps == 0:
                 logger.log(state.step, metrics)
-        if rank == 0:
-            store.save(state.step, state, metadata={"epoch": epoch + 1})
+        # (every rank calls it; rank 0 writes)
+        store.save(state.step, state, metadata={"epoch": epoch + 1})
     logger.close()
     return state
 
@@ -268,7 +277,13 @@ def parse_args(argv=None) -> PretrainArgs:
 
 def main(argv=None, *, device=None) -> Optional[TrainState]:
     args = parse_args(argv)
-    _refuse_multi_device(args)
+    # the mesh's flags are checked (and the process group started) before
+    # anything loads
+    if args.multi_host or world_info_from_env()[2] > 1:
+        init_distributed_device(device)
+    else:
+        mesh_shape(ParallelConfig(dp=args.dp, fsdp=args.fsdp, tp=args.tp),
+                   1)
     device = resolve_device(device)
     cfg = PRESETS[args.model_config]()
     args.model_cfg = cfg.replace(use_media_placement_augmentation=True)

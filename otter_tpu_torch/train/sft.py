@@ -1,5 +1,5 @@
 """SFT trainer entry point (counterpart of `otter_tpu/train/sft.py`, the
-reference's `pipeline/train/instruction_following.py`) on one device:
+reference's `pipeline/train/instruction_following.py`):
 
   subprocess pytest prerun gate      -> data.yaml_spec.verify_yaml
   model zoo dispatch (:331-427)      -> config factories
@@ -27,7 +27,16 @@ hand on a bare decoder);
 `pretrained_checkpoint` or `trained_ckpt` (an HF checkpoint) is then
 loaded over them as a partial update.
 
-The model runs on the GPU unless the caller passes `device="cpu"`.
+The model runs on the GPU unless the caller passes `device="cpu"`. With
+`--multi_host` (or WORLD_SIZE > 1) every process is a rank of the
+`--dp/--fsdp/--sp/--tp` mesh (`parallel/`):
+
+    torchrun --nproc_per_node 4 -m otter_tpu_torch.train.sft --multi_host \
+        --fsdp -1 --training_data_yaml=data.yaml ...
+
+the model is sharded (`shard_params`), each data rank loads its rows,
+the loss is the global batch's, rank 0 logs, and every rank takes part in
+a save that rank 0 writes. `batches`, where given, are this rank's.
 """
 
 from __future__ import annotations
@@ -45,12 +54,14 @@ from otter_tpu_torch.data import (MimicitDataset, MimicitLoader,
                                   WeightedMultiLoader, find_and_remove_tokens,
                                   load_yaml, mask_answer_labels,
                                   tasks_from_spec, verify_yaml)
-from otter_tpu_torch.device import resolve_device
 from otter_tpu_torch.models.convert import (load_flax_params,
                                              load_otter_checkpoint)
 from otter_tpu_torch.models.idefics import IdeficsVLM
 from otter_tpu_torch.models.otter import OtterVLM
-from otter_tpu_torch.runtime.checkpoint import CheckpointStore
+from otter_tpu_torch.parallel.distributed import mesh_from_args, process_rank
+from otter_tpu_torch.parallel.mesh import batch_sharding
+from otter_tpu_torch.parallel.sharding import shard_params
+from otter_tpu_torch.runtime.checkpoint import CheckpointStore, full_params
 from otter_tpu_torch.runtime.metrics import AverageMeter, MetricsLogger
 from otter_tpu_torch.train.args import TrainArgs, parse_args
 from otter_tpu_torch.train.step import (TrainState, make_optimizer,
@@ -185,11 +196,10 @@ def prepare_batch(batch: dict, tokenizer, args: TrainArgs) -> Dict:
 def main(args: TrainArgs, tokenizer=None,
          batches: Optional[Iterable[dict]] = None, *,
          params: Optional[Dict] = None, device=None) -> TrainState:
-    if args.multi_host or max(args.dp, args.fsdp, args.sp, args.tp) > 1:
-        raise NotImplementedError("multi-device training is not ported yet "
-                                  "(ROADMAP Queue 1, item 9)")
-    device = resolve_device(device)
-    rank, world = 0, 1
+    # --multi_host (or WORLD_SIZE > 1): the process group and the mesh
+    mesh, device = mesh_from_args(args, device)
+    rank = process_rank()
+    data_rank, data_world = batch_sharding(mesh)
 
     if batches is None:
         # pre-run data validation gate (train_utils.py:155-164 behavior)
@@ -211,7 +221,9 @@ def main(args: TrainArgs, tokenizer=None,
         load_otter_checkpoint(args.trained_ckpt or args.pretrained_checkpoint,
                               cfg, model)
 
-    multi = (build_loaders(args, cfg, tokenizer, rank, world)
+    trainable, _ = split_params(model, cfg)
+    shard_params(mesh, model)
+    multi = (build_loaders(args, cfg, tokenizer, data_rank, data_world)
              if batches is None else batches)
     steps_per_epoch = len(multi) // args.gradient_accumulation_steps
     total_steps = max(steps_per_epoch * args.num_epochs, 1)
@@ -219,7 +231,6 @@ def main(args: TrainArgs, tokenizer=None,
     if args.warmup_steps_ratio is not None:
         warmup = int(args.warmup_steps_ratio * total_steps)
 
-    trainable, _ = split_params(model, cfg)
     tx = make_optimizer(
         trainable, lr=args.learning_rate, schedule=args.lr_scheduler,
         warmup_steps=warmup, total_steps=total_steps,
@@ -233,11 +244,12 @@ def main(args: TrainArgs, tokenizer=None,
         # argument and ignores it)
         attend_previous=not getattr(cfg, "use_media_placement_augmentation",
                                     False),
-        fused_ce_chunk=args.fused_ce_chunk)
+        fused_ce_chunk=args.fused_ce_chunk, mesh=mesh)
 
     save_dir = os.path.join(args.external_save_dir, args.run_name)
     store = CheckpointStore(
-        save_dir, keep=1 if args.delete_previous_checkpoint else 3)
+        save_dir, keep=1 if args.delete_previous_checkpoint else 3,
+        rank=rank)
     start_epoch = 0
     if args.resume_from_checkpoint:
         state, meta = store.restore(state)
@@ -251,6 +263,7 @@ def main(args: TrainArgs, tokenizer=None,
     data_time = AverageMeter()
 
     global_step = state.step
+    n_devices = mesh.size() if mesh is not None else 1
     for epoch in range(start_epoch, args.num_epochs):
         if hasattr(multi, "set_epoch"):
             multi.set_epoch(epoch)
@@ -263,33 +276,32 @@ def main(args: TrainArgs, tokenizer=None,
             step_time.update(time.time() - end)
             end = time.time()
             if global_step % args.logging_steps == 0:
-                bsz = prepared["input_ids"].shape[0]
-                # one device: samples/s a chip is samples/s
+                # every data rank's rows: samples/s of the world
+                bsz = prepared["input_ids"].shape[0] * data_world
                 logger.log(global_step, {
                     "loss": metrics["loss"],
                     "grad_norm": metrics["grad_norm"],
                     "step_time": step_time.avg,
                     "data_time": data_time.avg,
-                    "samples_per_sec": bsz * world / max(
-                        step_time.avg, 1e-9),
-                    "samples_per_sec_per_chip": bsz * world / max(
-                        step_time.avg, 1e-9),
+                    "samples_per_sec": bsz / max(step_time.avg, 1e-9),
+                    "samples_per_sec_per_chip": bsz / max(
+                        step_time.avg, 1e-9) / n_devices,
                     "epoch": epoch,
                 })
+            # (under a mesh every rank calls it; rank 0 writes)
             if (args.save_steps_interval > 0
-                    and global_step % args.save_steps_interval == 0
-                    and rank == 0):
+                    and global_step % args.save_steps_interval == 0):
                 store.save(global_step, state, metadata={"epoch": epoch},
                            trainable_only=True)
-        if args.save_ckpt_each_epoch and rank == 0:
+        if args.save_ckpt_each_epoch:
             store.save(global_step, state, metadata={"epoch": epoch + 1},
                        trainable_only=True)
 
-    if rank == 0 and args.final_checkpoint:
+    if args.final_checkpoint:
         store.save(global_step, state, metadata={"epoch": args.num_epochs},
                    trainable_only=not args.save_hf_model)
-    if rank == 0 and args.save_hf_model:
-        store.export_hf(state.params, cfg,
+    if args.save_hf_model:
+        store.export_hf(full_params(state), cfg,
                         os.path.join(save_dir, "final_weights.safetensors"))
     logger.close()
     return state

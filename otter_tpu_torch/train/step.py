@@ -21,6 +21,11 @@ The same semantics as the JAX module, in PyTorch:
     under `torch.utils.checkpoint`, so its logits are recomputed in the
     backward pass (the JAX `jax.checkpoint` + `lax.scan`).
   - the <answer>-row embedding-gradient mask.
+  - under a mesh (`parallel/`): self-attention runs as the ring over the
+    "seq" axis, the loss is the mean over the global batch's tokens (every
+    data rank's), the global norm counts each element once over the
+    sharded gradients, and the optimizer updates each rank's local
+    shards.
 
 PyTorch updates in place: `step(state, batch)` returns the same state
 object with its parameters, optimizer state and step count advanced.
@@ -36,6 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from otter_tpu_torch.parallel.sharding import local_tensor
 
 Params = Dict[str, nn.Parameter]
 
@@ -160,6 +167,10 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _local_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return global_norm(grads.values())
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm, adamw(mask=...)), optionally inside
     optax.MultiSteps, updating the modules' parameters in place from f32
@@ -175,6 +186,18 @@ class AdamW:
         self.accum = grad_accum_steps
         self.mu_dtype = mu_dtype or torch.float32
         self.b1, self.b2, self.eps = b1, b2, eps
+        # {path: ShardLayout} and the groups that hold the shards, once
+        # `shard` is called for a sharded model
+        self.layouts, self.groups = {}, ()
+        self.norm_fn = _local_norm
+
+    def shard(self, layouts, groups) -> None:
+        """Update local shards: the global norm sums each element once
+        over `groups` (`parallel.sharding.sharded_sq_sum`)."""
+        from otter_tpu_torch.parallel.sharding import sharded_sq_sum
+        self.layouts, self.groups = layouts, tuple(groups)
+        self.norm_fn = lambda grads: sharded_sq_sum(
+            layouts, grads, self.groups).sqrt()
 
     def init(self, params: Params) -> OptState:
         with torch.no_grad():
@@ -206,7 +229,7 @@ class AdamW:
         self._apply(grads, state, params)
 
     def _apply(self, grads, state: OptState, params: Params) -> None:
-        g_norm = global_norm(grads.values())
+        g_norm = self.norm_fn(grads)
         clip = g_norm < self.grad_clip
         lr = self.schedule(state.count)
         state.count += 1
@@ -314,19 +337,29 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, cfg, tx: AdamW) -> "TrainState":
+        """The optimizer's state of the trainable parameters (of each
+        rank's local shards, after `parallel.sharding.shard_params`)."""
         trainable, frozen = split_params(model, cfg)
+        if hasattr(model, "_shard_layouts"):
+            tx.shard(model._shard_layouts, model._shard_groups)
         return cls(step=0, model=model, trainable=trainable, frozen=frozen,
-                   opt_state=tx.init(trainable))
+                   opt_state=tx.init(local_params(trainable)))
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         """{flax path: tensor} of every parameter, the trainable ones from
-        their f32 masters where the optimizer keeps them."""
+        their f32 masters where the optimizer keeps them (local shards
+        under a mesh: `runtime.checkpoint.full_params` gathers them)."""
         master = getattr(self.opt_state, "master", None) or {}
-        out = {k: p.detach() for k, p in self.frozen.items()}
-        out.update({k: master.get(k, p).detach()
+        out = {k: local_tensor(p).detach() for k, p in self.frozen.items()}
+        out.update({k: master.get(k, local_tensor(p)).detach()
                     for k, p in self.trainable.items()})
         return out
+
+
+
+def local_params(params: Params) -> Dict[str, torch.Tensor]:
+    return {k: local_tensor(p) for k, p in params.items()}
 
 
 def embedding_grad_mask(cfg, device=None) -> torch.Tensor:
@@ -351,7 +384,7 @@ def _on_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 def make_train_step(model: nn.Module, cfg, tx: AdamW, *,
                     mask_embedding: bool = False,
                     attend_previous: bool = True,
-                    fused_ce_chunk: int = 0):
+                    fused_ce_chunk: int = 0, mesh=None):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: {vision_x [B,T,F,C,H,W], input_ids [B,S], attention_mask [B,S],
@@ -364,6 +397,11 @@ def make_train_step(model: nn.Module, cfg, tx: AdamW, *,
     through the concatenated logits), so it takes fused_ce_chunk=0, as in
     the JAX package, whose forward refuses the argument. Gradient
     checkpointing is the model's `remat`.
+
+    mesh: the model's mesh (`parallel.sharding.shard_params`); the batch
+    is this rank's rows (`parallel.mesh.shard_batch`). Self-attention
+    runs as the ring where the "seq" axis is > 1; loss and tokens are the
+    global batch's.
     """
     if fused_ce_chunk and hasattr(cfg, "additional_vocab_size"):
         raise ValueError("the idefics model has no fused cross-entropy "
@@ -378,6 +416,10 @@ def make_train_step(model: nn.Module, cfg, tx: AdamW, *,
         if fused_ce_chunk:
             hidden, _, _ = model(batch["vision_x"], batch["input_ids"],
                                  skip_head=True, **kw)
+            if hasattr(model, "unshard"):
+                # fully_shard: the head is read outside the forward, as its
+                # gathered tensor (whose gradient the backward reduces)
+                model.unshard()
             head = model.lang_encoder.wte.embedding
             return chunked_causal_lm_loss(
                 hidden, head, batch["labels"], tied=tcfg.tie_embeddings,
@@ -385,18 +427,72 @@ def make_train_step(model: nn.Module, cfg, tx: AdamW, *,
         logits, _, _ = model(batch["vision_x"], batch["input_ids"], **kw)
         return causal_lm_loss(logits, batch["labels"])
 
+    global_loss = GlobalLoss(mesh)
+
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         batch = _on_device(batch, device)
         batch["input_ids"] = batch["input_ids"].long()
         for p in state.trainable.values():
             p.grad = None
-        loss, n = loss_fn(batch)
+        with global_loss.context():
+            loss, n = loss_fn(batch)
+        loss, report, n = global_loss(loss, batch["labels"], n)
         loss.backward()
+        global_loss.sync_grads(state.trainable)
         grad_norm = apply_grads(state, tx, emb_mask)
-        return state, {"loss": loss.detach(), "tokens": n,
+        return state, {"loss": report, "tokens": n,
                        "grad_norm": grad_norm}
 
     return step
+
+
+class GlobalLoss:
+    """The mesh's part of a train step: the ring context, the loss as the
+    mean over the global batch's tokens, and the gradient sum of the
+    parameters `fully_shard` does not manage. Without a mesh, or at one
+    data rank, the loss passes through."""
+
+    def __init__(self, mesh):
+        from torch.distributed.device_mesh import DeviceMesh
+        from otter_tpu_torch.parallel.mesh import batch_sharding, data_group
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(parallel.mesh.create_mesh), not {mesh!r}")
+        self.mesh = mesh
+        self.group = data_group(mesh)
+        self.world = batch_sharding(mesh)[1]
+
+    def context(self):
+        import contextlib
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from otter_tpu_torch.ops.attention import sequence_parallel
+        return sequence_parallel(self.mesh)
+
+    def __call__(self, loss, labels, n):
+        """(loss to differentiate, loss to report, global tokens) from
+        this rank's mean `loss` over its tokens. `fully_shard` averages
+        gradients over the data ranks, so each rank's loss is its token sum
+        over the global count, times their number."""
+        if self.group is None:
+            return loss, loss.detach(), n
+        from otter_tpu_torch.parallel.collectives import all_reduce_sum
+        n_local = (labels[:, 1:] != -100).sum().float()
+        total = loss * n_local.clamp(min=1)
+        n_global = all_reduce_sum(n_local, self.group).clamp(min=1)
+        report = all_reduce_sum(total.detach(), self.group) / n_global
+        return total / n_global * self.world, report, n_global
+
+    def sync_grads(self, params: Params) -> None:
+        """Average the gradients of the parameters outside `fully_shard`
+        (whole on every rank) over the data ranks, as it averages its
+        own."""
+        if self.group is None:
+            return
+        from otter_tpu_torch.parallel.collectives import all_reduce_sum
+        for p in params.values():
+            if p.grad is not None and not hasattr(p.grad, "to_local"):
+                p.grad = all_reduce_sum(p.grad, self.group) / self.world
 
 
 def apply_grads(state: TrainState, tx, emb_mask=None) -> torch.Tensor:
@@ -404,14 +500,17 @@ def apply_grads(state: TrainState, tx, emb_mask=None) -> torch.Tensor:
     (zeros where none reached it; with `emb_mask`, the embedding's rows
     outside it zeroed), `tx.update`, the gradients cleared and the step
     counted. Returns the gradients' global norm (before clipping)."""
-    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+    params = local_params(state.trainable)
+    grads = {k: (local_tensor(p.grad) if p.grad is not None
+                 else torch.zeros_like(params[k]))
              for k, p in state.trainable.items()}
     if emb_mask is not None:
         for k in grads:
             if k.endswith("wte/embedding"):
                 grads[k] = grads[k] * emb_mask.to(grads[k].dtype)
-    grad_norm = global_norm(grads.values())
-    tx.update(grads, state.opt_state, state.trainable)
+    # (a stand-in for the optimizer without a mesh may have no norm_fn)
+    grad_norm = getattr(tx, "norm_fn", _local_norm)(grads)
+    tx.update(grads, state.opt_state, params)
     del grads
     for p in state.trainable.values():
         p.grad = None

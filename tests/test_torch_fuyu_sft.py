@@ -152,6 +152,9 @@ def test_8bit_steps_on_bf16_parameters_lower_the_loss():
 
 
 def test_mesh_is_refused():
+    """A mesh that is not a DeviceMesh is refused (the step takes
+    `parallel.mesh.create_mesh`'s; tests/test_torch_seq_parallel.py runs
+    one)."""
     _, model = _port_model()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fuyu_sft.make_fuyu_train_step(model, None, mesh=object())

@@ -251,8 +251,15 @@ def test_main_trains_over_shards_and_resumes(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--fsdp", "2"],
                                   ["--tp", "2"], ["--multi_host"]])
-def test_main_refuses_multi_device(flag):
-    with pytest.raises(NotImplementedError, match="item 9"):
+def test_main_refuses_multi_device(flag, monkeypatch):
+    """One process cannot fill a mesh of two ranks (create_mesh's
+    ValueError), and --multi_host without a rendezvous address raises
+    before anything loads. tests/test_torch_parallel.py runs main across
+    two processes."""
+    for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE"):
+        monkeypatch.delenv(v, raising=False)
+    err = RuntimeError if flag == ["--multi_host"] else ValueError
+    with pytest.raises(err, match="MASTER_ADDR|device"):
         pretrain.main(["--laion_shards", "x.tar", "--tokenizer", "t"] + flag,
                       device="cpu")
 

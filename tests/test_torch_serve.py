@@ -135,6 +135,63 @@ def test_controller_proxies_the_worker_stream():
         wstop()
 
 
+def test_controller_streams_concurrent_requests_at_once():
+    """Three requests sent at once through one controller overlap: each
+    gets its first chunk before any stream ends (the JAX controller reads
+    the worker's stream with blocking calls in its event loop, so there
+    the second request starts only when the first has ended). The chunks
+    are the worker's, byte for byte."""
+    import threading
+    import time
+
+    def slow_stream(params):
+        for i in range(3):
+            yield f"{params['prompt']} {i}"
+            time.sleep(0.4)
+
+    w = ModelWorker(controller_addr="", worker_addr="", model_name="otter",
+                    stream_fn=slow_stream, no_register=True)
+    wurl, wstop = _serve(build_app(w))
+    curl, cstop = _serve(controller.build_app(controller.Controller(
+        "lottery")))
+    marks, texts = {}, {}
+
+    def one(i):
+        import requests
+        r = requests.post(curl + "/worker_generate_stream",
+                          json={"model": "otter", "prompt": f"p{i}"},
+                          stream=True, timeout=60)
+        got = []
+        for c in r.iter_lines(decode_unicode=False, delimiter=b"\0"):
+            if c:
+                got.append(c)
+                marks.setdefault(i, [time.monotonic()])
+        marks[i].append(time.monotonic())
+        texts[i] = got
+
+    try:
+        import requests
+        requests.post(curl + "/register_worker", json={
+            "worker_name": wurl, "check_heart_beat": True,
+            "worker_status": None}, timeout=10)
+        direct = {i: [c for c in requests.post(
+            wurl + "/worker_generate_stream",
+            json={"model": "otter", "prompt": f"p{i}"}, stream=True,
+            timeout=60).iter_lines(decode_unicode=False, delimiter=b"\0")
+            if c] for i in range(3)}
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        cstop()
+        wstop()
+    assert texts == direct
+    first_end = min(end for _, end in marks.values())
+    assert all(start < first_end for start, _ in marks.values()), marks
+
+
 def test_worker_reports_stream_errors_as_jax_does():
     def failing(params):
         yield "partial"
