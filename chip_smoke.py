@@ -305,6 +305,29 @@ unless every phase passes:
                  data YAML and seed (loss 1e-2, grad norm 2e-2 a step),
                  its flash launches exact, and its final checkpoint
                  restored equal.
+ 22. eval        the eval harness as a user runs it: OTTER-Image-MPT7B at
+                 full width and depth (serve's model: int8 weights, int8
+                 KV cache, decode_kernel="auto") behind
+                 `api.OtterForConditionalGeneration`, injected with a
+                 tokenizer into the otter_image entry of a config for
+                 `benchmarks.evaluate.run` over the bundled MME (8 rows)
+                 and POPE (9) samples, 16 new tokens a row: the report
+                 files and the summary, every rate in [0, 1], every answer
+                 a string, launches of flash_fwd, int8_mlp and
+                 decode_attention and of no other kernel; then
+                 `public_suite.evaluate_vqa` through `generate_batch`
+                 (batches of 8) over 16 noise-PNG items written here, at 0
+                 and 4 shots; one row's first-step logits and one
+                 `eval_forward` score through the kernels against the plain
+                 versions (5e-2 max|plain|; 1e-2 |plain|). Then Fuyu and
+                 OtterHD on OtterHD-8B (int8, quant_embed, int8 cache: the
+                 int8 head must launch), Idefics on idefics-9b (int8
+                 decoder and cache; also `generate_batch`) and OtterVideo
+                 on OTTER-Video-LLaMA7B with 16 frames, each at full width
+                 with parity's depth cut: `generate` and `eval_forward` on
+                 two POPE rows. Prints each adapter's seconds a row and
+                 decode tok/s, and whether the native image decoder built
+                 on this host (its pixels against PIL's if it did).
 
 `--phases profilerace` (not in the default run) repeats, in a child
 process, the pattern in which two default runs crashed (ROADMAP Queue 3):
@@ -330,7 +353,7 @@ batch).
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all twenty-one (`--phases beam` the beam phase alone). `flashkernels`
+runs all twenty-two (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -6615,6 +6638,421 @@ def phase_profilerace(smi: str):
             raise RuntimeError("profilerace: the child failed before the "
                                "pattern ran; see profilerace.txt")
 
+# ── phase 22: the eval harness on the card ───────────────────────────
+
+EVAL_PATH = {"flash_fwd", "int8_mlp", "decode_attention"}
+EVAL_NEW = 16       # the harness's new tokens a row (the reference: 512)
+ADAPTER_NEW = 8     # the other adapters' new tokens a row
+ADAPTER_ROWS = 2    # POPE rows through each of the other adapters
+
+
+class EvalTokenizer:
+    """The tokenizer surface the eval adapters and the Fuyu processor call
+    (`tok(text, return_tensors="np")`, `decode`), for real English
+    questions: each of `specials` ({text: id}) keeps its id, wherever it
+    stands in the text; any other whitespace-separated word takes an id
+    in [3, `top`) from its CRC-32 (the same word, the same id); `decode`
+    writes ` t<id>` for each id but the specials and eos."""
+
+    def __init__(self, specials: dict, top: int, eos_token_id: int,
+                 bos_token_id=None):
+        self.specials, self.top = dict(specials), top
+        self.eos_token_id, self.bos_token_id = eos_token_id, bos_token_id
+        self._special_ids = set(self.specials.values()) | {eos_token_id}
+
+    def _ids(self, text):
+        import re
+        import zlib
+        pat = "(" + "|".join(map(re.escape, self.specials)) + ")"
+        ids = []
+        for part in re.split(pat, text):
+            if part in self.specials:
+                ids.append(self.specials[part])
+            else:
+                ids.extend(3 + zlib.crc32(w.encode()) % (self.top - 3)
+                           for w in part.split())
+        return ids
+
+    def __call__(self, text, return_tensors=None, **kw):
+        import numpy as np
+        ids = self._ids(text)
+        if return_tensors == "np":
+            return {"input_ids": np.asarray([ids], np.int64),
+                    "attention_mask": np.ones((1, len(ids)), np.int64)}
+        return {"input_ids": ids, "attention_mask": [1] * len(ids)}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f" t{int(i)}" for i in ids
+                       if not (skip_special_tokens
+                               and int(i) in self._special_ids))
+
+
+def otter_eval_tokenizer(cfg):
+    """OTTER's added tokens at the config's ids (<answer> after
+    <|endofchunk|> and <image>, as OTTER-MPT7B's tokenizer numbers it)."""
+    return EvalTokenizer({"<image>": cfg.media_token_id,
+                          "<|endofchunk|>": cfg.eoc_token_id,
+                          "<answer>": max(cfg.media_token_id,
+                                          cfg.eoc_token_id) + 1},
+                         min(cfg.media_token_id, cfg.eoc_token_id),
+                         eos_token_id=cfg.eoc_token_id)
+
+
+# adept/fuyu-8b's tokenizer: |ENDOFTEXT| 71013, the beginning of an answer
+# "\x04" 71122; text ids below the image ids
+FUYU_EOS, FUYU_BOA = 71013, 71122
+
+
+def _counted(fn):
+    """(fn(), the launches `fn` made): every count set to 0 just before
+    and read just after."""
+    from otter_tpu_torch.tools import bench_decode
+    bench_decode.reset_kernel_launches()
+    out = fn()
+    return out, {k: n for k, n in bench_decode.kernel_launches().items()
+                 if n}
+
+
+class _Answers:
+    """Records what an adapter class's `generate` / `generate_batch`
+    return while the harness drives it."""
+
+    def __init__(self, cls):
+        self.cls, self.texts = cls, []
+
+    def __enter__(self):
+        self.saved = self.cls.generate, self.cls.generate_batch
+        gen, batch = self.saved
+
+        def generate(inner, *a, **k):
+            self.texts.append(gen(inner, *a, **k))
+            return self.texts[-1]
+
+        def generate_batch(inner, *a, **k):
+            out = batch(inner, *a, **k)
+            self.texts.extend(out)
+            return out
+
+        self.cls.generate, self.cls.generate_batch = generate, generate_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.generate, self.cls.generate_batch = self.saved
+
+
+def _eval_scores_checked(res: dict) -> list:
+    """Every rate of the MME and POPE reports in [0, 1]; MME's category
+    scores in [0, 200] (acc + acc+, in percent). Returns the POPE
+    accuracy and MME's totals."""
+    bad = []
+    for etype, block in res["mme"].items():
+        for cat, d in block["categories"].items():
+            for k in ("acc", "acc_plus"):
+                if not 0.0 <= d[k] <= 1.0:
+                    bad.append(f"mme {cat} {k} {d[k]}")
+            if not 0.0 <= d["score"] <= 200.0:
+                bad.append(f"mme {cat} score {d['score']}")
+    for cat, d in res["pope"].items():
+        for k in ("accuracy", "precision", "recall", "f1", "yes_ratio"):
+            if not 0.0 <= d[k] <= 1.0:
+                bad.append(f"pope {cat} {k} {d[k]}")
+    if bad or set(res["mme"]) != {"Perception", "Cognition"}:
+        raise RuntimeError(f"eval: scores out of range {bad} or MME types "
+                           f"{sorted(res['mme'])}")
+    return [res["pope"]["overall"]["accuracy"],
+            {k: v["total"] for k, v in res["mme"].items()}]
+
+
+def _adapter_rates(tag, adapter, question, image, smi, new: int):
+    """Seconds a row (one `generate` of `new` tokens) and decode tok/s
+    from (t(new) - t(1)) / (new - 1), medians of 3, with eos off."""
+    import numpy as np
+    saved = adapter.max_new_tokens
+    times = {1: [], new: []}
+    try:
+        for _ in range(3):
+            for n in (1, new):
+                adapter.max_new_tokens = n
+                t = time.perf_counter()
+                adapter.generate(question, image)
+                times[n].append(time.perf_counter() - t)
+    finally:
+        adapter.max_new_tokens = saved
+    row = float(np.median(times[new]))
+    step = (row - float(np.median(times[1]))) / (new - 1)
+    log(f"eval {tag}: {row:.3f} s a row of {new} new tokens, decode "
+        f"{1 / step:.2f} tok/s ({step * 1e3:.2f} ms a step) | medians of "
+        f"3: 1-token {[round(x * 1e3, 1) for x in times[1]]} ms, {new}-token "
+        f"{[round(x * 1e3, 1) for x in times[new]]} ms | {smi}")
+
+
+def _noise_manifest(directory: str, n: int = 16, size: int = 256):
+    """`n` VQA items, each a noise PNG file (written with zlib) with a
+    question and ten answers."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 90)
+    items, raws = [], []
+    words = ["red", "blue", "two", "dog", "yes", "no"]
+    for i in range(n):
+        path = os.path.join(directory, f"noise_{i:02d}.png")
+        raws.append(png_bytes(rng.integers(0, 256, (size, size, 3)).astype(
+            np.uint8)))
+        with open(path, "wb") as f:
+            f.write(raws[-1])
+        items.append({"image": path, "question": f"what is in picture {i}?",
+                      "answers": [str(w) for w in rng.choice(words, 10)]})
+    return items, raws
+
+
+def _native_on_the_host(raws, smi):
+    """The C++ decoder, built on this host, against the PIL path on the
+    phase's PNGs (no phase's pass depends on it: a host may lack the
+    libjpeg / libpng headers)."""
+    import numpy as np
+    from otter_tpu_torch import native
+    from otter_tpu_torch.data import webdataset as wds
+    from otter_tpu_torch.data.templates import FLAMINGO_MEAN, FLAMINGO_STD
+    t = time.perf_counter()
+    if not native.available():
+        log(f"eval: the native decoder did not build on this host: "
+            f"{native.unavailable_reason()[:300]} | {smi}")
+        return
+    built = time.perf_counter() - t
+    out, status = native.preprocess_batch(raws, 224, FLAMINGO_MEAN,
+                                          FLAMINGO_STD)
+    ref = np.stack([wds._decode(r, 224) for r in raws])
+    diff = np.abs(out - ref)
+    log(f"eval: the native decoder built and loaded in {built:.1f} s "
+        f"({native._target().name}); {len(raws)} 256x256 PNGs to 224: "
+        f"status {sorted(set(status.tolist()))}, against PIL max abs "
+        f"{float(diff.max()):.4e}, 99th percentile "
+        f"{float(np.percentile(diff, 99)):.4e} (bar of the CPU tests "
+        f"{4 / 255 / min(FLAMINGO_STD):.4e}) | {smi}")
+
+
+def _eval_parity(api, adapter, tok, rows, smi):
+    """One row's first-step logits (prefill and one cached step, int8
+    cache) and one `eval_forward` score, through the kernels against the
+    same model with every kernel swapped for its plain version."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.data.templates import inference_prompt
+    q, img = rows[0]
+    vision_x = adapter._vision(img)
+    ids = tok(inference_prompt(q), return_tensors="np")["input_ids"]
+    attn = np.ones(ids.shape, np.int32)
+    args = (api.model, api.cfg, torch.int8, vision_x, ids, attn)
+    kern = first_step_logits(*args)
+    score = adapter.eval_forward(q, "yes", img)
+    with plain_kernels():
+        plain = first_step_logits(*args)
+        plain_score = adapter.eval_forward(q, "yes", img)
+    _hold_logits("eval", kern, plain)
+    err = abs(score - plain_score)
+    ok = math.isfinite(score) and err <= 1e-2 * abs(plain_score)
+    log(f"parity[eval, eval_forward]: -mean NLL of the answer {score:.6f} "
+        f"through the kernels, {plain_score:.6f} plain: abs err {err:.4e} "
+        f"(tolerance 1e-2 * |plain|) {'ok' if ok else 'FAIL'} | {smi}")
+    if not ok:
+        raise RuntimeError("eval: eval_forward through the kernels "
+                           "disagrees with the plain path")
+
+
+def _eval_other_adapters(smi, rows):
+    """Fuyu / OtterHD on OtterHD-8B, Idefics on idefics-9b and OtterVideo
+    on OTTER-Video-LLaMA7B, each at full width with the parity phase's
+    depth cut, int8 weights and an int8 KV cache: `generate` and
+    `eval_forward` on two POPE rows (idefics also `generate_batch`), the
+    kernels each launches."""
+    import gc
+    import numpy as np
+    import torch
+    from otter_tpu_torch.api import OtterForConditionalGeneration
+    from otter_tpu_torch.benchmarks.models.fuyu import Fuyu, OtterHD
+    from otter_tpu_torch.benchmarks.models.idefics import Idefics
+    from otter_tpu_torch.benchmarks.models.otter_image import OtterVideo
+    from otter_tpu_torch.data.fuyu_processor import (FuyuImageProcessor,
+                                                     FuyuProcessor)
+    from otter_tpu_torch.data.mimicit import decode_base64_image
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    launches = {}
+
+    def drive(tag, adapter, rows, batch: bool = False):
+        def run():
+            texts = [adapter.generate(q, img) for q, img in rows]
+            if batch:
+                texts += adapter.generate_batch(
+                    [adapter._prompt(q, True) for q, _ in rows],
+                    [img for _, img in rows])
+            # (" no": idefics' prompt ends in "Assistant:", which a
+            # whitespace tokenizer would join to the answer)
+            scores = [adapter.eval_forward(q, " no", img) for q, img in rows]
+            return texts, scores
+        t = time.perf_counter()
+        (texts, scores), counts = _counted(run)
+        wall = time.perf_counter() - t
+        if not all(isinstance(x, str) for x in texts) or \
+                not all(math.isfinite(s) for s in scores):
+            raise RuntimeError(f"eval {tag}: answers {texts}, scores "
+                               f"{scores}")
+        log(f"eval {tag}: {len(texts)} answers ({[x[:24] for x in texts]}), "
+            f"eval_forward {[round(s, 4) for s in scores]}, {wall:.2f} s; "
+            f"launches {counts} | {smi}")
+        _add(launches, counts)
+        return counts
+
+    cfg = otterhd_cfg(depth_cut=True)
+    model = build_model(cfg)
+    tok = EvalTokenizer({"\x04": FUYU_BOA},
+                        min(cfg.image_placeholder_id, cfg.image_newline_id),
+                        eos_token_id=FUYU_EOS, bos_token_id=1)
+    processor = FuyuProcessor(
+        tok, FuyuImageProcessor(patch_size=cfg.patch_size),
+        image_placeholder_id=cfg.image_placeholder_id,
+        image_newline_id=cfg.image_newline_id)
+    for cls in (Fuyu, OtterHD):
+        adapter = cls(model=model, tok=tok, processor=processor, cfg=cfg,
+                      max_new_tokens=ADAPTER_NEW, cache_dtype=torch.int8)
+        counts = drive(f"{adapter.name} (OtterHD-8B, 4 layers)", adapter,
+                       rows)
+        if not counts.get("int8_matmul"):
+            raise RuntimeError(f"eval {adapter.name}: the int8 head "
+                               f"never launched: {counts}")
+    _adapter_rates("otterhd", adapter, *rows[0], smi, ADAPTER_NEW)
+    del model, adapter
+    gc.collect()
+
+    cfg = idefics_cfg(depth_cut=True)
+    model = build_model(cfg)
+    tok = EvalTokenizer({k: v for k, v in IDEFICS_SPECIALS.items()
+                         if k.startswith("<")}, cfg.text.vocab_size,
+                        eos_token_id=cfg.eos_token_id, bos_token_id=1)
+    adapter = Idefics(model=model, tok=tok, cfg=cfg,
+                      max_new_tokens=ADAPTER_NEW, cache_dtype=torch.int8)
+    drive("idefics (idefics-9b, 4 layers)", adapter, rows, batch=True)
+    _adapter_rates("idefics", adapter, *rows[0], smi, ADAPTER_NEW)
+    del model, adapter
+    gc.collect()
+
+    cfg = video_cfg(depth_cut=True)
+    api = OtterForConditionalGeneration(cfg, seed=SEED, device=DEV)
+    api._engine = OtterGenerator(api.model, cache_dtype=torch.int8)
+    rng = np.random.default_rng(SEED + 91)
+    # 16 noise frames as PIL images (decoded by the port: no image library
+    # here)
+    frames = [decode_base64_image(png_base64(rng.integers(
+        0, 256, (240, 320, 3)).astype(np.uint8))) for _ in range(16)]
+    video_rows = [(q, frames) for q, _ in rows]
+    adapter = OtterVideo(model=api, tok=otter_eval_tokenizer(cfg),
+                         max_new_tokens=ADAPTER_NEW)
+    size = adapter.patch_size
+    if adapter._vision(frames).shape != (1, 1, 16, 3, size, size):
+        raise RuntimeError("eval otter_video: the frames' shape")
+    drive("otter_video (OTTER-Video-LLaMA7B, 4 layers, 16 frames)", adapter,
+          video_rows)
+    _adapter_rates("otter_video", adapter, *video_rows[0], smi, ADAPTER_NEW)
+    return launches
+
+
+def phase_eval(smi: str):
+    """The one-click harness (`benchmarks.evaluate.run`) over the bundled
+    MME and POPE samples with the otter_image adapter on OTTER-Image-MPT7B
+    at full width and depth (int8 weights and KV cache,
+    decode_kernel="auto"), then the public suite's VQA through
+    `generate_batch`, then the other adapters at cut depth."""
+    import tempfile
+    import torch
+    from otter_tpu_torch.api import OtterForConditionalGeneration
+    from otter_tpu_torch.benchmarks import evaluate
+    from otter_tpu_torch.benchmarks.datasets.base_eval_dataset import (
+        load_sample_rows)
+    from otter_tpu_torch.benchmarks.models.otter_image import OtterImage
+    from otter_tpu_torch.benchmarks.public_suite.evaluate import evaluate_vqa
+    from otter_tpu_torch.generation.engine import OtterGenerator
+
+    t0 = time.perf_counter()
+    cfg = serving_cfg()
+    api = OtterForConditionalGeneration(cfg, seed=SEED, device=DEV)
+    api._engine = OtterGenerator(api.model, cache_dtype=torch.int8)
+    tok = otter_eval_tokenizer(cfg)
+    log(f"eval: OTTER-Image-MPT7B ({cfg.text.num_hidden_layers} layers, int8 "
+        f"weights, {_weight_bytes(api.model) / 1e9:.3f} GB) behind "
+        f"api.OtterForConditionalGeneration with an int8 KV cache, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = [(r["question"], r["image"]) for r in load_sample_rows("pope")]
+    n_rows = len(rows) + len(load_sample_rows("mme"))
+    with tempfile.TemporaryDirectory() as work:
+        config = {"models": [{"name": "otter_image", "model": api,
+                              "tok": tok, "max_new_tokens": EVAL_NEW,
+                              "batch": 8}],
+                  "datasets": [{"name": "mme", "data_path": "sample"},
+                               {"name": "pope", "data_path": "sample"}]}
+        t = time.perf_counter()
+        with _Answers(OtterImage) as answers:
+            res, counts = _counted(lambda: evaluate.run(
+                config, os.path.join(work, "logs")))
+        wall = time.perf_counter() - t
+        files = sorted(os.listdir(os.path.join(work, "logs")))
+        log(f"eval: benchmarks.evaluate.run over the MME ({n_rows - len(rows)}"
+            f" rows) and POPE ({len(rows)}) samples, {EVAL_NEW} new tokens a "
+            f"row: {wall:.2f} s, {wall / n_rows:.3f} s a row; reports {files}"
+            f"; launches {counts} | {smi}")
+        res = res["otter_image"]
+        want = {"mme", "pope"}
+        if set(res) != want or len(files) != 3 or \
+                not any(f.startswith("summary_") for f in files) or \
+                {f.split("_20")[0] for f in files} != {
+                    "otter_image_mme", "otter_image_pope", "summary"}:
+            raise RuntimeError(f"eval: results {sorted(res)}, files {files}")
+        with open(os.path.join(work, "logs", [
+                f for f in files if f.startswith("summary_")][0])) as f:
+            summary = json.load(f)
+        if summary["otter_image"] != json.loads(json.dumps(res)):
+            raise RuntimeError("eval: the summary file differs from run()'s "
+                               "results")
+        pope_acc, mme_totals = _eval_scores_checked(res)
+        if len(answers.texts) != n_rows or not all(
+                isinstance(a, str) for a in answers.texts):
+            raise RuntimeError(f"eval: answers {answers.texts}")
+        log(f"eval: POPE overall accuracy {pope_acc:.4f}, MME totals "
+            f"{mme_totals}; answers (random weights) "
+            f"{[a[:24] for a in answers.texts[:3]]} ...")
+        dead = sorted(k for k in EVAL_PATH if not counts.get(k))
+        stray = sorted(k for k in counts if k not in EVAL_PATH)
+        if dead or stray:
+            raise RuntimeError(f"eval: never launched {dead}; launched off "
+                               f"its path {stray}")
+        launches = dict(counts)
+
+        adapter = OtterImage(model=api, tok=tok, max_new_tokens=8, batch=8)
+        items, raws = _noise_manifest(work)
+        for shots in (0, 4):
+            t = time.perf_counter()
+            with _Answers(OtterImage) as answers:
+                score, counts = _counted(lambda: evaluate_vqa(
+                    adapter, test_items=items, train_items=items,
+                    num_shots=shots, seed=SEED))
+            wall = time.perf_counter() - t
+            if not 0.0 <= score <= 100.0 or len(answers.texts) != len(items):
+                raise RuntimeError(f"eval: VQA score {score} at {shots} "
+                                   f"shots, {len(answers.texts)} answers")
+            log(f"eval: public_suite.evaluate_vqa, {len(items)} noise-PNG "
+                f"items at {shots} shots through generate_batch (batches of "
+                f"8, 8 new tokens): VQA accuracy {score:.2f}, {wall:.2f} s; "
+                f"launches {counts} | {smi}")
+            _add(launches, counts)
+        _native_on_the_host(raws, smi)
+    _adapter_rates("otter_image", adapter, *rows[0], smi, EVAL_NEW)
+    _eval_parity(api, adapter, tok, rows, smi)
+    del api, adapter
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(launches, _eval_other_adapters(smi, rows[:ADAPTER_ROWS]))
+    log(f"eval: kernel launches of the phase's counted runs {launches}")
+    return launches
+
+
 KERNELS = {
     "flash_fwd": ("otter_tpu_torch/csrc/flash_fwd.cu",
                   "otter_tpu/ops/flash_attention.py:84"),
@@ -6641,7 +7079,7 @@ KERNELS = {
 }
 PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
           "idefics,batch,spec,trainparity,train,train8,pretrain,fuyutrain,"
-          "lora,parallel")
+          "lora,parallel,eval")
 
 
 def main(argv=None) -> int:
@@ -6749,6 +7187,8 @@ def main(argv=None) -> int:
             by_path[name] = run(name, fn, smi)
     if "parallel" in phases:
         by_path["parallel"] = run("parallel", phase_parallel, smi, gen)
+    if "eval" in phases:
+        by_path["eval"] = run("eval", phase_eval, smi)
     if "profilerace" in phases:
         run("profilerace", phase_profilerace, smi)
     if "profilerace_child" in phases:

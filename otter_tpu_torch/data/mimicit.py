@@ -14,9 +14,14 @@ data format (docs/mimicit_format.md):
 
 Output arrays are numpy (the train step moves them to the device). The
 image store keeps plain {id: base64} dicts where the JAX module builds
-pandas frames, and images always decode through PIL (the JAX module tries
-its native C++ decoder first, which the port does not have). PIL and
-pyarrow are imported where they are used.
+pandas frames. A sample's images decode in one call of the C++ batch
+decoder (`otter_tpu_torch/native`, scaled DCT decode) where `native`
+allows it ("auto": where the library builds; True: always, raising where
+it cannot be had), and through PIL otherwise or where the decoder rejects
+an image (a non-zero status: the whole sample then decodes through PIL).
+Any other error of the decoder propagates; the JAX module swallows every
+exception and takes PIL. PIL and pyarrow are imported where they are
+used.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from otter_tpu_torch import native as native_lib
 from otter_tpu_torch.data import templates
 
 TASK_GROUPS = ("IMAGE_TEXT", "TEXT_ONLY", "VIDEO_TEXT",
@@ -158,6 +164,7 @@ class MimicitDataset:
                  mean=templates.FLAMINGO_MEAN,
                  std=templates.FLAMINGO_STD,
                  device_preprocess: bool = False,
+                 native="auto",
                  seed: int = 0):
         assert task_group in TASK_GROUPS, task_group
         self.tokenizer = tokenizer
@@ -174,6 +181,7 @@ class MimicitDataset:
         # device (the models take uint8 [T,F,H,W,3] through
         # ops/image_prep.normalize_u8)
         self.device_preprocess = device_preprocess
+        self.native = not device_preprocess and native_lib.resolve(native)
         self.seed = seed
         self.epoch = 0
 
@@ -253,6 +261,13 @@ class MimicitDataset:
                 np.asarray(decode_base64_image(s).resize(
                     size, Image.BICUBIC), np.uint8)
                 for s in b64_list], 0)
+        if self.native:
+            out, status = native_lib.preprocess_batch(
+                [s.encode() if isinstance(s, str) else s for s in b64_list],
+                self.patch_image_size, tuple(self.mean), tuple(self.std),
+                is_base64=True, scaled_decode=True)   # training: opt-in
+            if (status == 0).all():
+                return out
         return np.stack([preprocess_image(
             decode_base64_image(s), self.patch_image_size, self.mean,
             self.std) for s in b64_list], 0)

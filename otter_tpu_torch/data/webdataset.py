@@ -18,9 +18,13 @@
 Outputs numpy batches shaped for the Flamingo pretraining step: images
 [B, T, 1, 3, 224, 224], input_ids / attention_mask [B, L].
 
-Images decode through PIL (`data.mimicit.preprocess_image`). The JAX
-package's C++ batch decoder (`otter_tpu/native`, ROADMAP Queue 1 item 10)
-is not ported: `native="auto"` takes PIL and `native=True` raises.
+Images decode through the C++ batch decoder (`otter_tpu_torch/native`,
+OpenMP across a batch, libjpeg's scaled DCT decode) or through PIL
+(`data.mimicit.preprocess_image`): `native="auto"` takes the C++ decoder
+where it builds and PIL where it does not, `native=True` raises where it
+cannot be had, `native=False` takes PIL. With the C++ decoder a LAION /
+CC3M sample carries its encoded bytes to the batch, which decodes at once;
+rows the decoder rejects (a non-zero status) decode through PIL.
 
 The parallel shard reader's threads hand an exception that escapes the
 handler to the consumer, which raises it; the JAX reader's thread ends
@@ -48,6 +52,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from otter_tpu_torch import native as native_lib
 from otter_tpu_torch.data.mimicit import preprocess_image
 
 MIN_KB = 10
@@ -235,9 +240,14 @@ class ShardPipeline:
                 batch = []
         # partial=False: drop the trailing partial batch
 
-    @staticmethod
-    def _collate(batch: List[tuple]) -> dict:
-        return {"images": np.stack([b[0] for b in batch]),
+    def _collate(self, batch: List[tuple]) -> dict:
+        if isinstance(batch[0][0], (bytes, bytearray)):
+            size = getattr(self.preprocess, "patch_size", 224)
+            images = _native_decode([b[0] for b in batch], size)[:, None,
+                                                                 None]
+        else:
+            images = np.stack([b[0] for b in batch])
+        return {"images": images,
                 "input_ids": np.stack([b[1] for b in batch]),
                 "attention_mask": np.stack([b[2] for b in batch])}
 
@@ -245,16 +255,21 @@ class ShardPipeline:
 # ── preprocessing fns ───────────────────────────────────────────────
 
 
-def _check_native(native) -> None:
-    if native is True:
-        raise NotImplementedError(
-            "the C++ batch image decoder (otter_tpu/native) is not ported "
-            "yet (ROADMAP Queue 1, item 10); pass native=False or 'auto'")
-
-
 def _decode(raw: bytes, size: int) -> np.ndarray:
     from PIL import Image
     return preprocess_image(Image.open(io.BytesIO(raw)).convert("RGB"), size)
+
+
+def _native_decode(raws: List[bytes], size: int) -> np.ndarray:
+    """[N, 3, S, S] f32 through the C++ batch decoder with its scaled DCT
+    decode (the training pipelines opt in: a few LSBs off a full decode);
+    the rows it rejects through PIL."""
+    from otter_tpu_torch.data.templates import FLAMINGO_MEAN, FLAMINGO_STD
+    out, status = native_lib.preprocess_batch(
+        raws, size, FLAMINGO_MEAN, FLAMINGO_STD, scaled_decode=True)
+    for i in np.nonzero(status)[0]:
+        out[i] = _decode(raws[i], size)
+    return out
 
 
 def _encode_text(tokenizer, text: str, max_length: int):
@@ -273,8 +288,9 @@ def make_pair_preprocessor(tokenizer, *, patch_size: int = 224,
                            prompt_format: str = "simple",
                            native="auto"):
     """LAION / CC3M (image, caption) pairs (data.py:270-292): text becomes
-    `<image>{caption}<|endofchunk|>`, images -> [1, 1, 3, H, W]."""
-    _check_native(native)
+    `<image>{caption}<|endofchunk|>`, images -> [1, 1, 3, H, W]. With
+    the C++ decoder the image stays encoded until the batch collates."""
+    use_native = native_lib.resolve(native)
 
     def fn(sample: dict):
         img_bytes = next((sample[k] for k in ("jpg", "jpeg", "png", "webp")
@@ -282,7 +298,11 @@ def make_pair_preprocessor(tokenizer, *, patch_size: int = 224,
         if img_bytes is None:
             raise ValueError("no image in sample")
         caption = sample.get("txt", b"").decode("utf-8").strip()
-        arr = _decode(img_bytes, patch_size)[None, None].astype(np.float32)
+        if use_native:
+            arr = bytes(img_bytes)        # decoded in ShardPipeline._collate
+        else:
+            arr = _decode(img_bytes, patch_size)[None, None].astype(
+                np.float32)
         if prompt_format == "llama2_inst":
             text = (f"<image>[INST]please describe this image.[/INST]"
                     f"{caption}<|endofchunk|>")
@@ -303,8 +323,9 @@ def make_interleaved_preprocessor(tokenizer, *, media_token_id: int,
                                   rng: Optional[random.Random] = None,
                                   native="auto"):
     """MMC4 interleaved documents (preprocess_interleaved,
-    data.py:300-367)."""
-    _check_native(native)
+    data.py:300-367). With the C++ decoder a sample's images decode in
+    one call."""
+    use_native = native_lib.resolve(native)
     rng = rng or random.Random(0)
 
     def fn(sample: dict):
@@ -319,7 +340,10 @@ def make_interleaved_preprocessor(tokenizer, *, media_token_id: int,
                 continue
             raws.append(rawbytes)
             sentence_ixs.append(im["matched_text_index"])
-        images = [_decode(r, patch_size) for r in raws]
+        if use_native and raws:
+            images = list(_native_decode(raws, patch_size))
+        else:
+            images = [_decode(r, patch_size) for r in raws]
         if not images:
             raise ValueError("No images in sample")
         images = images[:MAX_NUM_IMAGES]

@@ -3,9 +3,10 @@ the JAX package's `otter_tpu.data`, on a synthetic on-disk dataset made in
 the test (every task group, three image-pack layouts, in-context
 samples, video, task descriptions).
 
-The JAX dataset runs with its native C++ decoder switched off
-(`otter_tpu.native.available` patched to False): its scaled decode differs
-from PIL's bicubic, and the port decodes through PIL only. Token ids,
+Both datasets run with their native C++ decoders switched off
+(`otter_tpu.native.available` and `otter_tpu_torch.native.available`
+patched to False): the scaled decode differs from PIL's bicubic
+(`tests/test_torch_native.py` holds the port's decoder to PIL). Token ids,
 masks and texts are then equal, float pixels within 1e-6 (both are PIL's
 resize and the same numpy normalisation) and the uint8 arrays of
 `device_preprocess` equal. `TinyTokenizer` ids come from `hash`, so they
@@ -26,6 +27,7 @@ import yaml
 from helpers import TinyTokenizer
 from otter_tpu import data as jdata
 from otter_tpu import native as jnative
+from otter_tpu_torch import native as tnative
 from otter_tpu.data import loader as jloader
 from otter_tpu.data import mimicit as jmimicit
 from otter_tpu.data import transforms as jtransforms
@@ -116,6 +118,7 @@ def _tasks(mod, spec, group):
 
 def _pair(spec, group, monkeypatch, **kw):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     tok = TinyTokenizer()
     kw = dict(dict(task_group=group, patch_image_size=16,
                    resample_frames_to=4, max_seq_len=40, seed=3), **kw)
@@ -305,6 +308,7 @@ def _loaders(mod_data, spec, rank, world, batch=2):
 def test_loader_batches_equal_jax_over_two_epochs(dataset_dir, rank, world,
                                                   monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     _, spec = dataset_dir
     port, ref = (_loaders(tdata, spec, rank, world),
                  _loaders(jdata, spec, rank, world))

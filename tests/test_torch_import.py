@@ -65,6 +65,19 @@ from otter_tpu_torch.train.opt8 import Adam8
 from otter_tpu_torch.train.sft import build_loaders, load_tokenizer
 from otter_tpu_torch.runtime.checkpoint import CheckpointStore
 assert CheckpointStore.export_hf
+# the eval harness, the native decoder, the tools and the demos
+from otter_tpu_torch.benchmarks import evaluate
+from otter_tpu_torch.benchmarks.public_suite import evaluate as suite
+from otter_tpu_torch.benchmarks.models.base_model import (AVAILABLE_MODELS,
+                                                          load_model)
+from otter_tpu_torch.benchmarks.datasets.base_eval_dataset import (
+    AVAILABLE_EVAL_DATASETS, load_sample_rows)
+from otter_tpu_torch import native
+from otter_tpu_torch.tools import (convert_it, shards, surgery, syphus)
+from otter_tpu_torch.demos import demo_models, inference, interactive
+assert evaluate.main and suite.main and inference.main and interactive.main
+assert convert_it.main and syphus.main and shards.main
+assert native.preprocess_batch and surgery.merge_lora
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "otter_tpu"))
 print(" ".join(sorted(m for m in sys.modules
@@ -95,6 +108,26 @@ _TRAINING_MODULES = {
     "otter_tpu_torch.data.loader", "otter_tpu_torch.data.yaml_spec",
     "otter_tpu_torch.data.transforms", "otter_tpu_torch.data.tokenizer_adapt",
     "otter_tpu_torch.train.opt8"}
+# the eval harness, the native decoder, the tools and the demos: every
+# module of the JAX package's benchmarks, native, tools and demos
+_LAST_SLICE_MODULES = {
+    f"otter_tpu_torch.{m}" for m in (
+        "native", "benchmarks", "benchmarks.evaluate", "benchmarks.gpt_judge",
+        "benchmarks.models", "benchmarks.datasets",
+        "benchmarks.public_suite", "demos", "demos.demo_models",
+        "demos.inference", "demos.interactive")} | {
+    f"otter_tpu_torch.benchmarks.models.{m}" for m in (
+        "base_model", "image_utils", "otter_image", "otter_video", "otterhd",
+        "fuyu", "idefics", "gpt4v", "llava", "instructblip", "qwen_vl")} | {
+    f"otter_tpu_torch.benchmarks.datasets.{m}" for m in (
+        "base_eval_dataset", "mme", "pope", "mmbench", "scienceqa",
+        "seedbench", "mathvista", "mmvet", "magnifierbench")} | {
+    f"otter_tpu_torch.benchmarks.public_suite.{m}" for m in (
+        "evaluate", "coco_metric", "vqa_metric", "ok_vqa_utils",
+        "classification_utils", "manifests")} | {
+    f"otter_tpu_torch.tools.{m}" for m in (
+        "surgery", "shards", "convert_it", "convert_it_datasets", "syphus",
+        "syphus_datasets")}
 
 
 def _env():
@@ -115,6 +148,18 @@ def test_port_imports_no_jax_or_otter_tpu():
     assert _BEAM_MEDIA_MODULES <= loaded, _BEAM_MEDIA_MODULES - loaded
     assert _TRAINING_MODULES <= loaded, _TRAINING_MODULES - loaded
     assert _FUSED_DECODE_MODULES <= loaded, _FUSED_DECODE_MODULES - loaded
+    assert _LAST_SLICE_MODULES <= loaded, _LAST_SLICE_MODULES - loaded
+
+
+def test_every_file_of_the_jax_package_has_its_counterpart():
+    """Each .py, .cpp and data file of the JAX package has a file at the
+    same relative path in the port (built libraries and caches aside)."""
+    jax_root, port_root = ROOT / "otter_tpu", ROOT / "otter_tpu_torch"
+    missing = [str(f.relative_to(jax_root)) for f in jax_root.rglob("*")
+               if f.is_file() and f.suffix in (".py", ".cpp", ".json", ".md")
+               and "__pycache__" not in f.parts
+               and not (port_root / f.relative_to(jax_root)).is_file()]
+    assert len(list(jax_root.rglob("*.py"))) > 100 and not missing, missing
 
 
 def test_chip_smoke_imports_only_the_port_and_the_standard_library():

@@ -508,8 +508,10 @@ def test_sft_main_across_two_processes_matches_one(launches, monkeypatch):
     step's loss equals the JAX chain's over the same batches within 1e-4
     relative (the learning rate is constant)."""
     from otter_tpu import native as jnative
+    from otter_tpu_torch import native as tnative
     from otter_tpu_torch.train import sft
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     spec = json.load(open(os.path.join(launches, "mains.json")))
     assert "--lr_scheduler" not in spec["sft"]        # constant
     want = _jax_sft_losses(spec["sft"], epochs=3)
@@ -569,6 +571,9 @@ def _jax_pretrain_metrics(argv):
     pad_id = tok.pad_token_id or 0
     for d in datas.values():
         d.dataloader.set_epoch(0)
+        # one reader thread reads the shards in order, as the port's
+        # `--workers 1` run does; two threads interleave them as they run
+        d.dataloader.num_parallel_shards = 1
     iters = {t: iter(d.dataloader) for t, d in datas.items()}
     out = []
     for _ in range(steps):

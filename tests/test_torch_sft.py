@@ -140,7 +140,9 @@ def _jax_batches(args, tok, monkeypatch, epochs=1):
     `build_loaders` and `prepare_batch`, native decoder off."""
     from otter_tpu import native as jnative
     from otter_tpu.train import sft as jsft
+    from otter_tpu_torch import native as tnative
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     jargs = _jax_args(args)
     multi = jsft.build_loaders(jargs, None, tok, 0, 1)
     out = []

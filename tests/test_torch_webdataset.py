@@ -1,7 +1,7 @@
 """Port parity of the tar-shard pretraining pipelines
 (`otter_tpu_torch.data.webdataset`) against the JAX package's
-(`otter_tpu.data.webdataset`, its C++ decoder switched off: the port
-decodes through PIL): batches from the same shards (images within 1e-6,
+(`otter_tpu.data.webdataset`), both with their C++ decoders switched
+off (decoding through PIL): batches from the same shards (images within 1e-6,
 ids and masks exact, in order with one reader and as a multiset with
 four), the shard lists per epoch, rank and worker, the MMC4 filters, and
 a reader's failure, which the port raises where the JAX reader loses it."""
@@ -19,6 +19,7 @@ import pytest
 from PIL import Image
 
 import otter_tpu.native
+import otter_tpu_torch.native
 from helpers import TinyTokenizer
 from otter_tpu.data import webdataset as jwds
 from otter_tpu_torch.data import webdataset as wds
@@ -27,8 +28,9 @@ MEDIA = TinyTokenizer.specials["<image>"]
 
 
 @pytest.fixture(autouse=True)
-def _pil_on_the_jax_side(monkeypatch):
+def _pil_on_both_sides(monkeypatch):
     monkeypatch.setattr(otter_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(otter_tpu_torch.native, "available", lambda: False)
 
 
 def _png(rng, n):
@@ -205,15 +207,6 @@ def test_mmc4_filters_and_text_match_jax(shards):
         n_img = int((g[1] == MEDIA).sum())
         assert n_img in (1, 2) and not g[0][n_img:].any()
     assert dropped and kept
-
-
-def test_native_decoder_is_refused_naming_the_roadmap():
-    for make in (wds.make_pair_preprocessor,
-                 lambda t, native: wds.make_interleaved_preprocessor(
-                     t, media_token_id=MEDIA, native=native)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            make(TinyTokenizer(), native=True)
-        make(TinyTokenizer(), native="auto")
 
 
 def test_a_reader_failure_reaches_the_consumer(shards, tmp_path):

@@ -322,12 +322,15 @@ def job_mains(workdir):
     """sft.main at fsdp = world and pretrain.main at tp = world with
     --multi_host, over the test's YAML and shards, from the initial
     weights of the JAX trainers (sft_params.npz, pre_params.npz); sft.main
-    then resumes for a second epoch."""
+    then resumes for a second epoch. Images decode through PIL, as the
+    test's JAX chains decode them."""
+    from otter_tpu_torch import native
     from otter_tpu_torch.config import OtterConfig
     from otter_tpu_torch.models.convert import load_flax_params
     from otter_tpu_torch.train import pretrain, sft
     spec = json.load(open(os.path.join(workdir, "mains.json")))
     world = os.environ["WORLD_SIZE"]
+    native.available = lambda: False
     params = _load(workdir, "sft_params.npz")
     sft.main(sft.parse_args(spec["sft"] + ["--multi_host", "--fsdp", world,
                                            "--run_name", "sft_mesh"]),
