@@ -329,6 +329,34 @@ unless every phase passes:
                  decode tok/s, and whether the native image decoder built
                  on this host (its pixels against PIL's if it did).
 
+ 23. graph       the captured decode step (runs after serve4):
+                 OTTER-Image-MPT7B at full width and depth (serve's model:
+                 int8 weights and cache, decode_kernel="auto") at b=1 and
+                 b=8, serve's prompts, 32 new tokens, through
+                 `OtterGenerator` (its step captured as a CUDA graph, the
+                 default on the card) and `OtterGenerator(...,
+                 cuda_graph=False)` in turns: tokens equal (or the logits
+                 at the first parting step within 5e-2 max|eager|),
+                 launches a step equal, wall ms a step ((t(32) - t(1)) /
+                 31, medians of 3), TTFT, the first request of a key (its
+                 step captured) against later ones, the capture's ms and
+                 memory pool; a b=1 stream's first and second token on a
+                 new key; a 2000-token request (cache 2048) on both engines
+                 between two requests of the captured key (its workspace
+                 and tokens kept); one request through the worker's
+                 stream over localhost HTTP; 8 steps of each engine under
+                 `torch.cuda.set_sync_debug_mode("error")`; the device ms
+                 a step by torch.profiler over whole runs and by CUDA
+                 events over 30 queued replays; whether torch.multinomial
+                 and the top-k / top-p filters capture. Then
+                 OTTER-LLaMA2-Chat-7B at b=8 the same way (rope positions
+                 from the device counter), its launches exact.
+
+In every phase `OtterGenerator`'s greedy and sampled decode steps replay a
+captured CUDA graph (the default on the card); the fused phase's
+megakernel route, beams, the batcher, speculation and `fuyu_generate`
+step eagerly.
+
 `--phases profilerace` (not in the default run) repeats, in a child
 process, the pattern in which two default runs crashed (ROADMAP Queue 3):
 a continuous batcher of 8 slots on OTTER-MPT7B serving 12 requests on
@@ -353,7 +381,7 @@ batch).
 
 The last two lines of standard output are the kernels JSON object and the
 device JSON object. `--phases` runs a subset (for bring-up); the default
-runs all twenty-two (`--phases beam` the beam phase alone). `flashkernels`
+runs all twenty-three (`--phases beam` the beam phase alone). `flashkernels`
 runs the flash part of the kernels phase alone, `mlpkernels` its
 `int8_mlp` and `int8_attn_tail` cases,
 `fusedkernels` the tail and the megakernel, `int4kernels` `int4_mlp` and
@@ -2106,6 +2134,15 @@ def _launches_of(fn) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def _eager_twin(engine):
+    """`engine`'s model and cache request with the eager step
+    (`cuda_graph=False`): what a graphed engine is held to, and what a
+    count of Python calls a step needs."""
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    return OtterGenerator(engine.model, cache_dtype=engine.cache_dtype,
+                          hbm_bytes=engine.hbm_bytes, cuda_graph=False)
+
+
 def _int8dense_host_cost(engine, cfg, tag: str) -> None:
     """What `Int8Dense`'s composed branch (the product where no input
     needs a gradient) saves a b=8 decode step on the host against
@@ -2127,12 +2164,13 @@ def _int8dense_host_cost(engine, cfg, tag: str) -> None:
             calls[0] += 1
 
     req = make_requests(cfg, 8, SEED + 19)
+    eager = _eager_twin(engine)     # (a replayed step calls no module)
     handle = torch.nn.modules.module.register_module_forward_hook(hook)
     try:
         counts = []
         for n_new in (1, 3):
             calls[0] = 0
-            engine.generate(*req, gen=GenerationConfig(
+            eager.generate(*req, gen=GenerationConfig(
                 max_new_tokens=n_new, eos_token_id=-1))
             counts.append(calls[0])
     finally:
@@ -2272,6 +2310,486 @@ def phase_serve(smi: str, tag: str = "serve"):
     if tag == "serve":      # after the count: its requests are not timed
         _int8dense_host_cost(engine, cfg, tag)
     return launches, engine
+
+
+# ── phase 23: the captured decode step ──────────────────────────────
+
+GRAPH_NEW = 32
+
+
+def _logits_behind(engine, req, j: int, new: int = GRAPH_NEW):
+    """The raw logits [B, V] behind token j of `engine`'s request `req`
+    (max_new_tokens `new`, so the key of the phase's runs): the prefill,
+    then steps up to token j (replays on a graphed engine: the graph writes
+    `st.logits` in place)."""
+    from otter_tpu_torch.config import GenerationConfig
+    st = engine._prefill(*req, gen=GenerationConfig(max_new_tokens=new))
+    try:
+        while st.t <= j:
+            engine._advance(st)
+        return st.logits.float().clone()
+    finally:
+        engine._finish(st)
+
+
+def _hold_graphed(tag, graphed, eager, req, got, want):
+    """Graphed tokens equal to eager's, or the logits at the first step
+    where they part within PARITY_BAR max|eager|."""
+    import numpy as np
+    if np.array_equal(got, want):
+        return "equal"
+    p = req[1].shape[1]
+    cols = np.nonzero((got[:, p:] != want[:, p:]).any(0))[0]
+    j = int(cols[0])
+    g, e = (_logits_behind(x, req, j) for x in (graphed, eager))
+    err, bar = float((g - e).abs().max()), PARITY_BAR * float(e.abs().max())
+    msg = (f"part at token {j}: max |graphed - eager logits| {err:.4f} "
+           f"(bar {bar:.4f})")
+    if not err <= bar:
+        raise RuntimeError(f"{tag}: {msg}")
+    return msg
+
+
+def _capture_probe(fn, gen=None) -> str:
+    """Whether `fn()` captures into a CUDA graph and replays: "captures",
+    or the error (the probe's capture stream left clean)."""
+    import torch
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    if gen is not None:
+        graph.register_generator_state(gen)
+    try:
+        with torch.cuda.stream(side):
+            fn()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn()
+            except RuntimeError:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        main.wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        return "captures"
+    except RuntimeError as e:
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        return f"does not capture ({str(e).splitlines()[0][:100]})"
+
+
+def _sampling_captures(smi: str) -> None:
+    """The sampler's parts under capture: `torch.multinomial` with a
+    registered generator and the top-k / top-p filters."""
+    import torch
+    from otter_tpu_torch.generation import sampling
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED)
+    logits = torch.randn(8, 50432, generator=g, device=DEV)
+    probs = torch.softmax(logits, -1)
+    probes = {
+        "torch.multinomial": (lambda: torch.multinomial(probs, 1,
+                                                        generator=g), g),
+        "apply_top_k": (lambda: sampling.apply_top_k(logits, 50), None),
+        "apply_top_p": (lambda: sampling.apply_top_p(logits, 0.9), None)}
+    got = {k: _capture_probe(fn, gen) for k, (fn, gen) in probes.items()}
+    log(f"graph: capture of the sampler's parts (8 x 50432) "
+        f"{json.dumps(got)} | {smi}")
+    bad = [k for k, v in got.items() if v != "captures"]
+    if bad:
+        raise RuntimeError(f"graph: {bad} do not capture")
+
+
+def _graph_vs_eager(tag, smi, model, cfg, b, seed, reps=REPS):
+    """One request shape through a graphed engine and its eager twin in
+    turns: tokens, launches a step, wall ms a step, the first request of
+    the key against later ones, the capture. Returns (graphed, eager,
+    request, graphed tokens)."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    graphed = OtterGenerator(model, cache_dtype=torch.int8)
+    eager = _eager_twin(graphed)
+    if not graphed.cuda_graph:
+        raise RuntimeError(f"{tag}: the engine's step is not graphed by "
+                           f"default on the card")
+    req = make_requests(cfg, b, seed)
+    gen = lambda n: GenerationConfig(max_new_tokens=n)
+    eager.generate(*req, gen=gen(2))        # the model's first use
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = graphed.generate(*req, gen=gen(GRAPH_NEW))
+    first_s = time.perf_counter() - t
+    entry = graphed._entries[-1]
+    if entry.graph is None:
+        raise RuntimeError(f"{tag}: no graph was captured")
+    times = {(m, n): [] for m in ("graphed", "eager") for n in (1, GRAPH_NEW)}
+    outs = {"graphed": [first], "eager": []}
+    engines = {"graphed": graphed, "eager": eager}
+    for i in range(reps):
+        for mode in (("eager", "graphed") if i % 2 else ("graphed", "eager")):
+            for n in (1, GRAPH_NEW):
+                t = time.perf_counter()
+                out = engines[mode].generate(*req, gen=gen(n))
+                times[(mode, n)].append(time.perf_counter() - t)
+                if n == GRAPH_NEW:
+                    outs[mode].append(out)
+    for mode, o in outs.items():
+        if any(not np.array_equal(o[0], x) for x in o[1:]):
+            raise RuntimeError(f"{tag}: {mode} tokens differ between runs")
+    held = _hold_graphed(tag, graphed, eager, req, outs["graphed"][0],
+                         outs["eager"][0])
+    steps = {}
+    for mode, engine in engines.items():
+        one = _launches_of(lambda: engine.generate(*req, gen=gen(1)))
+        three = _launches_of(lambda: engine.generate(
+            *req, gen=GenerationConfig(max_new_tokens=3, eos_token_id=-1)))
+        steps[mode] = {k: (n - one.get(k, 0)) / 2 for k, n in three.items()
+                       if n != one.get(k, 0)}
+    if steps["graphed"] != steps["eager"]:
+        raise RuntimeError(f"{tag}: launches a step graphed "
+                           f"{steps['graphed']}, eager {steps['eager']}")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    step_ms = {m: (med[(m, GRAPH_NEW)] - med[(m, 1)]) / (GRAPH_NEW - 1) * 1e3
+               for m in engines}
+    log(f"{tag} b={b}: tokens graphed vs eager {held}; launches a step "
+        f"{steps['graphed']} (equal) | wall ms a step graphed "
+        f"{step_ms['graphed']:.3f}, eager {step_ms['eager']:.3f} "
+        f"({step_ms['eager'] / step_ms['graphed']:.2f}x) | TTFT graphed "
+        f"{med[('graphed', 1)] * 1e3:.2f} ms, eager "
+        f"{med[('eager', 1)] * 1e3:.2f} ms | {GRAPH_NEW}-token request: "
+        f"the key's first (its step captured) {first_s * 1e3:.2f} ms, later "
+        f"{med[('graphed', GRAPH_NEW)] * 1e3:.2f} ms | capture "
+        f"{entry.capture_ms:.2f} ms, its memory pool "
+        f"{entry.pool_bytes / 2 ** 20:.1f} MiB | medians of {reps}; runs "
+        f"(ms) " + json.dumps({f"{m}/{n}": [round(x * 1e3, 2) for x in v]
+                               for (m, n), v in times.items()})
+        + f" | {smi}")
+    return graphed, eager, req, outs["graphed"][0]
+
+
+# kernel records a step that torch.profiler may lose between two profiles
+# of one run (it lost up to 0.1 a step over 31 steps): a replay that drops
+# or adds a kernel a step moves the count by 1
+PROFILE_LOSS = 0.5
+PROFILE_TRIES = 3
+
+
+def _device_step(tag, smi, graphed, eager, req):
+    """Device ms a step: torch.profiler over whole runs of 1 and 32 new
+    tokens for each engine (nothing else runs beside the profiler), and,
+    for the graph, CUDA events around 31 replays queued back to back. The
+    profiler's kernels a step, graphed and eager, must agree within
+    PROFILE_LOSS: a count that the launch counters cannot give, since a
+    replay adds what its capture recorded (both profiled again, up to
+    PROFILE_TRIES times, before the phase fails)."""
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    run = lambda engine: (lambda n: engine.generate(*req, gen=GenerationConfig(
+        max_new_tokens=n, eos_token_id=-1)))
+    for attempt in range(1, PROFILE_TRIES + 1):
+        prof = {m: phase_profile(run(e), f"{tag} {m}")
+                for m, e in (("graphed", graphed), ("eager", eager))}
+        gap = abs(prof["graphed"][1] - prof["eager"][1])
+        if gap <= PROFILE_LOSS:
+            break
+        log(f"{tag}: the profiler's kernels a step graphed "
+            f"{prof['graphed'][1]:.1f}, eager {prof['eager'][1]:.1f} "
+            f"(profile {attempt} of {PROFILE_TRIES})")
+    else:
+        raise RuntimeError(
+            f"{tag}: a graphed step runs {prof['graphed'][1]:.1f} kernels by "
+            f"the profiler, the eager step {prof['eager'][1]:.1f}")
+    st = graphed._prefill(*req, gen=GenerationConfig(max_new_tokens=GRAPH_NEW,
+                                                     eos_token_id=-1))
+    try:
+        graphed._advance(st)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(GRAPH_NEW - 2):
+            graphed._advance(st)
+        end.record()
+        end.synchronize()
+        events_ms = start.elapsed_time(end) / (GRAPH_NEW - 2)
+    finally:
+        graphed._finish(st)
+    log(f"{tag}: device ms a step (torch.profiler, whole runs) graphed "
+        f"{prof['graphed'][0]:.3f} in {prof['graphed'][1]:.1f} kernels, "
+        f"eager {prof['eager'][0]:.3f} in {prof['eager'][1]:.1f} (equal "
+        f"within {PROFILE_LOSS}; profile {attempt}); "
+        f"{GRAPH_NEW - 2} replays queued back to back (CUDA events) "
+        f"{events_ms:.3f} ms a step | {smi}")
+    return prof, events_ms
+
+
+def _no_sync(tag, engines, req):
+    """Steps of each engine under `set_sync_debug_mode("error")`: a step
+    that synchronises with the host raises."""
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    for mode, engine in engines.items():
+        st = engine._prefill(*req, gen=GenerationConfig(
+            max_new_tokens=GRAPH_NEW, eos_token_id=-1))
+        try:
+            engine._advance(st)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(8):
+                    engine._advance(st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
+            engine._finish(st)
+    log(f"{tag}: 8 steps of {sorted(engines)} under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def _long_request(cfg, seed: int, p: int = 2000):
+    """One request whose prompt of `p` tokens puts its cache at 2048."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.eoc_token_id, (1, p)).astype(np.int64)
+    ids[0, 0] = cfg.media_token_id
+    size = cfg.vision.image_size
+    vx = rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32)
+    return vx, ids, np.ones_like(ids, dtype=np.int32)
+
+
+def _workspace_kept(tag, smi, graphed, eager, req, want, cfg):
+    """ROADMAP Queue 3's workspace, closed: between two requests of a
+    captured key (b=1, cache 256: decode_attention splits into 2 chunks
+    a row), a cache of 2048 (16 chunks: a workspace 8x larger) runs on the
+    eager engine (it grows the shared workspace) and on the graphed one
+    (its own entry). The old key's graph keeps its workspace, and its
+    tokens."""
+    import numpy as np
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.ops import decode_attention as da
+    gen = GenerationConfig(max_new_tokens=GRAPH_NEW)
+    if not np.array_equal(graphed.generate(*req, gen=gen), want):
+        raise RuntimeError(f"{tag}: the captured key's tokens moved")
+    entry = graphed._entries[-1]      # the key's, now the most recent
+    graph, (ws, cnt) = entry.graph, entry.workspace.tensors()[0]
+    long = _long_request(cfg, SEED + 33)
+    for engine in (eager, graphed):
+        engine.generate(*long, gen=GenerationConfig(max_new_tokens=8))
+    shared = da._shared.tensors()[0][0]
+    again = graphed.generate(*req, gen=gen)
+    kept = (entry.graph is graph and entry in graphed._entries
+            and entry.workspace.tensors()[0][0] is ws)
+    log(f"{tag}: a 2000-token request (cache 2048) on the eager and the "
+        f"graphed engine between two requests of the captured b=1 key: the "
+        f"shared workspace {shared.numel()} floats, the key's own "
+        f"{ws.numel()} (kept: {kept}); its tokens "
+        f"{'unchanged' if np.array_equal(again, want) else 'CHANGED'} | "
+        f"{smi}")
+    if not (kept and shared.numel() > ws.numel()
+            and shared.data_ptr() != ws.data_ptr()
+            and np.array_equal(again, want)):
+        raise RuntimeError(f"{tag}: the captured key's workspace or tokens "
+                           f"moved")
+
+
+def _graph_worker(tag, smi, graphed, cfg):
+    """One `stream_generate` request through the worker over localhost
+    HTTP, on the graphed engine: the text equals `generate`'s."""
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.serve.worker import (ModelWorker, build_app,
+                                              decode_media_to_vision_x,
+                                              make_otter_stream_fn,
+                                              run_app_in_thread)
+    tok = otter_tokenizer(cfg)
+    payload = worker_requests(cfg, 1, SEED + 34, new_tokens=GRAPH_NEW)[0]
+    vx, _ = decode_media_to_vision_x(payload["images"],
+                                     cfg.vision.image_size)
+    ids = tok(payload["prompt"], return_tensors="np")["input_ids"]
+    out = graphed.generate(vx, ids, gen=GenerationConfig(
+        max_new_tokens=GRAPH_NEW))
+    want = tok.decode(_cut_at(out[0, ids.shape[1]:].tolist(),
+                              cfg.eoc_token_id))
+    port = _free_port()
+    worker = ModelWorker(controller_addr="", worker_addr="",
+                         model_name="otter", no_register=True,
+                         stream_fn=make_otter_stream_fn(graphed, tok, cfg))
+    stop = run_app_in_thread(build_app(worker), "127.0.0.1", port)
+    try:
+        chunks, first, last = post_stream(
+            f"http://127.0.0.1:{port}/worker_generate_stream", payload)
+    finally:
+        stop()
+        worker.close()
+    got = _final_text(chunks, "the graph phase's request")
+    graphs = [e for e in graphed._entries if e.key[0] == 1
+              and e.graph is not None]
+    log(f"{tag}: one request ({ids.shape[1]} tokens + a 256x256 PNG) "
+        f"through the worker's stream over localhost HTTP on the graphed "
+        f"engine: first chunk {first * 1e3:.2f} ms, last {last * 1e3:.2f} "
+        f"ms, the text {'equal' if got == want else 'NOT equal'} to "
+        f"generate's | {smi}")
+    if got != want or not graphs:
+        raise RuntimeError(f"{tag}: the worker gave {got[:80]!r}, generate "
+                           f"{want[:80]!r} (graphs: {len(graphs)})")
+
+
+MIXED_REQUESTS = 16
+MIXED_NEW = (16, 48, 96)
+MIXED_SAMPLING = (dict(), dict(do_sample=True, temperature=0.7, top_p=0.9),
+                  dict(do_sample=True, temperature=1.0, top_k=50))
+
+
+def _lru_misses(keys, bound: int) -> int:
+    """The requests of the key sequence `keys` that find no entry when at
+    most `bound` entries stay (least recently used first out)."""
+    held, misses = [], 0
+    for k in keys:
+        if k in held:
+            held.remove(k)
+        else:
+            misses += 1
+            held = held[max(0, len(held) - bound + 1):]
+        held.append(k)
+    return misses
+
+
+def _mixed_keys(tag, smi, model, cfg):
+    """Traffic whose keys vary, as a worker's users send it: MIXED_REQUESTS
+    b=1 streams one after another on a fresh graphed engine, prompts of
+    32-128 tokens, max_new_tokens drawn from MIXED_NEW and the sampling
+    from MIXED_SAMPLING (a seeded generator each). Counts the requests
+    that captured (their key held no entry: an eager step, then the
+    capture), the capture ms, the pools the entries hold, the ms a token
+    of the requests that captured against those that only replayed, and,
+    from the same key sequence, the captures that other bounds on the
+    entries would have made. The captures must be those of MAX_ENTRIES."""
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation import engine as eng
+    rng = np.random.default_rng(SEED + 35)
+    engine = eng.OtterGenerator(model, cache_dtype=torch.int8)
+    captured = []
+    capture = engine._capture
+
+    def counted(entry):
+        capture(entry)
+        captured.append(entry)
+    engine._capture = counted
+    size = cfg.vision.image_size
+    keys, rows, t_all = [], [], time.perf_counter()
+    for i in range(MIXED_REQUESTS):
+        p = int(rng.integers(32, 129))
+        n = int(rng.choice(MIXED_NEW))
+        setting = MIXED_SAMPLING[int(rng.integers(len(MIXED_SAMPLING)))]
+        ids = rng.integers(1, cfg.eoc_token_id, (1, p)).astype(np.int64)
+        ids[0, 0] = cfg.media_token_id
+        vx = rng.standard_normal((1, 1, 1, 3, size, size)).astype(np.float32)
+        gen = GenerationConfig(max_new_tokens=n, eos_token_id=-1, **setting)
+        g = (torch.Generator(device=DEV).manual_seed(SEED + i)
+             if gen.do_sample else None)
+        before = len(captured)
+        t = time.perf_counter()
+        toks = list(engine.stream_generate(vx, ids, gen=gen, generator=g))
+        wall = time.perf_counter() - t
+        if len(toks) != n:
+            raise RuntimeError(f"{tag}: a mixed request gave {len(toks)} of "
+                               f"{n} tokens")
+        keys.append(engine._entries[-1].key)
+        rows.append((len(captured) > before, wall / n * 1e3))
+    t_all = time.perf_counter() - t_all
+    n_cap = len(captured)
+    by_bound = {b: _lru_misses(keys, b) for b in range(1, 9)}
+    cap_ms = [e.capture_ms for e in captured]
+    held = sum(e.pool_bytes for e in engine._entries if e.graph is not None)
+    tok_ms = {c: [ms for cap, ms in rows if cap == c] for c in (True, False)}
+    med = lambda v: f"{float(np.median(v)):.2f}" if v else "none"
+    log(f"{tag}: {MIXED_REQUESTS} b=1 streams of mixed keys (prompts "
+        f"32-128, max_new_tokens of {list(MIXED_NEW)}, greedy / T 0.7 top-p "
+        f"0.9 / T 1.0 top-k 50): {len(set(keys))} keys, {n_cap} requests "
+        f"captured (bound {eng.MAX_ENTRIES}), capture ms "
+        f"{[round(x, 1) for x in cap_ms]}, the entries that stay hold "
+        f"{held / 2 ** 20:.1f} MiB of pools; ms a token (median) "
+        f"{med(tok_ms[True])} for a request that captured, "
+        f"{med(tok_ms[False])} for one that replayed; the stream "
+        f"{t_all:.2f} s; captures the same keys would make at bounds 1-8: "
+        f"{json.dumps(by_bound)} | {smi}")
+    if n_cap != by_bound[eng.MAX_ENTRIES]:
+        raise RuntimeError(f"{tag}: {n_cap} captures, the bound says "
+                           f"{by_bound[eng.MAX_ENTRIES]}")
+
+
+def _stream_ttft(tag, smi, graphed, req):
+    """A b=1 stream on a key the engine has not seen: the time to its first
+    token (the prefill) and to its second (the eager step and the capture),
+    then the same of a second request of the key (replays)."""
+    from otter_tpu_torch.config import GenerationConfig
+    gen = GenerationConfig(max_new_tokens=GRAPH_NEW, eos_token_id=-1)
+    stamps = []
+    for _ in range(2):
+        t = time.perf_counter()
+        it = graphed.stream_generate(*req, gen=gen)
+        first = next(it)
+        t1 = time.perf_counter() - t
+        next(it)
+        t2 = time.perf_counter() - t
+        rest = list(it)
+        stamps.append((t1, t2))
+        if len(rest) != GRAPH_NEW - 2 or first is None:
+            raise RuntimeError(f"{tag}: the stream ended early")
+    (a1, a2), (b1, b2) = stamps
+    log(f"{tag} stream b=1: the key's first request: TTFT {a1 * 1e3:.2f} ms, "
+        f"second token at {a2 * 1e3:.2f} ms (its step captured); a later "
+        f"request: TTFT {b1 * 1e3:.2f} ms, second token at "
+        f"{b2 * 1e3:.2f} ms | {smi}")
+
+
+def phase_graph(smi: str):
+    """The captured decode step (`OtterGenerator`, `cuda_graph`) against
+    its eager step on OTTER-Image-MPT7B at full width and depth (int8
+    weights and cache, decode_kernel="auto"), b=1 and b=8, and
+    OTTER-LLaMA2-Chat-7B at b=8."""
+    import gc
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools import bench_decode
+    bench_decode.reset_kernel_launches()
+    _sampling_captures(smi)
+    cfg = serving_cfg()
+    model = build_model(cfg)
+    log(f"graph: {cfg.text.num_hidden_layers}-layer mpt model, int8 weights "
+        f"({_weight_bytes(model) / 1e9:.3f} GB) and int8 KV cache")
+    graphed1, eager1, req1, want1 = _graph_vs_eager("graph", smi, model, cfg,
+                                                    1, SEED + 11)
+    _stream_ttft("graph", smi, OtterGenerator(model, cache_dtype=torch.int8),
+                 req1)
+    _workspace_kept("graph", smi, graphed1, eager1, req1, want1, cfg)
+    _graph_worker("graph", smi, graphed1, cfg)
+    _mixed_keys("graph", smi, model, cfg)
+    graphed8, eager8, req8, _ = _graph_vs_eager("graph", smi, model, cfg, 8,
+                                                SEED + 18)
+    _no_sync("graph b=8", {"graphed": graphed8, "eager": eager8}, req8)
+    _device_step("graph b=8", smi, graphed8, eager8, req8)
+    del graphed1, eager1, graphed8, eager8, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lcfg = llama_cfg()
+    lmodel = build_model(lcfg)
+    graphed, eager, req, _ = _graph_vs_eager("graph llama", smi, lmodel, lcfg,
+                                             8, SEED + 18)
+    gen = lambda n: GenerationConfig(max_new_tokens=n, eos_token_id=-1)
+    steps = _launches_of(lambda: graphed.generate(*req, gen=gen(3)))
+    prefill = _launches_of(lambda: graphed.generate(*req, gen=gen(1)))
+    step = {k: (n - prefill.get(k, 0)) / 2 for k, n in steps.items()
+            if n != prefill.get(k, 0)}
+    if step != LLAMA_STEP or prefill != LLAMA_PREFILL:
+        raise RuntimeError(f"graph llama: a step launched {step}, a prefill "
+                           f"{prefill}")
+    return bench_decode.kernel_launches()
 
 
 # ── phase 10: OtterHD-8B, one request at a time ─────────────────────
@@ -3323,21 +3841,21 @@ class _StepRecorder:
 
 def _lone_logits(engine, vx, ids, j: int, **gen_kw):
     """The logits [V] behind token j of `generate` of one request alone
-    (`gen_kw`: more of its GenerationConfig)."""
+    (`gen_kw`: more of its GenerationConfig), by the eager step of
+    `engine`'s model (a graphed step's tokens are the eager one's: the
+    graph phase holds them)."""
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
+    eager = _eager_twin(engine)
     seen = []
 
     def sample(st, logits):
         seen.append(logits[0].float().clone())
-        OtterGenerator._sample(engine, st, logits)
+        OtterGenerator._sample(eager, st, logits)
 
-    engine._sample = sample
-    try:
-        engine.generate(vx, ids, gen=GenerationConfig(max_new_tokens=j + 1,
-                                                      **gen_kw))
-    finally:
-        del engine._sample
+    eager._sample = sample
+    eager.generate(vx, ids, gen=GenerationConfig(max_new_tokens=j + 1,
+                                                 **gen_kw))
     return seen[j]
 
 
@@ -4373,7 +4891,7 @@ def phase_profile(run, tag: str):
     alone (1 new token), then the prefill + 31 decode steps; a decode
     step's device time and launches from the difference. Writes the kernel
     tables to OUT_DIR and prints the device-busy share and the top
-    kernels."""
+    kernels. Returns (device ms, kernel launches) a decode step."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4393,6 +4911,7 @@ def phase_profile(run, tag: str):
     log(f"profile {tag}: a decode step takes {(b1 - b0) / 31 * 1e3:.3f} ms "
         f"of device kernels in {(n1 - n0) / 31:.1f} launches; "
         f"{(w1 - w0) / 31 * 1e3:.3f} ms of wall time under the profiler")
+    return (b1 - b0) / 31 * 1e3, (n1 - n0) / 31
 
 
 def _profile_engine(engine, tag: str):
@@ -7077,7 +7596,7 @@ KERNELS = {
     "int8_matmul": ("otter_tpu_torch/csrc/int8_matmul.cu",
                     "otter_tpu/ops/quant.py:22"),
 }
-PHASES = ("kernels,parity,serve,serve4,fused,llama,otterhd,beam,worker,"
+PHASES = ("kernels,parity,serve,serve4,graph,fused,llama,otterhd,beam,worker,"
           "idefics,batch,spec,trainparity,train,train8,pretrain,fuyutrain,"
           "lora,parallel,eval")
 
@@ -7155,6 +7674,8 @@ def main(argv=None) -> int:
     for tag in ("serve", "serve4"):
         if tag in phases:
             by_path[tag] = run(tag, serve, tag)
+    if "graph" in phases:
+        by_path["graph"] = run("graph", phase_graph, smi)
     if "fused" in phases:
         by_path["fused"] = run("fused", phase_fused, smi, "profile" in phases)
     if "llama" in phases:

@@ -13,11 +13,14 @@ The serving worker calls the wrappers from several threads at once (one
 executor thread a request), so a first use builds and loads under a lock,
 and `count_launch` adds to the wrappers' launch counters under another:
 ctypes releases the interpreter lock during a launch, and a bare `+= 1`
-loses counts when threads interleave.
+loses counts when threads interleave. A CUDA graph's capture launches
+nothing: inside `recording_launches` the counts of this thread go to the
+graph's record, and each replay adds the record (`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -115,14 +118,42 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper, int4: bool = False) -> None:
-    """One more launch on `wrapper`'s counter (`wrapper.launches`), and on
-    `wrapper.launches_int4` when `int4` (decode_attention over an int4
-    cache)."""
+_recording = threading.local()
+
+
+def count_launch(wrapper, int4: bool = False, times: int = 1) -> None:
+    """`times` more launches on `wrapper`'s counter (`wrapper.launches`),
+    and on `wrapper.launches_int4` when `int4` (decode_attention over an
+    int4 cache); inside `recording_launches` on this thread, into its
+    record instead."""
+    rec = getattr(_recording, "rec", None)
+    if rec is not None:
+        rec[(wrapper, int4)] = rec.get((wrapper, int4), 0) + times
+        return
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += times
         if int4:
-            wrapper.launches_int4 += 1
+            wrapper.launches_int4 += times
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields a dict {(wrapper, int4): launches} that collects this
+    thread's `count_launch` calls inside the block, which then move no
+    counter: what a CUDA graph's capture records, and each replay adds
+    with `add_launches`."""
+    prev = getattr(_recording, "rec", None)
+    _recording.rec = rec = {}
+    try:
+        yield rec
+    finally:
+        _recording.rec = prev
+
+
+def add_launches(record) -> None:
+    """A `recording_launches` record added to the counters (a replay)."""
+    for (wrapper, int4), n in record.items():
+        count_launch(wrapper, int4, n)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

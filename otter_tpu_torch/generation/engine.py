@@ -3,11 +3,15 @@
 
 `OtterGenerator.generate` encodes the vision input once, runs one prefill
 that writes the stacked KV cache and computes only the last position's
-logits (`head_last_only`), then decodes with a Python loop of single-token
-steps that update the cache in place. The JAX engine runs the same loop
-inside one jitted `lax.while_loop`. `stream_generate` runs the same
-prefill and steps for one request and yields each token as it is sampled;
-a `vision_mask` marks the real frames of mixed still+video media.
+logits (`head_last_only`), then decodes with single-token steps that
+update the cache in place. The JAX engine runs the loop inside one jitted
+`lax.while_loop` and `stream_generate` replays one compiled step; here
+the step keeps its state on the device (the cache position and the step
+index are device counters) and, on CUDA, is captured once per request
+shape as a CUDA graph and replayed (`OtterGenerator`'s docstring).
+`stream_generate` runs the same prefill and steps for one request and
+yields each token as it is sampled; a `vision_mask` marks the real frames
+of mixed still+video media.
 
 `num_beams > 1` runs beam search (`generation/beam.py`) over B*K rows:
 the prompt, its mask and the vision latents repeated K times a row (the
@@ -24,21 +28,27 @@ signature of both, `device`, and a config with `.text`,
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import os
+import threading
+import time
 import warnings
 from types import SimpleNamespace
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from otter_tpu_torch import _build
 from otter_tpu_torch.config import (GenerationConfig, IdeficsModelConfig,
                                     OtterConfig, TextConfig)
 from otter_tpu_torch.generation import beam, sampling
 from otter_tpu_torch.models.decoder import init_cache
 from otter_tpu_torch.models.idefics import IdeficsVLM
 from otter_tpu_torch.models.otter import OtterVLM
+from otter_tpu_torch.ops import decode_attention as da
 
 CacheDtype = Union[torch.dtype, str]
 Model = Union[OtterVLM, IdeficsVLM]
@@ -155,13 +165,95 @@ def left_pad(lang_x: np.ndarray, attention_mask: Optional[np.ndarray],
     return out, mask
 
 
+# the decode loop reads whether every row is done once in this many steps
+DONE_EVERY = 8
+# entries (a key's tensors and graph) that stay once their requests end: on
+# 16 b=1 streams of 6 keys (3 sampling settings, 2 cache lengths) 2 made 9
+# captures, 4 the 6 that the keys need, ~100 MiB of pool each (PERF.md)
+MAX_ENTRIES = 4
+# one CUDA graph capture at a time in a process (torch's rule): engines on
+# several threads (a worker's models) take turns
+_capture_lock = threading.Lock()
+
+
+class _DoneFlag:
+    """Whether every row of `done` is done, on its way to the host without
+    a wait: a copy into pinned memory behind the queued steps. `value()` a
+    check later finds it landed (its event waits only for the step that
+    made it)."""
+
+    def __init__(self, done: torch.Tensor):
+        every = done.all()
+        self.event = None
+        if done.is_cuda:
+            self.host = torch.empty((), dtype=torch.bool, pin_memory=True)
+            self.host.copy_(every, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = every
+
+    def value(self) -> bool:
+        if self.event is not None:
+            self.event.synchronize()
+        return bool(self.host)
+
+
+class _Entry:
+    """The decode state of one key, fixed in memory: the tensors a step
+    reads and writes in place (`st`: the token, the stacked cache,
+    kv_valid, the buffer, the step counters, done, and the request's
+    constants), the decode_attention workspace its graph recorded and,
+    once captured, the graph, the launches a replay makes (`launches`,
+    from `_build.recording_launches`), the capture's host ms and the bytes
+    its memory pool took. A request leases it (`busy`) from its prefill to
+    its last token."""
+
+    def __init__(self, key, st: SimpleNamespace, cache_dtype):
+        self.key, self.st, self.cache_dtype = key, st, cache_dtype
+        self.busy = True
+        self.broken = False
+        self.workspace = da.Workspace()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: dict = {}
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def free(self) -> None:
+        """Drop the graph, its memory pool and every tensor."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.st = self.workspace = None
+
+
 class OtterGenerator:
     """Greedy / sampled generation over an `OtterVLM` or an `IdeficsVLM`,
-    on the model's device."""
+    on the model's device.
+
+    The greedy and sampled decode step is the counterpart of the JAX
+    engine's compiled step (`jax.jit(self._step, donate_argnums=(2,))`):
+    it reads every value that changes from one step to the next from
+    device memory (the cache position and the step index are counters on
+    the device that the step advances) and makes no host sync, and on CUDA
+    it is captured once per key as a CUDA graph (`cuda_graph`, on by
+    default there) and replayed. The key is the rows, the cache length and
+    dtype, the vision latents' shape and the step's sampling and bans
+    (`gen` less `max_new_tokens`). Each key's tensors live in an entry
+    that the request's prefill writes in place (the counterpart of the
+    donated cache); at most `MAX_ENTRIES` entries stay once their requests
+    end (least recently used first out), and requests that run at once
+    each lease their own. `cuda_graph=False` runs the same step body
+    eagerly (the CPU always does: it has no graph).
+
+    The megakernel route (`TextConfig.megakernel`) keeps a step that
+    passes the cache position as a host int, as its kernel takes it by
+    value: it is never captured (`cuda_graph=True` raises). Beams keep
+    their own eager step (`generation/beam.py`)."""
 
     def __init__(self, model: Model,
                  cache_dtype: CacheDtype = torch.bfloat16,
-                 hbm_bytes: Optional[float] = None):
+                 hbm_bytes: Optional[float] = None,
+                 cuda_graph: Optional[bool] = None):
         self.model = model
         self.cfg: Union[OtterConfig, IdeficsModelConfig] = model.cfg
         self.cache_dtype = cache_dtype
@@ -169,17 +261,43 @@ class OtterGenerator:
         self.param_bytes = sum(t.numel() * t.element_size() for t in
                                list(model.parameters()) + list(model.buffers()))
         self._cache_dtypes: Dict[Tuple[int, int], CacheDtype] = {}
+        # the megakernel takes the position by value: a host int a step
+        self._host_pos = bool(self.cfg.text.megakernel)
+        sharded = hasattr(model, "_shard_layouts")
+        if cuda_graph is None:
+            cuda_graph = (self.device.type == "cuda" and not self._host_pos
+                          and not sharded)
+        elif cuda_graph:
+            if self._host_pos:
+                raise ValueError(
+                    "cuda_graph=True on the megakernel route: its kernel "
+                    "takes the cache position by value, so its step reads "
+                    "a host int and cannot be captured")
+            if self.device.type != "cuda":
+                raise ValueError(f"cuda_graph=True needs a CUDA model; this "
+                                 f"one is on {self.device}")
+            if sharded:
+                raise ValueError("cuda_graph=True on a sharded model: its "
+                                 "hooks gather parameters every call")
+        self.cuda_graph = bool(cuda_graph)
+        self._entries: List[_Entry] = []   # least recently used first
+        self._entries_lock = threading.Lock()
+        self._capture_stream = None
 
     def _cache_dtype_for(self, b: int, cache_len: int) -> CacheDtype:
         """The cache dtype for this (batch, cache_len): the requested one,
         degraded down the ladder when it would not fit
-        (`select_cache_dtype`), chosen once per key so that equal requests
-        get equal caches."""
+        (`select_cache_dtype`) beside the parameters and the caches the
+        entries hold, chosen once per key so that equal requests get equal
+        caches."""
         key = (b, cache_len)
         if key not in self._cache_dtypes:
+            with self._entries_lock:
+                held = sum(cache_bytes(self.cfg.text, *e.key[:2],
+                                       e.cache_dtype) for e in self._entries)
             self._cache_dtypes[key] = select_cache_dtype(
                 self.cfg.text, b, cache_len, self.cache_dtype,
-                device=self.device, param_bytes=self.param_bytes,
+                device=self.device, param_bytes=self.param_bytes + held,
                 hbm_bytes=self.hbm_bytes)
         return self._cache_dtypes[key]
 
@@ -187,14 +305,103 @@ class OtterGenerator:
     def device(self) -> torch.device:
         return self.model.device
 
+    # ── the entries ──────────────────────────────────────────────────
+
+    def _evict(self, keep: int) -> None:
+        """Free idle entries, least recently used first, until at most
+        `keep` entries remain (a busy one is never freed). The caller holds
+        `_entries_lock`."""
+        for e in [e for e in self._entries if not e.busy]:
+            if len(self._entries) <= keep:
+                break
+            self._entries.remove(e)
+            e.free()
+
+    def _lease(self, rows: int, cache_len: int, vis_latents: torch.Tensor,
+               gen: GenerationConfig) -> _Entry:
+        """An idle entry of this request's key, or a new one (after idle
+        entries beyond `MAX_ENTRIES - 1` are freed), marked busy."""
+        if (rows, cache_len) not in self._cache_dtypes:
+            # a new shape: free room first, so that the cache ladder counts
+            # only the entries that stay
+            with self._entries_lock:
+                self._evict(MAX_ENTRIES - 1)
+        dtype = self._cache_dtype_for(rows, cache_len)
+        step_gen = dataclasses.replace(gen, max_new_tokens=0)
+        key = (rows, cache_len, _cache_name(dtype), tuple(vis_latents.shape),
+               step_gen)
+        with self._entries_lock:
+            for e in reversed(self._entries):
+                if e.key == key and not e.busy:
+                    e.busy = True
+                    self._entries.remove(e)
+                    self._entries.append(e)
+                    return e
+            self._evict(MAX_ENTRIES - 1)
+        entry = _Entry(key, self._new_state(rows, cache_len, dtype,
+                                            vis_latents, step_gen), dtype)
+        entry.st.entry = entry
+        with self._entries_lock:
+            self._entries.append(entry)
+        return entry
+
+    def _release(self, entry: _Entry) -> None:
+        """The request is done with `entry`: it stays (most recently used)
+        unless the bound or a failed capture says otherwise."""
+        with self._entries_lock:
+            entry.busy = False
+            if entry in self._entries:
+                self._entries.remove(entry)
+                if entry.broken:
+                    entry.free()
+                else:
+                    self._entries.append(entry)
+            self._evict(MAX_ENTRIES)
+
+    def _new_state(self, rows: int, cache_len: int, dtype: CacheDtype,
+                   vis_latents: torch.Tensor,
+                   gen: GenerationConfig) -> SimpleNamespace:
+        """An entry's tensors, to be filled by each request's prefill."""
+        dev = self.device
+        long = dict(dtype=torch.long, device=dev)
+        return SimpleNamespace(
+            gen=gen,
+            eos=(gen.eos_token_id if gen.eos_token_id is not None
+                 else self.cfg.eoc_token_id),
+            # (a tensor-parallel model keeps its rank's kv heads)
+            cache=init_cache(self.cfg.text, rows, cache_len, dtype, dev,
+                             kv_heads=getattr(self.model, "tp_kv_heads",
+                                              None)),
+            tok=torch.zeros(rows, **long),
+            buffer=torch.zeros((rows, cache_len), **long),
+            kv_valid=torch.zeros((rows, cache_len), dtype=torch.bool,
+                                 device=dev),
+            done=torch.zeros(rows, dtype=torch.bool, device=dev),
+            # tokens sampled so far, and the prompt's width
+            t_dev=torch.zeros((), **long), p_dev=torch.zeros((), **long),
+            real_len=(None if self.cfg.text.pos == "alibi"
+                      else torch.zeros(rows, **long)),
+            valid_from=torch.zeros(rows, **long),
+            media_counts=torch.zeros(rows, **long),
+            vis_latents=torch.empty_like(vis_latents),
+            # the entry's own generator, registered with its graph; a
+            # request's generator state is copied in and out (`_prefill`,
+            # `_finish`)
+            generator=(torch.Generator(device=dev) if gen.do_sample
+                       else None),
+            source=None, p=0, t=0, logits=None)
+
+    # ── prefill and the step ─────────────────────────────────────────
+
     @_inference
     def _prefill(self, vision_x, lang_x, attention_mask,
                  gen: GenerationConfig, generator=None, vision_mask=None,
                  beams: int = 1) -> SimpleNamespace:
         """Encode the vision input, prefill the cache and sample the first
-        token: the state that `_step` advances. With `beams` K > 1 every
-        request becomes K rows (row i*K + j is beam j of request i; the
-        vision input encoded once, its latents repeated) and nothing is
+        token: the state that `_advance` steps, a leased entry's (`st.entry`;
+        `_finish` returns it). With `beams` K > 1 every request becomes K
+        rows (row i*K + j is beam j of request i; the vision input encoded
+        once, its latents repeated) in a cache of its own and nothing is
         sampled: `st.logits` holds each request's first logits [B, V]."""
         dev = self.device
         lang_x = _on(lang_x, dev).long()
@@ -211,65 +418,162 @@ class OtterGenerator:
                 for x in (lang_x, attention_mask, vis_latents))
         rows = b * beams
         cache_len = _round_up(p + gen.max_new_tokens, 128)
-        # (a tensor-parallel model keeps its rank's kv heads)
-        cache = init_cache(self.cfg.text, rows, cache_len,
-                           self._cache_dtype_for(rows, cache_len), dev,
-                           kv_heads=getattr(self.model, "tp_kv_heads", None))
         # a token's position counts the real tokens before it: left padding
         # does not move a prompt (ALiBi takes no positions)
         real_len = positions = None
         if self.cfg.text.pos != "alibi":
             real_len = attention_mask.sum(-1)
             positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
-        logits, cache, _ = self.model(
-            None, lang_x, attention_mask=attention_mask, positions=positions,
-            vis_latents=vis_latents, cache=cache, head_last_only=True)
-        st = SimpleNamespace(
-            gen=gen, generator=generator, p=p, cache=cache,
-            real_len=real_len,
-            vis_latents=vis_latents,
-            eos=(gen.eos_token_id if gen.eos_token_id is not None
-                 else self.cfg.eoc_token_id),
+        values = dict(
+            vis_latents=vis_latents, real_len=real_len,
             media_counts=(lang_x == self.cfg.media_token_id).int().sum(-1),
             valid_from=p - attention_mask.sum(-1),
             buffer=torch.cat([lang_x, torch.full(
                 (rows, cache_len - p), gen.pad_token_id, dtype=torch.long,
                 device=dev)], dim=1),
             kv_valid=torch.cat([attention_mask.bool(), torch.zeros(
-                (rows, cache_len - p), dtype=torch.bool, device=dev)], dim=1),
-            done=torch.zeros(rows, dtype=torch.bool, device=dev), t=0)
+                (rows, cache_len - p), dtype=torch.bool, device=dev)], dim=1))
+        prefill = functools.partial(
+            self.model, None, lang_x, attention_mask=attention_mask,
+            positions=positions, vis_latents=vis_latents,
+            head_last_only=True)
         if beams > 1:
-            st.logits = logits[::beams, -1]
-        else:
+            cache = init_cache(self.cfg.text, rows, cache_len,
+                               self._cache_dtype_for(rows, cache_len), dev,
+                               kv_heads=getattr(self.model, "tp_kv_heads",
+                                                None))
+            logits, cache, _ = prefill(cache=cache)
+            return SimpleNamespace(
+                gen=gen, p=p, cache=cache, logits=logits[::beams, -1],
+                eos=(gen.eos_token_id if gen.eos_token_id is not None
+                     else self.cfg.eoc_token_id), **values)
+        st = self._lease(rows, cache_len, vis_latents, gen).st
+        try:
+            logits, _, _ = prefill(cache=st.cache)
+            for name, val in values.items():
+                if val is not None:
+                    getattr(st, name).copy_(val)
+            st.done.zero_()
+            st.t_dev.zero_()
+            st.p_dev.fill_(p)
+            st.p, st.t = p, 0
+            if generator is not None and st.generator is not None:
+                st.source = generator
+                st.generator.set_state(generator.get_state())
+            elif st.generator is not None:
+                # no generator: a stream of its own, seeded by one draw
+                # from the device's default generator, so that requests
+                # that run at once draw different numbers
+                st.generator.manual_seed(
+                    int(torch.randint(2 ** 62, (), device=dev)))
             self._sample(st, logits[:, -1])
+            st.t = 1
+        except BaseException:
+            self._finish(st)
+            raise
         return st
 
     def _sample(self, st: SimpleNamespace, logits: torch.Tensor) -> None:
         """Token t of every row from its logits (pad once the row is
-        done), written to the buffer."""
+        done), written to the buffer at p + t; t advances. Reads t and p
+        from their device counters. `st.logits` keeps the logits (a
+        graph's replays write them in place)."""
         gen = st.gen
-        logits = sampling.process_logits(logits, st.buffer, st.p + st.t, gen,
+        st.logits = logits
+        cur = st.p_dev + st.t_dev
+        logits = sampling.process_logits(logits, st.buffer, cur, gen,
                                          st.valid_from)
         tok = sampling.sample_token(
             logits, do_sample=gen.do_sample, temperature=gen.temperature,
             top_k=gen.top_k, top_p=gen.top_p, generator=st.generator)
-        st.tok = torch.where(st.done, gen.pad_token_id, tok)
-        st.done = st.done | (st.tok == st.eos)
-        st.buffer[:, st.p + st.t] = st.tok
-        st.t += 1
+        tok = torch.where(st.done, gen.pad_token_id, tok)
+        st.tok.copy_(tok)
+        st.done.logical_or_(tok == st.eos)
+        st.buffer.index_copy_(1, cur.view(1), tok[:, None])
+        st.t_dev.add_(1)
+
+    def _step_body(self, st: SimpleNamespace) -> None:
+        """One cached decode step on the entry's tensors, in place: feed
+        token t - 1 at cache position p + t - 1, sample token t. The
+        position and the step index come from the device counters (on the
+        megakernel route the position goes in as the host's int), so the
+        same call serves every step: what a graph captures."""
+        t = st.t_dev
+        pos = st.p_dev + t - 1
+        st.kv_valid.index_fill_(1, pos.view(1), True)
+        positions = (None if st.real_len is None
+                     else (st.real_len + (t - 1))[:, None])
+        logits, _, _ = self.model(
+            None, st.tok[:, None], vis_latents=st.vis_latents,
+            cache=st.cache,
+            cache_pos=st.p + st.t - 1 if self._host_pos else pos,
+            kv_valid=st.kv_valid, positions=positions,
+            media_counts=st.media_counts)
+        self._sample(st, logits[:, -1])
 
     @_inference
-    def _step(self, st: SimpleNamespace) -> None:
-        """One cached decode step: feed token t - 1, sample token t."""
-        pos = st.p + st.t - 1
-        st.kv_valid[:, pos] = True
-        positions = (None if st.real_len is None
-                     else (st.real_len + (st.t - 1))[:, None])
-        logits, st.cache, _ = self.model(
-            None, st.tok[:, None], vis_latents=st.vis_latents,
-            cache=st.cache, cache_pos=pos, kv_valid=st.kv_valid,
-            positions=positions, media_counts=st.media_counts)
-        self._sample(st, logits[:, -1])
+    def _advance(self, st: SimpleNamespace) -> None:
+        """One decode step of a leased entry's state: the graph's replay
+        (its launches added to the counters), or, before the capture, the
+        step body (with `cuda_graph`, on the capture stream, and the graph
+        captured after it)."""
+        entry = st.entry
+        if entry.graph is not None:
+            entry.graph.replay()
+            _build.add_launches(entry.launches)
+        elif self.cuda_graph:
+            self._capture(entry)
+        else:
+            self._step_body(st)
+        st.t += 1
+
+    def _capture(self, entry: _Entry) -> None:
+        """Run the request's step once eagerly on the capture stream, with
+        the entry's own workspace (so that everything the step allocates
+        once, the workspace and cuBLAS's, exists), then capture the step:
+        the capture runs nothing. A failure raises and the entry is
+        dropped when its request ends."""
+        st, dev = entry.st, self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        side, main = self._capture_stream, torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _capture_lock, torch.cuda.stream(side), \
+                    da.owned_workspace(entry.workspace):
+                self._step_body(st)
+                entry.workspace.frozen = True
+                if st.generator is not None:
+                    graph.register_generator_state(st.generator)
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                with _build.recording_launches() as launches:
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self._step_body(st)
+                    except BaseException:
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                entry.capture_ms = (time.perf_counter() - t0) * 1e3
+                entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        except BaseException:
+            entry.broken = True
+            raise
+        finally:
+            main.wait_stream(side)
+        entry.graph, entry.launches = graph, launches
+
+    def _finish(self, st: SimpleNamespace) -> None:
+        """The request is done with its entry: the generator it brought
+        takes the entry's state (as if it had drawn every number itself)
+        and the entry goes back."""
+        if st.source is not None:
+            st.source.set_state(st.generator.get_state())
+            st.source = None
+        self._release(st.entry)
 
     def generate(self, vision_x, lang_x, attention_mask=None,
                  gen: Optional[GenerationConfig] = None,
@@ -283,14 +587,28 @@ class OtterGenerator:
         if gen.num_beams > 1:
             return self._beam_generate(vision_x, lang_x, attention_mask, gen)
         st = self._prefill(vision_x, lang_x, attention_mask, gen, generator)
-        self._decode(st, gen.max_new_tokens)
-        return st.buffer[:, : st.p + gen.max_new_tokens].cpu().numpy()
+        try:
+            self._decode(st, gen.max_new_tokens)
+            # a copy on the CPU too: the entry's buffer serves the next
+            # request
+            return st.buffer[:, : st.p + gen.max_new_tokens].to(
+                "cpu", copy=True).numpy()
+        finally:
+            self._finish(st)
 
     def _decode(self, st: SimpleNamespace, until: int) -> None:
         """`generate`'s decode loop: steps until `until` tokens are sampled
-        or every row is done (a host sync a step, for the done check)."""
-        while st.t < until and not bool(st.done.all()):
-            self._step(st)
+        or every row is done, as the JAX loop's condition (`t < max_new &
+        ~all(done)`). The host reads `done` once every DONE_EVERY steps,
+        from a copy made DONE_EVERY steps before (so at most 2 * DONE_EVERY
+        - 1 steps past the last row's end, which write pad where pad is)."""
+        flag = None
+        while st.t < until:
+            if (st.t - 1) % DONE_EVERY == 0:
+                if flag is not None and flag.value():
+                    return
+                flag = _DoneFlag(st.done)
+            self._advance(st)
 
     def stream_generate(self, vision_x, lang_x, attention_mask=None,
                         gen: Optional[GenerationConfig] = None,
@@ -298,7 +616,8 @@ class OtterGenerator:
                         vision_mask=None) -> Iterator[int]:
         """One request (batch 1): yields each token id as it is sampled,
         with `generate`'s sampling and bans, and stops at eos (not
-        yielded) or after max_new_tokens. `vision_mask` [1, T, F] bool
+        yielded) or after max_new_tokens: a step, then its token read, as
+        the JAX loop reads `int(tok[0])`. `vision_mask` [1, T, F] bool
         marks the real frames of mixed still+video media. Greedy or
         sampled only, as the JAX engine's: beams stream through
         `stream_beam_generate`."""
@@ -308,14 +627,17 @@ class OtterGenerator:
                              "with generate")
         st = self._prefill(vision_x, lang_x, attention_mask, gen, generator,
                            vision_mask)
-        while True:
-            tok = int(st.tok[0])
-            if tok == st.eos:
-                return
-            yield tok
-            if st.t >= gen.max_new_tokens:
-                return
-            self._step(st)
+        try:
+            while True:
+                tok = int(st.tok[0])
+                if tok == st.eos:
+                    return
+                yield tok
+                if st.t >= gen.max_new_tokens:
+                    return
+                self._advance(st)
+        finally:
+            self._finish(st)
 
     # ── beam search ──────────────────────────────────────────────────
 

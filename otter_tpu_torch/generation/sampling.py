@@ -6,7 +6,8 @@ from an explicit `torch.Generator`.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -89,13 +90,21 @@ def ban_bad_words(logits, tokens, cur_end, bad_words_ids, valid_from=0):
         if n1 == 0:
             logits[:, last] = NEG_INF
             continue
-        prefix = torch.as_tensor(seq[:-1], dtype=tokens.dtype, device=dev)
+        prefix = _word_prefix(tuple(seq[:-1]), tokens.dtype, dev)
         suf_idx = cur[:, None] - n1 + torch.arange(n1, device=dev)[None, :]
         suffix = torch.gather(tokens, 1, suf_idx.clamp(0, l - 1))
         match = (suffix == prefix[None, :]).all(-1) & ((cur - vfrom) >= n1)
         logits[:, last] = torch.where(
             match, torch.full_like(logits[:, last], NEG_INF), logits[:, last])
     return logits
+
+
+@functools.lru_cache(maxsize=256)
+def _word_prefix(seq: Tuple[int, ...], dtype, device) -> torch.Tensor:
+    """A bad word's prefix as a tensor on `device`, made once: a host copy
+    inside a captured CUDA graph would be baked into it (and a pageable
+    one syncs the host)."""
+    return torch.as_tensor(seq, dtype=dtype, device=device)
 
 
 def process_logits(logits, tokens, cur_end, gen, valid_from=0):

@@ -110,10 +110,11 @@ def cache_len_of(cache: Cache) -> int:
 
 def write_cache(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor,
                 pos: Union[int, torch.Tensor]) -> None:
-    """Write k/v [B, H, S, D] at offset `pos` (an int, or per-row offsets
-    [B]: row r's S positions go to pos[r] .. pos[r] + S - 1) into this
-    layer's slot of the stacked cache, in place, quantizing when the cache
-    is int8 or int4."""
+    """Write k/v [B, H, S, D] at offset `pos` (an int; a 0-d device
+    tensor, read by the copy itself, so that a captured decode step takes
+    its position from device memory; or per-row offsets [B]: row r's S
+    positions go to pos[r] .. pos[r] + S - 1) into this layer's slot of the
+    stacked cache, in place, quantizing when the cache is int8 or int4."""
     b, _, s, _ = k.shape
     if "kv" in cache:
         kvq, ks, vs = quant_ops.quantize_kv_int4(k, v)
@@ -132,6 +133,12 @@ def write_cache(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor,
             rows = torch.arange(b, device=pos.device)[:, None]
             cols = pos[:, None] + torch.arange(s, device=pos.device)[None, :]
             dst[rows, layer, :, cols] = val.transpose(1, 2)   # [B, S, H(, D)]
+        elif isinstance(pos, torch.Tensor):
+            # S columns along L of every row (not the [B] scatter above,
+            # which costs a decode step more launches)
+            cols = pos.view(1) if s == 1 else \
+                pos + torch.arange(s, device=pos.device)
+            dst[:, layer].index_copy_(2, cols, val)
         else:
             dst[:, layer, :, pos:pos + s] = val
 
@@ -378,7 +385,7 @@ class DecoderLayer(nn.Module):
 
         if (c.megakernel and self._fused_eligible() and not c.qk_ln
                 and not c.clip_qkv and c.num_attention_heads == c.kv_heads
-                and decoding and getattr(cache_pos, "ndim", 0) == 0
+                and decoding and not isinstance(cache_pos, torch.Tensor)
                 and x.shape[1] == 1 and x.shape[0] <= 8
                 and "k" in cache and cache["k"].dtype != torch.int8
                 and bias is not None):
@@ -386,7 +393,9 @@ class DecoderLayer(nn.Module):
             # call; the new token's k/v come back and are appended in
             # place. With one cache_pos for the batch the ALiBi column
             # bias is the same for every row. The kernel attends every
-            # cache row below cache_pos (no kv_valid).
+            # cache row below cache_pos (no kv_valid). It takes cache_pos
+            # as a host int, by value: a device position (a captured
+            # step's) takes the composed route.
             y, kn, vn = mk.decode_attn_megakernel(
                 x[:, 0].to(self.dtype), cache["k"], cache["v"], cache_pos,
                 bias[0, :, 0, :].float(), self.norm_1.scale,
@@ -598,9 +607,9 @@ class Decoder(nn.Module):
                 head_last_only: bool = False, skip_head: bool = False):
         """Prefill/forward: cache None (no cache: training) or a
         preallocated cache with cache_pos None (prefill writes from offset
-        0). Decode: cache_pos set (an int, or per-row offsets [B]) and
-        kv_valid [B, L] marking attendable entries; a step may hold several
-        tokens. `positions` [B, S] are
+        0). Decode: cache_pos set (an int, a 0-d device tensor, or per-row
+        offsets [B]) and kv_valid [B, L] marking attendable entries; a step
+        may hold several tokens. `positions` [B, S] are
         the tokens' positions for rope and learned embeddings (default
         0 .. S-1). `merge_embeds` (values [B, S, H], mask [B, S]) puts
         `values` in place of the token embedding where the mask is set

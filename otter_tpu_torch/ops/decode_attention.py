@@ -18,11 +18,13 @@ grid fills the card: `split_plan` picks the number of splits from the
 shapes alone (the host never reads `starts` / `lengths`), the kernel cuts
 the real span as `split_chunks` does, and the chunks' partial (m, l, acc)
 are merged in chunk order (`merge_partials` is the rule) in a workspace
-that `_workspace` keeps per device.
+(`Workspace`): one shared per device, or one that a captured CUDA graph
+owns (`owned_workspace`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional
@@ -105,30 +107,76 @@ def workspace_size(b: int, h: int, splits: int, d: int):
     return b * h * splits * (2 + d), b * h
 
 
-_workspaces = {}
-_workspaces_lock = threading.Lock()
+class Workspace:
+    """(partials f32, counters int32) of the split kernels, per device:
+    `decode_attention`'s and the megakernel's attention kernel's. Each user
+    reads and writes them within one launch, and launches on one stream
+    run in turn (the megakernel's attention kernel is a programmatic
+    dependent launch that touches them only after `pdl_wait`, when the
+    launch before it has finished), so calls on one stream share them. The
+    counters must start at 0, and the kernel leaves them so.
+
+    `get` grows a pair to the largest call made with it: the larger pair
+    replaces the smaller, which stays alive while a caller holds it. Once
+    `frozen` (a graph has recorded the pair's addresses), a call that
+    needs more raises instead. Threads may share one: `get` is locked."""
+
+    def __init__(self):
+        self.frozen = False
+        self._pairs = {}
+        self._lock = threading.Lock()
+
+    def get(self, device: torch.device, floats: int, rows: int):
+        with self._lock:
+            ws, cnt = self._pairs.get(device.index, (None, None))
+            grow_ws = ws is None or ws.numel() < floats
+            grow_cnt = cnt is None or cnt.numel() < rows
+            if self.frozen and (grow_ws or grow_cnt):
+                raise RuntimeError(
+                    f"decode_attention: a call needs a workspace of "
+                    f"{floats} floats and {rows} counters, more than the "
+                    f"frozen one a CUDA graph recorded holds")
+            if grow_ws:
+                ws = torch.empty(max(floats, 1), dtype=torch.float32,
+                                 device=device)
+            if grow_cnt:
+                cnt = torch.zeros(max(rows, 1), dtype=torch.int32,
+                                  device=device)
+            self._pairs[device.index] = (ws, cnt)
+        return ws, cnt
+
+    def tensors(self):
+        """The pairs it holds, {device index: (partials, counters)}."""
+        with self._lock:
+            return dict(self._pairs)
+
+
+# every call that no graph owns; a graph's own is `owned_workspace`'s
+_shared = Workspace()
+_owner = threading.local()
+
+
+@contextlib.contextmanager
+def owned_workspace(ws: Workspace):
+    """Calls on this thread inside the block use `ws` in place of the
+    shared workspace. A CUDA graph's owner runs one eager step with it
+    before the capture (so the pair exists at its size), freezes it and
+    keeps it for the graph's lifetime: a later, larger call elsewhere grows
+    the shared pair and never frees, resizes or writes the graph's."""
+    prev = getattr(_owner, "ws", None)
+    _owner.ws = ws
+    try:
+        yield ws
+    finally:
+        _owner.ws = prev
 
 
 def _workspace(device: torch.device, floats: int, rows: int):
     """(partials f32, counters int32) of at least `floats` and `rows`
-    elements on `device`, kept between calls (the counters must start at 0,
-    and the kernel leaves them so). Calls on one stream reuse them in
-    order; a larger call replaces them. Threads may share them: each user
-    (this kernel, the megakernel's attention kernel) reads and writes them
-    within one launch, and launches on one stream run in turn (the
-    megakernel's attention kernel is a programmatic dependent launch that
-    touches them only after `pdl_wait`, when the launch before it has
-    finished). A replaced pair stays alive while a caller holds it."""
-    key = device.index
-    with _workspaces_lock:
-        ws, cnt = _workspaces.get(key, (None, None))
-        if ws is None or ws.numel() < floats:
-            ws = torch.empty(max(floats, 1), dtype=torch.float32,
-                             device=device)
-        if cnt is None or cnt.numel() < rows:
-            cnt = torch.zeros(max(rows, 1), dtype=torch.int32, device=device)
-        _workspaces[key] = (ws, cnt)
-    return ws, cnt
+    elements on `device`: this thread's owned workspace, or the shared
+    one."""
+    ws = getattr(_owner, "ws", None) or _shared
+    return ws.get(device, floats, rows)
 
 
 def decode_attention_plain(q, k, v, lengths, bias=None, starts=None, *,

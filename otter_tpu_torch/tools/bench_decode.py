@@ -22,7 +22,8 @@ request, run by `generate`'s own decode loop), the kernels' durations
 summed and divided by their number (`device_step_ms`), and the same over
 each third of those steps (`device_step_ms_estimates`); None on the CPU.
 Each profile leaves 50 ms idle at each edge of its window, and each third
-is profiled again from a copy of its starting state until two profiles
+is profiled again from its starting state (restored in place from a copy:
+a captured step replays on its own tensors) until two profiles
 hold the same number of kernel records (the profiler can lose records),
 up to 5 times, before the bench raises; `device_step_profiles` counts the
 profiles.
@@ -173,6 +174,21 @@ def _clone(v):
     return v
 
 
+@torch.inference_mode()
+def _restore(st: SimpleNamespace, saved: SimpleNamespace) -> None:
+    """`st` back to a `_clone` of it, in place: a captured step replays on
+    the tensors it recorded, so the state keeps them."""
+    for k, v in vars(saved).items():
+        cur = getattr(st, k)
+        if isinstance(v, torch.Tensor):
+            cur.copy_(v)
+        elif isinstance(v, dict):
+            for name, t in v.items():
+                cur[name].copy_(t)
+        else:
+            setattr(st, k, v)
+
+
 def _device_step_ms(engine: OtterGenerator, vision_x, ids,
                     gen: GenerationConfig, first: int, parts: int = 3,
                     tries: int = 5):
@@ -186,33 +202,37 @@ def _device_step_ms(engine: OtterGenerator, vision_x, ids,
 
     The profiler can lose a record, and the records a step differ with the
     position (1420 against 1405 at b=8 on one route), so a run is held to
-    itself: each is profiled again from a copy of the state it started
-    from until two profiles hold the same number of CUDA records, at most
+    itself: each is profiled again from the state it started from
+    (`_restore`) until two profiles hold the same number of CUDA records, at
+    most
     `tries` times in all, before this raises."""
     st = engine._prefill(vision_x, ids, None, gen, None)
-    engine._decode(st, first)
-    n = gen.max_new_tokens - first
-    ends = [first + n * (i + 1) // parts for i in range(parts)]
-    total, parts_ms, lo, profiles = 0.0, [], first, 0
-    for hi in ends:
-        start = _clone(st)
-        seen = {}   # records -> ms of the first profile that held them
-        ms, records = _kernel_ms(lambda: engine._decode(st, hi))
-        while True:
-            profiles += 1
-            if records in seen:
-                break
-            seen[records] = ms
-            if len(seen) == tries:
-                raise RuntimeError(
-                    f"decode steps {lo}..{hi}: no two of {tries} profiles "
-                    f"hold the same number of kernel records "
-                    f"({sorted(seen)}): records lost")
-            again = _clone(start)
-            ms, records = _kernel_ms(lambda: engine._decode(again, hi))
-        total += seen[records]
-        parts_ms.append(seen[records] / (hi - lo))
-        lo = hi
+    try:
+        engine._decode(st, first)
+        n = gen.max_new_tokens - first
+        ends = [first + n * (i + 1) // parts for i in range(parts)]
+        total, parts_ms, lo, profiles = 0.0, [], first, 0
+        for hi in ends:
+            start = _clone(st)
+            seen = {}   # records -> ms of the first profile that held them
+            ms, records = _kernel_ms(lambda: engine._decode(st, hi))
+            while True:
+                profiles += 1
+                if records in seen:
+                    break
+                seen[records] = ms
+                if len(seen) == tries:
+                    raise RuntimeError(
+                        f"decode steps {lo}..{hi}: no two of {tries} "
+                        f"profiles hold the same number of kernel records "
+                        f"({sorted(seen)}): records lost")
+                _restore(st, start)
+                ms, records = _kernel_ms(lambda: engine._decode(st, hi))
+            total += seen[records]
+            parts_ms.append(seen[records] / (hi - lo))
+            lo = hi
+    finally:
+        engine._finish(st)
     return total / n, parts_ms, profiles
 
 

@@ -1227,3 +1227,124 @@ def test_spec_row_at_the_cache_end_on_the_card(gen):
     torch.cuda.synchronize()
     assert b._failure is None
     assert 6 <= len(first) <= 9 and len(second) == 4
+
+
+# ── the captured decode step ─────────────────────────────────────────
+
+def _graph_batch(gen, rows, length=14):
+    """(vision_x, ids) of `rows` requests of `length` tokens, stacked."""
+    import numpy as np
+    reqs = _card_requests(gen, (length,) * rows)
+    return (np.concatenate([r[0] for r in reqs]),
+            np.concatenate([r[1] for r in reqs]))
+
+
+def test_graphed_generate_equals_eager_with_its_launches(gen):
+    """`OtterGenerator` on the card captures its step by default: the
+    first request of a key runs a step eagerly, captures, then replays;
+    a later one only replays. Tokens and every kernel's launches equal
+    the eager step's (`cuda_graph=False`), the stream yields the same
+    tokens, and replays make no host sync."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools import bench_decode
+    model = _card_otter()
+    vx, ids = _graph_batch(gen, 3)
+    g = Gen(max_new_tokens=12, eos_token_id=-1)
+    eager = OtterGenerator(model, cache_dtype=torch.int8, cuda_graph=False)
+    graphed = OtterGenerator(model, cache_dtype=torch.int8)
+    assert graphed.cuda_graph and not eager.cuda_graph
+
+    def run(engine, rows=3):
+        before = bench_decode.kernel_launches()
+        out = engine.generate(vx[:rows], ids[:rows], gen=g)
+        after = bench_decode.kernel_launches()
+        return out, {k: after[k] - before[k] for k in after}
+
+    want, want_n = run(eager)
+    assert want_n["decode_attention"] == 11 * 2
+    for _ in range(2):      # capture, then replays only
+        got, got_n = run(graphed)
+        assert (got == want).all() and got_n == want_n
+    entry = graphed._entries[-1]
+    assert entry.graph is not None and entry.capture_ms > 0
+    assert sum(entry.launches.values()) > 0
+    streamed = list(graphed.stream_generate(vx[:1], ids[:1], gen=g))
+    assert streamed == run(eager, 1)[0][0, ids.shape[1]:].tolist()
+    # a key with bans (no-repeat n-grams, bad words): their prefixes are
+    # made once, outside the capture
+    bans = Gen(max_new_tokens=12, eos_token_id=-1, no_repeat_ngram_size=2,
+               bad_words_ids=((int(want[0, 15]), int(want[0, 16])),
+                              (int(want[1, 17]),)))
+    for _ in range(2):
+        assert (graphed.generate(vx, ids, gen=bans)
+                == eager.generate(vx, ids, gen=bans)).all()
+    st = graphed._prefill(vx, ids, None, g)
+    try:
+        graphed._advance(st)    # a replay of the captured key
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                graphed._advance(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        graphed._finish(st)
+
+
+def test_sampled_graphed_request_repeats_by_seed(gen):
+    """The request's generator is copied into the one the graph
+    registered: one seed gives one answer, graphed or eager."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    model = _card_otter()
+    vx, ids = _graph_batch(gen, 2)
+    g = Gen(max_new_tokens=10, do_sample=True, temperature=1.5, top_k=50,
+            top_p=0.95, eos_token_id=-1)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(7)
+    graphed = OtterGenerator(model, cache_dtype=torch.int8)
+    outs = [graphed.generate(vx, ids, gen=g, generator=seeded())
+            for _ in range(3)]
+    assert graphed._entries[-1].graph is not None
+    eager = OtterGenerator(model, cache_dtype=torch.int8, cuda_graph=False)
+    assert (outs[0] == outs[1]).all() and (outs[1] == outs[2]).all()
+    assert (eager.generate(vx, ids, gen=g, generator=seeded())
+            == outs[0]).all()
+
+
+def test_megakernel_route_refuses_a_graph(gen):
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    from otter_tpu_torch.tools.random_weights import build_model
+    cfg = _card_otter().cfg
+    model = build_model(cfg.replace(text=cfg.text.replace(
+        megakernel=True, decode_kernel=False)), "cuda", 0)
+    assert OtterGenerator(model).cuda_graph is False
+    with pytest.raises(ValueError, match="megakernel"):
+        OtterGenerator(model, cuda_graph=True)
+
+
+def test_failed_capture_raises_and_drops_its_entry(gen, monkeypatch):
+    """A step that reads a device value on the host cannot be captured:
+    the request raises (no quiet eager step), the entry is dropped, and
+    the engine captures again once the step is fixed."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation import sampling
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    model = _card_otter()
+    vx, ids = _graph_batch(gen, 2)
+    g = Gen(max_new_tokens=6, eos_token_id=-1)
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
+    real = sampling.sample_token
+
+    def syncing(logits, **kw):
+        float(logits.max())
+        return real(logits, **kw)
+    monkeypatch.setattr(sampling, "sample_token", syncing)
+    with pytest.raises(RuntimeError):
+        engine.generate(vx, ids, gen=g)
+    assert engine._entries == []
+    monkeypatch.setattr(sampling, "sample_token", real)
+    out = engine.generate(vx, ids, gen=g)
+    assert engine._entries[-1].graph is not None
+    eager = OtterGenerator(model, cache_dtype=torch.int8, cuda_graph=False)
+    assert (eager.generate(vx, ids, gen=g) == out).all()

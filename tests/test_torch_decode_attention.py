@@ -203,3 +203,33 @@ def test_split_and_merge_matches_jax_kernel(cache, edges):
         assert len(cut(5, 17)) == 1 and len(cut(0, 200)) > 1
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
     assert not out[3].any()
+
+
+def test_a_larger_call_leaves_a_held_workspace_alone():
+    """The workspace a captured graph owns (ROADMAP Queue 3, closed): made
+    at its size by an eager call inside `owned_workspace`, then frozen. A
+    larger call outside grows the shared pair and leaves the held one
+    alive, unreplaced and unaliased; inside the block again the graph's
+    call gets the same tensors, and a call that would need more raises
+    instead of replacing them behind the graph."""
+    cpu = torch.device("cpu")
+    held = da.Workspace()
+    with da.owned_workspace(held):
+        ws, cnt = da._workspace(cpu, *da.workspace_size(2, 4, 3, 64))
+    held.frozen = True
+    ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
+    ws.fill_(1.5)
+    small = da._workspace(cpu, 8, 2)
+    big = da._workspace(cpu, *da.workspace_size(8, 32, 4, 128))
+    assert big[0].numel() >= 8 * 32 * 4 * 130 and big[1].numel() >= 256
+    for t in small + big:
+        assert t.data_ptr() not in (ws_ptr, cnt_ptr)
+    assert held.tensors() == {None: (ws, cnt)}
+    assert ws.data_ptr() == ws_ptr and bool((ws == 1.5).all())
+    with da.owned_workspace(held):
+        again = da._workspace(cpu, *da.workspace_size(2, 4, 3, 64))
+        assert again[0] is ws and again[1] is cnt
+        with pytest.raises(RuntimeError, match="frozen"):
+            da._workspace(cpu, ws.numel() + 1, 1)
+    # eager calls keep sharing one pair, which grows to the largest
+    assert da._workspace(cpu, 8, 2)[0] is da._workspace(cpu, 8, 2)[0]
