@@ -31,9 +31,13 @@ unless every phase passes:
                  OtterHD's with biases and sq_relu (M = 1) and falcon7b's
                  4544 -> 18176 -> 4544 (M = 8), `int8_attn_tail` at M = 1,
                  8 and 32, `decode_attn_megakernel` at b = 1 and 8 over
-                 caches of 256 and 2048, each with its device time and two
-                 calls compared bit for bit (the megakernel also with the
-                 device time of each of its kernels at b=8 pos 255),
+                 caches of 256 and 2048 with the position a device int32,
+                 each with its device time and two calls compared bit for
+                 bit (the megakernel also with the device time of each of
+                 its kernels at b=8 pos 255, and one call captured as a
+                 CUDA graph at pos 0 and replayed after the position
+                 counter moves to 57, 0, 255 and 128, each replay against
+                 the plain version at its position, with its device ms),
                  `int4_mlp` at 4096 -> 16384 -> 4096 (M = 1, 8, 32; the
                  xattn FF at M = 8) and falcon7b's widths (M = 8), each
                  with its device time and two calls compared bit for bit;
@@ -179,16 +183,22 @@ unless every phase passes:
                  greedy of 32-128 tokens, 2 of 300 and 480 prefilled in
                  chunks, one with 3 beams, one sampled; one 224x224 image
                  and 32 new tokens each), 8 at once then one every 50 ms.
-                 Each greedy and the beam request against generate alone:
+                 The pool's step captured as a CUDA graph (the card's
+                 default) and eager (`cuda_graph=False`), one run each:
+                 the greedy and beam tokens equal between the two; each
+                 greedy and the beam request against generate alone:
                  equal, or where bf16 products at another M part them,
                  the parting step's logits within 5e-2 max|lone|; the
                  sampled request repeats under one seed; every pooled
                  step launches int8_mlp 40 and decode_attention 32
-                 times, nothing else. Prints aggregate tok/s and TTFT
-                 p50/p90, a pooled step at 8 rows beside generate's b=8
-                 step and under torch.profiler (runs of 8 and 40 new
-                 tokens, each profiled whole, a step from their
-                 difference); then the worker with
+                 times, nothing else (a replay counts what its capture
+                 recorded). Prints aggregate tok/s and TTFT p50/p90 of
+                 each, the graphs' capture ms and pools, a pooled step
+                 at 8 rows graphed and eager (two pools of each in
+                 turns) beside generate's b=8 step, and the graphed step
+                 under torch.profiler (runs of 8 and 40 new tokens, each
+                 profiled whole, a step from their difference); then
+                 the worker (its pool graphed) with
                  --continuous-batching --num-slots 4 over localhost
                  HTTP (4 requests at once against one after another, 3
                  rounds, the status carrying batching) and idefics-9b
@@ -348,14 +358,19 @@ unless every phase passes:
                  `torch.cuda.set_sync_debug_mode("error")`; the device ms
                  a step by torch.profiler over whole runs and by CUDA
                  events over 30 queued replays; whether torch.multinomial
-                 and the top-k / top-p filters capture. Then
+                 and the top-k / top-p filters capture. Then the same
+                 model with `megakernel=True` and a bf16 cache (the
+                 kernel reads the position from the device counter) at
+                 b=1 and b=8 the same way: tokens equal, launches a step
+                 exact (32 decode_attn_megakernel, 40 int8_mlp), no host
+                 sync in 8 steps of either engine. Then
                  OTTER-LLaMA2-Chat-7B at b=8 the same way (rope positions
                  from the device counter), its launches exact.
 
-In every phase `OtterGenerator`'s greedy and sampled decode steps replay a
-captured CUDA graph (the default on the card); the fused phase's
-megakernel route, beams, the batcher, speculation and `fuyu_generate`
-step eagerly.
+In every phase `OtterGenerator`'s greedy and sampled decode steps (the
+fused phase's megakernel route too) and the continuous batcher's pooled
+step replay a captured CUDA graph (the default on the card); beams, the
+speculative rounds and `fuyu_generate` step eagerly.
 
 `--phases profilerace` (not in the default run) repeats, in a child
 process, the pattern in which two default runs crashed (ROADMAP Queue 3):
@@ -1532,19 +1547,43 @@ def _tail_kernels(gen, report, entries):
 # the kernels one `decode_attn_megakernel` call launches: row norm, qkv
 # product, attention, Wo product, sum of the partials
 MEGAKERNEL_KERNELS = 5
+# the megakernel's device ms a call at b=8 over a cache of 256 by position
+# when it took the position by value (an earlier H100 run, PERF.md's kernel
+# table), printed beside this run's
+BY_VALUE_MEGAKERNEL_MS = {255: 0.0558, 57: 0.0452, 0: 0.0425}
+
+
+def megakernel_bytes(b: int, pos: int, d: int = 4096, h: int = 32,
+                     dh: int = 128) -> int:
+    """Bytes a megakernel call must move: wqo (int8) and its scales, ln1,
+    the cache rows below pos (bf16 k and v), the bias columns up to pos,
+    the position, x in and y, k_new, v_new out (bf16)."""
+    return (4 * d * d + 4 * 4 * d + 4 * d + 2 * 2 * b * h * pos * dh
+            + 4 * h * (pos + 1) + 4 + 2 * 4 * b * d)
+
+
+def megakernel_flops(b: int, pos: int, d: int = 4096, h: int = 32,
+                     dh: int = 128) -> float:
+    return 2.0 * b * 4 * d * d + 4.0 * b * h * pos * dh
 
 
 def _fused_layer_kernels(gen, report, entries, tail: bool = True):
     """`int8_attn_tail` (with `tail`; `_tail_kernels`) and
     `decode_attn_megakernel` against their plain versions at MPT-7B's
     widths (D=4096, H=16384, 32 heads of 128): the megakernel at b = 1 and
-    8, pos 0, 57 and 255 of a cache of 256 and pos 2047 of 2048, with two
-    calls compared bit for bit, its device time and, at b=8 pos 255, the
-    device time of each of its kernels (torch.profiler). Two weight sets in
-    turn (and another cache layer each launch), so that the timed reads
-    come from device memory and not from the 50 MB L2. No single PyTorch
-    call computes either: library "none"."""
+    8, pos 0, 57 and 255 of a cache of 256 and pos 2047 of 2048 (the
+    position a device int32 that the kernel reads), with two calls
+    compared bit for bit, its device time and, at b=8 pos 255, the device
+    time of each of its kernels (torch.profiler); then one call captured
+    as a CUDA graph at pos 0 and replayed after the position counter moves
+    (b=8, cache 256), each replay held to the plain version at its own
+    position, with its device time. Two weight sets in turn (and another
+    cache layer each launch), so that the timed reads come from device
+    memory and not from the 50 MB L2. No single PyTorch call computes
+    either: library "none"."""
     import torch
+    from otter_tpu_torch import _build
+    from otter_tpu_torch.ops import decode_attention as da
     from otter_tpu_torch.ops import megakernel as mk
     from otter_tpu_torch.ops.masks import alibi_slopes
     d, h, dh = 4096, 32, 128
@@ -1585,9 +1624,10 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
             v[:, :, :, pos:] = 1e4
             x = rnd(b, d)
             layer = nl - 1
+            pos_dev = torch.tensor(pos, dtype=torch.int32, device="cuda")
 
             def first():
-                return mk.decode_attn_megakernel(x, k, v, pos, bias,
+                return mk.decode_attn_megakernel(x, k, v, pos_dev, bias,
                                                  *wqos[0], layer=layer)
 
             outs = first()
@@ -1602,17 +1642,15 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
                 excess = float("inf")
             it = iter(range(10 ** 9))
 
-            def call(fn=mk.decode_attn_megakernel):
+            def call(fn=mk.decode_attn_megakernel, p=pos_dev):
                 i = next(it)
-                return fn(x, k, v, pos, bias, *wqos[i % 2], layer=i % nl)
+                return fn(x, k, v, p, bias, *wqos[i % 2], layer=i % nl)
 
-            nbytes = (4 * d * d + 4 * 4 * d + 4 * d + 2 * 2 * b * h * pos * dh
-                      + 4 * h * (pos + 1) + 2 * 4 * b * d)
             res = report("decode_attn_megakernel", f"b={b} L={L} pos={pos}",
                          err, excess, time_ms(call),
                          time_ms(lambda: call(
-                             mk.decode_attn_megakernel_plain), 5), None,
-                         nbytes, 2.0 * b * 4 * d * d + 4.0 * b * h * pos * dh,
+                             mk.decode_attn_megakernel_plain, pos), 5), None,
+                         megakernel_bytes(b, pos), megakernel_flops(b, pos),
                          device=(device_ms(call), None))
             if (b, L, pos) == (8, 256, 255):
                 subs = _kernel_device_ms(call, MEGAKERNEL_KERNELS)
@@ -1623,6 +1661,52 @@ def _fused_layer_kernels(gen, report, entries, tail: bool = True):
                 entries["decode_attn_megakernel"] = res
             del k, v
         del kc, vc
+
+    # one graph, captured at pos 0 with a workspace of its own, replayed
+    # after the position counter moves
+    b, L, nl = 8, 256, 4
+    bias = (torch.arange(L, device="cuda")[None, :]
+            * alibi_slopes(h, device="cuda")[:, None]).float()
+    kc, vc, x = rnd(b, nl, h, L, dh), rnd(b, nl, h, L, dh), rnd(b, d)
+    pos_dev = torch.zeros((), dtype=torch.int32, device="cuda")
+    fn = lambda: mk.decode_attn_megakernel(x, kc, vc, pos_dev, bias,
+                                           *wqos[0], layer=nl - 1)
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(main)
+    graph, ws = torch.cuda.CUDAGraph(), da.Workspace()
+    with torch.cuda.stream(side), da.owned_workspace(ws):
+        fn()
+        ws.frozen = True
+        with _build.recording_launches() as launches:
+            graph.capture_begin()
+            outs = fn()
+            graph.capture_end()
+    main.wait_stream(side)
+    if launches != {(mk.decode_attn_megakernel, False): 1}:
+        raise RuntimeError(f"the megakernel's capture recorded {launches}")
+    replayed = {}
+    for pos in (57, 0, 255, 128):
+        pos_dev.fill_(pos)
+        graph.replay()
+        refs = mk.decode_attn_megakernel_plain(x, kc, vc, pos, bias,
+                                               *wqos[0], layer=nl - 1)
+        torch.cuda.synchronize()
+        err, excess = worst(outs, refs)
+        res = report("decode_attn_megakernel",
+                     f"graph b={b} L={L} replayed at pos={pos}", err, excess,
+                     time_ms(graph.replay),
+                     time_ms(lambda: mk.decode_attn_megakernel_plain(
+                         x, kc, vc, pos, bias, *wqos[0], layer=nl - 1), 5),
+                     None, megakernel_bytes(b, pos),
+                     megakernel_flops(b, pos),
+                     device=(device_ms(graph.replay), None))
+        replayed[pos] = res["device_ms"]
+    log("    the graph captured at pos 0, replayed at each position, "
+        "device ms a replay: " + ", ".join(
+            f"pos {p} {t:.4f} (the by-value kernel's eager call: "
+            f"{BY_VALUE_MEGAKERNEL_MS[p]})"
+            for p, t in replayed.items() if p in BY_VALUE_MEGAKERNEL_MS))
+    graph.reset()
 
 
 def _kernel_device_ms(fn, per_call: int, iters: int = 20,
@@ -2402,16 +2486,17 @@ def _sampling_captures(smi: str) -> None:
         raise RuntimeError(f"graph: {bad} do not capture")
 
 
-def _graph_vs_eager(tag, smi, model, cfg, b, seed, reps=REPS):
+def _graph_vs_eager(tag, smi, model, cfg, b, seed, reps=REPS,
+                    cache_dtype=None, want_step=None):
     """One request shape through a graphed engine and its eager twin in
-    turns: tokens, launches a step, wall ms a step, the first request of
-    the key against later ones, the capture. Returns (graphed, eager,
-    request, graphed tokens)."""
+    turns: tokens, launches a step (equal, and `want_step` where given),
+    wall ms a step, the first request of the key against later ones, the
+    capture. Returns (graphed, eager, request, graphed tokens)."""
     import numpy as np
     import torch
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
-    graphed = OtterGenerator(model, cache_dtype=torch.int8)
+    graphed = OtterGenerator(model, cache_dtype=cache_dtype or torch.int8)
     eager = _eager_twin(graphed)
     if not graphed.cuda_graph:
         raise RuntimeError(f"{tag}: the engine's step is not graphed by "
@@ -2449,9 +2534,11 @@ def _graph_vs_eager(tag, smi, model, cfg, b, seed, reps=REPS):
             *req, gen=GenerationConfig(max_new_tokens=3, eos_token_id=-1)))
         steps[mode] = {k: (n - one.get(k, 0)) / 2 for k, n in three.items()
                        if n != one.get(k, 0)}
-    if steps["graphed"] != steps["eager"]:
+    if steps["graphed"] != steps["eager"] or (
+            want_step is not None and steps["graphed"] != want_step):
         raise RuntimeError(f"{tag}: launches a step graphed "
-                           f"{steps['graphed']}, eager {steps['eager']}")
+                           f"{steps['graphed']}, eager {steps['eager']}"
+                           f"{'' if want_step is None else f', expected {want_step}'}")
     med = {k: float(np.median(v)) for k, v in times.items()}
     step_ms = {m: (med[(m, GRAPH_NEW)] - med[(m, 1)]) / (GRAPH_NEW - 1) * 1e3
                for m in engines}
@@ -2747,10 +2834,37 @@ def _stream_ttft(tag, smi, graphed, req):
         f"{b2 * 1e3:.2f} ms | {smi}")
 
 
+MEGAKERNEL_STEP = {"int8_mlp": 40, "decode_attn_megakernel": 32}
+
+
+def _graph_megakernel(smi: str) -> None:
+    """The megakernel route captured: OTTER-Image-MPT7B at full width and
+    depth, int8 weights, `megakernel=True` with a bf16 cache (its kernel
+    reads the position from the device counter), b=1 and b=8, 32 new
+    tokens, graphed against `cuda_graph=False` in turns: tokens equal,
+    launches a step equal and exact (the megakernel once a layer, the FF's
+    `int8_mlp` 40), no host sync in 8 steps of either."""
+    import torch
+    cfg = serving_cfg()
+    cfg = cfg.replace(text=cfg.text.replace(megakernel=True))
+    model = build_model(cfg)
+    log(f"graph megakernel: {cfg.text.num_hidden_layers}-layer mpt model, "
+        f"int8 weights with the fused [Wqkv | Wo] copy "
+        f"({_weight_bytes(model) / 1e9:.3f} GB), bf16 KV cache")
+    for b, seed in ((1, SEED + 41), (8, SEED + 48)):
+        graphed, eager, req, _ = _graph_vs_eager(
+            "graph megakernel", smi, model, cfg, b, seed,
+            cache_dtype=torch.bfloat16, want_step=MEGAKERNEL_STEP)
+        _no_sync(f"graph megakernel b={b}",
+                 {"graphed": graphed, "eager": eager}, req)
+        del graphed, eager
+
+
 def phase_graph(smi: str):
     """The captured decode step (`OtterGenerator`, `cuda_graph`) against
     its eager step on OTTER-Image-MPT7B at full width and depth (int8
-    weights and cache, decode_kernel="auto"), b=1 and b=8, and
+    weights and cache, decode_kernel="auto"), b=1 and b=8, the same model
+    on the megakernel route (bf16 cache) at b=1 and b=8, and
     OTTER-LLaMA2-Chat-7B at b=8."""
     import gc
     import torch
@@ -2775,6 +2889,9 @@ def phase_graph(smi: str):
     _no_sync("graph b=8", {"graphed": graphed8, "eager": eager8}, req8)
     _device_step("graph b=8", smi, graphed8, eager8, req8)
     del graphed1, eager1, graphed8, eager8, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _graph_megakernel(smi)
     gc.collect()
     torch.cuda.empty_cache()
     lcfg = llama_cfg()
@@ -3782,30 +3899,36 @@ PARITY_BAR = 5e-2    # of max|lone logits|: the model-output tolerance
 
 
 class _StepRecorder:
-    """Wraps a batcher's pooled step, first-token sample and beam step
-    (they run on its scheduler thread): each step's launches, and, kept on
-    the card until read, each step's processed logits [n, V] and tokens
-    with the prompt length of each row's request (None for a free or beam
-    row) and the tokens the row emitted before the step; a first token and
-    its logits by prompt length; a beam group's live hypotheses before and
+    """Wraps a batcher's pooled step (`_run_step`: a graph's replay, or the
+    eager step), first-token sample and beam step (they run on its
+    scheduler thread): each step's launches (a replay adds what its
+    capture recorded), and, copied on the card (a replay overwrites its
+    outputs, and the step advances the carried state in place) and kept
+    there until read, each step's processed logits [n, V] and tokens with
+    the prompt length of each row's request (None for a free or beam row)
+    and the tokens the row emitted before the step; a first token and its
+    logits by prompt length; a beam group's live hypotheses before and
     after each of its steps, with its rows' logits. Prompt lengths name
     the requests: the phase's requests in one run all differ in length
-    (and hold one beam request)."""
+    (and hold one beam request). Every step asks for the logits, so a
+    graphed pool captures the key with them."""
 
     def __init__(self, batcher):
         from otter_tpu_torch.tools import bench_decode
-        step, first = batcher._decode_step, batcher._first_token
+        step, first = batcher._run_step, batcher._first_token
         self.reset()
 
-        def decode_step(ca, st, lp, need_logits=False):
+        def run_step(need_logits=False):
+            emitted = batcher._carried["emitted"].clone()
             before = bench_decode.kernel_launches()
-            out = step(ca, st, lp, True)
+            out = step(True)
             after = bench_decode.kernel_launches()
             self.launches.append({k: after[k] - before[k] for k in after
                                   if after[k] != before[k]})
             owners = [s.real_len if s.active and s.group is None else None
                       for s in batcher._slots]
-            self.steps.append((owners, ca["emitted"], out[4], out[0]))
+            self.steps.append((owners, emitted, out[4].clone(),
+                               out[0].clone()))
             return out if need_logits else out[:4]
 
         def first_token(logits, ids, bucket, real, gen):
@@ -3820,7 +3943,7 @@ class _StepRecorder:
                                     [list(h) for h in grp.hyps]))
 
         advance = batcher._beam_advance
-        batcher._decode_step, batcher._first_token = decode_step, first_token
+        batcher._run_step, batcher._first_token = run_step, first_token
         batcher._beam_advance = beam_advance
 
     def reset(self):
@@ -4064,34 +4187,54 @@ def phase_batch(smi: str):
     log(f"batch: each request alone through generate in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # (1) 20 requests through a pool of 8: 8 at once, then one every 50 ms
-    b, rec = pool()
-    try:
-        _run_requests(b, reqs[:1] + reqs[16:17], 2, 0.0)   # warm-up
-    finally:
-        b.shutdown()
-    b, rec = pool()
-    try:
-        bench_decode.reset_kernel_launches()
-        got, stamps, submitted, wall = _run_requests(b, reqs, 8, 0.05)
-        path = {k: v for k, v in bench_decode.kernel_launches().items()
-                if v}
-        stats = b.stats()
-    finally:
-        b.shutdown()
-    if b._failure is not None:
-        raise RuntimeError("batch: the scheduler failed") from b._failure
-    _step_launches_exact("batch", rec)
-    stray = {k for k in path if k not in BATCH_PATH}
-    if stray or set(path) != BATCH_PATH:
-        raise RuntimeError(f"batch: the run launched {path}")
+    # (1) 20 requests through a pool of 8: 8 at once, then one every 50 ms;
+    # the pool's step captured (the card's default) and eager
+    runs = {}
+    for mode, kw in (("graphed", {}), ("eager", dict(cuda_graph=False))):
+        b, rec = pool(**kw)
+        try:
+            _run_requests(b, reqs[:1] + reqs[16:17], 2, 0.0)   # warm-up
+        finally:
+            b.shutdown()
+        b, rec = pool(**kw)
+        if b.cuda_graph != (mode == "graphed"):
+            raise RuntimeError(f"batch: the pool's step is "
+                               f"{'not ' if mode == 'graphed' else ''}"
+                               f"graphed by default")
+        try:
+            bench_decode.reset_kernel_launches()
+            got, stamps, submitted, wall = _run_requests(b, reqs, 8, 0.05)
+            path = {k: v for k, v in bench_decode.kernel_launches().items()
+                    if v}
+            stats = b.stats()
+            graphs = [(key, g.capture_ms, g.pool_bytes)
+                      for key, g in b._graphs.items()]
+        finally:
+            b.shutdown()
+        if b._failure is not None:
+            raise RuntimeError("batch: the scheduler failed") \
+                from b._failure
+        _step_launches_exact(f"batch {mode}", rec)
+        stray = {k for k in path if k not in BATCH_PATH}
+        if stray or set(path) != BATCH_PATH:
+            raise RuntimeError(f"batch {mode}: the run launched {path}")
+        if (mode == "graphed") != bool(graphs):
+            raise RuntimeError(f"batch {mode}: graphs {graphs}")
+        runs[mode] = (got, stamps, submitted, wall, path, stats, graphs, rec)
+    got, stamps, submitted, wall, path, stats, graphs, rec = runs["graphed"]
+    kinds = [k for k, _, _ in reqs]
+    same = [g == e for g, e, k in zip(got, runs["eager"][0], kinds)
+            if k != "sampled"]
+    if not all(same):
+        raise RuntimeError(f"batch: {same.count(False)} of {len(same)} "
+                           f"greedy and beam requests differ between the "
+                           f"graphed and the eager pool")
     partings = []
     for (kind, req, gen), g, w in zip(reqs, got, want):
         if kind == "greedy":
             _hold_greedy("batch", engine, req, w, g, rec, partings)
         elif kind == "beam":
             _hold_beam("batch", engine, req, gen, w, g, rec, partings)
-    kinds = [k for k, _, _ in reqs]
     sampled = reqs[kinds.index("sampled")]
     repeats = []
     for _ in range(2):
@@ -4103,23 +4246,28 @@ def phase_batch(smi: str):
     if repeats[0] != repeats[1] or not repeats[0]:
         raise RuntimeError(f"batch: the sampled request gave {repeats} "
                            f"under one seed")
-    n_tok = sum(len(g) for g in got)
-    ttft = [s[0] - t for s, t in zip(stamps, submitted)]
-    log(f"batch: 20 requests (16 greedy of 32-128 tokens, 2 of 300 and "
-        f"480 in chunks of 256, 3 beams, 1 sampled; one 224x224 image "
-        f"each, 32 new tokens) through 8 slots, 8 at once then one every "
-        f"50 ms: {n_tok} tokens in {wall * 1e3:.1f} ms, "
-        f"{n_tok / wall:.2f} tok/s aggregate; TTFT p50 "
-        f"{stats['ttft_p50_s'] * 1e3:.2f} ms, p90 "
-        f"{stats['ttft_p90_s'] * 1e3:.2f} ms (stats()), first tokens "
-        f"{np.percentile(ttft, 50) * 1e3:.2f} / "
-        f"{np.percentile(ttft, 90) * 1e3:.2f} ms at the consumer; "
-        f"{len(rec.launches)} pooled steps, each launching {BATCH_STEP}; "
-        f"run launches {path}; greedy and beam tokens equal to generate "
-        f"alone{'' if not partings else ' but where they part: ' + '; '.join(partings)} "
-        f"({len(partings)} of 19 part); "
-        f"the sampled request repeats under one seed | {smi}")
-    del rec
+    for mode, (g_, st_, sub_, wall_, path_, stats_, graphs_, rec_) in \
+            runs.items():
+        n_tok = sum(len(x) for x in g_)
+        ttft = [x[0] - t for x, t in zip(st_, sub_)]
+        log(f"batch {mode}: 20 requests (16 greedy of 32-128 tokens, 2 of "
+            f"300 and 480 in chunks of 256, 3 beams, 1 sampled; one 224x224 "
+            f"image each, 32 new tokens) through 8 slots, 8 at once then "
+            f"one every 50 ms: {n_tok} tokens in {wall_ * 1e3:.1f} ms, "
+            f"{n_tok / wall_:.2f} tok/s aggregate; TTFT p50 "
+            f"{stats_['ttft_p50_s'] * 1e3:.2f} ms, p90 "
+            f"{stats_['ttft_p90_s'] * 1e3:.2f} ms (stats()), first tokens "
+            f"{np.percentile(ttft, 50) * 1e3:.2f} / "
+            f"{np.percentile(ttft, 90) * 1e3:.2f} ms at the consumer; "
+            f"{len(rec_.launches)} pooled steps, each launching "
+            f"{BATCH_STEP}; run launches {path_}; graphs (key, capture ms, "
+            f"pool MiB) {[(k, round(c, 1), round(m / 2 ** 20, 1)) for k, c, m in graphs_]} | {smi}")
+    log(f"batch: greedy and beam tokens equal between the graphed and the "
+        f"eager pool, and to generate alone"
+        f"{'' if not partings else ' but where they part: ' + '; '.join(partings)} "
+        f"({len(partings)} of 19 part); the sampled request repeats under "
+        f"one seed | {smi}")
+    del rec, runs
 
     # (2) a pooled step at 8 active rows against generate's b=8 step
     b8 = make_requests(cfg, 8, SEED + 101)
@@ -4127,10 +4275,10 @@ def phase_batch(smi: str):
         max_new_tokens=n, eos_token_id=-1)))[1] for n in (1, 32)}
     gen_step = [(a - c) / 31 for a, c in zip(runs[32], runs[1])]
 
-    def rows8(n_new):
+    def rows8(n_new, **kw):
         """The 8 requests (n_new tokens each) through a fresh pool of 8,
         all admitted at once: (arrival times a request, wall s)."""
-        b, rec = pool(max_admits_per_iter=8, prefill_chunk=0)
+        b, rec = pool(max_admits_per_iter=8, prefill_chunk=0, **kw)
         stamps = [[] for _ in range(8)]
         try:
             t = time.perf_counter()
@@ -4144,9 +4292,12 @@ def phase_batch(smi: str):
         _step_launches_exact("batch (8 rows)", rec)
         return stamps, wall
 
-    stamps, _ = rows8(72)
-    gaps = np.diff(np.asarray([s[16:64] for s in stamps]), axis=1)
-    steady = list(np.median(gaps, axis=1) * 1e3)
+    steady = {}
+    for mode, kw in (("graphed", {}), ("eager", dict(cuda_graph=False)),
+                     ("graphed", {}), ("eager", dict(cuda_graph=False))):
+        stamps, _ = rows8(72, **kw)
+        gaps = np.diff(np.asarray([s[16:64] for s in stamps]), axis=1)
+        steady.setdefault(mode, []).extend(np.median(gaps, axis=1) * 1e3)
     # Under torch.profiler (the device's kernels only): runs of 8 and of
     # 40 new tokens, a step from the difference. Each run is profiled
     # whole: the profiler starts before the pool's threads and stops after
@@ -4160,16 +4311,25 @@ def phase_batch(smi: str):
             prof, wall, f"batch: profile of 8 rows x {n_new} new tokens",
             f"profile_batch_8rows_new{n_new}.txt") + (wall,)
     (b0, n0, w0), (b1, n1, w1) = seen[8], seen[40]
-    log(f"batch: a pooled step at 8 rows under the profiler: "
-        f"{(w1 - w0) / 32 * 1e3:.3f} ms wall, {(b1 - b0) / 32 * 1e3:.3f} "
-        f"ms of device kernels ({100 * (b1 - b0) / (w1 - w0):.1f}% busy), "
-        f"{(n1 - n0) / 32:.1f} launches a step ((40 new - 8 new) / 32) "
-        f"| {smi}")
+    med = {m: float(np.median(v)) for m, v in steady.items()}
+    dev_step = (b1 - b0) / 32 * 1e3
+    # (each profiled run is a fresh pool that captures its step: the
+    # difference of their walls is no step time; the steady gaps are)
+    log(f"batch: a pooled step at 8 rows under the profiler (graphed): "
+        f"{dev_step:.3f} ms of device kernels, "
+        f"{(n1 - n0) / 32:.1f} launches a step ((40 new - 8 new) / 32), "
+        f"{100 * dev_step / med['graphed']:.1f}% of the graphed step's "
+        f"median gap below | {smi}")
     log(f"batch: a pooled step at 8 active rows (median gap between a "
-        f"stream's tokens 16-64 of 72, per stream) "
-        f"{[round(x, 2) for x in steady]} ms; generate's b=8 step in the "
-        f"same call {[round(x, 2) for x in gen_step]} ms "
-        f"((t(32 new) - t(1 new)) / 31, {REPS} runs) | {smi}")
+        f"stream's tokens 16-64 of 72, per stream, two pools of each kind "
+        f"in turns): graphed "
+        f"{[round(float(x), 2) for x in steady['graphed']]} ms (median "
+        f"{med['graphed']:.3f}), eager "
+        f"{[round(float(x), 2) for x in steady['eager']]} ms (median "
+        f"{med['eager']:.3f}), each step launching {BATCH_STEP}; "
+        f"generate's b=8 step in the same call "
+        f"{[round(float(x), 2) for x in gen_step]} ms ((t(32 new) - "
+        f"t(1 new)) / 31, {REPS} runs) | {smi}")
 
     worker_path = _batch_worker(smi, model, cfg, engine)
     _batch_idefics(smi)
@@ -4630,9 +4790,11 @@ class _PoolRecorder:
             return out
 
         def step_(ca, st, lp, need_logits=False):
+            # (the step advances the carried state in place)
+            emitted = ca["emitted"].clone()
             out = timed("plain", step, ca, st, lp, True)
-            self.events[-1].update(emitted=ca["emitted"], logits=out[4],
-                                   nxt=out[0])
+            self.events[-1].update(emitted=emitted, logits=out[4],
+                                   nxt=out[0].clone())
             return out if need_logits else out[:4]
 
         def first_(logits, ids, bucket, real, gen):

@@ -9,6 +9,13 @@
 // only, rows [0, pos) of `layer`; bias [H, L] f32 (ALiBi column bias,
 // optional). Returns y [B, D], k_new and v_new [B, H, Dh] bf16: the new
 // token's k/v never come from the cache, the caller appends them at `pos`.
+// `pos` is read from device memory (an int32, or an int64 whose high word
+// is its sign), as the TPU kernel reads its scalar-prefetch operand, so one
+// launch, and a CUDA graph that recorded it, serves every position. A
+// position outside [0, L) traps (`__trap()`: the launch fails and the
+// context reports it at the next synchronisation) before any CTA reads a
+// cache row or writes an output: nothing outside rows [0, L) is read or
+// written whatever the value, and a bad position is never clamped.
 //
 // Replaces the Pallas TPU kernel otter_tpu/ops/megakernel.py:
 // decode_attn_megakernel (the kernel body passed to pallas_call there),
@@ -28,7 +35,8 @@
 //      on the tensor cores, every weight read once (int8_rows.cuh)
 //   3. megakernel_attention_kernel: the span [0, pos) of each (batch,
 //      head) cut into chunks, one CTA a chunk (attention_plan in
-//      ops/megakernel.py: one wave of the card where B * H allows). A CTA
+//      ops/megakernel.py: one wave of the card where B * H allows; the
+//      grid is planned from L, each CTA cuts the span from pos). A CTA
 //      adds its head's 3 * Dh columns of partial sums in order and scales
 //      them (q, and k_new / v_new, which chunk 0 writes out), then walks
 //      its rows as decode_attention.cu does: a row is read whole by
@@ -94,7 +102,9 @@ struct AttnArgs {
   __nv_bfloat16* attn;        // [B, D]
   float* part;                // [B, H, n_splits, 2 + DH]: m, l, acc a chunk
   int* counters;              // [B, H], 0 between calls
-  int nsplit, B, H, NL, layer, L, pos, n_splits, min_rows;
+  const int* pos;             // the new token's index, in device memory
+  int pos64;                  // pos is an int64 (its low word first)
+  int nsplit, B, H, NL, layer, L, n_splits, min_rows;
   float sm_scale;
 };
 
@@ -114,15 +124,21 @@ __global__ void __launch_bounds__(NW * 32) megakernel_attention_kernel(
   const int D = a.H * DH;
   const long long bh = (long long)b * a.H + h;
 
+  // the position, once a CTA. It is written before the call's first
+  // kernel (a plain launch) starts, as the bias is, so it may be read
+  // before pdl_wait
+  const int pos = a.pos[0];
+  if ((a.pos64 && a.pos[1] != (pos >> 31)) || pos < 0 || pos >= a.L)
+    __trap();
   // this CTA's chunk of [0, pos), cut as ops/decode_attention.py:
   // split_chunks cuts it (pos 0: one CTA, no cache row)
   int used = 1, lo = 0, hi = 0;
-  if (a.pos > 0) {
-    const int n = max(1, min(a.n_splits, a.pos / a.min_rows));
-    const int chunk = (a.pos + n - 1) / n;
-    used = (a.pos + chunk - 1) / chunk;
+  if (pos > 0) {
+    const int n = max(1, min(a.n_splits, pos / a.min_rows));
+    const int chunk = (pos + n - 1) / n;
+    used = (pos + chunk - 1) / chunk;
     lo = split * chunk;
-    hi = min(lo + chunk, a.pos);
+    hi = min(lo + chunk, pos);
   }
   if (split >= used) return;
   pdl_wait();                // qkv's partial sums come from the kernel before
@@ -196,7 +212,7 @@ __global__ void __launch_bounds__(NW * 32) megakernel_attention_kernel(
     for (int off = 16; off > 0; off >>= 1)
       s_new += __shfl_xor_sync(0xffffffffu, s_new, off);
     s_new *= a.sm_scale;
-    if (bp != nullptr) s_new += bp[a.pos];
+    if (bp != nullptr) s_new += bp[pos];
     if (lane == 0) s_new_sh = s_new;
   }
 
@@ -366,17 +382,19 @@ int launch_attention(const AttnArgs& a, cudaStream_t st) {
 // phase of attn_splits > 1 CTAs a (batch, head) (ops/megakernel.py:
 // attention_plan, with chunks of at least attn_min_rows rows), attn_part
 // [B, H, attn_splits, 2 + Dh] f32 and attn_counters [B, H] int32, 0 before
-// the call and left so (decode_attention's workspace).
+// the call and left so (decode_attention's workspace). `pos` points at the
+// position in device memory, an int64 where pos64 is set (the kernel checks
+// its range).
 extern "C" int decode_attn_megakernel_bf16(
     const void* x, const void* k_cache, const void* v_cache, const void* bias,
     long long bias_sh, const void* ln1, const void* wqo, const void* sqo,
     void* normed, void* ws_qkv, void* attn, void* ws_o, void* attn_part,
-    void* attn_counters, void* y, void* k_new, void* v_new, int B, int H,
-    int Dh, int NL, int layer, int L, int pos, float eps, float sm_scale,
-    int splits_qkv, int splits_o, int attn_splits, int attn_min_rows,
-    void* stream) {
+    void* attn_counters, void* y, void* k_new, void* v_new, const void* pos,
+    int pos64, int B, int H, int Dh, int NL, int layer, int L, float eps,
+    float sm_scale, int splits_qkv, int splits_o, int attn_splits,
+    int attn_min_rows, void* stream) {
   const int D = H * Dh;
-  if (B < 1 || B > 8 || (Dh != 64 && Dh != 128) || pos < 0 || pos >= L ||
+  if (B < 1 || B > 8 || (Dh != 64 && Dh != 128) || pos == nullptr ||
       layer < 0 || layer >= NL ||
       !matmul_partial_ok(B, D, 3 * D, 4 * D, splits_qkv) ||
       !matmul_partial_ok(B, D, D, 4 * D, splits_o) || attn_splits < 1 ||
@@ -408,7 +426,8 @@ extern "C" int decode_attn_megakernel_bf16(
   a.NL = NL;
   a.layer = layer;
   a.L = L;
-  a.pos = pos;
+  a.pos = (const int*)pos;
+  a.pos64 = pos64;
   a.n_splits = attn_splits;
   a.min_rows = attn_min_rows;
   a.sm_scale = sm_scale;

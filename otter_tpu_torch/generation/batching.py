@@ -26,6 +26,18 @@ t + 1 is already queued, so the host waits on nothing before it queues
 the next step. A first token reaches its stream through the finisher
 thread, which waits on the token's event, never on the device as a whole.
 
+The pooled step is the counterpart of the JAX batcher's compiled `decode`
+(jitted once per `(lp_configs, need_logits)`, the cache, buffer and valid
+mask donated): every tensor it reads or writes lives in the pool, fixed in
+memory and updated in place (the cache, the token buffer, the valid mask,
+the latents, the per-admission values, the carried slot state), so on CUDA
+it is captured once per key as a CUDA graph (`cuda_graph`, on by default
+there) and replayed. Admission, chunked prefill and the beam reorder stay
+eager between replays and write the pool in place; the host copy of a
+step's tokens and a beam group's read of its logits are queued before the
+next replay overwrites them. `cuda_graph=False` runs the same step eagerly
+(the CPU always does), and so does a pool with a draft.
+
 With a draft model (`draft=`) every iteration is a speculative round over
 the whole pool (`_spec_round`): the draft's s=2 opener and gamma-1 steps,
 each one pooled call with per-row offsets, then one s=gamma+1 verify window
@@ -45,6 +57,7 @@ rolls back cannot.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -56,14 +69,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from otter_tpu_torch import _build
 from otter_tpu_torch.config import GenerationConfig
-from otter_tpu_torch.generation import sampling
+from otter_tpu_torch.generation import engine, sampling
 from otter_tpu_torch.generation.beam import _top_k
 from otter_tpu_torch.generation.engine import _on, left_pad, \
     select_cache_dtype
 from otter_tpu_torch.generation.speculative import accept_resample_rows
 from otter_tpu_torch.models.decoder import init_cache
 from otter_tpu_torch.models.idefics import IdeficsVLM
+from otter_tpu_torch.ops import decode_attention as da
 from otter_tpu_torch.ops.masks import media_attention_ids
 
 def _round_bucket(n: int, buckets: Tuple[int, ...]) -> int:
@@ -154,12 +169,32 @@ class _BeamGroup:
     t_submit: float = 0.0
 
 
+@dataclass
+class _PooledGraph:
+    """A captured pooled step: the graph, the launches a replay makes
+    (`_build.recording_launches`), the tensors it returns (overwritten by
+    each replay), the capture's host ms and the bytes its memory pool
+    took."""
+    graph: Any
+    launches: dict
+    out: tuple
+    capture_ms: float
+    pool_bytes: int
+
+
 class ContinuousBatcher:
     """Slot-pool streaming engine over an `OtterVLM` or an `IdeficsVLM`
     on its device. `submit()` is thread-safe and returns an iterator of
     token ids; a scheduler thread runs every request through one decode
     step per iteration (a speculative round with a `draft` model: an
-    `OtterVLM` of the target's vocabulary)."""
+    `OtterVLM` of the target's vocabulary).
+
+    `cuda_graph` (None: on for a CUDA model that is not sharded and has
+    no draft) captures the pooled step once per key, the distinct ban
+    configurations among the active slots and whether a beam group reads
+    the logits, and replays it; at most `engine.MAX_ENTRIES` graphs stay
+    (least recently used first out). True is refused on the CPU, on a
+    sharded model and with a draft (its rounds stay eager)."""
 
     def __init__(self, model, *, num_slots=4, cache_len: int = 2048,
                  buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024),
@@ -167,12 +202,19 @@ class ContinuousBatcher:
                  rng_seed: int = 0, max_admits_per_iter: int = 1,
                  hbm_bytes: Optional[float] = None, prefill_chunk: int = 0,
                  draft=None, spec_gamma: int = 4,
-                 spec_adaptive: bool = True):
+                 spec_adaptive: bool = True,
+                 cuda_graph: Optional[bool] = None):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
         self.model_d = draft
         self.gamma = spec_gamma
+        if draft is not None:
+            if cuda_graph:
+                raise ValueError("cuda_graph=True with a draft: a "
+                                 "speculative pool keeps its eager steps")
+            cuda_graph = False
+        self.cuda_graph = engine.graph_setting(cuda_graph, model)
         if draft is not None:
             if draft.cfg.text.vocab_size != self.cfg.text.vocab_size:
                 raise ValueError("slot-pool speculation needs one "
@@ -251,7 +293,9 @@ class ContinuousBatcher:
                                    device=self.device)
         self._valid = torch.zeros((num_slots, cache_len), dtype=torch.bool,
                                   device=self.device)
-        self._latents: Optional[torch.Tensor] = None  # lazy: latent dims
+        # lazy (the latent dims), allocated by the first admission, before
+        # any step runs, and never rebound
+        self._latents: Optional[torch.Tensor] = None
         # the draft's pools: its cache mirrors the target's column layout
         # (the same buffer and valid rows), so only the cache and the
         # latents are its own
@@ -286,14 +330,33 @@ class ContinuousBatcher:
         # (and never past the cache's end: see `_run_catchup`)
         self._catchup_w = min(256, cache_len - max(self.buckets))
 
-        # pipelined decode: carried slot state on the device, and the
-        # iterations whose tokens are still on their way to the host
+        # pipelined decode: the slot state one step hands the next
+        # (carried) and the per-admission values (statics), on the device
+        # and rewritten in place when an admission or a beam step changes
+        # a slot (`_dirty`); the iterations whose tokens are still on their
+        # way to the host
         self.pipeline_depth = 1
-        self._carried: Optional[Dict[str, torch.Tensor]] = None
-        self._statics: Optional[Dict[str, torch.Tensor]] = None
+        n, dev = num_slots, self.device
+        vec = lambda dtype: torch.zeros(n, dtype=dtype, device=dev)
+        self._carried: Dict[str, torch.Tensor] = dict(
+            toks=vec(torch.long), alive=vec(torch.bool),
+            written=vec(torch.long), emitted=vec(torch.long))
+        self._statics: Dict[str, Any] = dict(
+            real_len=vec(torch.long), media=vec(torch.int32),
+            lp_idx=vec(torch.long), valid_from=vec(torch.long),
+            do_sample=vec(torch.bool), temperature=vec(torch.float32),
+            top_k=vec(torch.long), top_p=vec(torch.float32),
+            eos=vec(torch.long), max_new=vec(torch.long),
+            # a host flag: whether a round needs its sampled half
+            sampled=False)
         self._lp_list: Tuple = ()
         self._dirty = True
         self._inflight: List[tuple] = []
+        # the captured pooled steps by key (least recently used first),
+        # the decode_attention workspace they own, their capture stream
+        self._graphs: Dict[tuple, "_PooledGraph"] = {}
+        self._workspace = da.Workspace()
+        self._capture_stream = None
 
         # admission finisher: waits for each first token off the
         # scheduler thread; the slot joins the decode pool (pending ->
@@ -362,6 +425,10 @@ class ContinuousBatcher:
         self._work.set()
         self._thread.join(timeout=10)
         self._finisher.join(timeout=10)
+        if not self._thread.is_alive():
+            for g in self._graphs.values():
+                g.graph.reset()
+            self._graphs.clear()
 
     def active_count(self) -> int:
         with self._lock:
@@ -417,9 +484,10 @@ class ContinuousBatcher:
 
     def _to_host(self, t: torch.Tensor):
         """(host tensor, event): a copy of `t` that is complete once the
-        event is (no event on the CPU)."""
+        event is (no event on the CPU). A copy, never `t` itself: the next
+        step writes the pool's tensors in place."""
         if t.device.type != "cuda":
-            return t, None
+            return t.clone(), None
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
@@ -532,14 +600,17 @@ class ContinuousBatcher:
                      need_logits: bool = False):
         """One cached step of every slot. `lp_configs`: the distinct
         (ngram, bad_words_ids) among active slots, each row picking its own
-        by `st["lp_idx"]` (-1: none). Returns (next tokens, alive, written,
-        emitted) for the next iteration and, with `need_logits`, the
-        processed logits [n, V] (beam groups select from them)."""
+        by `st["lp_idx"]` (-1: none). Advances the carried state `ca`
+        (next tokens, alive, written, emitted) in place and returns it and,
+        with `need_logits`, the processed logits [n, V] (beam groups select
+        from them). Every tensor it writes is written in place, so the same
+        call is what a graph captures."""
         toks, alive, written, emitted = (ca["toks"], ca["alive"],
                                          ca["written"], ca["emitted"])
         L = self.L
         cols = torch.arange(L, device=self.device)[None, :]
-        kv_valid = self._valid | (cols == written[:, None])
+        # the column this step writes joins the valid mask
+        self._valid.logical_or_(cols == written[:, None])
         positions = (st["real_len"] + emitted - 1).clamp_min(0)[:, None]
         # a finished row that filled the cache holds written == L: its
         # write goes to the last column instead (the JAX scatter drops
@@ -548,11 +619,10 @@ class ContinuousBatcher:
         at = written.clamp_max(L - 1)
         logits, _, _ = self.model(
             None, toks[:, None], vis_latents=self._latents, cache=self._cache,
-            cache_pos=at, kv_valid=kv_valid, positions=positions,
+            cache_pos=at, kv_valid=self._valid, positions=positions,
             media_counts=st["media"])
         logits = logits[:, -1]
         self._buffer[torch.arange(self.n, device=self.device), at] = toks
-        self._valid = kv_valid
         # row-gated sequence bans per distinct config
         for ci, (ngram, bad_words) in enumerate(lp_configs):
             gen = GenerationConfig(no_repeat_ngram_size=ngram,
@@ -572,7 +642,10 @@ class ContinuousBatcher:
         written2 = written + alive
         alive2 = (alive & (nxt != st["eos"]) & (emitted2 < st["max_new"])
                   & (written2 + self._room <= L))
-        out = (nxt, alive2, written2, emitted2)
+        for dst, val in zip((toks, alive, written, emitted),
+                            (nxt, alive2, written2, emitted2)):
+            dst.copy_(val)
+        out = (toks, alive, written, emitted)
         return out + (logits,) if need_logits else out
 
     # ── chunked prefill ──────────────────────────────────────────────
@@ -797,8 +870,8 @@ class ContinuousBatcher:
         e = torch.minimum(torch.minimum(m + 1, eos_at + 1),
                           st["max_new"] - emitted)
         e = torch.where(alive, e, torch.zeros_like(e))
-        self._valid = self._valid | ((cols >= written[:, None])
-                                     & (cols < (written + e)[:, None]))
+        self._valid.logical_or_((cols >= written[:, None])
+                                & (cols < (written + e)[:, None]))
         written2, emitted2 = written + e, emitted + e
         eos_hit = ((out == eos) & (idx[None] < e[:, None])).any(1)
         alive2 = (alive & ~eos_hit & (emitted2 < st["max_new"])
@@ -911,10 +984,8 @@ class ContinuousBatcher:
         if not any(s.active for s in slots):
             self._drain_all()
             return False
-        if self._dirty or self._carried is None:
-            self._lp_list, self._statics = self._static_args(slots)
-            self._carried = self._carried_args(slots)
-            self._dirty = False
+        if self._dirty:
+            self._load_slot_state(slots)
             self._t_last_iter = None
         mode = self._next_mode()
         self._note_iter_time(mode)
@@ -927,10 +998,10 @@ class ContinuousBatcher:
             if self._draft_stale:
                 self._run_catchup()
                 self._draft_stale = False
-            out, e, toks2, alive2, written2, emitted2 = self._spec_round(
+            out, e, *carried = self._spec_round(
                 self._carried, self._statics, self._lp_list, mode[1])
-            self._carried = dict(toks=toks2, alive=alive2, written=written2,
-                                 emitted=emitted2)
+            for dst, val in zip(self._carried.values(), carried):
+                dst.copy_(val)
             self._inflight.append((self._to_host(torch.cat(
                 [out, e[:, None]], 1)), self._active_rows(), mode))
         while len(self._inflight) > self.pipeline_depth:
@@ -1246,12 +1317,19 @@ class ContinuousBatcher:
                 self._force_q.put((slot, self._to_host(tok_dev)))
         return n_started
 
-    def _static_args(self, slots):
-        """Per-admission host-built tensors and the distinct lp configs:
-        constant between admissions, rebuilt when `_dirty`."""
-        def arr(fn, dtype):
-            return self._dev([fn(s) for s in slots], dtype)
+    def _put(self, dst: torch.Tensor, values) -> None:
+        """Host values into the pool tensor `dst`, in place, without waiting
+        for the work queued before it (a pinned copy on CUDA)."""
+        t = torch.tensor(values, dtype=dst.dtype)
+        if dst.is_cuda:
+            t = t.pin_memory()
+        dst.copy_(t, non_blocking=dst.is_cuda)
 
+    def _load_slot_state(self, slots) -> None:
+        """The per-admission values (statics), the distinct lp configs and
+        the carried slot state from the host's slots, into the pool's
+        tensors in place: constant between admissions, rewritten when
+        `_dirty`."""
         lp_list: List[Tuple[int, Any]] = []
         lp_idx = []
         for s in slots:
@@ -1263,48 +1341,96 @@ class ContinuousBatcher:
                 lp_idx.append(lp_list.index(c))
             else:
                 lp_idx.append(-1)
-        return tuple(lp_list), dict(
-            # a host flag: whether a round needs its sampled half
-            sampled=any(s.active and s.gen.do_sample for s in slots),
-            real_len=arr(lambda s: s.real_len, torch.long),
-            media=arr(lambda s: s.media, torch.int32),
-            lp_idx=self._dev(lp_idx, torch.long),
-            valid_from=arr(lambda s: s.bucket - s.real_len, torch.long),
-            do_sample=arr(lambda s: bool(s.gen.do_sample)
-                          if s.gen else False, torch.bool),
-            temperature=arr(lambda s: s.gen.temperature if s.gen
-                            and s.gen.do_sample and s.gen.temperature > 0
-                            else 1.0, torch.float32),
-            top_k=arr(lambda s: s.gen.top_k if s.gen else 0, torch.long),
-            top_p=arr(lambda s: s.gen.top_p if s.gen else 1.0,
-                      torch.float32),
-            eos=arr(lambda s: self._eos(s.gen) if s.gen
-                    else self.cfg.eoc_token_id, torch.long),
-            max_new=arr(lambda s: s.gen.max_new_tokens if s.gen else 0,
-                        torch.long))
-
-    def _carried_args(self, slots):
-        return dict(
-            toks=self._dev([s.last_tok for s in slots], torch.long),
-            alive=self._dev([s.active for s in slots], torch.bool),
-            written=self._dev([s.written for s in slots], torch.long),
-            emitted=self._dev([s.emitted for s in slots], torch.long))
+        self._lp_list = tuple(lp_list)
+        st, ca = self._statics, self._carried
+        st["sampled"] = any(s.active and s.gen.do_sample for s in slots)
+        values = dict(
+            real_len=[s.real_len for s in slots],
+            media=[s.media for s in slots],
+            lp_idx=lp_idx,
+            valid_from=[s.bucket - s.real_len for s in slots],
+            do_sample=[bool(s.gen.do_sample) if s.gen else False
+                       for s in slots],
+            temperature=[s.gen.temperature if s.gen and s.gen.do_sample
+                         and s.gen.temperature > 0 else 1.0 for s in slots],
+            top_k=[s.gen.top_k if s.gen else 0 for s in slots],
+            top_p=[s.gen.top_p if s.gen else 1.0 for s in slots],
+            eos=[self._eos(s.gen) if s.gen else self.cfg.eoc_token_id
+                 for s in slots],
+            max_new=[s.gen.max_new_tokens if s.gen else 0 for s in slots],
+            toks=[s.last_tok for s in slots],
+            alive=[s.active for s in slots],
+            written=[s.written for s in slots],
+            emitted=[s.emitted for s in slots])
+        for name, vals in values.items():
+            self._put(ca[name] if name in ca else st[name], vals)
+        self._dirty = False
 
     def _dispatch(self, need_logits: bool):
         """Queue one decode iteration without waiting on the device; the
         carried slot state goes from this iteration's outputs to the
-        next's inputs on the device."""
-        slots = self._slots
-        if self._dirty or self._carried is None:
-            self._lp_list, self._statics = self._static_args(slots)
-            self._carried = self._carried_args(slots)
-            self._dirty = False
-        res = self._decode_step(self._carried, self._statics,
-                                self._lp_list, need_logits)
-        nxt, alive2, written2, emitted2 = res[:4]
-        self._carried = dict(toks=nxt, alive=alive2, written=written2,
-                             emitted=emitted2)
-        return res
+        next's inputs on the device, in place."""
+        if self._dirty:
+            self._load_slot_state(self._slots)
+        return self._run_step(need_logits)
+
+    def _run_step(self, need_logits: bool):
+        """The pooled step on the pool's tensors: with `cuda_graph` the
+        replay of its key's graph (its launches added to the counters), or
+        for a key without one the eager step and then the capture; else the
+        eager step. Returns what `_decode_step` returns; a replay's tensors
+        are the graph's, overwritten by its next replay."""
+        args = (self._carried, self._statics, self._lp_list, need_logits)
+        if not self.cuda_graph:
+            return self._decode_step(*args)
+        key = (self._lp_list, need_logits)
+        g = self._graphs.pop(key, None)
+        if g is None:
+            out, g = self._capture(args)
+            while len(self._graphs) >= engine.MAX_ENTRIES:
+                self._graphs.pop(next(iter(self._graphs))).graph.reset()
+        else:
+            g.graph.replay()
+            _build.add_launches(g.launches)
+            out = g.out
+        self._graphs[key] = g
+        return out
+
+    def _capture(self, args):
+        """Run the step once eagerly on the capture stream with the pool's
+        own decode_attention workspace (so that what the step allocates
+        once exists), then capture it (the capture runs nothing). Returns
+        the eager step's outputs and the graph. A failure raises (and
+        fails the scheduler: every stream sees it)."""
+        dev = self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        side, main = self._capture_stream, torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with engine._capture_lock, torch.cuda.stream(side), \
+                    da.owned_workspace(self._workspace):
+                out = self._decode_step(*args)
+                self._workspace.frozen = True
+                graph.register_generator_state(self._rng)
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                with _build.recording_launches() as launches:
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        g_out = self._decode_step(*args)
+                    except BaseException:
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                capture_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            main.wait_stream(side)
+        return out, _PooledGraph(
+            graph, launches, g_out, capture_ms,
+            torch.cuda.memory_reserved(dev) - reserved)
 
     def _drain_one(self):
         """Read the oldest in-flight iteration's tokens and stream them

@@ -176,6 +176,24 @@ MAX_ENTRIES = 4
 _capture_lock = threading.Lock()
 
 
+def graph_setting(cuda_graph: Optional[bool], model) -> bool:
+    """Whether a step over `model` is captured as a CUDA graph: `None` (the
+    default) on a CUDA model that is not sharded; True is refused where no
+    graph can run (the CPU, a sharded model: `fully_shard`'s hooks gather
+    parameters every call)."""
+    sharded = hasattr(model, "_shard_layouts")
+    if cuda_graph is None:
+        return model.device.type == "cuda" and not sharded
+    if cuda_graph:
+        if sharded:
+            raise ValueError("cuda_graph=True on a sharded model: its "
+                             "hooks gather parameters every call")
+        if model.device.type != "cuda":
+            raise ValueError(f"cuda_graph=True needs a CUDA model; this "
+                             f"one is on {model.device}")
+    return bool(cuda_graph)
+
+
 class _DoneFlag:
     """Whether every row of `done` is done, on its way to the host without
     a wait: a copy into pinned memory behind the queued steps. `value()` a
@@ -243,12 +261,10 @@ class OtterGenerator:
     donated cache); at most `MAX_ENTRIES` entries stay once their requests
     end (least recently used first out), and requests that run at once
     each lease their own. `cuda_graph=False` runs the same step body
-    eagerly (the CPU always does: it has no graph).
-
-    The megakernel route (`TextConfig.megakernel`) keeps a step that
-    passes the cache position as a host int, as its kernel takes it by
-    value: it is never captured (`cuda_graph=True` raises). Beams keep
-    their own eager step (`generation/beam.py`)."""
+    eagerly (the CPU always does: it has no graph). The megakernel route
+    (`TextConfig.megakernel`) is captured too: its kernel reads the
+    position from device memory. Beams keep their own eager step
+    (`generation/beam.py`)."""
 
     def __init__(self, model: Model,
                  cache_dtype: CacheDtype = torch.bfloat16,
@@ -261,25 +277,7 @@ class OtterGenerator:
         self.param_bytes = sum(t.numel() * t.element_size() for t in
                                list(model.parameters()) + list(model.buffers()))
         self._cache_dtypes: Dict[Tuple[int, int], CacheDtype] = {}
-        # the megakernel takes the position by value: a host int a step
-        self._host_pos = bool(self.cfg.text.megakernel)
-        sharded = hasattr(model, "_shard_layouts")
-        if cuda_graph is None:
-            cuda_graph = (self.device.type == "cuda" and not self._host_pos
-                          and not sharded)
-        elif cuda_graph:
-            if self._host_pos:
-                raise ValueError(
-                    "cuda_graph=True on the megakernel route: its kernel "
-                    "takes the cache position by value, so its step reads "
-                    "a host int and cannot be captured")
-            if self.device.type != "cuda":
-                raise ValueError(f"cuda_graph=True needs a CUDA model; this "
-                                 f"one is on {self.device}")
-            if sharded:
-                raise ValueError("cuda_graph=True on a sharded model: its "
-                                 "hooks gather parameters every call")
-        self.cuda_graph = bool(cuda_graph)
+        self.cuda_graph = graph_setting(cuda_graph, model)
         self._entries: List[_Entry] = []   # least recently used first
         self._entries_lock = threading.Lock()
         self._capture_stream = None
@@ -495,8 +493,7 @@ class OtterGenerator:
     def _step_body(self, st: SimpleNamespace) -> None:
         """One cached decode step on the entry's tensors, in place: feed
         token t - 1 at cache position p + t - 1, sample token t. The
-        position and the step index come from the device counters (on the
-        megakernel route the position goes in as the host's int), so the
+        position and the step index come from the device counters, so the
         same call serves every step: what a graph captures."""
         t = st.t_dev
         pos = st.p_dev + t - 1
@@ -505,10 +502,8 @@ class OtterGenerator:
                      else (st.real_len + (t - 1))[:, None])
         logits, _, _ = self.model(
             None, st.tok[:, None], vis_latents=st.vis_latents,
-            cache=st.cache,
-            cache_pos=st.p + st.t - 1 if self._host_pos else pos,
-            kv_valid=st.kv_valid, positions=positions,
-            media_counts=st.media_counts)
+            cache=st.cache, cache_pos=pos, kv_valid=st.kv_valid,
+            positions=positions, media_counts=st.media_counts)
         self._sample(st, logits[:, -1])
 
     @_inference

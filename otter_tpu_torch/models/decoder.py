@@ -385,24 +385,25 @@ class DecoderLayer(nn.Module):
 
         if (c.megakernel and self._fused_eligible() and not c.qk_ln
                 and not c.clip_qkv and c.num_attention_heads == c.kv_heads
-                and decoding and not isinstance(cache_pos, torch.Tensor)
+                and decoding and getattr(cache_pos, "ndim", 0) == 0
                 and x.shape[1] == 1 and x.shape[0] <= 8
                 and "k" in cache and cache["k"].dtype != torch.int8
                 and bias is not None):
             # norm_1 + qkv + cached attention + out-proj + residual in one
             # call; the new token's k/v come back and are appended in
-            # place. With one cache_pos for the batch the ALiBi column
-            # bias is the same for every row. The kernel attends every
-            # cache row below cache_pos (no kv_valid). It takes cache_pos
-            # as a host int, by value: a device position (a captured
-            # step's) takes the composed route.
+            # place. With one cache_pos for the batch (a host int, or a
+            # 0-d device tensor that the kernel reads: a captured step's)
+            # the ALiBi column bias is the same for every row; per-row
+            # positions [B] take the composed route, as JAX's `ndim == 0`
+            # test sends them. The kernel attends every cache row below
+            # cache_pos (no kv_valid).
             y, kn, vn = mk.decode_attn_megakernel(
                 x[:, 0].to(self.dtype), cache["k"], cache["v"], cache_pos,
                 bias[0, :, 0, :].float(), self.norm_1.scale,
                 self.attn.wqo_q, self.attn.wqo_scale, layer=layer,
                 eps=c.norm_eps, sm_scale=c.head_dim ** -0.5)
-            cache["k"][:, layer, :, cache_pos] = kn.to(cache["k"].dtype)
-            cache["v"][:, layer, :, cache_pos] = vn.to(cache["v"].dtype)
+            write_cache(cache, layer, kn[:, :, None], vn[:, :, None],
+                        cache_pos)
             x = y[:, None, :]
             return x + self.ffn(self.norm_2(x), decoding=True)
 

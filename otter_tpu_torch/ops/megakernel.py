@@ -12,6 +12,15 @@ rows below `pos` only; the new token's k/v never come from the cache: they
 enter the softmax from the kernel's own qkv, and the caller appends them
 at `pos` (`mpt_decode_layer_megakernel` does, in place).
 
+`pos` is a 0-d int tensor, read by the kernel from device memory as the
+TPU kernel reads its scalar-prefetch operand: one launch, and a CUDA graph
+that recorded it, serves every position, and the host never reads it. A
+host int (tests, a single call) is checked against the cache on the host
+and handed to the kernel as a device int32. On the card a position outside
+the cache traps inside the kernel (`csrc/megakernel.cu`): the launch fails
+and the next synchronisation raises; nothing outside the cache is read or
+written.
+
 `decode_attn_megakernel` launches the hand-written CUDA kernels of
 `csrc/megakernel.cu` for CUDA tensors and runs
 `decode_attn_megakernel_plain` for CPU tensors. Scope, as the JAX
@@ -25,7 +34,7 @@ left-padded rows attend their pad slots.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -37,8 +46,9 @@ from otter_tpu_torch.ops.layers import layer_norm
 _P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
 _SIGNATURES = {"decode_attn_megakernel_bf16": (
-    [_P] * 4 + [_LL] + [_P] * 12 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P],
+    [_P] * 4 + [_LL] + [_P] * 13 + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P],
     _I)}
+_POS_DTYPES = (torch.int32, torch.int64)
 
 # head dims the kernel takes
 KERNEL_HEAD_DIMS = (64, 128)
@@ -68,7 +78,8 @@ def decode_attn_megakernel_plain(x, k_cache, v_cache, pos, bias_col,
     rounds: the norm, q, k_new and v_new (where they enter the new token's
     logit and value) and the attention output to x's dtype, p to the
     cache's dtype before p.V, the out-projection to x's dtype before the
-    residual is added in f32; qkv stays f32 after its scale."""
+    residual is added in f32; qkv stays f32 after its scale. `pos` an int
+    or a 0-d tensor (read on the host)."""
     dt = x.dtype
     pos = int(pos)
     kc, vc = _layer_of(k_cache, layer), _layer_of(v_cache, layer)
@@ -103,13 +114,15 @@ def decode_attn_megakernel_plain(x, k_cache, v_cache, pos, bias_col,
 
 def decode_attn_megakernel(
         x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-        pos: int, bias_col: Optional[torch.Tensor], ln1_scale: torch.Tensor,
+        pos: Union[int, torch.Tensor], bias_col: Optional[torch.Tensor],
+        ln1_scale: torch.Tensor,
         wqo: torch.Tensor, sqo: torch.Tensor, *, layer: Optional[int] = None,
         eps: float = 1e-5, sm_scale: Optional[float] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, D]; k_cache/v_cache [B, H, L, Dh], or the stacked
     [B, n_layers, H, L, Dh] cache with `layer` given (read only); `pos` the
-    new token's index (rows below it are attended); bias_col [H, L] f32 or
+    new token's index (rows below it are attended), a 0-d int32 / int64
+    tensor on x's device or a host int; bias_col [H, L] f32 or
     None; ln1_scale [D]; wqo [D, 4D] int8; sqo [4D] f32. Returns
     (y [B, D], k_new [B, H, Dh], v_new [B, H, Dh]). CUDA tensors: bf16 x
     and cache, B <= 8, Dh in {64, 128}, D % 128 == 0, contiguous and
@@ -121,7 +134,15 @@ def decode_attn_megakernel(
                          f"layer {layer}")
     bsz, d = x.shape
     h, L, dh = k_cache.shape[-3:]
-    pos = int(pos)
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype not in _POS_DTYPES \
+                or pos.device != x.device:
+            raise ValueError(f"decode_attn_megakernel: pos must be a 0-d "
+                             f"int32 / int64 tensor on {x.device}, not "
+                             f"{pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+    else:
+        pos = int(pos)
     if k_cache.shape[0] != bsz or h * dh != d or wqo.shape != (d, 4 * d) \
             or sqo.shape != (4 * d,) or ln1_scale.shape != (d,) \
             or (bias_col is not None and (bias_col.dim() != 2
@@ -132,9 +153,11 @@ def decode_attn_megakernel(
             f"{tuple(k_cache.shape)}, wqo {tuple(wqo.shape)}, sqo "
             f"{tuple(sqo.shape)}, bias_col "
             f"{None if bias_col is None else tuple(bias_col.shape)}")
-    if not 0 <= pos < L:
-        raise ValueError(f"decode_attn_megakernel: pos {pos} outside the "
-                         f"cache of {L}")
+    # (a device position is checked by the kernel: the host never reads it)
+    if (not isinstance(pos, torch.Tensor) or pos.device.type == "cpu") \
+            and not 0 <= int(pos) < L:
+        raise ValueError(f"decode_attn_megakernel: pos {int(pos)} outside "
+                         f"the cache of {L}")
     if wqo.dtype != torch.int8:
         raise TypeError("decode_attn_megakernel: wqo must be int8")
     if x.device.type == "cpu":
@@ -164,6 +187,8 @@ def decode_attn_megakernel(
                          "and 16-byte aligned")
     if sm_scale is None:
         sm_scale = 1.0 / (dh ** 0.5)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
     ln1_scale, sqo = ln1_scale.float().contiguous(), sqo.float().contiguous()
     bias_ptr, bias_sh = None, 0
     if bias_col is not None:
@@ -186,7 +211,8 @@ def decode_attn_megakernel(
     attn = normed + 2 * bsz * d
     # the attention chunks' partials and counters: decode_attention's
     # workspace, of the same layout, kept per device (the counters are 0
-    # between calls); calls on one stream use it in turn
+    # between calls); calls on one stream use it in turn, and a captured
+    # step uses the one its graph owns (`decode_attention.owned_workspace`)
     attn_splits, min_rows = attention_plan(bsz, h, L, dh)
     part = counters = None
     if attn_splits > 1:
@@ -198,8 +224,9 @@ def decode_attn_megakernel(
         x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias_ptr,
         bias_sh, ln1_scale.data_ptr(), wqo.data_ptr(), sqo.data_ptr(),
         normed, ws_qkv, attn, ws_o, part, counters,
-        y.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), bsz, h, dh, nl,
-        layer, L, pos, float(eps), float(sm_scale), splits_qkv, splits_o,
+        y.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(),
+        int(pos.dtype == torch.int64), bsz, h, dh, nl, layer, L, float(eps),
+        float(sm_scale), splits_qkv, splits_o,
         attn_splits, min_rows, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "decode_attn_megakernel")
     _build.count_launch(decode_attn_megakernel)
@@ -215,13 +242,19 @@ def mpt_decode_layer_megakernel(x, k_cache, v_cache, pos, bias_col,
                                 eps: float = 1e-5):
     """A whole MPT decode layer: the megakernel's attention half, the new
     token's k/v appended at `pos` (in place: the caches passed in are the
-    ones returned), norm_2 and the fused int8 MLP. Returns
+    ones returned; a 0-d tensor position by `index_copy_`, read on the
+    device), norm_2 and the fused int8 MLP. Returns
     (x_out [B, D], k_cache, v_cache)."""
     y, kn, vn = decode_attn_megakernel(
         x, k_cache, v_cache, pos, bias_col, ln1_scale, wqo, sqo, layer=layer,
         eps=eps)
-    _layer_of(k_cache, layer)[:, :, int(pos)] = kn.to(k_cache.dtype)
-    _layer_of(v_cache, layer)[:, :, int(pos)] = vn.to(v_cache.dtype)
+    for cache, new in ((k_cache, kn), (v_cache, vn)):
+        dst = _layer_of(cache, layer)
+        if isinstance(pos, torch.Tensor):
+            dst.index_copy_(2, pos.view(1).long(), new[:, :, None].to(
+                cache.dtype))
+        else:
+            dst[:, :, pos] = new.to(cache.dtype)
     n2 = layer_norm(y, ln2_scale, None, eps=eps)
     mlp = quant.int8_mlp(n2, w1q, s1, w2q, s2, act="gelu")
     return y + mlp.to(y.dtype), k_cache, v_cache

@@ -34,7 +34,9 @@ not.
 `--megakernel` routes each decoder layer's attention half through
 `ops.megakernel.decode_attn_megakernel` (the weights gain the fused
 `[Wqkv | Wo]` copy, `ops.quant.add_fused_wqo`); `--fused-tail` routes each
-layer's tail through `ops.quant.int8_attn_tail`. The weights are random,
+layer's tail through `ops.quant.int8_attn_tail`. On the card every route's
+step is `OtterGenerator`'s captured CUDA graph (the megakernel's too: its
+kernel reads the position from the device counter). The weights are random,
 made on the device from a seed and quantized there (all-zero weights would
 make every kernel's arithmetic vacuous).
 

@@ -320,6 +320,19 @@ def _pool_state(cfg, cache, n=4, length=32, seed=9):
 
 @pytest.mark.parametrize("cache", ["bf16", "int8"])
 def test_pooled_step_matches_jax_decode_step(model, cache):
+    _pooled_step_case(model, cache, in_pool=False)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_pooled_step_on_the_pool_tensors_matches_jax(model, cache):
+    """The same pool state copied into the batcher's own tensors, the step
+    run by `_run_step` on them (what a graph captures and replays): JAX's
+    step, as above, and every tensor of the pool still the one allocated
+    at construction (the latents at the first admission)."""
+    _pooled_step_case(model, cache, in_pool=True)
+
+
+def _pooled_step_case(model, cache, in_pool):
     cfg = model.cfg
     st = _pool_state(cfg, cache)
     lp = ((2, None),)
@@ -344,12 +357,10 @@ def test_pooled_step_matches_jax_decode_step(model, cache):
                                    cache_dtype=CACHES[cache][0])
     b.shutdown()
     t = lambda k, dtype=torch.long: torch.as_tensor(st[k]).to(dtype)
-    b._cache = {k: torch.from_numpy(v).to(CACHES[cache][0]
-                                          if k in ("k", "v") else
-                                          torch.float32)
-                for k, v in st["cache"].items()}
-    b._buffer, b._valid = t("buffer"), t("valid", torch.bool)
-    b._latents = torch.from_numpy(st["latents"])
+    cache_t = {k: torch.from_numpy(v).to(CACHES[cache][0]
+                                         if k in ("k", "v") else
+                                         torch.float32)
+               for k, v in st["cache"].items()}
     ca = dict(toks=t("toks"), alive=t("alive", torch.bool),
               written=t("written"), emitted=t("emitted"))
     statics = {k: t(k, dtype) for k, dtype in (
@@ -358,8 +369,30 @@ def test_pooled_step_matches_jax_decode_step(model, cache):
         ("do_sample", torch.bool), ("temperature", torch.float32),
         ("top_k", torch.long), ("top_p", torch.float32),
         ("eos", torch.long), ("max_new", torch.long))}
-    nxt, alive, written, emitted, logits = b._decode_step(ca, statics, lp,
-                                                          True)
+    if in_pool:
+        # as the first admission allocates them
+        b._latents = torch.zeros(st["latents"].shape)
+        pool = _pool_tensors(b)
+        for k, v in cache_t.items():
+            b._cache[k].copy_(v)
+        b._buffer.copy_(t("buffer"))
+        b._valid.copy_(t("valid", torch.bool))
+        b._latents.copy_(torch.from_numpy(st["latents"]))
+        for mine, theirs in ((b._carried, ca), (b._statics, statics)):
+            for k, v in theirs.items():
+                mine[k].copy_(v)
+        b._lp_list, b._dirty = lp, False
+        nxt, alive, written, emitted, logits = b._run_step(True)
+        assert nxt is b._carried["toks"]
+        now = _pool_tensors(b)
+        assert now.keys() == pool.keys()
+        assert all(now[k] is pool[k] for k in pool)
+    else:
+        b._cache = cache_t
+        b._buffer, b._valid = t("buffer"), t("valid", torch.bool)
+        b._latents = torch.from_numpy(st["latents"])
+        nxt, alive, written, emitted, logits = b._decode_step(ca, statics, lp,
+                                                              True)
     live = [0, 1]
     want = np.asarray(jlogits, np.float32)
     np.testing.assert_allclose(logits.numpy()[live], want[live], atol=1e-4,
@@ -383,6 +416,73 @@ def test_pooled_step_matches_jax_decode_step(model, cache):
         else:
             np.testing.assert_allclose(got, ref, atol=1e-2 if cache == "bf16"
                                        else 1e-6, err_msg=k)
+
+
+def _pool_tensors(b):
+    """{name: tensor} of every tensor a pooled step reads or writes: the
+    cache, the token buffer, the valid mask, the latents, the carried slot
+    state and the per-admission values."""
+    out = {f"cache/{k}": v for k, v in b._cache.items()}
+    out.update(buffer=b._buffer, valid=b._valid, latents=b._latents)
+    out.update({f"carried/{k}": v for k, v in b._carried.items()})
+    out.update({f"statics/{k}": v for k, v in b._statics.items()
+                if isinstance(v, torch.Tensor)})
+    return out
+
+
+def test_pool_tensors_stay_in_place(model, jax_runs):
+    """Every tensor a pooled step reads or writes keeps its storage across
+    decode steps, admissions (chunked prefills) and a beam group's reorder
+    of its rows: what a captured graph replays on, the counterpart of the
+    cache, buffer and valid mask that JAX's step donates. The requests'
+    tokens stay the JAX batcher's."""
+    reqs = _requests(model.cfg)
+    b = _port_batcher(model, "f32", prefill_chunk=4)
+    reorders, steps = [], []
+    reorder, step = b._reorder, b._decode_step
+    b._reorder = lambda *a: (reorders.append(1), reorder(*a))[1]
+    b._decode_step = lambda *a: (steps.append(1), step(*a))[1]
+    gen = GenerationConfig(max_new_tokens=6)
+    try:
+        first = list(b.submit(*reqs["chunked"][0], gen))
+        pool = _pool_tensors(b)
+        ptrs = {k: v.data_ptr() for k, v in pool.items()}
+        n_steps = len(steps)
+        chunked = _run(b, reqs["chunked"], [gen] * 3, stagger_after=1)
+        beam = list(b.submit(*reqs["beam"][0], GenerationConfig(
+            max_new_tokens=5, num_beams=2)))
+    finally:
+        b.shutdown()
+    assert b._failure is None
+    assert first == jax_runs["chunked"][0]
+    assert chunked == jax_runs["chunked"]
+    assert beam == jax_runs["beam"]
+    assert n_steps > 0 and len(steps) > n_steps and reorders
+    now = _pool_tensors(b)
+    assert now.keys() == pool.keys()
+    assert all(now[k] is pool[k] and now[k].data_ptr() == ptrs[k]
+               for k in pool)
+
+
+def test_graph_refused_where_it_cannot_run(model):
+    """`cuda_graph=True` is refused on the CPU, on a sharded model and with
+    a draft (a speculative pool keeps its eager steps); the default is off
+    on each, before any thread starts."""
+    plain = _port_batcher(model, "f32")
+    plain.shutdown()
+    assert plain.cuda_graph is False
+    with pytest.raises(ValueError, match="CUDA model"):
+        _port_batcher(model, "f32", cuda_graph=True)
+    sharded = torch_tiny().eval()
+    sharded._shard_layouts = {}
+    with pytest.raises(ValueError, match="sharded"):
+        _port_batcher(sharded, "f32", cuda_graph=True)
+    draft = spec_pair("mpt")[1][3]
+    with pytest.raises(ValueError, match="draft"):
+        _port_batcher(model, "f32", draft=draft, cuda_graph=True)
+    spec = _port_batcher(model, "f32", draft=draft)
+    spec.shutdown()
+    assert spec.cuda_graph is False
 
 
 # ── beams ────────────────────────────────────────────────────────────

@@ -3,9 +3,12 @@ the edge cases the serving and training paths' shapes do not reach (other
 head dims, "ge" ids, full-rank and broadcast biases, rows that attend
 nothing, lengths that are not multiples of the tile, odd batch sizes,
 biases and other activations in the MLP, the fused decode layer's two
-kernels at small widths, the ends of the cache and refused inputs), the
+kernels at small widths, the megakernel captured once and replayed at
+every position, the ends of the cache and refused inputs), the
 continuous batcher's pooled step and speculative decoding (alone and in
-the pool) on a small model, kernels against plain.
+the pool) on a small model, kernels against plain, and the captured
+decode steps (the engine's, the megakernel route's, the pool's) against
+their eager steps.
 
 Needs an NVIDIA GPU; skipped without one. On the card:
 `pytest -m cuda tests/test_torch_cuda.py`. Tolerance: bf16 in and out,
@@ -874,6 +877,114 @@ def test_megakernel_refuses_what_the_kernel_does_not_take(gen):
                                   layer=0)
 
 
+def _captured(fn, ws):
+    """(graph, outputs) of `fn` captured on a side stream with `ws` as the
+    decode_attention workspace it owns (an eager call first sizes it), and
+    the launches the capture recorded."""
+    from otter_tpu_torch import _build
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), da.owned_workspace(ws):
+        fn()
+        ws.frozen = True
+        with _build.recording_launches() as launches:
+            graph.capture_begin()
+            out = fn()
+            graph.capture_end()
+    main.wait_stream(side)
+    return graph, out, launches
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_megakernel_graph_replays_at_every_position(gen, dtype):
+    """The position in device memory: one capture at pos 0, then the
+    counter moved and the graph replayed at positions from 1 to L - 1
+    (one CTA up to many chunks a head), each replay held to the plain
+    version at its own position; the capture recorded one launch."""
+    b, h, dh, L, nl = 3, 4, 128, 512, 2
+    x, kc, vc, _, bias, ln1, wqo, sqo = _mk_args(gen, b, h, dh, L, nl, L)
+    pos = torch.zeros((), dtype=dtype, device="cuda")
+    graph, outs, launches = _captured(
+        lambda: mk.decode_attn_megakernel(x, kc, vc, pos, bias, ln1, wqo,
+                                          sqo, layer=1), da.Workspace())
+    assert launches == {(mk.decode_attn_megakernel, False): 1}
+    for p in (0, 1, 57, 300, L - 1):
+        pos.fill_(p)
+        graph.replay()
+        refs = mk.decode_attn_megakernel_plain(x, kc, vc, p, bias, ln1, wqo,
+                                               sqo, layer=1)
+        for o, r in zip(outs, refs):
+            _close(o, r)
+        eager = mk.decode_attn_megakernel(x, kc, vc, p, bias, ln1, wqo, sqo,
+                                          layer=1)
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+def test_a_larger_call_leaves_the_megakernels_owned_workspace_alone(gen):
+    """A captured megakernel call owns its workspace: a larger eager call
+    (8 rows over a cache of 2048: a workspace of more chunks) grows the
+    shared pair, the owned pair stays the same tensors, and the graph's
+    replays still equal the plain version."""
+    x, kc, vc, _, bias, ln1, wqo, sqo = _mk_args(gen, 2, 4, 128, 512, 2, 512)
+    pos = torch.tensor(300, device="cuda")
+    ws = da.Workspace()
+    graph, outs, _ = _captured(
+        lambda: mk.decode_attn_megakernel(x, kc, vc, pos, bias, ln1, wqo,
+                                          sqo, layer=0), ws)
+    held = ws.tensors()
+    (part, cnt), = held.values()
+    big = _mk_args(gen, 8, 4, 128, 2048, 2, 2047)
+    mk.decode_attn_megakernel(*big, layer=1)
+    shared = da._shared.tensors()[torch.cuda.current_device()][0]
+    assert shared.numel() > part.numel()
+    assert shared.data_ptr() != part.data_ptr()
+    assert ws.tensors() == held
+    for p in (299, 511):
+        pos.fill_(p)
+        graph.replay()
+        refs = mk.decode_attn_megakernel_plain(x, kc, vc, p, bias, ln1, wqo,
+                                               sqo, layer=0)
+        for o, r in zip(outs, refs):
+            _close(o, r)
+    assert int(cnt.abs().sum()) == 0     # the counters left at 0
+
+
+def test_megakernel_traps_on_a_device_position_outside_the_cache(gen):
+    """A host int outside the cache is refused on the host; a device
+    position outside it traps in the kernel (the launch fails, the
+    process's context with it: so in a process of its own), where a
+    clamp would have answered quietly."""
+    import os
+    import subprocess
+    import sys
+    x, kc, vc, pos, bias, ln1, wqo, sqo = _mk_args(gen, 2, 4, 128, 96, 2, 40)
+    with pytest.raises(ValueError, match="outside"):
+        mk.decode_attn_megakernel(x, kc, vc, 96, bias, ln1, wqo, sqo,
+                                  layer=0)
+    code = (
+        "import torch\n"
+        "from otter_tpu_torch.ops import megakernel as mk\n"
+        "from otter_tpu_torch.ops import quant\n"
+        "d = 512\n"
+        "w, s = quant.quantize_kernel(0.05 * torch.randn(d, 4 * d, "
+        "device='cuda'))\n"
+        "kc = torch.randn(2, 2, 4, 96, 128, device='cuda', "
+        "dtype=torch.bfloat16)\n"
+        "x = torch.randn(2, d, device='cuda', dtype=torch.bfloat16)\n"
+        "mk.decode_attn_megakernel(x, kc, kc.clone(), torch.tensor(96, "
+        "device='cuda'), None, torch.ones(d, device='cuda'), w, s, "
+        "layer=0)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no trap')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode != 0 and "no trap" not in res.stdout, res.stdout
+    assert "CUDA" in res.stderr, res.stderr[-2000:]
+
+
 # ── int8_matmul: the untied lm_head's product at decode ──────────────
 
 def _head(gen, k, n):
@@ -1068,13 +1179,15 @@ def test_batcher_pooled_step_kernels_match_plain(gen, monkeypatch):
     finally:
         b.shutdown()
     assert b._failure is None and [len(g) for g in got] == [6, 6, 6]
-    lp, st = b._static_args(b._slots)
-    ca = b._carried_args(b._slots)
-    ca["alive"] = torch.tensor([True, True, True, False], device="cuda")
+    b._load_slot_state(b._slots)
+    lp, st = b._lp_list, b._statics
+    b._carried["alive"].copy_(torch.tensor([True, True, True, False]))
+    # (the step advances the carried state in place: each run its copy)
+    carried = lambda: {k: v.clone() for k, v in b._carried.items()}
     saved = ({k: v.clone() for k, v in b._cache.items()}, b._buffer.clone(),
              b._valid.clone())
     before = bench_decode.kernel_launches()
-    kern = b._decode_step(ca, st, lp, True)[4].float()
+    kern = b._decode_step(carried(), st, lp, True)[4].float()
     torch.cuda.synchronize()
     after = bench_decode.kernel_launches()
     assert {k: after[k] - before[k] for k in after
@@ -1083,7 +1196,7 @@ def test_batcher_pooled_step_kernels_match_plain(gen, monkeypatch):
     b._cache, b._buffer, b._valid = saved
     monkeypatch.setattr(da, "decode_attention", da.decode_attention_plain)
     monkeypatch.setattr(quant, "int8_mlp", quant.int8_mlp_plain)
-    plain = b._decode_step(ca, st, lp, True)[4].float()
+    plain = b._decode_step(carried(), st, lp, True)[4].float()
     err = (kern[:3] - plain[:3]).abs().max().item()
     assert err <= 5e-2 * plain[:3].abs().max().item(), err
 
@@ -1313,14 +1426,97 @@ def test_sampled_graphed_request_repeats_by_seed(gen):
 
 
 def test_megakernel_route_refuses_a_graph(gen):
+    """(The name is from when the route's kernel took its position by
+    value and the engine refused to capture it.) The megakernel route's
+    step is captured by default: its kernel reads the position from the
+    device counter. Tokens and launches equal the eager step's, the
+    megakernel once a layer a step, and a replay makes no host sync."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
     from otter_tpu_torch.generation.engine import OtterGenerator
     from otter_tpu_torch.tools.random_weights import build_model
     cfg = _card_otter().cfg
     model = build_model(cfg.replace(text=cfg.text.replace(
         megakernel=True, decode_kernel=False)), "cuda", 0)
-    assert OtterGenerator(model).cuda_graph is False
-    with pytest.raises(ValueError, match="megakernel"):
-        OtterGenerator(model, cuda_graph=True)
+    vx, ids = _graph_batch(gen, 3)
+    g = Gen(max_new_tokens=12, eos_token_id=-1)
+    graphed = OtterGenerator(model)
+    eager = OtterGenerator(model, cuda_graph=False)
+    assert graphed.cuda_graph and not eager.cuda_graph
+    want, want_n = _launch_diff(lambda: eager.generate(vx, ids, gen=g))
+    assert want_n["decode_attn_megakernel"] == 11 * 2
+    for _ in range(2):      # capture, then replays only
+        got, got_n = _launch_diff(lambda: graphed.generate(vx, ids, gen=g))
+        assert (got == want).all() and got_n == want_n
+    assert graphed._entries[-1].graph is not None
+    st = graphed._prefill(vx, ids, None, g)
+    try:
+        graphed._advance(st)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                graphed._advance(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        graphed._finish(st)
+
+
+def test_graphed_pool_equals_the_eager_pool(gen):
+    """`ContinuousBatcher` captures its pooled step on the card by default:
+    greedy requests (chunked prefills among them) and a beam request at
+    once through a graphed pool of 4 and through `cuda_graph=False` give
+    the same tokens, every pooled step launches the same kernels (a
+    replay counts what its capture recorded), and the graphs hold the
+    two keys (with and without the beam group's logits); a sampled
+    request alone in a fresh pool of each kind gives the same tokens (one
+    seed; the generator registered with the graphs draws as the eager
+    steps do)."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    model = _card_otter()
+    reqs = _card_requests(gen, (9, 12, 15, 20, 14, 11))
+    greedy = Gen(max_new_tokens=8, eos_token_id=-1)
+    gens = [greedy] * 4 + [Gen(max_new_tokens=6, num_beams=2)]
+    sampled = Gen(max_new_tokens=8, do_sample=True, temperature=1.5,
+                  top_k=50, top_p=0.95, eos_token_id=-1)
+
+    def pool(cuda_graph):
+        return ContinuousBatcher(model, num_slots=4, cache_len=64,
+                                 buckets=(16, 32), prefill_chunk=8,
+                                 cache_dtype=torch.int8,
+                                 max_admits_per_iter=4, cuda_graph=cuda_graph)
+
+    def run(cuda_graph):
+        b = pool(cuda_graph)
+        steps, step = [], b._run_step
+
+        def counted(need_logits):
+            out, n = _launch_diff(lambda: step(need_logits))
+            steps.append(n)
+            return out
+        b._run_step = counted
+        try:
+            streams = [b.submit(*r, g) for r, g in zip(reqs, gens)]
+            got = [list(s) for s in streams]
+            keys = sorted(b._graphs)
+        finally:
+            b.shutdown()
+        assert b._failure is None and b.cuda_graph == (cuda_graph is None)
+        b = pool(cuda_graph)
+        try:
+            got.append(list(b.submit(*reqs[5], sampled)))
+        finally:
+            b.shutdown()
+        return got, steps, keys
+
+    graphed, g_steps, keys = run(None)
+    eager, e_steps, _ = run(False)
+    assert graphed == eager
+    assert [len(t) for t in graphed[:4]] == [8] * 4 and len(graphed[5]) == 8
+    want = {"int8_mlp": 3, "decode_attention": 2}
+    assert g_steps and e_steps and all(
+        n == want for n in g_steps + e_steps), (g_steps, e_steps)
+    assert keys == [((), False), ((), True)]
 
 
 def test_failed_capture_raises_and_drops_its_entry(gen, monkeypatch):

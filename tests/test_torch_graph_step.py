@@ -5,16 +5,18 @@ per-step argument, against the JAX engine's `generate` for the tiny MPT
 (ALiBi), LLaMA (rope) and idefics models over bf16, int8 and int4 caches;
 `write_cache` at a device scalar position; the decode loop's early stop;
 the graph entries' launch bookkeeping, their LRU bound and what the cache
-ladder counts of them. The CPU has no graph: the same step body runs
-eagerly, which is what these tests drive (the graphed step is held to it
-on the card, `tests/test_torch_cuda.py` and `chip_smoke.py --phases
-graph`)."""
+ladder counts of them; the megakernel route's step with its position on
+the device, against the JAX megakernel model. The CPU has no graph: the
+same step body runs eagerly, which is what these tests drive (the graphed
+step is held to it on the card, `tests/test_torch_cuda.py` and
+`chip_smoke.py --phases graph`)."""
 
 import functools
 import gc
 import warnings
 import weakref
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,8 +32,8 @@ from otter_tpu_torch.ops import decode_attention as tda
 from otter_tpu_torch.ops import megakernel as tmk
 from otter_tpu_torch.tools.bench_decode import _clone, _restore
 from torch_parity_helpers import (idefics_inputs, idefics_pair, inputs,
-                                  jax_tiny, llama_vlm_pair, torch_tiny,
-                                  torch_tiny_fused)
+                                  jax_tiny, jax_tiny_fused, llama_vlm_pair,
+                                  torch_tiny, torch_tiny_fused)
 
 NEW = 6
 _TORCH_CACHE = {"bf16": torch.bfloat16, "int8": torch.int8, "int4": "int4"}
@@ -334,44 +336,124 @@ def test_cache_ladder_counts_the_caches_entries_hold(monkeypatch):
 
 
 def test_graph_is_refused_where_it_cannot_run():
-    """No graph on the CPU, and none on the megakernel route (its kernel
-    takes the position by value): asking for one raises; the default is
-    off there."""
+    """No graph on the CPU, and none on a sharded model (its hooks gather
+    parameters every call): asking for one raises; the default is off
+    there. The megakernel route is no exception any more: its default on
+    the CPU is off for the CPU's sake alone."""
     tmodel = torch_tiny()
     assert tengine.OtterGenerator(tmodel).cuda_graph is False
     with pytest.raises(ValueError, match="CUDA model"):
         tengine.OtterGenerator(tmodel, cuda_graph=True)
+    sharded = torch_tiny()
+    sharded._shard_layouts = {}
+    assert tengine.OtterGenerator(sharded).cuda_graph is False
+    with pytest.raises(ValueError, match="sharded"):
+        tengine.OtterGenerator(sharded, cuda_graph=True)
     mega = torch_tiny_fused("megakernel")
     assert tengine.OtterGenerator(mega).cuda_graph is False
-    with pytest.raises(ValueError, match="megakernel"):
+    with pytest.raises(ValueError, match="CUDA model"):
         tengine.OtterGenerator(mega, cuda_graph=True)
 
 
-def test_device_position_never_reaches_the_megakernel(monkeypatch):
-    """On a megakernel model a 0-d device position takes the composed
-    route (the kernel would need a host int); the engine's megakernel
-    step passes the host's int and takes the megakernel, with the tokens
-    of the composed route's weights."""
+@functools.lru_cache(maxsize=None)
+def _jax_mega_step():
+    """The JAX megakernel model's cached step, jitted with `cache_pos`
+    traced (its kernel's scalar-prefetch operand)."""
+    _, jmodel, params, _ = jax_tiny_fused("megakernel")
+    return jax.jit(lambda tok, lat, cache, pos, kv_valid, counts: jmodel.apply(
+        params, None, tok, vis_latents=lat, cache=cache, cache_pos=pos,
+        kv_valid=kv_valid, media_counts=counts))
+
+
+def test_device_position_never_reaches_the_megakernel():
+    """(The name is from when a device position took the composed route;
+    it now holds the opposite.) On a megakernel model a 0-d device
+    position reaches the megakernel: after the engine's prefill, three
+    greedy steps of the model with `cache_pos` a 0-d tensor and, from a
+    copy of the same state, with the host's int call the kernel in every
+    layer and give equal logits (bit for bit) and caches, and the tokens
+    of the JAX model's step with its position traced (logits within
+    1e-3, the BASELINE.md bar)."""
+    cfg, _, _, _ = jax_tiny_fused("megakernel")
     mega = torch_tiny_fused("megakernel")
-    cfg = mega.cfg
-    vx, ids = inputs(cfg, 23, 1, 10)
-    calls = []
-    real = tmk.decode_attn_megakernel
-    monkeypatch.setattr(tmk, "decode_attn_megakernel",
-                        lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
+    vx, ids = inputs(cfg, 23, 2, 10)
     engine = tengine.OtterGenerator(mega, cache_dtype=torch.float32)
-    gen = TGen(max_new_tokens=4, eos_token_id=-1)
-    st = engine._prefill(vx, ids, None, gen)
-    with torch.inference_mode():
-        mega(None, st.tok[:, None], vis_latents=st.vis_latents,
-             cache=st.cache, cache_pos=st.p_dev + 0, kv_valid=st.kv_valid,
-             media_counts=st.media_counts)
+    st = engine._prefill(vx, ids, None, TGen(max_new_tokens=4))
+    try:
+        p, layers = st.p, cfg.text.num_hidden_layers
+        tok = st.tok[:, None].clone()
+        lat, counts = st.vis_latents, st.media_counts
+        host_cache = {k: v.clone() for k, v in st.cache.items()}
+        jcache = {k: jnp.asarray(v.numpy()) for k, v in st.cache.items()}
+        kv_valid = st.kv_valid.clone()
+        with torch.inference_mode(), _Calls() as calls:
+            for t in range(3):
+                kv_valid[:, p + t] = True
+                dev, host = (mega(None, tok, vis_latents=lat, cache=cache,
+                                  cache_pos=pos, kv_valid=kv_valid,
+                                  media_counts=counts)[0][:, -1]
+                             for cache, pos in (
+                                 (st.cache, torch.tensor(p + t)),
+                                 (host_cache, p + t)))
+                assert len(calls) == 2 * layers * (t + 1)
+                assert torch.equal(dev, host)
+                jl, jcache, _ = _jax_mega_step()(
+                    jnp.asarray(tok.numpy(), jnp.int32),
+                    jnp.asarray(lat.numpy()), jcache, p + t,
+                    jnp.asarray(kv_valid.numpy()),
+                    jnp.asarray(counts.numpy(), jnp.int32))
+                jl = np.asarray(jl[:, -1])
+                np.testing.assert_allclose(dev.numpy(), jl, atol=1e-3,
+                                           rtol=1e-3)
+                tok = dev.argmax(-1)[:, None]
+                assert (tok[:, 0].numpy() == jl.argmax(-1)).all()
+        for key in st.cache:
+            assert torch.equal(st.cache[key], host_cache[key]), key
+    finally:
+        engine._finish(st)
+
+
+class _Calls(list):
+    """Records each call of the megakernel's wrapper (on the CPU it runs
+    the plain version and counts no launch)."""
+
+    def __enter__(self):
+        self.real = tmk.decode_attn_megakernel
+
+        def wrapper(*a, **kw):
+            self.append(a[3])
+            return self.real(*a, **kw)
+        tmk.decode_attn_megakernel = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        tmk.decode_attn_megakernel = self.real
+
+
+def test_megakernel_engine_step_reads_the_device_counter():
+    """`OtterGenerator`'s step on a megakernel model, built once and called
+    NEW - 1 times with the host's step count and prompt width wiped (it
+    can only read the device counters), passes the kernel a 0-d device
+    position in every layer and gives the JAX engine's tokens on the JAX
+    megakernel model (f32 caches)."""
+    cfg, jmodel, params, _ = jax_tiny_fused("megakernel")
+    vx, ids = inputs(cfg, 24, 2, 12)
+    mask = np.ones_like(ids)
+    ref = np.asarray(jengine.OtterGenerator(
+        jmodel, params, cfg, cache_dtype=jnp.float32).generate(
+            jnp.asarray(vx), jnp.asarray(ids), jnp.asarray(mask),
+            gen=JGen(max_new_tokens=NEW)))
+    engine = tengine.OtterGenerator(torch_tiny_fused("megakernel"),
+                                    cache_dtype=torch.float32)
+    st = engine._prefill(vx, ids, mask, TGen(max_new_tokens=NEW))
+    p = st.p
+    st.t = st.p = None
+    with torch.inference_mode(), _Calls() as calls:
+        for _ in range(NEW - 1):
+            engine._step_body(st)
+    assert len(calls) == (NEW - 1) * cfg.text.num_hidden_layers
+    assert all(isinstance(x, torch.Tensor) and x.dim() == 0 for x in calls)
+    out = st.buffer[:, :p + NEW].clone().numpy()
+    st.t, st.p = NEW, p
     engine._finish(st)
-    assert calls == []
-    out = engine.generate(vx, ids, gen=gen)
-    layers = cfg.text.num_hidden_layers
-    assert len(calls) == 3 * layers
-    np.testing.assert_array_equal(
-        out, tengine.OtterGenerator(torch_tiny(decode_kernel=False),
-                                    cache_dtype=torch.float32).generate(
-            vx, ids, gen=gen))
+    np.testing.assert_array_equal(out, ref)

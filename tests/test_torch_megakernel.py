@@ -1,7 +1,9 @@
 """Port parity: the decode megakernel's plain version, the whole-layer
 wrapper and `add_fused_wqo` against the JAX package (the Pallas kernel in
-interpret mode), on the same numpy inputs made from a seed, on the CPU."""
+interpret mode), on the same numpy inputs made from a seed, on the CPU;
+the position as a host int and as a 0-d tensor (JAX's traced under jit)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,6 +69,38 @@ def test_megakernel_plain_matches_jax(stacked, pos):
     np.testing.assert_allclose(y, y_ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("pos", [0, 13, L - 1])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_megakernel_plain_with_a_tensor_pos_matches_jax_traced(stacked, pos,
+                                                               dtype):
+    """The position as a 0-d tensor (what a captured decode step passes)
+    against the JAX function under `jax.jit` with `pos` traced (its
+    scalar-prefetch operand, interpret mode): the same tolerances as the
+    host-int case, and the port's outputs bit-equal to its host-int call."""
+    a = _setup(10 + pos, pos, stacked)
+    layer = 1 if stacked else None
+    j = lambda k: jnp.asarray(a[k])
+    ref = jax.jit(lambda p: jmk.decode_attn_megakernel(
+        j("x"), j("kc"), j("vc"), p, j("bias"), j("ln1"), j("wqo"),
+        j("sqo"), layer=layer, interpret=True))(jnp.int32(pos))
+    t = lambda k: torch.from_numpy(a[k])
+    args = (t("bias"), t("ln1"), t("wqo"), t("sqo"))
+    out = tmk.decode_attn_megakernel(t("x"), t("kc"), t("vc"),
+                                     torch.tensor(pos, dtype=dtype), *args,
+                                     layer=layer)
+    host = tmk.decode_attn_megakernel(t("x"), t("kc"), t("vc"), pos, *args,
+                                      layer=layer)
+    for o, h in zip(out, host):
+        assert torch.equal(o, h)
+    (y_ref, kn_ref, vn_ref), (y, kn, vn) = (
+        [np.asarray(r, np.float32) for r in ref],
+        [o.float().numpy() for o in out])
+    np.testing.assert_allclose(kn, kn_ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(vn, vn_ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(y, y_ref, atol=1e-4, rtol=1e-4)
+
+
 def test_megakernel_plain_matches_jax_bf16():
     """bf16 activations and cache: the rounding points of the two agree up
     to the tolerances of the JAX package's own megakernel test (k_new /
@@ -99,6 +133,16 @@ def test_decode_layer_megakernel_appends_at_pos(stacked):
     """The whole layer against the JAX `mpt_decode_layer_megakernel`: the
     output within 1e-4, the new k/v at `pos` within 1e-5, slot `pos + 1`
     and everything else of the cache untouched."""
+    _decode_layer_case(stacked, tensor_pos=False)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_decode_layer_megakernel_appends_at_a_tensor_pos(stacked):
+    """The same with `pos` a 0-d tensor (appended by `index_copy_`)."""
+    _decode_layer_case(stacked, tensor_pos=True)
+
+
+def _decode_layer_case(stacked, tensor_pos):
     pos, layer = 9, (1 if stacked else None)
     a = _setup(5, pos, stacked)
     rng = np.random.default_rng(6)
@@ -114,7 +158,8 @@ def test_decode_layer_megakernel_appends_at_pos(stacked):
     t = torch.from_numpy
     kc, vc = t(a["kc"].copy()), t(a["vc"].copy())
     out, kout, vout = tmk.mpt_decode_layer_megakernel(
-        t(a["x"]), kc, vc, pos, t(a["bias"]), t(a["ln1"]), t(a["wqo"]),
+        t(a["x"]), kc, vc, torch.tensor(pos) if tensor_pos else pos,
+        t(a["bias"]), t(a["ln1"]), t(a["wqo"]),
         t(a["sqo"]), t(ln2), t(w1), t(s1), t(w2), t(s2), layer=layer)
     assert kout is kc and vout is vc          # appended in place
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
@@ -163,7 +208,9 @@ def test_add_fused_wqo_byte_identical_to_jax():
         assert tout[k].numpy().tobytes() == ref[k].tobytes()
 
 
-@pytest.mark.parametrize("bad", ["pos", "wqo", "bias", "cache", "dtype"])
+@pytest.mark.parametrize("bad", ["pos", "tensor pos", "pos shape",
+                                 "pos dtype", "wqo", "bias", "cache",
+                                 "dtype"])
 def test_megakernel_refuses_bad_inputs(bad):
     a = _setup(8, 5, False)
     t = lambda k: torch.from_numpy(a[k])
@@ -171,6 +218,12 @@ def test_megakernel_refuses_bad_inputs(bad):
     pos, err = 5, ValueError
     if bad == "pos":
         pos = L
+    elif bad == "tensor pos":
+        pos = torch.tensor(L)
+    elif bad == "pos shape":
+        pos = torch.tensor([5])
+    elif bad == "pos dtype":
+        pos = torch.tensor(5.0)
     elif bad == "wqo":
         wqo = wqo[:, :3 * D]
     elif bad == "bias":
