@@ -107,11 +107,18 @@ unless every phase passes:
                  16384 with biases, untied head of 262144 rows; image
                  patches projected into the token stream), int8 weights,
                  int8 embedding table, int8 KV cache: one request at a time
-                 through `generation.fuyu.fuyu_generate`, a 448x448 image
-                 (240 image tokens) and a 1080x1920 image (2340) with a
-                 16-token prompt each, 32 greedy tokens. A decode step must
-                 launch `int8_matmul` once, `int8_mlp` 36 times and the int8
-                 decode_attention 36 times, a prefill `flash_fwd` 36 times.
+                 through `generation.fuyu.FuyuGenerator` (its step a CUDA
+                 graph, the card's default) and `FuyuGenerator(...,
+                 cuda_graph=False)` in turns, a 448x448 image (240 image
+                 tokens) and a 1080x1920 image (2340) with a 16-token
+                 prompt each, 32 greedy tokens: tokens graphed = eager, no
+                 host sync in 8 steps of either, wall ms a step both ways
+                 ((t(32) - t(1)) / 31, medians of 3), TTFT, the capture's
+                 ms and pool, the graphed step's device ms by
+                 torch.profiler over whole runs. A decode step must launch
+                 `int8_matmul` once, `int8_mlp` 36 times and the int8
+                 decode_attention 36 times, a prefill `flash_fwd` 36
+                 times, graphed and eager.
  12. beam        beam search and mixed media (runs after otterhd): first
                  OTTER-Video-LLaMA7B and OTTER-MPT7B cut in depth as in
                  parity, the beam path's first logits (a prefill of B*K
@@ -126,14 +133,19 @@ unless every phase passes:
                  within 2e-2 + 2e-2 |alone|; `stream_generate(vision_mask=)`
                  yields 32 greedy tokens, the same twice; `generate` and
                  `stream_beam_generate` with num_beams=3,
-                 no_repeat_ngram_size=3, 32 new tokens: two calls equal,
-                 the last streamed beam is generate's continuation. Then
-                 OTTER-MPT7B, serve's b=8 requests with 4 beams each (32
-                 rows). Prints TTFT and tok/s of the best beams; a beam
-                 step must launch `int8_matmul` 1, `decode_attention` 32
-                 and `int8_mlp` 8 times (video) or `int8_mlp` 40 and
-                 `decode_attention` 32 times (MPT), a beam prefill
-                 `flash_fwd` 70 times. The kernels phase holds the flash
+                 no_repeat_ngram_size=3, 32 new tokens. Then OTTER-MPT7B,
+                 serve's b=8 requests with 4 beams each (32 rows). Each
+                 beam request through `OtterGenerator` (its beam step a
+                 CUDA graph, the card's default) and `cuda_graph=False` in
+                 turns, as the otterhd phase's: the best beams graphed =
+                 eager in every run, the last streamed beam of each =
+                 generate's continuation, no host sync in 8 beam steps,
+                 wall ms a beam step both ways, TTFT, capture ms and pool,
+                 the graphed step's device ms. A beam step must launch
+                 `int8_matmul` 1, `decode_attention` 32 and `int8_mlp` 8
+                 times (video) or `int8_mlp` 40 and `decode_attention` 32
+                 times (MPT), a beam prefill `flash_fwd` 70 times, graphed
+                 and eager. The kernels phase holds the flash
                  forward, `decode_attention` and `int8_matmul` at these
                  requests' shapes too.
  13. worker      the serving worker (runs after beam): first OTTER-MPT7B
@@ -158,8 +170,9 @@ unless every phase passes:
                  streamed chunk, ms a token a request and the aggregate
                  tok/s at once against one after another. The otterhd phase
                  also sends one text-only request through the worker's fuyu
-                 stream function: its text must equal
-                 `post_process_box_coordinates` of `fuyu_generate`'s.
+                 stream function (its step graphed): its text must equal
+                 `post_process_box_coordinates` of the eager
+                 `fuyu_generate`'s.
  14. idefics     idefics-9b (runs after worker; ViT-H/14 with its CLS,
                  perceiver 6, LLaMA-7B with 8 gated xattn blocks, 68 added
                  tokens) at full width and depth, random bf16 weights with
@@ -331,7 +344,8 @@ unless every phase passes:
                  `eval_forward` score through the kernels against the plain
                  versions (5e-2 max|plain|; 1e-2 |plain|). Then Fuyu and
                  OtterHD on OtterHD-8B (int8, quant_embed, int8 cache: the
-                 int8 head must launch), Idefics on idefics-9b (int8
+                 int8 head must launch, the step of each adapter's
+                 `FuyuGenerator` be captured), Idefics on idefics-9b (int8
                  decoder and cache; also `generate_batch`) and OtterVideo
                  on OTTER-Video-LLaMA7B with 16 frames, each at full width
                  with parity's depth cut: `generate` and `eval_forward` on
@@ -367,10 +381,11 @@ unless every phase passes:
                  OTTER-LLaMA2-Chat-7B at b=8 the same way (rope positions
                  from the device counter), its launches exact.
 
-In every phase `OtterGenerator`'s greedy and sampled decode steps (the
-fused phase's megakernel route too) and the continuous batcher's pooled
-step replay a captured CUDA graph (the default on the card); beams, the
-speculative rounds and `fuyu_generate` step eagerly.
+In every phase `OtterGenerator`'s greedy, sampled and beam decode steps
+(the fused phase's megakernel route too), `FuyuGenerator`'s step (the
+eval phase's Fuyu / OtterHD adapters and the worker's fuyu stream too)
+and the continuous batcher's pooled step replay a captured CUDA graph
+(the default on the card); the speculative rounds step eagerly.
 
 `--phases profilerace` (not in the default run) repeats, in a child
 process, the pattern in which two default runs crashed (ROADMAP Queue 3):
@@ -405,7 +420,8 @@ runs the flash part of the kernels phase alone, `mlpkernels` its
 DIR` imports `otter_tpu_torch` from another checkout, so that two versions
 of the port run one after the other in one call. `profile` (not run by default) adds torch.profiler tables
 of one batch-8 request (with serve, serve4 and llama), of OtterHD's two
-requests (with otterhd), of the three fused runs (with fused: device ms
+requests through the eager step (with otterhd; the graphed step's tables,
+and the beam phase's, are written on every run), of the three fused runs (with fused: device ms
 and launches a decode step), of idefics-9b's b=8 request (with idefics)
 and of one train step (with train and with train8) to the output
 directory, `OUT_DIR`.
@@ -2915,11 +2931,119 @@ OTTERHD_STEP = {"int8_matmul": 1, "int8_mlp": 36, "decode_attention": 36}
 OTTERHD_PREFILL = {"flash_fwd": 36}
 
 
-def phase_otterhd(smi: str, profile: bool = False):
+def _loop_vs_eager(tag, smi, graphed, eager, run, begin, want_prefill,
+                   want_step, profile_eager: bool = False):
+    """A decode loop that the JAX package compiles, through a graphed
+    engine (its step a CUDA graph, the card's default) and its eager twin
+    (`cuda_graph=False`) in turns: `run(engine, n)` serves one request of
+    n new tokens and returns its tokens (a copy the host holds),
+    `begin(engine)` leases the state of such a request of GRAPH_NEW
+    tokens after its prefill. Tokens equal in every run of both; the
+    launches of a prefill and of a step equal between the two and exact
+    (a replay counts what its capture recorded); no host sync in 8 steps
+    of either (`set_sync_debug_mode("error")`; the graphed ones replays);
+    wall ms a step both ways ((t(32) - t(1)) / 31, medians of REPS), TTFT,
+    the key's first request (its step captured) against later ones, the
+    capture's ms and memory pool; the graphed step's device ms and kernels
+    by torch.profiler over whole runs (the eager one's with
+    `profile_eager`). Returns (the tokens, a dict of the readings)."""
     import numpy as np
     import torch
+    if not graphed.cuda_graph or eager.cuda_graph:
+        raise RuntimeError(f"{tag}: the engines' graph settings "
+                           f"{graphed.cuda_graph}, {eager.cuda_graph}")
+    same = lambda a, b: np.array_equal(np.asarray(a), np.asarray(b))
+    run(eager, 2)                           # the shapes' first use
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = run(graphed, GRAPH_NEW)
+    first_s = time.perf_counter() - t
+    entry = graphed._entries[-1]
+    if entry.graph is None:
+        raise RuntimeError(f"{tag}: no graph was captured")
+    engines = {"graphed": graphed, "eager": eager}
+    times = {(m, n): [] for m in engines for n in (1, GRAPH_NEW)}
+    outs = {"graphed": [first], "eager": []}
+    for i in range(REPS):
+        for mode in (("eager", "graphed") if i % 2 else ("graphed", "eager")):
+            for n in (1, GRAPH_NEW):
+                t = time.perf_counter()
+                out = run(engines[mode], n)
+                times[(mode, n)].append(time.perf_counter() - t)
+                if n == GRAPH_NEW:
+                    outs[mode].append(out)
+    every = outs["graphed"] + outs["eager"]
+    if any(not same(every[0], x) for x in every[1:]):
+        raise RuntimeError(f"{tag}: tokens differ between runs or between "
+                           f"the graphed and the eager step: graphed "
+                           f"{np.asarray(outs['graphed'][0]).tolist()[:2]}, "
+                           f"eager {np.asarray(outs['eager'][0]).tolist()[:2]}")
+    launches = {}
+    for mode, engine in engines.items():
+        one = _launches_of(lambda: run(engine, 1))
+        three = _launches_of(lambda: run(engine, 3))
+        launches[mode] = (one, {k: (n - one.get(k, 0)) / 2
+                                for k, n in three.items()
+                                if n != one.get(k, 0)})
+    if not launches["graphed"] == launches["eager"] == (want_prefill,
+                                                        want_step):
+        raise RuntimeError(f"{tag}: (prefill, step) launches graphed "
+                           f"{launches['graphed']}, eager "
+                           f"{launches['eager']}, expected "
+                           f"{(want_prefill, want_step)}")
+    for mode, engine in engines.items():
+        st = begin(engine)
+        try:
+            engine._advance(st)
+            if engine.cuda_graph and st.entry.graph is None:
+                raise RuntimeError(f"{tag}: the key's step is not captured")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(8):
+                    engine._advance(st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
+            engine._finish(st)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    step_ms = {m: (med[(m, GRAPH_NEW)] - med[(m, 1)]) / (GRAPH_NEW - 1) * 1e3
+               for m in engines}
+    dev = {"graphed": phase_profile(lambda n: run(graphed, n),
+                                    f"{tag} graphed")}
+    if profile_eager:
+        dev["eager"] = phase_profile(lambda n: run(eager, n), f"{tag} eager")
+    log(f"{tag}: tokens graphed = eager in {len(every)} runs; launches a "
+        f"prefill {launches['graphed'][0]}, a step {launches['graphed'][1]} "
+        f"(equal, exact); 8 steps of each under set_sync_debug_mode('error'): "
+        f"no host sync | wall ms a step graphed {step_ms['graphed']:.3f}, "
+        f"eager {step_ms['eager']:.3f} "
+        f"({step_ms['eager'] / step_ms['graphed']:.2f}x) | TTFT graphed "
+        f"{med[('graphed', 1)] * 1e3:.2f} ms, eager "
+        f"{med[('eager', 1)] * 1e3:.2f} ms | {GRAPH_NEW}-token request: the "
+        f"key's first (its step captured) {first_s * 1e3:.2f} ms, later "
+        f"{med[('graphed', GRAPH_NEW)] * 1e3:.2f} ms | capture "
+        f"{entry.capture_ms:.2f} ms, its memory pool {entry.pool_bytes} bytes "
+        f"({entry.pool_bytes / 2 ** 20:.1f} MiB) | device ms a step "
+        + ", ".join(f"{m} {d[0]:.3f} in {d[1]:.1f} kernels"
+                    for m, d in dev.items())
+        + f" (torch.profiler, whole runs) | medians of {REPS}; runs (ms) "
+        + json.dumps({f"{m}/{n}": [round(x * 1e3, 2) for x in v]
+                      for (m, n), v in times.items()}) + f" | {smi}")
+    return first, dict(step_ms=step_ms, ttft_ms={
+        m: med[(m, 1)] * 1e3 for m in engines}, capture_ms=entry.capture_ms,
+        pool_bytes=entry.pool_bytes, device_ms=dev["graphed"][0])
+
+
+def phase_otterhd(smi: str, profile: bool = False):
+    """OtterHD-8B, one request at a time through `FuyuGenerator` (its step
+    captured once per key, the card's default) against
+    `FuyuGenerator(..., cuda_graph=False)` in turns, a 448x448 and a
+    1080x1920 image with a 16-token prompt, 32 greedy tokens
+    (`_loop_vs_eager`); then the worker's fuyu stream function."""
+    import torch
     from otter_tpu_torch.config import GenerationConfig
-    from otter_tpu_torch.generation.fuyu import fuyu_generate
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
     from otter_tpu_torch.tools import bench_decode
     from otter_tpu_torch.tools.random_weights import fuyu_request
 
@@ -2937,69 +3061,39 @@ def phase_otterhd(smi: str, profile: bool = False):
         f"quant_embed: the table takes {table / 1e9:.3f} GB, "
         f"{plain_table / 1e9:.3f} in bf16), built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-
-    def run(req, n_new):
-        return list(fuyu_generate(
-            model, *req, gen=GenerationConfig(max_new_tokens=n_new),
-            cache_dtype=torch.int8))
+    graphed = FuyuGenerator(model, torch.int8)
+    eager = FuyuGenerator(model, torch.int8, cuda_graph=False)
+    gen = lambda n: GenerationConfig(max_new_tokens=n)
 
     bench_decode.reset_kernel_launches()
     for height, width in ((448, 448), (1080, 1920)):
         req = fuyu_request(cfg, height, width, 16, SEED + 20)
         s = req[0].shape[1]
-        run(req, 2)   # warm-up
-        times = {1: [], 32: []}
-        outs = []
-        for _ in range(REPS):
-            for n_new in (1, 32):
-                t = time.perf_counter()
-                out = run(req, n_new)
-                times[n_new].append(time.perf_counter() - t)
-            outs.append(out)
-        if len(outs[0]) != 32 or not all(
-                0 <= t < cfg.text.total_vocab for t in outs[0]):
-            raise RuntimeError(f"otterhd {height}x{width}: tokens {outs[0]}")
-        if any(o != outs[0] for o in outs[1:]):
-            raise RuntimeError(f"otterhd {height}x{width}: greedy output "
-                               f"differs between runs of the same request")
-        prefill_s = float(np.median(times[1]))
-        decode_s = float(np.median(times[32])) - prefill_s
-        log(f"otterhd {height}x{width}: {s - 16} image tokens + 16 prompt "
-            f"tokens, 32 new tokens | prefill (to the first token) "
-            f"{prefill_s * 1e3:.2f} ms | decode {31 / decode_s:.2f} tok/s "
-            f"({decode_s / 31 * 1e3:.2f} ms/step) | medians of {REPS}; "
-            f"1-token runs {[round(x * 1e3, 2) for x in times[1]]} ms, "
-            f"32-token runs {[round(x * 1e3, 2) for x in times[32]]} ms | "
-            f"{smi} | first tokens {outs[0][:8]}")
-        prefill = _launches_of(lambda: run(req, 1))
-        three = _launches_of(lambda: run(req, 3))
-        step = {k: (n - prefill.get(k, 0)) / 2 for k, n in three.items()
-                if n != prefill.get(k, 0)}
-        log(f"otterhd {height}x{width}: a prefill launches {prefill}, a "
-            f"decode step {step}")
-        if prefill != OTTERHD_PREFILL or step != OTTERHD_STEP:
-            raise RuntimeError(
-                f"otterhd: a prefill launched {prefill} (expected "
-                f"{OTTERHD_PREFILL}), a decode step {step} (expected "
-                f"{OTTERHD_STEP})")
+        tag = f"otterhd {height}x{width}"
+        log(f"{tag}: {s - 16} image tokens + 16 prompt tokens, 32 new "
+            f"tokens, b=1")
+        toks, _ = _loop_vs_eager(
+            tag, smi, graphed, eager,
+            lambda e, n: list(e.generate(*req, gen(n))),
+            lambda e: e._prefill(*req, gen(GRAPH_NEW)),
+            OTTERHD_PREFILL, OTTERHD_STEP, profile_eager=profile)
+        if len(toks) != 32 or not all(0 <= t < cfg.text.total_vocab
+                                      for t in toks):
+            raise RuntimeError(f"{tag}: tokens {toks}")
+        log(f"{tag}: first tokens {toks[:8]}")
     launches = bench_decode.kernel_launches()
     log(f"otterhd: kernel launches during the requests {launches}")
-    _fuyu_stream(model, cfg, smi)
-    if profile:
-        for height, width in ((448, 448), (1080, 1920)):
-            req = fuyu_request(cfg, height, width, 16, SEED + 20)
-            phase_profile(lambda n_new: run(req, n_new),
-                          f"otterhd {height}x{width}")
+    _fuyu_stream(model, cfg, smi, eager)
     return launches
 
 
-def _fuyu_stream(model, cfg, smi: str):
+def _fuyu_stream(model, cfg, smi: str, eager):
     """The worker's fuyu family on the OtterHD model: one text-only request
-    through `make_fuyu_stream_fn` must return
-    `post_process_box_coordinates` of `fuyu_generate`'s text for the same
+    through `make_fuyu_stream_fn` (its `FuyuGenerator`'s step graphed, the
+    card's default) must return `post_process_box_coordinates` of the
+    text of `fuyu_generate` over `eager` (the step uncaptured) for the same
     prompt."""
     import numpy as np
-    import torch
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.data.fuyu_processor import (FuyuImageProcessor,
                                                      FuyuProcessor)
@@ -3016,27 +3110,28 @@ def _fuyu_stream(model, cfg, smi: str):
     top = min(cfg.image_placeholder_id, cfg.image_newline_id)
     prompt = " ".join(f"t{i}" for i in rng.integers(3, top, 16))
     stream_fn = make_fuyu_stream_fn(model, processor, cfg, tok,
-                                    cache_dtype=torch.int8)
+                                    cache_dtype=eager.cache_dtype)
     t0 = time.perf_counter()
     chunks = list(stream_fn({"prompt": prompt,
                              "generation_kwargs": {"max_new_tokens": 32}}))
     wall = time.perf_counter() - t0
     batch = processor([prompt], None, left_pad=True)
     toks = list(fuyu_generate(
-        model, batch["input_ids"], batch["image_patches"],
+        eager, batch["input_ids"], batch["image_patches"],
         batch["image_patches_indices"], batch["attention_mask"],
-        GenerationConfig(max_new_tokens=32, eos_token_id=tok.eos_token_id),
-        cache_dtype=torch.int8))
+        GenerationConfig(max_new_tokens=32, eos_token_id=tok.eos_token_id)))
     want = processor.post_process_box_coordinates(tok.decode(toks))
+    graphs = [e for e in stream_fn.engine._entries if e.graph is not None]
     log(f"otterhd: a text-only request ({batch['input_ids'].shape[1]} "
-        f"tokens) through the worker's fuyu stream function: {len(toks)} "
-        f"tokens in {wall * 1e3:.1f} ms, {len(chunks)} chunks, the last "
-        f"{'equal' if chunks[-1] == want else 'NOT equal'} to "
+        f"tokens) through the worker's fuyu stream function (its step "
+        f"{'graphed' if graphs else 'NOT graphed'}): {len(toks)} tokens in "
+        f"{wall * 1e3:.1f} ms, {len(chunks)} chunks, the last "
+        f"{'equal' if chunks[-1] == want else 'NOT equal'} to the eager "
         f"fuyu_generate's text | {smi}")
-    if chunks[-1] != want:
+    if chunks[-1] != want or not graphs:
         raise RuntimeError(f"otterhd: the fuyu stream gave "
                            f"{chunks[-1][:80]!r}, fuyu_generate "
-                           f"{want[:80]!r}")
+                           f"{want[:80]!r} (graphs: {len(graphs)})")
 
 
 # ── phase 12: beam search and mixed still+video media ────────────────
@@ -3049,24 +3144,27 @@ BEAM_LAUNCHES = {
             {"int8_mlp": 40, "decode_attention": 32}),
 }
 BEAM_PATH = {"flash_fwd", "int8_mlp", "decode_attention", "int8_matmul"}
-BEAM_GEN = dict(no_repeat_ngram_size=3, max_new_tokens=32)
 
 
 def beam_first_logits(model, cfg, vision_x, lang_x, attn, k: int):
     """The beam path's first logits: the prefill of B*K rows (each
-    request's logits [B, V]) and the first beam step's [B*K, V]."""
+    request's logits [B, V]) and the first beam step's [B*K, V] (the
+    entry's step function at the device counter, t = 1)."""
     import torch
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
-    eng = OtterGenerator(model, cache_dtype=torch.int8)
+    eng = OtterGenerator(model, cache_dtype=torch.int8, cuda_graph=False)
     with torch.inference_mode():
-        bs = eng._beam_prefill(vision_x, lang_x, attn, GenerationConfig(
+        st = eng._beam_prefill(vision_x, lang_x, attn, GenerationConfig(
             max_new_tokens=4, num_beams=k))
-        rows = lang_x.shape[0] * k
-        tok = torch.full((rows, 1), cfg.text.vocab_size // 2,
-                         device=model.device)
-        logits1, _ = bs.step_fn(tok, bs.cache, 1)
-        return bs.init_logits.float(), logits1.float()
+        try:
+            rows = lang_x.shape[0] * k
+            tok = torch.full((rows, 1), cfg.text.vocab_size // 2,
+                             device=model.device)
+            logits1, _ = st.beam.step_fn(tok, st.cache, st.t_dev)
+            return st.logits.float().clone(), logits1.float()
+        finally:
+            eng._finish(st)
 
 
 def _beam_parity():
@@ -3086,22 +3184,6 @@ def _beam_parity():
         del model
 
 
-def _beam_launches(tag, run):
-    """The launches of one beam prefill and of one beam decode step
-    (`run(n_new)` runs a whole beam request), checked exactly."""
-    prefill = _launches_of(lambda: run(1))
-    three = _launches_of(lambda: run(3))
-    step = {k: (n - prefill.get(k, 0)) / 2 for k, n in three.items()
-            if n != prefill.get(k, 0)}
-    log(f"beam[{tag}]: a beam prefill launches {prefill}, a beam decode "
-        f"step {step}")
-    want_prefill, want_step = BEAM_LAUNCHES[tag]
-    if prefill != want_prefill or step != want_step:
-        raise RuntimeError(f"beam[{tag}]: a prefill launched {prefill} "
-                           f"(expected {want_prefill}), a step {step} "
-                           f"(expected {want_step})")
-
-
 def _timed(fn, reps: int = REPS):
     """(median seconds, every run's ms, the last result) of `reps` calls."""
     import numpy as np
@@ -3118,13 +3200,46 @@ def _cut_at(tokens, eos):
     return tokens[:tokens.index(eos)] if eos in tokens else tokens
 
 
+def _beam_engines(tag, smi, model, req, k, want, stream_req):
+    """Beams of `req` (K = k, no-repeat 3-grams) through a graphed
+    `OtterGenerator` and its eager twin (`_loop_vs_eager`), then
+    `stream_beam_generate` of `stream_req` (one request) on each: its last
+    yield is `generate`'s continuation cut at eos."""
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    graphed = OtterGenerator(model, cache_dtype=torch.int8)
+    eager = _eager_twin(graphed)
+    gen = lambda n: GenerationConfig(num_beams=k, no_repeat_ngram_size=3,
+                                     max_new_tokens=n)
+    req, stream_req = ((tuple(r) + (None,))[:3] for r in (req, stream_req))
+    out, res = _loop_vs_eager(
+        tag, smi, graphed, eager, lambda e, n: e.generate(*req, gen=gen(n)),
+        lambda e: e._beam_prefill(*req, gen(GRAPH_NEW)), *want)
+    p = stream_req[1].shape[1]
+    cont = _cut_at(graphed.generate(*stream_req, gen=gen(GRAPH_NEW))[
+        0, p:].tolist(), model.cfg.eoc_token_id)
+    yields = {m: list(e.stream_beam_generate(*stream_req, gen=gen(GRAPH_NEW)))
+              for m, e in (("graphed", graphed), ("eager", eager))}
+    if not yields["graphed"][-1] == yields["eager"][-1] == cont:
+        raise RuntimeError(f"{tag}: the last streamed beam (graphed "
+                           f"{yields['graphed'][-1]}, eager "
+                           f"{yields['eager'][-1]}) is not generate's {cont}")
+    log(f"{tag}: stream_beam_generate's {len(yields['graphed'])} yields "
+        f"end in generate's {len(cont)} tokens, graphed and eager | first "
+        f"tokens {cont[:8]}")
+    return out, res
+
+
 def phase_beam(smi: str):
     """(a) OTTER-Video-LLaMA7B: a still and a 16-frame video in uint8 with
-    their frame mask through `stream_generate`, then beams through
-    `stream_beam_generate` and `generate`; (b) OTTER-MPT7B: serve's b=8
-    requests with 4 beams each (32 rows); (c, first) the beam path's
-    first logits at cut depth, kernels against plain."""
-    import numpy as np
+    their frame mask through `stream_generate`, then 3 beams a request
+    through `generate` and `stream_beam_generate`; (b) OTTER-MPT7B:
+    serve's b=8 requests with 4 beams each (32 rows). Each beam request
+    through a graphed engine (its beam step a CUDA graph, the card's
+    default) and an eager one in turns (`_loop_vs_eager`). (c, first) the
+    beam path's first logits at cut depth, kernels against plain."""
+    import gc
     import torch
     from otter_tpu_torch.config import GenerationConfig
     from otter_tpu_torch.generation.engine import OtterGenerator
@@ -3177,7 +3292,6 @@ def phase_beam(smi: str):
         raise RuntimeError("beam[video]: the masked still's latents "
                            "disagree with the still alone")
     engine = OtterGenerator(model, cache_dtype=torch.int8)
-    eos = cfg.eoc_token_id
     greedy = GenerationConfig(max_new_tokens=32)
 
     def first_token():
@@ -3201,59 +3315,29 @@ def phase_beam(smi: str):
         f"time to the first token {ttft * 1e3:.2f} ms (runs {ttft_runs}), "
         f"{len(streamed[0])} greedy tokens, equal in two runs | {smi} | "
         f"first tokens {streamed[0][:8]}")
-    beams = GenerationConfig(num_beams=3, **BEAM_GEN)
-
-    def beam_run(n_new):
-        return engine.generate(pixels, ids, gen=GenerationConfig(
-            num_beams=3, no_repeat_ngram_size=3, max_new_tokens=n_new))
-
-    beam_run(2)                                              # warm-up
-    t1, runs1, _ = _timed(lambda: beam_run(1))
-    t32, runs32, out = _timed(lambda: beam_run(32))
-    again = engine.generate(pixels, ids, gen=beams)
-    if not np.array_equal(out, again):
-        raise RuntimeError("beam[video]: two generate calls differ")
-    yields = list(engine.stream_beam_generate(pixels, ids, gen=beams))
-    want = _cut_at(out[0, ids.shape[1]:].tolist(), eos)
-    if yields[-1] != want:
-        raise RuntimeError(f"beam[video]: the last streamed beam "
-                           f"{yields[-1]} is not generate's {want}")
-    log(f"beam[video]: generate(num_beams=3, no_repeat_ngram_size=3) | "
-        f"TTFT {t1 * 1e3:.2f} ms | decode {31 / (t32 - t1):.2f} tok/s of "
-        f"the best beam ({(t32 - t1) / 31 * 1e3:.2f} ms/step, 3 rows) | "
-        f"medians of {REPS}; 1-token runs {runs1} ms, 32-token runs "
-        f"{runs32} ms | two calls equal; stream_beam_generate's "
-        f"{len(yields)} yields end in generate's {len(want)} tokens | "
-        f"{smi} | first tokens {want[:8]}")
-    _beam_launches("video", beam_run)
-    del model, engine
+    del engine
+    log(f"beam[video]: the still + video request, num_beams=3, "
+        f"no_repeat_ngram_size=3, 32 new tokens (3 rows)")
+    _beam_engines("beam[video]", smi, model, (pixels, ids),
+                  3, BEAM_LAUNCHES["video"], (pixels, ids))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # (b) MPT-7B, serve's b=8 requests with 4 beams each: 32 rows
     cfg = serving_cfg()
     model = build_model(cfg)
-    engine = OtterGenerator(model, cache_dtype=torch.int8)
     req = make_requests(cfg, 8, SEED + 18)
-
-    def mpt_run(n_new):
-        return engine.generate(*req, gen=GenerationConfig(
-            num_beams=4, no_repeat_ngram_size=3, max_new_tokens=n_new))
-
-    mpt_run(2)                                               # warm-up
-    t1, runs1, _ = _timed(lambda: mpt_run(1))
-    t32, runs32, out = _timed(lambda: mpt_run(32))
-    if not np.array_equal(out, mpt_run(32)):
-        raise RuntimeError("beam[mpt]: two generate calls differ")
+    log(f"beam[mpt]: b=8 prompts {req[2].sum(1).tolist()} tokens + 1 image "
+        f"each, num_beams=4 (32 rows), no_repeat_ngram_size=3, 32 new "
+        f"tokens")
+    one = tuple(x[:1] for x in req)
+    out, _ = _beam_engines("beam[mpt]", smi, model, req, 4,
+                           BEAM_LAUNCHES["mpt"], one)
     p = req[1].shape[1]
     if out.shape != (8, p + 32) or not (
             (out >= 0) & (out < cfg.text.total_vocab)).all():
         raise RuntimeError(f"beam[mpt]: output {out.shape}")
-    log(f"beam[mpt]: b=8 prompts {req[2].sum(1).tolist()} tokens + 1 image "
-        f"each, num_beams=4 (32 rows), no_repeat_ngram_size=3 | TTFT "
-        f"{t1 * 1e3:.2f} ms | decode {8 * 31 / (t32 - t1):.2f} tok/s of "
-        f"the best beams ({(t32 - t1) / 31 * 1e3:.2f} ms/step) | medians "
-        f"of {REPS}; 1-token runs {runs1} ms, 32-token runs {runs32} ms | "
-        f"two calls equal | {smi} | first tokens {out[0, p:p + 8].tolist()}")
-    _beam_launches("mpt", mpt_run)
     launches = bench_decode.kernel_launches()
     log(f"beam: kernel launches during the requests {launches}")
     dead = sorted(k for k in BEAM_PATH if launches[k] == 0)
@@ -4013,28 +4097,32 @@ def _hold_greedy(tag, engine, req, want, got, recorder, partings):
 
 
 def _lone_beam_steps(engine, req, gen):
-    """`generate(num_beams=K)` of one request alone, step by step: each
-    step's logits [K, V] and the live hypotheses after it (the first
-    tokens at index 0), and the best hypothesis at the end."""
+    """`generate(num_beams=K)` of one request alone, step by step (the
+    entry's beam step run eagerly): each step's logits [K, V] and the live
+    hypotheses after it (the first tokens at index 0), and the best
+    hypothesis at the end."""
     import torch
     from otter_tpu_torch.generation import beam
     seen, hyps = [], []
     with torch.inference_mode():
-        bs = engine._beam_prefill(*req, None, gen)
-        step = bs.step_fn
+        st = engine._beam_prefill(*req, None, gen)
+        bst, step = st.beam, st.beam.step_fn
 
         def step_fn(tok, cache, t):
             logits, cache = step(tok, cache, t)
             seen.append(logits.float().clone())
             return logits, cache
 
-        st = beam._beam_setup(bs.init_logits, bs.cache, step_fn=step_fn,
-                              **bs.kw)
-        hyps.append(st.tokens[0, :, :1].tolist())
-        for t in range(1, gen.max_new_tokens):
-            beam._beam_step(st, t)
-            hyps.append(st.tokens[0, :, :t + 1].tolist())
-        best = beam._beam_best(st, gen.max_new_tokens)[0][0].tolist()
+        bst.step_fn = step_fn
+        try:
+            hyps.append(bst.tokens[0, :, :1].tolist())
+            for t in range(1, gen.max_new_tokens):
+                beam._beam_step(bst)
+                hyps.append(bst.tokens[0, :, :t + 1].tolist())
+            best = beam._beam_best(bst)[0][0].tolist()
+        finally:
+            bst.step_fn = step
+            engine._finish(st)
     return seen, hyps, best
 
 
@@ -7599,6 +7687,13 @@ def _eval_other_adapters(smi, rows):
         if not counts.get("int8_matmul"):
             raise RuntimeError(f"eval {adapter.name}: the int8 head "
                                f"never launched: {counts}")
+        graphs = [e for e in adapter.engine._entries if e.graph is not None]
+        if not graphs:
+            raise RuntimeError(f"eval {adapter.name}: its decode step was "
+                               f"not captured")
+        log(f"eval {adapter.name}: {len(graphs)} captured key(s) of its "
+            f"FuyuGenerator, capture "
+            f"{[round(e.capture_ms, 1) for e in graphs]} ms")
     _adapter_rates("otterhd", adapter, *rows[0], smi, ADAPTER_NEW)
     del model, adapter
     gc.collect()

@@ -5,8 +5,10 @@
 beginning-of-answer token.
 
 Greedy decoding runs `generation.fuyu.fuyu_generate`, the worker's loop,
-where the JAX adapter steps its own: the same tokens (the cache is rounded
-to another length, whose entries past the valid ones are never read).
+on one `FuyuGenerator` of the adapter's model (its step captured once per
+key as a CUDA graph on the card), where the JAX adapter steps its own: the
+same tokens (the cache is rounded to another length, whose entries past
+the valid ones are never read).
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ class Fuyu:
         self.name = "fuyu"
         self.max_new_tokens = max_new_tokens
         self.resolution = resolution
-        self.cache_dtype = cache_dtype
         if model is not None:
             self.model, self.tokenizer = model, tok
             self.processor = processor
@@ -45,6 +46,8 @@ class Fuyu:
                 FuyuImageProcessor(patch_size=self.cfg.patch_size),
                 image_placeholder_id=self.cfg.image_placeholder_id,
                 image_newline_id=self.cfg.image_newline_id)
+        from otter_tpu_torch.generation.fuyu import FuyuGenerator
+        self.engine = FuyuGenerator(self.model, cache_dtype)
 
     def generate(self, question: str, raw_image_data=None) -> str:
         from otter_tpu_torch.config import GenerationConfig
@@ -55,11 +58,10 @@ class Fuyu:
                                target_resolution=self.resolution,
                                left_pad=True)
         out_ids = list(fuyu_generate(
-            self.model, batch["input_ids"], batch["image_patches"],
+            self.engine, batch["input_ids"], batch["image_patches"],
             batch["image_patches_indices"], batch["attention_mask"],
             GenerationConfig(max_new_tokens=self.max_new_tokens,
-                             eos_token_id=self.tokenizer.eos_token_id),
-            cache_dtype=self.cache_dtype))
+                             eos_token_id=self.tokenizer.eos_token_id)))
         return self.tokenizer.decode(out_ids,
                                      skip_special_tokens=True).strip()
 

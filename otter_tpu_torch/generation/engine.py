@@ -17,8 +17,10 @@ of mixed still+video media.
 the prompt, its mask and the vision latents repeated K times a row (the
 reference's repeat for beams, `modeling_otter.py:1030-1032`; the JAX
 engine repeats the pixels, here the vision input is encoded once and its
-latents repeated, the same values for one CLIP pass in K).
-`stream_beam_generate` yields the current best beam every few steps.
+latents repeated, the same values for one CLIP pass in K). Its step, the
+counterpart of the JAX engine's jitted beam loop, keeps the search's
+state on the device beside the cache and is captured as the greedy step
+is. `stream_beam_generate` yields the current best beam every few steps.
 
 The model is an `OtterVLM` or an `IdeficsVLM`: the engine asks of it
 `encode_vision(vision_x, vision_mask)` (latents [B, N, m, D]), the forward
@@ -219,16 +221,19 @@ class _DoneFlag:
 
 class _Entry:
     """The decode state of one key, fixed in memory: the tensors a step
-    reads and writes in place (`st`: the token, the stacked cache,
-    kv_valid, the buffer, the step counters, done, and the request's
-    constants), the decode_attention workspace its graph recorded and,
-    once captured, the graph, the launches a replay makes (`launches`,
-    from `_build.recording_launches`), the capture's host ms and the bytes
-    its memory pool took. A request leases it (`busy`) from its prefill to
-    its last token."""
+    reads and writes in place (`st`: for a greedy / sampled step the
+    token, the stacked cache, kv_valid, the buffer, the step counters,
+    done and the request's constants; a beam entry adds the search's
+    state, `st.beam`), the step (`body`, called with no argument: what a
+    graph captures), the decode_attention workspace its graph recorded
+    and, once captured, the graph, the launches a replay makes
+    (`launches`, from `_build.recording_launches`), the capture's host ms
+    and the bytes its memory pool took. A request leases it (`busy`) from
+    its prefill to its last token."""
 
-    def __init__(self, key, st: SimpleNamespace, cache_dtype):
+    def __init__(self, key, st: SimpleNamespace, cache_dtype, body):
         self.key, self.st, self.cache_dtype = key, st, cache_dtype
+        self.body = body
         self.busy = True
         self.broken = False
         self.workspace = da.Workspace()
@@ -241,46 +246,187 @@ class _Entry:
         """Drop the graph, its memory pool and every tensor."""
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.st = self.workspace = None
+        self.graph = self.st = self.workspace = self.body = None
 
 
-class OtterGenerator:
-    """Greedy / sampled generation over an `OtterVLM` or an `IdeficsVLM`,
-    on the model's device.
+class GraphedSteps:
+    """The leases of an engine whose decode step keeps its state on the
+    device: entries of fixed tensors, one per key, that a request leases
+    from its prefill to its last token; on CUDA each entry's step
+    (`_Entry.body`) is captured once as a CUDA graph and replayed
+    (`cuda_graph`, `graph_setting`), else run eagerly. At most
+    `MAX_ENTRIES` entries stay once their requests end (least recently
+    used first out), and requests that run at once each lease their own.
+    A capture that fails raises, and its entry is dropped when the request
+    ends: no step quietly runs eagerly in place of a replay.
+    `OtterGenerator` (greedy, sampled and beam steps) and
+    `generation.fuyu.FuyuGenerator` share it."""
+
+    def __init__(self, model, cuda_graph: Optional[bool]):
+        self.model = model
+        self.cuda_graph = graph_setting(cuda_graph, model)
+        self._entries: List[_Entry] = []   # least recently used first
+        self._entries_lock = threading.Lock()
+        self._capture_stream = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _evict(self, keep: int) -> None:
+        """Free idle entries, least recently used first, until at most
+        `keep` entries remain (a busy one is never freed). The caller holds
+        `_entries_lock`."""
+        for e in [e for e in self._entries if not e.busy]:
+            if len(self._entries) <= keep:
+                break
+            self._entries.remove(e)
+            e.free()
+
+    def _take(self, key, make) -> _Entry:
+        """An idle entry of `key` (now the most recently used), or `make()`'s
+        new one after idle entries beyond `MAX_ENTRIES - 1` are freed;
+        marked busy."""
+        with self._entries_lock:
+            for e in reversed(self._entries):
+                if e.key == key and not e.busy:
+                    e.busy = True
+                    self._entries.remove(e)
+                    self._entries.append(e)
+                    return e
+            self._evict(MAX_ENTRIES - 1)
+        entry = make()
+        entry.st.entry = entry
+        with self._entries_lock:
+            self._entries.append(entry)
+        return entry
+
+    def _release(self, entry: _Entry) -> None:
+        """The request is done with `entry`: it stays (most recently used)
+        unless the bound or a failed capture says otherwise."""
+        with self._entries_lock:
+            entry.busy = False
+            if entry in self._entries:
+                self._entries.remove(entry)
+                if entry.broken:
+                    entry.free()
+                else:
+                    self._entries.append(entry)
+            self._evict(MAX_ENTRIES)
+
+    @_inference
+    def _advance(self, st: SimpleNamespace) -> None:
+        """One decode step of a leased entry's state: the graph's replay
+        (its launches added to the counters), or, before the capture, the
+        step body (with `cuda_graph`, on the capture stream, and the graph
+        captured after it)."""
+        entry = st.entry
+        if entry.graph is not None:
+            entry.graph.replay()
+            _build.add_launches(entry.launches)
+        elif self.cuda_graph:
+            self._capture(entry)
+        else:
+            entry.body()
+        st.t += 1
+
+    def _capture(self, entry: _Entry) -> None:
+        """Run the request's step once eagerly on the capture stream, with
+        the entry's own workspace (so that everything the step allocates
+        once, the workspace and cuBLAS's, exists), then capture the step:
+        the capture runs nothing. A failure raises and the entry is
+        dropped when its request ends."""
+        st, dev = entry.st, self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        side, main = self._capture_stream, torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _capture_lock, torch.cuda.stream(side), \
+                    da.owned_workspace(entry.workspace):
+                entry.body()
+                entry.workspace.frozen = True
+                if getattr(st, "generator", None) is not None:
+                    graph.register_generator_state(st.generator)
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                with _build.recording_launches() as launches:
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        entry.body()
+                    except BaseException:
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                entry.capture_ms = (time.perf_counter() - t0) * 1e3
+                entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        except BaseException:
+            entry.broken = True
+            raise
+        finally:
+            main.wait_stream(side)
+        entry.graph, entry.launches = graph, launches
+
+    def _seed(self, st: SimpleNamespace, generator) -> None:
+        """The entry's generator for a sampled request: the request's state
+        copied in (`_finish` copies it back), or, without one, a stream of
+        its own seeded by one draw from the device's default generator, so
+        that requests that run at once draw different numbers."""
+        if st.generator is None:
+            return
+        if generator is not None:
+            st.source = generator
+            st.generator.set_state(generator.get_state())
+        else:
+            st.generator.manual_seed(
+                int(torch.randint(2 ** 62, (), device=self.device)))
+
+    def _finish(self, st: SimpleNamespace) -> None:
+        """The request is done with its entry: the generator it brought
+        takes the entry's state (as if it had drawn every number itself)
+        and the entry goes back."""
+        if st.source is not None:
+            st.source.set_state(st.generator.get_state())
+            st.source = None
+        self._release(st.entry)
+
+
+class OtterGenerator(GraphedSteps):
+    """Greedy / sampled and beam generation over an `OtterVLM` or an
+    `IdeficsVLM`, on the model's device.
 
     The greedy and sampled decode step is the counterpart of the JAX
-    engine's compiled step (`jax.jit(self._step, donate_argnums=(2,))`):
-    it reads every value that changes from one step to the next from
-    device memory (the cache position and the step index are counters on
-    the device that the step advances) and makes no host sync, and on CUDA
-    it is captured once per key as a CUDA graph (`cuda_graph`, on by
-    default there) and replayed. The key is the rows, the cache length and
-    dtype, the vision latents' shape and the step's sampling and bans
-    (`gen` less `max_new_tokens`). Each key's tensors live in an entry
-    that the request's prefill writes in place (the counterpart of the
-    donated cache); at most `MAX_ENTRIES` entries stay once their requests
-    end (least recently used first out), and requests that run at once
-    each lease their own. `cuda_graph=False` runs the same step body
-    eagerly (the CPU always does: it has no graph). The megakernel route
-    (`TextConfig.megakernel`) is captured too: its kernel reads the
-    position from device memory. Beams keep their own eager step
-    (`generation/beam.py`)."""
+    engine's compiled step (`jax.jit(self._step, donate_argnums=(2,))`),
+    the beam step that of its jitted beam loop (`beam_search`'s
+    `lax.fori_loop`): each reads every value that changes from one step
+    to the next from device memory (the cache position and the step index
+    are counters on the device that the step advances) and makes no host
+    sync, and on CUDA it is captured once per key as a CUDA graph
+    (`cuda_graph`, on by default there) and replayed. The key is the rows
+    (B*K for beams), the cache length and dtype, the vision latents' shape
+    and the step's sampling and bans: `gen` less `max_new_tokens` for a
+    greedy / sampled step, the whole `gen` for a beam step (its history
+    is `max_new_tokens` wide), as the JAX key `("beam", b, p, cache_len,
+    gen)` holds it. Each key's tensors live in an entry that the request's
+    prefill writes in place (the counterpart of the donated cache;
+    `GraphedSteps`). `cuda_graph=False` runs the same step body eagerly
+    (the CPU always does: it has no graph). The megakernel and fused-tail
+    routes are captured too: the megakernel reads the position from
+    device memory."""
 
     def __init__(self, model: Model,
                  cache_dtype: CacheDtype = torch.bfloat16,
                  hbm_bytes: Optional[float] = None,
                  cuda_graph: Optional[bool] = None):
-        self.model = model
+        super().__init__(model, cuda_graph)
         self.cfg: Union[OtterConfig, IdeficsModelConfig] = model.cfg
         self.cache_dtype = cache_dtype
         self.hbm_bytes = hbm_bytes
         self.param_bytes = sum(t.numel() * t.element_size() for t in
                                list(model.parameters()) + list(model.buffers()))
         self._cache_dtypes: Dict[Tuple[int, int], CacheDtype] = {}
-        self.cuda_graph = graph_setting(cuda_graph, model)
-        self._entries: List[_Entry] = []   # least recently used first
-        self._entries_lock = threading.Lock()
-        self._capture_stream = None
 
     def _cache_dtype_for(self, b: int, cache_len: int) -> CacheDtype:
         """The cache dtype for this (batch, cache_len): the requested one,
@@ -299,21 +445,7 @@ class OtterGenerator:
                 hbm_bytes=self.hbm_bytes)
         return self._cache_dtypes[key]
 
-    @property
-    def device(self) -> torch.device:
-        return self.model.device
-
     # ── the entries ──────────────────────────────────────────────────
-
-    def _evict(self, keep: int) -> None:
-        """Free idle entries, least recently used first, until at most
-        `keep` entries remain (a busy one is never freed). The caller holds
-        `_entries_lock`."""
-        for e in [e for e in self._entries if not e.busy]:
-            if len(self._entries) <= keep:
-                break
-            self._entries.remove(e)
-            e.free()
 
     def _lease(self, rows: int, cache_len: int, vis_latents: torch.Tensor,
                gen: GenerationConfig) -> _Entry:
@@ -325,36 +457,19 @@ class OtterGenerator:
             with self._entries_lock:
                 self._evict(MAX_ENTRIES - 1)
         dtype = self._cache_dtype_for(rows, cache_len)
-        step_gen = dataclasses.replace(gen, max_new_tokens=0)
+        step_gen = (gen if gen.num_beams > 1
+                    else dataclasses.replace(gen, max_new_tokens=0))
         key = (rows, cache_len, _cache_name(dtype), tuple(vis_latents.shape),
                step_gen)
-        with self._entries_lock:
-            for e in reversed(self._entries):
-                if e.key == key and not e.busy:
-                    e.busy = True
-                    self._entries.remove(e)
-                    self._entries.append(e)
-                    return e
-            self._evict(MAX_ENTRIES - 1)
-        entry = _Entry(key, self._new_state(rows, cache_len, dtype,
-                                            vis_latents, step_gen), dtype)
-        entry.st.entry = entry
-        with self._entries_lock:
-            self._entries.append(entry)
-        return entry
 
-    def _release(self, entry: _Entry) -> None:
-        """The request is done with `entry`: it stays (most recently used)
-        unless the bound or a failed capture says otherwise."""
-        with self._entries_lock:
-            entry.busy = False
-            if entry in self._entries:
-                self._entries.remove(entry)
-                if entry.broken:
-                    entry.free()
-                else:
-                    self._entries.append(entry)
-            self._evict(MAX_ENTRIES)
+        def make():
+            st = self._new_state(rows, cache_len, dtype, vis_latents,
+                                 step_gen)
+            if gen.num_beams > 1:
+                return _Entry(key, st, dtype,
+                              lambda: beam._beam_step(st.beam))
+            return _Entry(key, st, dtype, lambda: self._step_body(st))
+        return self._take(key, make)
 
     def _new_state(self, rows: int, cache_len: int, dtype: CacheDtype,
                    vis_latents: torch.Tensor,
@@ -385,9 +500,10 @@ class OtterGenerator:
             # the entry's own generator, registered with its graph; a
             # request's generator state is copied in and out (`_prefill`,
             # `_finish`)
-            generator=(torch.Generator(device=dev) if gen.do_sample
-                       else None),
-            source=None, p=0, t=0, logits=None)
+            generator=(torch.Generator(device=dev)
+                       if gen.do_sample and gen.num_beams <= 1 else None),
+            # a beam entry's search state (`_beam_prefill`)
+            beam=None, source=None, p=0, t=0, logits=None)
 
     # ── prefill and the step ─────────────────────────────────────────
 
@@ -399,8 +515,8 @@ class OtterGenerator:
         token: the state that `_advance` steps, a leased entry's (`st.entry`;
         `_finish` returns it). With `beams` K > 1 every request becomes K
         rows (row i*K + j is beam j of request i; the vision input encoded
-        once, its latents repeated) in a cache of its own and nothing is
-        sampled: `st.logits` holds each request's first logits [B, V]."""
+        once, its latents repeated) and nothing is sampled: `st.logits`
+        holds each request's first logits [B, V]."""
         dev = self.device
         lang_x = _on(lang_x, dev).long()
         b, p = lang_x.shape
@@ -431,39 +547,23 @@ class OtterGenerator:
                 device=dev)], dim=1),
             kv_valid=torch.cat([attention_mask.bool(), torch.zeros(
                 (rows, cache_len - p), dtype=torch.bool, device=dev)], dim=1))
-        prefill = functools.partial(
-            self.model, None, lang_x, attention_mask=attention_mask,
-            positions=positions, vis_latents=vis_latents,
-            head_last_only=True)
-        if beams > 1:
-            cache = init_cache(self.cfg.text, rows, cache_len,
-                               self._cache_dtype_for(rows, cache_len), dev,
-                               kv_heads=getattr(self.model, "tp_kv_heads",
-                                                None))
-            logits, cache, _ = prefill(cache=cache)
-            return SimpleNamespace(
-                gen=gen, p=p, cache=cache, logits=logits[::beams, -1],
-                eos=(gen.eos_token_id if gen.eos_token_id is not None
-                     else self.cfg.eoc_token_id), **values)
         st = self._lease(rows, cache_len, vis_latents, gen).st
         try:
-            logits, _, _ = prefill(cache=st.cache)
+            logits, _, _ = self.model(
+                None, lang_x, attention_mask=attention_mask,
+                positions=positions, vis_latents=vis_latents,
+                head_last_only=True, cache=st.cache)
             for name, val in values.items():
                 if val is not None:
                     getattr(st, name).copy_(val)
-            st.done.zero_()
             st.t_dev.zero_()
             st.p_dev.fill_(p)
             st.p, st.t = p, 0
-            if generator is not None and st.generator is not None:
-                st.source = generator
-                st.generator.set_state(generator.get_state())
-            elif st.generator is not None:
-                # no generator: a stream of its own, seeded by one draw
-                # from the device's default generator, so that requests
-                # that run at once draw different numbers
-                st.generator.manual_seed(
-                    int(torch.randint(2 ** 62, (), device=dev)))
+            if beams > 1:
+                st.logits = logits[::beams, -1]
+                return st
+            st.done.zero_()
+            self._seed(st, generator)
             self._sample(st, logits[:, -1])
             st.t = 1
         except BaseException:
@@ -505,70 +605,6 @@ class OtterGenerator:
             cache=st.cache, cache_pos=pos, kv_valid=st.kv_valid,
             positions=positions, media_counts=st.media_counts)
         self._sample(st, logits[:, -1])
-
-    @_inference
-    def _advance(self, st: SimpleNamespace) -> None:
-        """One decode step of a leased entry's state: the graph's replay
-        (its launches added to the counters), or, before the capture, the
-        step body (with `cuda_graph`, on the capture stream, and the graph
-        captured after it)."""
-        entry = st.entry
-        if entry.graph is not None:
-            entry.graph.replay()
-            _build.add_launches(entry.launches)
-        elif self.cuda_graph:
-            self._capture(entry)
-        else:
-            self._step_body(st)
-        st.t += 1
-
-    def _capture(self, entry: _Entry) -> None:
-        """Run the request's step once eagerly on the capture stream, with
-        the entry's own workspace (so that everything the step allocates
-        once, the workspace and cuBLAS's, exists), then capture the step:
-        the capture runs nothing. A failure raises and the entry is
-        dropped when its request ends."""
-        st, dev = entry.st, self.device
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
-        side, main = self._capture_stream, torch.cuda.current_stream(dev)
-        side.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with _capture_lock, torch.cuda.stream(side), \
-                    da.owned_workspace(entry.workspace):
-                self._step_body(st)
-                entry.workspace.frozen = True
-                if st.generator is not None:
-                    graph.register_generator_state(st.generator)
-                reserved = torch.cuda.memory_reserved(dev)
-                t0 = time.perf_counter()
-                with _build.recording_launches() as launches:
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        self._step_body(st)
-                    except BaseException:
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-                entry.capture_ms = (time.perf_counter() - t0) * 1e3
-                entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        except BaseException:
-            entry.broken = True
-            raise
-        finally:
-            main.wait_stream(side)
-        entry.graph, entry.launches = graph, launches
-
-    def _finish(self, st: SimpleNamespace) -> None:
-        """The request is done with its entry: the generator it brought
-        takes the entry's state (as if it had drawn every number itself)
-        and the entry goes back."""
-        if st.source is not None:
-            st.source.set_state(st.generator.get_state())
-            st.source = None
-        self._release(st.entry)
 
     def generate(self, vision_x, lang_x, attention_mask=None,
                  gen: Optional[GenerationConfig] = None,
@@ -636,72 +672,100 @@ class OtterGenerator:
 
     # ── beam search ──────────────────────────────────────────────────
 
+    @_inference
     def _beam_prefill(self, vision_x, lang_x, attention_mask,
                       gen: GenerationConfig) -> SimpleNamespace:
-        """The prefill of B*K rows and what `beam.beam_search` asks for:
-        each request's first logits with the bans applied, the cache, the
-        step, and the bans of a step (`kw`)."""
+        """The prefill of B*K rows into a leased beam entry, and the
+        search's state after the first token (`st.beam`, made at the
+        entry's first request): the state that `_advance` steps, one beam
+        step a call (`beam._beam_step`)."""
         k = gen.num_beams
         st = self._prefill(vision_x, lang_x, attention_mask, gen, beams=k)
-        p = st.p
-        prompt = st.buffer[:, :p]
-        cols = torch.arange(st.buffer.shape[1], device=prompt.device)[None]
+        try:
+            if st.beam is None:
+                st.beam = self._beam_state(st, k)
+            p = st.p
+            beam._beam_setup(st.beam, sampling.process_logits(
+                st.logits, st.buffer[::k, :p], p, gen, st.valid_from[::k]))
+            st.t = 1
+        except BaseException:
+            self._finish(st)
+            raise
+        return st
+
+    def _beam_state(self, st: SimpleNamespace, k: int) -> SimpleNamespace:
+        """A beam entry's search state, sharing the entry's step counter:
+        its step and bans read the cache position p + t - 1 and the bans'
+        end p + t from the counters `st.p_dev` and `st.t_dev`."""
+        gen, dev = st.gen, self.device
+        rows, width = st.buffer.shape
+        cols = torch.arange(width, device=dev)[None]
+        history = torch.arange(gen.max_new_tokens, device=dev)
 
         def step_fn(tok, cache, t):
             # as the JAX engine's beam step: every slot below p + t is
             # attended, the prompt's left padding too (ROADMAP Queue 3)
-            pos = None if st.real_len is None else \
-                (st.real_len + t - 1)[:, None]
+            pos = st.p_dev + t - 1
+            positions = (None if st.real_len is None
+                         else (st.real_len + (t - 1))[:, None])
             logits, cache, _ = self.model(
                 None, tok, vis_latents=st.vis_latents, cache=cache,
-                cache_pos=p + t - 1, kv_valid=st.kv_valid | (cols < p + t),
-                positions=pos, media_counts=st.media_counts)
+                cache_pos=pos, kv_valid=st.kv_valid | (cols <= pos),
+                positions=positions, media_counts=st.media_counts)
             return logits[:, -1], cache
 
         def logits_processor(logits, gen_tokens, t):
-            # the left-padded prompt before the beam's tokens, so the bans
-            # see the whole context, as HF's processors do
-            return sampling.process_logits(
-                logits, torch.cat([prompt, gen_tokens], dim=1), p + t, gen,
-                st.valid_from)
+            # the left-padded prompt before the beam's tokens (the buffer:
+            # the prompt, then the history written at p), so the bans see
+            # the whole context, as HF's processors do
+            st.buffer.index_copy_(1, st.p_dev + history, gen_tokens)
+            return sampling.process_logits(logits, st.buffer, st.p_dev + t,
+                                           gen, st.valid_from)
 
         bans = gen.no_repeat_ngram_size or gen.bad_words_ids
-        return SimpleNamespace(
-            prompt=prompt[::k], cache=st.cache, step_fn=step_fn,
-            init_logits=sampling.process_logits(
-                st.logits, prompt[::k], p, gen, st.valid_from[::k]),
-            kw=dict(num_beams=k, max_new_tokens=gen.max_new_tokens,
-                    eos_token_id=st.eos, pad_token_id=gen.pad_token_id,
-                    length_penalty=gen.length_penalty,
-                    logits_processor=logits_processor if bans else None))
+        return beam._beam_state(
+            rows // k, st.logits.shape[-1], num_beams=k,
+            max_new_tokens=gen.max_new_tokens, eos_token_id=st.eos,
+            pad_token_id=gen.pad_token_id, length_penalty=gen.length_penalty,
+            step_fn=step_fn, logits_processor=logits_processor if bans
+            else None, cache=st.cache, device=dev, t_dev=st.t_dev)
 
     @_inference
     def _beam_generate(self, vision_x, lang_x, attention_mask,
                        gen: GenerationConfig) -> np.ndarray:
-        bs = self._beam_prefill(vision_x, lang_x, attention_mask, gen)
-        out, _ = beam.beam_search(bs.step_fn, bs.init_logits, bs.cache,
-                                  **bs.kw)
-        return torch.cat([bs.prompt, out], dim=1).cpu().numpy()
+        st = self._beam_prefill(vision_x, lang_x, attention_mask, gen)
+        try:
+            for _ in range(1, gen.max_new_tokens):
+                self._advance(st)
+            out, _ = beam._beam_best(st.beam)
+            return torch.cat([st.buffer[::gen.num_beams, :st.p], out],
+                             dim=1).cpu().numpy()
+        finally:
+            self._finish(st)
 
-    @torch.inference_mode()
     def stream_beam_generate(self, vision_x, lang_x, attention_mask=None,
                              gen: Optional[GenerationConfig] = None,
                              chunk: int = 4) -> Iterator[list]:
         """Beam search for one request, streamed: yields the current best
         beam's tokens (up to eos) every `chunk` steps; the last yield is
         `generate(num_beams=K)`'s continuation. A later yield may revise
-        earlier tokens (the serving protocol re-renders the whole text)."""
+        earlier tokens (the serving protocol re-renders the whole text).
+        The steps are `generate`'s (replays of the key's graph on CUDA);
+        a stream closed early gives its entry back."""
         gen = gen or GenerationConfig()
         if np.shape(lang_x)[0] != 1:
             raise ValueError("stream_beam_generate serves one request; "
                              "batch with generate")
-        bs = self._beam_prefill(vision_x, lang_x, attention_mask, gen)
-        eos = bs.kw["eos_token_id"]
-        for out, t in beam.beam_search_chunks(
-                bs.step_fn, bs.init_logits, bs.cache, chunk=chunk, **bs.kw):
-            toks = []
-            for x in out[0, :t].tolist():
-                if x == eos:
-                    break
-                toks.append(x)
-            yield toks
+        st = self._beam_prefill(vision_x, lang_x, attention_mask, gen)
+        try:
+            for first, end in beam._chunks(gen.max_new_tokens, chunk):
+                for _ in range(first, end):
+                    self._advance(st)
+                toks = []
+                for x in beam._beam_best(st.beam)[0][0, :end].tolist():
+                    if x == st.eos:
+                        break
+                    toks.append(x)
+                yield toks
+        finally:
+            self._finish(st)

@@ -262,12 +262,19 @@ class DeviceThread:
 
     def steps(self, steps: Iterator) -> Iterator:
         """`steps` (an engine's token generator: its first item runs the
-        prefill, each later one a decode step) advanced on this thread."""
-        while True:
-            item = self._pool.submit(next, steps, self._END).result()
-            if item is self._END:
-                return
-            yield item
+        prefill, each later one a decode step) advanced on this thread; a
+        stream abandoned early is closed here too, so that the engine's
+        generator gives its entry back on this thread."""
+        try:
+            while True:
+                item = self._pool.submit(next, steps, self._END).result()
+                if item is self._END:
+                    return
+                yield item
+        finally:
+            close = getattr(steps, "close", None)
+            if close is not None:
+                self._pool.submit(close).result()
 
 
 def _relay(tokenizer, token_iter, stream_interval: int) -> Iterator[str]:
@@ -432,12 +439,15 @@ def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
     """Streaming bridge for Fuyu/OtterHD (the reference's Flask deploy
     endpoint, `pipeline/serve/deploy/otterhd_endpoint.py:62-98`, rebuilt on
     the worker protocol): variable-resolution patching through the
-    bucketed FuyuProcessor, `fuyu_generate`'s prefill and cached steps,
-    box/point coordinate post-processing on the final text. Generation
-    stops at the tokenizer's eos; concurrent requests decode in turns, a
-    step each."""
-    from otter_tpu_torch.generation.fuyu import fuyu_generate
+    bucketed FuyuProcessor, `fuyu_generate`'s prefill and cached steps
+    on one `FuyuGenerator` of the model (its step captured once per key
+    as a CUDA graph on the card), box/point coordinate post-processing on
+    the final text. Generation stops at the tokenizer's eos; concurrent
+    requests decode in turns, a step each, each on an entry of its own.
+    `stream_fn.engine` is the `FuyuGenerator`."""
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator, fuyu_generate
     device_thread = DeviceThread()
+    engine = FuyuGenerator(model, cache_dtype)
 
     def stream_fn(http_params: dict) -> Iterator[str]:
         prompt = http_params["prompt"]
@@ -454,10 +464,9 @@ def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
                           target_resolution=resolution, left_pad=True)
         out_ids: list = []
         for tok in device_thread.steps(fuyu_generate(
-                model, batch["input_ids"], batch["image_patches"],
+                engine, batch["input_ids"], batch["image_patches"],
                 batch["image_patches_indices"], batch["attention_mask"],
-                gen, cache_dtype=cache_dtype,
-                generator=_generator(gen, model.device))):
+                gen, generator=_generator(gen, model.device))):
             out_ids.append(tok)
             if len(out_ids) % stream_interval == 0:
                 yield tokenizer.decode(out_ids, skip_special_tokens=True)
@@ -465,6 +474,7 @@ def make_fuyu_stream_fn(model, processor, cfg, tokenizer, *,
         # bbox/point token spans -> scaled coordinates
         yield processor.post_process_box_coordinates(text)
 
+    stream_fn.engine = engine
     return stream_fn
 
 

@@ -4,8 +4,10 @@
 (logits from a table, a token embedding and a per-beam state carried in
 the cache, all exact in f32, so both frameworks see the same logits);
 `OtterGenerator.generate(num_beams=K)` and `stream_beam_generate` on the
-tiny int8 OTTER-MPT and LLaMA models with an int8 cache; and the `api`
-wrappers' forward and generate on the tiny f32 model.
+tiny int8 OTTER-MPT and LLaMA models with an int8 cache, and the beam
+step's body on the device counters with no host step index (what a CUDA
+graph captures), and the beam entries' leases; and the `api` wrappers'
+forward and generate on the tiny f32 model.
 
 Tolerances: tokens equal; beam scores within 1e-5; logits within 1e-4
 max-abs and the loss within 1e-5.
@@ -207,6 +209,65 @@ def test_stream_beam_generate_matches_jax_and_generate(jax_beam_streams,
     if cfg.eoc_token_id in cont:
         cont = cont[:cont.index(cfg.eoc_token_id)]
     assert yields[-1] == cont
+
+
+@pytest.mark.parametrize("arch,k,ng", ENGINE_CASES)
+def test_beam_step_body_on_device_counters_gives_jax_tokens(jax_beams, arch,
+                                                            k, ng):
+    """The beam prefill fills a leased entry; each beam step is then the
+    entry's body (`beam._beam_step` over the entry's tensors, what a graph
+    captures), called 7 times with no argument: the host's step count and
+    prompt width are wiped first, so the step, its cache position and its
+    bans can only read the device counters. The best beams equal the JAX
+    engine's."""
+    cfg, _, _, tmodel = _models(arch)
+    vx, lang_x, attn = _ragged(cfg)
+    engine = tengine.OtterGenerator(tmodel, cache_dtype=torch.int8)
+    gen = TGen(max_new_tokens=8, num_beams=k, no_repeat_ngram_size=ng)
+    st = engine._beam_prefill(vx, lang_x, attn, gen)
+    p = st.p
+    st.t = st.p = None
+    with torch.inference_mode():
+        for _ in range(7):
+            st.entry.body()
+        out, _ = tbeam._beam_best(st.beam)
+        got = torch.cat([st.buffer[::k, :p], out], 1).numpy()
+    assert int(st.t_dev) == 8 and int(st.p_dev) == p
+    st.t, st.p = 8, p
+    engine._finish(st)
+    np.testing.assert_array_equal(got, jax_beams[arch, k, ng])
+
+
+def test_beam_entries_are_leased_released_and_bounded(monkeypatch):
+    """A beam request leases an entry keyed by its rows (B*K), cache
+    length and dtype, latents' shape and whole `gen`; a second request of
+    the key reuses it (its cache the same tensor); a stream abandoned
+    after its first yield gives it back; two streams at once lease two;
+    with a bound of 2 a third key frees the least recently used."""
+    monkeypatch.setattr(tengine, "MAX_ENTRIES", 2)
+    cfg, _, _, tmodel = _models("mpt")
+    vx, ids = inputs(cfg, 71, 1, 10)
+    eng = tengine.OtterGenerator(tmodel, cache_dtype=torch.int8)
+    gen = TGen(max_new_tokens=9, num_beams=3, no_repeat_ngram_size=3)
+    full = list(eng.stream_beam_generate(vx, ids, gen=gen, chunk=3))
+    entry = eng._entries[-1]
+    assert entry.key[:3] == (3, 128, "int8") and entry.key[4] == gen
+    cache = entry.st.cache["k"]
+    stream = eng.stream_beam_generate(vx, ids, gen=gen, chunk=3)
+    assert next(stream) == full[0] and entry.busy
+    stream.close()
+    assert not entry.busy and eng._entries == [entry]
+    a, b = (eng.stream_beam_generate(vx, ids, gen=gen, chunk=3)
+            for _ in range(2))
+    assert next(a) == next(b) == full[0]
+    assert len(eng._entries) == 2 and all(e.busy for e in eng._entries)
+    assert [full[0]] + list(a) == [full[0]] + list(b) == full
+    assert entry in eng._entries and entry.st.cache["k"] is cache
+    older, newer = eng._entries       # a's entry, then b's: b ended last
+    out = eng.generate(vx, ids, gen=TGen(max_new_tokens=9, num_beams=2))
+    assert out.shape == (1, 19)
+    assert [e.key[0] for e in eng._entries] == [3, 2]
+    assert eng._entries[0] is newer and older.st is None
 
 
 def test_stream_beam_generate_serves_one_request():

@@ -7,8 +7,8 @@ kernels at small widths, the megakernel captured once and replayed at
 every position, the ends of the cache and refused inputs), the
 continuous batcher's pooled step and speculative decoding (alone and in
 the pool) on a small model, kernels against plain, and the captured
-decode steps (the engine's, the megakernel route's, the pool's) against
-their eager steps.
+decode steps (the engine's greedy and beam steps, the megakernel route's,
+the pool's, OtterHD's) against their eager steps.
 
 Needs an NVIDIA GPU; skipped without one. On the card:
 `pytest -m cuda tests/test_torch_cuda.py`. Tolerance: bf16 in and out,
@@ -1544,3 +1544,133 @@ def test_failed_capture_raises_and_drops_its_entry(gen, monkeypatch):
     assert engine._entries[-1].graph is not None
     eager = OtterGenerator(model, cache_dtype=torch.int8, cuda_graph=False)
     assert (eager.generate(vx, ids, gen=g) == out).all()
+
+
+# ── the captured beam step and OtterHD's step ────────────────────────
+
+def _per_step(run, new):
+    """The launches a decode step of `run(n)` (a request of n new tokens):
+    the difference between n = `new` and n = 1 over the `new` - 1 steps."""
+    _, one = _launch_diff(lambda: run(1))
+    out, full = _launch_diff(lambda: run(new))
+    return out, {k: (n - one.get(k, 0)) / (new - 1) for k, n in full.items()
+                 if n != one.get(k, 0)}
+
+
+def _recorded(entry):
+    """An entry's record of a replay's launches, by the counters' names."""
+    from otter_tpu_torch.tools import bench_decode
+    names = {id(w): n for n, w in (
+        ("flash_fwd", fa.flash_attention), ("int8_mlp", quant.int8_mlp),
+        ("decode_attention", da.decode_attention),
+        ("int8_matmul", quant.int8_matmul))}
+    assert set(bench_decode.kernel_launches()) >= set(names.values())
+    return {names[id(w)]: n for (w, _), n in entry.launches.items()}
+
+
+def _counting_captures(engine):
+    captured, capture = [], engine._capture
+
+    def counted(entry):
+        capture(entry)
+        captured.append(entry)
+    engine._capture = counted
+    return captured
+
+
+def _no_sync_in_replays(engine, st):
+    """Four replays of a captured step under
+    `set_sync_debug_mode("error")`, then the request's entry back."""
+    try:
+        engine._advance(st)
+        assert st.entry.graph is not None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                engine._advance(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        engine._finish(st)
+
+
+def test_graphed_beam_search_equals_eager_with_its_launches(gen):
+    """Beams on the card (2 requests x 3 beams, no-repeat 2-grams): the
+    graphed engine's `generate(num_beams=3)` and `stream_beam_generate`
+    give the eager step's beams (`cuda_graph=False`) with its launches a
+    step; the key's first request captures once and a second request
+    only replays, a replay adding what its capture recorded; replays make
+    no host sync."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.engine import OtterGenerator
+    model = _card_otter()
+    vx, ids = _graph_batch(gen, 2)
+    g = lambda n: Gen(max_new_tokens=n, num_beams=3, no_repeat_ngram_size=2)
+    eager = OtterGenerator(model, cache_dtype=torch.int8, cuda_graph=False)
+    graphed = OtterGenerator(model, cache_dtype=torch.int8)
+    assert graphed.cuda_graph and not eager.cuda_graph
+    want, want_step = _per_step(lambda n: eager.generate(vx, ids, gen=g(n)),
+                                10)
+    # (2 decoder layers and the xattn block's FF)
+    assert want_step == {"int8_mlp": 3, "decode_attention": 2}
+    captured = _counting_captures(graphed)
+    for i in range(2):
+        got, got_step = _per_step(
+            lambda n: graphed.generate(vx, ids, gen=g(n)), 10)
+        assert (got == want).all() and got_step == want_step
+        assert len(captured) == 1      # n = 1 makes no step
+    entry = captured[0]
+    assert entry.key[4] == g(10)
+    assert entry.capture_ms > 0 and entry.pool_bytes >= 0
+    assert _recorded(entry) == want_step
+    streamed = list(graphed.stream_beam_generate(vx[:1], ids[:1], gen=g(10),
+                                                 chunk=4))
+    cont = eager.generate(vx[:1], ids[:1], gen=g(10))[0, ids.shape[1]:]
+    cont = cont.tolist()
+    eoc = model.cfg.eoc_token_id
+    assert streamed[-1] == (cont[:cont.index(eoc)] if eoc in cont else cont)
+    _no_sync_in_replays(graphed, graphed._beam_prefill(vx, ids, None, g(10)))
+
+
+def _card_fuyu():
+    """A small FuyuVLM on the card with seeded random weights: int8
+    decoder, int8 embedding table and head, head dim 64."""
+    from otter_tpu_torch.config import FuyuConfig
+    from otter_tpu_torch.tools.random_weights import build_model
+    cfg = FuyuConfig.tiny()
+    cfg = cfg.replace(text=cfg.text.replace(
+        hidden_size=256, intermediate_size=1024, quant="int8",
+        quant_embed=True, decode_kernel="auto"))
+    return build_model(cfg, "cuda", 2)
+
+
+def test_graphed_fuyu_step_equals_eager_with_its_launches(gen):
+    """OtterHD's step on the card (a 12x8 image and 14 prompt tokens, an
+    int8 cache): the graphed `FuyuGenerator` gives the eager step's
+    tokens with its launches a step (`int8_mlp` and `decode_attention`
+    once a layer, the head's `int8_matmul` once); the key's first request
+    captures once, a second only replays (its record equal to a step's
+    launches); replays make no host sync."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
+    from otter_tpu_torch.tools.random_weights import fuyu_request
+    model = _card_fuyu()
+    req = fuyu_request(model.cfg, 12, 8, 14, 5)
+    g = lambda n: Gen(max_new_tokens=n, eos_token_id=-1)
+    eager = FuyuGenerator(model, torch.int8, cuda_graph=False)
+    graphed = FuyuGenerator(model, torch.int8)
+    assert graphed.cuda_graph and not eager.cuda_graph
+    want, want_step = _per_step(lambda n: list(eager.generate(*req, g(n))),
+                                12)
+    assert want_step == {"int8_mlp": 2, "decode_attention": 2,
+                         "int8_matmul": 1}
+    captured = _counting_captures(graphed)
+    for _ in range(2):
+        got, got_step = _per_step(
+            lambda n: list(graphed.generate(*req, g(n))), 12)
+        assert got == want and got_step == want_step
+        assert len(captured) == 1      # one key: n = 1 makes no step
+    assert _recorded(captured[0]) == want_step
+    assert captured[0].capture_ms > 0
+    _no_sync_in_replays(graphed, graphed._prefill(*req, g(12)))

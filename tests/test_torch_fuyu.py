@@ -2,7 +2,12 @@
 Persimmon decoder) and its generation loop against the JAX package, tiny
 size, f32 on the CPU, same weights through `load_flax_params`. Tolerance:
 logits within 1e-3 max-abs (the BASELINE.md logit-parity bar); greedy tokens
-equal."""
+equal. The loop's step on device counters (`FuyuGenerator`'s entry body,
+called with no host step index, int8 and bf16 caches), its entries (leased,
+given back by an abandoned stream, bounded) and the graph setting refused
+on the CPU are held here too."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +180,149 @@ def test_fuyu_params_round_trip_under_the_flax_names():
                 "language_model/layers_1/ffn/up_proj/bias",
                 "vision_embed_tokens/kernel"):
         np.testing.assert_array_equal(out[key], np.asarray(flat[key]))
+
+
+# ── the step on device counters, the entries ─────────────────────────
+
+NEW = 6
+_CACHES = {"int8": (jnp.int8, torch.int8), "bf16": (jnp.bfloat16,
+                                                    torch.bfloat16)}
+
+
+@pytest.fixture(scope="module")
+def jax_fuyu_loops():
+    """The JAX worker loop's greedy tokens for the request of seed 3 with
+    int8 weights over an int8 cache and with f32 weights over a bf16
+    cache, NEW new tokens, computed once."""
+    out = {}
+    for quant, cache in (("int8", "int8"), (None, "bf16")):
+        cfg, jmodel, params, _ = fuyu_pair(quant, quant == "int8")
+        out[quant, cache] = _jax_generate(cfg, jmodel, params,
+                                          _request(cfg, seed=3), NEW,
+                                          _CACHES[cache][0])
+    return out
+
+
+@pytest.mark.parametrize("quant,cache", [("int8", "int8"), (None, "bf16")])
+def test_fuyu_step_body_on_device_counters_gives_jax_tokens(jax_fuyu_loops,
+                                                            quant, cache):
+    """The prefill fills a leased entry; the step is then the entry's
+    body, called NEW - 1 times with no argument: the host's step count
+    and prompt width are wiped first, so the body can only read the
+    device counters. The tokens equal the JAX worker loop's."""
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
+    cfg, _, _, tmodel = fuyu_pair(quant, quant == "int8")
+    engine = FuyuGenerator(tmodel, _CACHES[cache][1])
+    assert not engine.cuda_graph
+    st = engine._prefill(*_request(cfg, seed=3),
+                         GenerationConfig(max_new_tokens=NEW))
+    p = st.p
+    st.t = st.p = None
+    got = [int(st.tok[0])]
+    with torch.inference_mode():
+        for _ in range(NEW - 1):
+            st.entry.body()
+            got.append(int(st.tok[0]))
+    assert int(st.t_dev) == NEW and int(st.p_dev) == p
+    st.t, st.p = NEW, p
+    engine._finish(st)
+    assert got == jax_fuyu_loops[quant, cache]
+    # and through fuyu_generate on the same engine: its entry again
+    entry = engine._entries[-1]
+    assert list(fuyu_generate(engine, *_request(cfg, seed=3),
+                              GenerationConfig(max_new_tokens=NEW))) == got
+    assert engine._entries == [entry] and not entry.busy
+
+
+def test_fuyu_prefill_computes_the_last_row_of_logits_only():
+    """`head_last_only` at the prefill: the head sees one row a step, the
+    prefill's included, not the prompt's S rows."""
+    cfg, _, _, tmodel = fuyu_pair()
+    seen = []
+    hook = tmodel.language_model.lm_head.register_forward_pre_hook(
+        lambda mod, args: seen.append(tuple(args[0].shape)))
+    try:
+        out = list(fuyu_generate(tmodel, *_request(cfg, seed=3),
+                                 GenerationConfig(max_new_tokens=3),
+                                 cache_dtype=torch.float32))
+    finally:
+        hook.remove()
+    assert len(out) == 3
+    assert seen == [(1, 1, cfg.text.hidden_size)] * 3
+
+
+def test_fuyu_entries_are_leased_released_and_bounded(monkeypatch):
+    """With a bound of 2: a request of a kept key reuses its entry (its
+    cache the same tensor); a stream abandoned after its first token
+    gives its entry back; streams that run at once each lease their own
+    entry; three keys one after another leave the two most recent."""
+    from otter_tpu_torch.generation import engine as tengine
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
+    monkeypatch.setattr(tengine, "MAX_ENTRIES", 2)
+    cfg, _, _, tmodel = fuyu_pair()
+    req = _request(cfg, seed=5)
+    engine = FuyuGenerator(tmodel, torch.float32)
+    gen = lambda eos: GenerationConfig(max_new_tokens=4, eos_token_id=eos)
+    want = list(engine.generate(*req, gen(-1)))
+    entry = engine._entries[-1]
+    cache = entry.st.cache["k"]
+    assert entry.key == (1, 128, str(torch.float32),
+                         dataclasses.replace(gen(-1), max_new_tokens=0))
+    stream = engine.generate(*req, gen(-1))
+    assert next(stream) == want[0] and entry.busy
+    stream.close()
+    assert not entry.busy and engine._entries == [entry]
+    assert entry.st.cache["k"] is cache
+    a, b = engine.generate(*req, gen(-1)), engine.generate(*req, gen(-1))
+    assert next(a) == next(b) == want[0]
+    assert len(engine._entries) == 2 and all(e.busy for e in
+                                             engine._entries)
+    assert list(a) == list(b) == want[1:]
+    assert not any(e.busy for e in engine._entries)
+    for eos in (-2, -3):
+        assert list(engine.generate(*req, gen(eos))) == want
+    assert [e.key[3].eos_token_id for e in engine._entries] == [-2, -3]
+
+
+def test_fuyu_graph_is_refused_where_it_cannot_run():
+    """No graph on the CPU and none on a sharded model: asking for one
+    raises; the default is off there. An engine's cache dtype is its own:
+    `fuyu_generate` over an engine refuses another."""
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
+    cfg, _, _, tmodel = fuyu_pair()
+    assert FuyuGenerator(tmodel).cuda_graph is False
+    assert FuyuGenerator(tmodel).cache_dtype == torch.float32
+    with pytest.raises(ValueError, match="CUDA model"):
+        FuyuGenerator(tmodel, cuda_graph=True)
+    tmodel._shard_layouts = {}
+    try:
+        assert FuyuGenerator(tmodel).cuda_graph is False
+        with pytest.raises(ValueError, match="sharded"):
+            FuyuGenerator(tmodel, cuda_graph=True)
+    finally:
+        del tmodel._shard_layouts
+    with pytest.raises(ValueError, match="cache_dtype"):
+        next(fuyu_generate(FuyuGenerator(tmodel), *_request(cfg),
+                           cache_dtype=torch.int8))
+
+
+def test_fuyu_sampled_request_repeats_by_seed():
+    """A sampled request draws from its entry's generator with the
+    request's state copied in; the request's generator takes the state
+    back, so one seed repeats the tokens and leaves the generator where
+    the first run left it."""
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
+    cfg, _, _, tmodel = fuyu_pair()
+    req = _request(cfg, seed=6)
+    engine = FuyuGenerator(tmodel, torch.float32)
+    gen = GenerationConfig(max_new_tokens=NEW, do_sample=True,
+                           temperature=4.0, eos_token_id=-1)
+    runs, states = [], []
+    for _ in range(2):
+        g = torch.Generator().manual_seed(13)
+        runs.append(list(engine.generate(*req, gen, generator=g)))
+        states.append(g.get_state())
+    assert runs[0] == runs[1] and len(runs[0]) == NEW
+    assert torch.equal(states[0], states[1])
+    assert not torch.equal(states[0],
+                           torch.Generator().manual_seed(13).get_state())

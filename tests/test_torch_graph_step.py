@@ -6,7 +6,9 @@ per-step argument, against the JAX engine's `generate` for the tiny MPT
 `write_cache` at a device scalar position; the decode loop's early stop;
 the graph entries' launch bookkeeping, their LRU bound and what the cache
 ladder counts of them; the megakernel route's step with its position on
-the device, against the JAX megakernel model. The CPU has no graph: the
+the device, against the JAX megakernel model; a second request of a beam
+key and of an OtterHD key replaying with no capture (a faked graph). The
+CPU has no graph: the
 same step body runs eagerly, which is what these tests drive (the graphed
 step is held to it on the card, `tests/test_torch_cuda.py` and
 `chip_smoke.py --phases graph`)."""
@@ -457,3 +459,77 @@ def test_megakernel_engine_step_reads_the_device_counter():
     st.t, st.p = NEW, p
     engine._finish(st)
     np.testing.assert_array_equal(out, ref)
+
+
+def _fake_capture(engine, captured):
+    """`engine._capture` on the CPU: the step runs once eagerly with its
+    launches collected into the entry's record (what a capture records)
+    and counted (the eager step before a capture), and the entry gets a
+    `_FakeGraph` of its body."""
+    def capture(entry):
+        with _build.recording_launches() as rec:
+            entry.body()
+        _build.add_launches(rec)
+        entry.graph, entry.launches = _FakeGraph(entry.body), rec
+        captured.append(entry)
+    return capture
+
+
+def _beam_run(tmodel, vx, ids, mask):
+    """A beam request's runner over an engine of `tmodel` (int8 cache)."""
+    engine = tengine.OtterGenerator(tmodel, cache_dtype=torch.int8)
+    gen = TGen(max_new_tokens=NEW, num_beams=2, no_repeat_ngram_size=2)
+    return engine, lambda: engine.generate(vx, ids, mask, gen=gen)
+
+
+def _fuyu_run(tmodel, req):
+    from otter_tpu_torch.generation.fuyu import FuyuGenerator
+    engine = FuyuGenerator(tmodel, torch.int8)
+    gen = TGen(max_new_tokens=NEW, eos_token_id=-1)
+    return engine, lambda: list(engine.generate(*req, gen))
+
+
+@pytest.mark.parametrize("kind", ["beam", "fuyu"])
+def test_second_request_of_a_key_replays_with_no_capture(kind, monkeypatch):
+    """The beam step and OtterHD's step through the engines' graph path
+    (`cuda_graph` forced on, the capture faked: the CPU has no graph): a
+    fake decode_attention in the step's path counts its launches; the
+    first request of a key captures once, at its first step, and replays
+    the rest; a second request of the key only replays. The tokens and
+    the launches of both equal the eager engine's (a replay adds what its
+    capture recorded)."""
+    real = tda.decode_attention
+
+    def fake(*a, **kw):
+        _build.count_launch(fake, int4=kw.get("kv_bits") == 4)
+        return real(*a, **kw)
+    fake.launches = fake.launches_int4 = 0
+    monkeypatch.setattr(tda, "decode_attention", fake)
+    if kind == "beam":
+        _, _, _, tmodel, vx, ids, mask = _pair("mpt")
+        make = lambda: _beam_run(tmodel, vx, ids, mask)
+        layers = tmodel.cfg.text.num_hidden_layers
+    else:
+        from torch_parity_helpers import fuyu_pair
+        from otter_tpu_torch.tools.random_weights import fuyu_request
+        cfg, _, _, tmodel = fuyu_pair("int8", True)
+        req = fuyu_request(cfg, 12, 8, 5, 3, left_pad=2)
+        make = lambda: _fuyu_run(tmodel, req)
+        layers = cfg.text.num_hidden_layers
+    _, eager = make()
+    want = eager()
+    assert fake.launches == (NEW - 1) * layers
+    engine, run = make()
+    engine.cuda_graph = True
+    captured = []
+    monkeypatch.setattr(engine, "_capture", _fake_capture(engine, captured))
+    for i in range(2):
+        fake.launches = 0
+        got = run()
+        np.testing.assert_array_equal(got, want)
+        assert fake.launches == (NEW - 1) * layers
+        assert len(captured) == 1
+        entry = captured[0]
+        assert engine._entries == [entry] and not entry.busy
+        assert entry.launches == {(fake, False): layers}
+        assert entry.graph.replays == (i + 1) * (NEW - 1) - 1

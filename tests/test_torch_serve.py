@@ -1123,3 +1123,28 @@ def test_requests_take_turns_on_one_device_thread():
     gc.collect()
     runner[0].join(5)
     assert not runner[0].is_alive()
+
+
+def test_an_abandoned_stream_is_closed_on_the_device_thread():
+    """A request that stops reading (its client went away) closes its
+    engine generator on the device thread, so the generator's `finally`
+    (an engine's entry given back) runs there, at once."""
+    device_thread = worker.DeviceThread()
+    closed_on = []
+
+    def tokens():
+        try:
+            for i in range(10):
+                yield i
+        finally:
+            closed_on.append(threading.get_ident())
+
+    runner = []
+    device_thread._pool.submit(
+        lambda: runner.append(threading.get_ident())).result()
+    it = device_thread.steps(tokens())
+    assert [next(it), next(it)] == [0, 1]
+    it.close()
+    assert closed_on == runner
+    assert list(device_thread.steps(tokens())) == list(range(10))
+    assert closed_on == runner * 2
