@@ -4634,13 +4634,16 @@ def window_launches(rows: int, s: int, dims) -> dict:
     return out
 
 
-def spec_round_launches(rows: int, gamma: int, draft=SPEC_DRAFT) -> dict:
+def spec_round_launches(rows: int, gamma: int,
+                        dims=(SPEC_DRAFT, SPEC_TARGET)) -> dict:
     """A round's launches: the draft's s=2 opener and gamma-1 single steps,
-    the target's s=gamma+1 verify window."""
+    the target's s=gamma+1 verify window; `dims` the draft's and the
+    target's (decoder layers, xattn blocks)."""
+    draft, target = dims
     total = _add({}, window_launches(rows, 2, draft))
     for _ in range(gamma - 1):
         _add(total, window_launches(rows, 1, draft))
-    return _add(total, window_launches(rows, gamma + 1, SPEC_TARGET))
+    return _add(total, window_launches(rows, gamma + 1, target))
 
 
 def _spec_request(cfg, seed: int, length: int):
@@ -4679,16 +4682,19 @@ def _judge(tag, what, j, mine, other, got, want, partings):
 
 
 class _GenRecorder:
-    """Wraps a `SpeculativeGenerator`'s rounds, windows and first token:
-    each round's launches; the target's logits behind each buffer column
-    (a verify window's row j decides column pos + j, the prefill's last row
-    the first token); the draft windows' logits by column, where the draft
-    proposed."""
+    """Wraps an eager `SpeculativeGenerator`'s round body, windows and
+    first token: each round's launches; the target's logits behind each
+    buffer column (a verify window's row j decides column pos + j, the
+    prefill's last row the first token); the draft windows' logits by
+    column, where the draft proposed. (It reads each window's position on
+    the host: for the checks of eager runs, never timed.)"""
 
     def __init__(self, sg):
         from otter_tpu_torch.tools import bench_decode
+        if sg.cuda_graph:
+            raise RuntimeError("spec: the recorder needs the eager round")
         self.reset()
-        rnd, window, first = sg._round, sg._window, sg._first_token
+        rnd, window, first = sg._round_body, sg._window, sg._first_token
         g = sg.gamma
 
         def round_(*a, **k):
@@ -4701,19 +4707,19 @@ class _GenRecorder:
 
         def window_(model, toks, cache, cache_pos, *a, **k):
             logits = window(model, toks, cache, cache_pos, *a, **k)
-            s = toks.shape[1]
+            s, pos = toks.shape[1], int(cache_pos)
             if s == g + 1:       # the verify window: row j decides pos + j
                 for j in range(s):
-                    self.verify[cache_pos + j + 1] = logits[0, j]
+                    self.verify[pos + j + 1] = logits[0, j]
             else:                # a draft window proposes its last column
-                self.proposed[cache_pos + s] = logits[0, -1]
+                self.proposed[pos + s] = logits[0, -1]
             return logits
 
         def first_(logits, *a, **k):
             self.first = logits[0]
             return first(logits, *a, **k)
 
-        sg._round, sg._window, sg._first_token = round_, window_, first_
+        sg._round_body, sg._window, sg._first_token = round_, window_, first_
 
     def reset(self):
         self.launches, self.verify, self.proposed, self.first = [], {}, {}, None
@@ -4722,110 +4728,285 @@ class _GenRecorder:
         return self.first if j == 0 else self.verify.get(p + j)
 
 
-def _spec_standalone(smi, model, draft, engine, cfg):
-    """(a) `SpeculativeGenerator` at b=1 on serve's prompts, gamma 4, 32
-    new tokens: the MPT-1B draft and the target as its own draft, beside
-    `generate` alone in the same call; exact launches a round; `stream` =
-    `generate`; tokens against `generate`'s, partings judged by their
-    logits."""
+def _counting_rounds(sg) -> list:
+    """Count `sg`'s rounds (its `_advance` calls: a replay or an eager
+    round, live or queued past the end), one entry a round."""
+    rounds, advance = [], sg._advance
+    sg._advance = lambda st: (rounds.append(1), advance(st))[1]
+    return rounds
+
+
+def _busy_ms(fn, label: str) -> float:
+    """torch.profiler over one whole call of `fn`: the device kernels'
+    ms (`_report_profile`, its table in OUT_DIR)."""
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    name = "profile_" + "".join(c if c.isalnum() else "_" for c in label)
+    return _report_profile(prof, wall, label, name[:120] + ".txt")[0] * 1e3
+
+
+def _spec_vs_eager(tag, smi, graphed, eager, req, n_new, gen_kw, dims,
+                   seed=None):
+    """A speculative request of `n_new` tokens through a graphed
+    `SpeculativeGenerator` (its round a CUDA graph, the card's default)
+    and its eager twin (`cuda_graph=False`) in turns: tokens equal in
+    every run of both and to `stream`'s; last_emitted and last_rounds
+    equal; the launches of a round (every round `generate` queues, live or
+    past the end) equal both ways and exactly `spec_round_launches`; no
+    host sync in 8 rounds of either (the graphed ones replays); wall ms a
+    round and a token both ways ((t(n_new) - t(1)) over the rounds run or
+    the tokens after the first, medians of REPS), TTFT, the key's first
+    request (its round captured), the capture's ms and pool; device ms a
+    round both ways by torch.profiler over one whole round. `seed` seeds a
+    sampled request's generator. Returns a dict of the readings."""
     import numpy as np
     import torch
     from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import DONE_EVERY
+    if not graphed.cuda_graph or eager.cuda_graph:
+        raise RuntimeError(f"{tag}: the generators' graph settings "
+                           f"{graphed.cuda_graph}, {eager.cuda_graph}")
+    gen = lambda n: GenerationConfig(max_new_tokens=n, eos_token_id=-1,
+                                     **gen_kw)
+    seeded = lambda: (None if seed is None else
+                      torch.Generator(device="cuda").manual_seed(seed))
+    sgs = {"graphed": graphed, "eager": eager}
+    rounds = {m: _counting_rounds(sg) for m, sg in sgs.items()}
+
+    def run(mode, n):
+        sg = sgs[mode]
+        del rounds[mode][:]
+        out = sg.generate(*req, gen=gen(n), generator=seeded())
+        return out, (sg.last_emitted, sg.last_rounds, len(rounds[mode]))
+
+    run("eager", 2)                         # the shapes' first use
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first, counts = run("graphed", n_new)
+    first_s = time.perf_counter() - t
+    entry = graphed._entries[-1]
+    if entry.graph is None:
+        raise RuntimeError(f"{tag}: no graph was captured")
+    times = {(m, n): [] for m in sgs for n in (1, n_new)}
+    outs, counted = [], {}
+    for i in range(REPS):
+        for mode in (("eager", "graphed") if i % 2 else ("graphed", "eager")):
+            for n in (1, n_new):
+                box = {}
+                t = time.perf_counter()
+                counted[(mode, n)] = _launches_of(
+                    lambda: box.update(out=run(mode, n)))
+                times[(mode, n)].append(time.perf_counter() - t)
+                if n == n_new:
+                    outs.append(box["out"])
+    bad = [o for o in outs if not (np.array_equal(o[0], first)
+                                   and o[1] == counts)]
+    if bad:
+        raise RuntimeError(f"{tag}: tokens or counts differ between runs or "
+                           f"between the graphed and the eager round: "
+                           f"{first.tolist()} {counts} against "
+                           f"{bad[0][0].tolist()} {bad[0][1]}")
+    launches = {}
+    for mode in sgs:
+        # (the last timed runs' counts: a replay adds what its capture
+        # recorded)
+        one, full = counted[(mode, 1)], counted[(mode, n_new)]
+        launches[mode] = (one, {k: (v - one.get(k, 0)) / counts[2]
+                                for k, v in full.items()
+                                if v != one.get(k, 0)})
+    want_round = spec_round_launches(1, graphed.gamma, dims)
+    if not launches["graphed"] == launches["eager"] or \
+            launches["graphed"][1] != want_round:
+        raise RuntimeError(f"{tag}: (prefill, round) launches graphed "
+                           f"{launches['graphed']}, eager "
+                           f"{launches['eager']}, a round expected "
+                           f"{want_round}")
+    streamed = {m: list(sgs[m].stream(*req, gen=gen(n_new),
+                                      generator=seeded())) for m in sgs}
+    p = req[1].shape[1]
+    if not streamed["graphed"] == streamed["eager"] == first[0, p:].tolist():
+        raise RuntimeError(f"{tag}: stream gave {streamed}, generate "
+                           f"{first[0, p:].tolist()}")
+    dev = {}
+    for mode, sg in sgs.items():
+        g_, eos, cache_len = sg._setup(req[1], gen(n_new))
+        st = sg._prefill(*req, None, g_, eos, seeded(), cache_len)
+        try:
+            sg._advance(st)
+            if sg.cuda_graph and st.entry.graph is None:
+                raise RuntimeError(f"{tag}: the key's round is not captured")
+            torch.cuda.synchronize()
+            # (a round launches ~10k kernels at full depth, and the
+            # profiler's tables cost ~0.5 ms of host time an event: whole
+            # requests under it took minutes)
+            dev[mode] = _busy_ms(lambda: sg._advance(st),
+                                 f"{tag} {mode} a round")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(8):
+                    sg._advance(st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
+            sg._finish(st)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    emitted, live, n_rounds = counts
+    span = {m: (med[(m, n_new)] - med[(m, 1)]) * 1e3 for m in sgs}
+    log(f"{tag}: tokens graphed = eager in {len(outs) + 1} runs and = "
+        f"stream's, {emitted} tokens in the prefill and {live} rounds that "
+        f"emitted ({(emitted - 1) / max(live, 1):.3f} tokens a round after "
+        f"the first), {n_rounds} rounds run (the flag read once in "
+        f"{DONE_EVERY} rounds); launches a prefill "
+        f"{launches['graphed'][0]}, a round {launches['graphed'][1]} "
+        f"(equal, exact); 8 rounds of each under "
+        f"set_sync_debug_mode('error'): no host sync | wall ms a round "
+        f"graphed {span['graphed'] / n_rounds:.3f}, eager "
+        f"{span['eager'] / n_rounds:.3f} "
+        f"({span['eager'] / span['graphed']:.2f}x); ms a token graphed "
+        f"{span['graphed'] / (emitted - 1):.3f}, eager "
+        f"{span['eager'] / (emitted - 1):.3f} | device ms a round graphed "
+        f"{dev['graphed']:.3f}, eager {dev['eager']:.3f} (torch.profiler "
+        f"over one whole round) | TTFT graphed {med[('graphed', 1)] * 1e3:.2f} "
+        f"ms, eager {med[('eager', 1)] * 1e3:.2f} ms | the key's first "
+        f"request (its round captured) {first_s * 1e3:.2f} ms, later "
+        f"{med[('graphed', n_new)] * 1e3:.2f} ms | capture "
+        f"{entry.capture_ms:.2f} ms, its memory pool {entry.pool_bytes} "
+        f"bytes ({entry.pool_bytes / 2 ** 20:.1f} MiB) | medians of {REPS};"
+        f" runs (ms) " + json.dumps({f"{m}/{n}": [round(x * 1e3, 2)
+                                                 for x in v]
+                                    for (m, n), v in times.items()})
+        + f" | {smi}")
+    return first
+
+
+def _hold_spec_tokens(name, sg, engine, reqs, n_new, dims, self_draft):
+    """Each request's `n_new` greedy tokens through an eager generator
+    with a recorder against `generate` alone (partings judged by their
+    logits), every round's launches exact; with the target as its own
+    draft, every proposal accepted (or rejected at a bf16 near-tie between
+    its s=1 and s=5 windows) and ceil((n_new - 1) / 5) rounds."""
+    from otter_tpu_torch.config import GenerationConfig
+    gen = GenerationConfig(max_new_tokens=n_new, eos_token_id=-1)
+    rec = _GenRecorder(sg)
+    want_round = spec_round_launches(1, SPEC_GAMMA, dims)
+    full = math.ceil((n_new - 1) / (SPEC_GAMMA + 1))
+    partings, rejected = [], []
+    for vx, ids in reqs:
+        rec.reset()
+        got_full = sg.generate(vx, ids, gen=gen)
+        bad = [x for x in rec.launches if x != want_round]
+        if bad or not rec.launches:
+            raise RuntimeError(f"spec: {name}: {len(bad)} of "
+                               f"{len(rec.launches)} rounds launched "
+                               f"otherwise than {want_round}: {bad[:2]}")
+        p = ids.shape[1]
+        got = got_full[0, p:].tolist()
+        want = engine.generate(vx, ids, gen=gen)[0, p:].tolist()
+        j = _first_parting(got, want)
+        if j is not None:
+            _judge("spec", f"{name}, the {p}-token request", j,
+                   rec.logits(p, j),
+                   _lone_logits(engine, vx, ids, j, eos_token_id=-1),
+                   got, want, partings)
+        if self_draft:
+            # every proposal the target's own argmax: a rejection is a
+            # bf16 near-tie between its s=1 and s=5 windows
+            for c in sorted(rec.proposed):
+                if c not in rec.verify or c >= p + n_new:
+                    continue
+                a, v = (int(rec.proposed[c].argmax()),
+                        int(rec.verify[c].argmax()))
+                if a != v:
+                    _judge("spec", f"the self draft's proposal at column "
+                           f"{c} of the {p}-token request (its s=1 "
+                           f"window's {a}, the s=5 verify window's {v})",
+                           c - p, rec.proposed[c], rec.verify[c], [a],
+                           [v], rejected)
+            if sg.last_rounds != full and not rejected:
+                raise RuntimeError(
+                    f"spec: the target as its own draft took "
+                    f"{sg.last_rounds} rounds for {n_new} tokens, not "
+                    f"{full}")
+    log(f"spec: {name}: requests of {[r[1].shape[1] for r in reqs]} "
+        f"tokens, {n_new} new each, through the eager round: every round "
+        f"launched {want_round}; tokens equal to generate alone"
+        f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
+        + ("" if not self_draft else
+           f"; every proposal accepted, {n_new} tokens in the prefill and "
+           f"{full} rounds" if not rejected else
+           f"; {n_new} tokens in the prefill and {full} rounds but where a "
+           f"proposal was rejected at a bf16 near-tie: "
+           + "; ".join(rejected)))
+
+
+def _spec_standalone(smi):
+    """(a) `SpeculativeGenerator` at b=1 at full depth (OTTER-Image-MPT7B,
+    32 layers, with the Flamingo-MPT-1B draft, 24 layers; int8 weights and
+    KV caches), gamma 4, on serve's prompts: the MPT-1B draft greedy (16
+    new tokens) and sampled (8) and the target as its own draft (32), each
+    graphed against its eager twin (`_spec_vs_eager`), beside `generate`
+    alone in the same call; the eager round's tokens against `generate`
+    alone's (`_hold_spec_tokens`)."""
+    import gc
+    import numpy as np
+    import torch
+    from otter_tpu_torch.config import GenerationConfig
+    from otter_tpu_torch.generation.engine import OtterGenerator
     from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    cfg, dcfg = serving_cfg(), draft_cfg()
+    t0 = time.perf_counter()
+    model, draft = build_model(cfg), build_model(dcfg)
+    full_dims = (cfg.text.num_hidden_layers,
+                 cfg.text.num_hidden_layers // cfg.cross_attn_every_n_layers)
+    draft_dims = (dcfg.text.num_hidden_layers,
+                  dcfg.text.num_hidden_layers
+                  // dcfg.cross_attn_every_n_layers)
+    log(f"spec: full depth: target {cfg.text.num_hidden_layers}-layer mpt "
+        f"({_weight_bytes(model) / 1e9:.3f} GB, int8), draft "
+        f"{dcfg.text.num_hidden_layers}-layer mosaic_gpt with "
+        f"{draft_dims[1]} xattn blocks ({_weight_bytes(draft) / 1e9:.3f} "
+        f"GB, int8), built in {time.perf_counter() - t0:.1f} s")
+    engine = OtterGenerator(model, cache_dtype=torch.int8)
     gen = lambda n: GenerationConfig(max_new_tokens=n, eos_token_id=-1)
     reqs = [_spec_request(cfg, SEED + 120 + i, n)
             for i, n in enumerate((48, 128, 96))]
     plain = {n: _timed(lambda n=n: engine.generate(*reqs[0], gen=gen(n)))[1]
              for n in (1, 32)}
     plain_step = [(a - b) / 31 for a, b in zip(plain[32], plain[1])]
-    plain_rate = 31e3 / float(np.median([a - b for a, b in
-                                         zip(plain[32], plain[1])]))
-    log(f"spec: generate alone, b=1, {reqs[0][1].shape[1]}-token prompt: "
-        f"TTFT {plain[1]} ms, {[round(x, 2) for x in plain_step]} ms a "
-        f"step, {plain_rate:.2f} tok/s | {smi}")
-    full = math.ceil(31 / (SPEC_GAMMA + 1))
-    for name, d, dims in (("the MPT-1B draft", draft, SPEC_DRAFT),
-                          ("the target as its own draft", model,
-                           SPEC_TARGET)):
-        sg = SpeculativeGenerator(model, d, gamma=SPEC_GAMMA,
-                                  cache_dtype=torch.int8)
-        rec = _GenRecorder(sg)
-        t1 = _timed(lambda: sg.generate(*reqs[0], gen=gen(1)))[1]
-        rec.reset()
-        # (the recorder's cost a round is a few dict updates; the last
-        # timed run is also the first request's checked run)
-        _, t32, first_out = _timed(lambda: (rec.reset(), sg.generate(
-            *reqs[0], gen=gen(32)))[1])
-        emitted, rounds = sg.last_emitted, sg.last_rounds
-        dt = [a - b for a, b in zip(t32, t1)]
-        log(f"spec: {name}, b=1, gamma {SPEC_GAMMA}, "
-            f"{reqs[0][1].shape[1]}-token prompt: TTFT {t1} ms; {emitted} "
-            f"tokens in the prefill and {rounds} rounds "
-            f"({emitted / rounds:.3f} tokens a round, "
-            f"{(emitted - 1) / rounds:.3f} after the first); "
-            f"{[round(x / rounds, 2) for x in dt]} ms a round; "
-            f"{(emitted - 1) * 1e3 / float(np.median(dt)):.2f} tok/s against "
-            f"generate alone's {plain_rate:.2f} | {smi}")
-        want_round = spec_round_launches(1, SPEC_GAMMA, dims)
-        partings, rejected = [], []
-        # (a round of the MPT-1B draft emits ~1 token and costs ~4 target
-        # steps: two requests hold its tokens)
-        checked = reqs if d is model else reqs[:2]
-        for i, (vx, ids) in enumerate(checked):
-            if i:
-                rec.reset()
-                got_full = sg.generate(vx, ids, gen=gen(32))
-            else:
-                got_full = first_out
-            bad = [x for x in rec.launches if x != want_round]
-            if bad or not rec.launches:
-                raise RuntimeError(f"spec: {name}: {len(bad)} of "
-                                   f"{len(rec.launches)} rounds launched "
-                                   f"otherwise than {want_round}: {bad[:2]}")
-            p = ids.shape[1]
-            got = got_full[0, p:].tolist()
-            streamed = list(sg.stream(vx, ids, gen=gen(32))) if i == 0 \
-                else got
-            if streamed != got:
-                raise RuntimeError(f"spec: {name}: stream gave {streamed}, "
-                                   f"generate {got}")
-            want = engine.generate(vx, ids, gen=gen(32))[0, p:].tolist()
-            j = _first_parting(got, want)
-            if j is not None:
-                _judge("spec", f"{name}, the {p}-token request", j,
-                       rec.logits(p, j),
-                       _lone_logits(engine, vx, ids, j, eos_token_id=-1),
-                       got, want, partings)
-            if d is model:
-                # every proposal the target's own argmax: a rejection is a
-                # bf16 near-tie between its s=1 and s=5 windows
-                for c in sorted(rec.proposed):
-                    if c not in rec.verify or c >= p + 32:
-                        continue
-                    a, v = (int(rec.proposed[c].argmax()),
-                            int(rec.verify[c].argmax()))
-                    if a != v:
-                        _judge("spec", f"the self draft's proposal at column "
-                               f"{c} of the {p}-token request (its s=1 "
-                               f"window's {a}, the s=5 verify window's {v})",
-                               c - p, rec.proposed[c], rec.verify[c], [a],
-                               [v], rejected)
-                if sg.last_rounds != full and not rejected:
-                    raise RuntimeError(
-                        f"spec: the target as its own draft took "
-                        f"{sg.last_rounds} rounds for 32 tokens, not {full}")
-        del rec
-        log(f"spec: {name}: requests of "
-            f"{[r[1].shape[1] for r in checked]} tokens, 32 new each; every "
-            f"round launched {want_round}; stream = generate; tokens equal "
-            f"to generate alone"
-            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
-            + ("" if d is not model else
-               f"; every proposal accepted, 32 tokens in the prefill and "
-               f"{full} rounds" if not rejected else
-               f"; 32 tokens in the prefill and {full} rounds but where a "
-               f"proposal was rejected at a bf16 near-tie: "
-               + "; ".join(rejected)))
+    log(f"spec: generate alone (graphed), b=1, full depth, "
+        f"{reqs[0][1].shape[1]}-token prompt: TTFT {plain[1]} ms, "
+        f"{[round(x, 3) for x in plain_step]} ms a step, "
+        f"{31e3 / float(np.median([a - b for a, b in zip(plain[32], plain[1])])):.2f}"
+        f" tok/s | {smi}")
+    make = lambda d, graph: SpeculativeGenerator(
+        model, d, gamma=SPEC_GAMMA, cache_dtype=torch.int8,
+        cuda_graph=None if graph else False)
+    for name, d, dims, n_new, kw, seed in (
+            ("the MPT-1B draft, greedy", draft, (draft_dims, full_dims), 16,
+             {}, None),
+            ("the MPT-1B draft, sampled (T 0.7, top-k 50, one seed)", draft,
+             (draft_dims, full_dims), 8,
+             dict(do_sample=True, temperature=0.7, top_k=50), SEED + 125),
+            ("the target as its own draft, greedy", model,
+             (full_dims, full_dims), 32, {}, None)):
+        _spec_vs_eager(f"spec: {name}, b=1, full depth, gamma {SPEC_GAMMA},"
+                       f" {reqs[0][1].shape[1]}-token prompt", smi,
+                       make(d, True), make(d, False), reqs[0], n_new, kw,
+                       dims, seed)
+        if not kw:
+            self_draft = d is model
+            _hold_spec_tokens(name, make(d, False), engine, reqs[:2], n_new,
+                              dims, self_draft)
+    del model, draft, engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class _PoolRecorder:
@@ -4911,12 +5092,85 @@ class _PoolRecorder:
         return out
 
 
-def _spec_pool(smi, model, draft, cfg):
+class _KeyRecorder:
+    """Wraps a pool's `_graphed` (every plain step, round and catch-up
+    goes through it, graphed or eager; a replay calls no other Python):
+    each call's kind (from its key), launches, host clock and the rows'
+    owners (the prompt length of each row's request, None for a free
+    row)."""
+
+    def __init__(self, b):
+        from otter_tpu_torch.tools import bench_decode
+        counts, graphed = bench_decode.kernel_launches, b._graphed
+        self.events = []
+
+        def wrapped(key, body):
+            before, t = counts(), time.perf_counter()
+            out = graphed(key, body)
+            after = counts()
+            self.events.append(dict(
+                kind=(("spec", key[1]) if key[0] == "spec" else
+                      "catchup" if key == ("catchup",) else "plain"),
+                t=t, owners=[s.real_len if s.active else None
+                             for s in b._slots],
+                launches={n: after[n] - before[n] for n in after
+                          if after[n] != before[n]}))
+            return out
+
+        b._graphed = wrapped
+
+
+def _stop_scheduler(b):
+    """The pool's threads ended, its graphs and tensors kept (`shutdown`
+    frees the graphs)."""
+    b._stop = True
+    b._work.set()
+    b._thread.join(10)
+    b._finisher.join(10)
+
+
+def _pool_round_readings(tag, b, graphed: bool):
+    """On a pool whose threads ended: the device ms of a round of gamma
+    SPEC_GAMMA over its 8 rows (torch.profiler over one round: its
+    graph's replay, or the eager round body) and, graphed, 8
+    replays under set_sync_debug_mode("error") and each graph's capture
+    ms and pool. Returns (device ms, a description of the graphs)."""
+    import torch
+    if graphed:
+        keys = [k for k in b._graphs if k[:2] == ("spec", SPEC_GAMMA)]
+        if not keys:
+            raise RuntimeError(f"{tag}: no round of gamma {SPEC_GAMMA} "
+                               f"captured: {list(b._graphs)}")
+        one = b._graphs[keys[0]].graph.replay
+    else:
+        one = lambda: b._spec_body(SPEC_GAMMA)
+    one()
+    torch.cuda.synchronize()
+    ms = _busy_ms(one, f"{tag} {'graphed' if graphed else 'eager'} a round")
+    if not graphed:
+        return ms, ""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            one()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return ms, "; ".join(
+        f"{k}: capture {g.capture_ms:.1f} ms, pool "
+        f"{g.pool_bytes / 2 ** 20:.1f} MiB" for k, g in b._graphs.items())
+
+
+def _spec_pool(smi, model, draft, cfg, engine):
     """(b) `ContinuousBatcher(num_slots=8, cache_len=2048, draft=MPT-1B,
-    spec_gamma=4)`, the controller off then on, over 8 greedy requests and
-    one sampled: the wall and the launches of a round, the modes the
-    controller chose, tokens against the draft-free pool's (partings
-    judged by their logits)."""
+    spec_gamma=4)` at half depth, the controller off then on, over 8
+    greedy requests and one sampled, each through a graphed pool (its
+    rounds, plain steps and catch-up CUDA graphs, the card's default) and
+    an eager one (`cuda_graph=False`) in turns: the wall and the launches
+    of a round, a round's device ms, the modes the controller chose, the
+    eager pool's greedy tokens against the draft-free pool's (partings
+    judged by their logits), the graphed pool's against the eager pool's
+    (partings judged by `generate` alone's logits), no host sync in 8
+    replayed rounds."""
     from dataclasses import replace
     import numpy as np
     import torch
@@ -4931,12 +5185,14 @@ def _spec_pool(smi, model, draft, cfg):
         return ContinuousBatcher(model, num_slots=8, cache_len=2048,
                                  cache_dtype=torch.int8, rng_seed=SEED, **kw)
 
-    warm = pool(draft=draft, spec_gamma=SPEC_GAMMA, spec_adaptive=False)
-    try:
-        _run_requests(warm, [(k, r, replace(g, max_new_tokens=4))
-                             for k, r, g in reqs[:2]], 2, 0.0)
-    finally:
-        warm.shutdown()
+    for graph in (None, False):
+        warm = pool(draft=draft, spec_gamma=SPEC_GAMMA, spec_adaptive=False,
+                    cuda_graph=graph)
+        try:
+            _run_requests(warm, [(k, r, replace(g, max_new_tokens=4))
+                                 for k, r, g in reqs[:2]], 2, 0.0)
+        finally:
+            warm.shutdown()
     b = pool()
     free_rec = _StepRecorder(b)
     try:
@@ -4944,9 +5200,9 @@ def _spec_pool(smi, model, draft, cfg):
     finally:
         b.shutdown()
     free_tok = sum(len(f) for f in free)
-    log(f"spec pool: the draft-free pool on the same requests: {free_tok} "
-        f"tokens in {free_wall * 1e3:.1f} ms ({free_tok / free_wall:.2f} "
-        f"tok/s) | {smi}")
+    log(f"spec pool: the draft-free pool (graphed) on the same requests: "
+        f"{free_tok} tokens in {free_wall * 1e3:.1f} ms "
+        f"({free_tok / free_wall:.2f} tok/s) | {smi}")
     plain_step = window_launches(8, 1, SPEC_TARGET)
     rounds = {g: spec_round_launches(8, g) for g in (SPEC_GAMMA,
                                                      SPEC_GAMMA // 2)}
@@ -4954,79 +5210,164 @@ def _spec_pool(smi, model, draft, cfg):
     # largest bucket, 1024, capped at 256)
     catchup = window_launches(8, 256, SPEC_DRAFT)
     for adaptive in (False, True):
-        b = pool(draft=draft, spec_gamma=SPEC_GAMMA, spec_adaptive=adaptive)
-        # the controller's cadence cut from 32 / 8 to 4 / 2 iterations, so
-        # that a run of 32 tokens sees it probe the other modes and choose
-        b._replan_every, b._probe_len = 4, 2
-        rec = _PoolRecorder(b)
-        try:
-            got, _, _, wall = _run_requests(b, reqs, 8, 0.0)
-            stats = b.stats()
-        finally:
-            b.shutdown()
-        if b._failure is not None:
-            raise RuntimeError("spec: the pool failed") from b._failure
-        tag = f"spec pool (adaptive {'on' if adaptive else 'off'})"
-        for ev in rec.events:
-            want = (catchup if ev["kind"] == "catchup" else plain_step
-                    if ev["kind"] == "plain" else rounds[ev["kind"][1]])
-            if ev["launches"] != want:
-                raise RuntimeError(f"{tag}: a {ev['kind']} launched "
-                                   f"{ev['launches']}, not {want}")
-        kinds = [ev["kind"] for ev in rec.events]
-        spec_t = [b_["t"] - a_["t"] for a_, b_ in zip(rec.events,
-                                                      rec.events[1:])
-                  if a_["kind"] == b_["kind"] == ("spec", SPEC_GAMMA)
-                  and sum(o is not None for o in a_["owners"]) == 8]
-        partings = []
-        for (kind, req, gen), g, f in zip(reqs, got, free):
-            if kind != "greedy":
-                continue
-            real = req[1].shape[1]
-            j = _first_parting(g, f)
-            if j is None:
-                continue
-            mine, theirs = rec.tokens(real), free_rec.tokens(real)
-            _judge(tag, f"the {real}-token request", j,
-                   mine[j][1] if j < len(mine) else None,
-                   theirs[j][1] if j < len(theirs) else None, g, f,
-                   partings)
-        n_tok = sum(len(g) for g in got)
-        log(f"{tag}: 8 greedy requests of 32-128 tokens (32 new tokens) "
-            f"and one sampled (8), one 224x224 image each, through 8 slots "
-            f"with "
-            f"the MPT-1B draft, gamma {SPEC_GAMMA}: {n_tok} tokens in "
-            f"{wall * 1e3:.1f} ms ({n_tok / wall:.2f} tok/s); "
-            f"{kinds.count(('spec', SPEC_GAMMA))} rounds of gamma "
-            f"{SPEC_GAMMA}, {kinds.count(('spec', SPEC_GAMMA // 2))} of "
-            f"gamma {SPEC_GAMMA // 2}, {kinds.count('plain')} plain steps, "
-            f"{kinds.count('catchup')} catch-ups (controller cadence 4 / 2 "
-            f"iterations), each launching exactly "
-            f"{rounds[SPEC_GAMMA]}, {rounds[SPEC_GAMMA // 2]}, "
-            f"{plain_step}, {catchup}; a round at 8 rows "
-            f"{np.median(spec_t) * 1e3 if spec_t else float('nan'):.2f} ms "
-            f"wall (median of {len(spec_t)} between round dispatches); "
-            f"controller: mode {stats['spec']['mode']}, tokens a round "
-            f"{ {k: round(v, 3) for k, v in stats['spec']['accept_ema_tok_per_round'].items()} }, "
-            f"s an iteration "
-            f"{ {k: round(v, 5) for k, v in stats['spec']['iter_time_ema_s'].items()} }; "
-            f"greedy tokens equal to the draft-free pool's"
-            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
-            f" | {smi}")
-        del rec
+        runs = {}
+        for graphed in ((False, True) if adaptive else (True, False)):
+            b = pool(draft=draft, spec_gamma=SPEC_GAMMA,
+                     spec_adaptive=adaptive,
+                     cuda_graph=None if graphed else False)
+            if b.cuda_graph != graphed:
+                raise RuntimeError(f"spec pool: cuda_graph {b.cuda_graph}")
+            # the controller's cadence cut from 32 / 8 to 4 / 2 iterations,
+            # so that a run of 32 tokens sees it probe the other modes and
+            # choose
+            b._replan_every, b._probe_len = 4, 2
+            rec = _KeyRecorder(b)
+            logits_rec = None if graphed else _PoolRecorder(b)
+            tag = (f"spec pool (adaptive {'on' if adaptive else 'off'}, "
+                   f"{'graphed' if graphed else 'eager'})")
+            try:
+                got, _, _, wall = _run_requests(b, reqs, 8, 0.0)
+                stats = b.stats()
+                if b._failure is not None:
+                    raise RuntimeError("spec: the pool failed") \
+                        from b._failure
+                _stop_scheduler(b)
+                dev_ms, graphs = _pool_round_readings(tag, b, graphed)
+            finally:
+                b.shutdown()
+            runs[graphed] = dict(tag=tag, got=got, rec=rec, wall=wall,
+                                 logits_rec=logits_rec, stats=stats,
+                                 dev_ms=dev_ms, graphs=graphs)
+        for graphed in (False, True):
+            r = runs[graphed]
+            tag, got, rec, stats = r["tag"], r["got"], r["rec"], r["stats"]
+            for ev in rec.events:
+                want = (catchup if ev["kind"] == "catchup" else plain_step
+                        if ev["kind"] == "plain" else rounds[ev["kind"][1]])
+                if ev["launches"] != want:
+                    raise RuntimeError(f"{tag}: a {ev['kind']} launched "
+                                       f"{ev['launches']}, not {want}")
+            kinds = [ev["kind"] for ev in rec.events]
+            spec_t = [b_["t"] - a_["t"] for a_, b_ in zip(rec.events,
+                                                          rec.events[1:])
+                      if a_["kind"] == b_["kind"] == ("spec", SPEC_GAMMA)
+                      and sum(o is not None for o in a_["owners"]) == 8]
+            partings = []
+            for i, ((kind, req, gen), g) in enumerate(zip(reqs, got)):
+                if kind != "greedy":
+                    continue
+                real = req[1].shape[1]
+                if not graphed:
+                    j = _first_parting(g, free[i])
+                    if j is not None:
+                        mine = r["logits_rec"].tokens(real)
+                        theirs = free_rec.tokens(real)
+                        _judge(tag, f"the {real}-token request against the "
+                               f"draft-free pool", j,
+                               mine[j][1] if j < len(mine) else None,
+                               theirs[j][1] if j < len(theirs) else None,
+                               g, free[i], partings)
+                    continue
+                want = runs[False]["got"][i]
+                j = _first_parting(g, want)
+                if j is not None:
+                    # (a round and a plain step round otherwise in bf16,
+                    # and the controller's choices follow the host clock)
+                    lone = _lone_logits(engine, *req, j)
+                    mine = g[j] if j < len(g) else cfg.eoc_token_id
+                    gap = float(lone.max() - lone[mine])
+                    bar = PARITY_BAR * float(lone.abs().max())
+                    partings.append(f"the {real}-token request parts from "
+                                    f"the eager pool's at token {j}: its "
+                                    f"token {gap:.4f} below generate alone's"
+                                    f" argmax (bar {bar:.4f})")
+                    if not gap <= bar:
+                        raise RuntimeError(f"{tag}: {partings[-1]}")
+            n_tok = sum(len(g) for g in got)
+            log(f"{tag}: 8 greedy requests of 32-128 tokens (32 new tokens) "
+                f"and one sampled (8), one 224x224 image each, through 8 "
+                f"slots with the MPT-1B draft, gamma {SPEC_GAMMA}: {n_tok} "
+                f"tokens in {r['wall'] * 1e3:.1f} ms "
+                f"({n_tok / r['wall']:.2f} tok/s); "
+                f"{kinds.count(('spec', SPEC_GAMMA))} rounds of gamma "
+                f"{SPEC_GAMMA}, {kinds.count(('spec', SPEC_GAMMA // 2))} of "
+                f"gamma {SPEC_GAMMA // 2}, {kinds.count('plain')} plain "
+                f"steps, {kinds.count('catchup')} catch-ups (controller "
+                f"cadence 4 / 2 iterations), each launching exactly "
+                f"{rounds[SPEC_GAMMA]}, {rounds[SPEC_GAMMA // 2]}, "
+                f"{plain_step}, {catchup}; a round at 8 rows "
+                f"{np.median(spec_t) * 1e3 if spec_t else float('nan'):.2f}"
+                f" ms wall (median of {len(spec_t)} between round "
+                f"dispatches), {r['dev_ms']:.3f} ms device (one round, "
+                f"torch.profiler)"
+                + (f"; 8 replayed rounds under set_sync_debug_mode('error'):"
+                   f" no host sync; graphs {r['graphs']}" if graphed else "")
+                + f"; controller: mode {stats['spec']['mode']}, tokens a "
+                f"round "
+                f"{ {k: round(v, 3) for k, v in stats['spec']['accept_ema_tok_per_round'].items()} }, "
+                f"s an iteration "
+                f"{ {k: round(v, 5) for k, v in stats['spec']['iter_time_ema_s'].items()} }; "
+                f"greedy tokens equal to the "
+                f"{'eager pool' if graphed else 'draft-free pool'}'s"
+                f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
+                f" | {smi}")
+        del runs
     del free_rec
+
+
+def _session_no_sync(tag, routes):
+    """8 replays of each live session's step or round under
+    set_sync_debug_mode("error"), from a turn's state leased in the
+    session (its last key's) as its stream does."""
+    from dataclasses import replace
+    import torch
+    for name in ("sessions", "spec_sessions"):
+        if name not in routes:
+            continue
+        for sess in list(routes[name]._pool.values()):
+            if not sess.steps._entries or sess.tensors is None:
+                continue
+            last = sess.steps._entries[-1].st
+            gen = replace(last.gen, max_new_tokens=16)
+            with torch.inference_mode():
+                if name == "sessions":
+                    st = sess._turn(gen, last.eos, last.logits.clone(), None)
+                else:
+                    tok0 = torch.tensor(sess.real_tokens[-1], device="cuda")
+                    st = sess._turn(gen, last.eos, tok0, None)
+            try:
+                sess.steps._advance(st)
+                if st.entry.graph is None:
+                    raise RuntimeError(f"{tag}: a session's step is not "
+                                       f"captured")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(8):
+                        sess.steps._advance(st)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            finally:
+                sess.steps._finish(st)
 
 
 def _spec_worker(smi, model, draft, engine, cfg):
     """(c) The worker in-process over localhost HTTP, built as the worker
-    builds it with `--draft-checkpoint` and `--session-cache 2`
-    (`_session_and_spec`): a 3-turn conversation under one session id, the
-    TTFT of each turn beside the stateless worker's on the same prompts,
-    the texts equal (or parting at a near-tie of the stateless logits);
-    then two sessions and a third: the least recently used is evicted."""
+    builds it (`_session_and_spec`) with `--draft-checkpoint` and
+    `--session-cache 2`, then with `--session-cache 2` alone, each graphed
+    (the card's default) and with `cuda_graph=False`: a 3-turn
+    conversation under one session id, each turn sent to the graphed,
+    the eager and the stateless worker in turns: texts graphed = eager
+    (and = the stateless worker's, or parting at a near-tie of the
+    stateless logits), the launches of a turn equal both ways, the time to
+    the first chunk and ms a token of each; no host sync in 8 replays of
+    each session's step or round; the graphs' capture ms and pools (one a
+    live session); then two sessions and a third: the least recently used
+    is evicted with its graphs."""
     import types
     import numpy as np
     import torch
+    from otter_tpu_torch.generation.engine import held_pool_bytes
     from otter_tpu_torch.serve.worker import (ModelWorker, _session_and_spec,
                                               build_app,
                                               decode_media_to_vision_x,
@@ -5035,10 +5376,16 @@ def _spec_worker(smi, model, draft, engine, cfg):
     tok = otter_tokenizer(cfg)
     args = types.SimpleNamespace(session_cache=2, cache_len=2048,
                                  draft_gamma=SPEC_GAMMA)
-    routes = _session_and_spec(args, model, draft, torch.int8)
-    urls, stops, workers = {}, [], []
+    urls, stops, workers, routes = {}, [], [], {}
     try:
-        for name, kw in (("session", routes), ("stateless", {})):
+        for name, d, graph in (("spec graphed", draft, None),
+                               ("spec eager", draft, False),
+                               ("session graphed", None, None),
+                               ("session eager", None, False),
+                               ("stateless", None, None)):
+            kw = {} if name == "stateless" else _session_and_spec(
+                args, model, d, torch.int8, cuda_graph=graph)
+            routes[name] = kw
             port = _free_port()
             w = ModelWorker(controller_addr="", worker_addr="",
                             model_name="otter", no_register=True,
@@ -5048,57 +5395,111 @@ def _spec_worker(smi, model, draft, engine, cfg):
             stops.append(run_app_in_thread(build_app(w), "127.0.0.1", port))
             urls[name] = f"http://127.0.0.1:{port}/worker_generate_stream"
         first = worker_requests(cfg, 1, SEED + 140, new_tokens=16)[0]
-        post_stream(urls["session"], dict(first, session_id="warm"))
-        post_stream(urls["stateless"], first)
-        rng = np.random.default_rng(SEED + 141)
-        req, rows, partings = dict(first, session_id="chat"), [], []
-        for turn in range(3):
-            got, t_s, _ = post_stream(urls["session"], req)
-            want, t_p, _ = post_stream(urls["stateless"], req)
-            a, b_ = _final_text(got, "a session turn"), _final_text(
-                want, "a stateless turn")
-            stats = dict(routes["spec_sessions"].get("chat").last_stats)
-            if a != b_:
-                ga = [int(t[1:]) for t in a.split()]
-                wb = [int(t[1:]) for t in b_.split()]
-                j = _first_parting(ga, wb)
-                vx, _ = decode_media_to_vision_x(req["images"],
-                                                 cfg.vision.image_size)
-                ids = tok(req["prompt"], return_tensors="np")["input_ids"]
-                lone = _lone_logits(engine, vx, ids, j)
-                mine = ga[j] if j < len(ga) else cfg.eoc_token_id
-                gap = float(lone.max() - lone[mine])
-                bar = PARITY_BAR * float(lone.abs().max())
-                partings.append(f"turn {turn + 1} parts at token {j}: the "
-                                f"session's token {gap:.4f} below the "
-                                f"stateless argmax (bar {bar:.4f})")
-                if not gap <= bar:
-                    raise RuntimeError(f"spec worker: {partings[-1]}")
-            rows.append(f"turn {turn + 1} ({len(tok(req['prompt'])['input_ids'])}"
-                        f" prompt tokens; reused {stats['reused']}, window "
-                        f"{stats['window']} padded to {stats['window_pad']}): "
-                        f"TTFT {t_s * 1e3:.2f} ms against {t_p * 1e3:.2f} "
-                        f"stateless")
-            user = " ".join(f"t{i}" for i in rng.integers(
-                1, cfg.eoc_token_id, 24))
-            req = dict(req, prompt=req["prompt"] + a
-                       + f" <|endofchunk|> {user}")
-        pool = routes["spec_sessions"]
-        for sid in ("A", "B", "C"):
-            post_stream(urls["session"], dict(first, session_id=sid,
-                                              generation_kwargs={
-                                                  "max_new_tokens": 4}))
-        kept = sorted(k for k in pool._pool)
-        if kept != ["B", "C"]:
-            raise RuntimeError(f"spec worker: after sessions chat, A, B, C "
-                               f"in a pool of 2 it holds {kept}")
-        log(f"spec worker (--draft-checkpoint MPT-1B, --session-cache 2, "
-            f"gamma {SPEC_GAMMA}; 16 new tokens a turn; the time to the "
-            f"first chunk, which carries 2 tokens): "
-            + "; ".join(rows) + "; texts equal to the stateless worker's"
-            f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
-            f"; after sessions chat, A, B and C the pool holds {kept} (the "
-            f"least recently used evicted) | {smi}")
+        for name in urls:
+            post_stream(urls[name], dict(first, session_id="warm"))
+        for kind in ("spec", "session"):
+            pool_name = "spec_sessions" if kind == "spec" else "sessions"
+            rng = np.random.default_rng(SEED + 141)
+            req, rows, partings = dict(first, session_id="chat"), [], []
+            for turn in range(3):
+                res = {}
+                order = ("graphed", "eager") if turn % 2 else ("eager",
+                                                              "graphed")
+                for mode in order + ("stateless",):
+                    url = urls["stateless" if mode == "stateless"
+                               else f"{kind} {mode}"]
+                    launched = {}
+
+                    def post(url=url, launched=launched):
+                        launched["out"] = post_stream(url, req)
+                    counts = _launches_of(post)
+                    got, t_first, t_last = launched["out"]
+                    text = _final_text(got, f"a {kind} {mode} turn")
+                    res[mode] = (text, t_first, t_last, counts)
+                a, e_, b_ = (res[m][0] for m in ("graphed", "eager",
+                                                 "stateless"))
+                if a != e_ or res["graphed"][3] != res["eager"][3]:
+                    raise RuntimeError(
+                        f"spec worker ({kind}): turn {turn + 1}: graphed "
+                        f"{a!r} / launches {res['graphed'][3]}, eager "
+                        f"{e_!r} / {res['eager'][3]}")
+                stats = dict(routes[f"{kind} graphed"][pool_name]
+                             .get("chat").last_stats)
+                if a != b_:
+                    ga = [int(t[1:]) for t in a.split()]
+                    wb = [int(t[1:]) for t in b_.split()]
+                    j = _first_parting(ga, wb)
+                    vx, _ = decode_media_to_vision_x(req["images"],
+                                                     cfg.vision.image_size)
+                    ids = tok(req["prompt"], return_tensors="np")["input_ids"]
+                    lone = _lone_logits(engine, vx, ids, j)
+                    mine = ga[j] if j < len(ga) else cfg.eoc_token_id
+                    gap = float(lone.max() - lone[mine])
+                    bar = PARITY_BAR * float(lone.abs().max())
+                    partings.append(f"turn {turn + 1} parts at token {j}: "
+                                    f"the session's token {gap:.4f} below "
+                                    f"the stateless argmax (bar {bar:.4f})")
+                    if not gap <= bar:
+                        raise RuntimeError(f"spec worker: {partings[-1]}")
+                n = len(a.split())
+                per_tok = {m: (res[m][2] - res[m][1]) * 1e3 / max(n - 2, 1)
+                           for m in res}
+                rows.append(
+                    f"turn {turn + 1} ({len(tok(req['prompt'])['input_ids'])}"
+                    f" prompt tokens; reused {stats['reused']}, window "
+                    f"{stats['window']} padded to {stats['window_pad']}; "
+                    f"{n} tokens): first chunk graphed "
+                    f"{res['graphed'][1] * 1e3:.2f} ms, eager "
+                    f"{res['eager'][1] * 1e3:.2f}, stateless "
+                    f"{res['stateless'][1] * 1e3:.2f}; ms a token after it "
+                    f"graphed {per_tok['graphed']:.2f}, eager "
+                    f"{per_tok['eager']:.2f}, stateless "
+                    f"{per_tok['stateless']:.2f}; launches of the turn "
+                    f"{res['graphed'][3]} both ways")
+                user = " ".join(f"t{i}" for i in rng.integers(
+                    1, cfg.eoc_token_id, 24))
+                req = dict(req, prompt=req["prompt"] + a
+                           + f" <|endofchunk|> {user}")
+            graphed = routes[f"{kind} graphed"]
+            _session_no_sync(f"spec worker ({kind})", graphed)
+            pool = graphed[pool_name]
+            pools = "; ".join(
+                f"session {sid}: " + ", ".join(
+                    f"capture {e.capture_ms:.1f} ms, pool "
+                    f"{e.pool_bytes / 2 ** 20:.1f} MiB"
+                    for e in sess.steps._entries)
+                for sid, sess in pool._pool.items())
+            held = lambda: sum(e.pool_bytes for sess in pool._pool.values()
+                               for e in sess.steps._entries
+                               if e.graph is not None)
+            before, old = held(), list(pool._pool.values())
+            for sid in ("A", "B", "C"):
+                post_stream(urls[f"{kind} graphed"], dict(
+                    first, session_id=sid,
+                    generation_kwargs={"max_new_tokens": 4}))
+            kept = sorted(pool._pool)
+            if kept != ["B", "C"] or any(s_.steps._entries for s_ in old):
+                raise RuntimeError(f"spec worker: after sessions chat, A, B,"
+                                   f" C in a pool of 2 it holds {kept}, the "
+                                   f"evicted sessions' graphs "
+                                   f"{[len(s_.steps._entries) for s_ in old]}")
+            log(f"spec worker ({'--draft-checkpoint MPT-1B, ' if kind == 'spec' else ''}"
+                f"--session-cache 2{', gamma ' + str(SPEC_GAMMA) if kind == 'spec' else ''}"
+                f"; 16 new tokens a turn; the first chunk carries 2 tokens;"
+                f" graphed and eager workers in turns): " + "; ".join(rows)
+                + "; texts graphed = eager, and equal to the stateless "
+                f"worker's"
+                f"{'' if not partings else ' but where they part: ' + '; '.join(partings)}"
+                f"; 8 replays of each live session's "
+                f"{'round' if kind == 'spec' else 'step'} under "
+                f"set_sync_debug_mode('error'): no host sync; graphs of the "
+                f"live sessions: {pools} ({before / 2 ** 20:.1f} MiB of pools "
+                f"in the session pool; every live graph on the card "
+                f"{held_pool_bytes(model.device) / 2 ** 20:.1f} MiB); after "
+                f"sessions chat, A, B and C the pool holds {kept} (the "
+                f"least recently used evicted and their graphs freed; the "
+                f"session pool's graphs now {held() / 2 ** 20:.1f} MiB) "
+                f"| {smi}")
     finally:
         for stop in stops:
             stop()
@@ -5109,30 +5510,39 @@ def _spec_worker(smi, model, draft, engine, cfg):
 def phase_spec(smi: str):
     """Speculative decoding and the session cache on OTTER-MPT7B (int8
     weights and KV cache, decode_kernel="auto") with a Flamingo-MPT-1B
-    draft (int8), both at full width and half their depth (`SPEC_TARGET`,
-    `SPEC_DRAFT`): (a) the standalone generator at b=1, (b) the slot pool
-    with the draft, (c) the worker with a draft and a session cache.
-    Returns the phase's launches."""
+    draft (int8), each graphed (the card's default) and eager in turns:
+    (a) the standalone generator at b=1 at full depth, then, both models
+    at full width and half their depth (`SPEC_TARGET`, `SPEC_DRAFT`), (b)
+    the slot pool with the draft, (c) the worker with a draft and a
+    session cache, and with a session cache alone. Returns the phase's
+    launches."""
     import torch
     from otter_tpu_torch.generation.engine import OtterGenerator
     from otter_tpu_torch.tools import bench_decode
+    bench_decode.reset_kernel_launches()
+    t0 = time.perf_counter()
+    _spec_standalone(smi)
+    walls = {"standalone": time.perf_counter() - t0}
     cut = lambda c, n: c.replace(text=c.text.replace(num_hidden_layers=n))
     cfg = cut(serving_cfg(), SPEC_TARGET[0])
     t0 = time.perf_counter()
     model = build_model(cfg)
     dcfg = cut(draft_cfg(), SPEC_DRAFT[0])
     draft = build_model(dcfg)
-    log(f"spec: target {cfg.text.num_hidden_layers}-layer mpt "
+    log(f"spec: half depth: target {cfg.text.num_hidden_layers}-layer mpt "
         f"({_weight_bytes(model) / 1e9:.3f} GB, int8), draft "
         f"{dcfg.text.num_hidden_layers}-layer mosaic_gpt with "
         f"{dcfg.text.num_hidden_layers} xattn blocks "
         f"({_weight_bytes(draft) / 1e9:.3f} GB, int8), int8 KV caches, "
         f"built in {time.perf_counter() - t0:.1f} s")
     engine = OtterGenerator(model, cache_dtype=torch.int8)
-    bench_decode.reset_kernel_launches()
-    _spec_standalone(smi, model, draft, engine, cfg)
-    _spec_pool(smi, model, draft, cfg)
+    t0 = time.perf_counter()
+    _spec_pool(smi, model, draft, cfg, engine)
+    walls["pool"] = time.perf_counter() - t0
     _spec_worker(smi, model, draft, engine, cfg)
+    walls["worker"] = time.perf_counter() - t0 - walls["pool"]
+    log(f"spec: part walls (s) "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     return {k: v for k, v in bench_decode.kernel_launches().items() if v}
 
 

@@ -1,6 +1,6 @@
-"""Continuous batching (counterpart of `otter_tpu/generation/batching.py`,
-without its speculative modes): many concurrent streaming requests share
-one decode step over a fixed pool of batch slots.
+"""Continuous batching (counterpart of `otter_tpu/generation/batching.py`):
+many concurrent streaming requests share one decode step over a fixed pool
+of batch slots.
 
 A request is admitted into a free slot by a single-row prefill at a
 bucketed length, its KV cache copied into the pooled cache; then one
@@ -36,7 +36,9 @@ there) and replayed. Admission, chunked prefill and the beam reorder stay
 eager between replays and write the pool in place; the host copy of a
 step's tokens and a beam group's read of its logits are queued before the
 next replay overwrites them. `cuda_graph=False` runs the same step eagerly
-(the CPU always does), and so does a pool with a draft.
+(the CPU always does). A pool with a draft is graphed too: its round once
+per `("spec", gamma, lp_configs)` (JAX's key, with whether a row samples)
+and the draft's catch-up once, as JAX jits them.
 
 With a draft model (`draft=`) every iteration is a speculative round over
 the whole pool (`_spec_round`): the draft's s=2 opener and gamma-1 steps,
@@ -57,7 +59,6 @@ rolls back cannot.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import queue
 import threading
@@ -169,19 +170,6 @@ class _BeamGroup:
     t_submit: float = 0.0
 
 
-@dataclass
-class _PooledGraph:
-    """A captured pooled step: the graph, the launches a replay makes
-    (`_build.recording_launches`), the tensors it returns (overwritten by
-    each replay), the capture's host ms and the bytes its memory pool
-    took."""
-    graph: Any
-    launches: dict
-    out: tuple
-    capture_ms: float
-    pool_bytes: int
-
-
 class ContinuousBatcher:
     """Slot-pool streaming engine over an `OtterVLM` or an `IdeficsVLM`
     on its device. `submit()` is thread-safe and returns an iterator of
@@ -189,12 +177,14 @@ class ContinuousBatcher:
     step per iteration (a speculative round with a `draft` model: an
     `OtterVLM` of the target's vocabulary).
 
-    `cuda_graph` (None: on for a CUDA model that is not sharded and has
-    no draft) captures the pooled step once per key, the distinct ban
-    configurations among the active slots and whether a beam group reads
-    the logits, and replays it; at most `engine.MAX_ENTRIES` graphs stay
-    (least recently used first out). True is refused on the CPU, on a
-    sharded model and with a draft (its rounds stay eager)."""
+    `cuda_graph` (None: on where the model and the draft are on CUDA and
+    neither is sharded) captures the pooled step once per key, the
+    distinct ban configurations among the active slots and whether a beam
+    group reads the logits, and replays it; with a draft, each round
+    likewise (`("spec", gamma, lp_configs, sampled)`) and the catch-up
+    once; at most `engine.MAX_ENTRIES` graphs stay (least recently used
+    first out). True is refused on the CPU and on a sharded model or
+    draft."""
 
     def __init__(self, model, *, num_slots=4, cache_len: int = 2048,
                  buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024),
@@ -209,12 +199,7 @@ class ContinuousBatcher:
         self.device = model.device
         self.model_d = draft
         self.gamma = spec_gamma
-        if draft is not None:
-            if cuda_graph:
-                raise ValueError("cuda_graph=True with a draft: a "
-                                 "speculative pool keeps its eager steps")
-            cuda_graph = False
-        self.cuda_graph = engine.graph_setting(cuda_graph, model)
+        self.cuda_graph = engine.graph_setting(cuda_graph, model, draft)
         if draft is not None:
             if draft.cfg.text.vocab_size != self.cfg.text.vocab_size:
                 raise ValueError("slot-pool speculation needs one "
@@ -347,15 +332,18 @@ class ContinuousBatcher:
             do_sample=vec(torch.bool), temperature=vec(torch.float32),
             top_k=vec(torch.long), top_p=vec(torch.float32),
             eos=vec(torch.long), max_new=vec(torch.long),
+            # the first decode column of each row (the draft's catch-up
+            # starts no lower)
+            floor=vec(torch.long),
             # a host flag: whether a round needs its sampled half
             sampled=False)
         self._lp_list: Tuple = ()
         self._dirty = True
         self._inflight: List[tuple] = []
-        # the captured pooled steps by key (least recently used first),
-        # the decode_attention workspace they own, their capture stream
-        self._graphs: Dict[tuple, "_PooledGraph"] = {}
-        self._workspace = da.Workspace()
+        # the captured steps, rounds and catch-up by key (least recently
+        # used first), each with its own decode_attention workspace, and
+        # their capture stream
+        self._graphs: Dict[tuple, engine.Captured] = {}
         self._capture_stream = None
 
         # admission finisher: waits for each first token off the
@@ -427,7 +415,7 @@ class ContinuousBatcher:
         self._finisher.join(timeout=10)
         if not self._thread.is_alive():
             for g in self._graphs.values():
-                g.graph.reset()
+                g.free()
             self._graphs.clear()
 
     def active_count(self) -> int:
@@ -952,21 +940,27 @@ class ContinuousBatcher:
                 and rates[best] > 1.05 * rates[self._mode_now]:
             self._mode_now = best
 
-    @torch.no_grad()
     def _run_catchup(self) -> None:
+        """The draft's catch-up (`_catchup_body`): with `cuda_graph` the
+        replay of its graph, captured once."""
+        self._graphed(("catchup",), self._catchup_body)
+
+    @torch.no_grad()
+    def _catchup_body(self) -> None:
         """After plain steps the draft's cache misses their columns:
         re-ingest each row's last `_catchup_w` generated columns (from its
-        first decode column on: the prompt's columns came with the
-        admission) in one draft window. Columns already cached get the
-        same k/v; columns at and after `written` get junk that the next
-        round overwrites before they are valid. The window stays inside
-        the cache: it starts at max(written - W, bucket) and W is at most
-        the cache less the largest bucket. Older gaps stay holes, which
-        cost acceptance, never output."""
+        first decode column on, the `floor` that `_load_slot_state` sets:
+        the prompt's columns came with the admission) in one draft window.
+        Columns already cached get the same k/v; columns at and after
+        `written` get junk that the next round overwrites before they are
+        valid. The window stays inside the cache: it starts at
+        max(written - W, bucket) and W is at most the cache less the
+        largest bucket. Older gaps stay holes, which cost acceptance, never
+        output. Every tensor it reads is the pool's: what a graph
+        captures."""
         st, W = self._statics, self._catchup_w
         written = self._carried["written"]
-        floor = self._dev([s.bucket for s in self._slots], torch.long)
-        start = torch.maximum(written - W, floor)
+        start = torch.maximum(written - W, st["floor"])
         cols = start[:, None] + torch.arange(W, device=self.device)[None, :]
         self.model_d(
             None, self._buffer.gather(1, cols.clamp_max(self.L - 1)),
@@ -998,15 +992,27 @@ class ContinuousBatcher:
             if self._draft_stale:
                 self._run_catchup()
                 self._draft_stale = False
-            out, e, *carried = self._spec_round(
-                self._carried, self._statics, self._lp_list, mode[1])
-            for dst, val in zip(self._carried.values(), carried):
-                dst.copy_(val)
-            self._inflight.append((self._to_host(torch.cat(
-                [out, e[:, None]], 1)), self._active_rows(), mode))
+            g = mode[1]
+            res = self._graphed(
+                ("spec", g, self._lp_list, self._statics["sampled"]),
+                lambda: self._spec_body(g))
+            # (queued before the next replay overwrites the graph's output)
+            self._inflight.append((self._to_host(res), self._active_rows(),
+                                   mode))
         while len(self._inflight) > self.pipeline_depth:
             self._drain_one()
         return True
+
+    @torch.no_grad()
+    def _spec_body(self, g: int) -> torch.Tensor:
+        """A round of gamma `g` on the pool's tensors (`_spec_round`), the
+        carried slot state advanced in place: what a graph captures.
+        Returns (out, e) as one [B, g+2] tensor, for one host copy."""
+        out, e, *carried = self._spec_round(
+            self._carried, self._statics, self._lp_list, g)
+        for dst, val in zip(self._carried.values(), carried):
+            dst.copy_(val)
+        return torch.cat([out, e[:, None]], 1)
 
     def _drain_one_spec(self, copy, snapshot, g: int):
         """Read a round's (out, e) and stream each row's emitted prefix;
@@ -1358,6 +1364,7 @@ class ContinuousBatcher:
             eos=[self._eos(s.gen) if s.gen else self.cfg.eoc_token_id
                  for s in slots],
             max_new=[s.gen.max_new_tokens if s.gen else 0 for s in slots],
+            floor=[s.bucket for s in slots],
             toks=[s.last_tok for s in slots],
             alive=[s.active for s in slots],
             written=[s.written for s in slots],
@@ -1375,62 +1382,38 @@ class ContinuousBatcher:
         return self._run_step(need_logits)
 
     def _run_step(self, need_logits: bool):
-        """The pooled step on the pool's tensors: with `cuda_graph` the
-        replay of its key's graph (its launches added to the counters), or
-        for a key without one the eager step and then the capture; else the
-        eager step. Returns what `_decode_step` returns; a replay's tensors
-        are the graph's, overwritten by its next replay."""
-        args = (self._carried, self._statics, self._lp_list, need_logits)
+        """The pooled step on the pool's tensors (`_graphed`). Returns what
+        `_decode_step` returns; a replay's tensors are the graph's,
+        overwritten by its next replay."""
+        return self._graphed((self._lp_list, need_logits),
+                             lambda: self._decode_step(
+                                 self._carried, self._statics,
+                                 self._lp_list, need_logits))
+
+    def _graphed(self, key, body):
+        """`body()` on the pool's tensors: with `cuda_graph` the replay of
+        its key's graph (its launches added to the counters), or for a key
+        without one the eager call and then the capture (`engine.capture`:
+        the pool's generator registered, a decode_attention workspace of
+        its own; a failure raises and fails the scheduler, so every stream
+        sees it); else the eager call. Returns what `body` returns."""
         if not self.cuda_graph:
-            return self._decode_step(*args)
-        key = (self._lp_list, need_logits)
+            return body()
         g = self._graphs.pop(key, None)
         if g is None:
-            out, g = self._capture(args)
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            out, g = engine.capture(body, self.device, self._capture_stream,
+                                    da.Workspace(), self._rng)
+            engine.hold_pool(g, self.device)
             while len(self._graphs) >= engine.MAX_ENTRIES:
-                self._graphs.pop(next(iter(self._graphs))).graph.reset()
+                self._graphs.pop(next(iter(self._graphs))).free()
         else:
             g.graph.replay()
             _build.add_launches(g.launches)
             out = g.out
         self._graphs[key] = g
         return out
-
-    def _capture(self, args):
-        """Run the step once eagerly on the capture stream with the pool's
-        own decode_attention workspace (so that what the step allocates
-        once exists), then capture it (the capture runs nothing). Returns
-        the eager step's outputs and the graph. A failure raises (and
-        fails the scheduler: every stream sees it)."""
-        dev = self.device
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
-        side, main = self._capture_stream, torch.cuda.current_stream(dev)
-        side.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with engine._capture_lock, torch.cuda.stream(side), \
-                    da.owned_workspace(self._workspace):
-                out = self._decode_step(*args)
-                self._workspace.frozen = True
-                graph.register_generator_state(self._rng)
-                reserved = torch.cuda.memory_reserved(dev)
-                t0 = time.perf_counter()
-                with _build.recording_launches() as launches:
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        g_out = self._decode_step(*args)
-                    except BaseException:
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-                capture_ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            main.wait_stream(side)
-        return out, _PooledGraph(
-            graph, launches, g_out, capture_ms,
-            torch.cuda.memory_reserved(dev) - reserved)
 
     def _drain_one(self):
         """Read the oldest in-flight iteration's tokens and stream them

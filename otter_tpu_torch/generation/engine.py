@@ -37,6 +37,7 @@ import os
 import threading
 import time
 import warnings
+import weakref
 from types import SimpleNamespace
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
@@ -106,9 +107,12 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
     is `hbm_bytes` (or `OTTER_HBM_BYTES` on CUDA) less the headroom and
     `param_bytes`; on CUDA without either, the card's total memory less
     what live tensors hold (`torch.cuda.memory_allocated`, parameters
-    included) and the headroom. Blocks that torch's caching allocator
-    keeps from freed tensors count as free, so the answer does not depend
-    on what ran before. `OTTER_HBM_HEADROOM` overrides the 5 GB headroom.
+    included) and the headroom. Either way the memory pools of the CUDA
+    graphs that live entries and batchers hold on `device` count as taken
+    (`held_pool_bytes`: their free blocks serve no other tensor). Other
+    blocks that torch's caching allocator keeps from freed tensors count
+    as free, so the answer does not depend on what ran before.
+    `OTTER_HBM_HEADROOM` overrides the 5 GB headroom.
     `also` are the text configs of caches of the same shape and dtype that
     join the footprint (a speculative pool's draft cache). On the CPU
     without `hbm_bytes` the request is returned unchanged."""
@@ -125,6 +129,7 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
     else:
         budget = (torch.cuda.mem_get_info(device)[1]
                   - torch.cuda.memory_allocated(device) - headroom_bytes)
+    budget -= held_pool_bytes(device)
     name = _cache_name(requested)
     for step in _LADDER[_LADDER.index(name):]:
         if sum(cache_bytes(t, batch, cache_len, step)
@@ -140,6 +145,29 @@ def select_cache_dtype(text_cfg: TextConfig, batch: int, cache_len: int,
     warnings.warn(f"KV cache b={batch} L={cache_len} exceeds device memory "
                   f"even at int4; proceeding with int4", stacklevel=2)
     return "int4"
+
+
+# the holders of captured graphs (an `_Entry`, a batcher's `_PooledGraph`)
+# and the device of each: their pools' bytes count as taken memory
+_pool_holders: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def hold_pool(holder, device: torch.device) -> None:
+    """Count `holder.pool_bytes` as taken on `device` while `holder` lives
+    and holds a graph (`holder.graph` not None)."""
+    _pool_holders[holder] = torch.device(device)
+
+
+def held_pool_bytes(device: torch.device) -> int:
+    """The bytes of the memory pools that live captured graphs hold on
+    `device`: reserved by the caching allocator, not allocated, and no
+    other tensor can use them. (A graph's outputs, allocated in its pool,
+    also count in `torch.cuda.memory_allocated`: a few kB twice.)"""
+    device = torch.device(device)
+    same = lambda d: d.type == device.type and (d.index or 0) == (
+        device.index or 0)
+    return sum(h.pool_bytes or 0 for h, d in list(_pool_holders.items())
+               if same(d) and h.graph is not None)
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
@@ -178,22 +206,83 @@ MAX_ENTRIES = 4
 _capture_lock = threading.Lock()
 
 
-def graph_setting(cuda_graph: Optional[bool], model) -> bool:
-    """Whether a step over `model` is captured as a CUDA graph: `None` (the
-    default) on a CUDA model that is not sharded; True is refused where no
-    graph can run (the CPU, a sharded model: `fully_shard`'s hooks gather
-    parameters every call)."""
-    sharded = hasattr(model, "_shard_layouts")
+def graph_setting(cuda_graph: Optional[bool], model, draft=None) -> bool:
+    """Whether a step over `model` (and, for speculation, its `draft`) is
+    captured as a CUDA graph: `None` (the default) where every model is on
+    CUDA and none is sharded; True is refused where no graph can run (the
+    CPU, a sharded model: `fully_shard`'s hooks gather parameters every
+    call)."""
+    models = [model] if draft is None else [model, draft]
+    what = "model" if draft is None else "model and draft"
+    sharded = any(hasattr(m, "_shard_layouts") for m in models)
+    on_cuda = all(m.device.type == "cuda" for m in models)
     if cuda_graph is None:
-        return model.device.type == "cuda" and not sharded
+        return on_cuda and not sharded
     if cuda_graph:
         if sharded:
-            raise ValueError("cuda_graph=True on a sharded model: its "
-                             "hooks gather parameters every call")
-        if model.device.type != "cuda":
-            raise ValueError(f"cuda_graph=True needs a CUDA model; this "
-                             f"one is on {model.device}")
+            raise ValueError(f"cuda_graph=True on a sharded {what}: its "
+                             f"hooks gather parameters every call")
+        if not on_cuda:
+            raise ValueError(f"cuda_graph=True needs a CUDA {what}; "
+                             f"{'this one is' if draft is None else 'these are'}"
+                             f" on {', '.join(str(m.device) for m in models)}")
     return bool(cuda_graph)
+
+
+class Captured:
+    """A captured CUDA graph: the graph, the launches a replay makes
+    (`_build.recording_launches`), what the captured call returned (the
+    tensors each replay overwrites), the capture's host ms, the bytes its
+    memory pool took and the decode_attention workspace it recorded."""
+
+    def __init__(self, graph, launches: dict, out, capture_ms: float,
+                 pool_bytes: int, workspace: "da.Workspace"):
+        self.graph, self.launches, self.out = graph, launches, out
+        self.capture_ms, self.pool_bytes = capture_ms, pool_bytes
+        self.workspace = workspace
+
+    def free(self) -> None:
+        """Drop the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.out = self.workspace = None
+
+
+def capture(body, device: torch.device, side: "torch.cuda.Stream",
+            workspace: "da.Workspace", generator=None):
+    """Run `body()` once eagerly on the stream `side` with `workspace` as
+    its decode_attention workspace (so that what it allocates once, the
+    workspace and cuBLAS's, exists), then capture it (the capture runs
+    nothing), `generator` registered with the graph. Returns (the eager
+    call's output, `Captured`). A failure raises. One capture at a time
+    in a process (`_capture_lock`)."""
+    main = torch.cuda.current_stream(device)
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with _capture_lock, torch.cuda.stream(side), \
+                da.owned_workspace(workspace):
+            out = body()
+            workspace.frozen = True
+            if generator is not None:
+                graph.register_generator_state(generator)
+            reserved = torch.cuda.memory_reserved(device)
+            t0 = time.perf_counter()
+            with _build.recording_launches() as launches:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    g_out = body()
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            pool = torch.cuda.memory_reserved(device) - reserved
+    finally:
+        main.wait_stream(side)
+    return out, Captured(graph, launches, g_out, capture_ms, pool,
+                         workspace)
 
 
 class _DoneFlag:
@@ -259,12 +348,14 @@ class GraphedSteps:
     used first out), and requests that run at once each lease their own.
     A capture that fails raises, and its entry is dropped when the request
     ends: no step quietly runs eagerly in place of a replay.
-    `OtterGenerator` (greedy, sampled and beam steps) and
-    `generation.fuyu.FuyuGenerator` share it."""
+    `OtterGenerator` (greedy, sampled and beam steps),
+    `generation.fuyu.FuyuGenerator`, `generation.speculative.
+    SpeculativeGenerator` (its round, over a target and a `draft`) and the
+    sessions of `generation.session` (each its own) share it."""
 
-    def __init__(self, model, cuda_graph: Optional[bool]):
+    def __init__(self, model, cuda_graph: Optional[bool], draft=None):
         self.model = model
-        self.cuda_graph = graph_setting(cuda_graph, model)
+        self.cuda_graph = graph_setting(cuda_graph, model, draft)
         self._entries: List[_Entry] = []   # least recently used first
         self._entries_lock = threading.Lock()
         self._capture_stream = None
@@ -301,6 +392,12 @@ class GraphedSteps:
             self._entries.append(entry)
         return entry
 
+    def close(self) -> None:
+        """Free every idle entry: its tensors, graph and memory pool (a
+        request that still runs keeps its own until it ends)."""
+        with self._entries_lock:
+            self._evict(0)
+
     def _release(self, entry: _Entry) -> None:
         """The request is done with `entry`: it stays (most recently used)
         unless the bound or a failed capture says otherwise."""
@@ -331,43 +428,22 @@ class GraphedSteps:
         st.t += 1
 
     def _capture(self, entry: _Entry) -> None:
-        """Run the request's step once eagerly on the capture stream, with
-        the entry's own workspace (so that everything the step allocates
-        once, the workspace and cuBLAS's, exists), then capture the step:
-        the capture runs nothing. A failure raises and the entry is
+        """The request's step run once eagerly and captured (`capture`),
+        with the entry's own workspace and generator: the step that the
+        graph replays from then on. A failure raises and the entry is
         dropped when its request ends."""
-        st, dev = entry.st, self.device
         if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
-        side, main = self._capture_stream, torch.cuda.current_stream(dev)
-        side.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
+            self._capture_stream = torch.cuda.Stream(self.device)
         try:
-            with _capture_lock, torch.cuda.stream(side), \
-                    da.owned_workspace(entry.workspace):
-                entry.body()
-                entry.workspace.frozen = True
-                if getattr(st, "generator", None) is not None:
-                    graph.register_generator_state(st.generator)
-                reserved = torch.cuda.memory_reserved(dev)
-                t0 = time.perf_counter()
-                with _build.recording_launches() as launches:
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        entry.body()
-                    except BaseException:
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-                entry.capture_ms = (time.perf_counter() - t0) * 1e3
-                entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            _, cap = capture(entry.body, self.device, self._capture_stream,
+                             entry.workspace,
+                             getattr(entry.st, "generator", None))
         except BaseException:
             entry.broken = True
             raise
-        finally:
-            main.wait_stream(side)
-        entry.graph, entry.launches = graph, launches
+        entry.capture_ms, entry.pool_bytes = cap.capture_ms, cap.pool_bytes
+        entry.graph, entry.launches = cap.graph, cap.launches
+        hold_pool(entry, self.device)
 
     def _seed(self, st: SimpleNamespace, generator) -> None:
         """The entry's generator for a sampled request: the request's state

@@ -24,10 +24,23 @@ fit the session's `cache_len` raises ValueError before any output.
 (`generation/speculative.py`); `SessionPool` keeps a few sessions by a
 client's session id, under a lock, handing a session to one stream at a
 time.
+
+The decode after the prompt is the counterpart of the JAX sessions' jitted
+step (`ChatSession`'s, its cache donated) and round (`SpecChatSession`'s):
+a session keeps its cache, token buffer, pad mask and media count in
+tensors fixed in memory (a restart prefills them in place), the next cache
+column is a device counter, and each step (sample a token, then feed it)
+or round reads its position from it. On CUDA the step or round is captured
+once per session and sampling key as a CUDA graph over the session's own
+tensors and replayed (`engine.GraphedSteps`: each session holds its
+graphs and their memory pools until the pool evicts it); `cuda_graph=False`
+runs the same body eagerly, as the CPU always does. The prefill and the
+suffix window stay eager, as the engine's prefill does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import threading
 from types import SimpleNamespace
@@ -38,14 +51,10 @@ import torch
 
 from otter_tpu_torch.config import GenerationConfig
 from otter_tpu_torch.generation import sampling
-from otter_tpu_torch.generation.engine import _on
-from otter_tpu_torch.generation.speculative import (categorical,
-                                                    processed_probs)
+from otter_tpu_torch.generation.engine import (GraphedSteps, _Entry, _on,
+                                               _round_up)
+from otter_tpu_torch.generation.speculative import SpeculativeGenerator
 from otter_tpu_torch.models.decoder import init_cache
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _vision_hash(vision_x) -> str:
@@ -73,26 +82,64 @@ def _prompt_ids(lang_x, attention_mask) -> List[int]:
 
 class _Session:
     """What `ChatSession` and `SpecChatSession` share: the bookkeeping of
-    the ingested tokens, the prefix match and the restart's left-padded
-    prompt."""
+    the ingested tokens, the prefix match, the restart's left-padded
+    prompt, and the tensors a step or round reads in place (made at the
+    first turn, kept for the session's life: a captured graph recorded
+    them) with the leases of its graphed decode (`steps`)."""
 
-    def __init__(self, cfg, device, *, cache_len: int, prompt_bucket: int,
-                 window_bucket: int, min_reuse: int):
-        self.cfg, self.device = cfg, device
+    def __init__(self, cfg, device, steps: GraphedSteps, *, cache_len: int,
+                 prompt_bucket: int, window_bucket: int, min_reuse: int):
+        self.cfg, self.device, self.steps = cfg, device, steps
         self.cache_len = cache_len
         self.prompt_bucket = prompt_bucket
         self.window_bucket = window_bucket
         self.min_reuse = min_reuse
         self.last_stats: Dict[str, Any] = {}
+        self.tensors: Optional[Dict[str, torch.Tensor]] = None
         self.reset()
 
     def reset(self):
         self.vis_latents = self.media_count = self.vis_hash = None
-        self.media_arr = None        # [1] int32: the prompt's media count
-        self.base_valid = None       # [1, cache_len] bool (the pad mask)
         self.valid_from = 0          # the first real cache column
         self.n = 0                   # the next free cache column
         self.real_tokens: List[int] = []   # ids at valid_from .. n-1
+
+    def close(self) -> None:
+        """Free the session's graphs and their memory pools (a stream that
+        still runs keeps its own until it ends)."""
+        self.steps.close()
+
+    def _caches(self) -> Dict[str, torch.Tensor]:
+        """The session's KV caches by name (made by `_alloc`)."""
+        raise NotImplementedError
+
+    def _alloc(self) -> Dict[str, torch.Tensor]:
+        """The session's fixed tensors, made once: its caches, the token
+        buffer [1, L], the pad mask `base_valid` [1, L], the prompt's
+        media count [1] int32, the next cache column `n` and the first
+        real one `valid_from` (device scalars)."""
+        if self.tensors is None:
+            dev, L = self.device, self.cache_len
+            zero = lambda: torch.zeros((), dtype=torch.long, device=dev)
+            self.tensors = dict(
+                self._caches(),
+                buffer=torch.zeros((1, L), dtype=torch.long, device=dev),
+                base_valid=torch.zeros((1, L), dtype=torch.bool, device=dev),
+                media=torch.zeros(1, dtype=torch.int32, device=dev),
+                n=zero(), valid_from=zero())
+        return self.tensors
+
+    def _load_turn(self, pad: int) -> Dict[str, torch.Tensor]:
+        """The turn's state into the session's tensors: the buffer (the
+        real tokens at valid_from .. n-1, `pad` elsewhere) and the
+        counters."""
+        t = self.tensors
+        row = torch.full((1, self.cache_len), pad, dtype=torch.long)
+        row[0, self.valid_from:self.n] = torch.tensor(self.real_tokens)
+        t["buffer"].copy_(row)
+        t["n"].fill_(self.n)
+        t["valid_from"].fill_(self.valid_from)
+        return t
 
     def _reuse(self, ids, vh, media_count, held: int, room: int) -> int:
         """The common prefix to keep (0: restart). `held` caps it at the
@@ -128,7 +175,7 @@ class _Session:
         positions = torch.arange(n0 - self.valid_from,
                                  n0 - self.valid_from + sb,
                                  device=self.device)[None, :]
-        return self.base_valid & (cols < n0 + s_real), positions
+        return self.tensors["base_valid"] & (cols < n0 + s_real), positions
 
     def _restart_prompt(self, ids, room: int):
         """The left-padded prompt [1, P'] and its mask for a restart;
@@ -143,9 +190,9 @@ class _Session:
         lx[0, p_pad - p:] = torch.tensor(ids)
         mask[0, p_pad - p:] = 1
         self.valid_from, self.n = p_pad - p, p_pad
-        self.base_valid = torch.cat([mask.bool(), torch.ones(
-            (1, self.cache_len - p_pad), dtype=torch.bool)], 1).to(
-                self.device)
+        base = self._alloc()["base_valid"]
+        base.fill_(True)
+        base[:, :p_pad] = mask.bool().to(self.device)
         return lx.to(self.device), mask.to(self.device)
 
     def _record(self, ids, vh, media_count, m: int, window: int, pad: int,
@@ -153,8 +200,7 @@ class _Session:
         self.real_tokens = ids[:]
         if restart:
             self.vis_hash, self.media_count = vh, media_count
-            self.media_arr = torch.tensor([media_count], dtype=torch.int32,
-                                          device=self.device)
+            self.tensors["media"].fill_(media_count)
         self.last_stats = {"reused": m, "window": window, "window_pad": pad,
                            "restart": restart}
 
@@ -162,19 +208,25 @@ class _Session:
 class ChatSession(_Session):
     """One conversation's decode state over an `OtterVLM`. `stream` takes
     the whole conversation every turn, as `OtterGenerator.stream_generate`
-    does, and runs only what the cache does not hold."""
+    does, and runs only what the cache does not hold. Each token is one
+    call of `_step_body` (sample from the last logits, then feed the token
+    at the device counter `n`): on CUDA a graph captured once per sampling
+    key (`gen` less `max_new_tokens`) and the latents' shape
+    (`cuda_graph`, `engine.graph_setting`)."""
 
     def __init__(self, model, *, cache_len: int = 2048,
                  prompt_bucket: int = 128, window_bucket: int = 64,
-                 min_reuse: int = 16, cache_dtype=torch.bfloat16):
+                 min_reuse: int = 16, cache_dtype=torch.bfloat16,
+                 cuda_graph: Optional[bool] = None):
         self.model, self.cache_dtype = model, cache_dtype
-        super().__init__(model.cfg, model.device, cache_len=cache_len,
-                         prompt_bucket=prompt_bucket,
+        super().__init__(model.cfg, model.device,
+                         GraphedSteps(model, cuda_graph),
+                         cache_len=cache_len, prompt_bucket=prompt_bucket,
                          window_bucket=window_bucket, min_reuse=min_reuse)
 
-    def reset(self):
-        super().reset()
-        self.cache = None
+    def _caches(self):
+        return dict(cache=init_cache(self.cfg.text, 1, self.cache_len,
+                                     self.cache_dtype, self.device))
 
     @torch.inference_mode()
     def _ingest(self, vision_x, ids, vh, media_count, max_new: int):
@@ -185,45 +237,73 @@ class ChatSession(_Session):
             toks, n0, s_real = self._suffix(ids, m)
             kv_valid, positions = self._window_valid(n0, s_real,
                                                      toks.shape[1])
+            t = self.tensors
             logits, _, _ = self.model(
-                None, toks, vis_latents=self.vis_latents, cache=self.cache,
+                None, toks, vis_latents=self.vis_latents, cache=t["cache"],
                 cache_pos=n0, kv_valid=kv_valid, positions=positions,
-                media_counts=self.media_arr)
+                media_counts=t["media"])
             self.n = n0 + s_real
             self._record(ids, vh, media_count, m, s_real, toks.shape[1],
                          False)
             return logits[:, s_real - 1]
         lx, mask = self._restart_prompt(ids, max_new)
-        self.cache = init_cache(self.cfg.text, 1, self.cache_len,
-                                self.cache_dtype, self.device)
         logits, _, self.vis_latents = self.model(
             _on(vision_x, self.device), lx, attention_mask=mask,
-            positions=(mask.cumsum(-1) - 1).clamp_min(0), cache=self.cache,
-            head_last_only=True)
+            positions=(mask.cumsum(-1) - 1).clamp_min(0),
+            cache=self.tensors["cache"], head_last_only=True)
         self._record(ids, vh, media_count, 0, len(ids), lx.shape[1], True)
         return logits[:, -1]
 
-    @torch.inference_mode()
-    def _sample(self, logits, buffer, gen: GenerationConfig, generator):
-        if gen.no_repeat_ngram_size or gen.bad_words_ids:
-            logits = sampling.process_logits(logits, buffer, self.n, gen,
-                                             self.valid_from)
-        return sampling.sample_token(
-            logits, do_sample=gen.do_sample, temperature=gen.temperature,
-            top_k=gen.top_k, top_p=gen.top_p, generator=generator)
+    def _lease(self, gen: GenerationConfig, eos: int,
+               logits: torch.Tensor) -> SimpleNamespace:
+        """The entry of this turn's key over the session's tensors, with
+        the turn's latents and first logits copied in."""
+        step_gen = dataclasses.replace(gen, max_new_tokens=0)
+        key = ("step", step_gen, tuple(self.vis_latents.shape))
+        t = self.tensors
 
-    @torch.inference_mode()
-    def _step(self, tok):
-        """Token `tok` [1] into column n: the next logits [1, V]."""
-        cols = torch.arange(self.cache_len, device=self.device)[None, :]
-        logits, _, _ = self.model(
-            None, tok[:, None], vis_latents=self.vis_latents,
-            cache=self.cache, cache_pos=self.n,
-            kv_valid=self.base_valid & (cols <= self.n),
-            positions=torch.tensor([[self.n - self.valid_from]],
-                                   device=self.device),
-            media_counts=self.media_arr)
-        return logits[:, -1]
+        def make():
+            st = SimpleNamespace(
+                gen=step_gen, eos=eos, cache=t["cache"], buffer=t["buffer"],
+                base_valid=t["base_valid"], media=t["media"], n=t["n"],
+                valid_from=t["valid_from"],
+                lat=torch.empty_like(self.vis_latents),
+                logits=torch.empty_like(logits),
+                tok=torch.zeros(1, dtype=torch.long, device=self.device),
+                generator=(torch.Generator(device=self.device)
+                           if gen.do_sample else None),
+                source=None, p=0, t=0)
+            return _Entry(key, st, self.cache_dtype,
+                          lambda: self._step_body(st))
+        st = self.steps._take(key, make).st
+        st.lat.copy_(self.vis_latents)
+        st.logits.copy_(logits)
+        return st
+
+    def _step_body(self, st: SimpleNamespace) -> None:
+        """One token on the entry's tensors, in place: sampled from the
+        last logits (with the bans over the buffer), written to the buffer
+        at n, fed at cache column n (position n - valid_from), its logits
+        kept for the next; n advances. Reads n from the device counter:
+        the same call serves every token, what a graph captures."""
+        gen, n = st.gen, st.n
+        logits = st.logits
+        if gen.no_repeat_ngram_size or gen.bad_words_ids:
+            logits = sampling.process_logits(logits, st.buffer, n, gen,
+                                             st.valid_from)
+        tok = sampling.sample_token(
+            logits, do_sample=gen.do_sample, temperature=gen.temperature,
+            top_k=gen.top_k, top_p=gen.top_p, generator=st.generator)
+        st.tok.copy_(tok)
+        st.buffer.index_copy_(1, n.view(1), tok[:, None])
+        cols = torch.arange(self.cache_len, device=n.device)[None, :]
+        out, _, _ = self.model(
+            None, tok[:, None], vis_latents=st.lat, cache=st.cache,
+            cache_pos=n, kv_valid=st.base_valid & (cols <= n),
+            positions=(n - st.valid_from).view(1, 1),
+            media_counts=st.media)
+        st.logits.copy_(out[:, -1])
+        n.add_(1)
 
     def stream(self, vision_x, lang_x, attention_mask=None,
                gen: Optional[GenerationConfig] = None,
@@ -231,7 +311,9 @@ class ChatSession(_Session):
                ) -> Iterator[int]:
         """Yields token ids as `OtterGenerator.stream_generate` does on the
         same full prompt (eos not yielded); ValueError when the prompt and
-        max_new_tokens cannot fit the session's cache_len."""
+        max_new_tokens cannot fit the session's cache_len. Each token is
+        fed to the cache before it is yielded, as the JAX session's is
+        before the next turn can ask."""
         gen = gen or GenerationConfig()
         eos = (gen.eos_token_id if gen.eos_token_id is not None
                else self.cfg.eoc_token_id)
@@ -239,26 +321,38 @@ class ChatSession(_Session):
         media_count = ids.count(self.cfg.media_token_id)
         logits = self._ingest(vision_x, ids, _vision_hash(vision_x),
                               media_count, gen.max_new_tokens)
-        buffer = torch.zeros((1, self.cache_len), dtype=torch.long,
-                             device=self.device)
-        buffer[0, self.valid_from:self.n] = torch.tensor(self.real_tokens)
-        for _ in range(gen.max_new_tokens):
-            tok = self._sample(logits, buffer, gen, generator)
-            tok_i = int(tok[0])
-            if tok_i == eos:
-                return
-            buffer[0, self.n] = tok_i
-            yield tok_i
-            # the token goes into the cache before the next turn can ask
-            logits = self._step(tok)
-            self.n += 1
-            self.real_tokens.append(tok_i)
+        st = self._turn(gen, eos, logits, generator)
+        try:
+            for _ in range(gen.max_new_tokens):
+                self.steps._advance(st)
+                tok = int(st.tok[0])
+                if tok == eos:
+                    return
+                self.n += 1
+                self.real_tokens.append(tok)
+                yield tok
+        finally:
+            self.steps._finish(st)
+
+    @torch.inference_mode()
+    def _turn(self, gen, eos, logits, generator) -> SimpleNamespace:
+        """The turn's state loaded and its entry leased and seeded."""
+        self._load_turn(0)
+        st = self._lease(gen, eos, logits)
+        try:
+            self.steps._seed(st, generator)
+        except BaseException:
+            self.steps._finish(st)
+            raise
+        return st
 
 
 class SpecChatSession(_Session):
     """The session cache composed with speculative decoding: turn N
     prefills only its new tokens, into the target's and the draft's caches,
-    then decodes in speculative rounds (`SpeculativeGenerator._round`).
+    then decodes in speculative rounds (`SpeculativeGenerator`'s round
+    body over the session's own caches and buffer: on CUDA a graph
+    captured once per the generator's key, with `spec.cuda_graph`).
     Greedy output equals the target's greedy decode of the full prompt;
     sampled output is distributed as the target's ancestral sampling.
 
@@ -268,18 +362,27 @@ class SpecChatSession(_Session):
     next turn's prefix match stops there; the window re-ingests the one
     token beyond it."""
 
-    def __init__(self, spec, *, cache_len: int = 2048,
+    def __init__(self, spec: SpeculativeGenerator, *, cache_len: int = 2048,
                  prompt_bucket: int = 128, window_bucket: int = 64,
                  min_reuse: int = 16):
         self.spec = spec
-        super().__init__(spec.cfg_t, spec.device, cache_len=cache_len,
-                         prompt_bucket=prompt_bucket,
+        super().__init__(spec.cfg_t, spec.device,
+                         GraphedSteps(spec.model_t, spec.cuda_graph,
+                                      draft=spec.model_d),
+                         cache_len=cache_len, prompt_bucket=prompt_bucket,
                          window_bucket=window_bucket, min_reuse=min_reuse)
 
     def reset(self):
         super().reset()
-        self.cache_t = self.cache_d = self.lat_d = None
+        self.lat_d = None
         self.held = 0            # leading real_tokens cached in both models
+
+    def _caches(self):
+        sp = self.spec
+        return {name: init_cache(m.cfg.text, 1, self.cache_len,
+                                 sp.cache_dtype, self.device)
+                for name, m in (("cache_t", sp.model_t),
+                                ("cache_d", sp.model_d))}
 
     @torch.inference_mode()
     def _ingest(self, vision_x, ids, vh, media_count, room: int):
@@ -288,36 +391,61 @@ class SpecChatSession(_Session):
         sp = self.spec
         m = self._reuse(ids, vh, media_count, self.held, room)
         if m:
+            t = self.tensors
             toks, n0, s_real = self._suffix(ids, m)
             kv_valid, positions = self._window_valid(n0, s_real,
                                                      toks.shape[1])
             kw = dict(cache_pos=n0, kv_valid=kv_valid, positions=positions,
-                      media_counts=self.media_arr)
+                      media_counts=t["media"])
             logits, _, _ = sp.model_t(None, toks, vis_latents=self.vis_latents,
-                                      cache=self.cache_t, **kw)
-            sp.model_d(None, toks, vis_latents=self.lat_d, cache=self.cache_d,
-                       **kw)
+                                      cache=t["cache_t"], **kw)
+            sp.model_d(None, toks, vis_latents=self.lat_d,
+                       cache=t["cache_d"], **kw)
             self.n = n0 + s_real
             self._record(ids, vh, media_count, m, s_real, toks.shape[1],
                          False)
             return logits[:, s_real - 1]
         lx, mask = self._restart_prompt(ids, room)
         vx = _on(vision_x, self.device)
-        self.cache_t, self.cache_d = (
-            init_cache(m_.cfg.text, 1, self.cache_len, sp.cache_dtype,
-                       self.device) for m_ in (sp.model_t, sp.model_d))
-        last, self.vis_latents = sp._prefill(sp.model_t, vx, lx, mask,
-                                             self.cache_t)
-        _, self.lat_d = sp._prefill(sp.model_d, vx, lx, mask, self.cache_d)
+        t = self.tensors
+        last, self.vis_latents = sp.prefill(sp.model_t, vx, lx, mask,
+                                            t["cache_t"])
+        _, self.lat_d = sp.prefill(sp.model_d, vx, lx, mask, t["cache_d"])
         self._record(ids, vh, media_count, 0, len(ids), lx.shape[1], True)
         return last
+
+    @torch.inference_mode()
+    def _turn(self, gen, eos, tok0, generator) -> SimpleNamespace:
+        """The round entry of this turn's key over the session's tensors,
+        its counters at the turn's first token `tok0` (column n - 1)."""
+        sp, t = self.spec, self._load_turn(gen.pad_token_id)
+        key = sp._key(self.cache_len, gen, eos, self.vis_latents, self.lat_d)
+
+        def make():
+            st = sp.round_state(
+                self.cache_len, gen, eos, self.vis_latents, self.lat_d,
+                cache_t=t["cache_t"], cache_d=t["cache_d"],
+                buffer=t["buffer"], base_valid=t["base_valid"],
+                media=t["media"], off=t["valid_from"])
+            return _Entry(key, st, sp.cache_dtype,
+                          lambda: sp._round_body(st))
+        st = self.steps._take(key, make).st
+        try:
+            self.steps._seed(st, generator)
+            sp._start(st, self.n - 1, tok0, gen.max_new_tokens,
+                      self.vis_latents, self.lat_d)
+        except BaseException:
+            self.steps._finish(st)
+            raise
+        return st
 
     def stream(self, vision_x, lang_x, attention_mask=None,
                gen: Optional[GenerationConfig] = None,
                generator: Optional[torch.Generator] = None
                ) -> Iterator[int]:
         """Full-prompt interface, as `ChatSession.stream`; ValueError when
-        the prompt, max_new_tokens and a round's window cannot fit."""
+        the prompt, max_new_tokens and a round's window cannot fit. The
+        rounds are read one at a time, as JAX's `stream` reads them."""
         gen = gen or GenerationConfig()
         if gen.num_beams > 1:
             raise ValueError("speculative decoding has no beams")
@@ -332,43 +460,37 @@ class SpecChatSession(_Session):
                             media_count, gen.max_new_tokens + sp.gamma + 2)
         self.held = len(ids)
         with torch.inference_mode():
-            tok0 = (categorical(processed_probs(last[0], gen), generator)
-                    if gen.do_sample else last[0].argmax(-1))
+            tok0 = sp._first_token(last, gen, generator)
             tok0_i = int(tok0)
         if tok0_i == eos:
             return
-        buffer = torch.full((1, self.cache_len), gen.pad_token_id,
-                            dtype=torch.long)
-        buffer[0, self.valid_from:self.n] = torch.tensor(self.real_tokens)
-        buffer[0, self.n] = tok0_i
         # recorded before it is yielded: a stream the caller abandons
         # leaves a divergence for the next turn's match, which is free
         self.real_tokens.append(tok0_i)
         self.n += 1
         self.held = len(self.real_tokens) - 1   # tok0 is not ingested
         yield tok0_i
-        st = SimpleNamespace(
-            buffer=buffer.to(self.device), cache_t=self.cache_t,
-            cache_d=self.cache_d, lat_t=self.vis_latents, lat_d=self.lat_d,
-            media=self.media_arr, base_valid=self.base_valid,
-            off=self.valid_from)
-        emitted = 1
-        while emitted < gen.max_new_tokens:
-            n_out, out = sp._read(*sp._round(st, self.n, gen, eos,
-                                             generator))
-            toks = out[:min(n_out, gen.max_new_tokens - emitted)]
-            hit_eos = eos in toks
-            if hit_eos:
-                toks = toks[:toks.index(eos)]
-            self.real_tokens.extend(toks)
-            self.n += len(toks)
-            # the newest token may not be in the draft's cache yet: the
-            # next turn re-ingests it
-            self.held = len(self.real_tokens) - 1
-            yield from toks
-            emitted += len(toks)
-            if hit_eos:
-                return
+        st = self._turn(gen, eos, tok0, generator)
+        try:
+            emitted = 1
+            while emitted < gen.max_new_tokens:
+                self.steps._advance(st)
+                n_out, out = sp._read(st.n, st.out)
+                toks = out[:n_out]
+                hit_eos = eos in toks
+                if hit_eos:
+                    toks = toks[:toks.index(eos)]
+                self.real_tokens.extend(toks)
+                self.n += len(toks)
+                # the newest token may not be in the draft's cache yet: the
+                # next turn re-ingests it
+                self.held = len(self.real_tokens) - 1
+                yield from toks
+                emitted += len(toks)
+                if hit_eos:
+                    return
+        finally:
+            self.steps._finish(st)
 
 
 class SessionPool:
@@ -406,7 +528,8 @@ class SessionPool:
                 if not idle:
                     return None
                 victim = min(idle, key=self._last_used.get)
-                del self._pool[victim], self._last_used[victim]
+                self._pool.pop(victim).close()
+                del self._last_used[victim]
             self._pool[session_id] = self._factory()
         self._last_used[session_id] = self._clock
         return self._pool[session_id]
@@ -431,5 +554,7 @@ class SessionPool:
 
     def drop(self, session_id: str) -> None:
         with self._lock:
-            self._pool.pop(session_id, None)
+            sess = self._pool.pop(session_id, None)
             self._last_used.pop(session_id, None)
+        if sess is not None:
+            sess.close()

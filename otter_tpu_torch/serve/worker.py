@@ -59,6 +59,12 @@ The otter family also takes, as the JAX worker does:
     `--cache-len` does. Refused with `--continuous-batching` (the slots
     share one cache), as the JAX worker refuses it.
 
+On the card every decode loop behind these flags runs as a CUDA graph,
+captured once per key and replayed, as the JAX worker runs compiled
+loops: the speculative round (alone, in a session and in the batcher's
+pool, with the pool's plain steps and the draft's catch-up) and a
+session's step, each session holding its own graphs.
+
 The idefics and fuyu families ignore both, as the JAX worker does.
 """
 
@@ -812,12 +818,15 @@ def main(argv=None):
         **_session_and_spec(args, model, draft, cache_dtype)))
 
 
-def _session_and_spec(args, model, draft, cache_dtype) -> dict:
+def _session_and_spec(args, model, draft, cache_dtype,
+                      cuda_graph: Optional[bool] = None) -> dict:
     """The stateless otter worker's `sessions`, `spec` and `spec_sessions`
     (`make_otter_stream_fn`), as the JAX worker builds them: the session
     pool with `--session-cache`, the speculative generator with a draft,
     and with both a pool of speculative sessions (the plain pool still
-    serves the session requests that speculation does not take)."""
+    serves the session requests that speculation does not take). Their
+    steps and rounds are graphed on the card (`cuda_graph=False`: eager,
+    for a comparison in Python; the CLI has no flag for it)."""
     from otter_tpu_torch.generation.session import (SessionPool,
                                                     SpecChatSession)
     from otter_tpu_torch.generation.speculative import SpeculativeGenerator
@@ -825,10 +834,11 @@ def _session_and_spec(args, model, draft, cache_dtype) -> dict:
     if args.session_cache > 0:
         out["sessions"] = SessionPool(
             model, max_sessions=args.session_cache, cache_len=args.cache_len,
-            cache_dtype=cache_dtype)
+            cache_dtype=cache_dtype, cuda_graph=cuda_graph)
     if draft is not None:
         spec = out["spec"] = SpeculativeGenerator(
-            model, draft, gamma=args.draft_gamma, cache_dtype=cache_dtype)
+            model, draft, gamma=args.draft_gamma, cache_dtype=cache_dtype,
+            cuda_graph=cuda_graph)
         if args.session_cache > 0:
             out["spec_sessions"] = SessionPool(
                 model, max_sessions=args.session_cache,

@@ -465,9 +465,9 @@ def test_pool_tensors_stay_in_place(model, jax_runs):
 
 
 def test_graph_refused_where_it_cannot_run(model):
-    """`cuda_graph=True` is refused on the CPU, on a sharded model and with
-    a draft (a speculative pool keeps its eager steps); the default is off
-    on each, before any thread starts."""
+    """`cuda_graph=True` is refused on the CPU (with a draft too) and on a
+    sharded model or draft; the default is off on each, before any thread
+    starts. (A pool with a draft on the card is graphed by default.)"""
     plain = _port_batcher(model, "f32")
     plain.shutdown()
     assert plain.cuda_graph is False
@@ -483,6 +483,10 @@ def test_graph_refused_where_it_cannot_run(model):
     spec = _port_batcher(model, "f32", draft=draft)
     spec.shutdown()
     assert spec.cuda_graph is False
+    sharded_d = SimpleNamespace(cfg=draft.cfg, device=draft.device,
+                                _shard_layouts={})
+    with pytest.raises(ValueError, match="sharded model and draft"):
+        _port_batcher(model, "f32", draft=sharded_d, cuda_graph=True)
 
 
 # ── beams ────────────────────────────────────────────────────────────
@@ -1067,3 +1071,152 @@ def test_spec_autotune_counts_the_draft(model, draft):
             == jbatching.autotune_num_slots(
                 params, cfg, L, jnp.float32, hbm_bytes=budget,
                 headroom_bytes=0.0, draft=(None, params_d, cfg_d)))
+
+
+def test_spec_catchup_with_its_floor_tensor_matches_jax(model, draft):
+    """The draft's catch-up over a pool state built in numpy (two live rows
+    with generated columns the draft missed, their first decode columns
+    in the pool's `floor` tensor that `_load_slot_state` sets; a
+    finished row and an unused one) against the JAX batcher's catch-up on
+    the same state, its floor from the slots: the live rows' draft
+    caches; then a round on each side from there: its tokens, counts and
+    carried state. The cache is 300 columns, so that both windows are 256
+    wide (the port bounds its window inside the cache, ROADMAP Queue 3)."""
+    cfg_d, jmodel_d, params_d, tdraft = draft
+    L_, g, lp = 300, 3, ()
+    st = _pool_state(model.cfg, "f32", length=L_)
+    st["valid"][0, 16:24] = True           # 8 generated columns
+    st["valid"][1, 21:26] = True           # 5
+    st["written"] = np.asarray([24, 26, L_, 0])
+    st["emitted"] = np.asarray([9, 6, 17, 0])
+    floor = np.asarray([16, 21, 16, 0])
+    t = model.cfg.text
+    kv_d = {k: (np.random.default_rng(20 + i).standard_normal(
+        (4, cfg_d.text.num_hidden_layers, t.kv_heads, L_, t.head_dim))
+        * 0.5).astype(np.float32) for i, k in enumerate(("k", "v"))}
+    lat_d = np.random.default_rng(22).standard_normal(
+        (4, 1, cfg_d.perceiver.num_latents, cfg_d.perceiver.dim)).astype(
+        np.float32)
+    jb = _jax_batcher("f32", num_slots=4, cache_len=L_,
+                      draft=(jmodel_d, params_d, cfg_d), spec_gamma=g)
+    jb.shutdown()
+    i32 = lambda k: jnp.asarray(st[k], jnp.int32)
+    jcache_d = jb._get_catchup()(
+        params_d, {k: jnp.asarray(v) for k, v in kv_d.items()},
+        i32("buffer"), jnp.asarray(st["valid"]), jnp.asarray(lat_d),
+        i32("written"), jnp.asarray(floor, jnp.int32), i32("valid_from"),
+        i32("media"))
+    jcache_d = {k: np.asarray(v) for k, v in jcache_d.items()}
+    # (the round donates the caches it is given)
+    jout = jb._get_spec_round(lp, g)(
+        jax_tiny()[2], params_d,
+        {k: jnp.asarray(v) for k, v in st["cache"].items()},
+        {k: jnp.asarray(v) for k, v in jcache_d.items()},
+        i32("buffer"), jnp.asarray(st["valid"]), jnp.asarray(st["latents"]),
+        jnp.asarray(lat_d), i32("toks"), jnp.asarray(st["alive"]),
+        i32("written"), i32("emitted"), i32("real_len"), i32("media"),
+        i32("lp_idx"), i32("valid_from"), jnp.asarray(st["do_sample"]),
+        jnp.asarray(st["temperature"]), i32("top_k"),
+        jnp.asarray(st["top_p"]), i32("eos"), i32("max_new"),
+        jax.random.PRNGKey(0))
+
+    b = _spec_batcher(model, tdraft, num_slots=4, cache_len=L_,
+                      spec_gamma=g)
+    b.shutdown()
+    assert b._catchup_w == 256
+    tt = lambda k, dtype=torch.long: torch.as_tensor(st[k]).to(dtype)
+    b._latents = torch.zeros(st["latents"].shape)
+    b._latents_d = torch.zeros(lat_d.shape)
+    for mine, theirs in (
+            (b._cache, {k: torch.from_numpy(v) for k, v
+                        in st["cache"].items()}),
+            (b._cache_d, {k: torch.from_numpy(v) for k, v in kv_d.items()}),
+            (b._carried, dict(toks=tt("toks"), alive=tt("alive", torch.bool),
+                              written=tt("written"),
+                              emitted=tt("emitted"))),
+            (b._statics, {k: tt(k, dtype) for k, dtype in (
+                ("real_len", torch.long), ("media", torch.int32),
+                ("lp_idx", torch.long), ("valid_from", torch.long),
+                ("do_sample", torch.bool), ("temperature", torch.float32),
+                ("top_k", torch.long), ("top_p", torch.float32),
+                ("eos", torch.long), ("max_new", torch.long))})):
+        for k, v in theirs.items():
+            mine[k].copy_(v)
+    b._statics["floor"].copy_(torch.from_numpy(floor))
+    b._buffer.copy_(tt("buffer"))
+    b._valid.copy_(tt("valid", torch.bool))
+    b._latents.copy_(torch.from_numpy(st["latents"]))
+    b._latents_d.copy_(torch.from_numpy(lat_d))
+    b._lp_list, b._dirty = lp, False
+    b._run_catchup()
+    live = [0, 1]
+    assert not np.allclose(b._cache_d["k"].numpy()[live], kv_d["k"][live])
+    for k in jcache_d:
+        np.testing.assert_allclose(b._cache_d[k].numpy()[live],
+                                   jcache_d[k][live], atol=1e-5, err_msg=k)
+    got = b._spec_body(g).numpy()
+    jo, je, jtoks, jalive, jwritten, jemitted = jout[:6]
+    assert got[live, :g + 1].tolist() == np.asarray(jo)[live].tolist()
+    assert got[:, g + 1].tolist() == np.asarray(je).tolist()
+    for name, ref in (("toks", jtoks), ("alive", jalive),
+                      ("written", jwritten), ("emitted", jemitted)):
+        assert b._carried[name].tolist() == np.asarray(ref).tolist(), name
+
+
+class _FakePoolGraph:
+    """A captured pool body's stand-in on the CPU: a replay runs the body
+    and writes its outputs into the tensors the capture returned, as a
+    replay overwrites the graph's own."""
+
+    def __init__(self, body, out):
+        self.body, self.out, self.replays = body, out, 0
+
+    def replay(self):
+        self.replays += 1
+        res = self.body()
+        outs = self.out if isinstance(self.out, tuple) else (self.out,)
+        ress = res if isinstance(res, tuple) else (res,)
+        for dst, src in zip(outs, ress):
+            if dst is not src:
+                dst.copy_(src)
+
+    def reset(self):
+        pass
+
+
+def test_spec_pool_graphs_one_key_a_mode(model, draft, monkeypatch):
+    """A speculative pool through the graph path (`cuda_graph` forced on,
+    `engine.capture` faked: the CPU has no graph), the controller probing
+    gamma 2, gamma 1 and plain decode within one 40-token request: each
+    mode's body is captured once under its key, the round's
+    ("spec", gamma, lp_configs, sampled), the plain step's (lp_configs,
+    need_logits) and the catch-up's, and replayed after; the greedy tokens
+    stay the request's alone."""
+    from otter_tpu_torch.generation import engine
+    captures = []
+
+    def capture(body, device, side, workspace, generator=None):
+        out = body()
+        captures.append(out)
+        return out, engine.Captured(_FakePoolGraph(body, out), {}, out, 0.0,
+                                    0, workspace)
+    monkeypatch.setattr(engine, "capture", capture)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    reqs = _prompts(model.cfg, (9,), 95)
+    b = _spec_batcher(model, draft[3], num_slots=2, cache_len=128,
+                      spec_gamma=2, spec_adaptive=True)
+    b.cuda_graph = True
+    b._clock = _Clock()
+    b._replan_every, b._probe_len, b._stale_every = 4, 2, 12
+    try:
+        got = list(b.submit(*reqs[0], GenerationConfig(max_new_tokens=40)))
+        keys = list(b._graphs)
+        replays = {k: g.graph.replays for k, g in b._graphs.items()}
+    finally:
+        b.shutdown()
+    assert b._failure is None
+    assert got == _alone(model, reqs, 40)[0]
+    assert sorted(keys, key=str) == sorted(
+        [("spec", 2, (), False), ("spec", 1, (), False), ((), False),
+         ("catchup",)], key=str)
+    assert len(captures) == 4 and all(n > 0 for n in replays.values())

@@ -1254,21 +1254,23 @@ def test_speculative_generator_kernels_match_plain(gen, monkeypatch):
     from otter_tpu_torch.generation.speculative import SpeculativeGenerator
     model, draft = _card_otter(), _card_draft()
     vx, ids = _card_requests(gen, (13,))[0]
-    sg = SpeculativeGenerator(model, draft, gamma=3, cache_dtype=torch.int8)
-    rounds, rnd = [], sg._round
+    # (eager: the counting wrapper runs a round at a time)
+    sg = SpeculativeGenerator(model, draft, gamma=3, cache_dtype=torch.int8,
+                              cuda_graph=False)
+    rounds, rnd = [], sg._round_body
 
     def counted(*a, **k):
         out, launched = _launch_diff(lambda: rnd(*a, **k))
         rounds.append(launched)
         return out
 
-    sg._round = counted
+    sg._round_body = counted
     g = Gen(max_new_tokens=10, eos_token_id=-1)
     kern = sg.generate(vx, ids, gen=g)
     assert rounds and all(r == {"int8_mlp": 2 + 2 * 2 + 3,
                                 "decode_attention": 2 * 1}
                           for r in rounds), rounds
-    sg._round = rnd
+    sg._round_body = rnd
     assert list(sg.stream(vx, ids, gen=g)) == kern[0, 13:].tolist()
     monkeypatch.setattr(da, "decode_attention", da.decode_attention_plain)
     monkeypatch.setattr(quant, "int8_mlp", quant.int8_mlp_plain)
@@ -1288,10 +1290,12 @@ def test_spec_pool_kernels_match_plain(gen, monkeypatch):
     reqs = _card_requests(gen, (9, 12, 15))
 
     def run(count: bool):
+        # (eager: the counting wrapper runs a round at a time)
         b = ContinuousBatcher(model, num_slots=4, cache_len=64,
                               buckets=(16,), cache_dtype=torch.int8,
                               max_admits_per_iter=4, draft=draft,
-                              spec_gamma=2, spec_adaptive=False)
+                              spec_gamma=2, spec_adaptive=False,
+                              cuda_graph=False)
         launched, rnd = [], b._spec_round
 
         def counted(*a):
@@ -1674,3 +1678,161 @@ def test_graphed_fuyu_step_equals_eager_with_its_launches(gen):
     assert _recorded(captured[0]) == want_step
     assert captured[0].capture_ms > 0
     _no_sync_in_replays(graphed, graphed._prefill(*req, g(12)))
+
+
+# ── the captured speculative round, pooled round and session step ───
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_graphed_speculative_round_equals_eager_with_its_launches(
+        gen, sampled):
+    """`SpeculativeGenerator` on the card captures its round by default
+    (gamma 3): `generate` and `stream` give the eager round's tokens
+    (`cuda_graph=False`; a sampled request the same seed's), every round
+    the same launches; a second request of the key, of another prompt
+    length, only replays; replays make no host sync."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    model, draft = _card_otter(), _card_draft()
+    reqs = _card_requests(gen, (13, 21))
+    g = Gen(max_new_tokens=12, eos_token_id=-1, do_sample=sampled,
+            temperature=1.5, top_k=50)
+    seeded = lambda: (torch.Generator(device="cuda").manual_seed(7)
+                      if sampled else None)
+    eager = SpeculativeGenerator(model, draft, gamma=3,
+                                 cache_dtype=torch.int8, cuda_graph=False)
+    graphed = SpeculativeGenerator(model, draft, gamma=3,
+                                   cache_dtype=torch.int8)
+    assert graphed.cuda_graph and not eager.cuda_graph
+    captured = _counting_captures(graphed)
+    for vx, ids in reqs:
+        want, want_n = _launch_diff(lambda: eager.generate(
+            vx, ids, gen=g, generator=seeded()))
+        got, got_n = _launch_diff(lambda: graphed.generate(
+            vx, ids, gen=g, generator=seeded()))
+        assert (got == want).all() and got_n == want_n
+        assert (graphed.last_emitted, graphed.last_rounds) == (
+            eager.last_emitted, eager.last_rounds)
+        assert len(captured) == 1
+    assert _recorded(captured[0]) == {"int8_mlp": 2 + 2 * 2 + 3,
+                                      "decode_attention": 2 * 1}
+    vx, ids = reqs[0]
+    assert list(graphed.stream(vx, ids, gen=g, generator=seeded())) == \
+        list(eager.stream(vx, ids, gen=g, generator=seeded()))
+    gen_, eos, cache_len = graphed._setup(ids, g)
+    _no_sync_in_replays(graphed, graphed._prefill(vx, ids, None, gen_, eos,
+                                                  seeded(), cache_len))
+
+
+def test_graphed_spec_pool_equals_the_eager_pool(gen):
+    """A pool of 4 with the draft (gamma 2) and the controller on, its
+    cadence cut so that one run probes gamma 2, gamma 1 and plain decode:
+    graphed by default on the card (each mode's body and the catch-up
+    captured once under its key) and with `cuda_graph=False`, the greedy
+    requests give the same tokens; a replayed round makes no host
+    sync."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation.batching import ContinuousBatcher
+    model, draft = _card_otter(), _card_draft()
+    reqs = _card_requests(gen, (9, 12, 15))
+
+    def run(cuda_graph):
+        b = ContinuousBatcher(model, num_slots=4, cache_len=128,
+                              buckets=(16,), cache_dtype=torch.int8,
+                              max_admits_per_iter=4, draft=draft,
+                              spec_gamma=2, spec_adaptive=True,
+                              cuda_graph=cuda_graph)
+        b._replan_every, b._probe_len = 4, 2
+        try:
+            got = [list(s) for s in [b.submit(vx, ids, Gen(
+                max_new_tokens=30, eos_token_id=-1)) for vx, ids in reqs]]
+            keys = sorted(map(str, b._graphs))
+        finally:
+            b._stop = True
+            b._thread.join(10)
+            b._finisher.join(10)
+        assert b._failure is None and b.cuda_graph == (cuda_graph is None)
+        return got, keys, b
+
+    graphed, keys, b = run(None)
+    eager = run(False)[0]
+    assert graphed == eager and [len(t) for t in graphed] == [30] * 3
+    assert str(("spec", 2, (), False)) in keys
+    key = ("spec", 2, (), False)
+    b._graphed(key, lambda: b._spec_body(2))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            b._graphed(key, lambda: b._spec_body(2))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["plain", "spec"])
+def test_graphed_session_turns_equal_eager(gen, kind):
+    """Three turns of one conversation through a `ChatSession` (or a
+    `SpecChatSession` over the draft) on the card, graphed by default and
+    with `cuda_graph=False`: the same tokens each turn; one capture, at the
+    first turn, replayed by the turns after it."""
+    import numpy as np
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation import session
+    from otter_tpu_torch.generation.speculative import SpeculativeGenerator
+    model, draft = _card_otter(), _card_draft()
+    vx, ids = _card_requests(gen, (14,))[0]
+    g = Gen(max_new_tokens=10, eos_token_id=-1)
+    kw = dict(cache_len=256, prompt_bucket=16, window_bucket=8, min_reuse=4)
+
+    def make(cuda_graph):
+        if kind == "plain":
+            return session.ChatSession(model, cache_dtype=torch.int8,
+                                       cuda_graph=cuda_graph, **kw)
+        return session.SpecChatSession(SpeculativeGenerator(
+            model, draft, gamma=3, cache_dtype=torch.int8,
+            cuda_graph=cuda_graph), **kw)
+
+    graphed, eager = make(None), make(False)
+    assert graphed.steps.cuda_graph and not eager.steps.cuda_graph
+    captured = _counting_captures(graphed.steps)
+    prompt = ids
+    for turn in range(3):
+        want = list(eager.stream(vx, prompt, gen=g))
+        got = list(graphed.stream(vx, prompt, gen=g))
+        assert got == want, turn
+        assert graphed.last_stats == eager.last_stats
+        assert len(captured) == 1
+        prompt = np.concatenate([prompt, np.asarray([got]),
+                                 np.asarray([[7, 8, 9]])], 1)
+    assert not graphed.last_stats["restart"]
+
+
+def test_cache_ladder_counts_a_captured_pool(gen):
+    """After a capture on the card the ladder counts the graph's memory
+    pool as taken: with the headroom set so that a bf16 cache fits only if
+    the pool's bytes were free, the ladder steps down to int8, and once
+    the graph is freed it keeps bf16."""
+    from otter_tpu_torch.config import GenerationConfig as Gen
+    from otter_tpu_torch.generation import engine
+    model = _card_otter()
+    vx, ids = _graph_batch(gen, 2)
+    eng = engine.OtterGenerator(model, cache_dtype=torch.int8)
+    eng.generate(vx, ids, gen=Gen(max_new_tokens=6, eos_token_id=-1))
+    entry = eng._entries[-1]
+    dev = model.device
+    pool = engine.held_pool_bytes(dev)
+    assert entry.graph is not None and pool >= entry.pool_bytes > 0
+    text = model.cfg.text
+    rows = -(-4 * pool // engine.cache_bytes(text, 1, 1024, torch.bfloat16))
+    need = engine.cache_bytes(text, rows, 1024, torch.bfloat16)
+    free = (torch.cuda.mem_get_info(dev)[1]
+            - torch.cuda.memory_allocated(dev))
+    pick = lambda: engine.select_cache_dtype(
+        text, rows, 1024, torch.bfloat16, device=dev,
+        headroom_bytes=free - need - pool // 2)
+    with pytest.warns(UserWarning, match="degraded bf16 -> int8"):
+        assert pick() == torch.int8
+    eng.close()
+    assert engine.held_pool_bytes(dev) == pool - entry.pool_bytes
+    if engine.held_pool_bytes(dev) == 0:
+        assert pick() == torch.bfloat16

@@ -33,6 +33,8 @@ from otter_tpu_torch.models.decoder import init_cache, write_cache
 from otter_tpu_torch.ops import decode_attention as tda
 from otter_tpu_torch.ops import megakernel as tmk
 from otter_tpu_torch.tools.bench_decode import _clone, _restore
+from torch_parity_helpers import FakeGraph as _FakeGraph
+from torch_parity_helpers import fake_capture as _fake_capture
 from torch_parity_helpers import (idefics_inputs, idefics_pair, inputs,
                                   jax_tiny, jax_tiny_fused, llama_vlm_pair,
                                   torch_tiny, torch_tiny_fused)
@@ -214,23 +216,6 @@ def test_interleaved_sampled_streams_without_a_generator_differ():
     assert pair() == [a, b]
 
 
-class _FakeGraph:
-    """A captured step's stand-in on the CPU: a replay runs the step body
-    with no wrapper counting (a real replay calls no Python)."""
-
-    def __init__(self, body):
-        self.body = body
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-        with _build.recording_launches():
-            self.body()
-
-    def reset(self):
-        pass
-
-
 def test_replays_add_the_launches_recorded_at_capture(monkeypatch):
     """A fake wrapper in the step's path: the launches it reports inside
     `recording_launches` (a capture) move no counter and land in the
@@ -335,6 +320,47 @@ def test_cache_ladder_counts_the_caches_entries_hold(monkeypatch):
         assert len(degraded) == (second == torch.int8)
         assert engine._cache_dtypes == {(2, 128): torch.bfloat16,
                                         (3, 128): second}
+
+
+def test_cache_ladder_counts_the_pools_graphs_hold(monkeypatch):
+    """On CUDA without `hbm_bytes` the budget is the card's memory less
+    what live tensors hold and the headroom, less the memory pools of the
+    live captured graphs on the card (their free blocks serve no other
+    tensor). With the memory functions stood in for: a bf16 cache of 2
+    rows fits beside 1 GB of tensors; an entry's graph holding a pool of
+    0.8 of that cache leaves room for int8; a batcher graph's pool beside
+    it, for int4; a pool on another card counts nothing, and a freed
+    graph's pool nothing more."""
+    from otter_tpu_torch.config import OtterConfig
+    from types import SimpleNamespace
+    text = OtterConfig.tiny("mpt").text
+    need = tengine.cache_bytes(text, 2, 128, torch.bfloat16)
+    total = 5e9 + 1e9 + 1.5 * need
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (0, total))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 1e9)
+    card, other = torch.device("cuda", 0), torch.device("cuda", 1)
+
+    def pick():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return tengine.select_cache_dtype(text, 2, 128, torch.bfloat16,
+                                              device=card)
+    assert pick() == torch.bfloat16
+    entry = tengine._Entry("key", SimpleNamespace(), torch.bfloat16, None)
+    entry.graph, entry.pool_bytes = _FakeGraph(lambda: None), 0.8 * need
+    tengine.hold_pool(entry, card)
+    elsewhere = tengine.Captured(_FakeGraph(lambda: None), {}, None, 1.0,
+                                 10 * need, None)
+    tengine.hold_pool(elsewhere, other)
+    assert tengine.held_pool_bytes(card) == 0.8 * need
+    assert pick() == torch.int8
+    pooled = tengine.Captured(_FakeGraph(lambda: None), {}, None, 1.0,
+                              0.3 * need, None)
+    tengine.hold_pool(pooled, torch.device("cuda"))
+    assert pick() == "int4"
+    pooled.free()
+    entry.free()
+    assert tengine.held_pool_bytes(card) == 0 and pick() == torch.bfloat16
 
 
 def test_graph_is_refused_where_it_cannot_run():
@@ -459,20 +485,6 @@ def test_megakernel_engine_step_reads_the_device_counter():
     st.t, st.p = NEW, p
     engine._finish(st)
     np.testing.assert_array_equal(out, ref)
-
-
-def _fake_capture(engine, captured):
-    """`engine._capture` on the CPU: the step runs once eagerly with its
-    launches collected into the entry's record (what a capture records)
-    and counted (the eager step before a capture), and the entry gets a
-    `_FakeGraph` of its body."""
-    def capture(entry):
-        with _build.recording_launches() as rec:
-            entry.body()
-        _build.add_launches(rec)
-        entry.graph, entry.launches = _FakeGraph(entry.body), rec
-        captured.append(entry)
-    return capture
 
 
 def _beam_run(tmodel, vx, ids, mask):

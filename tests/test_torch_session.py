@@ -336,3 +336,46 @@ def test_window_at_the_cache_end_stays_in_the_cache():
     assert sess.valid_from + stats["reused"] + 32 > 40 \
         and stats["window_pad"] == 40 - sess.valid_from - stats["reused"]
     assert got == _stateless(model, vx, prompt2, gen)
+
+
+@pytest.mark.parametrize("kind", ["plain", "spec"])
+def test_graphed_session_replays_one_capture_over_its_tensors(
+        jax_sessions, kind, monkeypatch):
+    """A session whose step (`ChatSession`) or round (`SpecChatSession`)
+    goes through the graph path (`cuda_graph` forced on, the capture
+    faked: the CPU has no graph): the JAX session's 3-turn conversation,
+    one capture at the first turn's first step and replays after it, on
+    the session's own cache and buffer; the pool's eviction frees the
+    session's graphs."""
+    from torch_parity_helpers import fake_capture
+    model = spec_pair("mpt")[0][3]
+    vx, _ = inputs(model.cfg, 21, 1, 9)
+    made = []
+
+    def factory():
+        sess = (_port_session(model) if kind == "plain"
+                else _port_spec_session())
+        sess.steps.cuda_graph = True
+        captured, advance = [], sess.steps._advance
+        monkeypatch.setattr(sess.steps, "_capture",
+                            fake_capture(sess.steps, captured))
+        sess.steps._advance = lambda st: (calls.append(1), advance(st))
+        made.append((sess, captured))
+        return sess
+
+    calls = []
+    pool = session.SessionPool(model, max_sessions=1, factory=factory)
+    sess = pool.get("a")
+    prompts, replies, _ = jax_sessions["mpt" if kind == "plain" else "spec"]
+    gen = GenerationConfig(max_new_tokens=6, eos_token_id=-5)
+    for prompt, want in zip(prompts, replies):
+        assert list(sess.stream(vx, prompt, gen=gen)) == want
+    captured = made[0][1]
+    assert len(captured) == 1 and sess.steps._entries == captured
+    entry = captured[0]
+    assert not entry.busy and entry.graph.replays == len(calls) - 1
+    names = ("cache", "buffer") if kind == "plain" else ("cache_t",
+                                                         "cache_d", "buffer")
+    assert all(getattr(entry.st, k) is sess.tensors[k] for k in names)
+    pool.get("b")                      # evicts a, and frees its graph
+    assert sess.steps._entries == [] and entry.st is None

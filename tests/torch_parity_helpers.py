@@ -24,6 +24,7 @@ from otter_tpu.ops.quant import quantize_embed as jax_quantize_embed
 from otter_tpu.ops.quant import add_fused_wqo as jax_add_fused_wqo
 from otter_tpu.ops.quant import quantize_params as jax_quantize_params
 from otter_tpu.ops.quant import quantize_params_int4 as jax_quantize_int4
+from otter_tpu_torch import _build
 from otter_tpu_torch import config as tcfg
 from otter_tpu_torch.models.convert import load_flax_params
 from otter_tpu_torch.models.decoder import Decoder as TorchDecoder
@@ -429,3 +430,36 @@ def spec_pair(arch: str = "mpt", seed: int = 0):
         text = text.replace(arch="mosaic_gpt", qk_ln=True)
     draft = base.replace(text=text, cross_attn_every_n_layers=1)
     return _vlm(base, seed), _vlm(draft, seed + 7)
+
+
+# ── a captured step's stand-in on the CPU ────────────────────────────
+
+class FakeGraph:
+    """A captured step's stand-in on the CPU: a replay runs the step body
+    with no wrapper counting (a real replay calls no Python)."""
+
+    def __init__(self, body):
+        self.body = body
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        with _build.recording_launches():
+            self.body()
+
+    def reset(self):
+        pass
+
+
+def fake_capture(engine, captured):
+    """`engine._capture` (an `engine.GraphedSteps`') on the CPU: the step
+    runs once eagerly with its launches collected into the entry's record
+    (what a capture records) and counted (the eager step before a
+    capture), and the entry gets a `FakeGraph` of its body."""
+    def capture(entry):
+        with _build.recording_launches() as rec:
+            entry.body()
+        _build.add_launches(rec)
+        entry.graph, entry.launches = FakeGraph(entry.body), rec
+        captured.append(entry)
+    return capture
